@@ -1,0 +1,394 @@
+"""Paged KV-cache decoding for the Llama family: the paged half of
+``skypilot_tpu/models/decode.py``.
+
+* ``PagedKVCache``: a pool of fixed-size KV blocks per layer
+  ``[L, num_blocks, block_size, kv_heads, head_dim]`` plus per-slot
+  block tables and lengths. Block 0 is the reserved null block: unused
+  table entries point at it, and masked (inactive / padding) writes
+  land in it.
+* ``prefill_chunk`` absorbs one fixed-size prompt chunk of one slot;
+  ``paged_verify_step`` runs a Q-token window for every slot in one
+  pass; ``paged_decode_step`` is its Q=1 case that also advances the
+  lengths.
+
+Differences of idiom from the reference: the layer loop is a Python
+loop over the stacked ``[L, ...]`` weights (the reference's
+``lax.scan``), and the pool is written IN PLACE (``index_put_``): the
+functions return the cache object they were given (or a shallow copy
+with new lengths) whose pool tensors they have updated, where the
+reference returns new arrays. Attention over the pool goes through
+``ops/paged_attention.py`` (the Hopper kernel for CUDA tensors);
+chunked-prefill attention is plain PyTorch, as it is plain XLA in the
+reference. LoRA pages, MoE MLPs and the monolithic ``KVCache`` path are
+later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from skypilot_tpu_torch.models.config import ModelConfig
+from skypilot_tpu_torch.models.llama import (_activate, apply_rope,
+                                             rope_table_for)
+from skypilot_tpu_torch.models.quant import weight_einsum
+from skypilot_tpu_torch.ops.common import NEG_INF
+from skypilot_tpu_torch.ops.norms import rms_norm
+from skypilot_tpu_torch.ops.paged_attention import paged_attention
+from skypilot_tpu_torch.utils.device import resolve_device
+
+Params = Dict[str, Any]
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 over the trailing head_dim axis
+    (``torch.round`` rounds half to even, like ``jnp.round``)."""
+    x32 = x.float()
+    absmax = torch.amax(torch.abs(x32), dim=-1)
+    scale = torch.clamp(absmax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def serving_params(params: Params, cfg: ModelConfig) -> Params:
+    """Store the projection and embedding weights in ``compute_dtype``
+    once, at load. The reference casts fp32 weights to the compute
+    dtype inside every einsum, so the results are the same and the
+    weights take half the memory; norm scales stay as they are (the
+    reference reads them in fp32)."""
+    dt = cfg.compute_dtype
+
+    def cast(node, key=''):
+        if isinstance(node, dict):
+            return {k: cast(v, k) for k, v in node.items()}
+        if key == 'scale':
+            return node
+        return node.to(dt)
+
+    return cast(params)
+
+
+def _layer(params: Params, index: int) -> Params:
+    """Layer ``index``'s slice of the stacked ``[L, ...]`` weights."""
+    def take(node):
+        if isinstance(node, dict):
+            return {k: take(v) for k, v in node.items()}
+        return node[index]
+    return take(params['layers'])
+
+
+def _embed(params: Params, tokens: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    # The reference's iota one-hot einsum (use_iota_embed) picks the
+    # same rows exactly; a gather is its plain form.
+    table = params['embed']['embedding']
+    return table[tokens.long()].to(cfg.compute_dtype)
+
+
+def _lm_head(params: Params, x: torch.Tensor,
+             cfg: ModelConfig) -> torch.Tensor:
+    """Final norm + vocab projection with compute-dtype operands and an
+    fp32 result, like the reference's ``preferred_element_type``: the
+    fp32 accumulator is never rounded to the compute dtype."""
+    x = rms_norm(x, params['final_norm']['scale'], cfg.norm_eps)
+    dt = cfg.compute_dtype
+    if cfg.tie_embeddings:
+        head = params['embed']['embedding'].to(dt).t()
+    else:
+        head = params['lm_head']['w'].to(dt)
+    rows = x.reshape(-1, x.shape[-1]).to(dt)
+    if dt == torch.float32:
+        logits = rows @ head
+    elif rows.is_cuda:
+        logits = torch.mm(rows, head, out_dtype=torch.float32)
+    else:
+        # The CPU has no low-precision GEMM with an fp32 output;
+        # products of bf16 values are exact in fp32, so upcast.
+        logits = rows.float() @ head.float()
+    return logits.reshape(*x.shape[:-1], -1)
+
+
+def _mlp(x: torch.Tensor, lp: Params, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.is_moe:
+        raise NotImplementedError(
+            'MoE blocks are not ported yet (ROADMAP.md, queue A)')
+    dt = cfg.compute_dtype
+    mlp = lp['mlp']
+    gate = weight_einsum('bsd,df->bsf', x, mlp['wi_gate'], dt)
+    up = weight_einsum('bsd,df->bsf', x, mlp['wi_up'], dt)
+    return weight_einsum('bsf,fd->bsd', _activate(gate, cfg) * up,
+                         mlp['wo'], dt)
+
+
+def _qkv(x: torch.Tensor, lp: Params, cfg: ModelConfig, sin, cos):
+    dt = cfg.compute_dtype
+    h = rms_norm(x, lp['ln_attn']['scale'], cfg.norm_eps)
+    q = weight_einsum('bsd,dhk->bshk', h, lp['attn']['wq'], dt)
+    k = weight_einsum('bsd,dhk->bshk', h, lp['attn']['wk'], dt)
+    v = weight_einsum('bsd,dhk->bshk', h, lp['attn']['wv'], dt)
+    return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
+
+
+def _attn_out_and_mlp(x: torch.Tensor, attn: torch.Tensor, lp: Params,
+                      cfg: ModelConfig) -> torch.Tensor:
+    x = x + weight_einsum('bshk,hkd->bsd', attn, lp['attn']['wo'],
+                          cfg.compute_dtype)
+    h = rms_norm(x, lp['ln_mlp']['scale'], cfg.norm_eps)
+    return x + _mlp(h, lp, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache: block-granular pool + per-slot block tables
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Block-granular KV pool + per-slot block tables (PagedAttention).
+
+    ``cfg.kv_cache_dtype == 'int8'`` stores int8 k/v with per-row fp32
+    scales. Block id 0 is the reserved null block.
+    """
+    k: torch.Tensor        # [L, num_blocks, block_size, kv_heads, head_dim]
+    v: torch.Tensor
+    lengths: torch.Tensor       # [slots] int32 valid positions per slot
+    block_tables: torch.Tensor  # [slots, blocks_per_slot] int32 pool ids
+    k_scale: Optional[torch.Tensor] = None  # [L, num_blocks, block, kvh]
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def block_size(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def num_blocks(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def blocks_per_slot(self) -> int:
+        return self.block_tables.shape[1]
+
+    @property
+    def max_len(self) -> int:
+        return self.blocks_per_slot * self.block_size
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
+                     slots: int, blocks_per_slot: int, *,
+                     device: Optional[Union[str, torch.device]] = None
+                     ) -> PagedKVCache:
+    if cfg.kv_cache_dtype not in ('compute', 'int8'):
+        raise ValueError(
+            f"kv_cache_dtype must be 'compute' or 'int8', got "
+            f'{cfg.kv_cache_dtype!r}')
+    if num_blocks < 2:
+        raise ValueError('num_blocks must be >= 2 (block 0 is reserved)')
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    lengths = torch.zeros((slots,), dtype=torch.int32, device=dev)
+    tables = torch.zeros((slots, blocks_per_slot), dtype=torch.int32,
+                         device=dev)
+    if cfg.kv_cache_dtype == 'int8':
+        return PagedKVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=dev),
+            v=torch.zeros(shape, dtype=torch.int8, device=dev),
+            lengths=lengths, block_tables=tables,
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=dev))
+    dt = cfg.compute_dtype
+    return PagedKVCache(k=torch.zeros(shape, dtype=dt, device=dev),
+                        v=torch.zeros(shape, dtype=dt, device=dev),
+                        lengths=lengths, block_tables=tables)
+
+
+def _view_rows(block_tables: torch.Tensor, block_size: int) -> torch.Tensor:
+    """Block tables [..., BPS] -> flat pool row per view position
+    [..., BPS*block_size] (the gather index of a slot's logical view)."""
+    off = torch.arange(block_size, dtype=torch.long,
+                       device=block_tables.device)
+    rows = block_tables.long()[..., :, None] * block_size + off
+    return rows.reshape(*block_tables.shape[:-1], -1)
+
+
+def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[B, S, KV, D] -> [B, S, KV*n_rep, D] (GQA broadcast)."""
+    if n_rep == 1:
+        return x
+    b, s, kv, d = x.shape
+    return x[:, :, :, None, :].expand(b, s, kv, n_rep, d).reshape(
+        b, s, kv * n_rep, d)
+
+
+def _chunk_attention(q: torch.Tensor, k_view: torch.Tensor,
+                     v_view: torch.Tensor, q_pos: torch.Tensor,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Chunked-prefill attention: chunk queries over a gathered cache
+    view that already holds the chunk's own rows.
+
+    q: [1, C, H, D] at absolute positions ``q_pos`` [C]; k_view/v_view:
+    [1, T, KVH, D] (rows at or past a query's position+1 are masked).
+    Mirrors the reference numerics: fp32 scores and softmax, the
+    ``NEG_INF`` mask, probabilities cast to the value dtype.
+    """
+    _, _, h, d = q.shape
+    kvh = k_view.shape[2]
+    if k_scale is not None:
+        k_view = k_view.float() * k_scale[..., None]
+        v_view = (v_view.float() * v_scale[..., None]).to(q.dtype)
+    k_view = _repeat_kv(k_view, h // kvh)
+    v_view = _repeat_kv(v_view, h // kvh)
+    logits = torch.einsum('bqhd,bkhd->bhqk', q.float(),
+                          k_view.float()) * (d ** -0.5)
+    t = k_view.shape[1]
+    mask = (torch.arange(t, device=q.device)[None, :] <=
+            q_pos[:, None])[None, None]
+    logits = torch.where(mask, logits, NEG_INF)
+    weights = torch.softmax(logits, dim=-1)
+    return torch.einsum('bhqk,bkhd->bqhd', weights.to(v_view.dtype),
+                        v_view)
+
+
+def prefill_chunk(params: Params, tokens: torch.Tensor, start: int,
+                  n_new: int, slot: int, cache: PagedKVCache,
+                  cfg: ModelConfig) -> Tuple[torch.Tensor, PagedKVCache]:
+    """Absorb one prompt chunk for one slot into the paged pool.
+
+    tokens: [1, C] right-padded chunk; ``start``: positions already
+    cached for the slot; ``n_new``: valid tokens in this chunk;
+    ``slot``: the slot's row in the block table. Chunk queries attend
+    the slot's rows ``[0, start)`` plus causally within the chunk.
+    Writes the chunk's K/V rows into the pool in place (padding rows go
+    to the null block) and sets ``lengths[slot] = start + n_new``.
+    Returns (last-valid-token logits [1, V] fp32, cache).
+    """
+    _, c = tokens.shape
+    dev = tokens.device
+    offs = start + torch.arange(c, device=dev)               # [C] abs pos
+    sin, cos = rope_table_for(cfg, offs)
+    x = _embed(params, tokens, cfg)                          # [1, C, D]
+    bs = cache.block_size
+    bps = cache.blocks_per_slot
+    nb = cache.num_blocks
+    bt_slot = cache.block_tables[slot].long()                # [BPS]
+    valid_tok = torch.arange(c, device=dev) < n_new
+    blk = torch.clamp(offs // bs, 0, bps - 1)
+    write_rows = torch.where(valid_tok, bt_slot[blk] * bs + offs % bs,
+                             torch.zeros_like(offs))         # [C]
+    view_rows = _view_rows(bt_slot, bs)                      # [T]
+    for layer in range(cfg.n_layers):
+        lp = _layer(params, layer)
+        q, k, v = _qkv(x, lp, cfg, sin, cos)
+        kf = cache.k[layer].view(nb * bs, *cache.k.shape[3:])
+        vf = cache.v[layer].view(nb * bs, *cache.v.shape[3:])
+        if cache.quantized:
+            k_q, k_s = quantize_kv(k)
+            v_q, v_s = quantize_kv(v)
+            ksf = cache.k_scale[layer].view(nb * bs, -1)
+            vsf = cache.v_scale[layer].view(nb * bs, -1)
+            kf[write_rows] = k_q[0]
+            vf[write_rows] = v_q[0]
+            ksf[write_rows] = k_s[0]
+            vsf[write_rows] = v_s[0]
+            attn = _chunk_attention(q, kf[view_rows][None],
+                                    vf[view_rows][None], offs,
+                                    k_scale=ksf[view_rows][None],
+                                    v_scale=vsf[view_rows][None])
+        else:
+            kf[write_rows] = k[0].to(kf.dtype)
+            vf[write_rows] = v[0].to(vf.dtype)
+            attn = _chunk_attention(q, kf[view_rows][None],
+                                    vf[view_rows][None], offs)
+        x = _attn_out_and_mlp(x, attn, lp, cfg)
+    # Only the last valid row's logits are used: project that row alone.
+    last_row = max(n_new - 1, 0)
+    logits = _lm_head(params, x[:, last_row:last_row + 1], cfg)
+    cache.lengths[slot] = start + n_new
+    return logits[:, 0], cache
+
+
+def paged_decode_step(params: Params, tokens: torch.Tensor,
+                      cache: PagedKVCache, cfg: ModelConfig,
+                      active: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, PagedKVCache]:
+    """One autoregressive step over the paged pool. tokens: [B].
+
+    Inactive slots neither write (their rows go to the null block) nor
+    advance. Returns (logits [B, V] fp32, cache with lengths advanced
+    by ``active``)."""
+    logits, cache = paged_verify_step(params, tokens[:, None], cache, cfg,
+                                      active=active)
+    step = (torch.ones_like(cache.lengths) if active is None
+            else active.to(torch.int32))
+    return logits[:, 0], dataclasses.replace(cache,
+                                             lengths=cache.lengths + step)
+
+
+def paged_verify_step(params: Params, tokens: torch.Tensor,
+                      cache: PagedKVCache, cfg: ModelConfig,
+                      active: Optional[torch.Tensor] = None,
+                      n_input: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, PagedKVCache]:
+    """Process a Q-token window per slot in one pass (Q == 1 is plain
+    decode). tokens: [B, Q]; position ``lengths[b] + j`` holds
+    ``tokens[b, j]``; ``n_input`` ([B], default Q) marks slots with
+    fewer real inputs (their padded rows write to the null block and
+    their padded logits are garbage the caller discards). The caller's
+    block tables must cover ``lengths + n_input`` rows.
+
+    Returns (logits [B, Q, V] fp32, cache with KV written in place and
+    lengths UNCHANGED).
+    """
+    b, q_len = tokens.shape
+    dev = tokens.device
+    if active is None:
+        active = torch.ones((b,), dtype=torch.bool, device=dev)
+    if n_input is None:
+        n_input = torch.full((b,), q_len, dtype=torch.int32, device=dev)
+    lens = cache.lengths.long()
+    window = torch.arange(q_len, device=dev)
+    offs = lens[:, None] + window[None, :]                   # [B, Q]
+    sin, cos = rope_table_for(cfg, offs)
+    x = _embed(params, tokens, cfg)                          # [B, Q, D]
+    bs = cache.block_size
+    bps = cache.blocks_per_slot
+    nb = cache.num_blocks
+    valid_q = (window[None, :] < n_input[:, None]) & active[:, None]
+    blk = torch.clamp(offs // bs, 0, bps - 1)
+    write_rows = torch.where(
+        valid_q,
+        torch.gather(cache.block_tables.long(), 1, blk) * bs + offs % bs,
+        torch.zeros_like(offs))                              # [B, Q]
+    # Kernel mask base: rows INCLUDING the whole window; an inactive
+    # slot reads one (null) row and its output is discarded.
+    n_valid = torch.where(active, lens + q_len,
+                          torch.ones_like(lens)).to(torch.int32)
+    for layer in range(cfg.n_layers):
+        lp = _layer(params, layer)
+        q, k, v = _qkv(x, lp, cfg, sin, cos)
+        kf = cache.k[layer].view(nb * bs, *cache.k.shape[3:])
+        vf = cache.v[layer].view(nb * bs, *cache.v.shape[3:])
+        k_pool_scale = v_pool_scale = None
+        if cache.quantized:
+            k_q, k_s = quantize_kv(k)
+            v_q, v_s = quantize_kv(v)
+            kf[write_rows] = k_q
+            vf[write_rows] = v_q
+            cache.k_scale[layer].view(nb * bs, -1)[write_rows] = k_s
+            cache.v_scale[layer].view(nb * bs, -1)[write_rows] = v_s
+            k_pool_scale = cache.k_scale[layer]
+            v_pool_scale = cache.v_scale[layer]
+        else:
+            kf[write_rows] = k.to(kf.dtype)
+            vf[write_rows] = v.to(vf.dtype)
+        attn = paged_attention(q, cache.k[layer], cache.v[layer],
+                               cache.block_tables, n_valid,
+                               k_scale=k_pool_scale, v_scale=v_pool_scale)
+        x = _attn_out_and_mlp(x, attn, lp, cfg)
+    return _lm_head(params, x, cfg), cache

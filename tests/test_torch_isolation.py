@@ -1,0 +1,123 @@
+"""The PyTorch port stands alone: no JAX, nothing of the JAX package.
+
+``skypilot_tpu_torch`` (and ``chip_smoke.py``) must import with ``jax``
+and ``skypilot_tpu`` blocked, their sources must not name either, and
+entry points must refuse to run quietly on the CPU when no GPU is
+present.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG_DIR = os.path.join(REPO_ROOT, 'skypilot_tpu_torch')
+CHIP_SMOKE = os.path.join(REPO_ROOT, 'chip_smoke.py')
+
+
+def _package_modules():
+    mods = []
+    for dirpath, dirnames, filenames in os.walk(PKG_DIR):
+        dirnames[:] = [d for d in dirnames if d != '__pycache__']
+        for name in sorted(filenames):
+            if not name.endswith('.py'):
+                continue
+            rel = os.path.relpath(os.path.join(dirpath, name), REPO_ROOT)
+            mod = rel[:-3].replace(os.sep, '.')
+            if mod.endswith('.__init__'):
+                mod = mod[:-len('.__init__')]
+            mods.append((mod, os.path.join(dirpath, name)))
+    return mods
+
+
+def _forbidden_imports(path):
+    with open(path, encoding='utf-8') as f:
+        tree = ast.parse(f.read(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        for name in names:
+            root = name.split('.')[0]
+            if root in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',
+                        'skypilot_tpu'):
+                bad.append(name)
+    return bad
+
+
+def test_every_module_imports_with_jax_blocked():
+    mods = [m for m, _ in _package_modules()]
+    assert 'skypilot_tpu_torch.ops.paged_attention' in mods
+    code = (
+        'import sys\n'
+        "sys.modules['jax'] = None\n"
+        "sys.modules['skypilot_tpu'] = None\n"
+        'import importlib\n'
+        f'for m in {mods!r}:\n'
+        '    importlib.import_module(m)\n'
+        "assert 'jax' not in [k for k, v in sys.modules.items() if v]\n"
+        "print('ok', len(" + repr(mods) + '))\n')
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO_ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith('ok')
+
+
+@pytest.mark.parametrize('path', [p for _, p in _package_modules()] +
+                         [CHIP_SMOKE],
+                         ids=lambda p: os.path.relpath(p, REPO_ROOT))
+def test_sources_name_no_jax_and_no_jax_package(path):
+    assert _forbidden_imports(path) == []
+
+
+def test_entry_points_raise_without_a_gpu(monkeypatch):
+    """Without a GPU, the entry points raise instead of running on the
+    CPU; naming the CPU explicitly works."""
+    from skypilot_tpu_torch.inference import server
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models.config import get_model_config
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        ContinuousBatchingEngine('tiny')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        llama.init_params(0, get_model_config('tiny'))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        server.main(['--model', 'tiny', '--port', '0'])
+    params = llama.init_params(0, get_model_config('tiny'), device='cpu')
+    assert params['layers']['attn']['wq'].device.type == 'cpu'
+
+
+def test_unported_engine_options_raise():
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
+    for kwargs in ({'quantize': True}, {'spec_decode': True},
+                   {'lora_pages': 2}, {'role': 'prefill'},
+                   {'mesh': 'tensor=2'}):
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            ContinuousBatchingEngine('tiny', device='cpu', **kwargs)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """The kernel wrapper never runs a plain version: a CPU tensor
+    handed to it raises (the dispatch, not the wrapper, picks the plain
+    version for CPU tensors)."""
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    q = torch.zeros((1, 1, 1, 64))
+    pool = torch.zeros((2, 16, 1, 64))
+    with pytest.raises(ValueError, match='CUDA'):
+        pa.paged_attention_kernel(
+            q, pool, pool, torch.ones((1, 1), dtype=torch.int32),
+            torch.ones((1,), dtype=torch.int32), 1)
+    before = dict(pa.LAUNCHES)
+    pa.paged_attention(q.reshape(1, 1, 1, 64), pool, pool,
+                       torch.ones((1, 1), dtype=torch.int32),
+                       torch.ones((1,), dtype=torch.int32))
+    assert pa.LAUNCHES == before
