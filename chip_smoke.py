@@ -3,15 +3,16 @@
 
     python3 chip_smoke.py              # all phases, one card
     python3 chip_smoke.py --skip-engine  # device, build and kernels only
-    python3 chip_smoke.py --profile      # + a torch.profiler window
+    python3 chip_smoke.py --profile      # + torch.profiler windows
 
 Phases, in order; any failure exits non-zero:
 
 1. Device: a CUDA card or exit; print its ``nvidia-smi`` name and power
    limit; TF32 off for matmuls and cuDNN.
 2. Build: compile every kernel under ``skypilot_tpu_torch/csrc`` from
-   this checkout (``_build.build_all``).
-3. Kernels vs plain: each paged-attention kernel against its plain
+   this checkout (``_build.build_all``, one ``nvcc`` per source, all
+   started together).
+3. Paged kernels vs plain: each paged-attention kernel against its plain
    PyTorch version on the same card tensors, at llama3-8b attention
    shapes (H=32, KVH=8, D=128, BS=16; shuffled block tables; lengths
    1..2048), decode (Q=1) and verify (Q=5) windows, bf16 / fp32 / int8
@@ -21,15 +22,35 @@ Phases, in order; any failure exits non-zero:
    and ``F.scaled_dot_product_attention`` over the gathered view (a
    yardstick only; the port never calls it), beside the bound; and the
    kernel's time against its split count at B=4, 8, 40 and 128.
-4. Small-model agreement: the engine on the card (kernel path) and on
-   the CPU (plain path) give the same greedy tokens on a TINY-shaped
-   model with head_dim 128 and fp32 compute.
-5. Engine, full width: llama3-8b at full depth (bf16 weights from the
+4. Flash kernels vs plain: forward (o, lse), dq and dk/dv against their
+   plain versions at bench-1b7's attention shape (B=2, S=2048, H=20,
+   KVH=4, D=128), causal and not, bf16 and fp32, with and without
+   segment ids; once at D=256; each output's error normalized per
+   64-row tile of one head (``tile_err``). Faults planted in the plain
+   bf16 outputs (a tile unwritten, a key tile skipped, a group head
+   dropped) must exceed the same limits. Then at the trainer's shape
+   (B=8, bf16, causal) the outputs against plain once more, and the
+   times: each kernel, its plain version, SDPA's flash backend forward
+   and backward (a yardstick only), and the bound.
+5. Small-model training agreement: TINY with head_dim 128 and fp32
+   compute, three train steps on the card (kernel path) and on the CPU
+   (plain path) from the same params and batches; and at bf16 compute,
+   one forward and backward on the card through the kernels and through
+   ``xla_attention``, every parameter gradient compared.
+6. Training, full width and depth: ``train.pretrain.main`` on bench-1b7,
+   B=8, S=2048, 20 steps; losses finite and falling; the flash counters
+   must move by 2 x n_layers forward and n_layers each of dq and dk/dv
+   per step (full remat), and no call may leave the kernels' gate. Step time, tokens/s, TFLOP/s, share of peak
+   and peak memory. Then three ``make_train_step`` steps with segment
+   ids: the segment kernels must run.
+7. Small-model serving agreement: the engine on the card and on the CPU
+   give the same greedy tokens (TINY, head_dim 128, fp32 compute).
+8. Engine, full width: llama3-8b at full depth (bf16 weights from the
    port's seeded random init on the card), served by the port's HTTP
    server; four concurrent ``/generate`` requests, one of them longer
    than a prefill chunk; the kernel counter must rise by n_layers per
    decode step; a repeated request is identical.
-6. Engine, int8 KV on the same weights: the int8 kernel must run.
+9. Engine, int8 KV on the same weights: the int8 kernel must run.
 
 Then one JSON line listing every kernel, the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``.
@@ -276,7 +297,482 @@ def split_study(torch, pa, llama, lengths8, flush):
 
 
 # ---------------------------------------------------------------------------
-# Phases 4-6: the engine
+# Phase 4: flash-attention kernels vs plain
+# ---------------------------------------------------------------------------
+
+# Limits on the tile error (tile_err) of each output, (o and lse,
+# gradients) per input type. bench.py:_kernels_smoke's absolute 2e-2 /
+# 2e-1 for bf16 passed an all-zero dq; these sit between the readings on
+# sound kernels and the errors of planted faults (planted_faults), which
+# must exceed them.
+FLASH_TOL = {'bf16': (5e-2, 5e-2), 'fp32': (1e-4, 1e-4)}
+
+
+def norm_err(got, ref) -> float:
+    """max|got - ref| / max|ref|, in fp32."""
+    ref = ref.float()
+    return ((got.float() - ref).abs().max() / ref.abs().max()).item()
+
+
+def tile_err(got, ref) -> float:
+    """The largest normalized error of any 64-row tile of one head: max
+    over (batch, head, tile) of max|got - ref| / max|ref| within it, for
+    [B, S, H, D] outputs and [B, H, S] lse. A tile a kernel left
+    unwritten reads 1, however small its values."""
+    if ref.dim() == 4:
+        b, s, h, d = ref.shape
+        shape, dims = (b, s // 64, 64, h, d), (2, 4)
+    else:
+        b, h, s = ref.shape
+        shape, dims = (b, h, s // 64, 64), (3,)
+    ref = ref.float()
+    diff = (got.float() - ref).abs().reshape(shape).amax(dims)
+    scale = ref.abs().reshape(shape).amax(dims).clamp_min(1e-30)
+    return (diff / scale).max().item()
+
+
+def flash_case(torch, *, b, s, h, kvh, d, dtype, segments, seed):
+    """Card tensors for one flash call in the model layout; segments are
+    documents of random lengths per row."""
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed)
+    dt = torch.float32 if dtype == 'fp32' else torch.bfloat16
+    q, do = (torch.randn((b, s, h, d), generator=gen, device='cuda')
+             .to(dt) for _ in range(2))
+    k, v = (torch.randn((b, s, kvh, d), generator=gen, device='cuda')
+            .to(dt) for _ in range(2))
+    seg = None
+    if segments:
+        starts = torch.rand((b, s), generator=gen, device='cuda') < 1 / 300
+        seg = torch.cumsum(starts.int(), dim=1).to(torch.int32).contiguous()
+    return q, k, v, do, seg
+
+
+def flash_bound(b, s, h, kvh, d, itemsize, which, bw, flops_peak):
+    """Least time for one causal call: FLOPs (2, 3 or 4 products of
+    2*B*H*S^2*D/2) at the bf16 peak against the bytes of each input read
+    once and each output written once."""
+    qb = b * s * h * d * itemsize
+    kvb = b * s * kvh * d * itemsize
+    stat = b * h * s * 4
+    products = {'fwd': 2, 'dq': 3, 'dkv': 4}[which]
+    flops = products * 2 * b * h * s * s * d / 2
+    nbytes = {'fwd': qb + 2 * kvb + qb + stat,
+              'dq': 2 * qb + 2 * kvb + 2 * stat + qb,
+              'dkv': 2 * qb + 2 * kvb + 2 * stat + 2 * kvb}[which]
+    bytes_ms = nbytes / bw * 1e3
+    ops_ms = flops / flops_peak * 1e3
+    return (max(bytes_ms, ops_ms),
+            'bytes' if bytes_ms >= ops_ms else 'operations')
+
+
+def planted_faults(fa, q, k, v, do, causal, seg, ro, rlse, rgrads):
+    """The tile errors of faults a kernel could make, each built
+    from the plain outputs: one CTA's 64 rows left unwritten (o, dq, dk,
+    dv; batch 0, head 0, rows 1024-1087), the dq kernel skipping one key
+    tile (keys 64-127) of one head, and the dk/dv kernel dropping one
+    query head of its group. Each must exceed the check's limit."""
+    rdq, rdk, rdv = rgrads
+    rows = slice(1024, 1088)
+
+    def unwritten(ref):
+        bad = ref.clone()
+        bad[0, rows, 0] = 0
+        return tile_err(bad, ref)
+
+    _, ds, _, _ = fa._probs(q, k, v, ro, rlse, do, causal, seg)
+    ds[0, 0, 0, :, 64:128] = 0
+    dq_skip = fa._dq(ds, q, k)
+    del ds
+    do_drop = do.clone()
+    do_drop[0, :, 0] = 0
+    dk_drop, dv_drop = fa.flash_dkv_reference(q, k, v, ro, rlse, do_drop,
+                                              causal=causal,
+                                              segment_ids=seg)
+    return {'o: one q tile unwritten': unwritten(ro),
+            'dq: one q tile unwritten': unwritten(rdq),
+            'dq: one key tile skipped': tile_err(dq_skip, rdq),
+            'dk: one k tile unwritten': unwritten(rdk),
+            'dv: one k tile unwritten': unwritten(rdv),
+            'dk: one group head dropped': tile_err(dk_drop, rdk),
+            'dv: one group head dropped': tile_err(dv_drop, rdv)}
+
+
+def phase_flash_kernels(torch, fa, bw, flops_peak):
+    """Each kernel against its plain version on the same card tensors
+    (o, lse, dq, dk, dv; tile error against FLASH_TOL), planted
+    faults against the same limits, then times at the trainer's shape."""
+    shape = dict(b=2, s=2048, h=20, kvh=4, d=128)   # bench-1b7 attention
+    cases = [(f'{dtype} {"causal" if causal else "full"}'
+              f'{" seg" if segments else ""}', shape, dtype, causal,
+              segments)
+             for dtype in ('bf16', 'fp32') for causal in (True, False)
+             for segments in (False, True)]
+    cases.append(('bf16 causal seg D=256 H=KVH=16',
+                  dict(b=2, s=2048, h=16, kvh=16, d=256), 'bf16', True,
+                  True))
+    errors = {'flash_fwd': 0.0, 'flash_dq': 0.0, 'flash_dkv': 0.0}
+    failed = []
+    for seed, (label, shp, dtype, causal, segments) in enumerate(cases):
+        q, k, v, do, seg = flash_case(torch, dtype=dtype,
+                                      segments=segments, seed=seed, **shp)
+        o, lse = fa.flash_forward_kernel(q, k, v, causal=causal,
+                                         segment_ids=seg)
+        dq, dk, dv = fa.flash_backward_kernel(q, k, v, o, lse, do,
+                                              causal=causal,
+                                              segment_ids=seg)
+        torch.cuda.synchronize()
+        ro, rlse = fa.flash_forward_reference(q, k, v, causal=causal,
+                                              segment_ids=seg)
+        rgrads = fa.flash_backward_reference(
+            q, k, v, ro, rlse, do, causal=causal, segment_ids=seg)
+        got = (('o', o, ro), ('lse', lse, rlse)) + tuple(
+            zip(('dq', 'dk', 'dv'), (dq, dk, dv), rgrads))
+        ok = compare_flash(torch, label, dtype, got, errors)
+        if dtype == 'bf16':
+            faults = planted_faults(fa, q, k, v, do, causal, seg, ro, rlse,
+                                    rgrads)
+            fwd_tol, grad_tol = FLASH_TOL[dtype]
+            caught = {n: e > (fwd_tol if n.startswith('o:') else grad_tol)
+                      for n, e in faults.items()}
+            log(f'[flash] {label}: planted faults, tile error ' +
+                ', '.join(f'{n} {e:.3e}{"" if caught[n] else " MISSED"}'
+                          for n, e in faults.items()))
+            ok = ok and all(caught.values())
+        if not ok:
+            failed.append(label)
+        del q, k, v, do, o, lse, dq, dk, dv, ro, rlse, rgrads, got
+    rows = flash_times(torch, fa, errors, bw, flops_peak, failed)
+    if failed:
+        raise AssertionError(f'flash kernels disagree with plain, or a '
+                             f'planted fault passes the limit: {failed}')
+    return rows
+
+
+def compare_flash(torch, label, dtype, got, errors) -> bool:
+    """Log each output's tile error and absolute error; fold them into
+    ``errors`` (max abs per kernel); True when all are within FLASH_TOL
+    and finite."""
+    fwd_tol, grad_tol = FLASH_TOL[dtype]
+    rel = {n: tile_err(x, r) for n, x, r in got}
+    err = {n: (x.float() - r.float()).abs().max().item() for n, x, r in got}
+    finite = all(bool(torch.isfinite(x).all().item()) for _, x, _ in got)
+    ok = finite and all(e <= (fwd_tol if n in ('o', 'lse') else grad_tol)
+                        for n, e in rel.items())
+    for kernel, names in (('flash_fwd', ('o', 'lse')), ('flash_dq', ('dq',)),
+                          ('flash_dkv', ('dk', 'dv'))):
+        errors[kernel] = max([errors[kernel]] + [err[n] for n in names])
+    log(f'[flash] {label}: tile error ' +
+        ', '.join(f'{n} {e:.3e}' for n, e in rel.items()) +
+        f' (limits {fwd_tol:g} / {grad_tol:g}); max abs ' +
+        ', '.join(f'{n} {e:.3e}' for n, e in err.items()) +
+        f' {"ok" if ok else "FAIL"}')
+    return ok
+
+
+def flash_times(torch, fa, errors, bw, flops_peak, failed):
+    """At the trainer's shape (bench-1b7, B=8, S=2048, bf16, causal): the
+    kernels' outputs against the plain ones (a failure joins
+    ``failed``), then the times of each kernel, its plain version, SDPA
+    (flash backend, repeated k/v; a yardstick the port never calls) and
+    the bound. Returns (a row per kernel, the whole backward's ms)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    shp = dict(b=8, s=2048, h=20, kvh=4, d=128)
+    q, k, v, do, _ = flash_case(torch, dtype='bf16', segments=False,
+                                seed=99, **shp)
+    o, lse = fa.flash_forward_kernel(q, k, v)
+    grads = fa.flash_backward_kernel(q, k, v, o, lse, do)
+    ro, rlse = fa.flash_forward_reference(q, k, v)
+    rgrads = fa.flash_backward_reference(q, k, v, ro, rlse, do)
+    label = 'bf16 causal B=8 (trainer shape)'
+    got = (('o', o, ro), ('lse', lse, rlse)) + tuple(
+        zip(('dq', 'dk', 'dv'), grads, rgrads))
+    if not compare_flash(torch, label, 'bf16', got, errors):
+        failed.append(label)
+    del grads, ro, rlse, rgrads, got
+    delta = fa._delta(o, do)
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8,
+                        device='cuda')
+    kernel_ms = {
+        'flash_fwd': time_ms(torch, lambda: fa.flash_forward_kernel(
+            q, k, v), flush),
+        'flash_dq': time_ms(torch, lambda: fa.flash_dq_kernel(
+            q, k, v, lse, do, delta), flush),
+        'flash_dkv': time_ms(torch, lambda: fa.flash_dkv_kernel(
+            q, k, v, lse, do, delta), flush),
+    }
+    backward_ms = time_ms(torch, lambda: fa.flash_backward_kernel(
+        q, k, v, o, lse, do), flush)
+    plain_ms = {
+        'flash_fwd': time_ms(torch, lambda: fa.flash_forward_reference(
+            q, k, v), flush),
+        'flash_dq': time_ms(torch, lambda: fa.flash_dq_reference(
+            q, k, v, o, lse, do), flush),
+        'flash_dkv': time_ms(torch, lambda: fa.flash_dkv_reference(
+            q, k, v, o, lse, do), flush),
+    }
+    g = shp['h'] // shp['kvh']
+    qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k.repeat_interleave(g, dim=2),
+                            v.repeat_interleave(g, dim=2)))
+    dos = do.transpose(1, 2).contiguous()
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        sdpa_fwd_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True), flush)
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        sdpa_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+            out, (qs, ks, vs), dos, retain_graph=True), flush)
+    del out, qs, ks, vs, dos, flush
+    rows = {}
+    for name, which in (('flash_fwd', 'fwd'), ('flash_dq', 'dq'),
+                        ('flash_dkv', 'dkv')):
+        bound_ms, bound_by = flash_bound(itemsize=2, which=which, bw=bw,
+                                         flops_peak=flops_peak, **shp)
+        rows[name] = dict(
+            ms=kernel_ms[name], plain_ms=plain_ms[name],
+            library_ms=sdpa_fwd_ms if name == 'flash_fwd' else None,
+            bound_ms=bound_ms, bound_by=bound_by,
+            max_abs_err=errors[name])
+        if name != 'flash_fwd':
+            # SDPA's backward computes dq, dk and dv in one call: no
+            # library call computes dq or dk/dv alone.
+            rows[name]['library_bwd_ms'] = sdpa_bwd_ms
+        log(f'[flash] {name} B=8 S=2048 H=20 KVH=4 bf16 causal: kernel '
+            f'{kernel_ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms, '
+            f'bound {bound_ms:.4f} ms ({bound_by}), '
+            f'{100 * bound_ms / kernel_ms[name]:.1f}% of bound')
+    log(f'[flash] backward (delta + dq + dkv) {backward_ms:.4f} ms vs SDPA '
+        f'backward {sdpa_bwd_ms:.4f} ms; forward {kernel_ms["flash_fwd"]:.4f}'
+        f' ms vs SDPA forward {sdpa_fwd_ms:.4f} ms')
+    return rows, backward_ms
+
+
+# ---------------------------------------------------------------------------
+# Phases 5-6: training
+# ---------------------------------------------------------------------------
+
+def _copy_params(tree, device):
+    if isinstance(tree, dict):
+        return {k: _copy_params(v, device) for k, v in tree.items()}
+    return tree.detach().clone().to(device)
+
+
+def phase_train_small(torch):
+    """TINY with head_dim 128 and fp32 compute: three train steps on the
+    card (kernel path) and on the CPU (plain path) from the same params
+    and batches; losses and grad norms agree to 1e-4 relative."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models.config import get_model_config
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.train import step as st
+    from skypilot_tpu_torch.train.pretrain import synthetic_batch
+    cfg = get_model_config('tiny', head_dim=128,
+                           compute_dtype=torch.float32)
+    hp = st.TrainHParams(warmup_steps=1, total_steps=10)
+    params = llama.init_params(5, cfg, device='cpu')
+    metrics = {}
+    for device in ('cuda', 'cpu'):
+        state = st.create_train_state_from_params(
+            _copy_params(params, device), cfg, hp)
+        step_fn = st.make_train_step(cfg, hp)
+        before = fa.LAUNCHES['flash_fwd']
+        out = []
+        for i in range(3):
+            batch = synthetic_batch(i, 2, 128, cfg.vocab_size, device)
+            state, m = step_fn(state, batch)
+            out.append((float(m['loss']), float(m['grad_norm'])))
+        metrics[device] = out
+        if device == 'cuda' and fa.LAUNCHES['flash_fwd'] - before != 6:
+            raise AssertionError('the small card run missed the kernels')
+    log(f'[train-small] card (loss, grad_norm) {metrics["cuda"]}; '
+        f'CPU {metrics["cpu"]}')
+    for (l1, g1), (l2, g2) in zip(metrics['cuda'], metrics['cpu']):
+        if abs(l1 - l2) > 1e-4 * abs(l2) or abs(g1 - g2) > 1e-4 * abs(g2):
+            raise AssertionError(f'card and CPU training disagree: '
+                                 f'{metrics}')
+    log('[train-small] card (kernel) and CPU (plain) agree within 1e-4')
+    train_small_bf16(torch)
+
+
+def train_small_bf16(torch):
+    """The training path's own type: TINY with head_dim 128 at bf16
+    compute, one forward and backward on the card through the kernels
+    (attention_impl 'auto') and through ``xla_attention`` ('xla') from
+    the same params and batch. The loss and every parameter gradient
+    agree within the bf16 gradient limit (normalized error)."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models.config import get_model_config
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.train.loss import cross_entropy_loss
+    from skypilot_tpu_torch.train.pretrain import synthetic_batch
+    shape = dict(head_dim=128, max_seq_len=512)
+    params = llama.init_params(5, get_model_config('tiny', **shape),
+                               device='cuda')
+    batch = synthetic_batch(0, 2, 512, 512, torch.device('cuda'))
+    leaves = [x.requires_grad_(True) for x in _leaves(params)]
+    out = {}
+    for impl in ('auto', 'xla'):
+        cfg = get_model_config('tiny', attention_impl=impl, **shape)
+        before = dict(fa.LAUNCHES)
+        logits = llama.forward(params, batch['tokens'], cfg)
+        loss, _ = cross_entropy_loss(logits, batch['targets'],
+                                     batch['weights'])
+        out[impl] = (loss.item(), torch.autograd.grad(loss, leaves))
+        moved = {n: fa.LAUNCHES[n] - before[n]
+                 for n in ('flash_fwd', 'flash_dq', 'flash_dkv')}
+        want = cfg.n_layers if impl == 'auto' else 0
+        if moved != dict.fromkeys(moved, want):
+            raise AssertionError(f'{impl}: flash launches {moved}, '
+                                 f'expected {want} each')
+    (loss_k, grads_k), (loss_x, grads_x) = out['auto'], out['xla']
+    rel = max(norm_err(a, b) for a, b in zip(grads_k, grads_x))
+    tol = FLASH_TOL['bf16'][1]
+    log(f'[train-small] bf16 compute, kernels vs xla_attention on the '
+        f'card: loss {loss_k:.6f} vs {loss_x:.6f}, largest normalized '
+        f'gradient error over {len(leaves)} leaves {rel:.3e} (limit '
+        f'{tol:g})')
+    if abs(loss_k - loss_x) > tol * abs(loss_x) or not rel <= tol:
+        raise AssertionError('bf16 training through the kernels disagrees '
+                             'with xla_attention')
+
+
+def phase_train(torch, fa, flops_peak, steps=20):
+    """bench-1b7 at full width and depth through the trainer's entry
+    point; the flash launch counters are zeroed just before and read
+    just after."""
+    import contextlib
+    import gc
+    import io
+    from skypilot_tpu_torch.models.config import get_model_config
+    from skypilot_tpu_torch.train import pretrain
+    cfg = get_model_config('bench-1b7')
+    batch, seq = 8, 2048
+    argv = ['--model', 'bench-1b7', '--batch', str(batch), '--seq',
+            str(seq), '--steps', str(steps), '--warmup-steps', '5',
+            '--log-every', '5']
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = pretrain.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(fa.LAUNCHES)
+    fallbacks = dict(fa.FALLBACKS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines = [json.loads(x) for x in out.getvalue().splitlines()]
+    for line in lines:
+        log(f'[train] {json.dumps(line)}')
+    logged = [x for x in lines if 'loss' in x]
+    if rc != 0 or not logged or lines[-1] != {'done': True,
+                                               'final_step': steps}:
+        raise AssertionError(f'pretrain.main failed: rc={rc}, {lines}')
+    losses = [x['loss'] for x in logged]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f'losses not finite and falling: {losses}')
+    # Full remat: each layer's forward runs twice a step (forward and
+    # recompute), its backward once.
+    n = cfg.n_layers * steps
+    expected = {'flash_fwd': 2 * n, 'flash_dq': n, 'flash_dkv': n,
+                'flash_fwd_seg': 0, 'flash_dq_seg': 0, 'flash_dkv_seg': 0}
+    if counts != expected or fallbacks['cuda']:
+        raise AssertionError(f'flash launches {counts}, expected '
+                             f'{expected} (2L fwd, L dq, L dkv per step); '
+                             f'calls outside the kernels {fallbacks}')
+    log(f'[train] flash launches {counts} = 2x{cfg.n_layers} fwd, '
+        f'{cfg.n_layers} dq, {cfg.n_layers} dkv per step x {steps} steps')
+    last = logged[-1]
+    tps = last['tokens_per_sec']
+    result = dict(
+        launches=counts, losses=losses, wall_s=wall, peak_mem_gb=peak_gb,
+        step_s=batch * seq / tps, tokens_per_sec=tps,
+        achieved_tflops=last['achieved_tflops'],
+        peak_share=last['achieved_tflops'] * 1e12 / flops_peak)
+    log(f'[train] bench-1b7 B={batch} S={seq}, last window of 5 steps: '
+        f'{result["step_s"]:.3f} s/step, {tps:.1f} tokens/s, '
+        f'{last["achieved_tflops"]:.2f} TFLOP/s = '
+        f'{100 * result["peak_share"]:.2f}% of {flops_peak / 1e12:.0f}; '
+        f'peak memory {peak_gb:.2f} GB; {steps} steps in {wall:.1f} s')
+    result['segments'] = train_segments(torch, fa, cfg)
+    return result
+
+
+def profile_train(torch, cfg, steps=2):
+    """Trace ``steps`` bench-1b7 train steps (B=8, S=2048, after one
+    warm-up step) with ``torch.profiler``: the device's busy share and
+    the kernels that take the step."""
+    import gc
+    from torch.profiler import ProfilerActivity, profile
+    from skypilot_tpu_torch.train import step as st
+    from skypilot_tpu_torch.train.pretrain import synthetic_batch
+    hp = st.TrainHParams(warmup_steps=1, total_steps=10)
+    state = st.create_train_state(2, cfg, hp)
+    step_fn = st.make_train_step(cfg, hp)
+    dev = torch.device('cuda')
+    state, _ = step_fn(state, synthetic_batch(0, 8, 2048, cfg.vocab_size,
+                                              dev))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            state, m = step_fn(state, synthetic_batch(
+                1 + i, 8, 2048, cfg.vocab_size, dev))
+        float(m['loss'])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return profile_summary('profile-train', prof, wall_us, top=16)
+
+
+def train_segments(torch, fa, cfg, steps=3):
+    """Three ``make_train_step`` steps on batches with segment ids: the
+    segment kernels must run."""
+    import gc
+    from skypilot_tpu_torch.train import step as st
+    from skypilot_tpu_torch.train.pretrain import synthetic_batch
+    hp = st.TrainHParams(warmup_steps=1, total_steps=10)
+    state = st.create_train_state(1, cfg, hp)
+    step_fn = st.make_train_step(cfg, hp)
+    gen = torch.Generator().manual_seed(3)
+    fa.reset_launch_counts()
+    losses = []
+    for i in range(steps):
+        batch = synthetic_batch(100 + i, 8, 2048, cfg.vocab_size,
+                                torch.device('cuda'))
+        starts = torch.rand((8, 2048), generator=gen) < 1 / 500
+        batch['segments'] = torch.cumsum(starts.int(), 1).int().cuda()
+        state, m = step_fn(state, batch)
+        losses.append(float(m['loss']))
+    counts = dict(fa.LAUNCHES)
+    fallbacks = dict(fa.FALLBACKS)
+    n = cfg.n_layers * steps
+    expected = {'flash_fwd': 0, 'flash_dq': 0, 'flash_dkv': 0,
+                'flash_fwd_seg': 2 * n, 'flash_dq_seg': n,
+                'flash_dkv_seg': n}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if counts != expected or fallbacks['cuda'] or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f'segment steps: launches {counts} (expected '
+                             f'{expected}), calls outside the kernels '
+                             f'{fallbacks}, losses {losses}')
+    log(f'[train] {steps} steps with segments: losses {losses}; launches '
+        f'{counts}')
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phases 7-9: the engine
 # ---------------------------------------------------------------------------
 
 def post_generate(port: int, prompts, max_new_tokens: int):
@@ -418,18 +914,41 @@ def profile_decode(torch, engine, prompts, max_new_tokens):
                 raise RuntimeError(f'profiled request failed: {h.error}')
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return profile_summary('profile', prof, wall_us)
+
+
+def profile_summary(tag, prof, wall_us, top=12):
+    """Print the device's busy share of a traced window (the device-side
+    kernel time over the wall; CPU-side ops, whose device time repeats
+    their kernels', are left out), the time by kind of kernel and the
+    kernels that take most of it; returns the share."""
+    from torch.autograd import DeviceType
     rows = []
     for entry in prof.key_averages():
+        if getattr(entry, 'device_type', None) != DeviceType.CUDA:
+            continue
         dev = getattr(entry, 'self_device_time_total', None)
         if dev is None:
             dev = getattr(entry, 'self_cuda_time_total', 0)
         if dev > 0:
             rows.append((dev, entry.key, entry.count))
     busy_us = sum(r[0] for r in rows)
-    log(f'[profile] window {wall_us / 1e3:.1f} ms, device busy '
+    log(f'[{tag}] window {wall_us / 1e3:.1f} ms, device busy '
         f'{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%)')
-    for dev, key, count in sorted(rows, reverse=True)[:12]:
-        log(f'[profile]   {dev / 1e3:9.2f} ms  {count:6d}x  {key[:90]}')
+    kinds = {}
+    for dev, key, _ in rows:
+        low = key.lower()
+        kind = ('flash' if 'flash_' in low else
+                'paged' if 'paged_attention' in low or 'combine' in low else
+                'gemm' if any(x in low for x in ('nvjet', 'gemm', 'cutlass',
+                                                  'sm90_xmma')) else
+                'other')
+        kinds[kind] = kinds.get(kind, 0) + dev
+    log(f'[{tag}] by kind: ' + ', '.join(
+        f'{k} {v / 1e3:.1f} ms ({100 * v / busy_us:.1f}%)'
+        for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])))
+    for dev, key, count in sorted(rows, reverse=True)[:top]:
+        log(f'[{tag}]   {dev / 1e3:9.2f} ms  {count:6d}x  {key[:90]}')
     return busy_us / wall_us
 
 
@@ -493,7 +1012,7 @@ def phase_engine(torch, pa, profile_window=False):
     finally:
         engine.shutdown()
     del engine
-    # Phase 6: int8 KV on the same weights.
+    # Phase 9: int8 KV on the same weights.
     engine = ContinuousBatchingEngine('llama3-8b', params=params,
                                       max_slots=4, max_len=2048,
                                       block_size=16, quantize_kv=True)
@@ -518,11 +1037,13 @@ def _leaves(tree):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--skip-engine', action='store_true',
-                        help='stop after the kernel checks')
+                        help='stop after the kernel checks (no training, '
+                             'no engine)')
     parser.add_argument('--profile', action='store_true',
-                        help='also trace one batch of llama3-8b requests '
-                             'with torch.profiler (device busy share, '
-                             'top kernels)')
+                        help='also trace two bench-1b7 train steps and '
+                             'one batch of llama3-8b requests with '
+                             'torch.profiler (device busy share, top '
+                             'kernels)')
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -531,6 +1052,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from skypilot_tpu_torch import _build
+    from skypilot_tpu_torch.ops import flash_attention as fa
     from skypilot_tpu_torch.ops import paged_attention as pa
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -545,23 +1067,52 @@ def main(argv=None) -> int:
         f'{time.perf_counter() - t0:.1f} s: {libs}')
 
     rows = phase_kernels(torch, pa, bw, flops_peak)
-    engine = {}
+    flash_rows, backward_ms = phase_flash_kernels(torch, fa, bw, flops_peak)
+    rows.update(flash_rows)
+    engine, train = {}, {}
     if not args.skip_engine:
+        phase_train_small(torch)
+        train = phase_train(torch, fa, flops_peak)
+        from skypilot_tpu_torch.models.config import get_model_config
+        n_layers = get_model_config('bench-1b7').n_layers
+        attn_ms = (2 * rows['flash_fwd']['ms'] + backward_ms) * n_layers
+        log(f'[train] attention per step from the kernel times: '
+            f'{attn_ms:.1f} ms of {1e3 * train["step_s"]:.1f} ms '
+            f'({100 * attn_ms / (1e3 * train["step_s"]):.1f}%)')
+        if args.profile:
+            train['device_busy_share'] = profile_train(
+                torch, get_model_config('bench-1b7'))
+        log(f'[train] summary {json.dumps(train)}')
         phase_small_agreement(torch)
         engine = phase_engine(torch, pa, profile_window=args.profile)
         log(f'[engine] summary {json.dumps(engine)}')
+    flash_src = 'skypilot_tpu/ops/pallas/flash_attention.py'
     replaces = {
         'paged_attention':
             'skypilot_tpu/ops/pallas/paged_attention.py:64',
         'paged_attention_quant':
             'skypilot_tpu/ops/pallas/paged_attention.py:124',
+        'flash_fwd': f'{flash_src}:62 _fwd_kernel + :128 _fwd_kernel_seg',
+        'flash_dq': f'{flash_src}:193 _bwd_dq_kernel + '
+                    ':246 _bwd_dq_kernel_seg',
+        'flash_dkv': f'{flash_src}:254 _bwd_dkv_kernel + '
+                     ':325 _bwd_dkv_kernel_seg',
     }
-    # Counts come only from the main path's own run: null when it was
-    # skipped, never a number this run did not measure.
+    sources = {'paged_attention': 'paged_attention.cu',
+               'paged_attention_quant': 'paged_attention.cu',
+               'flash_fwd': 'flash_attention.cu',
+               'flash_dq': 'flash_attention.cu',
+               'flash_dkv': 'flash_attention.cu'}
+    # Counts come only from the main paths' own runs (the engine for the
+    # paged kernels, the bench-1b7 trainer for the flash kernels): null
+    # when they were skipped, never a number this run did not measure.
+    tl = train.get('launches')
     launches = {'paged_attention': engine.get('launches'),
                 'paged_attention_quant': engine.get('launches_quant')}
+    for name in ('flash_fwd', 'flash_dq', 'flash_dkv'):
+        launches[name] = tl[name] + tl[name + '_seg'] if tl else None
     kernels = [dict(name=name, route='cuda',
-                    source='skypilot_tpu_torch/csrc/paged_attention.cu',
+                    source='skypilot_tpu_torch/csrc/' + sources[name],
                     replaces=replaces[name], launches=launches[name],
                     **rows[name]) for name in replaces]
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -95,6 +95,23 @@ class ModelConfig:
         head = 0 if self.tie_embeddings else d * v
         return self.n_layers * per_layer + embed + head + d
 
+    def flops_per_token(self, seq_len: int) -> float:
+        """Approx training FLOPs/token: 6*N_active + attention term.
+
+        6*N for fwd+bwd matmuls; attention adds 12*L*hd*H*seq (qk+av,
+        fwd+bwd, causal halves it) -- the standard PaLM-style accounting.
+        """
+        n_active = self.params_count()
+        if self.is_moe:
+            d, f = self.d_model, self.d_ff
+            dense_mlp_all = 3 * d * f * self.num_experts * self.n_layers
+            dense_mlp_active = (3 * d * f * self.experts_per_token *
+                                self.n_layers)
+            n_active = n_active - dense_mlp_all + dense_mlp_active
+        attn_flops = (12 * self.n_layers * self.n_heads *
+                      self.resolved_head_dim * seq_len) / 2
+        return 6 * n_active + attn_flops
+
 
 def _register(cfg: ModelConfig) -> ModelConfig:
     MODEL_REGISTRY.register(cfg.name)(cfg)

@@ -31,7 +31,7 @@ import torch
 
 from skypilot_tpu_torch.models.config import ModelConfig
 from skypilot_tpu_torch.models.llama import (_activate, apply_rope,
-                                             rope_table_for)
+                                             fp32_logits, rope_table_for)
 from skypilot_tpu_torch.models.quant import weight_einsum
 from skypilot_tpu_torch.ops.common import NEG_INF
 from skypilot_tpu_torch.ops.norms import rms_norm
@@ -97,16 +97,7 @@ def _lm_head(params: Params, x: torch.Tensor,
         head = params['embed']['embedding'].to(dt).t()
     else:
         head = params['lm_head']['w'].to(dt)
-    rows = x.reshape(-1, x.shape[-1]).to(dt)
-    if dt == torch.float32:
-        logits = rows @ head
-    elif rows.is_cuda:
-        logits = torch.mm(rows, head, out_dtype=torch.float32)
-    else:
-        # The CPU has no low-precision GEMM with an fp32 output;
-        # products of bf16 values are exact in fp32, so upcast.
-        logits = rows.float() @ head.float()
-    return logits.reshape(*x.shape[:-1], -1)
+    return fp32_logits(x.to(dt), head)
 
 
 def _mlp(x: torch.Tensor, lp: Params, cfg: ModelConfig) -> torch.Tensor:

@@ -1,20 +1,30 @@
-"""Llama-family decoder: the serving subset of ``skypilot_tpu/models/llama.py``.
+"""Llama-family decoder: the dense half of ``skypilot_tpu/models/llama.py``.
 
 Params are a plain dict with the JAX package's keys and its stacked
 ``[L, ...]`` layer layout (``models/convert.py`` carries a JAX pytree
 over as is). Here: RoPE tables (with the llama3 NTK scaling), the gated
-MLP activation and ``init_params``. ``forward``, remat, MoE blocks and
-the training blocks belong to later slices of the port.
+MLP activation, ``init_params``, the attention and MLP blocks, the
+``'none'`` and ``'full'`` remat policies and ``forward``.
+
+Differences of idiom from the reference: the layer loop is a Python
+loop over the stacked weights (the reference's ``lax.scan``), ``'full'``
+remat is ``torch.utils.checkpoint`` per layer, and the one-hot ("iota")
+embedding is an index lookup, which picks the same rows. MoE blocks,
+the LoRA q/v branch, the selective remat policies and pipeline stages
+belong to later slices and raise here.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from skypilot_tpu_torch.models.config import ModelConfig
+from skypilot_tpu_torch.ops.attention import multi_head_attention
+from skypilot_tpu_torch.ops.norms import rms_norm
 from skypilot_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -154,3 +164,166 @@ def init_params(seed: int, cfg: ModelConfig, *,
     if not cfg.tie_embeddings:
         params['lm_head'] = {'w': dense((d, v), d)}
     return params
+
+
+# ---------------------------------------------------------------------------
+# Vocab projection with an fp32 result
+# ---------------------------------------------------------------------------
+
+def _mm_fp32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with an fp32 result, like the reference's
+    ``preferred_element_type``: the fp32 accumulator is never rounded to
+    the operands' type."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    # The CPU has no low-precision GEMM with an fp32 output; products
+    # of bf16 values are exact in fp32, so upcast.
+    return a.float() @ b.float()
+
+
+class _Fp32Logits(torch.autograd.Function):
+    """rows [N, d] @ head [d, V] in the compute dtype with an fp32
+    result. The backward rounds the fp32 logit gradient to the compute
+    dtype and runs both products there."""
+
+    @staticmethod
+    def forward(ctx, rows, head):
+        ctx.save_for_backward(rows, head)
+        return _mm_fp32_out(rows, head)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rows, head = ctx.saved_tensors
+        g = grad.to(rows.dtype)
+        return g @ head.t(), rows.t() @ g
+
+
+def fp32_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """x [..., d] @ head [d, V] (both in the compute dtype) -> fp32
+    logits [..., V]."""
+    rows = x.reshape(-1, x.shape[-1])
+    return _Fp32Logits.apply(rows, head).reshape(*x.shape[:-1], -1)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def _attention_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
+                     sin: torch.Tensor, cos: torch.Tensor,
+                     segments: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    dt = cfg.compute_dtype
+    q = torch.einsum('bsd,dhk->bshk', x, lp['wq'].to(dt))
+    k = torch.einsum('bsd,dhk->bshk', x, lp['wk'].to(dt))
+    v = torch.einsum('bsd,dhk->bshk', x, lp['wv'].to(dt))
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    out = multi_head_attention(q, k, v, causal=True, segment_ids=segments,
+                               impl=cfg.attention_impl)
+    return torch.einsum('bshk,hkd->bsd', out, lp['wo'].to(dt))
+
+
+def _mlp_block(x: torch.Tensor, lp: Params,
+               cfg: ModelConfig) -> torch.Tensor:
+    dt = cfg.compute_dtype
+    gate = torch.einsum('bsd,df->bsf', x, lp['wi_gate'].to(dt))
+    up = torch.einsum('bsd,df->bsf', x, lp['wi_up'].to(dt))
+    hidden = _activate(gate, cfg) * up
+    return torch.einsum('bsf,fd->bsd', hidden, lp['wo'].to(dt))
+
+
+def _decoder_layer(x: torch.Tensor, lp: Params, cfg: ModelConfig,
+                   sin: torch.Tensor, cos: torch.Tensor,
+                   segments: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One dense decoder layer (the reference's aux loss is 0 here)."""
+    h = rms_norm(x, lp['ln_attn']['scale'], cfg.norm_eps)
+    x = x + _attention_block(h, lp['attn'], cfg, sin, cos,
+                             segments=segments)
+    h = rms_norm(x, lp['ln_mlp']['scale'], cfg.norm_eps)
+    return x + _mlp_block(h, lp['mlp'], cfg)
+
+
+def _remat_policy(cfg: ModelConfig) -> bool:
+    """True when each layer is rematerialized in the backward.
+
+    ``'full'`` saves nothing but the layer input and re-runs the layer
+    (``torch.utils.checkpoint``, non-reentrant); ``'none'`` saves every
+    activation. The selective policies are later work."""
+    if cfg.remat_policy == 'none':
+        return False
+    if cfg.remat_policy == 'full':
+        return True
+    if cfg.remat_policy in ('save_attn', 'save_dots', 'dots'):
+        raise NotImplementedError(
+            f'remat policy {cfg.remat_policy!r} is not ported yet '
+            '(ROADMAP.md, queue A item 14)')
+    raise ValueError(f'Unknown remat policy {cfg.remat_policy!r}')
+
+
+def _unstack(layers: Params, n_layers: int) -> List[Params]:
+    """The stacked ``[L, ...]`` weights as L per-layer dicts of views.
+    One ``unbind`` per leaf, so the backward writes each stacked
+    gradient once instead of once per layer."""
+    out: List[Params] = [{} for _ in range(n_layers)]
+
+    def walk(node, dests):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                subs = [d.setdefault(key, {}) for d in dests]
+                walk(value, subs)
+            else:
+                for d, piece in zip(dests, torch.unbind(value, 0)):
+                    d[key] = piece
+
+    walk(layers, out)
+    return out
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+            positions: Optional[torch.Tensor] = None,
+            segments: Optional[torch.Tensor] = None,
+            pipeline_stages: int = 1,
+            return_aux: bool = False,
+            return_hidden: bool = False) -> torch.Tensor:
+    """tokens [B, S] int -> logits [B, S, vocab] fp32 (or, with
+    ``return_hidden``, the final normed hidden states [B, S, d_model]).
+
+    MoE configs, LoRA params, ``return_aux`` and ``pipeline_stages > 1``
+    raise with a pointer to ROADMAP.md."""
+    if cfg.is_moe or return_aux:
+        raise NotImplementedError(
+            'MoE blocks and the router aux loss are not ported yet '
+            '(ROADMAP.md, queue A item 13)')
+    if pipeline_stages > 1:
+        raise NotImplementedError(
+            'pipeline stages are multi-device work, not ported yet '
+            '(ROADMAP.md, queue A item 15)')
+    if 'lora' in params['layers']:
+        raise NotImplementedError(
+            'the LoRA q/v branch is not ported yet (ROADMAP.md, queue A '
+            'item 9)')
+    _, s = tokens.shape
+    dt = cfg.compute_dtype
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device)
+    sin, cos = rope_table_for(cfg, positions)
+    x = params['embed']['embedding'][tokens.long()].to(dt)
+    remat = _remat_policy(cfg)
+    for lp in _unstack(params['layers'], cfg.n_layers):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _decoder_layer, x, lp, cfg, sin, cos, segments,
+                use_reentrant=False)
+        else:
+            x = _decoder_layer(x, lp, cfg, sin, cos, segments)
+    x = rms_norm(x, params['final_norm']['scale'], cfg.norm_eps)
+    if return_hidden:
+        return x
+    if cfg.tie_embeddings:
+        head = params['embed']['embedding'].to(dt).t()
+    else:
+        head = params['lm_head']['w'].to(dt)
+    return fp32_logits(x, head)

@@ -1,0 +1,203 @@
+"""Pretraining entry point on one card: the port of
+``skypilot_tpu/train/pretrain.py``.
+
+    python -m skypilot_tpu_torch.train.pretrain --model bench-1b7 \\
+        --batch 8 --seq 2048 --steps 20
+    python -m skypilot_tpu_torch.train.pretrain --model tiny --device cpu
+
+Runs on the GPU unless ``--device cpu`` is given. Emits one JSON line per
+--log-every steps:
+    {"step": N, "loss": x, "tokens_per_sec": y, "achieved_tflops": z}
+and ``{"done": true, "final_step": N}`` at the end.
+
+Not ported yet, and raising with a pointer to ROADMAP.md: a ``--mesh``
+over more than one device, ``--checkpoint-dir`` (orbax in the
+reference), ``--packed`` (the native packer) and ``--optimizer
+adafactor``. Every flag of the reference still parses, so its command
+lines run unchanged or fail on the unported feature they name: so
+``--eos-id`` (read by ``--packed``), ``--checkpoint-every`` (read by
+``--checkpoint-dir``) and ``--moe-dispatch`` / ``--capacity-factor``
+(read by the MoE forward, which raises) take no effect of their own.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+
+def parse_mesh(spec: Optional[str]) -> Dict[str, int]:
+    """'fsdp=-1,tensor=2' -> {'fsdp': -1, 'tensor': 2}."""
+    if not spec:
+        return {'fsdp': -1}
+    out: Dict[str, int] = {}
+    for part in spec.split(','):
+        key, _, value = part.partition('=')
+        out[key.strip()] = int(value)
+    return out
+
+
+def _check_single_device(spec: Optional[str]) -> None:
+    """One card: every axis degree must be 1 (or -1, which resolves to
+    1 on one device)."""
+    if any(degree not in (1, -1) for degree in parse_mesh(spec).values()):
+        raise NotImplementedError(
+            f'mesh {spec!r} spans more than one device; multi-device '
+            'training is not ported yet (ROADMAP.md, queue A item 15)')
+
+
+def synthetic_batch(step: int, batch: int, seq: int, vocab_size: int,
+                    device: Optional[torch.device] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """Deterministic synthetic LM data: every other token repeats its
+    left neighbour, so a real model drives loss well below uniform
+    entropy. Drawn from a CPU ``torch.Generator`` seeded by ``step`` (the
+    same batch on every device; the draws differ from jax.random's)."""
+    gen = torch.Generator().manual_seed(step)
+    base = torch.randint(0, vocab_size, (batch, seq), generator=gen,
+                         dtype=torch.int32)
+    repeat = torch.roll(base, 1, dims=1)
+    mask = (torch.arange(seq) % 2).bool()
+    tokens = torch.where(mask[None, :], repeat, base)
+    return {
+        'tokens': tokens.to(device),
+        'targets': torch.roll(tokens, -1, dims=1).to(device),
+        'weights': torch.ones((batch, seq), dtype=torch.float32,
+                              device=device),
+    }
+
+
+def file_batch_iterator(path: str, batch: int, seq: int,
+                        device: Optional[torch.device] = None
+                        ) -> Iterator[Dict[str, torch.Tensor]]:
+    """Stream batches from a flat .npy/int32 token file (memmapped)."""
+    data = np.load(os.path.expanduser(path), mmap_mode='r')
+    tokens_per_batch = batch * (seq + 1)
+    offset = 0
+    while True:
+        if offset + tokens_per_batch > data.shape[0]:
+            offset = 0
+        chunk = np.asarray(
+            data[offset:offset + tokens_per_batch]).reshape(batch, seq + 1)
+        offset += tokens_per_batch
+        chunk = torch.from_numpy(chunk.astype(np.int32))
+        yield {
+            'tokens': chunk[:, :-1].contiguous().to(device),
+            'targets': chunk[:, 1:].contiguous().to(device),
+            'weights': torch.ones((batch, seq), dtype=torch.float32,
+                                  device=device),
+        }
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--model', default='tiny')
+    parser.add_argument('--steps', type=int, default=20)
+    parser.add_argument('--batch', type=int, default=4)
+    parser.add_argument('--seq', type=int, default=None)
+    parser.add_argument('--learning-rate', type=float, default=3e-4)
+    parser.add_argument('--warmup-steps', type=int, default=10)
+    parser.add_argument('--optimizer', default='adamw',
+                        choices=['adamw', 'adafactor'])
+    parser.add_argument('--mesh', default=None,
+                        help='one card only: absent, or degrees of 1')
+    parser.add_argument('--data', default='synthetic',
+                        help="'synthetic' or a flat token .npy file")
+    parser.add_argument('--packed', action='store_true', default=False,
+                        help='pack EOS-delimited documents (not ported)')
+    parser.add_argument('--eos-id', type=int, default=1,
+                        help='Document delimiter token for --packed.')
+    parser.add_argument('--checkpoint-dir', default=None)
+    parser.add_argument('--checkpoint-every', type=int, default=50)
+    parser.add_argument('--log-every', type=int, default=10)
+    parser.add_argument('--param-dtype', default=None,
+                        choices=[None, 'float32', 'bfloat16'])
+    parser.add_argument('--remat-policy', default=None,
+                        choices=[None, 'none', 'dots', 'save_attn',
+                                 'save_dots', 'full'],
+                        help='activation remat: full = least memory; '
+                             "only 'none' and 'full' are ported")
+    parser.add_argument('--moe-dispatch', default=None,
+                        choices=[None, 'dense', 'capacity'])
+    parser.add_argument('--capacity-factor', type=float, default=None)
+    parser.add_argument('--device', default=None,
+                        help="'cuda' (default) or 'cpu'")
+    args = parser.parse_args(argv)
+
+    from skypilot_tpu_torch.models.config import get_model_config
+    from skypilot_tpu_torch.train.step import (TrainHParams,
+                                               create_train_state,
+                                               make_train_step,
+                                               resize_requested)
+    from skypilot_tpu_torch.utils.device import resolve_device
+
+    _check_single_device(args.mesh)
+    if args.checkpoint_dir:
+        raise NotImplementedError(
+            'checkpoints are not ported yet (ROADMAP.md, queue A item 14)')
+    if args.packed:
+        raise NotImplementedError(
+            '--packed (the native packer) is not ported yet (ROADMAP.md, '
+            'queue A item 14)')
+    device = resolve_device(args.device)
+    overrides = {}
+    if args.param_dtype:
+        overrides['param_dtype'] = getattr(torch, args.param_dtype)
+    if args.remat_policy:
+        overrides['remat_policy'] = args.remat_policy
+    if args.moe_dispatch:
+        overrides['moe_dispatch'] = args.moe_dispatch
+    if args.capacity_factor is not None:
+        overrides['capacity_factor'] = args.capacity_factor
+    cfg = get_model_config(args.model, **overrides)
+    seq = min(args.seq or 1024, cfg.max_seq_len)
+    hp = TrainHParams(learning_rate=args.learning_rate,
+                      warmup_steps=args.warmup_steps,
+                      total_steps=max(args.steps, args.warmup_steps + 1),
+                      optimizer=args.optimizer)
+    state = create_train_state(0, cfg, hp, device=device)
+    step_fn = make_train_step(cfg, hp)
+
+    if args.data == 'synthetic':
+        data_iter = None
+    else:
+        data_iter = file_batch_iterator(args.data, args.batch, seq, device)
+    flops_per_token = cfg.flops_per_token(seq)
+    window_t0 = time.perf_counter()
+    window_tokens = 0
+    for step in range(args.steps):
+        if data_iter is not None:
+            batch = next(data_iter)
+        else:
+            batch = synthetic_batch(step, args.batch, seq, cfg.vocab_size,
+                                    device)
+        state, metrics = step_fn(state, batch)
+        window_tokens += args.batch * seq
+        if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
+            loss = float(metrics['loss'])  # sync point
+            elapsed = time.perf_counter() - window_t0
+            tps = window_tokens / max(elapsed, 1e-9)
+            print(json.dumps({
+                'step': step + 1,
+                'loss': round(loss, 4),
+                'tokens_per_sec': round(tps, 1),
+                'achieved_tflops': round(tps * flops_per_token / 1e12, 2),
+            }), flush=True)
+            window_t0 = time.perf_counter()
+            window_tokens = 0
+        if resize_requested():
+            print(json.dumps({'resize_exit_at_step': step + 1}),
+                  flush=True)
+            return 0
+    print(json.dumps({'done': True, 'final_step': args.steps}), flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

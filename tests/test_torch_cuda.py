@@ -83,6 +83,106 @@ def test_kernel_rejects_unsupported_shapes(card):
         pa.paged_attention(q, k, v, bt.long(), nv)
 
 
+def _flash_case(card, dtype, d, seg, b=2, s=256, h=4, kvh=2):
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device=card)
+    gen.manual_seed(d + 7 * seg)
+    q, do = (torch.randn((b, s, h, d), generator=gen, device=card)
+             .to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, s, kvh, d), generator=gen, device=card)
+            .to(dtype) for _ in range(2))
+    segments = None
+    if seg:
+        # documents of uneven lengths, cut off the 64-row tile grid
+        bounds = torch.tensor([0, 37, 100, 101, 190], device=card)
+        pos = torch.arange(s, device=card)
+        segments = ((pos[None, :] >= bounds[:, None]).sum(0) - 1)
+        segments = segments.to(torch.int32)[None].repeat(b, 1).contiguous()
+    return fa, q, k, v, do, segments
+
+
+# Limits on the tile error of (o and lse, gradients), as in chip_smoke.py:
+# bf16 rounds P (and, in the kernels, ds) to 2^-8; fp32 sums differ in
+# order only. A tile a kernel leaves unwritten reads 1.
+FLASH_TOL = {torch.bfloat16: (5e-2, 5e-2), torch.float32: (1e-4, 1e-4)}
+
+
+def _tile_err(got, ref):
+    """Max over 64-row tiles of one head of max|got - ref| / max|ref|
+    within the tile; [B, S, H, D] outputs or [B, H, S] lse."""
+    if ref.dim() == 4:
+        b, s, h, d = ref.shape
+        shape, dims = (b, s // 64, 64, h, d), (2, 4)
+    else:
+        b, h, s = ref.shape
+        shape, dims = (b, h, s // 64, 64), (3,)
+    ref = ref.float()
+    diff = (got.float() - ref).abs().reshape(shape).amax(dims)
+    scale = ref.abs().reshape(shape).amax(dims).clamp_min(1e-30)
+    return (diff / scale).max().item()
+
+
+@pytest.mark.parametrize('seg', [False, True], ids=['plain', 'seg'])
+@pytest.mark.parametrize('causal', [True, False], ids=['causal', 'full'])
+@pytest.mark.parametrize('d', [128, 256])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32],
+                         ids=['bf16', 'fp32'])
+def test_flash_kernels_match_plain(card, dtype, d, causal, seg):
+    fa, q, k, v, do, segments = _flash_case(card, dtype, d, seg)
+    suffix = '_seg' if seg else ''
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_forward_kernel(q, k, v, causal=causal,
+                                     segment_ids=segments)
+    grads = fa.flash_backward_kernel(q, k, v, o, lse, do, causal=causal,
+                                     segment_ids=segments)
+    torch.cuda.synchronize()
+    for name in ('flash_fwd', 'flash_dq', 'flash_dkv'):
+        assert fa.LAUNCHES[name + suffix] == before[name + suffix] + 1
+    ro, rlse = fa.flash_forward_reference(q, k, v, causal=causal,
+                                          segment_ids=segments)
+    rgrads = fa.flash_backward_reference(q, k, v, ro, rlse, do,
+                                         causal=causal,
+                                         segment_ids=segments)
+    fwd_tol, grad_tol = FLASH_TOL[dtype]
+    assert _tile_err(o, ro) <= fwd_tol
+    assert _tile_err(lse, rlse) <= fwd_tol
+    for got, ref in zip(grads, rgrads):
+        assert got.dtype == ref.dtype and torch.isfinite(got).all()
+        assert _tile_err(got, ref) <= grad_tol
+
+
+def test_flash_attention_autograd_on_card(card):
+    """The public entry runs the kernels both ways on CUDA tensors and
+    agrees with its CPU (plain) path."""
+    fa, q, k, v, do, segments = _flash_case(card, torch.float32, 128, True)
+    before = dict(fa.LAUNCHES)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=True, segment_ids=segments)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert fa.LAUNCHES['flash_fwd_seg'] == before['flash_fwd_seg'] + 1
+    assert fa.LAUNCHES['flash_dkv_seg'] == before['flash_dkv_seg'] + 1
+    cpu = [x.detach().cpu().requires_grad_(True) for x in (q, k, v)]
+    ref = fa.flash_attention(*cpu, causal=True,
+                             segment_ids=segments.cpu())
+    rgrads = torch.autograd.grad(ref, cpu, do.cpu())
+    assert (out.detach().cpu() - ref.detach()).abs().max().item() <= 2e-4
+    for got, want in zip(grads, rgrads):
+        assert (got.cpu() - want).abs().max().item() <= 2e-3
+
+
+def test_flash_kernel_rejects_unsupported_inputs(card):
+    fa, q, k, v, _, _ = _flash_case(card, torch.bfloat16, 128, False)
+    with pytest.raises(ValueError, match='dtype'):
+        fa.flash_forward_kernel(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match='contiguous'):
+        fa.flash_forward_kernel(q[:, ::2], k[:, ::2], v[:, ::2])
+    with pytest.raises(ValueError, match='head dim'):
+        fa.flash_forward_kernel(
+            torch.zeros((1, 128, 2, 384), device=card),
+            torch.zeros((1, 128, 1, 384), device=card),
+            torch.zeros((1, 128, 1, 384), device=card))
+
+
 def test_engine_kernel_path_matches_cpu_path(card):
     from skypilot_tpu_torch.inference.continuous import (
         ContinuousBatchingEngine)

@@ -53,7 +53,10 @@ def _forbidden_imports(path):
 
 def test_every_module_imports_with_jax_blocked():
     mods = [m for m, _ in _package_modules()]
-    assert 'skypilot_tpu_torch.ops.paged_attention' in mods
+    for mod in ('ops.paged_attention', 'ops.flash_attention',
+                'ops.attention', 'train.loss', 'train.step',
+                'train.pretrain'):
+        assert 'skypilot_tpu_torch.' + mod in mods
     code = (
         'import sys\n'
         "sys.modules['jax'] = None\n"
@@ -91,6 +94,12 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         llama.init_params(0, get_model_config('tiny'))
     with pytest.raises(RuntimeError, match='no CUDA device'):
         server.main(['--model', 'tiny', '--port', '0'])
+    from skypilot_tpu_torch.train import pretrain, step
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        pretrain.main(['--model', 'tiny', '--steps', '1'])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        step.create_train_state(0, get_model_config('tiny'),
+                                step.TrainHParams())
     params = llama.init_params(0, get_model_config('tiny'), device='cpu')
     assert params['layers']['attn']['wq'].device.type == 'cpu'
 
