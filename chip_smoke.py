@@ -22,35 +22,59 @@ Phases, in order; any failure exits non-zero:
    and ``F.scaled_dot_product_attention`` over the gathered view (a
    yardstick only; the port never calls it), beside the bound; and the
    kernel's time against its split count at B=4, 8, 40 and 128.
-4. Flash kernels vs plain: forward (o, lse), dq and dk/dv against their
+4. Decode kernels vs plain: each decode-attention kernel (kernels 3-4,
+   the batch engine's) against its plain PyTorch version at llama3-8b
+   heads: B=8 mixed lengths 1..2048 at T=2048 with Q=1 and Q=5, the batch
+   engine's T=288 (off the 32-row tile), a cache whose stale rows hold
+   +-1e4, D=64 and D=256; bf16, fp32 and int8 caches; each output held
+   by its error normalized per (sequence, head) (``head_err``), with
+   planted faults (a (sequence, kv head) unwritten, a last partial tile
+   skipped) that must exceed the same limit. Then times at B=8 mixed
+   T=2048: kernel, plain, and SDPA with a boolean length mask over the
+   whole cache (a yardstick only), beside the bound.
+5. Flash kernels vs plain: forward (o, lse), dq and dk/dv against their
    plain versions at bench-1b7's attention shape (B=2, S=2048, H=20,
    KVH=4, D=128), causal and not, bf16 and fp32, with and without
-   segment ids; once at D=256; each output's error normalized per
+   segment ids; once at D=256; once at the batch engine's prefill shape
+   (llama3-8b heads H=32, KVH=8, B=4, S=256, bf16, causal); each
+   output's error normalized per
    64-row tile of one head (``tile_err``). Faults planted in the plain
    bf16 outputs (a tile unwritten, a key tile skipped, a group head
    dropped) must exceed the same limits. Then at the trainer's shape
    (B=8, bf16, causal) the outputs against plain once more, and the
    times: each kernel, its plain version, SDPA's flash backend forward
    and backward (a yardstick only), and the bound.
-5. Small-model training agreement: TINY with head_dim 128 and fp32
+6. Small-model training agreement: TINY with head_dim 128 and fp32
    compute, three train steps on the card (kernel path) and on the CPU
    (plain path) from the same params and batches; and at bf16 compute,
    one forward and backward on the card through the kernels and through
    ``xla_attention``, every parameter gradient compared.
-6. Training, full width and depth: ``train.pretrain.main`` on bench-1b7,
+7. Training, full width and depth: ``train.pretrain.main`` on bench-1b7,
    B=8, S=2048, 20 steps; losses finite and falling; the flash counters
    must move by 2 x n_layers forward and n_layers each of dq and dk/dv
    per step (full remat), and no call may leave the kernels' gate. Step time, tokens/s, TFLOP/s, share of peak
    and peak memory. Then three ``make_train_step`` steps with segment
    ids: the segment kernels must run.
-7. Small-model serving agreement: the engine on the card and on the CPU
+8. Small-model serving agreement: the engine on the card and on the CPU
    give the same greedy tokens (TINY, head_dim 128, fp32 compute).
-8. Engine, full width: llama3-8b at full depth (bf16 weights from the
+9. Continuous engine, full width: llama3-8b at full depth (bf16 weights from the
    port's seeded random init on the card), served by the port's HTTP
    server; four concurrent ``/generate`` requests, one of them longer
    than a prefill chunk; the kernel counter must rise by n_layers per
    decode step; a repeated request is identical.
-9. Engine, int8 KV on the same weights: the int8 kernel must run.
+10. Continuous engine, int8 KV on the same weights: the int8 kernel
+   must run.
+11. Small batch-engine agreement: ``InferenceEngine`` on the card and on
+   the CPU give the same greedy tokens (TINY, head_dim 128, fp32
+   compute), with an fp and an int8 cache.
+12. Batch engine, full width: ``InferenceEngine(max_batch=4)`` on phase
+   9's llama3-8b weights behind the port's HTTP server; one /generate
+   of 4 prompts (bucket 256) and 32 new tokens: decode_attention must
+   launch n_layers x 32 times and flash fwd n_layers times, with no
+   flash fallback; a repeat is identical; the prefill time of the
+   batch; ``embed_text`` gives unit-norm vectors; an int8-KV engine
+   (the int8 kernel must run) and a W8A8 engine (prefill logits finite,
+   cosine > 0.99 against the bf16 weights') on the same weights.
 
 Then one JSON line listing every kernel, the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``.
@@ -297,7 +321,217 @@ def split_study(torch, pa, llama, lengths8, flush):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: flash-attention kernels vs plain
+# Phase 4: decode-attention kernels vs plain
+# ---------------------------------------------------------------------------
+
+# Limits on the per-(sequence, head) normalized error (head_err). bf16
+# rounds P (kernel and plain) and, for an int8 cache, the plain version
+# rounds the dequantized V and P to bf16 where the kernel keeps fp32; a
+# CPU run of the plain version at bf16 against fp32 reads 7e-3 to 9e-3 at
+# the B=8 mixed shape. Planted faults (decode_faults) must exceed them.
+DECODE_TOL = {'bf16': 2e-2, 'fp32': 1e-4, 'int8': 2e-2}
+
+
+def decode_case(torch, *, b, kvh, g, d, t, lengths, q_len, cache, seed,
+                poison=False):
+    """Card tensors for one decode-attention call (public layout). With
+    ``poison``, cache rows at and past n_valid hold +-1e4 (K +, V -)."""
+    from skypilot_tpu_torch.models.decode import quantize_kv
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed)
+    qdt = torch.float32 if cache == 'fp32' else torch.bfloat16
+    k = torch.randn((b, t, kvh, d), generator=gen, device='cuda')
+    v = torch.randn((b, t, kvh, d), generator=gen, device='cuda')
+    q = torch.randn((b, q_len, kvh * g, d), generator=gen,
+                    device='cuda').to(qdt)
+    nv = torch.tensor(lengths, dtype=torch.int32, device='cuda')
+    if poison:
+        stale = (torch.arange(t, device='cuda')[None, :] >=
+                 nv[:, None])[..., None, None]
+        k = torch.where(stale, torch.full_like(k, 1e4), k)
+        v = torch.where(stale, torch.full_like(v, -1e4), v)
+    c = {'q': q, 'nv': nv, 'k_scale': None, 'v_scale': None}
+    if cache == 'int8':
+        c['k'], c['k_scale'] = quantize_kv(k.to(torch.bfloat16))
+        c['v'], c['v_scale'] = quantize_kv(v.to(torch.bfloat16))
+    else:
+        c['k'], c['v'] = k.to(qdt), v.to(qdt)
+    return c
+
+
+def run_decode(da, c):
+    return da.decode_attention(c['q'], c['k'], c['v'], c['nv'],
+                               k_scale=c['k_scale'], v_scale=c['v_scale'])
+
+
+def run_decode_plain(da, c, nv=None):
+    return da.xla_decode_attention(c['q'], c['k'], c['v'],
+                                   c['nv'] if nv is None else nv,
+                                   c['k_scale'], c['v_scale'])
+
+
+def head_err(torch, got, ref, nv) -> float:
+    """The largest normalized error of one (sequence, head): max over
+    (b, h) of max|got - ref| / max|ref| over its query rows and head
+    dims, [B, Q, H, D]. Fully masked query rows (window positions with
+    n_valid - (Q - 1 - j) <= 0, discarded by the caller) are left out."""
+    q_len = ref.shape[1]
+    limit = (nv.long()[:, None] - (q_len - 1) +
+             torch.arange(q_len, device=nv.device)[None, :])
+    keep = (limit > 0)[..., None, None]
+    ref = ref.float()
+    diff = ((got.float() - ref).abs() * keep).amax(dim=(1, 3))
+    scale = (ref.abs() * keep).amax(dim=(1, 3)).clamp_min(1e-30)
+    return (diff / scale).max().item()
+
+
+def decode_faults(torch, da, c, ref, kvh):
+    """Errors of faults the kernel could make, built from the plain
+    output: one (sequence, kv head) left unwritten (sequence 1, kv head
+    3), and the last partial 32-row tile of one sequence skipped
+    (sequence 4, n_valid 1000: rows 992-999)."""
+    unwritten = ref.clone()
+    g = ref.shape[2] // kvh
+    unwritten[1, :, 3 * g:4 * g] = 0
+    nv = c['nv'].clone()
+    nv[4] = nv[4] // 32 * 32
+    skipped = run_decode_plain(da, c, nv)
+    return {'one (b, kv head) unwritten':
+                head_err(torch, unwritten, ref, c['nv']),
+            'last partial tile skipped':
+                head_err(torch, skipped, ref, c['nv'])}
+
+
+def decode_bound(c, bw, flops_peak):
+    """Least time for the work this call's data needs: the K/V rows below
+    min(n_valid, T) (+ int8 scales), q, out and lengths, each moved once,
+    against ~4 flops per (query row, key row, dim)."""
+    b, q_len, h, d = c['q'].shape
+    t, kvh = c['k'].shape[1], c['k'].shape[2]
+    rows = sum(min(n, t) for n in c['nv'].tolist())
+    kv_bytes = rows * kvh * d * 2 * c['k'].element_size()
+    if c['k_scale'] is not None:
+        kv_bytes += rows * kvh * 4 * 2
+    q_bytes = c['q'].numel() * c['q'].element_size()
+    nbytes = kv_bytes + 2 * q_bytes + 4 * b
+    flops = 4 * rows * q_len * h * d
+    bytes_ms = nbytes / bw * 1e3
+    ops_ms = flops / flops_peak * 1e3
+    return (max(bytes_ms, ops_ms),
+            'bytes' if bytes_ms >= ops_ms else 'operations')
+
+
+def decode_library_call(torch, c):
+    """``F.scaled_dot_product_attention`` over the whole cache with a
+    boolean length mask, k/v repeated to all heads (an int8 cache
+    dequantized to bf16 first): one library call computing the same
+    Q=1 decode function, timed as a yardstick."""
+    import torch.nn.functional as F
+    b, _, h, _ = c['q'].shape
+    t, kvh = c['k'].shape[1], c['k'].shape[2]
+    k, v = c['k'], c['v']
+    if c['k_scale'] is not None:
+        k = k.float() * c['k_scale'][..., None]
+        v = v.float() * c['v_scale'][..., None]
+    dt = c['q'].dtype
+    g = h // kvh
+    k = k.to(dt).repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+    v = v.to(dt).repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+    q = c['q'].transpose(1, 2).contiguous()
+    mask = (torch.arange(t, device='cuda')[None, :] <
+            c['nv'][:, None])[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def phase_decode_kernels(torch, da, bw, flops_peak):
+    """Kernels 3-4 against their plain version at llama3-8b heads: the
+    paged kernels' B=8 mixed lengths at T=2048 (Q=1 and Q=5; bf16, fp32
+    and int8), the
+    batch engine's T=288 (off the 32-row tile), D=64 and D=256, and a
+    cache whose stale rows hold +-1e4; planted faults against the same
+    limit; then times at B=8 mixed T=2048 (bf16 and int8)."""
+    llama = dict(kvh=8, g=4, d=128)
+    lengths8 = [1, 15, 16, 17, 1000, 2048, 1000, 2048]
+    cases = []
+    for cache in ('bf16', 'fp32', 'int8'):
+        for q_len in (1, 5):
+            cases.append((f'{cache} Q={q_len} B=8 T=2048', cache,
+                          dict(llama, b=8, t=2048, lengths=lengths8,
+                               q_len=q_len), False))
+        cases.append((f'{cache} Q=1 B=4 T=288 (batch engine)', cache,
+                      dict(llama, b=4, t=288, lengths=[257, 200, 288, 131],
+                           q_len=1), False))
+        cases.append((f'{cache} Q=1 B=8 T=2048 stale rows +-1e4', cache,
+                      dict(llama, b=8, t=2048, lengths=lengths8, q_len=1),
+                      True))
+    cases.append(('bf16 D=64 H=64 KVH=8 T=300', 'bf16',
+                  dict(kvh=8, g=8, d=64, b=8, t=300,
+                       lengths=[1, 31, 33, 64, 65, 200, 299, 300],
+                       q_len=1), False))
+    cases.append(('bf16 D=256 H=16 KVH=16 T=1000', 'bf16',
+                  dict(kvh=16, g=1, d=256, b=8, t=1000,
+                       lengths=[1, 31, 33, 64, 65, 200, 999, 1000],
+                       q_len=5), False))
+    errors = {'decode_attention': 0.0, 'decode_attention_quant': 0.0}
+    failed = []
+    for seed, (label, cache, shape, poison) in enumerate(cases):
+        c = decode_case(torch, cache=cache, seed=300 + seed, poison=poison,
+                        **shape)
+        name = ('decode_attention_quant' if cache == 'int8' else
+                'decode_attention')
+        before = da.LAUNCHES[name]
+        out = run_decode(da, c)
+        torch.cuda.synchronize()
+        ref = run_decode_plain(da, c)
+        rel = head_err(torch, out, ref, c['nv'])
+        finite = bool(torch.isfinite(out).all().item())
+        ok = (finite and rel <= DECODE_TOL[cache] and
+              da.LAUNCHES[name] == before + 1)
+        if label.endswith('T=2048') and shape['q_len'] == 1:
+            faults = decode_faults(torch, da, c, ref, shape['kvh'])
+            caught = {n: e > DECODE_TOL[cache] for n, e in faults.items()}
+            log(f'[decode] {label}: planted faults, head error ' +
+                ', '.join(f'{n} {e:.3e}{"" if caught[n] else " MISSED"}'
+                          for n, e in faults.items()))
+            ok = ok and all(caught.values())
+        keep = (c['nv'].long()[:, None] - (shape['q_len'] - 1) +
+                torch.arange(shape['q_len'], device='cuda')) > 0
+        abs_err = ((out.float() - ref.float()).abs() *
+                   keep[..., None, None]).max().item()
+        errors[name] = max(errors[name], abs_err)
+        log(f'[decode] {label}: head error {rel:.3e} (limit '
+            f'{DECODE_TOL[cache]:g}), max abs {abs_err:.3e} '
+            f'{"ok" if ok else "FAIL"}')
+        if not ok:
+            failed.append(label)
+    if failed:
+        raise AssertionError(f'decode kernels disagree with plain, or a '
+                             f'planted fault passes the limit: {failed}')
+
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8,
+                        device='cuda')
+    rows = {}
+    for name, cache in (('decode_attention', 'bf16'),
+                        ('decode_attention_quant', 'int8')):
+        c = decode_case(torch, cache=cache, seed=400, t=2048, q_len=1,
+                        b=8, lengths=lengths8, **llama)
+        ms = time_ms(torch, lambda: run_decode(da, c), flush)
+        plain_ms = time_ms(torch, lambda: run_decode_plain(da, c), flush)
+        library_ms = time_ms(torch, decode_library_call(torch, c), flush)
+        bound_ms, bound_by = decode_bound(c, bw, flops_peak)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          max_abs_err=errors[name])
+        log(f'[decode] {name} B=8 mixed T=2048 Q=1: kernel {ms:.4f} ms, '
+            f'plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound '
+            f'{bound_ms:.4f} ms ({bound_by}), '
+            f'{100 * bound_ms / ms:.1f}% of bound')
+    del flush
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: flash-attention kernels vs plain
 # ---------------------------------------------------------------------------
 
 # Limits on the tile error (tile_err) of each output, (o and lse,
@@ -369,11 +603,13 @@ def flash_bound(b, s, h, kvh, d, itemsize, which, bw, flops_peak):
 def planted_faults(fa, q, k, v, do, causal, seg, ro, rlse, rgrads):
     """The tile errors of faults a kernel could make, each built
     from the plain outputs: one CTA's 64 rows left unwritten (o, dq, dk,
-    dv; batch 0, head 0, rows 1024-1087), the dq kernel skipping one key
-    tile (keys 64-127) of one head, and the dk/dv kernel dropping one
-    query head of its group. Each must exceed the check's limit."""
+    dv; batch 0, head 0, rows 1024-1087, or the last 64 of a shorter
+    sequence), the dq kernel skipping one key tile (keys 64-127) of one
+    head, and the dk/dv kernel dropping one query head of its group.
+    Each must exceed the check's limit."""
     rdq, rdk, rdv = rgrads
-    rows = slice(1024, 1088)
+    first = min(1024, q.shape[1] - 64)
+    rows = slice(first, first + 64)
 
     def unwritten(ref):
         bad = ref.clone()
@@ -400,7 +636,8 @@ def planted_faults(fa, q, k, v, do, causal, seg, ro, rlse, rgrads):
 
 def phase_flash_kernels(torch, fa, bw, flops_peak):
     """Each kernel against its plain version on the same card tensors
-    (o, lse, dq, dk, dv; tile error against FLASH_TOL), planted
+    (o, lse, dq, dk, dv; tile error against FLASH_TOL) at the trainer's
+    attention shape and at the batch engine's prefill shape, planted
     faults against the same limits, then times at the trainer's shape."""
     shape = dict(b=2, s=2048, h=20, kvh=4, d=128)   # bench-1b7 attention
     cases = [(f'{dtype} {"causal" if causal else "full"}'
@@ -411,6 +648,11 @@ def phase_flash_kernels(torch, fa, bw, flops_peak):
     cases.append(('bf16 causal seg D=256 H=KVH=16',
                   dict(b=2, s=2048, h=16, kvh=16, d=256), 'bf16', True,
                   True))
+    # The batch engine's prefill (phase 12) and embed_text: llama3-8b
+    # heads, four prompts in bucket 256.
+    cases.append(('bf16 causal B=4 S=256 H=32 KVH=8 (batch-engine prefill)',
+                  dict(b=4, s=256, h=32, kvh=8, d=128), 'bf16', True,
+                  False))
     errors = {'flash_fwd': 0.0, 'flash_dq': 0.0, 'flash_dkv': 0.0}
     failed = []
     for seed, (label, shp, dtype, causal, segments) in enumerate(cases):
@@ -549,7 +791,7 @@ def flash_times(torch, fa, errors, bw, flops_peak, failed):
 
 
 # ---------------------------------------------------------------------------
-# Phases 5-6: training
+# Phases 6-7: training
 # ---------------------------------------------------------------------------
 
 def _copy_params(tree, device):
@@ -772,7 +1014,7 @@ def train_segments(torch, fa, cfg, steps=3):
 
 
 # ---------------------------------------------------------------------------
-# Phases 7-9: the engine
+# Phases 8-10: the continuous engine
 # ---------------------------------------------------------------------------
 
 def post_generate(port: int, prompts, max_new_tokens: int):
@@ -938,8 +1180,12 @@ def profile_summary(tag, prof, wall_us, top=12):
     kinds = {}
     for dev, key, _ in rows:
         low = key.lower()
+        # Kernels 1-4 share the name of their split merge,
+        # ``combine_kernel``: it counts as its own kind.
         kind = ('flash' if 'flash_' in low else
-                'paged' if 'paged_attention' in low or 'combine' in low else
+                'decode' if 'decode_attention' in low else
+                'paged' if 'paged_attention' in low else
+                'combine' if 'combine' in low else
                 'gemm' if any(x in low for x in ('nvjet', 'gemm', 'cutlass',
                                                   'sm90_xmma')) else
                 'other')
@@ -952,9 +1198,9 @@ def profile_summary(tag, prof, wall_us, top=12):
     return busy_us / wall_us
 
 
-def phase_engine(torch, pa, profile_window=False):
-    from skypilot_tpu_torch.inference.continuous import (
-        ContinuousBatchingEngine)
+def llama3_params(torch):
+    """llama3-8b's bf16 weights from the port's seeded random init, on
+    the card; shared by the continuous and the batch engine phases."""
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.models.config import get_model_config
     cfg = get_model_config('llama3-8b')
@@ -965,6 +1211,12 @@ def phase_engine(torch, pa, profile_window=False):
     nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     log(f'[engine] llama3-8b init on card: {nbytes / 1e9:.2f} GB in '
         f'{time.perf_counter() - t0:.1f} s')
+    return params
+
+
+def phase_engine(torch, pa, params, profile_window=False):
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
     engine = ContinuousBatchingEngine('llama3-8b', params=params,
                                       max_slots=4, max_len=2048,
                                       block_size=16)
@@ -1026,6 +1278,216 @@ def phase_engine(torch, pa, profile_window=False):
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phases 11-12: the batch engine
+# ---------------------------------------------------------------------------
+
+def phase_small_batch_agreement(torch, da):
+    """TINY with head_dim 128 and fp32 compute: the batch engine on the
+    card (decode kernels) and on the CPU (plain version) from the same
+    weights give the same greedy tokens, with an fp and an int8 cache."""
+    from skypilot_tpu_torch.inference.engine import InferenceEngine
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models.config import get_model_config
+    cfg = get_model_config('tiny', head_dim=128,
+                           compute_dtype=torch.float32)
+    params = llama.init_params(7, cfg, device='cpu')
+    prompts = [[3, 1, 4, 1, 5], [2, 7, 18] * 9, [31, 41, 59, 26, 5, 3]]
+    for quantize_kv in (False, True):
+        name = ('decode_attention_quant' if quantize_kv else
+                'decode_attention')
+        outs = {}
+        for device in ('cuda', 'cpu'):
+            engine = InferenceEngine('tiny', cfg=cfg, params=params,
+                                     device=device, max_batch=4,
+                                     quantize_kv=quantize_kv)
+            before = da.LAUNCHES[name]
+            outs[device] = engine.generate_ids(prompts, max_new_tokens=12)
+            moved = da.LAUNCHES[name] - before
+            want = cfg.n_layers * 16 if device == 'cuda' else 0
+            if moved != want:
+                raise AssertionError(f'{device}: {name} launched {moved} '
+                                     f'times, expected {want}')
+        log(f'[small-batch] quantize_kv={quantize_kv}: card tokens '
+            f'{outs["cuda"]}')
+        if outs['cuda'] != outs['cpu']:
+            raise AssertionError(f'card and CPU batch engines disagree: '
+                                 f'{outs}')
+    log('[small-batch] card (kernel) and CPU (plain) greedy tokens agree, '
+        'fp and int8 cache')
+
+
+def drive_batch(torch, da, fa, engine, prompts, max_new_tokens):
+    """One ``/generate`` of ``prompts`` through the port's HTTP server in
+    front of the batch engine: the launch counts are zeroed just before
+    and read just after. Returns (outputs, decode counts, flash counts,
+    flash fallbacks, stats delta, wall seconds)."""
+    server, port = serve_engine(engine)
+    try:
+        before = dict(engine.stats)
+        torch.cuda.synchronize()
+        da.reset_launch_counts()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        payload = post_generate(port, prompts, max_new_tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, flash = dict(da.LAUNCHES), dict(fa.LAUNCHES)
+        fallbacks = dict(fa.FALLBACKS)
+    finally:
+        server.shutdown()
+        server.server_close()
+    outputs = payload.get('outputs')
+    if not isinstance(outputs, list) or len(outputs) != len(prompts) or \
+            not all(isinstance(o, str) for o in outputs):
+        raise AssertionError(f'bad /generate payload: {payload}')
+    delta = {k: engine.stats[k] - before[k] for k in before}
+    return outputs, counts, flash, fallbacks, delta, wall
+
+
+def check_batch_counts(label, counts, flash, fallbacks, expected,
+                       n_flash):
+    if counts != expected or flash['flash_fwd'] != n_flash or \
+            fallbacks['cuda']:
+        raise AssertionError(
+            f'{label}: decode launches {counts} (expected {expected}), '
+            f'flash fwd {flash["flash_fwd"]} (expected {n_flash}), calls '
+            f'outside the flash kernels {fallbacks}')
+
+
+def profile_batch(torch, engine, prompts, max_new_tokens):
+    """Trace one batch-engine request (prefill + decode steps) with
+    ``torch.profiler``: the device's busy share and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.generate_text(prompts, max_new_tokens=max_new_tokens)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return profile_summary('profile-batch', prof, wall_us)
+
+
+def phase_batch_engine(torch, da, fa, params, profile_window=False):
+    """llama3-8b at full width and depth (phase 9's bf16 weights)
+    through ``InferenceEngine(max_batch=4)`` behind the port's HTTP
+    server: one /generate of 4 prompts of 131-255 tokens (bucket 256)
+    and 32 new tokens (T = 288); decode_attention must launch exactly
+    n_layers x 32 times, flash fwd n_layers times, no call may leave
+    the flash gate; a repeat is identical; embed_text; the int8-KV and
+    W8A8 engines on the same weights."""
+    from skypilot_tpu_torch.inference.engine import InferenceEngine
+    from skypilot_tpu_torch.models import decode as decode_lib
+    from skypilot_tpu_torch.models.config import get_model_config
+    cfg = get_model_config('llama3-8b')
+    n_layers, new = cfg.n_layers, 32
+    text = ('The batch engine pads every prompt of one request to a '
+            'shared bucket and decodes them together. ') * 4
+    prompts = [text[:n] for n in (130, 170, 211, 254)]
+    result = {}
+    engine = InferenceEngine('llama3-8b', params=params, max_batch=4)
+    ids = [engine.tokenizer.encode(p) for p in prompts]
+    if not all(128 < len(x) <= 256 for x in ids):
+        raise AssertionError(f'prompt lengths {[len(x) for x in ids]}')
+    engine.generate_text(['warmup'], max_new_tokens=8)
+    outputs, counts, flash, fallbacks, delta, wall = drive_batch(
+        torch, da, fa, engine, prompts, new)
+    check_batch_counts('batch engine', counts, flash, fallbacks,
+                       {'decode_attention': n_layers * new,
+                        'decode_attention_quant': 0}, n_layers)
+    result['launches'] = counts['decode_attention']
+    log(f'[batch] decode_attention: {counts["decode_attention"]} launches '
+        f'= {n_layers} layers x {new} steps; flash fwd '
+        f'{flash["flash_fwd"]}; fallbacks {fallbacks}')
+    again = drive_batch(torch, da, fa, engine, prompts, new)[0]
+    if again != outputs:
+        raise AssertionError(f'repeat differs: {outputs} vs {again}')
+    log('[batch] repeated request identical')
+    if profile_window:
+        result['device_busy_share'] = profile_batch(torch, engine, prompts,
+                                                    new)
+
+    # Prefill alone, on the same padded batch: the median of 3 runs.
+    lengths = [len(x) for x in ids]
+    import numpy as np
+    tokens, lens = engine._batch(ids, np.array(lengths, np.int32))
+    times = []
+    with torch.no_grad():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits_fp, _ = decode_lib.prefill(engine.params, tokens, lens,
+                                              cfg, tokens.shape[1] + new)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    prefill_s = statistics.median(times)
+    tokens_gen = delta['tokens_generated']
+    gen_s = delta['decode_seconds']
+    result.update(
+        prefill_ms=prefill_s * 1e3, generate_s=gen_s,
+        tokens_generated=tokens_gen, wall_s=wall,
+        tok_s=tokens_gen / gen_s,
+        decode_tok_s=tokens_gen / (gen_s - prefill_s))
+    log(f'[batch] llama3-8b B=4 S=256 +{new}: prefill {prefill_s * 1e3:.1f}'
+        f' ms; generate {gen_s:.3f} s for {tokens_gen} tokens = '
+        f'{result["tok_s"]:.1f} tok/s ({result["decode_tok_s"]:.1f} tok/s '
+        f'without the prefill); request wall {wall:.3f} s')
+
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    vecs = engine.embed_text(prompts)
+    norms = np.linalg.norm(vecs, axis=-1)
+    if vecs.shape != (4, cfg.d_model) or not np.isfinite(vecs).all() or \
+            np.abs(norms - 1).max() > 1e-3 or \
+            fa.LAUNCHES['flash_fwd'] != n_layers or fa.FALLBACKS['cuda']:
+        raise AssertionError(f'embed_text: shape {vecs.shape}, norms '
+                             f'{norms}, flash {fa.LAUNCHES}, fallbacks '
+                             f'{fa.FALLBACKS}')
+    log(f'[batch] embed_text: {vecs.shape}, norms {norms.tolist()}, flash '
+        f'fwd {fa.LAUNCHES["flash_fwd"]}')
+    del engine
+
+    engine = InferenceEngine('llama3-8b', params=params, max_batch=4,
+                             quantize_kv=True)
+    _, counts, flash, fallbacks, _, _ = drive_batch(
+        torch, da, fa, engine, prompts, new)
+    check_batch_counts('int8 KV', counts, flash, fallbacks,
+                       {'decode_attention': 0,
+                        'decode_attention_quant': n_layers * new}, n_layers)
+    result['launches_quant'] = counts['decode_attention_quant']
+    log(f'[batch] int8 KV: decode_attention_quant '
+        f'{counts["decode_attention_quant"]} launches')
+    del engine
+
+    t0 = time.perf_counter()
+    engine = InferenceEngine('llama3-8b', params=params, max_batch=4,
+                             quantize=True)
+    torch.cuda.synchronize()
+    log(f'[batch] W8A8 weights quantized in {time.perf_counter() - t0:.1f} '
+        f's')
+    _, counts, flash, fallbacks, delta, _ = drive_batch(
+        torch, da, fa, engine, prompts[:1], new)
+    check_batch_counts('W8A8', counts, flash, fallbacks,
+                       {'decode_attention': n_layers * new,
+                        'decode_attention_quant': 0}, n_layers)
+    with torch.no_grad():
+        logits_q, _ = decode_lib.prefill(engine.params, tokens, lens, cfg,
+                                         tokens.shape[1] + new)
+    fp, q = logits_fp.double(), logits_q.double()
+    cos = ((fp * q).sum() / (fp.norm() * q.norm())).item()
+    finite = bool(torch.isfinite(logits_q).all().item())
+    result['w8a8_cosine'] = cos
+    result['w8a8_tok_s'] = delta['tokens_generated'] / delta['decode_seconds']
+    log(f'[batch] W8A8: one request, {delta["tokens_generated"]} tokens in '
+        f'{delta["decode_seconds"]:.3f} s; prefill logits finite {finite}, '
+        f'cosine {cos:.5f} against bf16 weights (limit 0.99)')
+    if not finite or not cos > 0.99:
+        raise AssertionError('W8A8 prefill logits not finite or not close '
+                             'to the bf16 ones')
+    del engine
+    return result
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for value in tree.values():
@@ -1041,10 +1503,11 @@ def main(argv=None) -> int:
                              'no engine)')
     parser.add_argument('--profile', action='store_true',
                         help='also trace two bench-1b7 train steps and '
-                             'one batch of llama3-8b requests with '
-                             'torch.profiler (device busy share, top '
-                             'kernels)')
+                             'one batch of llama3-8b requests on each '
+                             'engine with torch.profiler (device busy '
+                             'share, top kernels)')
     args = parser.parse_args(argv)
+    started = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -1052,6 +1515,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from skypilot_tpu_torch import _build
+    from skypilot_tpu_torch.ops import decode_attention as da
     from skypilot_tpu_torch.ops import flash_attention as fa
     from skypilot_tpu_torch.ops import paged_attention as pa
     kind = torch.cuda.get_device_name(0)
@@ -1067,9 +1531,10 @@ def main(argv=None) -> int:
         f'{time.perf_counter() - t0:.1f} s: {libs}')
 
     rows = phase_kernels(torch, pa, bw, flops_peak)
+    rows.update(phase_decode_kernels(torch, da, bw, flops_peak))
     flash_rows, backward_ms = phase_flash_kernels(torch, fa, bw, flops_peak)
     rows.update(flash_rows)
-    engine, train = {}, {}
+    engine, train, batch = {}, {}, {}
     if not args.skip_engine:
         phase_train_small(torch)
         train = phase_train(torch, fa, flops_peak)
@@ -1084,14 +1549,26 @@ def main(argv=None) -> int:
                 torch, get_model_config('bench-1b7'))
         log(f'[train] summary {json.dumps(train)}')
         phase_small_agreement(torch)
-        engine = phase_engine(torch, pa, profile_window=args.profile)
+        params = llama3_params(torch)
+        engine = phase_engine(torch, pa, params,
+                              profile_window=args.profile)
         log(f'[engine] summary {json.dumps(engine)}')
+        phase_small_batch_agreement(torch, da)
+        batch = phase_batch_engine(torch, da, fa, params,
+                                   profile_window=args.profile)
+        log(f'[batch] summary {json.dumps(batch)}')
+        del params
     flash_src = 'skypilot_tpu/ops/pallas/flash_attention.py'
     replaces = {
         'paged_attention':
             'skypilot_tpu/ops/pallas/paged_attention.py:64',
         'paged_attention_quant':
             'skypilot_tpu/ops/pallas/paged_attention.py:124',
+        'decode_attention':
+            'skypilot_tpu/ops/pallas/decode_attention.py:42 _decode_kernel',
+        'decode_attention_quant':
+            'skypilot_tpu/ops/pallas/decode_attention.py:109 '
+            '_decode_kernel_quant',
         'flash_fwd': f'{flash_src}:62 _fwd_kernel + :128 _fwd_kernel_seg',
         'flash_dq': f'{flash_src}:193 _bwd_dq_kernel + '
                     ':246 _bwd_dq_kernel_seg',
@@ -1100,21 +1577,27 @@ def main(argv=None) -> int:
     }
     sources = {'paged_attention': 'paged_attention.cu',
                'paged_attention_quant': 'paged_attention.cu',
+               'decode_attention': 'decode_attention.cu',
+               'decode_attention_quant': 'decode_attention.cu',
                'flash_fwd': 'flash_attention.cu',
                'flash_dq': 'flash_attention.cu',
                'flash_dkv': 'flash_attention.cu'}
-    # Counts come only from the main paths' own runs (the engine for the
-    # paged kernels, the bench-1b7 trainer for the flash kernels): null
-    # when they were skipped, never a number this run did not measure.
+    # Counts come only from the main paths' own runs (the continuous
+    # engine for the paged kernels, the batch engine for the decode
+    # kernels, the bench-1b7 trainer for the flash kernels): null when
+    # they were skipped, never a number this run did not measure.
     tl = train.get('launches')
     launches = {'paged_attention': engine.get('launches'),
-                'paged_attention_quant': engine.get('launches_quant')}
+                'paged_attention_quant': engine.get('launches_quant'),
+                'decode_attention': batch.get('launches'),
+                'decode_attention_quant': batch.get('launches_quant')}
     for name in ('flash_fwd', 'flash_dq', 'flash_dkv'):
         launches[name] = tl[name] + tl[name + '_seg'] if tl else None
     kernels = [dict(name=name, route='cuda',
                     source='skypilot_tpu_torch/csrc/' + sources[name],
                     replaces=replaces[name], launches=launches[name],
                     **rows[name]) for name in replaces]
+    log(f'[smoke] {time.perf_counter() - started:.1f} s, build included')
     print(json.dumps({'kernels': kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -1,4 +1,5 @@
-"""Serving: the continuous-batching engine and its HTTP server.
+"""Serving: the batch and continuous-batching engines and their HTTP
+server.
 
 Modules are imported explicitly (``from skypilot_tpu_torch.inference
 import continuous``); nothing heavy loads with the package.

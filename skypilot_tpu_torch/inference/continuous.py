@@ -21,7 +21,7 @@ is the reference's.
 
 Not ported yet (constructor arguments that raise when set): multi-LoRA
 pages, speculative decoding, disaggregated roles, tensor-parallel
-meshes, W8A8 weights, checkpoint and HF loading; likewise live weight
+meshes, checkpoint and HF loading; likewise live weight
 refresh and tracing spans.
 """
 from __future__ import annotations
@@ -44,7 +44,7 @@ from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.models.config import (ModelConfig, get_model_config,
                                               with_int8_kv_cache)
 from skypilot_tpu_torch.models.quant import maybe_quantize
-from skypilot_tpu_torch.utils.device import resolve_device
+from skypilot_tpu_torch.utils.device import resolve_device, to_device
 
 DEFAULT_BLOCK_SIZE = 16
 DEFAULT_PREFILL_CHUNK = 64
@@ -212,7 +212,7 @@ class ContinuousBatchingEngine:
         if params is None:
             params = llama.init_params(seed, self.cfg, device=self.device,
                                        weight_dtype=self.cfg.compute_dtype)
-        params = _to_device(params, self.device)
+        params = to_device(params, self.device)
         self.params = decode_lib.serving_params(
             maybe_quantize(params, quantize), self.cfg)
         self.cache = decode_lib.init_paged_cache(
@@ -686,9 +686,3 @@ class ContinuousBatchingEngine:
         self._stop.set()
         self._wake.set()
         self._thread.join(timeout=10)
-
-
-def _to_device(params: Any, device: torch.device) -> Any:
-    if isinstance(params, dict):
-        return {k: _to_device(v, device) for k, v in params.items()}
-    return params.to(device)

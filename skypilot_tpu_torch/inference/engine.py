@@ -1,0 +1,183 @@
+"""Batched KV-cache inference engine: the port of
+``skypilot_tpu/inference/engine.py``.
+
+Requests are batched, prompts right-padded into shape buckets (powers
+of two, at least 16), the batch padded to a power of two, and
+``max_new_tokens`` rounded up to a bucket of at least 8; the whole
+batch then runs ``models/decode.py:generate``: one ``prefill`` (flash
+attention at prompt buckets that are multiples of 128) and exactly that
+many ``decode_step``s, each layer of which is the Hopper
+decode-attention kernel on the card. ``embed_text`` mean-pools the
+final hidden states of ``llama.forward``.
+
+``device``: default ``cuda`` (raises without a GPU); pass ``'cpu'`` to
+run on the CPU. ``params``: a port params dict (``models/convert.py``
+carries JAX params over); default ``llama.init_params`` from ``seed``
+on the device, in the compute dtype. Checkpoint and HF loading and
+tensor-parallel meshes are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from skypilot_tpu_torch.inference.tokenizer import get_tokenizer
+from skypilot_tpu_torch.models import decode as decode_lib
+from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models.config import (ModelConfig, get_model_config,
+                                              with_int8_kv_cache)
+from skypilot_tpu_torch.models.quant import maybe_quantize
+from skypilot_tpu_torch.utils.device import resolve_device, to_device
+
+
+def _bucket(n: int, minimum: int = 16) -> int:
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def _embed_pooled(params, tokens: torch.Tensor, lengths: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Masked mean-pool of final hidden states, L2-normalized (fp32)."""
+    hidden = llama.forward(params, tokens, cfg, return_hidden=True)
+    s = tokens.shape[1]
+    mask = (torch.arange(s, device=tokens.device)[None, :] <
+            lengths[:, None])
+    # bf16 products with a 0/1 mask are exact in fp32: the reference's
+    # einsum with an fp32 result.
+    summed = (hidden.float() * mask[..., None].float()).sum(dim=1)
+    pooled = summed / torch.clamp(lengths[:, None].float(), min=1.0)
+    norm = torch.linalg.norm(pooled, dim=-1, keepdim=True)
+    return pooled / torch.clamp(norm, min=1e-6)
+
+
+class InferenceEngine:
+    """Thread-safe generate() over a fixed model."""
+
+    def __init__(self,
+                 model: str = 'tiny',
+                 *,
+                 cfg: Optional[ModelConfig] = None,
+                 params: Optional[Any] = None,
+                 device: Optional[Union[str, torch.device]] = None,
+                 checkpoint_dir: Optional[str] = None,
+                 hf_checkpoint: Optional[str] = None,
+                 seed: int = 0,
+                 max_batch: int = 8,
+                 quantize: bool = False,
+                 quantize_kv: bool = False,
+                 mesh: Optional[Any] = None) -> None:
+        unported = {'hf_checkpoint': (hf_checkpoint, 11),
+                    'checkpoint_dir': (checkpoint_dir, 14),
+                    'mesh': (mesh, 15)}
+        for name, (value, item) in unported.items():
+            if value:
+                raise NotImplementedError(
+                    f'{name}= is not ported yet (ROADMAP.md, queue A item '
+                    f'{item})')
+        self.device = resolve_device(device)
+        self.cfg = cfg or get_model_config(model)
+        if quantize_kv:
+            # int8 KV cache, dequantized inside the decode kernel.
+            self.cfg = with_int8_kv_cache(self.cfg)
+        self.tokenizer = get_tokenizer()
+        if self.tokenizer.vocab_size > self.cfg.vocab_size:
+            raise ValueError(
+                f'Model vocab {self.cfg.vocab_size} < tokenizer '
+                f'vocab {self.tokenizer.vocab_size}')
+        self.max_batch = max_batch
+        self._lock = threading.Lock()
+        if params is None:
+            params = llama.init_params(seed, self.cfg, device=self.device,
+                                       weight_dtype=self.cfg.compute_dtype)
+        params = to_device(params, self.device)
+        self.params = decode_lib.serving_params(
+            maybe_quantize(params, quantize), self.cfg)
+        self.stats: Dict[str, float] = {
+            'requests': 0, 'tokens_generated': 0, 'decode_seconds': 0.0}
+
+    def _batch(self, ids: List[List[int]], lengths: np.ndarray):
+        """Right-padded [batch bucket, prompt bucket] tokens and lengths
+        (padding rows have length 1) on the device."""
+        b = len(ids)
+        s = _bucket(int(lengths.max()))
+        batch_b = _bucket(b, minimum=1)
+        tokens = np.full((batch_b, s), self.tokenizer.pad_id, np.int32)
+        for i, p in enumerate(ids):
+            tokens[i, :len(p)] = p
+        pad_lengths = np.concatenate(
+            [lengths, np.ones(batch_b - b, np.int32)])
+        return (torch.as_tensor(tokens, device=self.device),
+                torch.as_tensor(pad_lengths, device=self.device))
+
+    # ------------------------------------------------------------------
+
+    def generate_ids(self, prompts: List[List[int]],
+                     max_new_tokens: int = 32,
+                     temperature: float = 0.0,
+                     seed: int = 0) -> List[List[int]]:
+        if not prompts:
+            return []
+        if len(prompts) > self.max_batch:
+            out: List[List[int]] = []
+            for i in range(0, len(prompts), self.max_batch):
+                out.extend(self.generate_ids(
+                    prompts[i:i + self.max_batch], max_new_tokens,
+                    temperature, seed))
+            return out
+        b = len(prompts)
+        lengths = np.array([len(p) for p in prompts], np.int32)
+        n_new = _bucket(max_new_tokens, minimum=8)
+        tokens, pad_lengths = self._batch(prompts, lengths)
+        with self._lock, torch.no_grad():
+            t0 = time.perf_counter()
+            generated, gen_lengths = decode_lib.generate(
+                self.params, tokens, pad_lengths, self.cfg,
+                max_new_tokens=n_new, temperature=temperature,
+                eos_id=self.tokenizer.eos_id, seed=seed)
+            generated = generated.cpu().numpy()
+            gen_lengths = gen_lengths.cpu().numpy()
+            elapsed = time.perf_counter() - t0
+            self.stats['requests'] += b
+            self.stats['tokens_generated'] += int(gen_lengths[:b].sum())
+            self.stats['decode_seconds'] += elapsed
+        return [
+            generated[i, :min(int(gen_lengths[i]), max_new_tokens)].tolist()
+            for i in range(b)
+        ]
+
+    def generate_text(self, prompts: List[str],
+                      max_new_tokens: int = 32,
+                      temperature: float = 0.0,
+                      seed: int = 0) -> List[str]:
+        ids = [self.tokenizer.encode(p) for p in prompts]
+        outs = self.generate_ids(ids, max_new_tokens, temperature, seed)
+        return [self.tokenizer.decode(o) for o in outs]
+
+    # -- text embeddings ------------------------------------------------
+
+    def embed_text(self, texts: List[str]) -> np.ndarray:
+        """[len(texts), d_model] L2-normalized fp32 embeddings: final
+        hidden states (``llama.forward(return_hidden=True)``, no LM head)
+        mean-pooled over the real tokens of each right-padded prompt."""
+        if not texts:
+            return np.zeros((0, self.cfg.d_model), np.float32)
+        if len(texts) > self.max_batch:
+            parts = [self.embed_text(texts[i:i + self.max_batch])
+                     for i in range(0, len(texts), self.max_batch)]
+            return np.concatenate(parts, axis=0)
+        ids = [self.tokenizer.encode(t)[:self.cfg.max_seq_len]
+               for t in texts]
+        b = len(ids)
+        lengths = np.array([max(len(p), 1) for p in ids], np.int32)
+        tokens, pad_lengths = self._batch(ids, lengths)
+        with self._lock, torch.no_grad():
+            pooled = _embed_pooled(self.params, tokens, pad_lengths,
+                                   self.cfg)
+            self.stats['requests'] += b
+            return pooled.cpu().numpy()[:b]

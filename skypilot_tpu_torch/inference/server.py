@@ -1,9 +1,12 @@
-"""Inference HTTP server of the port: the continuous engine over stdlib HTTP.
+"""Inference HTTP server of the port: an engine over stdlib HTTP.
 
-The port of ``skypilot_tpu/inference/server.py``'s ``--engine
-continuous`` path, with the same payloads::
+The port of ``skypilot_tpu/inference/server.py`` with the same payloads
+and the same two engines: ``--engine batch`` (the default, the
+monolithic ``InferenceEngine``) and ``--engine continuous`` (the
+continuous-batching engine)::
 
-    python -m skypilot_tpu_torch.inference.server --model llama3-8b
+    python -m skypilot_tpu_torch.inference.server --model llama3-8b \
+        [--engine continuous] [--quantize] [--quantize-kv]
 
 Endpoints:
     GET  /health     -> 200 {"status": "ok", "model": ...}
@@ -45,7 +48,8 @@ def make_handler(engine):
             if self.path == '/health':
                 self._json(200, {'status': 'ok', 'model': engine.cfg.name})
             elif self.path == '/stats':
-                self._json(200, engine.stats())
+                stats = engine.stats
+                self._json(200, stats() if callable(stats) else stats)
             else:
                 self._json(404, {'error': 'not found'})
 
@@ -66,11 +70,13 @@ def make_handler(engine):
 
         def _generate(self, req):
             prompts = req.get('prompts') or [req.get('prompt', '')]
-            outputs = engine.generate_texts(
-                prompts,
-                max_new_tokens=int(req.get('max_new_tokens', 32)),
-                temperature=float(req.get('temperature', 0.0)),
-                seed=int(req.get('seed', 0)))
+            kwargs = dict(max_new_tokens=int(req.get('max_new_tokens', 32)),
+                          temperature=float(req.get('temperature', 0.0)),
+                          seed=int(req.get('seed', 0)))
+            if hasattr(engine, 'generate_texts'):   # continuous engine
+                outputs = engine.generate_texts(prompts, **kwargs)
+            else:                                   # batch engine
+                outputs = engine.generate_text(prompts, **kwargs)
             self._json(200, {'outputs': outputs})
 
     return Handler
@@ -92,9 +98,14 @@ def main(argv=None) -> int:
                         help="torch device (default cuda; 'cpu' runs on "
                              'the CPU).')
     parser.add_argument('--max-batch', type=int, default=8)
+    parser.add_argument('--engine', default='batch',
+                        choices=['batch', 'continuous'],
+                        help='batch = one padded batch per request '
+                             '(InferenceEngine); continuous = slot-based '
+                             'continuous batching over a paged KV pool.')
     parser.add_argument('--max-len', type=int, default=None,
-                        help='KV length per slot (default: the model '
-                             'context).')
+                        help='KV length per slot (continuous engine; '
+                             'default: the model context).')
     parser.add_argument('--block-size', type=int, default=None,
                         help='paged KV block granularity in tokens '
                              '(default 16).')
@@ -104,22 +115,35 @@ def main(argv=None) -> int:
     parser.add_argument('--kv-blocks', type=int, default=None,
                         help='total paged KV pool blocks (default sized '
                              'to max_batch * max_len).')
+    parser.add_argument('--quantize', action='store_true',
+                        help='int8 W8A8 weights (per-channel weights, '
+                             'per-token activations).')
     parser.add_argument('--quantize-kv', action='store_true',
                         help='int8 KV cache (dequantized inside the '
                              'attention kernel).')
     args = parser.parse_args(argv)
-    from skypilot_tpu_torch.inference.continuous import (
-        ContinuousBatchingEngine)
-    engine = ContinuousBatchingEngine(
-        args.model,
-        device=args.device,
-        max_slots=args.max_batch,
-        max_len=args.max_len,
-        block_size=args.block_size,
-        prefill_chunk=args.prefill_chunk,
-        num_blocks=args.kv_blocks,
-        quantize_kv=args.quantize_kv)
-    engine.generate_text('warmup', max_new_tokens=8)
+    if args.engine == 'continuous':
+        from skypilot_tpu_torch.inference.continuous import (
+            ContinuousBatchingEngine)
+        engine = ContinuousBatchingEngine(
+            args.model,
+            device=args.device,
+            max_slots=args.max_batch,
+            max_len=args.max_len,
+            block_size=args.block_size,
+            prefill_chunk=args.prefill_chunk,
+            num_blocks=args.kv_blocks,
+            quantize=args.quantize,
+            quantize_kv=args.quantize_kv)
+        engine.generate_text('warmup', max_new_tokens=8)
+    else:
+        from skypilot_tpu_torch.inference.engine import InferenceEngine
+        engine = InferenceEngine(args.model,
+                                 device=args.device,
+                                 max_batch=args.max_batch,
+                                 quantize=args.quantize,
+                                 quantize_kv=args.quantize_kv)
+        engine.generate_text(['warmup'], max_new_tokens=8)
     server = serve(engine, args.host, args.port)
     try:
         server.serve_forever()
@@ -127,7 +151,8 @@ def main(argv=None) -> int:
         pass
     finally:
         server.server_close()
-        engine.shutdown()
+        if hasattr(engine, 'shutdown'):
+            engine.shutdown()
     return 0
 
 

@@ -5,7 +5,9 @@ runs ``jax.tree.map(np.asarray, params)``) and returns the port's
 params dict: the same keys, the same stacked ``[L, ...]`` layout, the
 same dtypes, on ``device``. ``params_to_numpy`` goes the other way.
 The two round-trip bit for bit (bf16 arrays travel as their raw 16-bit
-patterns).
+patterns). A W8A8-quantized JAX tree carries ``QTensor`` leaves (the
+reference's, with numpy ``q`` and ``scale``); each becomes the port's
+``QTensor``, so the same int8 weights go into both implementations.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch.models.config import ModelConfig
+from skypilot_tpu_torch.models.quant import QTensor
 from skypilot_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -77,11 +80,15 @@ def params_from_numpy(tree: Params, cfg: ModelConfig,
         path = '/'.join(prefix)
         if path not in expected:
             raise KeyError(f'unexpected param {path!r} for {cfg.name}')
-        array = np.asarray(node)
+        quantized = hasattr(node, 'q') and hasattr(node, 'scale')
+        array = np.asarray(node.q if quantized else node)
         if tuple(array.shape) != expected[path]:
             raise ValueError(f'param {path!r} has shape {array.shape}, '
                              f'{cfg.name} expects {expected[path]}')
         seen.add(path)
+        if quantized:
+            return QTensor(_to_tensor(array, dev),
+                           _to_tensor(np.asarray(node.scale), dev))
         return _to_tensor(array, dev)
 
     out = walk(tree, ())

@@ -1,5 +1,22 @@
-"""Paged KV-cache decoding for the Llama family: the paged half of
-``skypilot_tpu/models/decode.py``.
+"""KV-cache decoding for the Llama family: the port of
+``skypilot_tpu/models/decode.py`` (both halves).
+
+Monolithic cache (the batch ``InferenceEngine``):
+
+* ``KVCache``: stacked-layer arrays ``[L, B, max_len, kv_heads,
+  head_dim]`` + per-sequence lengths (int8 with per-row fp32 scales
+  when ``cfg.kv_cache_dtype == 'int8'``).
+* ``prefill`` runs the right-padded prompt batch in one causal pass
+  (flash attention) and writes the cache; only the last valid row of
+  each prompt goes through the LM head.
+* ``decode_step`` writes each active sequence's new K/V row at
+  ``lengths[b]`` in place (the counterpart of the reference's one-hot
+  ``jnp.where``) and attends through ``ops/decode_attention.py`` (the
+  Hopper kernel for CUDA tensors).
+* ``sample`` and ``generate``: exactly ``max_new_tokens`` decode steps,
+  as the reference's scan, EOS handled by masking.
+
+Paged pool (the continuous engine):
 
 * ``PagedKVCache``: a pool of fixed-size KV blocks per layer
   ``[L, num_blocks, block_size, kv_heads, head_dim]`` plus per-slot
@@ -19,8 +36,7 @@ with new lengths) whose pool tensors they have updated, where the
 reference returns new arrays. Attention over the pool goes through
 ``ops/paged_attention.py`` (the Hopper kernel for CUDA tensors);
 chunked-prefill attention is plain PyTorch, as it is plain XLA in the
-reference. LoRA pages, MoE MLPs and the monolithic ``KVCache`` path are
-later slices.
+reference. LoRA pages and MoE MLPs are later slices.
 """
 from __future__ import annotations
 
@@ -32,8 +48,10 @@ import torch
 from skypilot_tpu_torch.models.config import ModelConfig
 from skypilot_tpu_torch.models.llama import (_activate, apply_rope,
                                              fp32_logits, rope_table_for)
-from skypilot_tpu_torch.models.quant import weight_einsum
+from skypilot_tpu_torch.models.quant import QTensor, weight_einsum
+from skypilot_tpu_torch.ops.attention import multi_head_attention
 from skypilot_tpu_torch.ops.common import NEG_INF
+from skypilot_tpu_torch.ops.decode_attention import decode_attention
 from skypilot_tpu_torch.ops.norms import rms_norm
 from skypilot_tpu_torch.ops.paged_attention import paged_attention
 from skypilot_tpu_torch.utils.device import resolve_device
@@ -55,14 +73,14 @@ def serving_params(params: Params, cfg: ModelConfig) -> Params:
     """Store the projection and embedding weights in ``compute_dtype``
     once, at load. The reference casts fp32 weights to the compute
     dtype inside every einsum, so the results are the same and the
-    weights take half the memory; norm scales stay as they are (the
-    reference reads them in fp32)."""
+    weights take half the memory; norm scales and W8A8 ``QTensor``s
+    stay as they are (the reference reads them in fp32 / int8)."""
     dt = cfg.compute_dtype
 
     def cast(node, key=''):
         if isinstance(node, dict):
             return {k: cast(v, k) for k, v in node.items()}
-        if key == 'scale':
+        if key == 'scale' or isinstance(node, QTensor):
             return node
         return node.to(dt)
 
@@ -95,6 +113,9 @@ def _lm_head(params: Params, x: torch.Tensor,
     dt = cfg.compute_dtype
     if cfg.tie_embeddings:
         head = params['embed']['embedding'].to(dt).t()
+    elif isinstance(params['lm_head']['w'], QTensor):
+        return weight_einsum('bsd,dv->bsv', x, params['lm_head']['w'],
+                             torch.float32)
     else:
         head = params['lm_head']['w'].to(dt)
     return fp32_logits(x.to(dt), head)
@@ -127,6 +148,224 @@ def _attn_out_and_mlp(x: torch.Tensor, attn: torch.Tensor, lp: Params,
                           cfg.compute_dtype)
     h = rms_norm(x, lp['ln_mlp']['scale'], cfg.norm_eps)
     return x + _mlp(h, lp, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Monolithic KV cache: prefill, decode step, sampling, generate
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class KVCache:
+    """Stacked-layer KV cache + per-sequence lengths.
+
+    With ``cfg.kv_cache_dtype == 'int8'`` k/v hold int8 and
+    ``k_scale``/``v_scale`` per-row (position x kv head) fp32 scales,
+    dequantized inside the decode-attention kernel."""
+    k: torch.Tensor        # [L, B, max_len, kv_heads, head_dim]
+    v: torch.Tensor
+    lengths: torch.Tensor  # [B] int32 valid positions per sequence
+    k_scale: Optional[torch.Tensor] = None   # [L, B, max_len, kv_heads]
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device: Optional[Union[str, torch.device]] = None
+               ) -> KVCache:
+    if cfg.kv_cache_dtype not in ('compute', 'int8'):
+        raise ValueError(
+            f"kv_cache_dtype must be 'compute' or 'int8', got "
+            f'{cfg.kv_cache_dtype!r}')
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    lengths = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    if cfg.kv_cache_dtype == 'int8':
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=dev),
+            v=torch.zeros(shape, dtype=torch.int8, device=dev),
+            lengths=lengths,
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=dev))
+    dt = cfg.compute_dtype
+    return KVCache(k=torch.zeros(shape, dtype=dt, device=dev),
+                   v=torch.zeros(shape, dtype=dt, device=dev),
+                   lengths=lengths)
+
+
+def _prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       cfg: ModelConfig, mesh: Optional[Any] = None
+                       ) -> torch.Tensor:
+    """Prefill attention on one card: ``multi_head_attention`` (the flash
+    kernels inside the reference's gate, i.e. prompt buckets that are
+    multiples of 128). The reference's tensor-parallel shard_map branch
+    is multi-device work."""
+    if mesh is not None:
+        raise NotImplementedError(
+            'tensor-parallel prefill is multi-device work, not ported yet '
+            '(ROADMAP.md, queue A item 15)')
+    return multi_head_attention(q, k, v, causal=True, impl=cfg.attention_impl)
+
+
+def _write_kv(cache: KVCache, layer: int, start: int, k: torch.Tensor,
+              v: torch.Tensor) -> None:
+    """Write k/v ``[B, S, KVH, D]`` into rows ``[start, start + S)`` of
+    one layer of the cache, quantizing for an int8 cache."""
+    rows = slice(start, start + k.shape[1])
+    if cache.quantized:
+        k_q, k_s = quantize_kv(k)
+        v_q, v_s = quantize_kv(v)
+        cache.k[layer, :, rows] = k_q
+        cache.v[layer, :, rows] = v_q
+        cache.k_scale[layer, :, rows] = k_s
+        cache.v_scale[layer, :, rows] = v_s
+    else:
+        cache.k[layer, :, rows] = k.to(cache.k.dtype)
+        cache.v[layer, :, rows] = v.to(cache.v.dtype)
+
+
+def prefill(params: Params, tokens: torch.Tensor, lengths: torch.Tensor,
+            cfg: ModelConfig, max_len: int) -> Tuple[torch.Tensor, KVCache]:
+    """Process right-padded prompts; returns (last-token logits [B, V]
+    fp32, cache). tokens: [B, S] (S <= max_len), lengths: [B] valid
+    counts (>= 1).
+
+    Only each prompt's last valid row goes through the LM head: the
+    reference computes [B, S, V] logits and then takes that row (8.4 GB
+    of fp32 for llama3-8b at B=8, S=2048); the row's numbers are the
+    same."""
+    b, s = tokens.shape
+    dev = tokens.device
+    sin, cos = rope_table_for(cfg, torch.arange(s, device=dev))
+    x = _embed(params, tokens, cfg)
+    cache = init_cache(cfg, b, max_len, device=dev)
+    for layer in range(cfg.n_layers):
+        lp = _layer(params, layer)
+        q, k, v = _qkv(x, lp, cfg, sin, cos)
+        attn = _prefill_attention(q, k, v, cfg)
+        x = _attn_out_and_mlp(x, attn, lp, cfg)
+        _write_kv(cache, layer, 0, k, v)
+    lengths = lengths.to(device=dev, dtype=torch.int32)
+    last = x[torch.arange(b, device=dev), lengths.long() - 1]   # [B, D]
+    logits = _lm_head(params, last[:, None], cfg)[:, 0]
+    return logits, dataclasses.replace(cache, lengths=lengths.clone())
+
+
+def decode_step(params: Params, tokens: torch.Tensor, cache: KVCache,
+                cfg: ModelConfig, active: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, KVCache]:
+    """One autoregressive step. tokens: [B] (the just-sampled token).
+
+    Each active sequence's K/V row is written in place at
+    ``lengths[b]``; attention reads ``lengths + 1`` rows. With
+    ``active`` given, an inactive sequence or one at ``max_len`` writes
+    nothing; without it every sequence writes, so every length must be
+    below ``max_len`` (a row past the cache fails the index). Returns
+    (logits [B, V] fp32, the cache with ``lengths + active``)."""
+    b = tokens.shape[0]
+    dev = tokens.device
+    t = cache.max_len
+    lens = cache.lengths.long()
+    sin, cos = rope_table_for(cfg, lens[:, None])
+    x = _embed(params, tokens[:, None], cfg)                 # [B, 1, D]
+    rows = torch.arange(b, device=dev)
+    if active is None:
+        at, write, advance = lens, None, 1
+    else:
+        at = torch.clamp(lens, max=t - 1)
+        write = active & (lens < t)                          # [B]
+        advance = active.to(torch.int32)
+    n_valid = (lens + 1).to(torch.int32)
+    impl = cfg.decode_attention_impl or cfg.attention_impl
+
+    def put(buf: torch.Tensor, new: torch.Tensor) -> None:
+        # The reference's one-hot jnp.where, as an in-place row write.
+        new = new.to(buf.dtype)
+        if write is not None:
+            w = write.reshape(b, *([1] * (new.dim() - 1)))
+            new = torch.where(w, new, buf[rows, at])
+        buf[rows, at] = new
+
+    for layer in range(cfg.n_layers):
+        lp = _layer(params, layer)
+        q, k, v = _qkv(x, lp, cfg, sin, cos)
+        k_scale = v_scale = None
+        if cache.quantized:
+            k_q, k_s = quantize_kv(k[:, 0])
+            v_q, v_s = quantize_kv(v[:, 0])
+            put(cache.k[layer], k_q)
+            put(cache.v[layer], v_q)
+            put(cache.k_scale[layer], k_s)
+            put(cache.v_scale[layer], v_s)
+            k_scale, v_scale = cache.k_scale[layer], cache.v_scale[layer]
+        else:
+            put(cache.k[layer], k[:, 0])
+            put(cache.v[layer], v[:, 0])
+        attn = decode_attention(q, cache.k[layer], cache.v[layer], n_valid,
+                                k_scale=k_scale, v_scale=v_scale,
+                                impl=impl)
+        x = _attn_out_and_mlp(x, attn, lp, cfg)
+    logits = _lm_head(params, x, cfg)[:, 0]
+    return logits, dataclasses.replace(
+        cache, lengths=cache.lengths + advance)
+
+
+def sample(logits: torch.Tensor, generator: Optional[torch.Generator],
+           temperature: float) -> torch.Tensor:
+    """Greedy (temperature 0) or one draw from softmax(logits / t) per
+    row with ``generator`` (the reference's ``jax.random.categorical``;
+    the draws differ, the distribution is the same)."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+        torch.int32)
+
+
+def generate(params: Params, tokens: torch.Tensor, lengths: torch.Tensor,
+             cfg: ModelConfig, *, max_new_tokens: int,
+             temperature: float = 0.0, eos_id: Optional[int] = None,
+             seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched generation: prompts [B, S] + lengths [B] -> (generated
+    [B, max_new_tokens] int32, gen_lengths [B] int32).
+
+    Runs exactly ``max_new_tokens`` decode steps, as the reference's
+    scan (rows that hit EOS keep emitting it). For temperature > 0 a
+    ``torch.Generator`` on the tokens' device, seeded by ``seed``, draws
+    step by step: the same seed gives the same tokens."""
+    b, s = tokens.shape
+    dev = tokens.device
+    eos = -1 if eos_id is None else eos_id
+    gen = None
+    if temperature != 0.0:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+    logits, cache = prefill(params, tokens, lengths, cfg,
+                            s + max_new_tokens)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    out = []
+    for _ in range(max_new_tokens):
+        tok = sample(logits, gen, temperature)
+        tok = torch.where(done, torch.full_like(tok, max(eos, 0)), tok)
+        done = done | (tok == eos)
+        logits, cache = decode_step(params, tok, cache, cfg)
+        out.append(tok)
+    generated = torch.stack(out, dim=1)                      # [B, N]
+    if eos >= 0:
+        hit = generated == eos
+        first = torch.argmax(hit.to(torch.int32), dim=1)
+        gen_lengths = torch.where(hit.any(dim=1), first,
+                                  torch.full_like(first, max_new_tokens))
+    else:
+        gen_lengths = torch.full((b,), max_new_tokens, device=dev)
+    return generated, gen_lengths.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

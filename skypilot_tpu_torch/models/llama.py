@@ -275,7 +275,8 @@ def _unstack(layers: Params, n_layers: int) -> List[Params]:
                 subs = [d.setdefault(key, {}) for d in dests]
                 walk(value, subs)
             else:
-                for d, piece in zip(dests, torch.unbind(value, 0)):
+                # ``unbind`` of a tensor, or of a W8A8 ``QTensor``.
+                for d, piece in zip(dests, value.unbind(0)):
                     d[key] = piece
 
     walk(layers, out)

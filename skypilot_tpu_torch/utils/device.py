@@ -6,7 +6,7 @@ on the CPU. The CPU is used only when the caller names it (the tests).
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import torch
 
@@ -21,3 +21,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type not in ('cuda', 'cpu'):
         raise ValueError(f'unsupported device {dev}')
     return dev
+
+
+def to_device(tree: Any, device: torch.device) -> Any:
+    """A params dict (nested dicts of tensors or W8A8 ``QTensor``s) moved
+    to ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)

@@ -1,6 +1,6 @@
-"""Port kernels on the card: the Hopper paged-attention kernels against
-their plain PyTorch versions, and the engine's kernel path against its
-CPU path.
+"""Port kernels on the card: the Hopper paged-, decode- and
+flash-attention kernels against their plain PyTorch versions, the W8A8
+int8 products, and the engines' kernel paths against their CPU paths.
 
 These need an NVIDIA GPU (sm_90a) and ``nvcc``; elsewhere they skip.
 Run them on the card with::
@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from skypilot_tpu_torch.models.decode import quantize_kv
+from skypilot_tpu_torch.models.quant import _quantize_activations
 from skypilot_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -219,3 +220,277 @@ def test_lm_head_fp32_result_on_card(card):
     out = _lm_head(on_card, x.bfloat16().to(card), cfg)
     assert out.dtype == torch.float32
     assert (out.cpu() - cpu).abs().max().item() <= 1e-5
+
+
+def _decode_case(card, cache, q_len, t, lengths, d=128, g=4, kvh=2,
+                 poison=False):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(q_len * 100 + t + d)
+    b = len(lengths)
+    dtype = torch.float32 if cache == 'fp32' else torch.bfloat16
+    k = torch.randn((b, t, kvh, d), generator=gen, device=card)
+    v = torch.randn((b, t, kvh, d), generator=gen, device=card)
+    q = torch.randn((b, q_len, kvh * g, d), generator=gen,
+                    device=card).to(dtype)
+    nv = torch.tensor(lengths, dtype=torch.int32, device=card)
+    if poison:
+        stale = (torch.arange(t, device=card)[None, :] >=
+                 nv[:, None])[..., None, None]
+        k = torch.where(stale, torch.full_like(k, 1e4), k)
+        v = torch.where(stale, torch.full_like(v, -1e4), v)
+    if cache == 'int8':
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        return q, k, v, nv, ks, vs
+    return q, k.to(dtype), v.to(dtype), nv, None, None
+
+
+def _live_rows(nv, q_len):
+    """[B, Q, 1, 1] mask of the query rows that attend at least one row
+    (the others are discarded by contract)."""
+    limit = (nv.long()[:, None] - (q_len - 1) +
+             torch.arange(q_len, device=nv.device)[None, :])
+    return (limit > 0)[..., None, None]
+
+
+DECODE_TOL = {'bf16': 2e-2, 'fp32': 2e-4, 'int8': 2e-2}
+# W8A8 prefill logits, card against CPU on their own activation codes,
+# relative to the largest logit: 1.8e-7 measured on an H100 (TINY,
+# head_dim 128, fp32 compute), every code equal, the scales an ulp apart.
+W8A8_TOL = 1e-6
+
+
+@pytest.mark.parametrize('poison', [False, True], ids=['clean', 'stale'])
+@pytest.mark.parametrize('t,lengths', [
+    (256, (0, 1, 31, 32, 33, 100, 255, 256)),
+    (288, (1, 17, 257, 288)),
+    (2048, (1, 15, 16, 17, 1000, 2048, 1000, 2048))],
+    ids=['T256', 'T288', 'T2048'])
+@pytest.mark.parametrize('q_len', [1, 5])
+@pytest.mark.parametrize('cache', ['bf16', 'fp32', 'int8'])
+def test_decode_kernel_matches_plain(card, cache, q_len, t, lengths,
+                                     poison):
+    from skypilot_tpu_torch.ops import decode_attention as da
+    q, k, v, nv, ks, vs = _decode_case(card, cache, q_len, t, lengths,
+                                       poison=poison)
+    name = 'decode_attention_quant' if cache == 'int8' else \
+        'decode_attention'
+    before = da.LAUNCHES[name]
+    out = da.decode_attention(q, k, v, nv, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES[name] == before + 1
+    ref = da.xla_decode_attention(q, k, v, nv, ks, vs)
+    keep = _live_rows(nv, q_len)
+    assert torch.isfinite(out).all()
+    err = ((out.float() - ref.float()).abs() * keep).max().item()
+    assert err <= DECODE_TOL[cache]
+    # n_valid = 0 gives 0 (acc / max(l, 1e-30) with nothing read).
+    empty = (nv == 0).nonzero()
+    if len(empty):
+        assert out[empty[:, 0]].abs().max().item() == 0
+
+
+@pytest.mark.parametrize('t,lengths', [
+    (64, (1, 33, 63, 64)), (300, (1, 33, 299, 300)),
+    (2500, (1, 33, 2047, 2500))], ids=['T64', 'T300', 'T2500'])
+@pytest.mark.parametrize('d', [64, 256])
+def test_decode_kernel_head_dims_and_splits(card, d, t, lengths):
+    """Other head dims, and caches whose split count (num_splits: 1 to
+    16 CTAs per (sequence, kv head)) shares a sequence's tiles unevenly;
+    a Q*G too large for four warps runs on a one-warp CTA."""
+    from skypilot_tpu_torch.ops import decode_attention as da
+    q, k, v, nv, _, _ = _decode_case(card, 'bf16', 3, t, lengths, d=d,
+                                     g=8)
+    out = da.decode_attention(q, k, v, nv)
+    ref = da.xla_decode_attention(q, k, v, nv)
+    keep = _live_rows(nv, 3)
+    assert ((out.float() - ref.float()).abs() * keep).max().item() <= 2e-2
+    # bf16, D=256, Q*G = 5 x 8 = 40: too much shared memory for 4 warps.
+    big = torch.randn((1, 5, 64, 256), device=card).bfloat16()
+    kb = torch.randn((1, 64, 8, 256), device=card).bfloat16()
+    nvb = torch.tensor([64], dtype=torch.int32, device=card)
+    out = da.decode_attention(big, kb, kb, nvb)
+    ref = da.xla_decode_attention(big, kb, kb, nvb)
+    keep = _live_rows(nvb, 5)
+    assert ((out.float() - ref.float()).abs() * keep).max().item() <= 2e-2
+
+
+def test_decode_kernel_rejects_unsupported_inputs(card):
+    from skypilot_tpu_torch.ops import decode_attention as da
+    q, k, v, nv, _, _ = _decode_case(card, 'bf16', 1, 64, (3, 64))
+    with pytest.raises(ValueError, match='head dim'):
+        da.decode_attention(q[..., :32], k[..., :32].contiguous(),
+                            v[..., :32].contiguous(), nv)
+    with pytest.raises(ValueError, match='dtype'):
+        da.decode_attention(q.half(), k.half(), v.half(), nv)
+    with pytest.raises(ValueError, match='contiguous'):
+        da.decode_attention_kernel(
+            q.reshape(2, 2, 4, 128), k[:, ::2], v[:, ::2], nv, 1)
+
+
+def test_decode_kernel_asserts_n_valid_past_cache(card):
+    """n_valid > T fails the kernel's device-side assert, which ends the
+    process's CUDA context: run in a child process."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = (
+        'import torch\n'
+        'from skypilot_tpu_torch.ops import decode_attention as da\n'
+        "q = torch.randn((2, 1, 8, 128), device='cuda').bfloat16()\n"
+        "k = torch.randn((2, 64, 2, 128), device='cuda').bfloat16()\n"
+        "nv = torch.tensor([3, 65], dtype=torch.int32, device='cuda')\n"
+        'da.decode_attention(q, k, k, nv)\n'
+        'torch.cuda.synchronize()\n')
+    run = subprocess.run([sys.executable, '-c', script], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode != 0
+    assert 'device-side assert' in run.stderr, run.stderr[-2000:]
+
+
+def test_int8_matmul_on_card_is_exact(card):
+    """W8A8 products: torch._int_mm behind padding equals the CPU's
+    int32 matmul, for row counts below its minimum and widths off 8."""
+    from skypilot_tpu_torch.models.quant import int8_matmul
+    gen = torch.Generator().manual_seed(5)
+    for m, k, n in ((1, 4096, 1024), (5, 14336, 24), (300, 60, 12)):
+        a = torch.randint(-127, 128, (m, k), generator=gen,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), generator=gen,
+                          dtype=torch.int8)
+        got = int8_matmul(a.to(card), b.to(card)).cpu()
+        assert torch.equal(got, int8_matmul(a, b))
+
+
+@pytest.mark.parametrize('quantize_kv', [False, True],
+                         ids=['fp', 'int8-kv'])
+def test_batch_engine_kernel_path_matches_cpu_path(card, quantize_kv):
+    from skypilot_tpu_torch.inference.engine import InferenceEngine
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models.config import get_model_config
+    cfg = get_model_config('tiny', head_dim=128,
+                           compute_dtype=torch.float32)
+    params = llama.init_params(7, cfg, device='cpu')
+    prompts = [[3, 1, 4, 1, 5], [2, 7, 18] * 9, [31, 41, 59, 26, 5, 3]]
+    outs = {}
+    for device in ('cuda', 'cpu'):
+        engine = InferenceEngine('tiny', cfg=cfg, params=params,
+                                 device=device, max_batch=2,
+                                 quantize_kv=quantize_kv)
+        outs[device] = engine.generate_ids(prompts, max_new_tokens=8)
+    assert outs['cuda'] == outs['cpu']
+
+
+def _record_codes(monkeypatch, log, feed=None):
+    """Route W8A8's activation quantization through a recorder: each
+    call appends (codes, scale, x / scale) on the CPU to ``log``; with
+    ``feed``, a call returns the next fed (codes, scale) instead of its
+    own."""
+    from skypilot_tpu_torch.models import quant
+
+    def quantize(x, n_contract):
+        q, scale = _quantize_activations(x, n_contract)
+        log.append((q.cpu(), scale.cpu(), (x.float() / scale).cpu()))
+        if feed is not None:
+            fed_q, fed_scale, _ = feed.pop(0)
+            assert fed_q.shape == q.shape
+            return fed_q.to(q.device), fed_scale.to(scale.device)
+        return q, scale
+
+    monkeypatch.setattr(quant, '_quantize_activations', quantize)
+
+
+def _code_witness(card_log, cpu_log):
+    """A string of how many codes differ and where the first differs.
+    At the first call where any differs, every differing code is one step
+    off and the two sides' unrounded values x / scale are within 1e-3 of
+    each other: a rounding tie, not a different product."""
+    n_diff = n_codes = 0
+    first = None
+    for i, ((qa, _, va), (qb, _, vb)) in enumerate(zip(card_log, cpu_log)):
+        diff = qa != qb
+        n_diff += int(diff.sum())
+        n_codes += diff.numel()
+        if first is None and diff.any():
+            steps = (qa.int() - qb.int())[diff].abs()
+            gap = (va[diff] - vb[diff]).abs().max().item()
+            first = (f'first in call {i} of {len(card_log)}: '
+                     f'{int(diff.sum())} codes, x/scale {gap:.2e} apart')
+            assert int(steps.max()) == 1
+            assert gap <= 1e-3
+    return f'{n_diff} of {n_codes} activation codes differ ({first})'
+
+
+def _w8a8_tiny(card):
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models.config import get_model_config
+    from skypilot_tpu_torch.models.quant import quantize_params
+    cfg = get_model_config('tiny', head_dim=128,
+                           compute_dtype=torch.float32)
+    params = llama.init_params(7, cfg, device='cpu')
+    qparams = quantize_params(params)
+    on_card = {k: {n: t.to(card) for n, t in v.items()}
+               for k, v in qparams.items() if k != 'layers'}
+    on_card['layers'] = {k: {n: t.to(card) for n, t in v.items()}
+                         for k, v in qparams['layers'].items()}
+    return cfg, params, qparams, on_card
+
+
+def test_w8a8_prefill_on_card_matches_cpu(card, monkeypatch):
+    """W8A8 prefill on the card and on the CPU. The int8 products are
+    exact on both and the rest of the path is elementwise, so the CPU
+    fed the card's activation codes and scales gives the card's logits
+    bit for bit; on its own codes and scales (fp32 norms and attention
+    summed in another order move a scale by an ulp) they agree within
+    W8A8_TOL."""
+    from skypilot_tpu_torch.models import decode as decode_lib
+    cfg, _, qparams, on_card = _w8a8_tiny(card)
+    tokens = torch.randint(0, 512, (2, 16),
+                           generator=torch.Generator().manual_seed(1))
+    lengths = torch.tensor([16, 9], dtype=torch.int32)
+    logs = {'cuda': [], 'cpu': [], 'fed': []}
+    _record_codes(monkeypatch, logs['cuda'])
+    got, _ = decode_lib.prefill(on_card, tokens.to(card), lengths.to(card),
+                                cfg, 24)
+    got = got.cpu()
+    _record_codes(monkeypatch, logs['cpu'])
+    cpu, _ = decode_lib.prefill(qparams, tokens, lengths, cfg, 24)
+    feed = list(logs['cuda'])
+    _record_codes(monkeypatch, logs['fed'], feed)
+    cpu_fed, _ = decode_lib.prefill(qparams, tokens, lengths, cfg, 24)
+    assert not feed
+    rel = ((got - cpu).abs().max() / cpu.abs().max()).item()
+    print(f'w8a8 prefill card vs cpu: logits rel {rel:.3e}; fed the '
+          f"card's codes equal: {torch.equal(got, cpu_fed)}; "
+          f"{_code_witness(logs['cuda'], logs['cpu'])}")
+    assert torch.equal(got, cpu_fed)
+    assert rel <= W8A8_TOL
+    assert torch.equal(got.argmax(-1), cpu.argmax(-1))
+
+
+def test_w8a8_generate_on_card_parts_only_at_rounding_ties(card,
+                                                           monkeypatch):
+    """W8A8 greedy generation: fed the card's activation codes and
+    scales, the CPU gives the card's tokens; on its own codes the two
+    may part, and then only where a code at a rounding tie went the
+    other way (``_code_witness``)."""
+    from skypilot_tpu_torch.inference.engine import InferenceEngine
+    cfg, params, _, _ = _w8a8_tiny(card)
+    prompts = [[3, 1, 4, 1, 5], [2, 7, 18] * 9, [31, 41, 59, 26, 5, 3]]
+    logs = {'cuda': [], 'cpu': [], 'fed': []}
+    outs = {}
+    for device in ('cuda', 'cpu', 'fed'):
+        feed = list(logs['cuda']) if device == 'fed' else None
+        _record_codes(monkeypatch, logs[device], feed)
+        engine = InferenceEngine(
+            'tiny', cfg=cfg, params=params, max_batch=4, quantize=True,
+            device='cuda' if device == 'cuda' else 'cpu')
+        outs[device] = engine.generate_ids(prompts, max_new_tokens=16)
+        assert not feed
+    witness = _code_witness(logs['cuda'], logs['cpu'])
+    print(f"w8a8 generate card vs cpu: tokens equal "
+          f"{outs['cuda'] == outs['cpu']}, fed the card's codes "
+          f"{outs['cuda'] == outs['fed']}; {witness}")
+    assert outs['fed'] == outs['cuda']
+    if outs['cpu'] != outs['cuda']:
+        assert '(None)' not in witness

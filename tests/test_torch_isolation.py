@@ -54,8 +54,9 @@ def _forbidden_imports(path):
 def test_every_module_imports_with_jax_blocked():
     mods = [m for m, _ in _package_modules()]
     for mod in ('ops.paged_attention', 'ops.flash_attention',
-                'ops.attention', 'train.loss', 'train.step',
-                'train.pretrain'):
+                'ops.attention', 'ops.decode_attention', 'train.loss',
+                'train.step', 'train.pretrain', 'inference.engine',
+                'batch.infer_worker'):
         assert 'skypilot_tpu_torch.' + mod in mods
     code = (
         'import sys\n'
@@ -79,10 +80,12 @@ def test_sources_name_no_jax_and_no_jax_package(path):
     assert _forbidden_imports(path) == []
 
 
-def test_entry_points_raise_without_a_gpu(monkeypatch):
+def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
     """Without a GPU, the entry points raise instead of running on the
     CPU; naming the CPU explicitly works."""
+    from skypilot_tpu_torch.batch import infer_worker
     from skypilot_tpu_torch.inference import server
+    from skypilot_tpu_torch.inference.engine import InferenceEngine
     from skypilot_tpu_torch.inference.continuous import (
         ContinuousBatchingEngine)
     from skypilot_tpu_torch.models import llama
@@ -94,6 +97,18 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         llama.init_params(0, get_model_config('tiny'))
     with pytest.raises(RuntimeError, match='no CUDA device'):
         server.main(['--model', 'tiny', '--port', '0'])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        InferenceEngine('tiny')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        server.main(['--engine', 'batch', '--model', 'tiny', '--port', '0'])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        server.main(['--engine', 'continuous', '--model', 'tiny',
+                     '--port', '0'])
+    src = tmp_path / 'in.jsonl'
+    src.write_text('{"prompt": "hi"}\n')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        infer_worker.main(['--input', str(src), '--output',
+                           str(tmp_path / 'out.jsonl')])
     from skypilot_tpu_torch.train import pretrain, step
     with pytest.raises(RuntimeError, match='no CUDA device'):
         pretrain.main(['--model', 'tiny', '--steps', '1'])
@@ -107,11 +122,38 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
 def test_unported_engine_options_raise():
     from skypilot_tpu_torch.inference.continuous import (
         ContinuousBatchingEngine)
-    for kwargs in ({'quantize': True}, {'spec_decode': True},
+    from skypilot_tpu_torch.inference.engine import InferenceEngine
+    for kwargs in ({'spec_decode': True},
                    {'lora_pages': 2}, {'role': 'prefill'},
                    {'mesh': 'tensor=2'}):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             ContinuousBatchingEngine('tiny', device='cpu', **kwargs)
+    for kwargs in ({'checkpoint_dir': '/nonexistent'},
+                   {'hf_checkpoint': '/nonexistent'},
+                   {'mesh': 'tensor=2'}):
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            InferenceEngine('tiny', device='cpu', **kwargs)
+
+
+def test_quantize_works_on_both_engines():
+    """W8A8 (``quantize=True``) serves on the batch and the continuous
+    engine (CPU): int8 layer weights, tokens in the vocab."""
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
+    from skypilot_tpu_torch.inference.engine import InferenceEngine
+    from skypilot_tpu_torch.models.quant import QTensor
+    batch = InferenceEngine('tiny', device='cpu', quantize=True)
+    assert isinstance(batch.params['layers']['mlp']['wo'], QTensor)
+    out = batch.generate_text(['hello'], max_new_tokens=4)
+    assert len(out) == 1 and isinstance(out[0], str)
+    cont = ContinuousBatchingEngine('tiny', device='cpu', max_slots=2,
+                                    max_len=64, quantize=True)
+    try:
+        assert isinstance(cont.params['layers']['attn']['wq'], QTensor)
+        ids = cont.generate_ids([5, 6, 7], max_new_tokens=4)
+        assert len(ids) <= 4 and all(0 <= t < 512 for t in ids)
+    finally:
+        cont.shutdown()
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
