@@ -36,14 +36,19 @@ Phases, in order; any failure exits non-zero:
    plain versions at bench-1b7's attention shape (B=2, S=2048, H=20,
    KVH=4, D=128), causal and not, bf16 and fp32, with and without
    segment ids; once at D=256; once at the batch engine's prefill shape
-   (llama3-8b heads H=32, KVH=8, B=4, S=256, bf16, causal); each
-   output's error normalized per
-   64-row tile of one head (``tile_err``). Faults planted in the plain
-   bf16 outputs (a tile unwritten, a key tile skipped, a group head
-   dropped) must exceed the same limits. Then at the trainer's shape
-   (B=8, bf16, causal) the outputs against plain once more, and the
-   times: each kernel, its plain version, SDPA's flash backend forward
-   and backward (a yardstick only), and the bound.
+   (llama3-8b heads H=32, KVH=8, B=4, S=256, bf16, causal); at the
+   ring's edge shapes S=64 and S=192 with GQA groups 1 and 8, bf16 and
+   fp32; each output's error normalized per 64-row tile of one head
+   (``tile_err``), and the dq kernel's delta against the plain one. A
+   second backward must give bitwise the same dq, dk and dv. Faults
+   planted in the plain bf16 outputs (a tile unwritten, a key tile
+   skipped, a group head dropped, delta off by a constant) must exceed
+   the same limits. Then at the trainer's shape (B=8, bf16, causal) the
+   outputs against plain once more, and the times, causal and with
+   packed documents (the ``_seg`` twins): each kernel, its plain
+   version, SDPA forward and backward (flash backend; with documents
+   the efficient backend and a boolean mask; a yardstick only), the
+   torch delta chain, and the bound.
 6. Small-model training agreement: TINY with head_dim 128 and fp32
    compute, three train steps on the card (kernel path) and on the CPU
    (plain path) from the same params and batches; and at bf16 compute,
@@ -540,6 +545,9 @@ def phase_decode_kernels(torch, da, bw, flops_peak):
 # sound kernels and the errors of planted faults (planted_faults), which
 # must exceed them.
 FLASH_TOL = {'bf16': (5e-2, 5e-2), 'fp32': (1e-4, 1e-4)}
+# The dq kernel's delta against the plain ``_delta``: fp32 sums of the
+# same products in another order, in either input type.
+DELTA_TOL = 1e-4
 
 
 def norm_err(got, ref) -> float:
@@ -582,33 +590,47 @@ def flash_case(torch, *, b, s, h, kvh, d, dtype, segments, seed):
     return q, k, v, do, seg
 
 
-def flash_bound(b, s, h, kvh, d, itemsize, which, bw, flops_peak):
-    """Least time for one causal call: FLOPs (2, 3 or 4 products of
-    2*B*H*S^2*D/2) at the bf16 peak against the bytes of each input read
-    once and each output written once."""
+def flash_bound(b, s, h, kvh, d, itemsize, which, bw, flops_peak,
+                pairs=None, seg=False):
+    """Least time for one call: FLOPs (2, 3 or 4 products of 2*H*D per
+    (query, key) pair the mask keeps; ``pairs`` defaults to the causal
+    B*S^2/2) at the bf16 peak against the bytes of each input read once
+    and each output written once (dq reads o and do and writes dq and
+    delta; segment ids add 4 bytes a position)."""
     qb = b * s * h * d * itemsize
     kvb = b * s * kvh * d * itemsize
     stat = b * h * s * 4
+    if pairs is None:
+        pairs = b * s * s / 2
     products = {'fwd': 2, 'dq': 3, 'dkv': 4}[which]
-    flops = products * 2 * b * h * s * s * d / 2
+    flops = products * 2 * h * d * pairs
     nbytes = {'fwd': qb + 2 * kvb + qb + stat,
-              'dq': 2 * qb + 2 * kvb + 2 * stat + qb,
+              'dq': 3 * qb + 2 * kvb + stat + qb + stat,
               'dkv': 2 * qb + 2 * kvb + 2 * stat + 2 * kvb}[which]
+    if seg:
+        nbytes += b * s * 4
     bytes_ms = nbytes / bw * 1e3
     ops_ms = flops / flops_peak * 1e3
     return (max(bytes_ms, ops_ms),
             'bytes' if bytes_ms >= ops_ms else 'operations')
 
 
+# A delta off by this constant (about the mean |delta| at the trainer's
+# causal shape) must move dq and dk past the gradient limit.
+DELTA_FAULT = 1.0
+
+
 def planted_faults(fa, q, k, v, do, causal, seg, ro, rlse, rgrads):
     """The tile errors of faults a kernel could make, each built
     from the plain outputs: one CTA's 64 rows left unwritten (o, dq, dk,
     dv; batch 0, head 0, rows 1024-1087, or the last 64 of a shorter
-    sequence), the dq kernel skipping one key tile (keys 64-127) of one
-    head, and the dk/dv kernel dropping one query head of its group.
-    Each must exceed the check's limit."""
+    sequence), the dq kernel skipping one key tile (keys 64-127, or the
+    only one) of one head, the dk/dv kernel dropping one query head of
+    its group, and delta off by DELTA_FAULT (dq, dk). Each must exceed
+    the check's limit."""
     rdq, rdk, rdv = rgrads
-    first = min(1024, q.shape[1] - 64)
+    s = q.shape[1]
+    first = min(1024, s - 64)
     rows = slice(first, first + 64)
 
     def unwritten(ref):
@@ -616,8 +638,13 @@ def planted_faults(fa, q, k, v, do, causal, seg, ro, rlse, rgrads):
         bad[0, rows, 0] = 0
         return tile_err(bad, ref)
 
-    _, ds, _, _ = fa._probs(q, k, v, ro, rlse, do, causal, seg)
-    ds[0, 0, 0, :, 64:128] = 0
+    p, ds, qg, dog = fa._probs(q, k, v, ro, rlse, do, causal, seg)
+    bad_ds = ds - DELTA_FAULT * p
+    dq_delta = fa._dq(bad_ds, q, k)
+    dk_delta, _ = fa._dkv(p, bad_ds, qg, dog, k, v)
+    del p, qg, dog, bad_ds
+    skipped = min(64, s - 64)
+    ds[0, 0, 0, :, skipped:skipped + 64] = 0
     dq_skip = fa._dq(ds, q, k)
     del ds
     do_drop = do.clone()
@@ -628,17 +655,20 @@ def planted_faults(fa, q, k, v, do, causal, seg, ro, rlse, rgrads):
     return {'o: one q tile unwritten': unwritten(ro),
             'dq: one q tile unwritten': unwritten(rdq),
             'dq: one key tile skipped': tile_err(dq_skip, rdq),
+            'dq: delta off': tile_err(dq_delta, rdq),
             'dk: one k tile unwritten': unwritten(rdk),
             'dv: one k tile unwritten': unwritten(rdv),
             'dk: one group head dropped': tile_err(dk_drop, rdk),
-            'dv: one group head dropped': tile_err(dv_drop, rdv)}
+            'dv: one group head dropped': tile_err(dv_drop, rdv),
+            'dk: delta off': tile_err(dk_delta, rdk)}
 
 
-def phase_flash_kernels(torch, fa, bw, flops_peak):
-    """Each kernel against its plain version on the same card tensors
-    (o, lse, dq, dk, dv; tile error against FLASH_TOL) at the trainer's
-    attention shape and at the batch engine's prefill shape, planted
-    faults against the same limits, then times at the trainer's shape."""
+def flash_cases():
+    """(label, shape, dtype, causal, segments) of phase 5: bench-1b7's
+    attention (B=2) both ways, D=256, the batch engine's prefill, and the
+    pipeline's edge shapes: S=64 (one tile: the ring's prologue and
+    epilogue only) and S=192 (three tiles, no multiple of the two
+    stages), GQA groups of 1 and 8."""
     shape = dict(b=2, s=2048, h=20, kvh=4, d=128)   # bench-1b7 attention
     cases = [(f'{dtype} {"causal" if causal else "full"}'
               f'{" seg" if segments else ""}', shape, dtype, causal,
@@ -653,9 +683,31 @@ def phase_flash_kernels(torch, fa, bw, flops_peak):
     cases.append(('bf16 causal B=4 S=256 H=32 KVH=8 (batch-engine prefill)',
                   dict(b=4, s=256, h=32, kvh=8, d=128), 'bf16', True,
                   False))
+    for dtype in ('bf16', 'fp32'):
+        for s, h, kvh, causal, segments in ((64, 8, 8, True, True),
+                                            (64, 16, 2, False, False),
+                                            (192, 16, 2, True, False),
+                                            (192, 8, 8, False, True)):
+            cases.append((f'{dtype} {"causal" if causal else "full"}'
+                          f'{" seg" if segments else ""} S={s} '
+                          f'G={h // kvh} (edge)',
+                          dict(b=2, s=s, h=h, kvh=kvh, d=128), dtype,
+                          causal, segments))
+    return cases
+
+
+def phase_flash_kernels(torch, fa, bw, flops_peak):
+    """Each kernel against its plain version on the same card tensors
+    (o, lse, dq, dk, dv; tile error against FLASH_TOL; the dq kernel's
+    delta against the plain one) at the trainer's attention shape, the
+    batch engine's prefill shape and the pipeline's edge shapes; a
+    second backward must give bitwise the same dq, dk and dv; planted
+    faults against the same limits; then times at the trainer's
+    shape."""
     errors = {'flash_fwd': 0.0, 'flash_dq': 0.0, 'flash_dkv': 0.0}
     failed = []
-    for seed, (label, shp, dtype, causal, segments) in enumerate(cases):
+    for seed, (label, shp, dtype, causal, segments) in enumerate(
+            flash_cases()):
         q, k, v, do, seg = flash_case(torch, dtype=dtype,
                                       segments=segments, seed=seed, **shp)
         o, lse = fa.flash_forward_kernel(q, k, v, causal=causal,
@@ -663,7 +715,14 @@ def phase_flash_kernels(torch, fa, bw, flops_peak):
         dq, dk, dv = fa.flash_backward_kernel(q, k, v, o, lse, do,
                                               causal=causal,
                                               segment_ids=seg)
+        dq2, delta = fa.flash_dq_kernel(q, k, v, o, lse, do, causal=causal,
+                                        segment_ids=seg)
+        dk2, dv2 = fa.flash_dkv_kernel(q, k, v, lse, do, delta,
+                                       causal=causal, segment_ids=seg)
         torch.cuda.synchronize()
+        same = all(torch.equal(x, y)
+                   for x, y in ((dq, dq2), (dk, dk2), (dv, dv2)))
+        delta_err = tile_err(delta, fa._delta(o, do))
         ro, rlse = fa.flash_forward_reference(q, k, v, causal=causal,
                                               segment_ids=seg)
         rgrads = fa.flash_backward_reference(
@@ -671,6 +730,10 @@ def phase_flash_kernels(torch, fa, bw, flops_peak):
         got = (('o', o, ro), ('lse', lse, rlse)) + tuple(
             zip(('dq', 'dk', 'dv'), (dq, dk, dv), rgrads))
         ok = compare_flash(torch, label, dtype, got, errors)
+        log(f'[flash] {label}: delta tile error {delta_err:.3e} (limit '
+            f'{DELTA_TOL:g}); second backward bitwise '
+            f'{"equal" if same else "DIFFERENT"}')
+        ok = ok and same and delta_err <= DELTA_TOL
         if dtype == 'bf16':
             faults = planted_faults(fa, q, k, v, do, causal, seg, ro, rlse,
                                     rgrads)
@@ -683,7 +746,8 @@ def phase_flash_kernels(torch, fa, bw, flops_peak):
             ok = ok and all(caught.values())
         if not ok:
             failed.append(label)
-        del q, k, v, do, o, lse, dq, dk, dv, ro, rlse, rgrads, got
+        del q, k, v, do, o, lse, dq, dk, dv, dq2, dk2, dv2, delta, ro, rlse
+        del rgrads, got
     rows = flash_times(torch, fa, errors, bw, flops_peak, failed)
     if failed:
         raise AssertionError(f'flash kernels disagree with plain, or a '
@@ -712,14 +776,84 @@ def compare_flash(torch, label, dtype, got, errors) -> bool:
     return ok
 
 
+def packed_segments(torch, b, s):
+    """Segment ids of packed documents as in ``train_segments``: a new
+    document starts at each position with probability 1/500."""
+    gen = torch.Generator().manual_seed(3)
+    starts = torch.rand((b, s), generator=gen) < 1 / 500
+    return torch.cumsum(starts.int(), 1).int().cuda()
+
+
+def sdpa_call(torch, q, k, v, do, seg):
+    """``F.scaled_dot_product_attention`` on the same inputs (k/v
+    repeated over the group, [B, H, S, D]): the flash backend with
+    ``is_causal``, or with segment ids the efficient backend with the
+    boolean causal-and-same-segment mask. A yardstick the port never
+    calls. Returns (forward, backward) thunks."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    g = q.shape[2] // k.shape[2]
+    qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k.repeat_interleave(g, dim=2),
+                            v.repeat_interleave(g, dim=2)))
+    kwargs = dict(is_causal=True)
+    backend = SDPBackend.FLASH_ATTENTION
+    if seg is not None:
+        s = q.shape[1]
+        pos = torch.arange(s, device='cuda')
+        kwargs = dict(attn_mask=((pos[:, None] >= pos[None, :]) &
+                                 (seg[:, :, None] == seg[:, None, :]))
+                      [:, None])
+        backend = SDPBackend.EFFICIENT_ATTENTION
+
+    def forward():
+        with sdpa_kernel(backend):
+            return F.scaled_dot_product_attention(qs, ks, vs, **kwargs)
+
+    out = forward()
+    dos = do.transpose(1, 2).contiguous()
+
+    def backward():
+        torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True)
+    return forward, backward
+
+
+def flash_timings(torch, fa, q, k, v, do, seg, flush):
+    """Median times (ms) at one shape: each kernel (dq with its delta),
+    the whole backward, each plain version, the torch delta chain, and
+    SDPA's forward and backward."""
+    kw = dict(segment_ids=seg)
+    o, lse = fa.flash_forward_kernel(q, k, v, **kw)
+    _, delta = fa.flash_dq_kernel(q, k, v, o, lse, do, **kw)
+    sdpa_fwd, sdpa_bwd = sdpa_call(torch, q, k, v, do, seg)
+    thunks = {
+        'flash_fwd': lambda: fa.flash_forward_kernel(q, k, v, **kw),
+        'flash_dq': lambda: fa.flash_dq_kernel(q, k, v, o, lse, do, **kw),
+        'flash_dkv': lambda: fa.flash_dkv_kernel(q, k, v, lse, do, delta,
+                                                 **kw),
+        'backward': lambda: fa.flash_backward_kernel(q, k, v, o, lse, do,
+                                                     **kw),
+        'plain flash_fwd': lambda: fa.flash_forward_reference(q, k, v,
+                                                              **kw),
+        'plain flash_dq': lambda: fa.flash_dq_reference(q, k, v, o, lse, do,
+                                                        **kw),
+        'plain flash_dkv': lambda: fa.flash_dkv_reference(q, k, v, o, lse,
+                                                          do, **kw),
+        'torch delta': lambda: fa._delta(o, do),
+        'sdpa fwd': sdpa_fwd,
+        'sdpa bwd': sdpa_bwd,
+    }
+    return {name: time_ms(torch, fn, flush) for name, fn in thunks.items()}
+
+
 def flash_times(torch, fa, errors, bw, flops_peak, failed):
     """At the trainer's shape (bench-1b7, B=8, S=2048, bf16, causal): the
     kernels' outputs against the plain ones (a failure joins
     ``failed``), then the times of each kernel, its plain version, SDPA
-    (flash backend, repeated k/v; a yardstick the port never calls) and
-    the bound. Returns (a row per kernel, the whole backward's ms)."""
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
+    (a yardstick the port never calls) and the bound; again with packed
+    documents (the ``_seg`` twins, kernels 6, 8 and 10, whose bound
+    counts the pairs the segment mask keeps). Returns (a row per kernel,
+    the whole backward's ms)."""
     shp = dict(b=8, s=2048, h=20, kvh=4, d=128)
     q, k, v, do, _ = flash_case(torch, dtype='bf16', segments=False,
                                 seed=99, **shp)
@@ -732,62 +866,76 @@ def flash_times(torch, fa, errors, bw, flops_peak, failed):
         zip(('dq', 'dk', 'dv'), grads, rgrads))
     if not compare_flash(torch, label, 'bf16', got, errors):
         failed.append(label)
-    del grads, ro, rlse, rgrads, got
-    delta = fa._delta(o, do)
+    del o, lse, grads, ro, rlse, rgrads, got
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8,
                         device='cuda')
-    kernel_ms = {
-        'flash_fwd': time_ms(torch, lambda: fa.flash_forward_kernel(
-            q, k, v), flush),
-        'flash_dq': time_ms(torch, lambda: fa.flash_dq_kernel(
-            q, k, v, lse, do, delta), flush),
-        'flash_dkv': time_ms(torch, lambda: fa.flash_dkv_kernel(
-            q, k, v, lse, do, delta), flush),
-    }
-    backward_ms = time_ms(torch, lambda: fa.flash_backward_kernel(
-        q, k, v, o, lse, do), flush)
-    plain_ms = {
-        'flash_fwd': time_ms(torch, lambda: fa.flash_forward_reference(
-            q, k, v), flush),
-        'flash_dq': time_ms(torch, lambda: fa.flash_dq_reference(
-            q, k, v, o, lse, do), flush),
-        'flash_dkv': time_ms(torch, lambda: fa.flash_dkv_reference(
-            q, k, v, o, lse, do), flush),
-    }
-    g = shp['h'] // shp['kvh']
-    qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_(True)
-                  for x in (q, k.repeat_interleave(g, dim=2),
-                            v.repeat_interleave(g, dim=2)))
-    dos = do.transpose(1, 2).contiguous()
-    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        sdpa_fwd_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True), flush)
-        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-        sdpa_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
-            out, (qs, ks, vs), dos, retain_graph=True), flush)
-    del out, qs, ks, vs, dos, flush
+    seg = packed_segments(torch, shp['b'], shp['s'])
+    lengths = torch.unique_consecutive(
+        seg + 10 ** 6 * torch.arange(shp['b'], device='cuda')[:, None],
+        return_counts=True)[1].double()
+    seg_pairs = (lengths * (lengths + 1) / 2).sum().item()
+    times = {'': flash_timings(torch, fa, q, k, v, do, None, flush),
+             'seg': flash_timings(torch, fa, q, k, v, do, seg, flush)}
+    del flush
     rows = {}
     for name, which in (('flash_fwd', 'fwd'), ('flash_dq', 'dq'),
                         ('flash_dkv', 'dkv')):
-        bound_ms, bound_by = flash_bound(itemsize=2, which=which, bw=bw,
-                                         flops_peak=flops_peak, **shp)
-        rows[name] = dict(
-            ms=kernel_ms[name], plain_ms=plain_ms[name],
-            library_ms=sdpa_fwd_ms if name == 'flash_fwd' else None,
-            bound_ms=bound_ms, bound_by=bound_by,
-            max_abs_err=errors[name])
-        if name != 'flash_fwd':
-            # SDPA's backward computes dq, dk and dv in one call: no
-            # library call computes dq or dk/dv alone.
-            rows[name]['library_bwd_ms'] = sdpa_bwd_ms
-        log(f'[flash] {name} B=8 S=2048 H=20 KVH=4 bf16 causal: kernel '
-            f'{kernel_ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms, '
-            f'bound {bound_ms:.4f} ms ({bound_by}), '
-            f'{100 * bound_ms / kernel_ms[name]:.1f}% of bound')
-    log(f'[flash] backward (delta + dq + dkv) {backward_ms:.4f} ms vs SDPA '
-        f'backward {sdpa_bwd_ms:.4f} ms; forward {kernel_ms["flash_fwd"]:.4f}'
-        f' ms vs SDPA forward {sdpa_fwd_ms:.4f} ms')
-    return rows, backward_ms
+        for variant, t in times.items():
+            seg_on = variant == 'seg'
+            bound_ms, bound_by = flash_bound(
+                itemsize=2, which=which, bw=bw, flops_peak=flops_peak,
+                pairs=seg_pairs if seg_on else None, seg=seg_on, **shp)
+            lib = 'sdpa fwd' if which == 'fwd' else 'sdpa bwd'
+            row = dict(ms=t[name], plain_ms=t['plain ' + name],
+                       library_ms=t[lib] if which == 'fwd' else None,
+                       bound_ms=bound_ms, bound_by=bound_by)
+            if which != 'fwd':
+                # SDPA's backward computes dq, dk and dv in one call: no
+                # library call computes dq or dk/dv alone.
+                row['library_bwd_ms'] = t[lib]
+            if seg_on:
+                rows[name]['seg'] = row
+            else:
+                rows[name] = dict(row, max_abs_err=errors[name])
+            log(f'[flash] {name}{"_seg" if seg_on else ""} B=8 S=2048 H=20 '
+                f'KVH=4 bf16 causal{" packed documents" if seg_on else ""}'
+                f': kernel {t[name]:.4f} ms, plain '
+                f'{t["plain " + name]:.4f} ms, bound {bound_ms:.4f} ms '
+                f'({bound_by}), {100 * bound_ms / t[name]:.1f}% of bound; '
+                f'SDPA {lib} {t[lib]:.4f} ms')
+    for variant, t in times.items():
+        log(f'[flash] {variant or "causal"}: backward (dq with delta + dkv)'
+            f' {t["backward"]:.4f} ms vs SDPA backward {t["sdpa bwd"]:.4f} '
+            f'ms; forward {t["flash_fwd"]:.4f} ms vs SDPA forward '
+            f'{t["sdpa fwd"]:.4f} ms; the torch delta chain the dq kernel '
+            f'replaces {t["torch delta"]:.4f} ms')
+    log(f'[flash] packed documents: {lengths.numel()} documents, '
+        f'{seg_pairs:.0f} kept (query, key) pairs = '
+        f'{100 * seg_pairs / (shp["b"] * shp["s"] ** 2 / 2):.1f}% of causal')
+    floor = ldmatrix_floor_ms(torch, **shp)
+    log(f'[flash] causal: ldmatrix reads alone take at least '
+        f'{floor["dq"]:.4f} ms (dq) and {floor["dkv"]:.4f} ms (dk/dv)')
+    return rows, times['']['backward']
+
+
+def ldmatrix_floor_ms(torch, b, s, h, kvh, d):
+    """The least time (ms) in which the bf16 backward's ldmatrix.x4 loads
+    (512 bytes each) can read shared memory in one causal call at
+    D=128, at 128 bytes a clock per SM at the card's top SM clock. The
+    loads follow the tiling of csrc/flash_attention.cu: dq, 4 warps of
+    two m16 tiles per 128-row CTA, 32-key tiles, 80 loads a warp a tile
+    (per k16 step 4 A and 4 B for s and dp; 8 B for ds.k per 16 keys);
+    dk/dv, 4 warps of 16 keys, 64-query steps, 144 loads a warp a step
+    (16 A, 32 B for each of s^T, dv, dp^T and dk)."""
+    dq_tiles = 4 * sum(4 * (i + 1) for i in range(s // 128))
+    dkv_steps = 4 * (h // kvh) * sum(s // 64 - i for i in range(s // 64))
+    loads = {'dq': 80 * dq_tiles * b * h, 'dkv': 144 * dkv_steps * b * kvh}
+    clock = float(subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.max.sm',
+         '--format=csv,noheader,nounits'], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {n: 512 * x / (128 * sms * clock) * 1e3 for n, x in loads.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1529,7 +1677,6 @@ def main(argv=None) -> int:
     libs = _build.build_all()
     log(f'[build] {len(libs)} kernel libraries in '
         f'{time.perf_counter() - t0:.1f} s: {libs}')
-
     rows = phase_kernels(torch, pa, bw, flops_peak)
     rows.update(phase_decode_kernels(torch, da, bw, flops_peak))
     flash_rows, backward_ms = phase_flash_kernels(torch, fa, bw, flops_peak)

@@ -6,14 +6,14 @@ model layout: q ``[B, S, H, D]``, k/v ``[B, S, KVH, D]``, segment ids
 ``[B, S]`` (packed sequences: scores across segments are masked);
 returns ``[B, S, H, D]``. It is a ``torch.autograd.Function`` whose
 forward saves (q, k, v, o, lse) and whose backward computes
-``delta = rowsum(do * o)`` as a torch op (plain XLA in the reference)
-and then dq and dk/dv.
+``delta = rowsum(do * o)`` (plain XLA in the reference), dq and dk/dv.
 
 Two implementations behind it:
 
 * the Hopper kernels (``csrc/flash_attention.cu``), for CUDA tensors:
   forward (``_fwd_kernel`` / ``_fwd_kernel_seg``), dq (``_bwd_dq_kernel``
-  / ``_seg``) and dk/dv (``_bwd_dkv_kernel`` / ``_seg``). They read the
+  / ``_seg``, which also computes delta and writes it for dk/dv) and
+  dk/dv (``_bwd_dkv_kernel`` / ``_seg``). They read the
   model layout in place, so the reference's four transposes are gone. A
   CUDA tensor inside the gate reaches the kernels or the call raises:
   there is no fallback.
@@ -211,7 +211,7 @@ def _library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.skyt_flash_fwd.argtypes = [p] * 6 + [i] * 6 + [f, i, p]
         lib.skyt_flash_fwd.restype = i
-        lib.skyt_flash_bwd_dq.argtypes = [p] * 8 + [i] * 6 + [f, i, p]
+        lib.skyt_flash_bwd_dq.argtypes = [p] * 9 + [i] * 6 + [f, i, p]
         lib.skyt_flash_bwd_dq.restype = i
         lib.skyt_flash_bwd_dkv.argtypes = [p] * 9 + [i] * 6 + [f, i, p]
         lib.skyt_flash_bwd_dkv.restype = i
@@ -248,8 +248,8 @@ def _check_inputs(q, k, v, segment_ids, *extra) -> None:
                'segment ids must be int32 [B,S]')
     _check(all(x.is_contiguous() for x in tensors),
            'inputs must be contiguous')
-    _check(all(x.data_ptr() % 16 == 0 for x in (q, k, v)),
-           'q, k and v must be 16-byte aligned')
+    _check(all(x.data_ptr() % 16 == 0 for x in tensors),
+           'inputs must be 16-byte aligned')
 
 
 def _ptr(x: Optional[torch.Tensor]):
@@ -279,50 +279,62 @@ def flash_forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
-def _backward_args(q, k, v, lse, do, delta, causal, segment_ids):
-    """Check the backward inputs; return the C arguments shared by the
-    dq and dk/dv launches (inputs, shape and stream)."""
-    _check_inputs(q, k, v, segment_ids, do, lse, delta)
+def _backward_common(q, k, causal):
+    """The trailing C arguments of the dq and dk/dv launches: shape,
+    scale, type and stream."""
     b, s, h, d = q.shape
-    _check(do.shape == q.shape and do.dtype == q.dtype, 'do must match q')
+    return (b, s, h, k.shape[2], d, int(causal), d ** -0.5,
+            _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _check_stats(q, *stats) -> None:
+    b, s, h, _ = q.shape
     _check(all(x.dtype == torch.float32 and tuple(x.shape) == (b, h, s)
-               for x in (lse, delta)), 'lse and delta must be fp32 [B,H,S]')
-    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-              lse.data_ptr(), delta.data_ptr(), _ptr(segment_ids))
-    common = (b, s, h, k.shape[2], d, int(causal), d ** -0.5,
-              _DTYPE_CODES[q.dtype],
-              torch.cuda.current_stream(q.device).cuda_stream)
-    return inputs, common
+               for x in stats), 'lse and delta must be fp32 [B,H,S]')
 
 
-def flash_dq_kernel(q, k, v, lse, do, delta, *, causal: bool = True,
+def flash_dq_kernel(q, k, v, o, lse, do, *, causal: bool = True,
                     segment_ids: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
-    """Launch the dq kernel (``delta = rowsum(do * o)`` given)."""
-    inputs, common = _backward_args(q, k, v, lse, do, delta, causal,
-                                    segment_ids)
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dq kernel: (dq [B,S,H,D], delta = rowsum(do * o)
+    [B,H,S] fp32, which the dk/dv kernel takes)."""
+    _check_inputs(q, k, v, segment_ids, o, do, lse)
+    _check(o.shape == q.shape and o.dtype == q.dtype and
+           do.shape == q.shape and do.dtype == q.dtype,
+           'o and do must match q')
+    _check_stats(q, lse)
+    common = _backward_common(q, k, causal)
     lib = _library()
     dq = torch.empty_like(q)
-    err = lib.skyt_flash_bwd_dq(*inputs, dq.data_ptr(), *common)
+    delta = torch.empty_like(lse)
+    err = lib.skyt_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(segment_ids),
+        dq.data_ptr(), *common)
     if err != 0:
         raise RuntimeError(f'flash dq kernel launch failed: CUDA error '
                            f'{err}')
     LAUNCHES['flash_dq_seg' if segment_ids is not None else
              'flash_dq'] += 1
-    return dq
+    return dq, delta
 
 
 def flash_dkv_kernel(q, k, v, lse, do, delta, *, causal: bool = True,
                      segment_ids: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dk/dv kernel (``delta = rowsum(do * o)`` given)."""
-    inputs, common = _backward_args(q, k, v, lse, do, delta, causal,
-                                    segment_ids)
+    """Launch the dk/dv kernel (``delta`` from the dq kernel)."""
+    _check_inputs(q, k, v, segment_ids, do, lse, delta)
+    _check(do.shape == q.shape and do.dtype == q.dtype, 'do must match q')
+    _check_stats(q, lse, delta)
+    common = _backward_common(q, k, causal)
     lib = _library()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    err = lib.skyt_flash_bwd_dkv(*inputs, dk.data_ptr(), dv.data_ptr(),
-                                 *common)
+    err = lib.skyt_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(segment_ids), dk.data_ptr(),
+        dv.data_ptr(), *common)
     if err != 0:
         raise RuntimeError(f'flash dk/dv kernel launch failed: CUDA error '
                            f'{err}')
@@ -338,12 +350,11 @@ def flash_backward_kernel(q: torch.Tensor, k: torch.Tensor,
                           segment_ids: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
-    """delta = rowsum(do * o) as a torch op, then the dq and dk/dv
-    kernels: (dq, dk, dv)."""
+    """The dq kernel (which computes delta = rowsum(do * o)), then the
+    dk/dv kernel on the same stream: (dq, dk, dv)."""
     _check(o.shape == q.shape and o.is_cuda, 'o must match q on CUDA')
-    delta = _delta(o, do)
-    dq = flash_dq_kernel(q, k, v, lse, do, delta, causal=causal,
-                         segment_ids=segment_ids)
+    dq, delta = flash_dq_kernel(q, k, v, o, lse, do, causal=causal,
+                                segment_ids=segment_ids)
     dk, dv = flash_dkv_kernel(q, k, v, lse, do, delta, causal=causal,
                               segment_ids=segment_ids)
     return dq, dk, dv

@@ -184,6 +184,79 @@ def test_flash_kernel_rejects_unsupported_inputs(card):
             torch.zeros((1, 128, 1, 384), device=card))
 
 
+# The dq kernel's delta against the plain ``_delta``: the same fp32
+# products summed in another order.
+DELTA_TOL = 1e-4
+
+
+@pytest.mark.parametrize('s,h,kvh,causal,seg', [
+    (64, 4, 4, True, True), (64, 16, 2, False, False),
+    (192, 16, 2, True, False), (192, 4, 4, False, True)],
+    ids=['S64-G1-causal-seg', 'S64-G8-full', 'S192-G8-causal',
+         'S192-G1-full-seg'])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32],
+                         ids=['bf16', 'fp32'])
+def test_flash_backward_ring_edge_shapes(card, dtype, s, h, kvh, causal,
+                                         seg):
+    """The backward's cp.async ring at its edges: one 64-row tile (its
+    prologue and epilogue only) and three (no multiple of the two
+    stages), GQA groups of 1 and 8; the dq kernel's delta too."""
+    fa, q, k, v, do, segments = _flash_case(card, dtype, 128, seg, s=s,
+                                            h=h, kvh=kvh)
+    o, lse = fa.flash_forward_kernel(q, k, v, causal=causal,
+                                     segment_ids=segments)
+    dq, delta = fa.flash_dq_kernel(q, k, v, o, lse, do, causal=causal,
+                                   segment_ids=segments)
+    dk, dv = fa.flash_dkv_kernel(q, k, v, lse, do, delta, causal=causal,
+                                 segment_ids=segments)
+    torch.cuda.synchronize()
+    ro, rlse = fa.flash_forward_reference(q, k, v, causal=causal,
+                                          segment_ids=segments)
+    rgrads = fa.flash_backward_reference(q, k, v, ro, rlse, do,
+                                         causal=causal,
+                                         segment_ids=segments)
+    fwd_tol, grad_tol = FLASH_TOL[dtype]
+    assert _tile_err(o, ro) <= fwd_tol
+    assert _tile_err(lse, rlse) <= fwd_tol
+    assert _tile_err(delta, fa._delta(o, do)) <= DELTA_TOL
+    for got, ref in zip((dq, dk, dv), rgrads):
+        assert got.dtype == ref.dtype and torch.isfinite(got).all()
+        assert _tile_err(got, ref) <= grad_tol
+
+
+@pytest.mark.parametrize('seg', [False, True], ids=['plain', 'seg'])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32],
+                         ids=['bf16', 'fp32'])
+def test_flash_backward_is_deterministic(card, dtype, seg):
+    """No atomics: two backward calls give bitwise the same dq, dk, dv."""
+    fa, q, k, v, do, segments = _flash_case(card, dtype, 128, seg, s=512,
+                                            h=8, kvh=2)
+    o, lse = fa.flash_forward_kernel(q, k, v, segment_ids=segments)
+    first = fa.flash_backward_kernel(q, k, v, o, lse, do,
+                                     segment_ids=segments)
+    second = fa.flash_backward_kernel(q, k, v, o, lse, do,
+                                      segment_ids=segments)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_delta_fault_exceeds_limit(card):
+    """The plain dq and dk computed with delta off by a constant fail
+    the bf16 gradient limit that the kernels pass (dv takes no delta)."""
+    fa, q, k, v, do, _ = _flash_case(card, torch.bfloat16, 128, False,
+                                     s=512)
+    o, lse = fa.flash_forward_kernel(q, k, v)
+    dq, dk, _ = fa.flash_backward_kernel(q, k, v, o, lse, do)
+    p, ds, qg, dog = fa._probs(q, k, v, o, lse, do, True, None)
+    bad = ds - 1.0 * p
+    rdq = fa._dq(ds, q, k)
+    rdk, _ = fa._dkv(p, ds, qg, dog, k, v)
+    grad_tol = FLASH_TOL[torch.bfloat16][1]
+    assert _tile_err(dq, rdq) <= grad_tol and _tile_err(dk, rdk) <= grad_tol
+    assert _tile_err(fa._dq(bad, q, k), rdq) > grad_tol
+    assert _tile_err(fa._dkv(p, bad, qg, dog, k, v)[0], rdk) > grad_tol
+
+
 def test_engine_kernel_path_matches_cpu_path(card):
     from skypilot_tpu_torch.inference.continuous import (
         ContinuousBatchingEngine)
