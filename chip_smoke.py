@@ -35,20 +35,24 @@ Phases, in order; any failure exits non-zero:
 5. Flash kernels vs plain: forward (o, lse), dq and dk/dv against their
    plain versions at bench-1b7's attention shape (B=2, S=2048, H=20,
    KVH=4, D=128), causal and not, bf16 and fp32, with and without
-   segment ids; once at D=256; once at the batch engine's prefill shape
-   (llama3-8b heads H=32, KVH=8, B=4, S=256, bf16, causal); at the
-   ring's edge shapes S=64 and S=192 with GQA groups 1 and 8, bf16 and
-   fp32; each output's error normalized per 64-row tile of one head
-   (``tile_err``), and the dq kernel's delta against the plain one. A
-   second backward must give bitwise the same dq, dk and dv. Faults
-   planted in the plain bf16 outputs (a tile unwritten, a key tile
-   skipped, a group head dropped, delta off by a constant) must exceed
-   the same limits. Then at the trainer's shape (B=8, bf16, causal) the
+   segment ids, and with segment ids that do not increase along a row
+   (bf16, causal and not); once at D=256; once at the batch engine's
+   prefill shape (llama3-8b heads H=32, KVH=8, B=4, S=256, bf16,
+   causal); at the ring's edge shapes S=64 and S=192 with GQA groups 1
+   and 8, bf16 and fp32; each output's error normalized per 64-row tile
+   of one head (``tile_err``), and the dq kernel's delta against the
+   plain one. A second backward must give bitwise the same dq, dk and
+   dv. Faults planted in the plain bf16 outputs (a tile unwritten, a
+   key tile skipped by the forward or by dq, with segments a key tile
+   that shares a document skipped by the forward, a group head
+   dropped, delta off by a constant) must exceed the same limits. Then
+   at the trainer's shape (B=8, bf16, causal) the
    outputs against plain once more, and the times, causal and with
    packed documents (the ``_seg`` twins): each kernel, its plain
    version, SDPA forward and backward (flash backend; with documents
    the efficient backend and a boolean mask; a yardstick only), the
-   torch delta chain, and the bound.
+   torch delta chain, and the bound; beside them the least time the
+   kernels' shared-memory operand reads take (``smem_floor_ms``).
 6. Small-model training agreement: TINY with head_dim 128 and fp32
    compute, three train steps on the card (kernel path) and on the CPU
    (plain path) from the same params and batches; and at bf16 compute,
@@ -575,7 +579,9 @@ def tile_err(got, ref) -> float:
 
 def flash_case(torch, *, b, s, h, kvh, d, dtype, segments, seed):
     """Card tensors for one flash call in the model layout; segments are
-    documents of random lengths per row."""
+    documents of random lengths per row, numbered in order, or with
+    ``segments='permuted'`` renumbered by a random permutation per row
+    (ids that do not increase along a row)."""
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed)
     dt = torch.float32 if dtype == 'fp32' else torch.bfloat16
@@ -587,6 +593,11 @@ def flash_case(torch, *, b, s, h, kvh, d, dtype, segments, seed):
     if segments:
         starts = torch.rand((b, s), generator=gen, device='cuda') < 1 / 300
         seg = torch.cumsum(starts.int(), dim=1).to(torch.int32).contiguous()
+        if segments == 'permuted':
+            perm = torch.stack([torch.randperm(s + 1, generator=gen,
+                                               device='cuda')
+                                for _ in range(b)]).to(torch.int32)
+            seg = torch.gather(perm, 1, seg.long()).contiguous()
     return q, k, v, do, seg
 
 
@@ -620,14 +631,53 @@ def flash_bound(b, s, h, kvh, d, itemsize, which, bw, flops_peak,
 DELTA_FAULT = 1.0
 
 
-def planted_faults(fa, q, k, v, do, causal, seg, ro, rlse, rgrads):
+def plain_rows_without(torch, fa, q, k, v, causal, seg, rows, keys):
+    """The plain forward's o and lse with query rows ``rows`` of batch 0,
+    head 0 recomputed as if the keys ``keys`` were left out too: what a
+    forward kernel that skipped that key tile for that q tile would
+    write."""
+    d = q.shape[-1]
+    dev = q.device
+    qr = q[0, rows, 0].float() * d ** -0.5
+    sc = qr @ k[0, :, 0].float().T
+    pos_q = torch.arange(rows.start, rows.stop, device=dev)
+    keep = torch.ones_like(sc, dtype=torch.bool)
+    if causal:
+        keep &= pos_q[:, None] >= torch.arange(k.shape[1], device=dev)
+    if seg is not None:
+        keep &= seg[0, rows][:, None] == seg[0][None, :]
+    keep[:, keys] = False
+    sc = torch.where(keep, sc, fa.NEG_INF)
+    m = sc.amax(-1, keepdim=True)
+    p = torch.exp(sc - m)
+    l_safe = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o_rows = (p.to(v.dtype).float() @ v[0, :, 0].float()) / l_safe
+    return o_rows, (m + torch.log(l_safe))[:, 0]
+
+
+def shared_key_tile(torch, causal, seg, rows):
+    """The 64-key tile that holds the most (query, key) pairs the mask
+    keeps for query rows ``rows`` of batch 0: one a segment tile skip
+    must not drop."""
+    s = seg.shape[1]
+    pos = torch.arange(s, device=seg.device)
+    keep = seg[0, rows][:, None] == seg[0][None, :]
+    if causal:
+        keep &= pos[rows][:, None] >= pos[None, :]
+    kt = int(keep.reshape(keep.shape[0], s // 64, 64).sum((0, 2)).argmax())
+    return slice(64 * kt, 64 * kt + 64)
+
+
+def planted_faults(torch, fa, q, k, v, do, causal, seg, ro, rlse, rgrads):
     """The tile errors of faults a kernel could make, each built
     from the plain outputs: one CTA's 64 rows left unwritten (o, dq, dk,
     dv; batch 0, head 0, rows 1024-1087, or the last 64 of a shorter
-    sequence), the dq kernel skipping one key tile (keys 64-127, or the
-    only one) of one head, the dk/dv kernel dropping one query head of
-    its group, and delta off by DELTA_FAULT (dq, dk). Each must exceed
-    the check's limit."""
+    sequence), the forward skipping one key tile for those rows (keys
+    64-127, or the only one; with segments the tile that shares the most
+    pairs with them, as a tile skip that misjudged the ids would), the
+    dq kernel skipping one key tile of one head, the dk/dv kernel
+    dropping one query head of its group, and delta off by DELTA_FAULT
+    (dq, dk). Each must exceed the check's limit."""
     rdq, rdk, rdv = rgrads
     s = q.shape[1]
     first = min(1024, s - 64)
@@ -644,7 +694,20 @@ def planted_faults(fa, q, k, v, do, causal, seg, ro, rlse, rgrads):
     dk_delta, _ = fa._dkv(p, bad_ds, qg, dog, k, v)
     del p, qg, dog, bad_ds
     skipped = min(64, s - 64)
-    ds[0, 0, 0, :, skipped:skipped + 64] = 0
+    keys = slice(skipped, skipped + 64)
+
+    def forward_without(keys):
+        bad = ro.clone()
+        bad[0, rows, 0] = plain_rows_without(torch, fa, q, k, v, causal,
+                                             seg, rows, keys)[0].to(ro.dtype)
+        return tile_err(bad, ro)
+
+    if seg is None:
+        forward = {'o: one key tile skipped': forward_without(keys)}
+    else:  # keys 64-127 may share no document with those rows
+        forward = {'o: a document tile skipped wrongly': forward_without(
+            shared_key_tile(torch, causal, seg, rows))}
+    ds[0, 0, 0, :, keys] = 0
     dq_skip = fa._dq(ds, q, k)
     del ds
     do_drop = do.clone()
@@ -652,7 +715,7 @@ def planted_faults(fa, q, k, v, do, causal, seg, ro, rlse, rgrads):
     dk_drop, dv_drop = fa.flash_dkv_reference(q, k, v, ro, rlse, do_drop,
                                               causal=causal,
                                               segment_ids=seg)
-    return {'o: one q tile unwritten': unwritten(ro),
+    return {'o: one q tile unwritten': unwritten(ro), **forward,
             'dq: one q tile unwritten': unwritten(rdq),
             'dq: one key tile skipped': tile_err(dq_skip, rdq),
             'dq: delta off': tile_err(dq_delta, rdq),
@@ -665,16 +728,23 @@ def planted_faults(fa, q, k, v, do, causal, seg, ro, rlse, rgrads):
 
 def flash_cases():
     """(label, shape, dtype, causal, segments) of phase 5: bench-1b7's
-    attention (B=2) both ways, D=256, the batch engine's prefill, and the
-    pipeline's edge shapes: S=64 (one tile: the ring's prologue and
-    epilogue only) and S=192 (three tiles, no multiple of the two
-    stages), GQA groups of 1 and 8."""
+    attention (B=2) both ways, with segment ids permuted per row, D=256,
+    the batch engine's prefill, and the pipeline's edge shapes: S=64 (one
+    tile: the ring's prologue and epilogue only) and S=192 (three tiles,
+    no multiple of the two stages; the forward's 64-row CTA), GQA groups
+    of 1 and 8."""
     shape = dict(b=2, s=2048, h=20, kvh=4, d=128)   # bench-1b7 attention
     cases = [(f'{dtype} {"causal" if causal else "full"}'
               f'{" seg" if segments else ""}', shape, dtype, causal,
               segments)
              for dtype in ('bf16', 'fp32') for causal in (True, False)
              for segments in (False, True)]
+    # Segment ids that do not increase along a row: the forward's tile
+    # skip must hold for any order of the ids.
+    for causal in (True, False):
+        cases.append((f'bf16 {"causal" if causal else "full"} seg, ids '
+                      f'permuted per row', shape, 'bf16', causal,
+                      'permuted'))
     cases.append(('bf16 causal seg D=256 H=KVH=16',
                   dict(b=2, s=2048, h=16, kvh=16, d=256), 'bf16', True,
                   True))
@@ -735,8 +805,8 @@ def phase_flash_kernels(torch, fa, bw, flops_peak):
             f'{"equal" if same else "DIFFERENT"}')
         ok = ok and same and delta_err <= DELTA_TOL
         if dtype == 'bf16':
-            faults = planted_faults(fa, q, k, v, do, causal, seg, ro, rlse,
-                                    rgrads)
+            faults = planted_faults(torch, fa, q, k, v, do, causal, seg, ro,
+                                    rlse, rgrads)
             fwd_tol, grad_tol = FLASH_TOL[dtype]
             caught = {n: e > (fwd_tol if n.startswith('o:') else grad_tol)
                       for n, e in faults.items()}
@@ -912,30 +982,39 @@ def flash_times(torch, fa, errors, bw, flops_peak, failed):
     log(f'[flash] packed documents: {lengths.numel()} documents, '
         f'{seg_pairs:.0f} kept (query, key) pairs = '
         f'{100 * seg_pairs / (shp["b"] * shp["s"] ** 2 / 2):.1f}% of causal')
-    floor = ldmatrix_floor_ms(torch, **shp)
-    log(f'[flash] causal: ldmatrix reads alone take at least '
-        f'{floor["dq"]:.4f} ms (dq) and {floor["dkv"]:.4f} ms (dk/dv)')
+    floor = smem_floor_ms(torch, **shp)
+    log(f'[flash] causal: shared-memory operand reads alone take at '
+        f'least {floor["fwd"]:.4f} ms (forward, wgmma; kernel '
+        f'{times[""]["flash_fwd"]:.4f} ms), {floor["dq"]:.4f} ms (dq, '
+        f'ldmatrix) and {floor["dkv"]:.4f} ms (dk/dv, ldmatrix)')
     return rows, times['']['backward']
 
 
-def ldmatrix_floor_ms(torch, b, s, h, kvh, d):
-    """The least time (ms) in which the bf16 backward's ldmatrix.x4 loads
-    (512 bytes each) can read shared memory in one causal call at
-    D=128, at 128 bytes a clock per SM at the card's top SM clock. The
-    loads follow the tiling of csrc/flash_attention.cu: dq, 4 warps of
-    two m16 tiles per 128-row CTA, 32-key tiles, 80 loads a warp a tile
-    (per k16 step 4 A and 4 B for s and dp; 8 B for ds.k per 16 keys);
-    dk/dv, 4 warps of 16 keys, 64-query steps, 144 loads a warp a step
-    (16 A, 32 B for each of s^T, dv, dp^T and dk)."""
+def smem_floor_ms(torch, b, s, h, kvh, d):
+    """The least time (ms) in which the bf16 kernels can read their
+    matrix operands from shared memory in one causal call at D=128, at
+    128 bytes a clock per SM at the card's top SM clock, under the
+    tiling of csrc/flash_attention.cu. Forward (wgmma): each warpgroup
+    of a 128-row CTA reads, for each 128-key tile it visits, its 64 Q
+    rows (A of q k^T) and the K and V tiles (B of q k^T and of p v):
+    (64 + 2 * 128) * D * 2 bytes. The backward's ldmatrix.x4 loads (512
+    bytes each): dq, 4 warps of two m16 tiles per 128-row CTA, 32-key
+    tiles, 80 loads a warp a tile (per k16 step 4 A and 4 B for s and
+    dp; 8 B for ds.k per 16 keys); dk/dv, 4 warps of 16 keys, 64-query
+    steps, 144 loads a warp a step (16 A, 32 B for each of s^T, dv, dp^T
+    and dk)."""
+    fwd_tiles = 2 * sum(i + 1 for i in range(s // 128))
     dq_tiles = 4 * sum(4 * (i + 1) for i in range(s // 128))
     dkv_steps = 4 * (h // kvh) * sum(s // 64 - i for i in range(s // 64))
-    loads = {'dq': 80 * dq_tiles * b * h, 'dkv': 144 * dkv_steps * b * kvh}
+    nbytes = {'fwd': (64 + 2 * 128) * d * 2 * fwd_tiles * b * h,
+              'dq': 512 * 80 * dq_tiles * b * h,
+              'dkv': 512 * 144 * dkv_steps * b * kvh}
     clock = float(subprocess.run(
         ['nvidia-smi', '--query-gpu=clocks.max.sm',
          '--format=csv,noheader,nounits'], capture_output=True, text=True,
         check=True, timeout=60).stdout.split()[0]) * 1e6
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return {n: 512 * x / (128 * sms * clock) * 1e3 for n, x in loads.items()}
+    return {n: x / (128 * sms * clock) * 1e3 for n, x in nbytes.items()}
 
 
 # ---------------------------------------------------------------------------

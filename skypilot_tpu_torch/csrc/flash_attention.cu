@@ -3,7 +3,8 @@
 // segment-masked (packed sequences).
 //
 // Replaces the TPU kernels of skypilot_tpu/ops/pallas/flash_attention.py:
-//   * _fwd_kernel (:62), _fwd_kernel_seg (:128)     -> flash_fwd_kernel
+//   * _fwd_kernel (:62), _fwd_kernel_seg (:128)
+//                          -> flash_fwd_bf16 (bf16), flash_fwd_f32 (fp32)
 //   * _bwd_dq_kernel (:193), _bwd_dq_kernel_seg (:246)
 //                          -> flash_dq_bf16 (bf16), flash_dq_f32 (fp32)
 //   * _bwd_dkv_kernel (:254), _bwd_dkv_kernel_seg (:325)
@@ -31,18 +32,41 @@
 // far above the ~295 at which bf16 tensor cores stop waiting on memory.
 //
 // What the design does about it: bf16 inputs run every product on the
-// tensor cores (warp-level mma.sync.m16n8k16, fp32 accumulation); fp32
-// inputs run the same tiling with fp32 FMAs on CUDA cores (the fp32
-// tolerance rules out TF32). A CTA owns 64 rows (q rows for fwd/dq, key
-// rows for dkv), 4 warps of 16 (the bf16 dq: warps of 32, 128 rows a
-// CTA where S allows); the other side streams through shared memory in tiles. The TPU
-// kernel sums dk/dv across a sequential group grid axis in its output
-// block; Hopper blocks run in no order, so the dkv block loops over the
-// group's query heads itself: no atomics, and the result is
-// deterministic.
+// tensor cores with fp32 accumulation; fp32 inputs run a 64-row tiling
+// with fp32 FMAs on CUDA cores (the fp32 tolerance rules out TF32), a
+// CTA of 4 warps of 16 rows (q rows for fwd/dq, key rows for dkv), the
+// other side streamed through shared memory in tiles. The TPU kernel
+// sums dk/dv across a sequential group grid axis in its output block;
+// Hopper blocks run in no order, so the dkv block loops over the group's
+// query heads itself: no atomics, and the result is deterministic.
 //
-// The bf16 backward kernels (flash_dq_bf16, flash_dkv_bf16) go further
-// (PERF.md gives what each of these bought):
+// The bf16 forward (flash_fwd_bf16) is laid out the way Hopper reaches
+// its tensor-core rate (PERF.md gives what each step bought):
+//   * warpgroup MMA: each consumer warpgroup owns 64 query rows; s =
+//     q k^T is a wgmma.m64nBNk16 chain with Q and K in shared memory,
+//     o += p v one with P in registers (S's accumulator, packed to bf16,
+//     is its A fragment) and V read transposed from shared memory;
+//   * tiles sit in shared memory in the 128-byte swizzle that TMA writes
+//     and the wgmma descriptors read; one thread of a producer
+//     warpgroup loads Q and the 3-stage K and V rings with TMA, and
+//     full / empty mbarriers hand the stages over, so no CTA barrier
+//     stops the loop; setmaxnreg moves the producer's registers to the
+//     consumers;
+//   * step i issues q k_i^T and p_{i-1} v_{i-1} together, so its
+//     softmax runs beside the step before's P.V, and the two consumer
+//     warpgroups take turns to issue (named barriers), so one's softmax
+//     runs beside the other's products;
+//   * exp2 on log2-scaled scores, the causal mask only on the tiles that
+//     cross the diagonal, the heaviest q tiles first;
+//   * with segment ids, a key tile whose id range [min, max] misses the
+//     q tile's is skipped with its loads: exact for ids in any order.
+// At D = 128 a CTA has two consumer warpgroups (128 rows) and streams
+// 128-key tiles where S % 128 = 0; else, and at D = 256, one (64 rows,
+// 64-key tiles).
+//
+// The bf16 backward kernels (flash_dq_bf16, flash_dkv_bf16) use
+// warp-level mma.sync.m16n8k16 (PERF.md gives what each of these
+// bought):
 //   * delta is computed in the dq kernel from its dO rows and the
 //     matching O rows, and written for dk/dv (no separate pass);
 //   * every mma fragment comes from one ldmatrix.x4 (.trans for the
@@ -66,20 +90,23 @@
 //     dq CTA has four such warps (128 rows) when S is a multiple of
 //     128, else two. dk/dv keeps one m16 tile (16 keys) per warp: its
 //     dK and dV accumulators leave no registers for two.
-// At D = 256 both kernels split the output columns over two CTAs (each
-// recomputes S and dP over all of D) so that the accumulators fit in
-// registers. The fp32 backward keeps the PR 2 kernels (slab
-// round-trips, synchronous loads). No wgmma, TMA or warp
-// specialisation yet.
+// At D = 256 both backward kernels split the output columns over two
+// CTAs (each recomputes S and dP over all of D) so that the accumulators
+// fit in registers. The fp32 kernels keep the first, simple design (slab
+// round-trips, synchronous loads).
 //
 // C interface (loaded with ctypes by skypilot_tpu_torch/_build.py): each
 // skyt_flash_* launches on the given stream, never synchronises,
 // allocates nothing and returns cudaGetLastError() (0 = success).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cudaTypedefs.h>
 #include <stdint.h>
 
+#include <climits>
+#include <cmath>
 #include <type_traits>
 
 namespace {
@@ -88,6 +115,7 @@ typedef __nv_bfloat16 bf16;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBM = 16 * kWarps;  // rows a CTA owns: 16 per warp
@@ -100,6 +128,8 @@ constexpr int kDqMT = 2;
 constexpr int kDqKeys = 32;
 constexpr int kDkvQueries = 64;
 constexpr int kStages = 2;
+// The bf16 forward's K and V rings: K two tiles ahead of its use, V one.
+constexpr int kFwdStages = 3;
 
 // dtype codes shared with ops/flash_attention.py
 constexpr int kF32 = 0;
@@ -179,15 +209,6 @@ __device__ __forceinline__ void copy_words(void* dst, const void* src,
                static_cast<const char*>(src) + 16 * i);
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
 __device__ __forceinline__ uint32_t pack_floats(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -218,45 +239,12 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// acc[NT][4] += A (16 x KD) . B (KD x 8*NT) for one warp, in the
-// m16n8 accumulator layout: lane (g = lane / 4, t = lane % 4) holds rows
-// g and g + 8, columns 2t and 2t + 1 of each 8-wide tile nt, as
-// acc[nt] = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
+// acc[NT][4] += A (16 x KD) . B (KD x 8*NT) for one warp with fp32
+// FMAs, in the m16n8 accumulator layout: lane (g = lane / 4, t = lane %
+// 4) holds rows g and g + 8, columns 2t and 2t + 1 of each 8-wide tile
+// nt, as acc[nt] = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
 // A[m][k] = a[m * lda + k] (the warp's 16-row slab, shared memory).
 // B_NK: B[k][n] = x[n * ldx + k]; else B[k][n] = x[k * ldx + n].
-template <int NT, int KD, bool B_NK>
-__device__ __forceinline__ void warp_gemm(float (&acc)[NT][4], const bf16* a,
-                                          int lda, const bf16* x, int ldx) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll 2
-  for (int k0 = 0; k0 < KD; k0 += 16) {
-    uint32_t af[4];
-    af[0] = ld32(a + g * lda + k0 + 2 * t);
-    af[1] = ld32(a + (g + 8) * lda + k0 + 2 * t);
-    af[2] = ld32(a + g * lda + k0 + 2 * t + 8);
-    af[3] = ld32(a + (g + 8) * lda + k0 + 2 * t + 8);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int n = nt * 8 + g;
-      uint32_t b0, b1;
-      if (B_NK) {
-        b0 = ld32(x + n * ldx + k0 + 2 * t);
-        b1 = ld32(x + n * ldx + k0 + 2 * t + 8);
-      } else {
-        b0 = pack_bf16(x[(k0 + 2 * t) * ldx + n],
-                       x[(k0 + 2 * t + 1) * ldx + n]);
-        b1 = pack_bf16(x[(k0 + 2 * t + 8) * ldx + n],
-                       x[(k0 + 2 * t + 9) * ldx + n]);
-      }
-      mma_bf16(acc[nt], af, b0, b1);
-    }
-  }
-}
-
-// The same product for fp32 operands with fp32 FMAs, into the same
-// accumulator layout.
 template <int NT, int KD, bool B_NK>
 __device__ __forceinline__ void warp_gemm(float (&acc)[NT][4], const float* a,
                                           int lda, const float* x, int ldx) {
@@ -428,14 +416,295 @@ __device__ __forceinline__ void warp_delta(float (&dl)[2], const T* o_rows,
 }
 
 // ---------------------------------------------------------------------------
+// Warpgroup MMA (wgmma, sm_90a) for the bf16 forward. A warpgroup is 4
+// consecutive warps; one wgmma.m64nNk16 multiplies its 64 x 16 A tile by
+// a 16 x N B tile read from shared memory through a matrix descriptor.
+// The fp32 accumulator of warp w holds rows 16w..16w+15 in the m16n8
+// layout above (d[j] is columns 8j..8j+7), so that, once packed to bf16
+// pairs, S's accumulator is P's register A fragment (acc_a).
+// ---------------------------------------------------------------------------
+
+// wgmma operands, and the TMA boxes that fill them, sit in shared memory
+// in the 128-byte swizzle: a tile of ROWS rows x D bf16 is D / 64 column
+// chunks of ROWS x 128 bytes, 1024-byte aligned, with the 16-byte vector
+// c of row r stored at vector (c ^ (r % 8)) of that row.
+// Descriptor of such an operand at p (a 16-byte multiple): lbo / sbo in
+// bytes; layout type 1 (bits 62-63) is the 128-byte swizzle.
+__device__ __forceinline__ uint64_t gmma_desc(const bf16* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+// k16 step kk of a K-major operand (rows of the tile are M or N, its D
+// columns are K): 32 bytes a step inside a 128-byte chunk row, then the
+// next chunk. 8-row groups lie 1024 bytes apart (sbo); lbo is unused.
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_k_major(const bf16* tile, int row0,
+                                                 int kk) {
+  return gmma_desc(tile + (kk >> 2) * ROWS * 64 + row0 * 64 + (kk & 3) * 16,
+                   16, 1024);
+}
+
+// k16 step kk of an MN-major B operand (V in P.V: rows are K = keys, the
+// D columns are N): 16 rows a step; N's 64-column chunks lie ROWS * 128
+// bytes apart (lbo), K's 8-row groups 1024 bytes (sbo).
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_mn_major(const bf16* tile, int kk) {
+  return gmma_desc(tile + kk * 16 * 64, ROWS * 128, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator, or
+// of a register A operand, across the asynchronous wgmma that owns it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
+  }
+}
+
+// mbarriers (shared memory, 8 bytes each): a phase completes when its
+// count of arrivals has come; a wait for parity p returns once the
+// barrier's phase is no longer p.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// TMA: copy the box of `map` at coordinates (c0, c1, c2) into dst, with
+// completion (its bytes) reported to bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Bulk copy of `bytes` (a multiple of 16) into dst, reported to bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// d (+)= A . B for a warpgroup: ss, A and B in shared memory (both
+// K-major); rs, A in registers and B MN-major (transposed). scale_d = 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4],
+    uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, "
+      "0;\nwgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, "
+      "%1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4],
+    uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, "
+      "0;\nwgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, "
+      "%1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4],
+    const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, "
+      "0;\nwgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, "
+      "%1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[32][4],
+    const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, "
+      "0;\nwgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {%0, "
+      "%1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
+        "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
+        "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
+        "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
+        "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
+        "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
+        "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
+        "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
+        "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 64)
+    wgmma_ss_n64(d, da, db, scale_d);
+  else
+    wgmma_ss_n128(d, da, db, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 128)
+    wgmma_rs_n128(d, a, db, scale_d);
+  else
+    wgmma_rs_n256(d, a, db, scale_d);
+}
+
+// ---------------------------------------------------------------------------
 // Shared-memory sizes (bytes), also reported to the wrapper.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
-size_t fwd_smem() {
-  constexpr int BN = stream_rows<T, D>();
-  return sizeof(T) * ((size_t)(kBM + 2 * BN) * (D + pad<T>()) +
-                      (size_t)kBM * (BN + pad<T>())) +
+template <int D>
+size_t fwd_f32_smem() {
+  constexpr int BN = stream_rows<float, D>();
+  return sizeof(float) * ((size_t)(kBM + 2 * BN) * (D + pad<float>()) +
+                          (size_t)kBM * (BN + pad<float>())) +
          sizeof(int) * BN;
 }
 
@@ -477,15 +746,17 @@ size_t dkv_bf16_smem() {
 }
 
 // ---------------------------------------------------------------------------
-// Forward: one CTA per (q tile of 64 rows, head, batch).
+// Forward, fp32 (CUDA-core FMAs): one CTA per (q tile of 64 rows, head,
+// batch).
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, bool SEG>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ seg,
-                     T* __restrict__ o, float* __restrict__ lse, int S, int H,
-                     int KVH, int causal, float scale) {
+    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const int* __restrict__ seg,
+                  float* __restrict__ o, float* __restrict__ lse, int S, int H,
+                  int KVH, int causal, float scale) {
+  using T = float;
   constexpr int BN = stream_rows<T, D>();
   constexpr int P = D + pad<T>();
   constexpr int PS = BN + pad<T>();
@@ -579,7 +850,7 @@ __global__ void __launch_bounds__(kThreads)
       acc[no][2] *= corr[1];
       acc[no][3] *= corr[1];
     }
-    store_tile<T, NT>(slab, PS, s);  // P in v's type, as the reference
+    store_tile<T, NT>(slab, PS, s);
     __syncwarp();
     warp_gemm<NO, BN, false>(acc, slab, PS, sV, P);
   }
@@ -1180,6 +1451,351 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// Forward, bf16 (wgmma, TMA): one CTA per (q tile of 64 * WG rows, head,
+// batch) of WG consumer warpgroups, each owning 64 query rows, and one
+// producer warpgroup that streams the key tiles (BN rows) into rings of
+// kFwdStages stages.
+// ---------------------------------------------------------------------------
+
+// Key rows a bf16 forward step streams: 128 with two consumer
+// warpgroups (D = 128), else 64, so that the rings fit shared memory.
+template <int D, int WG>
+__host__ __device__ constexpr int fwd_keys() {
+  return D == 128 && WG == 2 ? 128 : 64;
+}
+
+// Shared memory of a bf16 forward CTA: Q, the K and V rings (1024-byte
+// aligned tiles first), then the segment ids of the K stages, the
+// barriers, and the bitmask of the key tiles to visit.
+template <int D, int WG>
+__host__ __device__ constexpr size_t fwd_tiles_bytes() {
+  return sizeof(bf16) * D *
+         (size_t)(64 * WG + 2 * kFwdStages * fwd_keys<D, WG>());
+}
+
+template <int D, bool SEG, int WG>
+size_t fwd_bf16_smem(int s) {
+  constexpr int BN = fwd_keys<D, WG>();
+  return fwd_tiles_bytes<D, WG>() + sizeof(int) * kFwdStages * BN +
+         sizeof(uint64_t) * (4 * kFwdStages + 1) +
+         (SEG ? sizeof(uint32_t) * (s / BN / 32 + 1) : 0);
+}
+
+// SEG: the key tiles among the first n_tiles whose segment-id range
+// [min, max] meets the query tile's, as bits of `bits`; returns their
+// count. A tile outside that range holds no key of any query's segment,
+// whatever the order of the ids, so skipping it is exact.
+template <int NTH, int BM, int BN>
+__device__ int visited_tiles(uint32_t* bits, int* count, const int* seg_b,
+                             int q0, int n_tiles) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int w = threadIdx.x; w <= n_tiles / 32; w += NTH) bits[w] = 0;
+  if (threadIdx.x == 0) *count = 0;
+  int q_lo = INT_MAX, q_hi = INT_MIN;
+#pragma unroll
+  for (int i = lane; i < BM; i += 32) {
+    const int x = seg_b[q0 + i];
+    q_lo = min(q_lo, x);
+    q_hi = max(q_hi, x);
+  }
+  q_lo = __reduce_min_sync(0xffffffffu, q_lo);
+  q_hi = __reduce_max_sync(0xffffffffu, q_hi);
+  __syncthreads();  // bits and count are cleared
+  for (int kt = warp; kt < n_tiles; kt += NTH / 32) {
+    int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+    for (int i = lane; i < BN; i += 32) {
+      const int x = seg_b[kt * BN + i];
+      lo = min(lo, x);
+      hi = max(hi, x);
+    }
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    if (lane == 0 && hi >= q_lo && lo <= q_hi) {
+      atomicOr(&bits[kt >> 5], 1u << (kt & 31));
+      atomicAdd(count, 1);
+    }
+  }
+  __syncthreads();
+  // read through a shuffle, so that the compiler knows it is the same
+  // in every lane: wgmma in a loop it cannot prove uniform is serialized
+  return __shfl_sync(0xffffffffu, *count, 0);
+}
+
+// The first key tile after kt (-1: the first) whose bit is set; one is.
+__device__ __forceinline__ int next_tile(const uint32_t* bits, int kt) {
+  int w = (kt + 1) >> 5;
+  uint32_t word = bits[w] & (0xffffffffu << ((kt + 1) & 31));
+  while (word == 0) word = bits[++w];
+  return (w << 5) + __ffs(word) - 1;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int D, bool SEG, int WG>
+__global__ void __launch_bounds__(128 * (WG + 1), 1)
+    flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const int* __restrict__ seg, bf16* __restrict__ o,
+                   float* __restrict__ lse, int S, int H, int KVH,
+                   int causal, float scale) {
+  constexpr int NTH = 128 * WG;  // consumer threads
+  constexpr int BM = 64 * WG;
+  constexpr int BN = fwd_keys<D, WG>();
+  constexpr int NS = BN / 8;  // n8 tiles of S
+  constexpr int NO = D / 8;   // n8 tiles of O
+  constexpr int kTile = BN * D;
+  // The tiles need 1024-byte alignment (the 128-byte swizzle): the
+  // kernel has no static shared memory, so the dynamic part starts on a
+  // 1024-byte boundary.
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sK = sQ + BM * D;             // K ring: stage i at i * kTile
+  bf16* sV = sK + kFwdStages * kTile;  // V ring, the same
+  int* sSeg = reinterpret_cast<int*>(smem_raw + fwd_tiles_bytes<D, WG>());
+  // full[0][i] / full[1][i]: stage i of the K / V ring is loaded;
+  // empty[r][i]: every thread is done reading it.
+  uint64_t(*full)[kFwdStages] =
+      reinterpret_cast<uint64_t(*)[kFwdStages]>(sSeg + kFwdStages * BN);
+  uint64_t(*empty)[kFwdStages] = full + 2;
+  int* count = reinterpret_cast<int*>(empty + 2);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(count + 2);  // SEG
+
+  // q tiles go in launch order, the last first: in causal runs they
+  // stream the most key tiles, so the heaviest CTAs start in the first
+  // wave.
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z) * BM;
+  const int kh = h / (H / KVH);
+  // read through a shuffle, so that the compiler knows it is the same
+  // in every lane: wgmma on a path it cannot prove uniform is serialized
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  const int warp = (threadIdx.x >> 5) & 3;  // in the warpgroup
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int* seg_b = seg + (long)b * S;
+  if (threadIdx.x == 0) {
+    for (int r = 0; r < 2; ++r) {
+      for (int i = 0; i < kFwdStages; ++i) {
+        mbar_init(&full[r][i], 1);
+        mbar_init(&empty[r][i], NTH);
+      }
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  int n_tiles = causal ? (q0 + BM) / BN : S / BN;
+  if constexpr (SEG)
+    n_tiles = visited_tiles<NTH + 128, BM, BN>(bits, count, seg_b, q0,
+                                               n_tiles);
+  else
+    __syncthreads();  // the barriers are initialised
+
+  if (wg == WG) {
+    // The producer warpgroup hands most of its registers to the
+    // consumers, and one of its threads issues every load. Step i
+    // multiplies q by K tile i and p_{i-1} by V tile i - 1, so K tiles
+    // are loaded one ahead of V tiles. A stage is refilled once every
+    // consumer thread has released it (its empty barrier); its full
+    // barrier completes when TMA has written its bytes. Nothing else
+    // makes the warpgroups wait for each other.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == NTH) {
+      int k_tile = -1, v_tile = -1;
+      for (int i = 0; i <= n_tiles; ++i) {
+        if (i < n_tiles) {  // K tile i, with Q at i = 0
+          const int st = i % kFwdStages;
+          k_tile = SEG ? next_tile(bits, k_tile) : i;
+          mbar_wait(&empty[0][st], ((i / kFwdStages) & 1) ^ 1);
+          mbar_expect_tx(&full[0][st],
+                         sizeof(bf16) * (kTile + (i == 0 ? BM * D : 0)) +
+                             (SEG ? sizeof(int) * BN : 0));
+          if (i == 0) {
+#pragma unroll
+            for (int c = 0; c < D / 64; ++c)
+              tma_load(sQ + c * BM * 64, &tq, 64 * c, h, b * S + q0,
+                       &full[0][0]);
+          }
+#pragma unroll
+          for (int c = 0; c < D / 64; ++c)
+            tma_load(sK + st * kTile + c * BN * 64, &tk, 64 * c, kh,
+                     b * S + k_tile * BN, &full[0][st]);
+          if (SEG)
+            bulk_load(sSeg + st * BN, seg_b + k_tile * BN, sizeof(int) * BN,
+                      &full[0][st]);
+        }
+        if (i > 0) {  // V tile i - 1
+          const int st = (i - 1) % kFwdStages;
+          v_tile = SEG ? next_tile(bits, v_tile) : i - 1;
+          mbar_wait(&empty[1][st], (((i - 1) / kFwdStages) & 1) ^ 1);
+          mbar_expect_tx(&full[1][st], sizeof(bf16) * kTile);
+#pragma unroll
+          for (int c = 0; c < D / 64; ++c)
+            tma_load(sV + st * kTile + c * BN * 64, &tv, 64 * c, kh,
+                     b * S + v_tile * BN, &full[1][st]);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+
+  const int wr0 = q0 + 64 * wg;        // the warpgroup's first row
+  const int r0 = wr0 + 16 * warp + g;  // this lane's rows: r0, r0 + 8
+  int seg_r[2] = {0, 0};
+  if (SEG) {
+    seg_r[0] = seg_b[r0];
+    seg_r[1] = seg_b[r0 + 8];
+  }
+  const float scale_log2 = scale * kLog2e;
+  float m[2] = {kNegInf, kNegInf};  // running max of s * scale * log2(e)
+  float l[2] = {0.f, 0.f};          // this lane's part of the running sum
+  float acc[NO][4];
+  zero(acc);
+  float s[NS][4];
+  uint32_t p[NS / 2][4];  // P of the step before, bf16 A fragments
+  int kt = -1;            // this step's key tile
+  // The two warpgroups take turns to issue their products (named
+  // barriers 1 and 2), so that one's softmax runs beside the other's
+  // products on the tensor cores.
+  if (WG == 2 && wg == 1) asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kFwdStages;
+    const int pst = (i + kFwdStages - 1) % kFwdStages;  // V tile i - 1's
+    kt = SEG ? next_tile(bits, kt) : i;
+    mbar_wait(&full[0][st], (i / kFwdStages) & 1);
+    if (i > 0) mbar_wait(&full[1][pst], ((i - 1) / kFwdStages) & 1);
+    if (WG == 2) {
+      if (wg == 0)
+        asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      else
+        asm volatile("bar.sync 2, 256;\n" ::: "memory");
+    }
+    // s = q k^T for the warpgroup's 64 rows; then o += p v of the step
+    // before, which runs on the tensor cores during this step's softmax
+    fence_regs(s);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BN>(s, desc_k_major<BM>(sQ, 64 * wg, kk),
+                   desc_k_major<BN>(sK + st * kTile, 0, kk), kk > 0);
+    wgmma_commit();
+    if (i > 0) {
+      fence_regs(p);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs<D>(acc, p[kk], desc_mn_major<BN>(sV + pst * kTile, kk), 1);
+    }
+    wgmma_commit();
+    if (WG == 2 && !(wg == 1 && i + 1 == n_tiles)) {
+      if (wg == 0)
+        asm volatile("bar.arrive 2, 256;\n" ::: "memory");
+      else
+        asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+    }
+    wgmma_wait<1>();  // s is in
+    fence_regs(s);
+
+    // p = exp2(s * scale * log2(e) - m), masked p = 0; the causal mask
+    // only on the tiles that cross the diagonal. A masked score is -inf
+    // here: with m starting at the reference's finite NEG_INF, a row
+    // whose keys so far are all masked keeps p = 0 and l = 0 where the
+    // reference sums exp(0) terms that the first kept key's correction
+    // exp(NEG_INF - m) zeroes, so o and lse are the same. (A finite mask
+    // would leave exp2 of fma's rounding residual, up to 1e21, there.)
+    if (SEG) {
+      const int* tSeg = sSeg + st * BN;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const int2 ks = *reinterpret_cast<const int2*>(tSeg + j * 8 + 2 * t);
+        if (ks.x != seg_r[0]) s[j][0] = -INFINITY;
+        if (ks.y != seg_r[0]) s[j][1] = -INFINITY;
+        if (ks.x != seg_r[1]) s[j][2] = -INFINITY;
+        if (ks.y != seg_r[1]) s[j][3] = -INFINITY;
+      }
+    }
+    mbar_arrive(&empty[0][st]);  // K tile i and its ids are read
+    if (causal && kt * BN + BN - 1 > wr0) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (kt * BN + j * 8 + 2 * t + (e & 1) > r0 + 8 * (e >> 1))
+            s[j][e] = -INFINITY;
+        }
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      const float m_new = fmaxf(m[r], quad_max(mx) * scale_log2);
+      corr[r] = ex2(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = ex2(fmaf(s[j][e], scale_log2, -m[e >> 1]));
+        l[e >> 1] += s[j][e];
+      }
+    }
+    wgmma_wait<0>();  // the step before's o += p v is done
+    fence_regs(acc);
+    fence_regs(p);
+    if (i > 0) mbar_arrive(&empty[1][pst]);
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      acc[j][0] *= corr[0];
+      acc[j][1] *= corr[0];
+      acc[j][2] *= corr[1];
+      acc[j][3] *= corr[1];
+    }
+    // P rounded to bf16 before P.V, as the reference does
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) acc_a<NS>(p[kk], s, kk);
+  }
+  // the last o += p v
+  const int pst = (n_tiles - 1) % kFwdStages;
+  mbar_wait(&full[1][pst], ((n_tiles - 1) / kFwdStages) & 1);
+  fence_regs(acc);
+  fence_regs(p);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    wgmma_rs<D>(acc, p[kk], desc_mn_major<BN>(sV + pst * kTile, kk), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  float ls[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) ls[r] = fmaxf(quad_sum(l[r]), 1e-30f);
+  const long q_row = (long)H * D;
+  store_rows<bf16, NO>(o + ((long)b * S + r0) * q_row + (long)h * D, q_row,
+                       acc, 1.f / ls[0], 1.f / ls[1]);
+  if (t == 0) {
+    float* lse_row = lse + ((long)b * H + h) * S + r0;
+    lse_row[0] = m[0] * kLn2 + logf(ls[0]);
+    lse_row[8] = m[1] * kLn2 + logf(ls[1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
 
@@ -1216,13 +1832,71 @@ struct Args {
   cudaStream_t stream;
 };
 
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link against libcuda).
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// A TMA map of x [B * S rows, heads, D] bf16 (the model layout) whose box
+// is `rows` rows of one head and 64 columns (128 bytes), written into
+// shared memory in the 128-byte swizzle.
+bool tensor_map(CUtensorMap* map, const void* x, int d, int heads,
+                long rows_total, int rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)rows_total};
+  const cuuint64_t strides[2] = {sizeof(bf16) * (cuuint64_t)d,
+                                 sizeof(bf16) * (cuuint64_t)d * heads};
+  const cuuint32_t box[3] = {64, 1, (cuuint32_t)rows};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(x), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 forward CTA has 2 consumer warpgroups (128 rows) where S % 128
+// = 0 and D = 128, else 1 (at D = 256 the rings fill shared memory).
+template <int D, bool SEG, int WG>
+cudaError_t run_fwd_bf16(const Args& a) {
+  constexpr int BN = fwd_keys<D, WG>();
+  CUtensorMap tq, tk, tv;
+  const long rows = (long)a.b * a.s;
+  if (!tensor_map(&tq, a.q, D, a.h, rows, 64 * WG) ||
+      !tensor_map(&tk, a.k, D, a.kvh, rows, BN) ||
+      !tensor_map(&tv, a.v, D, a.kvh, rows, BN))
+    return cudaErrorInvalidValue;
+  return launch(flash_fwd_bf16<D, SEG, WG>, dim3(a.h, a.b, a.s / (64 * WG)),
+                128 * (WG + 1), fwd_bf16_smem<D, SEG, WG>(a.s), a.stream, tq,
+                tk, tv, a.seg, static_cast<bf16*>(a.out0), a.lse_out, a.s,
+                a.h, a.kvh, a.causal, a.scale);
+}
+
 template <typename T, int D, bool SEG>
 cudaError_t run_fwd(const Args& a) {
-  return launch(flash_fwd_kernel<T, D, SEG>, dim3(a.s / kBM, a.h, a.b),
-                kThreads, fwd_smem<T, D>(), a.stream,
-                static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-                static_cast<const T*>(a.v), a.seg, static_cast<T*>(a.out0),
-                a.lse_out, a.s, a.h, a.kvh, a.causal, a.scale);
+  if constexpr (std::is_same<T, bf16>::value) {
+    if constexpr (D == 128)
+      if (a.s % 128 == 0) return run_fwd_bf16<D, SEG, 2>(a);
+    return run_fwd_bf16<D, SEG, 1>(a);
+  } else {
+    return launch(flash_fwd_f32<D, SEG>, dim3(a.s / kBM, a.h, a.b), kThreads,
+                  fwd_f32_smem<D>(), a.stream, static_cast<const T*>(a.q),
+                  static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+                  a.seg, static_cast<T*>(a.out0), a.lse_out, a.s, a.h, a.kvh,
+                  a.causal, a.scale);
+  }
 }
 
 // A bf16 dq CTA has 4 warps (128 rows) where S allows, else 2 (64 rows).

@@ -152,6 +152,37 @@ def test_flash_kernels_match_plain(card, dtype, d, causal, seg):
         assert _tile_err(got, ref) <= grad_tol
 
 
+@pytest.mark.parametrize('causal', [True, False], ids=['causal', 'full'])
+@pytest.mark.parametrize('s', [192, 512], ids=['S192', 'S512'])
+@pytest.mark.parametrize('d', [128, 256])
+def test_flash_forward_non_increasing_segment_ids(card, d, s, causal):
+    """The bf16 forward skips key tiles whose segment-id range misses the
+    q tile's; with each row's documents renumbered at random (ids that
+    do not increase along a row) it still matches plain, at one
+    warpgroup a CTA (S=192) and two (S=512), both head dims."""
+    fa, q, k, v, _, _ = _flash_case(card, torch.bfloat16, d, False, s=s,
+                                    h=8, kvh=2)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(s + d)
+    starts = torch.rand((2, s), generator=gen, device=card) < 1 / 40
+    seg = torch.cumsum(starts.int(), dim=1)
+    perm = torch.stack([torch.randperm(s + 1, generator=gen, device=card)
+                        for _ in range(2)])
+    seg = torch.gather(perm, 1, seg.long()).to(torch.int32).contiguous()
+    assert (seg.diff(dim=1) < 0).any()
+    before = fa.LAUNCHES['flash_fwd_seg']
+    o, lse = fa.flash_forward_kernel(q, k, v, causal=causal,
+                                     segment_ids=seg)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES['flash_fwd_seg'] == before + 1
+    ro, rlse = fa.flash_forward_reference(q, k, v, causal=causal,
+                                          segment_ids=seg)
+    fwd_tol = FLASH_TOL[torch.bfloat16][0]
+    assert torch.isfinite(o).all()
+    assert _tile_err(o, ro) <= fwd_tol
+    assert _tile_err(lse, rlse) <= fwd_tol
+
+
 def test_flash_attention_autograd_on_card(card):
     """The public entry runs the kernels both ways on CUDA tensors and
     agrees with its CPU (plain) path."""

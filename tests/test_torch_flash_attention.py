@@ -104,6 +104,90 @@ def test_forward_lse_matches_jax_kernel(segments):
                                atol=2e-5, rtol=2e-5)
 
 
+def _permuted_segments(rng, b, s):
+    """Documents of random lengths per row, renumbered by a random
+    permutation per row: segment ids that do not increase along a row."""
+    seg = np.stack([np.cumsum(rng.rand(s) < 0.03) for _ in range(b)])
+    return np.stack([rng.permutation(s + 1)[row] for row in seg]).astype(
+        np.int32)
+
+
+@pytest.mark.parametrize('causal', [True, False], ids=['causal', 'full'])
+def test_forward_matches_jax_with_non_increasing_segment_ids(causal):
+    """Segment ids in any order along a row: the plain forward, which
+    the card holds the kernel's segment-tile skip to, against the
+    Pallas forward."""
+    q, k, v, _, _ = _inputs((2, 256, 4, 2, 128), seed=21)
+    seg = _permuted_segments(np.random.RandomState(21), 2, 256)
+    assert (np.diff(seg, axis=1) < 0).any()
+    jo, jlse = jfa._fwd(*(jnp.asarray(x).transpose(0, 2, 1, 3)
+                          for x in (q, k, v)), causal=causal,
+                        scale=128 ** -0.5, segments=jnp.asarray(seg))
+    o, lse = tfa.flash_forward_reference(
+        *(torch.from_numpy(x) for x in (q, k, v)), causal=causal,
+        segment_ids=torch.from_numpy(seg))
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[..., 0],
+                               atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(o.numpy(),
+                               np.asarray(jo).transpose(0, 2, 1, 3),
+                               atol=2e-5, rtol=2e-5)
+
+
+# The card checks' limit on the forward's tile error in bf16
+# (chip_smoke.py's FLASH_TOL, tests/test_torch_cuda.py).
+BF16_FWD_LIMIT = 5e-2
+
+
+def _tile_err(got, ref):
+    """Max over 64-row tiles of one head of max|got - ref| / max|ref|
+    (chip_smoke.py's tile_err), for [B, S, H, D] outputs."""
+    b, s, h, d = ref.shape
+    ref = ref.float()
+    diff = (got.float() - ref).abs().reshape(b, s // 64, 64, h, d)
+    scale = ref.abs().reshape(b, s // 64, 64, h, d).amax((2, 4))
+    return (diff.amax((2, 4)) / scale.clamp_min(1e-30)).max().item()
+
+
+def _forward_without(q, k, v, causal, seg, rows, keys):
+    """The plain forward's o with the keys ``keys`` also masked for
+    query rows ``rows`` of batch 0, head 0: what a kernel that skipped
+    that key tile for that q tile would write."""
+    b, s, h, d = q.shape
+    sc, _ = tfa._scores(q, k, causal, seg)
+    sc[0, 0, 0, rows, keys] = tfa.NEG_INF
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - m)
+    l_safe = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    acc = torch.einsum('bhgqk,bkhd->bhgqd', p.to(v.dtype).float(), v.float())
+    return ((acc / l_safe).permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+            .to(q.dtype))
+
+
+@pytest.mark.parametrize('segments', [None, 'ordered', 'permuted'])
+def test_forward_tile_faults_exceed_bf16_limit(segments):
+    """The forward faults the card check plants: a q tile's o computed
+    without keys 64-127 (without segments), or without the key tile that
+    shares the most of its documents (a tile skip that misjudged the
+    ids), fail the bf16 tile-error limit that the kernel must pass."""
+    q, k, v, _, seg = _inputs((1, 256, 4, 2, 128), seed=22,
+                              segments=segments == 'ordered')
+    if segments == 'permuted':
+        seg = _permuted_segments(np.random.RandomState(22), 1, 256)
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    tseg = None if seg is None else torch.from_numpy(seg)
+    for causal in (True, False):
+        ref, _ = tfa.flash_forward_reference(q, k, v, causal=causal,
+                                             segment_ids=tseg)
+        rows = slice(192, 256)
+        keys = slice(64, 128)
+        if tseg is not None:
+            mask = tfa._mask(256, q.device, causal, tseg)[0, 0, 0, rows]
+            kt = int(mask.reshape(64, 4, 64).sum((0, 2)).argmax())
+            keys = slice(64 * kt, 64 * kt + 64)
+        bad = _forward_without(q, k, v, causal, tseg, rows, keys)
+        assert _tile_err(bad, ref) > BF16_FWD_LIMIT
+
+
 @pytest.mark.parametrize('causal', [True, False], ids=['causal', 'full'])
 def test_xla_attention_with_segments_matches_jax(causal):
     q, k, v, _, seg = _inputs((2, 48, 4, 2, 16), seed=5, segments=True)
