@@ -13,10 +13,11 @@ Two implementations behind it:
 
 * the Hopper kernel (``csrc/paged_attention.cu``), for CUDA tensors:
   ``_paged_kernel``'s algorithm (fp32 running max/sum, finite
-  ``NEG_INF`` window mask, only ``ceil(n_valid/BS)`` blocks read,
-  ``acc / max(l, 1e-30)``) for bf16/fp32 pools, and
-  ``_paged_kernel_quant``'s for int8 pools. A CUDA tensor reaches the
-  kernel or the call raises: there is no fallback.
+  ``NEG_INF`` window mask, only ``ceil(n_valid/BS)`` blocks read, P
+  rounded to bf16 before P.V for a bf16 pool, ``acc / max(l, 1e-30)``)
+  for bf16/fp32 pools, and ``_paged_kernel_quant``'s for int8 pools,
+  in one launch. A CUDA tensor reaches the kernel or the call raises:
+  there is no fallback.
 * ``paged_attention_reference``, the plain PyTorch version of the same
   function, for CPU tensors (the tier-1 tests) and as the kernel's
   comparison on the card.
@@ -43,8 +44,8 @@ LAUNCHES: Dict[str, int] = {'paged_attention': 0,
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _HEAD_DIMS = (64, 128, 256)
-_SMEM_LIMIT = 232_448          # opt-in dynamic shared memory per block
-_SPLITS = 16                   # CTAs per (sequence, kv head); _num_splits
+_WAVE_CTAS = 264               # CTAs resident at once: two per H100 SM
+_MAX_SPLITS = 4                # a (b, h)'s splits are one cluster
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -68,7 +69,9 @@ def paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
     slot's rows through its block table, mask with the window rule and
     ``NEG_INF``, and weigh only the rows of the first
     ``ceil(n_valid/BS)`` blocks, exactly the rows the kernel reads (so
-    a fully masked row is uniform over those rows, as in the kernel)."""
+    a fully masked row is uniform over those rows, as in the kernel).
+    A 16-bit pool has P rounded to its type before P.V, as the
+    reference's ``p.astype(v.dtype)``; the sum keeps fp32 P."""
     b, q_len, h, d = q.shape
     nb, bs, kvh, _ = k_pool.shape
     g = h // kvh
@@ -95,6 +98,9 @@ def paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m) * read[:, None, None, None, :]
     l = p.sum(dim=-1, keepdim=True)
+    if k_scale is None and v_pool.dtype in (torch.bfloat16, torch.float16):
+        # the reference's p.astype(v.dtype) before P.V (l keeps fp32 P)
+        p = p.to(v_pool.dtype).float()
     acc = torch.einsum('bhgqt,bthd->bhgqd', p, v)
     out = acc / torch.clamp(l, min=1e-30)                    # [B,KVH,G,Q,D]
     return out.permute(0, 3, 1, 2, 4).reshape(b, q_len, h, d).to(q.dtype)
@@ -111,20 +117,23 @@ def _library() -> ctypes.CDLL:
         lib = _build.load_library('paged_attention')
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.skyt_paged_attention.argtypes = (
-            [p] * 10 + [i] * 8 + [ctypes.c_float, i, i, p])
+            [p] * 8 + [i] * 8 + [ctypes.c_float, i, i, p])
         lib.skyt_paged_attention.restype = i
-        lib.skyt_paged_attention_smem.argtypes = [i, i, i]
-        lib.skyt_paged_attention_smem.restype = ctypes.c_size_t
+        lib.skyt_paged_attention_warps.argtypes = [i] * 6
+        lib.skyt_paged_attention_warps.restype = i
         _lib = lib
     return _lib
 
 
-def _num_splits(bps: int) -> int:
-    """CTAs per (sequence, kv head): each walks an even share of the
-    slot's blocks. 16 was the best count, or within 1.17x of it, at
-    every decode shape timed on an H100 (B = 4..128, llama3-8b heads;
-    ``chip_smoke.py:split_study``)."""
-    return min(bps, _SPLITS)
+def _num_splits(b: int, kvh: int, bps: int) -> int:
+    """CTAs per (sequence, kv head), from the shape alone (the host never
+    reads the lengths): as many as keep every CTA of the launch resident
+    at once (``_WAVE_CTAS``), so a small batch still fills the card, and
+    one split once B * KVH alone does. The splits of a (sequence, kv
+    head) are one cluster, at most ``_MAX_SPLITS``: clusters of 8 did
+    not all fit on an H100 at once (PERF.md). Each split walks an even
+    share of the slot's blocks."""
+    return max(1, min(bps, _MAX_SPLITS, _WAVE_CTAS // (b * kvh)))
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -182,26 +191,26 @@ def paged_attention_kernel(qg: torch.Tensor, k_pool: torch.Tensor,
            'contiguous')
     _check(all(x.data_ptr() % 16 == 0 for x in (qg, k_pool, v_pool)),
            'q and pools must be 16-byte aligned')
+    splits = num_splits if num_splits is not None else \
+        _num_splits(b, kvh, bps)
+    _check(1 <= splits <= min(bps, _MAX_SPLITS),
+           f'{splits} splits for {bps} blocks per slot (at most '
+           f'{_MAX_SPLITS})')
     lib = _library()
-    smem = lib.skyt_paged_attention_smem(qgr, d, bs)
-    _check(smem <= _SMEM_LIMIT, f'{smem} bytes of shared memory for '
-           f'Q*G={qgr}, D={d}, BS={bs} (limit {_SMEM_LIMIT})')
-    splits = num_splits if num_splits is not None else _num_splits(bps)
-    _check(1 <= splits <= bps, f'{splits} splits for {bps} blocks per slot')
+    q_code, kv_code = _DTYPE_CODES[qg.dtype], _DTYPE_CODES[k_pool.dtype]
+    _check(lib.skyt_paged_attention_warps(qgr, d, bps, splits, q_code,
+                                          kv_code) > 0,
+           f'Q*G={qgr}, D={d}, {k_pool.dtype} pool: one warp\'s tiles do '
+           f'not fit in shared memory')
     out = torch.empty_like(qg)
-    part_acc = torch.empty((b * kvh, splits, qgr, d), dtype=torch.float32,
-                           device=dev)
-    part_ml = torch.empty((b * kvh, splits, 2, qgr), dtype=torch.float32,
-                          device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.skyt_paged_attention(
         qg.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
         block_tables.data_ptr(), n_valid.data_ptr(), out.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(),
-        b, kvh, qgr, q_len, d, bs, bps, splits, d ** -0.5,
-        _DTYPE_CODES[qg.dtype], _DTYPE_CODES[k_pool.dtype], stream)
+        b, kvh, qgr, q_len, d, bs, bps, splits,
+        d ** -0.5, q_code, kv_code, stream)
     if err != 0:
         raise RuntimeError(f'paged_attention kernel launch failed: CUDA '
                            f'error {err}')

@@ -16,10 +16,6 @@ from skypilot_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
 
-# bf16 outputs round at 2^-8 relative; fp32 sums differ in order only.
-TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
-
-
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -48,6 +44,23 @@ def _case(card, dtype, quant, q_len, d=128, g=4, kvh=2, bs=16, bps=8,
     return q, k.to(dtype), v.to(dtype), bt, nv, None, None
 
 
+# Limits on the paged kernels' error normalized per (sequence, head), as
+# chip_smoke.py's PAGED_TOL: bf16 outputs round at 2^-8 relative (2^-7
+# of the largest element when a rounding flips); fp32 sums differ in
+# order only.
+PAGED_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _head_err(got, ref, nv):
+    """max over (sequence, head) of max|got - ref| / max|ref| over its
+    live query rows and head dims ([B, Q, H, D])."""
+    keep = _live_rows(nv, ref.shape[1])
+    ref = ref.float()
+    diff = ((got.float() - ref).abs() * keep).amax(dim=(1, 3))
+    scale = (ref.abs() * keep).amax(dim=(1, 3)).clamp_min(1e-30)
+    return (diff / scale).max().item()
+
+
 @pytest.mark.parametrize('splits', [None, 1, 3],
                          ids=['picked', 'splits1', 'splits3'])
 @pytest.mark.parametrize('d', [64, 128, 256])
@@ -58,10 +71,13 @@ def _case(card, dtype, quant, q_len, d=128, g=4, kvh=2, bs=16, bps=8,
                          ids=['bf16', 'fp32', 'int8'])
 def test_kernel_matches_plain(card, monkeypatch, dtype, quant, q_len, d,
                               splits):
-    """The wrapper's split count (8 = BPS here), one CTA per (sequence,
-    kv head), and three, which share a slot's blocks unevenly."""
+    """The wrapper's split count (4 here: B * KVH = 12 pairs), one CTA
+    per (sequence, kv head), and three, which share a slot's blocks
+    unevenly (the 100-row slot's 7 blocks as 3, 3, 1)."""
     if splits is not None:
-        monkeypatch.setattr(pa, '_SPLITS', splits)
+        # B * KVH = 12 pairs: a wave of 12 CTAs gives 1 split, of 36 gives 3
+        monkeypatch.setattr(pa, '_WAVE_CTAS', 12 * splits)
+        assert pa._num_splits(6, 2, 8) == splits
     q, k, v, bt, nv, ks, vs = _case(card, dtype, quant, q_len, d=d)
     name = 'paged_attention_quant' if quant else 'paged_attention'
     before = pa.LAUNCHES[name]
@@ -70,7 +86,30 @@ def test_kernel_matches_plain(card, monkeypatch, dtype, quant, q_len, d,
     assert pa.LAUNCHES[name] == before + 1
     ref = pa.paged_attention_reference(q, k, v, bt, nv, ks, vs)
     assert torch.isfinite(out).all()
-    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert _head_err(out, ref, nv) <= PAGED_TOL[dtype]
+
+
+@pytest.mark.parametrize('q_len', [1, 3])
+def test_kernel_repeats_and_empty_slots(card, q_len):
+    """A second call gives bitwise the same output (the split merge
+    leaves no state behind); a slot with n_valid = 0 gives 0; fully
+    masked verify rows stay finite and match the plain version."""
+    q, k, v, bt, nv, _, _ = _case(card, torch.bfloat16, False, q_len,
+                                  lengths=(0, 1, 2, 100, 128, 33))
+    first = pa.paged_attention(q, k, v, bt, nv)
+    second = pa.paged_attention(q, k, v, bt, nv)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert first[0].abs().max().item() == 0
+    ref = pa.paged_attention_reference(q, k, v, bt, nv)
+    assert torch.isfinite(first).all()
+    assert _head_err(first, ref, nv) <= PAGED_TOL[torch.bfloat16]
+    masked = ~_live_rows(nv, q_len)[..., 0, 0]
+    masked[0] = False  # n_valid = 0: nothing read, zeros
+    if masked.any():
+        got, want = first[masked].float(), ref[masked].float()
+        err = (got - want).abs().max() / want.abs().max()
+        assert err.item() <= PAGED_TOL[torch.bfloat16]
 
 
 def test_kernel_rejects_unsupported_shapes(card):

@@ -7,6 +7,8 @@ version) and through both JAX references: the gathered-view XLA oracle
 ``xla_paged_attention`` and the Pallas kernel itself
 (``impl='pallas'``, interpret mode on the CPU). Tolerance 2e-5, the
 reference's own bound; int8 pools are compared on the same int8 data.
+A bf16 pool is held to the Pallas kernel by its mean error, which shows
+whether P is rounded to bf16 before P.V as the kernel rounds it.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -87,6 +89,52 @@ def test_plain_matches_reference_int8(lengths, q_len):
                                             v_scale=j(vs)))
     live = _live_rows(nv, q_len)
     np.testing.assert_allclose(out[live], oracle[live], atol=ATOL)
+
+
+# bf16: the Pallas kernel rounds P against each block's running max, the
+# plain version against the row's max, so outputs still differ by an
+# output ulp here and there: mean |port - Pallas| reads 1.1e-4 to 1.3e-4
+# with P rounded and 2.5e-4 to 2.7e-4 without (seeds 21-23, Q=1 and 3),
+# and no output may differ by more than one ulp at its size (< 2).
+BF16_MEAN_ATOL = 1.6e-4
+BF16_MAX_ATOL = 2 ** -7
+
+
+@pytest.mark.parametrize('q_len', [1, 3])
+def test_plain_rounds_p_like_reference_bf16(q_len):
+    q, k_pool, v_pool, bt = _setup(4, q_len, seed=21, d=64, bps=8)
+    nv = np.asarray([5, 17, 40, 64], np.int32)
+    qb, kb, vb = (torch.from_numpy(x).to(torch.bfloat16)
+                  for x in (q, k_pool, v_pool))
+    out = tpa.paged_attention(qb, kb, vb, torch.from_numpy(bt),
+                              torch.from_numpy(nv)).float().numpy()
+
+    def j(x):
+        return jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+    pallas = paged_attention(j(qb), j(kb), j(vb), jnp.asarray(bt),
+                             jnp.asarray(nv), impl='pallas')
+    diff = np.abs(out - np.asarray(pallas.astype(jnp.float32)))
+    assert diff.mean() <= BF16_MEAN_ATOL, diff.mean()
+    assert diff.max() <= BF16_MAX_ATOL, diff.max()
+
+
+def test_split_rule_fills_the_card_without_reading_lengths():
+    """The kernel's split count comes from (B, KVH, BPS) alone: as many
+    CTAs as stay resident at once at small batch, one split once B * KVH
+    fills that, never more splits than blocks or than one cluster
+    takes."""
+    for b, kvh, bps in [(1, 8, 128), (4, 8, 128), (8, 8, 128),
+                        (40, 8, 128), (128, 8, 128), (8, 8, 3),
+                        (1, 1, 1)]:
+        s = tpa._num_splits(b, kvh, bps)
+        assert 1 <= s <= min(bps, tpa._MAX_SPLITS)
+        if b * kvh >= tpa._WAVE_CTAS:
+            assert s == 1
+        elif s < min(bps, tpa._MAX_SPLITS):
+            assert b * kvh * s <= tpa._WAVE_CTAS
+            assert b * kvh * (s + 1) > tpa._WAVE_CTAS
+    assert tpa._num_splits(128, 8, 128) == 1
+    assert tpa._num_splits(8, 8, 128) > 1
 
 
 def test_fully_masked_padded_rows_are_finite_and_match_kernel():
