@@ -33,13 +33,18 @@ Phases, in order; any failure exits non-zero:
 4. Decode kernels vs plain: each decode-attention kernel (kernels 3-4,
    the batch engine's) against its plain PyTorch version at llama3-8b
    heads: B=8 mixed lengths 1..2048 at T=2048 with Q=1 and Q=5, the batch
-   engine's T=288 (off the 32-row tile), a cache whose stale rows hold
-   +-1e4, D=64 and D=256; bf16, fp32 and int8 caches; each output held
-   by its error normalized per (sequence, head) (``head_err``), with
-   planted faults (a (sequence, kv head) unwritten, a last partial tile
-   skipped) that must exceed the same limit. Then times at B=8 mixed
-   T=2048: kernel, plain, and SDPA with a boolean length mask over the
-   whole cache (a yardstick only), beside the bound.
+   engine's T=288, B=40 and B=128 (one split), caches whose stale rows
+   hold +-1e4 (Q=1 and Q=5), D=64 at T=300 (off the 16-row tile) and
+   D=256; bf16, fp32 and int8 caches; each output held by its error
+   normalized per (sequence, head) (``head_err``), with planted faults
+   (a (sequence, kv head) unwritten, an interior and the last partial
+   16-row tile of the 1000-row sequence skipped, one split's rows of a
+   2048-row sequence skipped) that must exceed the same limit, and fully
+   masked window rows held to the mean of the V rows read. Then times,
+   bf16 and int8,
+   at B=8 mixed T=2048 (Q=1 and Q=5), the engine's B=4 T=288 and B=128
+   mixed T=2048: kernel, plain, and SDPA with a boolean length mask over
+   the whole cache (a yardstick only), beside the bound.
 5. Flash kernels vs plain: forward (o, lse), dq and dk/dv against their
    plain versions at bench-1b7's attention shape (B=2, S=2048, H=20,
    KVH=4, D=128), causal and not, bf16 and fp32, with and without
@@ -549,21 +554,74 @@ def head_err(torch, got, ref, nv) -> float:
     return (diff / scale).max().item()
 
 
+def rows_left_out(torch, c, seq, start, stop):
+    """The cache and lengths of a call in which sequence ``seq`` never
+    had rows [start, stop): its later rows move up."""
+    n = int(c['nv'][seq])
+    left = dict(c, nv=c['nv'].clone())
+    for key in ('k', 'v', 'k_scale', 'v_scale'):
+        if c[key] is not None:
+            left[key] = c[key].clone()
+            left[key][seq, start:n - (stop - start)] = c[key][seq, stop:n]
+    left['nv'][seq] = n - (stop - start)
+    return left
+
+
 def decode_faults(torch, da, c, ref, kvh):
     """Errors of faults the kernel could make, built from the plain
     output: one (sequence, kv head) left unwritten (sequence 1, kv head
-    3), and the last partial 32-row tile of one sequence skipped
-    (sequence 4, n_valid 1000: rows 992-999)."""
+    3); in sequence 4 (n_valid 1000) an interior 16-row tile skipped
+    (rows 496-511) and the last partial tile skipped (rows 992-999); in
+    sequence 5 (n_valid 2048) its second split's rows skipped (the
+    cluster merge dropping a rank)."""
     unwritten = ref.clone()
     g = ref.shape[2] // kvh
     unwritten[1, :, 3 * g:4 * g] = 0
+    interior = run_decode_plain(da, rows_left_out(torch, c, 4, 496, 512))
     nv = c['nv'].clone()
-    nv[4] = nv[4] // 32 * 32
-    skipped = run_decode_plain(da, c, nv)
+    nv[4] = nv[4] // 16 * 16
+    last = run_decode_plain(da, c, nv)
+    b, t = c['k'].shape[:2]
+    splits = da._num_splits(b, kvh, t)
+    assert splits > 1, 'the split fault needs a call of several splits'
+    per = -(-int(c['nv'][5]) // 16 // splits) * 16
+    split = run_decode_plain(da, rows_left_out(torch, c, 5, per, 2 * per))
     return {'one (b, kv head) unwritten':
                 head_err(torch, unwritten, ref, c['nv']),
-            'last partial tile skipped':
-                head_err(torch, skipped, ref, c['nv'])}
+            'interior tile skipped': head_err(torch, interior, ref,
+                                              c['nv']),
+            'last partial tile skipped': head_err(torch, last, ref,
+                                                  c['nv']),
+            f'split 1 of {splits} skipped': head_err(torch, split, ref,
+                                                     c['nv'])}
+
+
+def decode_masked_rows_err(torch, c, out):
+    """Fully masked query rows (window positions j with n_valid - (Q - 1
+    - j) <= 0) of sequences that hold rows: the largest error of the
+    kernel's rows against the mean of the V rows it reads (below
+    min(n_valid, T)), normalized per (sequence, head) by that mean's
+    largest entry; inf if a row is not finite. None without such rows.
+    (The plain version is uniform over all T rows instead: both are
+    discarded by contract.)"""
+    b, q_len, h, d = c['q'].shape
+    t, kvh = c['k'].shape[1], c['k'].shape[2]
+    worst = None
+    for i, n in enumerate(c['nv'].tolist()):
+        masked = [j for j in range(q_len) if n - (q_len - 1 - j) <= 0]
+        if not masked or n <= 0:
+            continue
+        v = c['v'][i, :min(n, t)].float()                    # [N, KVH, D]
+        if c['v_scale'] is not None:
+            v = v * c['v_scale'][i, :min(n, t)][..., None]
+        mean = v.mean(0).repeat_interleave(h // kvh, dim=0)  # [H, D]
+        got = out[i, masked].float()                         # [M, H, D]
+        if not bool(torch.isfinite(got).all()):
+            return math.inf
+        err = ((got - mean).abs().amax(dim=(0, 2)) /
+               mean.abs().amax(dim=1).clamp_min(1e-30)).max().item()
+        worst = err if worst is None else max(worst, err)
+    return worst
 
 
 def decode_bound(c, bw, flops_peak):
@@ -587,11 +645,12 @@ def decode_bound(c, bw, flops_peak):
 
 def decode_library_call(torch, c):
     """``F.scaled_dot_product_attention`` over the whole cache with a
-    boolean length mask, k/v repeated to all heads (an int8 cache
-    dequantized to bf16 first): one library call computing the same
-    Q=1 decode function, timed as a yardstick."""
+    boolean window mask (query j attends pos < n_valid - (Q - 1 - j)),
+    k/v repeated to all heads (an int8 cache dequantized to bf16 first):
+    one library call computing the same decode function, timed as a
+    yardstick."""
     import torch.nn.functional as F
-    b, _, h, _ = c['q'].shape
+    b, q_len, h, _ = c['q'].shape
     t, kvh = c['k'].shape[1], c['k'].shape[2]
     k, v = c['k'], c['v']
     if c['k_scale'] is not None:
@@ -602,36 +661,62 @@ def decode_library_call(torch, c):
     k = k.to(dt).repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
     v = v.to(dt).repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
     q = c['q'].transpose(1, 2).contiguous()
-    mask = (torch.arange(t, device='cuda')[None, :] <
-            c['nv'][:, None])[:, None, None, :]
+    limit = (c['nv'].long()[:, None] - (q_len - 1) +
+             torch.arange(q_len, device='cuda')[None, :])        # [B, Q]
+    mask = (torch.arange(t, device='cuda')[None, None, :] <
+            limit[:, :, None])[:, None]                          # [B,1,Q,T]
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+LENGTHS_B4_ENGINE = [257, 200, 288, 131]
+
+
+def decode_timed_shapes(llama):
+    """The shapes kernels 3-4 are timed at, the first one's times being
+    the kernels line's."""
+    return {'B=8 mixed T=2048 Q=1': dict(llama, b=8, t=2048,
+                                         lengths=LENGTHS8, q_len=1),
+            'B=4 T=288 (batch engine)': dict(llama, b=4, t=288,
+                                             lengths=LENGTHS_B4_ENGINE,
+                                             q_len=1),
+            'B=8 mixed T=2048 Q=5': dict(llama, b=8, t=2048,
+                                         lengths=LENGTHS8, q_len=5),
+            'B=128 mixed T=2048 Q=1': dict(llama, b=128, t=2048,
+                                           lengths=LENGTHS8 * 16, q_len=1)}
 
 
 def phase_decode_kernels(torch, da, bw, flops_peak):
     """Kernels 3-4 against their plain version at llama3-8b heads: the
     paged kernels' B=8 mixed lengths at T=2048 (Q=1 and Q=5; bf16, fp32
-    and int8), the
-    batch engine's T=288 (off the 32-row tile), D=64 and D=256, and a
-    cache whose stale rows hold +-1e4; planted faults against the same
-    limit; then times at B=8 mixed T=2048 (bf16 and int8)."""
+    and int8), the batch engine's T=288, B=40 and B=128 (one split each),
+    D=64 at T=300 and D=256, and caches whose stale rows hold +-1e4;
+    planted faults against the same limit; fully masked window rows
+    against the mean of the rows read; then the times of
+    ``decode_timed_shapes`` (bf16 and int8)."""
     llama = dict(kvh=8, g=4, d=128)
-    lengths8 = [1, 15, 16, 17, 1000, 2048, 1000, 2048]
     cases = []
     for cache in ('bf16', 'fp32', 'int8'):
         for q_len in (1, 5):
             cases.append((f'{cache} Q={q_len} B=8 T=2048', cache,
-                          dict(llama, b=8, t=2048, lengths=lengths8,
+                          dict(llama, b=8, t=2048, lengths=LENGTHS8,
                                q_len=q_len), False))
         cases.append((f'{cache} Q=1 B=4 T=288 (batch engine)', cache,
-                      dict(llama, b=4, t=288, lengths=[257, 200, 288, 131],
+                      dict(llama, b=4, t=288, lengths=LENGTHS_B4_ENGINE,
                            q_len=1), False))
-        cases.append((f'{cache} Q=1 B=8 T=2048 stale rows +-1e4', cache,
-                      dict(llama, b=8, t=2048, lengths=lengths8, q_len=1),
-                      True))
-    cases.append(('bf16 D=64 H=64 KVH=8 T=300', 'bf16',
-                  dict(kvh=8, g=8, d=64, b=8, t=300,
-                       lengths=[1, 31, 33, 64, 65, 200, 299, 300],
-                       q_len=1), False))
+        for q_len in (1, 5):
+            cases.append((f'{cache} Q={q_len} B=8 T=2048 stale rows +-1e4',
+                          cache, dict(llama, b=8, t=2048, lengths=LENGTHS8,
+                                      q_len=q_len), True))
+    for cache in ('bf16', 'int8'):
+        for b in (40, 128):
+            cases.append((f'{cache} Q=1 B={b} T=2048 mixed', cache,
+                          dict(llama, b=b, t=2048,
+                               lengths=LENGTHS8 * (b // 8), q_len=1),
+                          False))
+        cases.append((f'{cache} D=64 H=64 KVH=8 T=300', cache,
+                      dict(kvh=8, g=8, d=64, b=8, t=300,
+                           lengths=[1, 31, 33, 64, 65, 200, 299, 300],
+                           q_len=1), False))
     cases.append(('bf16 D=256 H=16 KVH=16 T=1000', 'bf16',
                   dict(kvh=16, g=1, d=256, b=8, t=1000,
                        lengths=[1, 31, 33, 64, 65, 200, 999, 1000],
@@ -643,6 +728,7 @@ def phase_decode_kernels(torch, da, bw, flops_peak):
                         **shape)
         name = ('decode_attention_quant' if cache == 'int8' else
                 'decode_attention')
+        splits = da._num_splits(shape['b'], shape['kvh'], shape['t'])
         before = da.LAUNCHES[name]
         out = run_decode(da, c)
         torch.cuda.synchronize()
@@ -651,23 +737,29 @@ def phase_decode_kernels(torch, da, bw, flops_peak):
         finite = bool(torch.isfinite(out).all().item())
         ok = (finite and rel <= DECODE_TOL[cache] and
               da.LAUNCHES[name] == before + 1)
-        if label.endswith('T=2048') and shape['q_len'] == 1:
+        if label.endswith('B=8 T=2048') and shape['q_len'] == 1:
             faults = decode_faults(torch, da, c, ref, shape['kvh'])
             caught = {n: e > DECODE_TOL[cache] for n, e in faults.items()}
             log(f'[decode] {label}: planted faults, head error ' +
                 ', '.join(f'{n} {e:.3e}{"" if caught[n] else " MISSED"}'
                           for n, e in faults.items()))
             ok = ok and all(caught.values())
+        masked = decode_masked_rows_err(torch, c, out)
+        if masked is not None:
+            log(f'[decode] {label}: fully masked rows vs the uniform mean '
+                f'of the rows read: {masked:.3e}')
+            ok = ok and masked <= DECODE_TOL[cache]
         keep = (c['nv'].long()[:, None] - (shape['q_len'] - 1) +
                 torch.arange(shape['q_len'], device='cuda')) > 0
         abs_err = ((out.float() - ref.float()).abs() *
                    keep[..., None, None]).max().item()
         errors[name] = max(errors[name], abs_err)
-        log(f'[decode] {label}: head error {rel:.3e} (limit '
-            f'{DECODE_TOL[cache]:g}), max abs {abs_err:.3e} '
+        log(f'[decode] {label}, {splits} split(s): head error {rel:.3e} '
+            f'(limit {DECODE_TOL[cache]:g}), max abs {abs_err:.3e} '
             f'{"ok" if ok else "FAIL"}')
         if not ok:
             failed.append(label)
+        del c, out, ref
     if failed:
         raise AssertionError(f'decode kernels disagree with plain, or a '
                              f'planted fault passes the limit: {failed}')
@@ -677,19 +769,22 @@ def phase_decode_kernels(torch, da, bw, flops_peak):
     rows = {}
     for name, cache in (('decode_attention', 'bf16'),
                         ('decode_attention_quant', 'int8')):
-        c = decode_case(torch, cache=cache, seed=400, t=2048, q_len=1,
-                        b=8, lengths=lengths8, **llama)
-        ms = time_ms(torch, lambda: run_decode(da, c), flush)
-        plain_ms = time_ms(torch, lambda: run_decode_plain(da, c), flush)
-        library_ms = time_ms(torch, decode_library_call(torch, c), flush)
-        bound_ms, bound_by = decode_bound(c, bw, flops_peak)
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=bound_ms, bound_by=bound_by,
-                          max_abs_err=errors[name])
-        log(f'[decode] {name} B=8 mixed T=2048 Q=1: kernel {ms:.4f} ms, '
-            f'plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound '
-            f'{bound_ms:.4f} ms ({bound_by}), '
-            f'{100 * bound_ms / ms:.1f}% of bound')
+        for label, shape in decode_timed_shapes(llama).items():
+            c = decode_case(torch, cache=cache, seed=400, **shape)
+            ms = time_ms(torch, lambda: run_decode(da, c), flush)
+            plain_ms = time_ms(torch, lambda: run_decode_plain(da, c), flush)
+            library_ms = time_ms(torch, decode_library_call(torch, c), flush)
+            bound_ms, bound_by = decode_bound(c, bw, flops_peak)
+            if name not in rows:
+                rows[name] = dict(ms=ms, plain_ms=plain_ms,
+                                  library_ms=library_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by,
+                                  max_abs_err=errors[name])
+            log(f'[decode] {name} {label}: kernel {ms:.4f} ms, plain '
+                f'{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound '
+                f'{bound_ms:.4f} ms ({bound_by}), '
+                f'{100 * bound_ms / ms:.1f}% of bound')
+            del c
     del flush
     return rows
 
@@ -1562,12 +1657,9 @@ def profile_summary(tag, prof, wall_us, top=12):
     kinds = {}
     for dev, key, _ in rows:
         low = key.lower()
-        # Kernels 1-4 share the name of their split merge,
-        # ``combine_kernel``: it counts as its own kind.
         kind = ('flash' if 'flash_' in low else
                 'decode' if 'decode_attention' in low else
                 'paged' if 'paged_attention' in low else
-                'combine' if 'combine' in low else
                 'gemm' if any(x in low for x in ('nvjet', 'gemm', 'cutlass',
                                                   'sm90_xmma')) else
                 'other')
@@ -1911,10 +2003,15 @@ def main(argv=None) -> int:
     libs = _build.build_all()
     log(f'[build] {len(libs)} kernel libraries in '
         f'{time.perf_counter() - t0:.1f} s: {libs}')
+    t0 = time.perf_counter()
     rows = phase_kernels(torch, pa, bw, flops_peak)
+    t1 = time.perf_counter()
     rows.update(phase_decode_kernels(torch, da, bw, flops_peak))
+    t2 = time.perf_counter()
     flash_rows, backward_ms = phase_flash_kernels(torch, fa, bw, flops_peak)
     rows.update(flash_rows)
+    log(f'[smoke] kernel phases: paged {t1 - t0:.1f} s, decode '
+        f'{t2 - t1:.1f} s, flash {time.perf_counter() - t2:.1f} s')
     engine, train, batch = {}, {}, {}
     if not args.skip_engine:
         phase_train_small(torch)

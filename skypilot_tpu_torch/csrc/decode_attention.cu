@@ -11,448 +11,829 @@
 // the head's GQA group (row r is window position r / G) attend the cache
 // rows k/v[b, :, h, :] with an fp32 running max and sum, the window mask
 // pos < n_valid[b] - (Q - 1 - r / G) and the finite NEG_INF of the
-// reference. q is scaled by D^-0.5 in fp32 before Q.K^T; an int8 K row is
-// dequantized (times its scale) before the dot. For a bf16 cache P is
-// rounded to bf16 before P.V (the reference's p.astype(v.dtype)); for an
-// int8 cache V is dequantized to fp32 and P stays fp32; the accumulator
-// is fp32. The result is acc / max(l, 1e-30) in the query dtype, so a
-// sequence with n_valid = 0 gives 0. Only rows below min(n_valid[b], T)
-// are read, which is what the TPU kernel's kv_index clamp does for its
-// DMAs; T need not be a multiple of the tile (the tail is masked).
+// reference. q is scaled by D^-0.5 in fp32 before Q.K^T; an int8 K row's
+// scale goes on its fp32 score. For a bf16 cache P is rounded to bf16
+// before P.V (the reference's p.astype(v.dtype)); for an int8 cache V's
+// row scale goes on P and P stays fp32; the accumulator is fp32. The
+// result is acc / max(l, 1e-30) in the query dtype, so a sequence with
+// n_valid = 0 gives 0. Only rows below min(n_valid[b], T) are read, which
+// is what the TPU kernel's kv_index clamp does for its DMAs: no byte at
+// or past row T of a sequence (past the buffer for the last one).
+// n_valid > T fails a device-side assert.
 //
 // What bounds it on an H100: bytes. A call must read
 //   sum_b min(n_valid_b, T) * KVH * D * 2 * itemsize(cache)
 // bytes of K and V (int8 reads half of bf16, plus 8 bytes of scales per
-// row and head), against ~4 flops per K/V element: far below the ~295
-// flop/byte at which the tensor cores would bind.
+// row and head), against 4 flops per (query row, key row, head dim): at
+// Q=1 and G=4 ~4 flops a bf16 byte, far below the ~295 flop/byte at
+// which the tensor cores would bind.
 //
-// What the design does about it: the TPU grid (B, KVH, T/block_k) carries
-// its running softmax in VMEM across the sequential kv axis; Hopper
-// blocks run in no order, so here one CTA owns (b, h, split) and each of
-// its warps walks its own 32-row tiles of the split's rows: it stages a
-// tile of K and V in its own shared-memory slab with 16-byte cp.async
-// copies, all in flight together (each needed byte read from device
-// memory once), lane j scores cache row j against every query row, and
-// the warp keeps its own running max, sum and accumulator, so the tile
-// loop needs no block-wide barrier. At the
-// end the CTA merges its warps' partials, and a second kernel merges the
-// splits with a log-sum-exp combine. The wrapper picks the splits from T
-// (up to 16 per (b, h): B = 4 x KVH = 8 is only 32 pairs for 132 SMs).
-// Scores and P.V run on CUDA cores in fp32: simple and exact first; TMA,
-// double buffering and tensor cores for long Q-windows are later work.
+// What the design does about it: the paged kernels' design
+// (csrc/paged_attention.cu), on contiguous rows. Row r of (b, h) sits at
+// ((b * T + r) * KVH + h) * D, so there is no table to read first, and T
+// is not tied to the tile: the tail is zero-filled by cp.async, never
+// read, and masked.
+//   * One launch. One CTA owns a (b, h, split); the wrapper picks the
+//     split count from (B, KVH, T) alone, about one wave of resident CTAs
+//     (two a SM) at small batch and one split at large batch, so the host
+//     never reads the lengths. Each split walks an even share of the
+//     sequence's min(n_valid, T) rows in 16-row units.
+//   * Each warp owns whole tiles of the split's rows and copies their K
+//     and V rows (and int8 row scales) in the stored type with 16-byte
+//     cp.async into its own 2-4-stage ring (~26 KB a warp, so two 4-warp
+//     CTAs fit on an SM): while it computes one tile the next ones are in
+//     flight, and the loop has no CTA barrier. The warp keeps its own
+//     running max (exp2 on log2-scaled scores), sum and accumulator.
+//   * bf16 queries (the engine's): tensor cores. A warp takes 16 rows a
+//     step; S = q.K^T and O += P.V are mma.sync.m16n8k16 with ldmatrix
+//     fragments, for up to 32 query rows (Q*G; 16 at D=256), and P comes
+//     straight from S's accumulators. An int8 tile is widened to bf16 in
+//     shared memory exactly (byte_perm + fadd, not the quarter-rate I2F),
+//     its row scales go on the fp32 scores and on P, and P.V takes P as
+//     the sum of three bf16 terms, which hold its fp32 value exactly.
+//   * fp32 queries, and wider windows: a second kernel on CUDA cores, 32
+//     rows a step, lane j scoring row j against every query row in fp32.
+//     The wrapper picks the kernel by dtype and shape before the launch
+//     (ops/decode_attention.py:_mma_tiles); neither falls back to the
+//     other.
+//   * The split CTAs of one (b, h) are one thread-block cluster: each
+//     merges its warps and keeps its partial (max, sum, acc) in its shared
+//     memory, and rank 0 merges the ranks' partials through distributed
+//     shared memory and writes the output. No second launch, no scratch
+//     in device memory. Rank 0 also holds the n_valid <= T assert, after
+//     the loop (in the loop the assert's call cost registers).
 //
 // C interface (loaded with ctypes by skypilot_tpu_torch/_build.py):
-// skyt_decode_attention(...) returns cudaGetLastError() after the
-// launches (0 = cudaSuccess); it launches on the given stream, never
-// synchronises and allocates nothing.
+// skyt_decode_attention(...) returns the launch's error code (0 =
+// cudaSuccess); it launches on the given stream, never synchronises and
+// allocates nothing.
 
 #include <assert.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
-#include <stdint.h>
 
-#include <type_traits>
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kTile = 32;  // cache rows per warp step: one per lane
-constexpr int kRows = 8;   // query rows scored per pass (registers)
-constexpr int kCombineThreads = 128;
-constexpr unsigned kFull = 0xffffffffu;
-
-// dtype codes shared with ops/decode_attention.py
-constexpr int kF32 = 0;
-constexpr int kBF16 = 1;
-constexpr int kI8 = 2;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_float(int8_t x) {
-  return static_cast<float>(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
-
-// 16-byte asynchronous copy global -> shared (cp.async, bypassing L1);
-// with `valid` false nothing is read and the 16 bytes are zero-filled.
-__device__ __forceinline__ void cp_async16(void* smem_dst,
-                                           const void* gmem_src,
-                                           bool valid) {
-  const unsigned dst =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem_src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
-
-__host__ __device__ constexpr size_t align16(size_t n) {
-  return (n + 15) & ~static_cast<size_t>(15);
-}
-
-// Byte offsets of a CTA's dynamic shared memory: the scaled query rows,
-// then one slab per warp (K tile with rows padded by 16 bytes so that
-// lane j's reads of row j fall in distinct banks, V tile, the tile's
-// row scales, and the warp's accumulator, running max and sum).
-struct Smem {
-  size_t slabs;     // offset of warp 0's slab
-  size_t k, v, ks, vs, acc, m, l;  // offsets inside a slab
-  size_t per_warp;  // bytes of one slab
-  size_t total;
+// A CTA's share of its sequence: rows [pos0, pos0 + nrows) of the
+// min(n_valid, T) rows it reads, and how many splits hold rows (1 for an
+// empty sequence, whose split 0 writes zeros).
+struct Split {
+  int rows, active, pos0, nrows;
 };
 
-__host__ __device__ inline Smem smem_layout(int qg, int d, int kv_bytes,
-                                            int nw) {
-  Smem s;
-  s.slabs = align16(sizeof(float) * qg * d);
-  s.k = 0;
-  s.v = s.k + align16(static_cast<size_t>(kTile) * (d * kv_bytes + 16));
-  s.ks = s.v + align16(static_cast<size_t>(kTile) * d * kv_bytes);
-  s.vs = s.ks + kTile * sizeof(float);
-  s.acc = s.vs + kTile * sizeof(float);
-  s.m = s.acc + align16(sizeof(float) * qg * d);
-  s.l = s.m + align16(sizeof(float) * qg);
-  s.per_warp = s.l + align16(sizeof(float) * qg);
-  s.total = s.slabs + nw * s.per_warp;
+__device__ __forceinline__ Split split_of(int nv, int t, int split,
+                                          int num_splits) {
+  Split s;
+  s.rows = min(max(nv, 0), t);
+  const int units = (s.rows + kMmaTile - 1) / kMmaTile;
+  const int per = (units + num_splits - 1) / num_splits;
+  s.active = per > 0 ? (units + per - 1) / per : 1;
+  s.pos0 = split * per * kMmaTile;
+  s.nrows = max(min(per * kMmaTile, s.rows - s.pos0), 0);
   return s;
 }
 
-template <typename TQ, typename TKV, int D, int NW>
-__global__ void __launch_bounds__(NW * 32)
-    decode_attention_kernel(const TQ* __restrict__ q,          // [B,KVH,QG,D]
-                            const TKV* __restrict__ k_cache,   // [B,T,KVH,D]
-                            const TKV* __restrict__ v_cache,
-                            const float* __restrict__ k_scale,  // [B,T,KVH]
-                            const float* __restrict__ v_scale,
-                            const int* __restrict__ n_valid,    // [B]
-                            float* __restrict__ part_acc,  // [B*KVH,S,QG,D]
-                            float* __restrict__ part_ml,   // [B*KVH,S,2,QG]
-                            int t, int kvh, int qg, int q_len, float scale) {
-  constexpr int kVec = 16 / sizeof(TKV);  // elements per 16-byte vector
+// Start copying rows [pos, pos + ROWS) of one (b, h) into a K and a V
+// tile (row pitch `pitch` elements) and, for an int8 cache, their row
+// scales; rows at or past `end` are zero-filled and never read. Row r of
+// (b, h) is cache row row0 + r * KVH (row0 = b * T * KVH + h): K and V
+// at D times that, its scales at that.
+template <typename TKV, int D, int ROWS>
+__device__ __forceinline__ void issue_tile(
+    TKV* sk, TKV* sv, float* sks, float* svs, int pitch,
+    const TKV* __restrict__ k_cache, const TKV* __restrict__ v_cache,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    size_t row0, int kvh, int pos, int end, int lane) {
+  constexpr int kVec = 16 / sizeof(TKV);
   constexpr int kVecPerRow = D / kVec;
-  constexpr int kKStride = D + kVec;      // padded K row, in elements
-  constexpr int kSlice = D / 32;          // head dims per lane in P.V
-  constexpr bool kRoundP = std::is_same<TKV, __nv_bfloat16>::value;
-  constexpr int kThreads = NW * 32;
+#pragma unroll 4
+  for (int c = 0; c < ROWS * kVecPerRow / 32; ++c) {
+    const int vi = c * 32 + lane;
+    const int row = vi / kVecPerRow;
+    const int col = (vi % kVecPerRow) * kVec;
+    const bool in = pos + row < end;
+    const size_t off =
+        in ? (row0 + static_cast<size_t>(pos + row) * kvh) * D + col : 0;
+    cp_async16(sk + row * pitch + col, k_cache + off, in);
+    cp_async16(sv + row * pitch + col, v_cache + off, in);
+  }
+  if (k_scale != nullptr && lane < ROWS) {
+    const bool in = pos + lane < end;
+    const size_t so = in ? row0 + static_cast<size_t>(pos + lane) * kvh : 0;
+    cp_async4(sks + lane, k_scale + so, in);
+    cp_async4(svs + lane, v_scale + so, in);
+  }
+}
 
-  const int bh = blockIdx.x;  // b * kvh + h
+// ---------------------------------------------------------------------------
+// Tensor-core kernel: bf16 queries, bf16 or int8 cache, up to 16 * M
+// query rows.
+// ---------------------------------------------------------------------------
+
+// Byte offsets of the tensor-core kernel's dynamic shared memory: the
+// query rows (bf16, zero past Q*G) and the merged rows' (max, sum); then
+// one slab per warp: its ring (K and V tiles in the stored type, rows
+// padded by 16 bytes so ldmatrix reads fall in distinct banks, int8 row
+// scales) and, for an int8 cache, the bf16 K and V tiles widened from
+// it. After the loop the warp's partial (acc, max, sum) overlays its
+// slab.
+struct MmaLayout {
+  int q, rows, slabs;                // CTA-wide
+  int k, v, ks, vs, wk, wv, stage;   // slab: ring, widened tiles
+  int acc, m, l;                     // slab after the loop
+  int per_warp;
+};
+
+__host__ __device__ inline MmaLayout mma_layout(int m_tiles, int d,
+                                                int kv_bytes) {
+  const int stages = mma_stages(kv_bytes, d);
+  const int rows = kMmaTile * m_tiles;
+  MmaLayout s;
+  s.q = 0;
+  s.rows = align16(rows * (2 * d + 16));
+  s.slabs = s.rows + align16(4 * 2 * rows);
+  s.stage = kMmaTile * (d * kv_bytes + 16);
+  s.k = 0;
+  s.v = s.k + stages * s.stage;
+  s.ks = s.v + stages * s.stage;
+  s.vs = s.ks + stages * kMmaTile * 4;
+  s.wk = s.vs + stages * kMmaTile * 4;
+  const int wide = kv_bytes == 1 ? kMmaTile * (2 * d + 16) : 0;
+  s.wv = s.wk + wide;
+  s.acc = 0;
+  s.m = 4 * rows * d;
+  s.l = s.m + 4 * rows;
+  s.per_warp = align16(s.wv + wide > s.l + 4 * rows ? s.wv + wide
+                                                    : s.l + 4 * rows);
+  return s;
+}
+
+template <typename TKV, int D, int M>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    decode_attention_mma(const bf16* __restrict__ q,         // [B,KVH,QG,D]
+                         const TKV* __restrict__ k_cache,    // [B,T,KVH,D]
+                         const TKV* __restrict__ v_cache,
+                         const float* __restrict__ k_scale,  // [B,T,KVH]
+                         const float* __restrict__ v_scale,
+                         const int* __restrict__ n_valid,    // [B]
+                         bf16* __restrict__ out,             // [B,KVH,QG,D]
+                         int t, int kvh, int qg, int q_len, float scale) {
+  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
+  constexpr int kStages = mma_stages(sizeof(TKV), D);
+  constexpr int kPitch = D + 16 / sizeof(TKV);  // ring row, elements
+  constexpr int kP = D + 8;                     // bf16 row, elements
+  constexpr int kNT = D / 8;                    // 8-wide output tiles
+  const float kMaskOut = -__int_as_float(0x7f800000);  // a row not read
+
+  const int nw = blockDim.x / 32;
+  const int bh = blockIdx.y;  // b * kvh + h; blockIdx.x is the split
   const int b = bh / kvh;
   const int h = bh % kvh;
-  const int split = blockIdx.y;
-  const int num_splits = gridDim.y;
   const int group = qg / q_len;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  const Smem lay = smem_layout(qg, D, sizeof(TKV), NW);
-  float* s_q = reinterpret_cast<float*>(smem);
+  const MmaLayout lay = mma_layout(M, D, sizeof(TKV));
+  bf16* s_q = reinterpret_cast<bf16*>(smem + lay.q);
   unsigned char* slab = smem + lay.slabs + warp * lay.per_warp;
   TKV* s_k = reinterpret_cast<TKV*>(slab + lay.k);
   TKV* s_v = reinterpret_cast<TKV*>(slab + lay.v);
   float* s_ks = reinterpret_cast<float*>(slab + lay.ks);
   float* s_vs = reinterpret_cast<float*>(slab + lay.vs);
-  float* s_acc = reinterpret_cast<float*>(slab + lay.acc);
-  float* s_m = reinterpret_cast<float*>(slab + lay.m);
-  float* s_l = reinterpret_cast<float*>(slab + lay.l);
+  bf16* w_k = reinterpret_cast<bf16*>(slab + lay.wk);
+  bf16* w_v = reinterpret_cast<bf16*>(slab + lay.wv);
 
-  const int nv = n_valid[b];
-  // Masking by `rows`, not nv, keeps an n_valid > T (which the combine
-  // kernel asserts against) from counting rows past the cache.
-  const int rows = min(max(nv, 0), t);  // cache rows this sequence reads
-  const int ntiles = (rows + kTile - 1) / kTile;
-  const int per = (ntiles + num_splits - 1) / num_splits;
-  const int tile_begin = split * per;
-  const int tile_end = min(ntiles, tile_begin + per);
-
-  const TQ* q_bh = q + static_cast<size_t>(bh) * qg * D;
-  for (int i = threadIdx.x; i < qg * D; i += kThreads)
-    s_q[i] = to_float(q_bh[i]) * scale;
-  for (int i = lane; i < qg * D; i += 32) s_acc[i] = 0.f;
-  for (int r = lane; r < qg; r += 32) {
-    s_m[r] = kNegInf;
-    s_l[r] = 0.f;
+  // The query rows (zero past Q*G) need no length: their copies are in
+  // flight while n_valid is read.
+  const bf16* q_bh = q + static_cast<size_t>(bh) * qg * D;
+  for (int i = threadIdx.x; i < kMmaTile * M * (D / 8); i += blockDim.x) {
+    const int r = i / (D / 8);
+    const int c = (i % (D / 8)) * 8;
+    cp_async16(s_q + r * kP + c, q_bh + (r < qg ? r * D + c : 0), r < qg);
   }
+  cp_async_commit();
+  const Split sp = split_of(n_valid[b], t, blockIdx.x, gridDim.x);
+  if (static_cast<int>(blockIdx.x) >= sp.active) {
+    cp_async_wait<0>();
+    idle_split(sp.active);
+    return;
+  }
+  cp_async_wait<0>();
   __syncthreads();
 
-  const bool quant = k_scale != nullptr;
-  for (int tile = tile_begin + warp; tile < tile_end; tile += NW) {
-    const int base = tile * kTile;
-    // Stage the tile with every 16-byte copy in flight at once (a
-    // plain load-then-store loop keeps one or two per lane in flight and
-    // runs at memory latency); rows at or past `rows` are zero-filled
-    // and masked.
-    for (int vi = lane; vi < kTile * kVecPerRow; vi += 32) {
-      const int row = vi / kVecPerRow;
-      const int col = (vi % kVecPerRow) * kVec;
-      const int pos = base + row;
-      const bool in = pos < rows;
-      const size_t off =
-          in ? ((static_cast<size_t>(b) * t + pos) * kvh + h) * D + col : 0;
-      cp_async16(s_k + row * kKStride + col, k_cache + off, in);
-      cp_async16(s_v + row * D + col, v_cache + off, in);
-    }
-    const int pos = base + lane;  // this lane's cache row
-    {
-      float ks = 1.f;
-      float vs = 1.f;
-      if (quant && pos < rows) {
-        const size_t srow = (static_cast<size_t>(b) * t + pos) * kvh + h;
-        ks = k_scale[srow];
-        vs = v_scale[srow];
-      }
-      s_ks[lane] = ks;
-      s_vs[lane] = vs;
-    }
-    cp_async_wait_all();
-    __syncwarp();
+  const size_t row0 = static_cast<size_t>(b) * t * kvh + h;  // (b, 0, h)
+  const int end = sp.pos0 + sp.nrows;
 
-    const float my_ks = s_ks[lane];
-    const TKV* k_row = s_k + lane * kKStride;
+  // This warp's tiles: warp, warp + nw, ...; its k-th tile goes to ring
+  // stage k % kStages. Every call commits one cp.async group (empty past
+  // the last tile), so group k is tile k.
+  const int ntiles = (sp.nrows + kMmaTile - 1) / kMmaTile;
+  const int my_tiles = warp < ntiles ? (ntiles - warp + nw - 1) / nw : 0;
+  auto issue = [&](int k) {
+    if (k < my_tiles) {
+      const int st = k % kStages;
+      issue_tile<TKV, D, kMmaTile>(
+          s_k + st * (lay.stage / sizeof(TKV)),
+          s_v + st * (lay.stage / sizeof(TKV)), s_ks + st * kMmaTile,
+          s_vs + st * kMmaTile, kPitch, k_cache, v_cache, k_scale, v_scale,
+          row0, kvh, sp.pos0 + (warp + k * nw) * kMmaTile, end, lane);
+    }
+    cp_async_commit();
+  };
+
+  float acc[M][kNT][4];
+  float m_run[M][2];
+  float l_run[M][2];  // this lane's share of the row sums
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      m_run[m][hh] = kNegInf;
+      l_run[m][hh] = 0.f;
+    }
+  }
+  const float q_scale = scale * kLog2e;
+
+#pragma unroll
+  for (int k = 0; k < kStages - 1; ++k) issue(k);
+  for (int k = 0; k < my_tiles; ++k) {
+    issue(k + kStages - 1);
+    cp_async_wait<kStages - 1>();
+    __syncwarp();  // every lane's copies of tile k have landed
+
+    const int st = k % kStages;
+    const int srow0 = (warp + k * nw) * kMmaTile;
+    const bf16* tk;
+    const bf16* tv;
+    if constexpr (kQuant) {
+      widen<D>(w_k, reinterpret_cast<const int8_t*>(s_k) + st * lay.stage,
+               lane);
+      widen<D>(w_v, reinterpret_cast<const int8_t*>(s_v) + st * lay.stage,
+               lane);
+      __syncwarp();
+      tk = w_k;
+      tv = w_v;
+    } else {
+      tk = reinterpret_cast<const bf16*>(s_k) + st * (lay.stage / 2);
+      tv = reinterpret_cast<const bf16*>(s_v) + st * (lay.stage / 2);
+    }
+
+    // S = q.K^T over the 16 rows: s[m][0] keys 0-7, s[m][1] keys 8-15.
+    float s[M][2][4];
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[m][n][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t bk[4];
+      load_b_nk(bk, tk + kk * 16, kP, lane);
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        uint32_t aq[4];
+        load_a(aq, s_q + m * kMmaTile * kP + kk * 16, kP, lane);
+        mma_bf16(s[m][0], aq, bk[0], bk[1]);
+        mma_bf16(s[m][1], aq, bk[2], bk[3]);
+      }
+    }
+
+    // Scale (and the int8 K row scale), mask, online softmax in log2
+    // units: m_run is the row's max over this warp's rows so far.
+    float ksc[2][2];
+    float vsc[2][2];
+    bool rd[2][2];
+    int pos[2][2];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = n * 8 + 2 * t4 + j;
+        ksc[n][j] = kQuant ? q_scale * s_ks[st * kMmaTile + col] : q_scale;
+        vsc[n][j] = kQuant ? s_vs[st * kMmaTile + col] : 1.f;
+        rd[n][j] = srow0 + col < sp.nrows;
+        pos[n][j] = sp.pos0 + srow0 + col;
+      }
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = m * kMmaTile + g + 8 * hh;
+        const int lim = sp.rows - (q_len - 1 - r / group);
+        float mx = kMaskOut;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float& x = s[m][n][2 * hh + j];
+            x = !rd[n][j] ? kMaskOut
+                          : pos[n][j] < lim ? x * ksc[n][j] : kNegInf;
+            mx = fmaxf(mx, x);
+          }
+        const float m_new = fmaxf(m_run[m][hh], quad_max(mx));
+        const float corr = exp2f(m_run[m][hh] - m_new);
+        m_run[m][hh] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float& x = s[m][n][2 * hh + j];
+            x = exp2f(x - m_new);
+            sum += x;
+          }
+        l_run[m][hh] = l_run[m][hh] * corr + sum;
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) {
+          acc[m][n][2 * hh] *= corr;
+          acc[m][n][2 * hh + 1] *= corr;
+        }
+      }
+    }
+
+    // O += P.V: a bf16 cache rounds P to bf16 (the reference's
+    // p.astype(v.dtype)); an int8 cache folds V's row scales into P and
+    // feeds P as hi + mid + lo, three bf16 terms that sum to it exactly.
+    if constexpr (!kQuant) {
+      uint32_t pa[M][4];
+#pragma unroll
+      for (int m = 0; m < M; ++m) acc_a(pa[m], s[m][0], s[m][1]);
+#pragma unroll
+      for (int nd = 0; nd < D / 16; ++nd) {
+        uint32_t bv[4];
+        load_b_kn(bv, tv + nd * 16, kP, lane);
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          mma_bf16(acc[m][2 * nd], pa[m], bv[0], bv[1]);
+          mma_bf16(acc[m][2 * nd + 1], pa[m], bv[2], bv[3]);
+        }
+      }
+    } else {
+      uint32_t pa[3][M][4];
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        float part[3][2][4];
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float x = s[m][n][i] * vsc[n][i & 1];
+            const float hi = __bfloat162float(__float2bfloat16(x));
+            const float mid = __bfloat162float(__float2bfloat16(x - hi));
+            part[0][n][i] = hi;
+            part[1][n][i] = mid;
+            part[2][n][i] = x - hi - mid;
+          }
+#pragma unroll
+        for (int p = 0; p < 3; ++p) acc_a(pa[p][m], part[p][0], part[p][1]);
+      }
+#pragma unroll
+      for (int nd = 0; nd < D / 16; ++nd) {
+        uint32_t bv[4];
+        load_b_kn(bv, tv + nd * 16, kP, lane);
+#pragma unroll
+        for (int p = 2; p >= 0; --p)
+#pragma unroll
+          for (int m = 0; m < M; ++m) {
+            mma_bf16(acc[m][2 * nd], pa[p][m], bv[0], bv[1]);
+            mma_bf16(acc[m][2 * nd + 1], pa[p][m], bv[2], bv[3]);
+          }
+      }
+    }
+    __syncwarp();  // the stage (and the widened tiles) are refilled next
+  }
+  cp_async_wait<0>();
+  __syncwarp();
+
+  // This warp's partial over its slab.
+  float* w_acc = reinterpret_cast<float*>(slab + lay.acc);
+  float* w_m = reinterpret_cast<float*>(slab + lay.m);
+  float* w_l = reinterpret_cast<float*>(slab + lay.l);
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = m * kMmaTile + g + 8 * hh;
+      const float l = quad_sum(l_run[m][hh]);
+      if (r < qg) {
+#pragma unroll
+        for (int n = 0; n < kNT; ++n)
+          *reinterpret_cast<float2*>(w_acc + r * D + n * 8 + 2 * t4) =
+              make_float2(acc[m][n][2 * hh], acc[m][n][2 * hh + 1]);
+        if (t4 == 0) {
+          w_m[r] = m_run[m][hh];
+          w_l[r] = l;
+        }
+      }
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) assert(n_valid[b] <= t);
+  finish<bf16, D>(smem, lay.slabs, lay.per_warp, lay.acc, lay.m, lay.l,
+                  reinterpret_cast<float*>(smem + lay.rows), qg, bh,
+                  sp.active, out);
+}
+
+// ---------------------------------------------------------------------------
+// CUDA-core kernel: fp32 queries (and windows wider than the tensor-core
+// kernel takes), any cache.
+// ---------------------------------------------------------------------------
+
+// Byte offsets of the CUDA-core kernel's dynamic shared memory: the
+// scaled query rows (fp32) and the merged rows' (max, sum), then one slab
+// per warp: its ring (K and V tiles with rows padded by 16 bytes so that
+// lane j's reads of row j fall in distinct banks, int8 row scales), its
+// P tile, accumulator, lane sums (then its row sums) and running max.
+struct SimtLayout {
+  int q, rows, slabs;              // CTA-wide
+  int k, v, ks, vs, p, acc, l, m;  // inside a slab
+  int stage;                       // bytes of one K (or V) tile
+  int per_warp;
+};
+
+__host__ __device__ inline SimtLayout simt_layout(int qg, int d,
+                                                  int kv_bytes) {
+  const int stages = simt_stages(kv_bytes, d);
+  SimtLayout s;
+  s.q = 0;
+  s.rows = align16(4 * qg * d);
+  s.slabs = s.rows + align16(4 * 2 * qg);
+  s.stage = kTile * (d * kv_bytes + 16);
+  s.k = 0;
+  s.v = s.k + stages * s.stage;
+  s.ks = s.v + stages * s.stage;
+  s.vs = s.ks + stages * kTile * 4;
+  s.p = s.vs + stages * kTile * 4;
+  s.acc = s.p + kTile * kRows * 4;
+  s.l = s.acc + 4 * qg * d;
+  s.m = s.l + 4 * qg * kTile;
+  s.per_warp = align16(s.m + 4 * qg);
+  return s;
+}
+
+template <typename TQ, typename TKV, int D>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    decode_attention_simt(const TQ* __restrict__ q,           // [B,KVH,QG,D]
+                          const TKV* __restrict__ k_cache,    // [B,T,KVH,D]
+                          const TKV* __restrict__ v_cache,
+                          const float* __restrict__ k_scale,  // [B,T,KVH]
+                          const float* __restrict__ v_scale,
+                          const int* __restrict__ n_valid,    // [B]
+                          TQ* __restrict__ out,               // [B,KVH,QG,D]
+                          int t, int kvh, int qg, int q_len, float scale) {
+  constexpr int kStages = simt_stages(sizeof(TKV), D);
+  constexpr int kVec = 16 / sizeof(TKV);  // elements per 16-byte vector
+  constexpr int kVecPerRow = D / kVec;
+  constexpr int kPitch = D + kVec;        // padded tile row, elements
+  constexpr int kSlice = D / 32;          // head dims a lane owns in P.V
+  constexpr bool kRoundP = std::is_same<TKV, bf16>::value;
+  const float kMaskOut = -__int_as_float(0x7f800000);  // a row not read
+
+  const int nw = blockDim.x / 32;
+  const int bh = blockIdx.y;  // b * kvh + h; blockIdx.x is the split
+  const int b = bh / kvh;
+  const int h = bh % kvh;
+  const int group = qg / q_len;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const bool quant = k_scale != nullptr;
+  const Split sp = split_of(n_valid[b], t, blockIdx.x, gridDim.x);
+  if (static_cast<int>(blockIdx.x) >= sp.active) {
+    idle_split(sp.active);
+    return;
+  }
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const SimtLayout lay = simt_layout(qg, D, sizeof(TKV));
+  float* s_q = reinterpret_cast<float*>(smem + lay.q);
+  unsigned char* slab = smem + lay.slabs + warp * lay.per_warp;
+  TKV* s_k = reinterpret_cast<TKV*>(slab + lay.k);
+  TKV* s_v = reinterpret_cast<TKV*>(slab + lay.v);
+  float* s_ks = reinterpret_cast<float*>(slab + lay.ks);
+  float* s_vs = reinterpret_cast<float*>(slab + lay.vs);
+  float* s_p = reinterpret_cast<float*>(slab + lay.p);
+  float* s_acc = reinterpret_cast<float*>(slab + lay.acc);
+  float* s_l = reinterpret_cast<float*>(slab + lay.l);
+  float* s_m = reinterpret_cast<float*>(slab + lay.m);
+
+  const TQ* q_bh = q + static_cast<size_t>(bh) * qg * D;
+  const float q_scale = scale * kLog2e;
+  for (int i = threadIdx.x; i < qg * D; i += blockDim.x)
+    s_q[i] = to_float(q_bh[i]) * q_scale;
+  for (int i = lane; i < qg * D; i += 32) s_acc[i] = 0.f;
+  for (int i = lane; i < qg * kTile; i += 32) s_l[i] = 0.f;
+  for (int r = lane; r < qg; r += 32) s_m[r] = kNegInf;
+  __syncthreads();
+
+  const size_t row0 = static_cast<size_t>(b) * t * kvh + h;  // (b, 0, h)
+  const int end = sp.pos0 + sp.nrows;
+
+  // This warp's tiles: warp, warp + nw, ...; its k-th tile goes to ring
+  // stage k % kStages. Every call commits one cp.async group (empty past
+  // the last tile), so group k is tile k.
+  const int ntiles = (sp.nrows + kTile - 1) / kTile;
+  const int my_tiles = warp < ntiles ? (ntiles - warp + nw - 1) / nw : 0;
+  auto issue = [&](int k) {
+    if (k < my_tiles) {
+      const int st = k % kStages;
+      issue_tile<TKV, D, kTile>(
+          s_k + st * (lay.stage / sizeof(TKV)),
+          s_v + st * (lay.stage / sizeof(TKV)), s_ks + st * kTile,
+          s_vs + st * kTile, kPitch, k_cache, v_cache, k_scale, v_scale,
+          row0, kvh, sp.pos0 + (warp + k * nw) * kTile, end, lane);
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int k = 0; k < kStages - 1; ++k) issue(k);
+  for (int k = 0; k < my_tiles; ++k) {
+    issue(k + kStages - 1);
+    cp_async_wait<kStages - 1>();
+    __syncwarp();  // every lane's copies of tile k have landed
+
+    const int st = k % kStages;
+    const int srow = (warp + k * nw) * kTile + lane;
+    const int pos = sp.pos0 + srow;  // this lane's row in the sequence
+    const bool read = srow < sp.nrows;
+    const TKV* k_row = s_k + st * (lay.stage / sizeof(TKV)) + lane * kPitch;
+    const TKV* v_tile = s_v + st * (lay.stage / sizeof(TKV));
+    const float ks = quant ? s_ks[st * kTile + lane] : 1.f;
+    const float* vs = s_vs + st * kTile;
+
     for (int r0 = 0; r0 < qg; r0 += kRows) {
-      // Scores of cache row `pos` against query rows r0 .. r0 + kRows - 1.
+      // Scores of this lane's row against query rows r0 .. r0 + kRows - 1.
       float dot[kRows];
 #pragma unroll
       for (int rr = 0; rr < kRows; ++rr) dot[rr] = 0.f;
 #pragma unroll 2
       for (int cv = 0; cv < kVecPerRow; ++cv) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(k_row + cv * kVec);
-        const TKV* e = reinterpret_cast<const TKV*>(&raw);
         float kf[kVec];
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) kf[i] = to_float(e[i]) * my_ks;
+        load_slice<TKV, kVec>(k_row + cv * kVec, kf);
 #pragma unroll
         for (int rr = 0; rr < kRows; ++rr) {
           if (r0 + rr < qg) {
-            const float* qr = s_q + (r0 + rr) * D + cv * kVec;
+            const float4* qr = reinterpret_cast<const float4*>(
+                s_q + (r0 + rr) * D + cv * kVec);
 #pragma unroll
-            for (int i = 0; i < kVec; ++i) dot[rr] += qr[i] * kf[i];
+            for (int i = 0; i < kVec / 4; ++i) {
+              const float4 qv = qr[i];
+              dot[rr] += qv.x * kf[4 * i] + qv.y * kf[4 * i + 1] +
+                         qv.z * kf[4 * i + 2] + qv.w * kf[4 * i + 3];
+            }
+          }
+        }
+      }
+      // Online softmax in log2 units; each lane keeps its own share of
+      // the row sums, the max is the warp's.
+      float p[kRows];
+      float corr[kRows];
+      float m_new[kRows];
+#pragma unroll
+      for (int rr = 0; rr < kRows; ++rr) {
+        const int r = r0 + rr;
+        p[rr] = 0.f;
+        corr[rr] = 1.f;
+        m_new[rr] = kNegInf;
+        if (r < qg) {  // uniform across the warp
+          const bool valid = pos < sp.rows - (q_len - 1 - r / group);
+          const float s = !read ? kMaskOut : valid ? dot[rr] * ks : kNegInf;
+          const float m_prev = s_m[r];
+          m_new[rr] = fmaxf(m_prev, warp_max(s));
+          const float e = exp2f(s - m_new[rr]);
+          corr[rr] = exp2f(m_prev - m_new[rr]);
+          s_l[r * kTile + lane] = s_l[r * kTile + lane] * corr[rr] + e;
+          p[rr] = kRoundP ? __bfloat162float(__float2bfloat16(e)) : e;
+        }
+      }
+      float4* pw = reinterpret_cast<float4*>(s_p + lane * kRows);
+#pragma unroll
+      for (int i = 0; i < kRows / 4; ++i)
+        pw[i] = make_float4(p[4 * i], p[4 * i + 1], p[4 * i + 2],
+                            p[4 * i + 3]);
+      __syncwarp();  // P visible; every lane has read s_m
+      if (lane == 0) {
+#pragma unroll
+        for (int rr = 0; rr < kRows; ++rr)
+          if (r0 + rr < qg) s_m[r0 + rr] = m_new[rr];
+      }
+
+      // P.V: lane owns head dims [lane * kSlice, + kSlice) of each row.
+      float a[kRows][kSlice];
+#pragma unroll
+      for (int rr = 0; rr < kRows; ++rr) {
+#pragma unroll
+        for (int i = 0; i < kSlice; ++i)
+          a[rr][i] = r0 + rr < qg
+                         ? s_acc[(r0 + rr) * D + lane * kSlice + i] * corr[rr]
+                         : 0.f;
+      }
+#pragma unroll 4
+      for (int j = 0; j < kTile; ++j) {
+        float pj[kRows];
+        const float4* pr = reinterpret_cast<const float4*>(s_p + j * kRows);
+#pragma unroll
+        for (int i = 0; i < kRows / 4; ++i) {
+          const float4 x = pr[i];
+          pj[4 * i] = x.x;
+          pj[4 * i + 1] = x.y;
+          pj[4 * i + 2] = x.z;
+          pj[4 * i + 3] = x.w;
+        }
+        float v[kSlice];
+        load_slice<TKV, kSlice>(v_tile + j * kPitch + lane * kSlice, v);
+        if (quant) {
+          const float vsj = vs[j];
+#pragma unroll
+          for (int i = 0; i < kSlice; ++i) v[i] *= vsj;
+        }
+#pragma unroll
+        for (int rr = 0; rr < kRows; ++rr) {
+          if (r0 + rr < qg) {
+#pragma unroll
+            for (int i = 0; i < kSlice; ++i) a[rr][i] += pj[rr] * v[i];
           }
         }
       }
 #pragma unroll
       for (int rr = 0; rr < kRows; ++rr) {
-        const int r = r0 + rr;
-        if (r < qg) {  // uniform across the warp
-          const bool valid = pos < rows - (q_len - 1 - r / group);
-          const float s = valid ? dot[rr] : kNegInf;
-          float m_tile = s;
+        if (r0 + rr < qg) {
 #pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            m_tile = fmaxf(m_tile, __shfl_xor_sync(kFull, m_tile, off));
-          const float m_prev = s_m[r];
-          const float m_new = fmaxf(m_prev, m_tile);
-          float p = expf(s - m_new);
-          float sum = p;
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            sum += __shfl_xor_sync(kFull, sum, off);
-          const float corr = expf(m_prev - m_new);
-          if (kRoundP) p = __bfloat162float(__float2bfloat16(p));
-          // P.V for row r: lane owns head dims [lane*kSlice, +kSlice).
-          float* acc_r = s_acc + r * D + lane * kSlice;
-          float a[kSlice];
-#pragma unroll
-          for (int i = 0; i < kSlice; ++i) a[i] = acc_r[i] * corr;
-#pragma unroll 8
-          for (int j = 0; j < kTile; ++j) {
-            const float pj = __shfl_sync(kFull, p, j);
-            const float vsj = s_vs[j];
-            const TKV* vr = s_v + j * D + lane * kSlice;
-#pragma unroll
-            for (int i = 0; i < kSlice; ++i)
-              a[i] += pj * (to_float(vr[i]) * vsj);
-          }
-#pragma unroll
-          for (int i = 0; i < kSlice; ++i) acc_r[i] = a[i];
-          __syncwarp();  // every lane has read s_m[r] / s_l[r]
-          if (lane == 0) {
-            s_m[r] = m_new;
-            s_l[r] = s_l[r] * corr + sum;
-          }
-          __syncwarp();
+          for (int i = 0; i < kSlice; ++i)
+            s_acc[(r0 + rr) * D + lane * kSlice + i] = a[rr][i];
         }
       }
+      __syncwarp();  // s_p is rewritten by the next pass
     }
-    __syncwarp();  // the next tile overwrites this slab's K and V
   }
-  __syncthreads();
-
-  // Merge the warps' partials into this split's (max, sum, acc). A warp
-  // that read nothing holds (NEG_INF, 0, 0) and adds nothing.
-  const size_t part = static_cast<size_t>(bh) * num_splits + split;
-  float* pa = part_acc + part * qg * D;
-  float* pml = part_ml + part * 2 * qg;
-  auto warp_f = [&](int w, size_t offset) {
-    return reinterpret_cast<const float*>(smem + lay.slabs +
-                                          w * lay.per_warp + offset);
-  };
-  for (int i = threadIdx.x; i < qg * D; i += kThreads) {
-    const int r = i / D;
-    float m = kNegInf;
-    for (int w = 0; w < NW; ++w) m = fmaxf(m, warp_f(w, lay.m)[r]);
-    float a = 0.f;
-    for (int w = 0; w < NW; ++w)
-      a += warp_f(w, lay.acc)[i] * expf(warp_f(w, lay.m)[r] - m);
-    pa[i] = a;
+  cp_async_wait<0>();
+  // Row sums: the lanes' shares of row r, summed into s_l[r] (row r's
+  // shares sit past every earlier row's, which are summed already).
+  for (int r = 0; r < qg; ++r) {
+    const float l = warp_sum(s_l[r * kTile + lane]);
+    __syncwarp();
+    if (lane == 0) s_l[r] = l;
   }
-  for (int r = threadIdx.x; r < qg; r += kThreads) {
-    float m = kNegInf;
-    for (int w = 0; w < NW; ++w) m = fmaxf(m, warp_f(w, lay.m)[r]);
-    float l = 0.f;
-    for (int w = 0; w < NW; ++w)
-      l += warp_f(w, lay.l)[r] * expf(warp_f(w, lay.m)[r] - m);
-    pml[r] = m;
-    pml[qg + r] = l;
-  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) assert(n_valid[b] <= t);
+  finish<TQ, D>(smem, lay.slabs, lay.per_warp, lay.acc, lay.m, lay.l,
+                reinterpret_cast<float*>(smem + lay.rows), qg, bh, sp.active,
+                out);
 }
 
-// Log-sum-exp merge of the per-split partial (max, sum, acc) triples.
-// It also checks n_valid <= T on the card, so the host never waits for
-// the lengths: a failed assert fails the stream's next synchronisation.
-// The check lives here because in the attention kernel the assert's call
-// costs registers and spills.
-template <typename TQ>
-__global__ void __launch_bounds__(kCombineThreads)
-    combine_kernel(const float* __restrict__ part_acc,
-                   const float* __restrict__ part_ml, TQ* __restrict__ out,
-                   const int* __restrict__ n_valid, int t, int kvh, int qg,
-                   int d, int num_splits) {
-  const int bh = blockIdx.x;
-  if (threadIdx.x == 0) assert(n_valid[bh / kvh] <= t);
-  const float* ml = part_ml + static_cast<size_t>(bh) * num_splits * 2 * qg;
-  const float* pa = part_acc + static_cast<size_t>(bh) * num_splits * qg * d;
-  for (int i = threadIdx.x; i < qg * d; i += kCombineThreads) {
-    const int r = i / d;
-    float m = kNegInf;
-    for (int s = 0; s < num_splits; ++s) m = fmaxf(m, ml[s * 2 * qg + r]);
-    float l = 0.f;
-    float a = 0.f;
-    for (int s = 0; s < num_splits; ++s) {
-      const float w = expf(ml[s * 2 * qg + r] - m);
-      l += ml[s * 2 * qg + qg + r] * w;
-      a += pa[static_cast<size_t>(s) * qg * d + i] * w;
-    }
-    out[static_cast<size_t>(bh) * qg * d + i] =
-        from_float<TQ>(a / fmaxf(l, 1e-30f));
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+
+// How many warps a CTA of the chosen kernel runs with (0: its shared
+// memory would not fit, or the wrapper's route is one the kernels do not
+// take) and how much dynamic shared memory. The wrapper chooses the
+// kernel (ops/decode_attention.py:_mma_tiles): m_tiles 16-row query
+// tiles on tensor cores, 0 for CUDA cores.
+struct Plan {
+  int m_tiles, nw, smem;
+};
+
+Plan plan(int qg, int d, int m_tiles, int q_dtype, int kv_dtype) {
+  const int kv_bytes = kv_bytes_of(kv_dtype);
+  Plan p{m_tiles, 0, 0};
+  int fixed, per_warp;
+  if (m_tiles > 0) {
+    if (q_dtype != kBF16 || kv_dtype == kF32 || m_tiles > 2 ||
+        qg > kMmaTile * m_tiles || (m_tiles == 2 && d > 128))
+      return p;
+    const MmaLayout s = mma_layout(m_tiles, d, kv_bytes);
+    fixed = s.slabs;
+    per_warp = s.per_warp;
+  } else {
+    const SimtLayout s = simt_layout(qg, d, kv_bytes);
+    fixed = s.slabs;
+    per_warp = s.per_warp;
   }
+  const int nw = (kSmemLimit - 16 - fixed) / per_warp;
+  p.nw = nw < 0 ? 0 : nw > kMaxWarps ? kMaxWarps : nw;
+  p.smem = fixed + p.nw * per_warp;
+  return p;
 }
 
-template <typename TQ, typename TKV, int D, int NW>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const float* k_scale, const float* v_scale,
-                   const int* n_valid, void* out, float* part_acc,
-                   float* part_ml, int b, int t, int kvh, int qg, int q_len,
-                   int num_splits, float scale, cudaStream_t stream) {
-  const size_t smem = smem_layout(qg, D, sizeof(TKV), NW).total;
-  auto kernel = decode_attention_kernel<TQ, TKV, D, NW>;
-  if (smem > 48 * 1024) {
+struct Args {
+  const void* q;
+  const void* k_cache;
+  const void* v_cache;
+  const float* k_scale;
+  const float* v_scale;
+  const int* n_valid;
+  void* out;
+  int b, t, kvh, qg, q_len, num_splits;
+  float scale;
+  cudaStream_t stream;
+};
+
+// Grid (splits, B * KVH); the splits of one (b, h) are one cluster.
+template <typename TQ, typename TKV, typename... KArgs>
+cudaError_t launch(void (*kernel)(KArgs...), const Plan& p, const Args& a) {
+  if (p.smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(b * kvh, num_splits);
-  kernel<<<grid, NW * 32, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), k_scale, v_scale, n_valid, part_acc,
-      part_ml, t, kvh, qg, q_len, scale);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  combine_kernel<TQ><<<b * kvh, kCombineThreads, 0, stream>>>(
-      part_acc, part_ml, static_cast<TQ*>(out), n_valid, t, kvh, qg, D,
-      num_splits);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.num_splits, a.b * a.kvh);
+  cfg.blockDim = dim3(p.nw * 32);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.num_splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const TQ*>(a.q),
+      static_cast<const TKV*>(a.k_cache), static_cast<const TKV*>(a.v_cache),
+      a.k_scale, a.v_scale, a.n_valid, static_cast<TQ*>(a.out), a.t, a.kvh,
+      a.qg, a.q_len, a.scale);
 }
 
-template <typename TQ, typename TKV>
-cudaError_t launch_d(int d, int nw, const void* q, const void* k,
-                     const void* v, const float* k_scale,
-                     const float* v_scale, const int* n_valid, void* out,
-                     float* part_acc, float* part_ml, int b, int t, int kvh,
-                     int qg, int q_len, int num_splits, float scale,
-                     cudaStream_t stream) {
-#define SKYT_LAUNCH(DIM, WARPS)                                              \
-  return launch<TQ, TKV, DIM, WARPS>(q, k, v, k_scale, v_scale, n_valid,     \
-                                     out, part_acc, part_ml, b, t, kvh, qg,  \
-                                     q_len, num_splits, scale, stream)
-#define SKYT_LAUNCH_NW(DIM) \
-  if (nw == 4) {            \
-    SKYT_LAUNCH(DIM, 4);    \
-  }                         \
-  if (nw == 1) {            \
-    SKYT_LAUNCH(DIM, 1);    \
-  }                         \
-  return cudaErrorInvalidValue
-  switch (d) {
-    case 64:
-      SKYT_LAUNCH_NW(64);
-    case 128:
-      SKYT_LAUNCH_NW(128);
-    case 256:
-      SKYT_LAUNCH_NW(256);
-    default:
-      return cudaErrorInvalidValue;
+template <typename TKV, int D>
+cudaError_t launch_mma_m(const Plan& p, const Args& a) {
+  if (p.m_tiles == 1)
+    return launch<bf16, TKV>(decode_attention_mma<TKV, D, 1>, p, a);
+  if constexpr (D <= 128) {
+    if (p.m_tiles == 2)
+      return launch<bf16, TKV>(decode_attention_mma<TKV, D, 2>, p, a);
   }
-#undef SKYT_LAUNCH_NW
-#undef SKYT_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
-int kv_bytes_of(int kv_dtype) {
-  return kv_dtype == kF32 ? 4 : kv_dtype == kBF16 ? 2 : 1;
+template <typename TQ, typename TKV, int D>
+cudaError_t launch_simt(const Plan& p, const Args& a) {
+  return launch<TQ, TKV>(decode_attention_simt<TQ, TKV, D>, p, a);
+}
+
+template <int D>
+cudaError_t launch_d(const Plan& p, int q_dtype, int kv_dtype,
+                     const Args& a) {
+  if (p.m_tiles > 0) {
+    if (kv_dtype == kBF16) return launch_mma_m<bf16, D>(p, a);
+    return launch_mma_m<int8_t, D>(p, a);
+  }
+  if (q_dtype == kBF16 && kv_dtype == kBF16)
+    return launch_simt<bf16, bf16, D>(p, a);
+  if (q_dtype == kF32 && kv_dtype == kF32)
+    return launch_simt<float, float, D>(p, a);
+  if (q_dtype == kBF16 && kv_dtype == kI8)
+    return launch_simt<bf16, int8_t, D>(p, a);
+  if (q_dtype == kF32 && kv_dtype == kI8)
+    return launch_simt<float, int8_t, D>(p, a);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one CTA of `nw` warps needs.
-size_t skyt_decode_attention_smem(int qg, int d, int kv_dtype, int nw) {
-  return smem_layout(qg, d, kv_bytes_of(kv_dtype), nw).total;
+// Warps a CTA runs with for a call of this shape on the kernel that
+// m_tiles names (0: it does not fit or does not exist; the wrapper raises
+// before launching).
+int skyt_decode_attention_warps(int qg, int d, int m_tiles, int q_dtype,
+                                int kv_dtype) {
+  return plan(qg, d, m_tiles, q_dtype, kv_dtype).nw;
 }
 
 int skyt_decode_attention(const void* q, const void* k_cache,
                           const void* v_cache, const float* k_scale,
                           const float* v_scale, const int* n_valid,
-                          void* out, float* part_acc, float* part_ml, int b,
-                          int t, int kvh, int qg, int q_len, int d,
-                          int num_splits, int nw, float scale, int q_dtype,
-                          int kv_dtype, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+                          void* out, int b, int t, int kvh, int qg,
+                          int q_len, int d, int num_splits, int m_tiles,
+                          float scale, int q_dtype, int kv_dtype,
+                          void* stream) {
+  const Plan p = plan(qg, d, m_tiles, q_dtype, kv_dtype);
+  if (p.nw == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q,     k_cache, v_cache, k_scale,    v_scale,
+               n_valid, out,   b,       t,          kvh,
+               qg,    q_len,   num_splits, scale,
+               static_cast<cudaStream_t>(stream)};
   cudaError_t err = cudaErrorInvalidValue;
-  if (q_dtype == kBF16 && kv_dtype == kBF16) {
-    err = launch_d<__nv_bfloat16, __nv_bfloat16>(
-        d, nw, q, k_cache, v_cache, k_scale, v_scale, n_valid, out, part_acc,
-        part_ml, b, t, kvh, qg, q_len, num_splits, scale, s);
-  } else if (q_dtype == kF32 && kv_dtype == kF32) {
-    err = launch_d<float, float>(
-        d, nw, q, k_cache, v_cache, k_scale, v_scale, n_valid, out, part_acc,
-        part_ml, b, t, kvh, qg, q_len, num_splits, scale, s);
-  } else if (q_dtype == kBF16 && kv_dtype == kI8) {
-    err = launch_d<__nv_bfloat16, int8_t>(
-        d, nw, q, k_cache, v_cache, k_scale, v_scale, n_valid, out, part_acc,
-        part_ml, b, t, kvh, qg, q_len, num_splits, scale, s);
-  } else if (q_dtype == kF32 && kv_dtype == kI8) {
-    err = launch_d<float, int8_t>(
-        d, nw, q, k_cache, v_cache, k_scale, v_scale, n_valid, out, part_acc,
-        part_ml, b, t, kvh, qg, q_len, num_splits, scale, s);
+  switch (d) {
+    case 64:
+      err = launch_d<64>(p, q_dtype, kv_dtype, a);
+      break;
+    case 128:
+      err = launch_d<128>(p, q_dtype, kv_dtype, a);
+      break;
+    case 256:
+      err = launch_d<256>(p, q_dtype, kv_dtype, a);
+      break;
+    default:
+      break;
   }
   return static_cast<int>(err);
 }

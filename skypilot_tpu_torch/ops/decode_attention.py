@@ -10,27 +10,34 @@ j)``. Returns ``[B, Q, H, D]``.
 
 Two implementations behind it:
 
-* the Hopper kernel (``csrc/decode_attention.cu``), for CUDA tensors:
-  ``_decode_kernel``'s algorithm (q scaled in fp32, fp32 running
-  max/sum, the finite ``NEG_INF`` window mask, only ``min(n_valid, T)``
-  rows read, P rounded to bf16 before P.V for a bf16 cache,
-  ``acc / max(l, 1e-30)``) for bf16/fp32 caches, and
-  ``_decode_kernel_quant``'s (V dequantized to fp32, P in fp32) for int8
-  caches. It takes every T (the tail tile is masked), D in {64, 128,
-  256} and Q >= 1, and raises on anything else; ``n_valid > T`` fails a
-  device-side assert.
-  A CUDA tensor reaches the kernel or the call raises: there is no
-  fallback.
+* the Hopper kernels (``csrc/decode_attention.cu``), for CUDA tensors,
+  one launch a call: ``_decode_kernel``'s algorithm (q scaled in fp32,
+  fp32 running max/sum, the finite ``NEG_INF`` window mask, only
+  ``min(n_valid, T)`` rows read, P rounded to bf16 before P.V for a bf16
+  cache, ``acc / max(l, 1e-30)``) for bf16/fp32 caches, and
+  ``_decode_kernel_quant``'s (V's scale on P, P in fp32) for int8
+  caches. bf16 queries with Q*G <= 32 (<= 16 at D=256) run on tensor
+  cores (``mma.sync``); fp32 queries and wider windows run a second
+  kernel on CUDA cores, a route chosen by dtype and shape before the
+  launch (``_mma_tiles``). Both take every T (the tail is masked, never
+  read), D in {64, 128, 256} and Q >= 1, and the wrapper raises on
+  anything else; ``n_valid > T`` fails a device-side assert. The splits of a (sequence, kv head) are
+  one thread-block cluster merged in shared memory, so a call needs no
+  scratch. A CUDA tensor reaches a kernel or the call raises: there is
+  no fallback.
 * ``xla_decode_attention``, the plain PyTorch version (the reference's
   oracle of the same name: full-cache masked softmax), for CPU tensors
-  (the tier-1 tests), for ``impl='xla'``, and as the kernel's comparison
+  (the CPU tests), for ``impl='xla'``, and as the kernels' comparison
   on the card. A fully masked query row (a window position with
   ``n_valid < Q``, discarded by the caller) is uniform over all T rows
-  here and uniform over the rows read in the kernel.
+  here and uniform over the rows read in the kernels.
 
-``block_k`` shapes TPU VMEM blocks; the port accepts and ignores it (a
-warp always walks 32-row tiles). ``LAUNCHES`` counts kernel launches, one
-plain integer per kernel.
+``block_k`` sizes the TPU kernel's VMEM blocks of the sequential kv
+axis; the port accepts and ignores it: a warp always walks 16-row tiles
+(32 on CUDA cores), and how a sequence's rows are spread over CTAs
+follows from the split count (``_num_splits``), not from a block size.
+``LAUNCHES`` counts kernel launches, one plain integer per TPU kernel
+(either Hopper kernel counts under the cache's type).
 """
 from __future__ import annotations
 
@@ -48,10 +55,9 @@ LAUNCHES: Dict[str, int] = {'decode_attention': 0,
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _HEAD_DIMS = (64, 128, 256)
-_SMEM_LIMIT = 232_448          # opt-in dynamic shared memory per block
-_TILE = 32                     # cache rows per warp step
-_WARPS = (4, 1)                # CTA sizes built, largest first
-_MAX_SPLITS = 16               # CTAs per (sequence, kv head)
+_MMA_TILE = 16                 # rows of a tensor-core tile (cache or query)
+_WAVE_CTAS = 264               # CTAs resident at once: two per H100 SM
+_MAX_SPLITS = 4                # a (b, h)'s splits are one cluster
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -104,33 +110,54 @@ def _library() -> ctypes.CDLL:
         lib = _build.load_library('decode_attention')
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.skyt_decode_attention.argtypes = (
-            [p] * 9 + [i] * 8 + [ctypes.c_float, i, i, p])
+            [p] * 7 + [i] * 8 + [ctypes.c_float, i, i, p])
         lib.skyt_decode_attention.restype = i
-        lib.skyt_decode_attention_smem.argtypes = [i, i, i, i]
-        lib.skyt_decode_attention_smem.restype = ctypes.c_size_t
+        lib.skyt_decode_attention_warps.argtypes = [i] * 5
+        lib.skyt_decode_attention_warps.restype = i
         _lib = lib
     return _lib
 
 
+def _mma_tiles(q_dtype: torch.dtype, kv_dtype: torch.dtype, qgr: int,
+               d: int) -> int:
+    """The kernel a call runs, by dtype and shape, chosen before launch:
+    the 16-row query tiles of the tensor-core kernel, or 0 for the
+    CUDA-core kernel. bf16 queries over a bf16 or int8 cache take tensor
+    cores for up to 32 query rows (Q*G), 16 at D=256 (two tiles'
+    accumulators would not fit in registers there); fp32 queries and
+    wider windows run on CUDA cores."""
+    if q_dtype != torch.bfloat16 or kv_dtype not in (torch.bfloat16,
+                                                     torch.int8):
+        return 0
+    if qgr <= _MMA_TILE:
+        return 1
+    return 2 if qgr <= 2 * _MMA_TILE and d <= 128 else 0
+
+
 @functools.lru_cache(maxsize=None)
-def _warps(qg: int, d: int, kv_code: int) -> Optional[int]:
-    """The largest CTA size built whose shared memory fits, or None."""
-    lib = _library()
-    return next((w for w in _WARPS if lib.skyt_decode_attention_smem(
-        qg, d, kv_code, w) <= _SMEM_LIMIT), None)
+def _warps(qgr: int, d: int, m_tiles: int, q_code: int, kv_code: int
+           ) -> int:
+    """Warps a CTA of that kernel runs with (0: one warp's tiles do not
+    fit in shared memory)."""
+    return _library().skyt_decode_attention_warps(qgr, d, m_tiles, q_code,
+                                                  kv_code)
+
+
+def _num_splits(b: int, kvh: int, t: int) -> int:
+    """CTAs per (sequence, kv head), from the shape alone (the host never
+    reads the lengths): as many as keep every CTA of the launch resident
+    at once (``_WAVE_CTAS``), so a small batch still fills the card, and
+    one split once B * KVH alone does; never more than a full sequence's
+    16-row tiles, and at most ``_MAX_SPLITS``, one cluster (the paged
+    kernels' rule, ``paged_attention._num_splits``). Each split walks an
+    even share of the sequence's ``min(n_valid, T)`` rows."""
+    return max(1, min(math.ceil(t / _MMA_TILE), _MAX_SPLITS,
+                      _WAVE_CTAS // (b * kvh)))
 
 
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f'decode_attention kernel: {msg}')
-
-
-def num_splits(t: int, warps: int) -> int:
-    """CTAs per (sequence, kv head): enough that each CTA's warps get
-    about one 32-row tile of a full cache each, at most 16 (the paged
-    kernel's split count)."""
-    tiles = math.ceil(t / _TILE)
-    return max(1, min(_MAX_SPLITS, math.ceil(tiles / warps)))
 
 
 def decode_attention_kernel(qg: torch.Tensor, k_cache: torch.Tensor,
@@ -139,14 +166,13 @@ def decode_attention_kernel(qg: torch.Tensor, k_cache: torch.Tensor,
                             k_scale: Optional[torch.Tensor] = None,
                             v_scale: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
-    """Launch the kernel on the kernel layout: qg ``[B, KVH, Q*G, D]``
+    """Launch a kernel on the kernel layout: qg ``[B, KVH, Q*G, D]``
     -> ``[B, KVH, Q*G, D]``. Raises on any shape, dtype, device or
-    layout the kernel does not take and when the launch fails.
+    layout the kernels do not take and when the launch fails.
 
     ``n_valid > T`` is checked on the card, so the host never waits for
-    the lengths: the combine kernel's device-side assert fails the
-    stream, and the next synchronisation raises. The attention kernel
-    never reads past T."""
+    the lengths: the cluster's rank 0 fails a device-side assert, and the
+    next synchronisation raises. The kernels never read past T."""
     b, kvh, qgr, d = qg.shape
     t = k_cache.shape[1] if k_cache.dim() == 4 else -1
     dev = qg.device
@@ -182,24 +208,22 @@ def decode_attention_kernel(qg: torch.Tensor, k_cache: torch.Tensor,
            'inputs must be contiguous')
     _check(all(x.data_ptr() % 16 == 0 for x in (qg, k_cache, v_cache)),
            'q and caches must be 16-byte aligned')
-    lib = _library()
-    code = _DTYPE_CODES[k_cache.dtype]
-    warps = _warps(qgr, d, code)
-    _check(warps is not None, f'Q*G={qgr} query rows at D={d} need more '
-           f'than {_SMEM_LIMIT} bytes of shared memory')
-    n_split = num_splits(t, warps)
+    splits = _num_splits(b, kvh, t)
+    _check(1 <= splits <= min(math.ceil(t / _MMA_TILE), _MAX_SPLITS),
+           f'{splits} splits for T={t} (at most {_MAX_SPLITS}, one per '
+           f'{_MMA_TILE} rows)')
+    m_tiles = _mma_tiles(qg.dtype, k_cache.dtype, qgr, d)
+    q_code, kv_code = _DTYPE_CODES[qg.dtype], _DTYPE_CODES[k_cache.dtype]
+    _check(_warps(qgr, d, m_tiles, q_code, kv_code) > 0,
+           f'Q*G={qgr} query rows at D={d}: one warp\'s tiles do not fit '
+           f'in shared memory')
     out = torch.empty_like(qg)
-    part_acc = torch.empty((b * kvh, n_split, qgr, d), dtype=torch.float32,
-                           device=dev)
-    part_ml = torch.empty((b * kvh, n_split, 2, qgr), dtype=torch.float32,
-                          device=dev)
-    err = lib.skyt_decode_attention(
+    err = _library().skyt_decode_attention(
         qg.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
-        n_valid.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), b, t, kvh, qgr, q_len, d, n_split, warps,
-        d ** -0.5, _DTYPE_CODES[qg.dtype], code,
+        n_valid.data_ptr(), out.data_ptr(), b, t, kvh, qgr, q_len, d,
+        splits, m_tiles, d ** -0.5, q_code, kv_code,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f'decode_attention kernel launch failed: CUDA '

@@ -35,6 +35,7 @@ from skypilot_tpu_torch.models import decode as tdecode
 from skypilot_tpu_torch.models import quant as tquant
 from skypilot_tpu_torch.models.config import get_model_config as torch_config
 from skypilot_tpu_torch.models.config import with_int8_kv_cache as torch_int8
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 PROMPTS = [[3, 1, 4, 1, 5], [2, 7, 18] * 7, [31, 41, 59, 26, 5, 3]]
 

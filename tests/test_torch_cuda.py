@@ -437,9 +437,11 @@ def test_decode_kernel_matches_plain(card, cache, q_len, t, lengths,
     (2500, (1, 33, 2047, 2500))], ids=['T64', 'T300', 'T2500'])
 @pytest.mark.parametrize('d', [64, 256])
 def test_decode_kernel_head_dims_and_splits(card, d, t, lengths):
-    """Other head dims, and caches whose split count (num_splits: 1 to
-    16 CTAs per (sequence, kv head)) shares a sequence's tiles unevenly;
-    a Q*G too large for four warps runs on a one-warp CTA."""
+    """Other head dims, and caches whose split count (_num_splits: 4
+    CTAs per (sequence, kv head) here) shares a sequence's 16-row tiles
+    unevenly; Q*G = 24 runs on tensor cores at D=64 and on CUDA cores
+    at D=256, and Q*G = 40 at D=256, too large for four warps, on a
+    one-warp CUDA-core CTA."""
     from skypilot_tpu_torch.ops import decode_attention as da
     q, k, v, nv, _, _ = _decode_case(card, 'bf16', 3, t, lengths, d=d,
                                      g=8)
@@ -455,6 +457,69 @@ def test_decode_kernel_head_dims_and_splits(card, d, t, lengths):
     ref = da.xla_decode_attention(big, kb, kb, nvb)
     keep = _live_rows(nvb, 5)
     assert ((out.float() - ref.float()).abs() * keep).max().item() <= 2e-2
+
+
+@pytest.mark.parametrize('splits', [1, 2, 3, 4])
+@pytest.mark.parametrize('t', [300, 2500])
+@pytest.mark.parametrize('d,q_len,g,m_tiles', [
+    (64, 1, 4, 1), (64, 5, 8, 0), (128, 4, 8, 2), (128, 5, 8, 0),
+    (256, 2, 8, 1), (256, 4, 8, 0), (256, 5, 8, 0)],
+    ids=['D64_QG4', 'D64_QG40', 'D128_QG32', 'D128_QG40', 'D256_QG16',
+         'D256_QG32', 'D256_QG40'])
+@pytest.mark.parametrize('cache', ['bf16', 'fp32', 'int8'])
+def test_decode_kernel_paths_and_splits(card, monkeypatch, cache, d, q_len,
+                                        g, m_tiles, t, splits):
+    """Both kernels of the one-launch design: bf16 queries with Q*G <= 32
+    (<= 16 at D=256) on tensor cores, fp32 queries and wider windows on
+    CUDA cores; a (sequence, kv head)'s rows over 1 to 4 split CTAs (one
+    cluster, merged by rank 0), at T off the 16-row tile. A second call
+    is bitwise the same (the merge leaves nothing behind), and n_valid =
+    0 gives exactly 0."""
+    from skypilot_tpu_torch.ops import decode_attention as da
+    lengths = (0, 1, 33, t - 1, t)
+    # B * KVH = 10 pairs: a wave of 10 * splits CTAs gives `splits`
+    monkeypatch.setattr(da, '_WAVE_CTAS', 10 * splits)
+    assert da._num_splits(len(lengths), 2, t) == splits
+    q, k, v, nv, ks, vs = _decode_case(card, cache, q_len, t, lengths, d=d,
+                                       g=g)
+    want = 0 if cache == 'fp32' else m_tiles
+    assert da._mma_tiles(q.dtype, k.dtype, q_len * g, d) == want
+    name = 'decode_attention_quant' if cache == 'int8' else \
+        'decode_attention'
+    before = da.LAUNCHES[name]
+    out = da.decode_attention(q, k, v, nv, k_scale=ks, v_scale=vs)
+    again = da.decode_attention(q, k, v, nv, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES[name] == before + 2
+    assert torch.equal(out, again)
+    assert out[0].abs().max().item() == 0
+    ref = da.xla_decode_attention(q, k, v, nv, ks, vs)
+    assert torch.isfinite(out).all()
+    assert _head_err(out, ref, nv) <= DECODE_TOL[cache]
+
+
+@pytest.mark.parametrize('cache', ['bf16', 'fp32', 'int8'])
+def test_decode_kernel_engine_shape(card, cache):
+    """The batch engine's decode call at llama3-8b heads (B=4, KVH=8,
+    G=4, D=128, T=288 = prompt bucket 256 + 32 new tokens): 4 splits a
+    (sequence, kv head), 128 CTAs in one wave; bf16 queries on tensor
+    cores."""
+    from skypilot_tpu_torch.ops import decode_attention as da
+    lengths = (257, 200, 288, 131)
+    assert da._num_splits(4, 8, 288) == 4
+    q, k, v, nv, ks, vs = _decode_case(card, cache, 1, 288, lengths,
+                                       kvh=8)
+    assert da._mma_tiles(q.dtype, k.dtype, 4, 128) == (
+        0 if cache == 'fp32' else 1)
+    name = 'decode_attention_quant' if cache == 'int8' else \
+        'decode_attention'
+    before = da.LAUNCHES[name]
+    out = da.decode_attention(q, k, v, nv, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES[name] == before + 1
+    ref = da.xla_decode_attention(q, k, v, nv, ks, vs)
+    assert torch.isfinite(out).all()
+    assert _head_err(out, ref, nv) <= DECODE_TOL[cache]
 
 
 def test_decode_kernel_rejects_unsupported_inputs(card):

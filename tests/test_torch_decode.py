@@ -21,6 +21,7 @@ from skypilot_tpu.models import llama as jllama
 from skypilot_tpu_torch.models import config as tconfig
 from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import decode as tdecode
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 SLOTS, BS, BPS, CHUNK = 3, 8, 6, 16
 

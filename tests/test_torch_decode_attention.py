@@ -23,6 +23,7 @@ from skypilot_tpu.ops.pallas.decode_attention import (
 from skypilot_tpu.ops.pallas.decode_attention import (
     xla_decode_attention as jax_xla_decode_attention)
 from skypilot_tpu_torch.ops import decode_attention as da
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 
 def _inputs(b=2, t=64, h=4, kvh=2, d=16, q_len=1, seed=0):
@@ -178,3 +179,38 @@ def test_mismatched_scales_and_heads_raise():
         da.decode_attention(*t, n_valid, k_scale=torch.ones((2, 64, 2)))
     with pytest.raises(ValueError, match='multiple'):
         da.decode_attention(t[0][:, :, :3], t[1], t[2], n_valid)
+
+
+@pytest.mark.parametrize('b,kvh,t,want', [
+    (1, 8, 2048, 4), (4, 8, 288, 4), (8, 8, 2048, 4), (16, 8, 2048, 2),
+    (40, 8, 2048, 1), (128, 8, 2048, 1), (8, 8, 40, 3), (1, 1, 1, 1),
+    (4, 2, 300, 4), (33, 4, 2048, 2), (8, 8, 16, 1)])
+def test_split_rule_is_one_wave_of_at_most_four(b, kvh, t, want):
+    """The kernels' split count comes from (B, KVH, T) alone, never from
+    the lengths: as many CTAs as stay resident at once (one wave) at
+    small batch, one split once B * KVH fills the wave, at least 1, at
+    most 4 (one cluster) and never more than the 16-row tiles of T."""
+    s = da._num_splits(b, kvh, t)
+    assert s == want
+    assert 1 <= s <= min(-(-t // da._MMA_TILE), da._MAX_SPLITS)
+    if s > 1:
+        assert b * kvh * s <= da._WAVE_CTAS
+    if s < min(-(-t // da._MMA_TILE), da._MAX_SPLITS):
+        assert s == 1 or b * kvh * (s + 1) > da._WAVE_CTAS
+
+
+@pytest.mark.parametrize('q_dtype,kv_dtype,qgr,d,want', [
+    (torch.bfloat16, torch.bfloat16, 4, 128, 1),     # llama3-8b decode
+    (torch.bfloat16, torch.int8, 4, 128, 1),
+    (torch.bfloat16, torch.bfloat16, 16, 256, 1),
+    (torch.bfloat16, torch.bfloat16, 20, 128, 2),    # Q=5 verify window
+    (torch.bfloat16, torch.int8, 32, 64, 2),
+    (torch.bfloat16, torch.bfloat16, 32, 256, 0),    # too wide at D=256
+    (torch.bfloat16, torch.int8, 33, 128, 0),        # wider than 2 tiles
+    (torch.float32, torch.float32, 4, 128, 0),       # fp32: CUDA cores
+    (torch.float32, torch.int8, 4, 128, 0)])
+def test_route_by_dtype_and_shape(q_dtype, kv_dtype, qgr, d, want):
+    """The kernel a call runs is chosen on the host before the launch,
+    from the dtypes, Q*G and D alone: 16-row query tiles on tensor cores
+    for bf16 queries, 0 for the CUDA-core kernel."""
+    assert da._mma_tiles(q_dtype, kv_dtype, qgr, d) == want

@@ -26,6 +26,7 @@ from skypilot_tpu_torch.inference.continuous import (
     ContinuousBatchingEngine as TorchEngine)
 from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models.config import get_model_config as torch_config
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope='module')

@@ -21,6 +21,7 @@ from skypilot_tpu.ops.pallas import flash_attention as jfa
 from skypilot_tpu_torch.ops import flash_attention as tfa
 from skypilot_tpu_torch.ops.attention import (multi_head_attention,
                                               xla_attention)
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 TOL = {'float32': (2e-5, 1e-4), 'bfloat16': (2e-2, 2e-1)}
 

@@ -21,6 +21,7 @@ import torch
 from skypilot_tpu.ops.pallas import flash_attention as jfa
 from skypilot_tpu_torch import _build
 from skypilot_tpu_torch.ops import flash_attention as tfa
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 FWD_TOL, GRAD_TOL = 2e-5, 1e-4
 # bf16 gradient limit of the card checks (tile error; chip_smoke.py's

@@ -12,6 +12,7 @@ import sys
 
 import pytest
 import torch
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.join(REPO_ROOT, 'skypilot_tpu_torch')

@@ -21,6 +21,7 @@ from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import decode as tdecode
 from skypilot_tpu_torch.models import llama as tllama
 from skypilot_tpu_torch.ops import rms_norm as t_rms_norm
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 ATOL = 1e-6
 

@@ -19,6 +19,7 @@ from skypilot_tpu.ops.pallas.paged_attention import (paged_attention,
                                                      xla_paged_attention)
 from skypilot_tpu_torch.models.decode import quantize_kv
 from skypilot_tpu_torch.ops import paged_attention as tpa
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 RAGGED = [1, 9, 24, 48]
 BOUNDARY = [8, 16, 32, 40]

@@ -30,6 +30,7 @@ from skypilot_tpu_torch.models import llama as tllama
 from skypilot_tpu_torch.train import loss as tloss
 from skypilot_tpu_torch.train import pretrain as tpretrain
 from skypilot_tpu_torch.train import step as tstep
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 B, S = 2, 128
 
