@@ -83,7 +83,8 @@ Phases, in order; any failure exits non-zero:
    port's seeded random init on the card), served by the port's HTTP
    server; four concurrent ``/generate`` requests, one of them longer
    than a prefill chunk; the kernel counter must rise by n_layers per
-   decode step; a repeated request is identical.
+   decode step; a repeated request is identical; then (outside the
+   counted window) the plain streams of phase 14's prompts.
 10. Continuous engine, int8 KV on the same weights: the int8 kernel
    must run.
 11. Small batch-engine agreement: ``InferenceEngine`` on the card and on
@@ -97,9 +98,36 @@ Phases, in order; any failure exits non-zero:
    batch; ``embed_text`` gives unit-norm vectors; an int8-KV engine
    (the int8 kernel must run) and a W8A8 engine (prefill logits finite,
    cosine > 0.99 against the bf16 weights') on the same weights.
+13. Small speculative and LoRA agreement: TINY with head_dim 128 and
+   fp32 compute; a speculative engine (draft_k 4), a plain engine and a
+   LoRA engine (one seeded adapter, B non-zero) on the card give the
+   greedy tokens of the plain and the LoRA engine on the CPU, on a
+   periodic, an arbitrary and a constant prompt.
+14. Speculative serving, full width: phase 9's llama3-8b weights, n-gram
+   drafts with draft_k 4 (verify windows of 5 rows, 20 query rows a kv
+   head) behind the port's HTTP server: one /v1/completions alone, then
+   four concurrent /v1/completions (the first prompt repeated, one
+   streamed as SSE) and one /v1/chat/completions; the paged kernel must
+   launch n_layers x (decode + verify steps); the SSE stream ends with a
+   finish_reason frame and [DONE]; /metrics serves the verify counter;
+   the repeated prompt alone accepts drafts from the corpus; acceptance
+   rate, decode tok/s and time to first token beside phase 9's, and the
+   share of tokens on which the bf16 speculative streams agree with
+   phase 9's plain streams of the same prompts (printed, not gated).
+   Again with an int8 pool: the int8 kernel rises the same way.
+15. LoRA serving, full width: the same weights, lora_pages 4,
+   lora_max_rank 16, two seeded adapters (rank 16 and 8, B scaled by
+   ``LORA_B_SCALE``) through /generate with an ``adapter`` field and
+   /v1/completions with ``X-Skyt-Adapter``, beside a base /generate: the
+   paged kernel launches n_layers a decode step; /adapters and /stats
+   show 2 resident adapters and charged KV blocks; the base request
+   gives the tokens it gives alone on a plain engine, each adapter
+   other tokens; decode tok/s beside a plain engine's.
 
-Then one JSON line listing every kernel, the ``nvidia-smi`` name and
-power-limit line, and last ``{"ok": true, "device": {...}}``.
+Then one JSON line listing every kernel (the paged kernels' launches are
+the sums of phases 9, 14 and 15, and of 10 and 14's int8 run), the
+``nvidia-smi`` name and power-limit line, and last ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1735,10 +1763,16 @@ def phase_engine(torch, pa, params, profile_window=False):
         if profile_window:
             result['device_busy_share'] = profile_decode(
                 torch, engine, prompts, 32)
+        # The plain streams of phase 14's prompts, for its agreement
+        # share and its decode rate on the same requests (outside the
+        # counted window).
+        before = engine.stats()
+        result['plain_streams'] = concurrent_ids(engine, SPEC_PROMPTS, 32)
+        result['same_prompts_tok_s'] = decode_rate(before, engine.stats())
     finally:
         engine.shutdown()
     del engine
-    # Phase 9: int8 KV on the same weights.
+    # Phase 10: int8 KV on the same weights.
     engine = ContinuousBatchingEngine('llama3-8b', params=params,
                                       max_slots=4, max_len=2048,
                                       block_size=16, quantize_kv=True)
@@ -1749,6 +1783,419 @@ def phase_engine(torch, pa, params, profile_window=False):
         result['launches_quant'] = counts['paged_attention_quant']
     finally:
         engine.shutdown()
+    return result
+
+
+# ---------------------------------------------------------------------------
+# Phases 13-15: speculative verify windows and LoRA pages
+# ---------------------------------------------------------------------------
+
+SPEC_TEXT = ('Speculative decoding drafts tokens from the history and '
+             'verifies the whole window in one step. ')
+# Phase 14's prompts: the first is sent alone first, then repeated.
+SPEC_PROMPTS = [SPEC_TEXT * 2, SPEC_TEXT[:90], 'Hello there',
+                SPEC_TEXT[:150]]
+# Phase 15's adapters: A from init_lora_params (N(0, 1/rank)), B drawn
+# as LORA_B_SCALE x N(0, 1) (a fresh adapter's B is zero, the base
+# model): large enough that the q/v deltas move greedy tokens.
+LORA_B_SCALE = 0.02
+
+
+def decode_rate(before, after):
+    """Tokens a decode second between two ``stats()`` readings."""
+    seconds = after['decode_seconds'] - before['decode_seconds']
+    tokens = after['tokens_generated'] - before['tokens_generated']
+    return tokens / seconds if seconds else 0.0
+
+
+def concurrent_ids(engine, prompts, max_new_tokens):
+    """Greedy ids of ``prompts`` submitted together (no eos)."""
+    handles = [engine.submit_ids(engine.tokenizer.encode(p),
+                                 max_new_tokens=max_new_tokens)
+               for p in prompts]
+    for h in handles:
+        if not h.done.wait(600) or h.error is not None:
+            raise RuntimeError(f'request failed: {h.error}')
+    return [list(h.generated) for h in handles]
+
+
+def post_json(port, path, payload, headers=None):
+    req = urllib.request.Request(
+        f'http://127.0.0.1:{port}{path}', data=json.dumps(payload).encode(),
+        headers={'Content-Type': 'application/json', **(headers or {})})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        body = resp.read()
+    if path.startswith('/v1/') and payload.get('stream'):
+        return [e[len('data: '):] for e in body.decode().split('\n\n')
+                if e.strip()]
+    return json.loads(body)
+
+
+def get_url(port, path):
+    with urllib.request.urlopen(f'http://127.0.0.1:{port}{path}',
+                                timeout=60) as resp:
+        return resp.read().decode()
+
+
+def run_concurrently(calls):
+    """Run the zero-argument ``calls`` on threads; their results in
+    order, or the first error raised."""
+    results, errors = [None] * len(calls), []
+
+    def run(i):
+        try:
+            results[i] = calls[i]()
+        except Exception as e:  # collected, then raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(calls))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors:
+        raise errors[0]
+    return results
+
+
+def tiny_adapter(torch, cfg, rank, seed, scale):
+    from skypilot_tpu_torch.models import lora as lora_lib
+    adapter = lora_lib.init_lora_params(seed, cfg, rank, device='cpu')
+    gen = torch.Generator().manual_seed(seed + 1000)
+    for key in ('wq_b', 'wv_b'):
+        adapter[key] = scale * torch.randn(adapter[key].shape,
+                                           generator=gen)
+    return adapter
+
+
+def phase_small_spec_lora(torch):
+    """Phase 13. TINY with head_dim 128 and fp32 compute: a speculative
+    engine (draft_k 4), a plain engine and a LoRA engine (one seeded
+    adapter, B non-zero) on the card; greedy tokens must equal the
+    plain engine's and the LoRA engine's on the CPU, on a periodic, an
+    arbitrary and a constant prompt."""
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models.config import get_model_config
+    cfg = get_model_config('tiny', head_dim=128,
+                           compute_dtype=torch.float32)
+    params = llama.init_params(7, cfg, device='cpu')
+    adapter = tiny_adapter(torch, cfg, 4, 5, 0.05)
+    prompts = [[5, 6, 7, 8] * 3, [(7 * i + 3) % 512 for i in range(21)],
+               [9] * 6]
+
+    def run(device, **extra):
+        engine = ContinuousBatchingEngine(
+            'tiny', cfg=cfg, params=params, device=device, max_slots=2,
+            max_len=96, block_size=8, prefill_chunk=8, **extra)
+        try:
+            kw = {}
+            if extra.get('lora_pages'):
+                engine.register_adapter('a', adapter)
+                kw['adapter'] = 'a'
+            outs = [engine.generate_ids(p, max_new_tokens=16, **kw)
+                    for p in prompts]
+            return outs, engine.stats()
+        finally:
+            engine.shutdown()
+
+    plain_cpu, _ = run('cpu')
+    spec_card, spec_stats = run('cuda', spec_decode=True, draft_k=4)
+    plain_card, _ = run('cuda')
+    lora_cpu, _ = run('cpu', lora_pages=1, lora_max_rank=4)
+    lora_card, lora_stats = run('cuda', lora_pages=1, lora_max_rank=4)
+    log(f'[small-spec] card speculative tokens {spec_card}; '
+        f'{spec_stats["verify_steps"]} verify steps, '
+        f'{spec_stats["accepted_tokens"]}/{spec_stats["draft_tokens"]} '
+        f'drafts accepted')
+    if spec_card != plain_cpu or plain_card != plain_cpu:
+        raise AssertionError(f'speculative/plain card vs CPU: {spec_card} '
+                             f'/ {plain_card} vs {plain_cpu}')
+    if spec_stats['verify_steps'] <= 0 or spec_stats['accepted_tokens'] <= 0:
+        raise AssertionError(f'no verify window accepted: {spec_stats}')
+    if lora_card != lora_cpu:
+        raise AssertionError(f'LoRA card vs CPU: {lora_card} vs '
+                             f'{lora_cpu}')
+    if lora_cpu == plain_cpu or lora_stats['lora_pages_resident'] != 1:
+        raise AssertionError('the adapter did not serve')
+    log('[small-spec] speculative and plain card tokens equal the CPU '
+        'plain engine\'s; LoRA card tokens equal the CPU LoRA engine\'s')
+
+
+def common_prefix(a, b):
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def phase_spec_engine(torch, pa, params, plain):
+    """Phases 14 (and its int8-KV run). llama3-8b at full depth on phase
+    9's weights, n-gram drafts with draft_k 4, behind the port's HTTP
+    server: one /v1/completions alone (it feeds the completion corpus),
+    then the counted window: four concurrent /v1/completions (the first
+    prompt repeated, one streamed as SSE) and one /v1/chat/completions.
+    The paged kernel must launch n_layers x (decode + verify steps)."""
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
+    result = {}
+    for quant in (False, True):
+        kernel = 'paged_attention_quant' if quant else 'paged_attention'
+        tag = 'spec-int8' if quant else 'spec'
+        engine = ContinuousBatchingEngine(
+            'llama3-8b', params=params, max_slots=4, max_len=2048,
+            block_size=16, spec_decode=True, draft_k=4, quantize_kv=quant)
+        n_layers = engine.cfg.n_layers
+        server, port = serve_engine(engine)
+        try:
+            engine.generate_ids([1, 2, 3], max_new_tokens=2)  # warm-up
+            first = post_json(port, '/v1/completions',
+                              {'prompt': SPEC_PROMPTS[0], 'max_tokens': 32})
+            torch.cuda.synchronize()
+            before = engine.stats()
+            pa.reset_launch_counts()
+            t0 = time.perf_counter()
+            calls = [
+                lambda: post_json(port, '/v1/completions',
+                                  {'prompt': SPEC_PROMPTS[0],
+                                   'max_tokens': 32}),
+                lambda: post_json(port, '/v1/completions',
+                                  {'prompt': SPEC_PROMPTS[1],
+                                   'max_tokens': 32, 'stream': True}),
+                lambda: post_json(port, '/v1/completions',
+                                  {'prompt': SPEC_PROMPTS[2],
+                                   'max_tokens': 32}),
+                lambda: post_json(port, '/v1/completions',
+                                  {'prompt': SPEC_PROMPTS[3],
+                                   'max_tokens': 32})]
+            answers = run_concurrently(calls)
+            chat = post_json(port, '/v1/chat/completions', {
+                'messages': [{'role': 'user', 'content': SPEC_PROMPTS[3]}],
+                'max_tokens': 16})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(pa.LAUNCHES)
+            after = engine.stats()
+            metrics = get_url(port, '/metrics')
+        finally:
+            server.shutdown()
+            server.server_close()
+        try:
+            delta = {k: after[k] - before[k] for k in
+                     ('decode_steps', 'verify_steps', 'draft_tokens',
+                      'accepted_tokens', 'tokens_generated')}
+            steps = delta['decode_steps'] + delta['verify_steps']
+            other = ('paged_attention' if quant
+                     else 'paged_attention_quant')
+            if (counts[kernel] != n_layers * steps or
+                    delta['verify_steps'] <= 0 or counts[other] != 0):
+                raise AssertionError(
+                    f'{tag}: {kernel} launched {counts[kernel]} times in '
+                    f'{delta["decode_steps"]} decode + '
+                    f'{delta["verify_steps"]} verify steps; expected '
+                    f'{n_layers * steps}; {other} {counts[other]}')
+            frames = answers[1]
+            last = json.loads(frames[-2])['choices'][0]
+            if frames[-1] != '[DONE]' or last['finish_reason'] not in (
+                    'stop', 'length'):
+                raise AssertionError(f'{tag}: SSE stream ended with '
+                                     f'{frames[-2:]}')
+            for answer in [first, chat] + answers[:1] + answers[2:]:
+                if answer['choices'][0]['finish_reason'] not in (
+                        'stop', 'length'):
+                    raise AssertionError(f'{tag}: bad payload {answer}')
+            if ('# TYPE skyt_inference_verify_steps_total counter'
+                    not in metrics):
+                raise AssertionError(f'{tag}: /metrics lacks the verify '
+                                     f'counter')
+            rate = (delta['accepted_tokens'] / delta['draft_tokens']
+                    if delta['draft_tokens'] else 0.0)
+            tok_s = decode_rate(before, after)
+            log(f'[{tag}] {kernel}: {counts[kernel]} launches = {n_layers} '
+                f'layers x ({delta["decode_steps"]} decode + '
+                f'{delta["verify_steps"]} verify steps); SSE ended with a '
+                f'{last["finish_reason"]!r} frame and [DONE]; /metrics '
+                f'serves the verify counter')
+            log(f'[{tag}] window: {delta["tokens_generated"]} tokens in '
+                f'{wall:.2f} s, acceptance {delta["accepted_tokens"]}/'
+                f'{delta["draft_tokens"]} = {rate:.4f}, decode '
+                f'{tok_s:.1f} tok/s, {delta["tokens_generated"] / max(1, delta["verify_steps"]):.2f} '
+                f'tokens a verify step')
+            if quant:
+                result['launches_quant'] = counts[kernel]
+                continue
+            result.update(launches=counts[kernel],
+                          verify_steps=delta['verify_steps'],
+                          acceptance=rate, decode_tok_s=tok_s)
+            # The repeated prompt alone: its drafts come from the corpus.
+            before = engine.stats()
+            again = engine.generate_ids(
+                engine.tokenizer.encode(SPEC_PROMPTS[0]), max_new_tokens=32)
+            after = engine.stats()
+            accepted = after['accepted_tokens'] - before['accepted_tokens']
+            steps = after['verify_steps'] - before['verify_steps']
+            if accepted <= 0:
+                raise AssertionError('the repeated request accepted no '
+                                     'draft from the corpus')
+            log(f'[{tag}] repeated request alone: {len(again)} tokens in '
+                f'{steps} verify steps, {accepted} drafts accepted')
+            # Time to first token of phase 9's lone 150-token request,
+            # measured as phase 9 does: after two runs of the same
+            # prompt (its full blocks in the prefix cache).
+            ids = engine.tokenizer.encode(
+                ('The paged pool maps every slot through a block table. '
+                 * 8)[:150])
+            for _ in range(2):
+                engine.generate_ids(ids, max_new_tokens=16)
+            t0 = time.perf_counter()
+            stream = engine.stream_ids(ids, max_new_tokens=4)
+            next(stream)
+            result['ttft_ms'] = (time.perf_counter() - t0) * 1e3
+            list(stream)
+            # bf16: a window of 5 rows rounds otherwise than 5 single
+            # steps, so the streams may part; report how far they agree.
+            before = engine.stats()
+            spec_streams = concurrent_ids(engine, SPEC_PROMPTS, 32)
+            after = engine.stats()
+            result['same_prompts_tok_s'] = decode_rate(before, after)
+            agree = sum(common_prefix(a, b) for a, b in
+                        zip(spec_streams, plain['plain_streams']))
+            total = sum(len(b) for b in plain['plain_streams'])
+            result['agreement'] = agree / total
+            log(f'[{tag}] decode {tok_s:.1f} tok/s, TTFT '
+                f'{result["ttft_ms"]:.1f} ms (phase 9 plain: '
+                f'{plain["decode_tok_s"]:.1f} tok/s, TTFT '
+                f'{plain["ttft_ms"]:.1f} ms)')
+            log(f'[{tag}] the four prompts together, 32 tokens each: '
+                f'{result["same_prompts_tok_s"]:.1f} decode tok/s in '
+                f'{after["verify_steps"] - before["verify_steps"]} verify '
+                f'steps, acceptance '
+                f'{after["accepted_tokens"] - before["accepted_tokens"]}/'
+                f'{after["draft_tokens"] - before["draft_tokens"]} (plain '
+                f'engine in phase 9: {plain["same_prompts_tok_s"]:.1f} '
+                f'tok/s); bf16 speculative streams agree with the plain '
+                f'streams on {agree}/{total} tokens (common prefix; '
+                f'{result["agreement"]:.4f})')
+        finally:
+            engine.shutdown()
+        del engine
+    return result
+
+
+def phase_lora_engine(torch, pa, params):
+    """Phase 15. The same weights, lora_pages 4, lora_max_rank 16, two
+    seeded adapters (rank 16 and 8) behind the port's HTTP server: one
+    /generate with an ``adapter`` field, one /v1/completions with
+    ``X-Skyt-Adapter`` and one base /generate, concurrently. The paged
+    kernel must launch n_layers per decode step; the base request must
+    give the tokens it gives alone on a plain engine; each adapter must
+    move them; /adapters and /stats show two resident adapters."""
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
+    from skypilot_tpu_torch.models.config import get_model_config
+    cfg = get_model_config('llama3-8b')
+    n_layers = cfg.n_layers
+    prompt = ('Every adapter page is charged against the paged KV pool, '
+              'so a cold adapter costs blocks, not a fleet.')
+    adapters = {'tenant-16': tiny_adapter(torch, cfg, 16, 11, LORA_B_SCALE),
+                'tenant-8': tiny_adapter(torch, cfg, 8, 12, LORA_B_SCALE)}
+    engine = ContinuousBatchingEngine('llama3-8b', params=params,
+                                      max_slots=4, max_len=2048,
+                                      block_size=16, lora_pages=4,
+                                      lora_max_rank=16)
+    result = {}
+    records = []
+    inner = engine.generate_ids
+
+    def generate_ids(ids, **kwargs):
+        out = inner(ids, **kwargs)
+        records.append((kwargs.get('adapter'), list(out)))
+        return out
+
+    try:
+        for name, adapter in adapters.items():
+            engine.register_adapter(name, adapter)
+        engine.generate_ids([1, 2, 3], max_new_tokens=2)  # warm-up
+        engine.generate_ids = generate_ids
+        server, port = serve_engine(engine)
+        try:
+            torch.cuda.synchronize()
+            before = engine.stats()
+            pa.reset_launch_counts()
+            run_concurrently([
+                lambda: post_json(port, '/generate', {
+                    'prompts': [prompt], 'max_new_tokens': 32,
+                    'adapter': 'tenant-16'}),
+                lambda: post_json(port, '/v1/completions', {
+                    'prompt': prompt, 'max_tokens': 32},
+                    headers={'X-Skyt-Adapter': 'tenant-8'}),
+                lambda: post_json(port, '/generate', {
+                    'prompts': [prompt], 'max_new_tokens': 32})])
+            torch.cuda.synchronize()
+            counts = dict(pa.LAUNCHES)
+            after = engine.stats()
+            listed = json.loads(get_url(port, '/adapters'))
+            stats = json.loads(get_url(port, '/stats'))
+        finally:
+            server.shutdown()
+            server.server_close()
+        steps = after['decode_steps'] - before['decode_steps']
+        if (counts['paged_attention'] != n_layers * steps or steps <= 0 or
+                counts['paged_attention_quant'] != 0):
+            raise AssertionError(f'lora: paged_attention launched '
+                                 f'{counts["paged_attention"]} times in '
+                                 f'{steps} decode steps')
+        if (stats['lora_pages_resident'] != 2 or
+                stats['lora_blocks_charged'] <= 0 or
+                sorted(listed) != sorted(adapters) or
+                any(v['resident'] != 1.0 for v in listed.values())):
+            raise AssertionError(f'lora residency: {listed} / '
+                                 f'{stats["lora_pages_resident"]} pages, '
+                                 f'{stats["lora_blocks_charged"]} blocks')
+        result['launches'] = counts['paged_attention']
+        result['decode_tok_s'] = decode_rate(before, after)
+        by_adapter = dict(records)
+        log(f'[lora] paged_attention: {counts["paged_attention"]} launches '
+            f'= {n_layers} layers x {steps} decode steps; '
+            f'{stats["lora_pages_resident"]} adapters resident, '
+            f'{stats["lora_blocks_charged"]} KV blocks charged; B scale '
+            f'{LORA_B_SCALE}')
+    finally:
+        engine.shutdown()
+    del engine
+    plain = ContinuousBatchingEngine('llama3-8b', params=params,
+                                     max_slots=4, max_len=2048,
+                                     block_size=16)
+    try:
+        plain.generate_ids([1, 2, 3], max_new_tokens=2)  # warm-up
+        ids = plain.tokenizer.encode(prompt)
+        alone = plain.generate_ids(ids, max_new_tokens=32,
+                                   eos_id=plain.tokenizer.eos_id)
+        before = plain.stats()
+        concurrent_ids(plain, [prompt] * 3, 32)
+        base_tok_s = decode_rate(before, plain.stats())
+    finally:
+        plain.shutdown()
+    if by_adapter[None] != alone:
+        raise AssertionError(f'base request on the LoRA engine '
+                             f'{by_adapter[None]} vs alone on a plain '
+                             f'engine {alone}')
+    for name in adapters:
+        if by_adapter[name] == alone:
+            raise AssertionError(f'adapter {name} left the base tokens '
+                                 f'unchanged')
+    log(f'[lora] base request equals the plain engine\'s tokens; both '
+        f'adapters move them (first differing token '
+        + ', '.join(f'{n} {common_prefix(by_adapter[n], alone)}'
+                    for n in adapters) + ')')
+    log(f'[lora] decode {result["decode_tok_s"]:.1f} tok/s with two '
+        f'adapters and a base request; plain engine, three base requests: '
+        f'{base_tok_s:.1f} tok/s')
+    result['base_decode_tok_s'] = base_tok_s
     return result
 
 
@@ -2012,7 +2459,7 @@ def main(argv=None) -> int:
     rows.update(flash_rows)
     log(f'[smoke] kernel phases: paged {t1 - t0:.1f} s, decode '
         f'{t2 - t1:.1f} s, flash {time.perf_counter() - t2:.1f} s')
-    engine, train, batch = {}, {}, {}
+    engine, train, batch, spec, lora = {}, {}, {}, {}, {}
     if not args.skip_engine:
         phase_train_small(torch)
         train = phase_train(torch, fa, flops_peak)
@@ -2030,11 +2477,17 @@ def main(argv=None) -> int:
         params = llama3_params(torch)
         engine = phase_engine(torch, pa, params,
                               profile_window=args.profile)
-        log(f'[engine] summary {json.dumps(engine)}')
+        log('[engine] summary ' + json.dumps(
+            {k: v for k, v in engine.items() if k != 'plain_streams'}))
         phase_small_batch_agreement(torch, da)
         batch = phase_batch_engine(torch, da, fa, params,
                                    profile_window=args.profile)
         log(f'[batch] summary {json.dumps(batch)}')
+        phase_small_spec_lora(torch)
+        spec = phase_spec_engine(torch, pa, params, engine)
+        log(f'[spec] summary {json.dumps(spec)}')
+        lora = phase_lora_engine(torch, pa, params)
+        log(f'[lora] summary {json.dumps(lora)}')
         del params
     flash_src = 'skypilot_tpu/ops/pallas/flash_attention.py'
     replaces = {
@@ -2061,12 +2514,19 @@ def main(argv=None) -> int:
                'flash_dq': 'flash_attention.cu',
                'flash_dkv': 'flash_attention.cu'}
     # Counts come only from the main paths' own runs (the continuous
-    # engine for the paged kernels, the batch engine for the decode
-    # kernels, the bench-1b7 trainer for the flash kernels): null when
-    # they were skipped, never a number this run did not measure.
+    # engine's plain, speculative and LoRA windows for the paged
+    # kernels, the batch engine for the decode kernels, the bench-1b7
+    # trainer for the flash kernels): null when they were skipped,
+    # never a number this run did not measure.
     tl = train.get('launches')
-    launches = {'paged_attention': engine.get('launches'),
-                'paged_attention_quant': engine.get('launches_quant'),
+    paged = [engine.get('launches'), spec.get('launches'),
+             lora.get('launches')]
+    paged_quant = [engine.get('launches_quant'),
+                   spec.get('launches_quant')]
+    launches = {'paged_attention':
+                    sum(paged) if None not in paged else None,
+                'paged_attention_quant':
+                    sum(paged_quant) if None not in paged_quant else None,
                 'decode_attention': batch.get('launches'),
                 'decode_attention_quant': batch.get('launches_quant')}
     for name in ('flash_fwd', 'flash_dq', 'flash_dkv'):

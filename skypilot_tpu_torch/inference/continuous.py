@@ -12,6 +12,20 @@ The port of ``skypilot_tpu/inference/continuous.py``'s engine core:
 * **Prefix cache**: full prompt blocks are digest-keyed and shared
   read-only across requests (``inference/paged.py``).
 
+* **Speculative decoding** (``spec_decode=`` / ``SKYT_SPEC_DECODE``):
+  a host-side draft (``inference/speculative.py``, n-gram lookup by
+  default) proposes up to ``draft_k`` tokens after the pending one; one
+  verify step scores the window (``paged_verify_step``, the paged
+  kernel at Q = ``draft_k + 1``) and the engine emits the longest
+  prefix that matches what the target samples at each position.
+  Rejected rows roll back: lengths truncate and surplus tail blocks
+  return to the pool.
+* **Multi-LoRA pages** (``lora_pages=`` / ``SKYT_LORA_PAGES``): a fixed
+  stack of adapter pages on the device (``models/lora.py``), filled on
+  demand from the host registry, charged against the KV block pool
+  (``AdapterPagePool``); admission is deficit-round-robin across
+  adapters (one lane per adapter).
+
 One decode step runs every slot together (``paged_decode_step``, whose
 attention is the Hopper paged-attention kernel on the card); a
 scheduler thread admits requests into free slots as others finish,
@@ -19,15 +33,22 @@ preempts the newest request when the pool runs dry, and resumes it by
 re-prefilling. The public surface (``generate_ids``/``stream_ids``/...)
 is the reference's.
 
-Not ported yet (constructor arguments that raise when set): multi-LoRA
-pages, speculative decoding, disaggregated roles, tensor-parallel
-meshes, checkpoint and HF loading; likewise live weight
-refresh and tracing spans.
+Sampling is a function of (seed, position): the plain step samples at
+``cache.lengths``, row ``j`` of a verify window at ``lengths0 + 1 + j``,
+both through ``_sample_seed``, so a speculative or resumed stream is the
+plain stream at any temperature (bitwise where the logits are).
+
+Not ported yet (constructor arguments that raise when set):
+disaggregated roles, tensor-parallel meshes, checkpoint and HF loading;
+likewise live weight refresh (``stats()`` reports its keys as 0),
+tracing spans and the adapter chaos sites (the failure paths behind
+them are ported).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 import math
 import queue
 import threading
@@ -37,14 +58,21 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from skypilot_tpu_torch.inference.paged import BlockPool, PrefixCache
+from skypilot_tpu_torch.inference.paged import (AdapterPagePool, BlockPool,
+                                                PrefixCache,
+                                                adapter_chain_root)
 from skypilot_tpu_torch.inference.tokenizer import get_tokenizer
 from skypilot_tpu_torch.models import decode as decode_lib
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import lora as lora_lib
 from skypilot_tpu_torch.models.config import (ModelConfig, get_model_config,
                                               with_int8_kv_cache)
+from skypilot_tpu_torch.models.convert import tensor_from_numpy
 from skypilot_tpu_torch.models.quant import maybe_quantize
+from skypilot_tpu_torch.utils import env
 from skypilot_tpu_torch.utils.device import resolve_device, to_device
+
+logger = logging.getLogger(__name__)
 
 DEFAULT_BLOCK_SIZE = 16
 DEFAULT_PREFILL_CHUNK = 64
@@ -82,28 +110,82 @@ def _sample_tokens(logits: torch.Tensor, seeds: Sequence[int],
 
 
 def _decode_all_step(params, last_logits, cache, active, temps, seeds,
-                     positions, *, cfg):
-    """One step for every slot: sample from the last logits, advance."""
+                     positions, lora_pages=None, adapter_ids=None, *, cfg):
+    """One step for every slot: sample from the last logits, advance.
+    ``lora_pages``/``adapter_ids`` are None on a non-LoRA engine and on
+    an all-base batch: the step is then exactly the base step."""
     tokens = _sample_tokens(last_logits, seeds, positions, temps)
-    logits, cache = decode_lib.paged_decode_step(params, tokens, cache,
-                                                 cfg, active=active)
+    logits, cache = decode_lib.paged_decode_step(
+        params, tokens, cache, cfg, active=active, lora_pages=lora_pages,
+        adapter_ids=adapter_ids)
     return tokens, logits, cache
 
 
-def _prefill_chunk_step(params, tokens, start, n_new, slot, cache, *, cfg):
+def _sample_pending_step(logits_row, seed, length, temp):
+    """The pending token a slot enters speculative mode with: what the
+    plain step would sample next (same logits, same (seed, position))."""
+    return int(_sample_tokens(logits_row[None], [seed], [length],
+                              [temp])[0])
+
+
+def _spec_verify_all_step(params, cache, inputs, n_input, active, temps,
+                          seeds, positions, lora_pages=None,
+                          adapter_ids=None, *, cfg, q_len):
+    """One speculative verify step for every slot.
+
+    ``inputs`` [B, Q]: the pending token, then the draft proposals
+    (rows at or past ``n_input`` are padding); ``positions``: the
+    slots' lengths before the step (host copy of ``cache.lengths``).
+    The verify step writes every window row and returns per-row
+    logits; the target for row ``j`` is sampled at position
+    ``lengths0 + 1 + j`` with the plain step's rule, and a draft is
+    accepted while it equals its target. ``n_emit`` = 1 + the accepted
+    prefix (the pending token always lands); ``pending`` = the first
+    target that did not match (or the bonus token after a fully
+    accepted window): the plain engine's next token, carried to the
+    next step. Lengths advance by ``n_emit`` on the device; the host
+    rolls back further (eos, caps) by truncating its mirror."""
+    lengths0 = cache.lengths
+    logits, cache = decode_lib.paged_verify_step(
+        params, inputs, cache, cfg, active=active, n_input=n_input,
+        lora_pages=lora_pages, adapter_ids=adapter_ids)
+    g = torch.stack([
+        _sample_tokens(logits[:, j], seeds, [p + 1 + j for p in positions],
+                       temps)
+        for j in range(q_len)], dim=1)                       # [B, Q]
+    if q_len > 1:
+        match = g[:, :-1] == inputs[:, 1:]
+        match &= (torch.arange(1, q_len, device=g.device)[None, :] <
+                  n_input[:, None])
+        accepted = torch.cumprod(match.to(torch.int32), dim=1)
+        n_emit = 1 + accepted.sum(dim=1)
+    else:
+        n_emit = torch.ones_like(lengths0)
+    n_emit = torch.where(active, torch.minimum(n_emit, n_input),
+                         torch.zeros_like(n_emit)).to(torch.int32)
+    pending = torch.gather(g, 1, torch.clamp(n_emit - 1, min=0).long()
+                           [:, None])[:, 0]
+    cache = dataclasses.replace(cache, lengths=lengths0 + n_emit)
+    return n_emit, pending, cache
+
+
+def _prefill_chunk_step(params, tokens, start, n_new, slot, cache,
+                        lora_pages=None, adapter_id=None, *, cfg):
     return decode_lib.prefill_chunk(params, tokens, start, n_new, slot,
-                                    cache, cfg)
+                                    cache, cfg, lora_pages=lora_pages,
+                                    adapter_id=adapter_id)
 
 
 class _Request:
     def __init__(self, token_ids: List[int], max_new_tokens: int,
                  temperature: float, eos_id: Optional[int],
-                 seed: int) -> None:
+                 seed: int, adapter: Optional[str] = None) -> None:
         self.token_ids = token_ids
         self.max_new_tokens = max_new_tokens
         self.temperature = temperature
         self.eos_id = eos_id
         self.seed = seed
+        self.adapter = adapter  # registered LoRA adapter name or None
         self.arrival = time.monotonic()
         self.admitted = False  # queue-wait counted once, not per resume
         self.generated: List[int] = []
@@ -112,25 +194,97 @@ class _Request:
 
 
 class _DrrQueue:
-    """The admission queue. The reference serves one deficit-round-robin
-    lane per LoRA adapter; with base traffic only (the port has no
-    adapters yet) that is a single lane, i.e. exact FIFO with
-    head-of-lane requeue for preempted and HBM-blocked requests."""
+    """Deficit-round-robin admission queue keyed by adapter.
 
-    def __init__(self) -> None:
-        self._lane: 'collections.deque[_Request]' = collections.deque()
+    Each adapter (base traffic = key ``''``) owns a FIFO lane; lanes
+    are served round-robin with a per-visit ``quantum`` of deficit
+    measured in KV blocks (what a prompt consumes), and a lane admits
+    while its deficit covers the head request's block cost. A hot
+    adapter gets one quantum a round like every other, so it queues
+    behind itself. A single lane (base traffic only) is exact FIFO.
+    """
+
+    def __init__(self, block_size: int, quantum_blocks: int) -> None:
+        self._block_size = max(1, block_size)
+        self._quantum = max(1, quantum_blocks)
+        self._queues: Dict[str, 'collections.deque[_Request]'] = {}
+        self._rotation: 'collections.deque[str]' = collections.deque()
+        self._deficit: Dict[str, int] = {}
+        self._total = 0
 
     def __len__(self) -> int:
-        return len(self._lane)
+        return self._total
+
+    @staticmethod
+    def _key(request: _Request) -> str:
+        return request.adapter or ''
+
+    def _cost(self, request: _Request) -> int:
+        tokens = len(request.token_ids) + len(request.generated)
+        return max(1, -(-tokens // self._block_size))
+
+    def _lane(self, key: str, front: bool) -> 'collections.deque[_Request]':
+        lane = self._queues.get(key)
+        if lane is None:
+            lane = self._queues[key] = collections.deque()
+            if front:
+                self._rotation.appendleft(key)
+            else:
+                self._rotation.append(key)
+            self._deficit.setdefault(key, 0)
+        return lane
+
+    def _drop_lane(self, key: str) -> None:
+        """An emptied lane leaves the rotation and forfeits its deficit
+        (it must not bank credit while idle)."""
+        self._rotation.popleft()
+        self._queues.pop(key, None)
+        self._deficit.pop(key, None)
 
     def push(self, request: _Request) -> None:
-        self._lane.append(request)
+        self._lane(self._key(request), front=False).append(request)
+        self._total += 1
 
     def push_front(self, request: _Request) -> None:
-        self._lane.appendleft(request)
+        """Head-of-lane requeue (preemption / pool-blocked retry): the
+        request resumes first in its lane, and its pop's deficit charge
+        is refunded so the retry is not billed twice."""
+        key = self._key(request)
+        self._lane(key, front=True).appendleft(request)
+        self._deficit[key] = self._deficit.get(key, 0) + \
+            self._cost(request)
+        self._total += 1
 
-    def pop(self) -> Optional[_Request]:
-        return self._lane.popleft() if self._lane else None
+    def pop(self, blocked=None) -> Optional[_Request]:
+        """Next request in DRR order, or None when the queue is empty
+        or every lane's head is ``blocked`` (per-adapter quota)."""
+        while self._total:
+            progressed = False
+            for _ in range(len(self._rotation)):
+                key = self._rotation[0]
+                lane = self._queues.get(key)
+                if not lane:
+                    self._drop_lane(key)
+                    continue
+                head = lane[0]
+                if blocked is not None and blocked(head):
+                    self._rotation.rotate(-1)
+                    continue
+                cost = self._cost(head)
+                if self._deficit.get(key, 0) >= cost:
+                    lane.popleft()
+                    self._deficit[key] -= cost
+                    self._total -= 1
+                    if not lane:
+                        self._drop_lane(key)
+                    return head
+                self._deficit[key] = self._deficit.get(key, 0) + \
+                    self._quantum
+                self._rotation.rotate(-1)
+                progressed = True
+            if not progressed:
+                return None  # every lane head quota-blocked
+        return None
 
 
 class _PrefillState:
@@ -154,7 +308,12 @@ class ContinuousBatchingEngine:
     ``params``: a port params dict (``models/convert.py`` carries JAX
     params over); default: ``llama.init_params`` from ``seed`` on the
     device. ``device``: default ``cuda`` (raises without a GPU); pass
-    ``'cpu'`` to run on the CPU.
+    ``'cpu'`` to run on the CPU. ``spec_decode``/``draft_k``/``draft``:
+    speculative decoding (defaults ``SKYT_SPEC_DECODE``,
+    ``SKYT_SPEC_DRAFT_K``; the n-gram draft of ``SKYT_SPEC_NGRAM_MAX``).
+    ``lora_pages``/``lora_max_rank``/``lora_max_active``: multi-LoRA
+    serving (defaults ``SKYT_LORA_*``; 0 pages = off); ``base_digest``
+    binds the engine to its base weights for ``register_adapter``.
     """
 
     def __init__(self,
@@ -176,12 +335,16 @@ class ContinuousBatchingEngine:
                  hf_checkpoint: Optional[str] = None,
                  mesh: Optional[Any] = None,
                  spec_decode: Optional[bool] = None,
+                 draft_k: Optional[int] = None,
+                 draft: Optional[Any] = None,
                  role: Optional[str] = None,
-                 lora_pages: Optional[int] = None) -> None:
+                 lora_pages: Optional[int] = None,
+                 lora_max_rank: Optional[int] = None,
+                 lora_max_active: Optional[int] = None,
+                 base_digest: Optional[str] = None) -> None:
         unported = {'checkpoint_dir': checkpoint_dir,
                     'hf_checkpoint': hf_checkpoint, 'mesh': mesh,
-                    'spec_decode': spec_decode, 'role': role,
-                    'lora_pages': lora_pages}
+                    'role': role}
         for name, value in unported.items():
             if value:
                 raise NotImplementedError(
@@ -234,10 +397,64 @@ class ContinuousBatchingEngine:
         self._admit_order = [0] * max_slots  # preemption victim pick
         self._admit_seq = 0
         self._prefilling: List[_PrefillState] = []
-        self._waiting = _DrrQueue()
+        # Admission queue: DRR-fair across adapters (exact FIFO with
+        # base traffic only).
+        self._waiting = _DrrQueue(self.block_size,
+                                  env.get_int('SKYT_LORA_DRR_QUANTUM'))
         # Pool version at the last admission attempt that failed on
         # memory pressure: until it changes, retrying is pure waste.
         self._blocked_at_version: Optional[int] = None
+        # Speculative decoding: verify window = pending token + up to
+        # draft_k proposals; off (window 1) unless asked for.
+        if spec_decode is None:
+            spec_decode = env.get_bool('SKYT_SPEC_DECODE')
+        k_draft = (draft_k if draft_k is not None
+                   else env.get_int('SKYT_SPEC_DRAFT_K'))
+        self._spec_window = (1 + max(0, min(int(k_draft),
+                                            self.max_len - 1))
+                             if spec_decode else 1)
+        if spec_decode and self._spec_window > 1:
+            from skypilot_tpu_torch.inference.speculative import NGramDraft
+            self._draft = draft or NGramDraft(
+                env.get_int('SKYT_SPEC_NGRAM_MAX'), corpus_entries=8192)
+        else:
+            self._draft = None
+        self.spec_decode = self._draft is not None
+        # Multi-LoRA serving: a fixed stack of device adapter pages fed
+        # from the host registry, residency charged against the KV block
+        # pool, per-slot page indices gathered inside the steps. 0 pages
+        # = off: the steps and the scheduling order are the base ones.
+        n_lora = (lora_pages if lora_pages is not None
+                  else env.get_int('SKYT_LORA_PAGES'))
+        self._lora_max_rank = max(1, (
+            lora_max_rank if lora_max_rank is not None
+            else env.get_int('SKYT_LORA_MAX_RANK')))
+        self._lora_max_active = (
+            lora_max_active if lora_max_active is not None
+            else env.get_int('SKYT_LORA_MAX_ACTIVE'))
+        self.base_digest = base_digest or ''
+        self._adapters: Dict[str, Dict[str, Any]] = {}
+        self._adapter_lock = threading.Lock()
+        self._adapter_demand: Dict[str, Dict[str, float]] = {}
+        self._slot_adapter = np.zeros((max_slots,), np.int32)
+        self._slot_adapter_name: List[Optional[str]] = \
+            [None] * max_slots
+        self._in_adapter_admit = False
+        self._adapter_pool: Optional[AdapterPagePool] = None
+        self._lora_store = None
+        if n_lora > 0:
+            block_bytes = (2 * self.cfg.n_layers * self.block_size *
+                           self.cfg.n_kv_heads *
+                           self.cfg.resolved_head_dim *
+                           self.cache.k.element_size())
+            if self.cache.quantized:
+                block_bytes += 2 * self.cfg.n_layers * self.block_size * 4
+            self._adapter_pool = AdapterPagePool(self._pool, n_lora,
+                                                 block_bytes)
+            self._lora_store = lora_lib.init_adapter_pages(
+                self.cfg, n_lora, self._lora_max_rank,
+                dtype=self.cfg.compute_dtype, device=self.device)
+        self._pending_tok = np.zeros((max_slots,), np.int64)
         self._seeds = [seed + 1 + i for i in range(max_slots)]
         self._last_logits = torch.zeros((max_slots, self.cfg.vocab_size),
                                         dtype=torch.float32,
@@ -257,6 +474,9 @@ class ContinuousBatchingEngine:
         self._prefix_misses_total = 0
         self._prefix_tokens_reused_total = 0
         self._preemptions_total = 0
+        self._draft_tokens_total = 0
+        self._accepted_tokens_total = 0
+        self._verify_steps_total = 0
         self._stop = threading.Event()
         self._wake = threading.Event()
         self._thread = threading.Thread(target=self._loop,
@@ -282,10 +502,19 @@ class ContinuousBatchingEngine:
 
     def _alloc_block(self) -> Optional[int]:
         """Pool alloc with prefix-cache LRU eviction under pressure.
-        Only reclaimable entries are evicted."""
+        Only reclaimable entries are evicted. The last resort before
+        preemption is reclaiming idle adapter pages (KV and adapter
+        residency share one budget); the reentrancy guard keeps an
+        adapter admission's own eviction loop in charge."""
         block = self._pool.alloc()
         while block is None and self._prefix is not None:
             if not self._prefix.evict_reclaimable():
+                break
+            block = self._pool.alloc()
+        while (block is None and self._adapter_pool is not None and
+               not self._in_adapter_admit):
+            if self._adapter_pool.evict_lru(
+                    on_evict=self._note_adapter_evict) is None:
                 break
             block = self._pool.alloc()
         return block
@@ -298,6 +527,14 @@ class ContinuousBatchingEngine:
         self._host_len[slot] = 0
         self._slots[slot] = None
         self._decoding[slot] = False
+        self._pending_tok[slot] = 0
+        name = self._slot_adapter_name[slot]
+        if name is not None:
+            self._slot_adapter_name[slot] = None
+            self._slot_adapter[slot] = 0
+            if self._adapter_pool is not None and \
+                    self._adapter_pool.page_of(name) is not None:
+                self._adapter_pool.unpin(name)
         self._bt_dirty = True
 
     def _finish(self, request: _Request,
@@ -320,6 +557,141 @@ class ContinuousBatchingEngine:
         if request is not None:
             self._finish(request, error)
 
+    # -- multi-LoRA adapters --------------------------------------------
+
+    def register_adapter(self, name: str, lora: Any, *,
+                         alpha: float = lora_lib.DEFAULT_ALPHA,
+                         base_digest: Optional[str] = None) -> None:
+        """Make adapter ``name`` servable: its weights (an
+        ``init_lora_params``-shaped dict of tensors or numpy arrays) go
+        into the host registry; the device page is filled on the first
+        request that needs it. ``base_digest`` (when both sides declare
+        one) must match the engine's base weights."""
+        if not name:
+            raise ValueError('adapter name must be non-empty')
+        if self._adapter_pool is None:
+            raise RuntimeError(
+                'engine has no adapter pages (construct with '
+                'lora_pages=N or set SKYT_LORA_PAGES)')
+        shape = tuple(lora['wq_a'].shape)
+        rank = int(shape[-1])
+        if rank > self._lora_max_rank:
+            raise ValueError(
+                f'adapter {name!r} rank {rank} exceeds the engine '
+                f'page max_rank {self._lora_max_rank} '
+                f'(SKYT_LORA_MAX_RANK)')
+        if shape[0] != self.cfg.n_layers or shape[1] != self.cfg.d_model:
+            raise ValueError(
+                f'adapter {name!r} shape {shape} does not match the base '
+                f'model [{self.cfg.n_layers}, {self.cfg.d_model}, r]')
+        if base_digest and self.base_digest and \
+                base_digest != self.base_digest:
+            raise ValueError(
+                f'adapter {name!r} was trained against base '
+                f'{base_digest[:12]}...; this engine serves '
+                f'{self.base_digest[:12]}...')
+        host = {key: (value.detach().to('cpu', copy=True)
+                      if isinstance(value, torch.Tensor)
+                      else tensor_from_numpy(np.array(value)))
+                for key, value in lora.items()}
+        with self._adapter_lock:
+            self._adapters[name] = {
+                'lora': host,
+                'alpha': float(alpha),
+                'rank': rank,
+                'base_digest': base_digest or '',
+                'nbytes': lora_lib.adapter_nbytes(self.cfg, rank),
+            }
+            self._adapter_demand.setdefault(
+                name, {'requests': 0, 'last_request': 0.0,
+                       'last_evicted': 0.0})
+
+    def adapters(self) -> List[str]:
+        with self._adapter_lock:
+            return sorted(self._adapters)
+
+    def adapter_stats(self) -> Dict[str, Dict[str, float]]:
+        """Per-adapter demand and residency snapshot (``/adapters``)."""
+        resident = (set(self._adapter_pool.resident_names())
+                    if self._adapter_pool is not None else set())
+        out: Dict[str, Dict[str, float]] = {}
+        with self._adapter_lock:
+            for name, entry in self._adapters.items():
+                demand = self._adapter_demand.get(name, {})
+                out[name] = {
+                    'rank': entry['rank'],
+                    'resident': float(name in resident),
+                    'active_slots': float(sum(
+                        1 for n in self._slot_adapter_name if n == name)),
+                    'requests': float(demand.get('requests', 0)),
+                    'last_request': float(demand.get('last_request',
+                                                     0.0)),
+                    'last_evicted': float(demand.get('last_evicted',
+                                                     0.0)),
+                }
+        return out
+
+    def _note_adapter_evict(self, name: str) -> None:
+        """Observes every adapter-page eviction BEFORE the pool
+        mutates (demand bookkeeping; the reference also raises its
+        chaos faults here)."""
+        demand = self._adapter_demand.setdefault(
+            name, {'requests': 0, 'last_request': 0.0,
+                   'last_evicted': 0.0})
+        demand['last_evicted'] = time.time()
+
+    def _fetch_adapter(self, entry: Dict[str, Any]) -> Dict[str, Any]:
+        """Stage a missed adapter's weights on the device, in the page
+        store's dtype, before a page is claimed for it (the reference
+        raises its ``infer.lora.fetch`` chaos faults at this point: a
+        failure here fails the request and retains nothing)."""
+        ref = self._lora_store['wq_a']
+        return {key: value.to(device=ref.device, dtype=ref.dtype)
+                for key, value in entry['lora'].items()}
+
+    def _ensure_adapter_resident(self, name: str) -> Optional[int]:
+        """Device page of ``name``, uploading it on a miss. None = it
+        cannot fit right now (the request stays queued, nothing is
+        retained). Raises on unknown adapters and failed fetches."""
+        with self._adapter_lock:
+            entry = self._adapters.get(name)
+        if entry is None:
+            raise KeyError(f'adapter {name!r} is not registered')
+        page = self._adapter_pool.lookup(name)
+        if page is not None:
+            return page
+        weights = self._fetch_adapter(entry)
+        self._in_adapter_admit = True
+        try:
+            page = self._adapter_pool.admit(
+                name, entry['nbytes'], alloc=self._alloc_block,
+                on_evict=self._note_adapter_evict)
+        finally:
+            self._in_adapter_admit = False
+        if page is None:
+            return None
+        lora_lib.write_adapter_page(self._lora_store, page, weights,
+                                    alpha=entry['alpha'])
+        return page
+
+    def _quota_blocked(self, request: _Request) -> bool:
+        """Per-adapter concurrency quota (``SKYT_LORA_MAX_ACTIVE``): an
+        adapter at its cap waits in its lane; other lanes admit."""
+        if not request.adapter or self._lora_max_active <= 0:
+            return False
+        active = sum(1 for name in self._slot_adapter_name
+                     if name == request.adapter)
+        return active >= self._lora_max_active
+
+    def _lora_step_args(self):
+        """(lora_pages, adapter_ids) for the steps: (None, None) on a
+        non-LoRA engine or an all-base batch (no slot holds an adapter
+        page), so those steps run exactly the base ops."""
+        if self._adapter_pool is None or not self._slot_adapter.any():
+            return (None, None)
+        return (self._lora_store,
+                torch.tensor(self._slot_adapter, device=self.device))
+
     # -- admission + chunked prefill ------------------------------------
 
     def _admit(self) -> None:
@@ -338,13 +710,17 @@ class ContinuousBatchingEngine:
                 return
             if self._blocked_at_version == self._pool.version:
                 return  # still memory-blocked; nothing changed since
-            request = self._waiting.pop()
+            request = self._waiting.pop(blocked=self._quota_blocked)
+            if request is None:
+                return  # every lane head is quota-blocked
             try:
                 if not self._begin_prefill(request, slot):
                     self._waiting.push_front(request)
                     self._blocked_at_version = self._pool.version
                     return
             except Exception as e:  # pylint: disable=broad-except
+                logger.warning('prefill admission failed: %s: %s',
+                               type(e).__name__, e)
                 self._prefill_errors_total += 1
                 self._finish(request, e)
                 continue
@@ -360,11 +736,19 @@ class ContinuousBatchingEngine:
             raise RuntimeError(
                 f'prompt needs {needed_total} KV blocks; pool has '
                 f'{self._pool.total_blocks} (raise num_blocks)')
+        if request.adapter and self._adapter_pool is None:
+            raise RuntimeError(
+                f'request names adapter {request.adapter!r} but the '
+                'engine has no adapter pages (lora_pages=0)')
+        # LoRA v-deltas make cached V adapter-specific: each adapter
+        # keys its prefix chains under its own root.
+        root = adapter_chain_root(request.adapter)
         shared: List[int] = []
         if self._prefix is not None:
             # Leave >= 1 prompt token to compute: the last token's
             # logits seed sampling and are never cached.
-            shared = self._prefix.lookup(ids, limit_tokens=plen - 1)
+            shared = self._prefix.lookup(ids, limit_tokens=plen - 1,
+                                         root=root)
         blocks = list(shared)
         # Admission watermark: one tail block of headroom per active
         # decoder, counting only RECLAIMABLE prefix entries as free.
@@ -383,6 +767,24 @@ class ContinuousBatchingEngine:
                     self._pool.decref(held)
                 return False
             blocks.append(block)
+        adapter_page = 0
+        if request.adapter:
+            # After the KV blocks are held (the adapter admission's own
+            # evictions cannot take them), before the commit: a raise
+            # fails the request, None requeues it, both with the pool
+            # exactly as it was.
+            try:
+                page = self._ensure_adapter_resident(request.adapter)
+            except BaseException:
+                for block in blocks:
+                    self._pool.decref(block)
+                raise
+            if page is None:
+                for block in blocks:
+                    self._pool.decref(block)
+                return False
+            adapter_page = page
+            self._adapter_pool.pin(request.adapter)
         start = len(shared) * self.block_size
         if self._prefix is not None:
             if shared:
@@ -401,6 +803,8 @@ class ContinuousBatchingEngine:
         self._bt_dirty = True
         self._slots[slot] = request
         self._decoding[slot] = False
+        self._slot_adapter[slot] = adapter_page
+        self._slot_adapter_name[slot] = request.adapter or None
         self._admit_seq += 1
         self._admit_order[slot] = self._admit_seq
         self._prefilling.append(_PrefillState(request, slot, start, ids))
@@ -417,11 +821,17 @@ class ContinuousBatchingEngine:
         tokens = np.zeros((1, self.prefill_chunk), np.int32)
         tokens[0, :len(chunk)] = chunk
         self._sync_tables()
+        lora_pages, _ = self._lora_step_args()
+        adapter_id = (int(self._slot_adapter[slot])
+                      if lora_pages is not None else None)
         try:
             last, cache = _prefill_chunk_step(
                 self.params, torch.as_tensor(tokens, device=self.device),
-                state.pos, len(chunk), slot, self.cache, cfg=self.cfg)
+                state.pos, len(chunk), slot, self.cache, lora_pages,
+                adapter_id, cfg=self.cfg)
         except Exception as e:  # pylint: disable=broad-except
+            logger.warning('chunked prefill failed: %s: %s',
+                           type(e).__name__, e)
             self._prefilling.pop(0)
             self._fail_slot(slot, e, prefill=True)
             return
@@ -433,13 +843,22 @@ class ContinuousBatchingEngine:
             self._prefilling.pop(0)
             self._last_logits[slot] = last[0].float()
             self._seeds[slot] = request.seed
+            if self._draft is not None:
+                # The speculative pending token: exactly what the plain
+                # step would sample next (same logits, same position).
+                # A preempted request resumes here too, by re-prefill.
+                self._pending_tok[slot] = _sample_pending_step(
+                    self._last_logits[slot], request.seed, state.pos,
+                    request.temperature)
             self._decoding[slot] = True
             if self._prefix is not None:
-                self._prefix.insert(ids, self._slot_blocks[slot])
+                self._prefix.insert(ids, self._slot_blocks[slot],
+                                    root=adapter_chain_root(
+                                        request.adapter))
 
     def _preempt(self, slot: int, active_mask: np.ndarray) -> None:
         """Release a slot's blocks (decoding OR mid-prefill) and requeue
-        its request at the FRONT of the admission queue; it resumes by
+        its request at the FRONT of its admission lane; it resumes by
         re-prefilling prompt + generated-so-far."""
         request = self._slots[slot]
         self._prefilling = [s for s in self._prefilling
@@ -451,36 +870,173 @@ class ContinuousBatchingEngine:
             self._waiting.push_front(request)
             self._wake.set()
 
-    def _ensure_decode_blocks(self, active_mask: np.ndarray) -> None:
-        """A slot about to write position ``length`` needs its tail block
-        BEFORE the step. When the pool is exhausted even after prefix
-        eviction, the most recently admitted request is preempted (the
-        oldest request always progresses, so the system drains)."""
+    def _ensure_decode_blocks(self, active_mask: np.ndarray,
+                              needed: Optional[np.ndarray] = None
+                              ) -> None:
+        """A slot about to write positions ``length .. length + n - 1``
+        needs tail blocks covering them BEFORE the step (``needed``:
+        per-slot token counts, default 1, the plain decode step). When
+        the pool is exhausted even after prefix eviction, the most
+        recently admitted request is preempted (the oldest request
+        always progresses, so the system drains)."""
         for slot in range(self.max_slots):
             if not active_mask[slot]:
                 continue
-            index = int(self._host_len[slot]) // self.block_size
-            if index >= self.blocks_per_slot:
-                continue  # finish check retires it this step
-            if self._host_bt[slot, index] != 0:
+            length = int(self._host_len[slot])
+            n_new = 1 if needed is None else int(needed[slot])
+            if n_new <= 0:
                 continue
-            while True:
-                block = self._alloc_block()
-                if block is not None:
-                    self._slot_blocks[slot].append(block)
-                    self._host_bt[slot, index] = block
-                    self._bt_dirty = True
+            last_pos = min(length + n_new, self.max_len) - 1
+            failed = False
+            for index in range(length // self.block_size,
+                               last_pos // self.block_size + 1):
+                if index >= self.blocks_per_slot:
+                    break  # finish check retires it this step
+                if self._host_bt[slot, index] != 0:
+                    continue
+                while True:
+                    block = self._alloc_block()
+                    if block is not None:
+                        self._slot_blocks[slot].append(block)
+                        self._host_bt[slot, index] = block
+                        self._bt_dirty = True
+                        break
+                    victims = [s for s in range(self.max_slots)
+                               if s != slot and self._slots[s] is not None]
+                    if not victims:
+                        active_mask[slot] = False
+                        self._fail_slot(slot, RuntimeError(
+                            'KV block pool exhausted mid-decode (raise '
+                            'num_blocks or lower max_slots)'))
+                        failed = True
+                        break
+                    victim = max(victims,
+                                 key=lambda s: self._admit_order[s])
+                    self._preempt(victim, active_mask)
+                if failed:
                     break
-                victims = [s for s in range(self.max_slots)
-                           if s != slot and self._slots[s] is not None]
-                if not victims:
-                    active_mask[slot] = False
-                    self._fail_slot(slot, RuntimeError(
-                        'KV block pool exhausted mid-decode (raise '
-                        'num_blocks or lower max_slots)'))
-                    break
-                victim = max(victims, key=lambda s: self._admit_order[s])
-                self._preempt(victim, active_mask)
+
+    def _trim_slot_blocks(self, slot: int, new_len: int) -> None:
+        """Speculative rollback: positions >= ``new_len`` are dead
+        (rejected drafts, post-eos rows); tail blocks past the last
+        live one go back to the pool, leaving exactly the blocks a
+        plain run at ``new_len`` holds. Shared prefix blocks cover
+        positions below the prefill length <= new_len, so only private
+        verify-window blocks are ever trimmed."""
+        keep = -(-new_len // self.block_size)
+        blocks = self._slot_blocks[slot]
+        if len(blocks) <= keep:
+            return
+        for index in range(keep, len(blocks)):
+            self._pool.decref(blocks[index])
+            self._host_bt[slot, index] = 0
+        self._slot_blocks[slot] = blocks[:keep]
+        self._bt_dirty = True
+
+    # -- speculative verify step ----------------------------------------
+
+    def _spec_step(self, active_mask: np.ndarray) -> None:
+        """Draft -> batched verify -> accept/rollback for every decoding
+        slot; scheduled exactly like a decode step."""
+        q_len = self._spec_window
+        inputs = np.zeros((self.max_slots, q_len), np.int32)
+        n_input = np.ones((self.max_slots,), np.int32)
+        for slot in range(self.max_slots):
+            if not active_mask[slot]:
+                continue
+            request = self._slots[slot]
+            length = int(self._host_len[slot])
+            # Never draft past what the request can still emit or the
+            # slot can still hold: a shrunken window is a plain step.
+            cap = max(1, min(q_len,
+                             request.max_new_tokens -
+                             len(request.generated),
+                             self.max_len - length))
+            pending = int(self._pending_tok[slot])
+            inputs[slot, 0] = pending
+            n = 1
+            if cap > 1:
+                history = (request.token_ids + request.generated +
+                           [pending])
+                for tok in self._draft.propose(history, cap - 1):
+                    inputs[slot, n] = int(tok)
+                    n += 1
+            n_input[slot] = n
+        self._ensure_decode_blocks(active_mask, needed=n_input)
+        if not active_mask.any():
+            return
+        self._draft_tokens_total += int((n_input[active_mask] - 1).sum())
+        self._sync_tables()
+        temps = [r.temperature if r else 0.0 for r in self._slots]
+        positions = [int(n) for n in self._host_len]
+        lora_pages, adapter_ids = self._lora_step_args()
+        step_t0 = time.perf_counter()
+        try:
+            n_emit, pending_next, cache = _spec_verify_all_step(
+                self.params, self.cache,
+                torch.as_tensor(inputs, device=self.device),
+                torch.as_tensor(n_input, device=self.device),
+                torch.as_tensor(active_mask, device=self.device),
+                temps, self._seeds, positions, lora_pages, adapter_ids,
+                cfg=self.cfg, q_len=q_len)
+        except Exception as e:  # pylint: disable=broad-except
+            logger.warning('speculative verify step failed: %s: %s',
+                           type(e).__name__, e)
+            for slot in range(self.max_slots):
+                if active_mask[slot] and self._slots[slot] is not None:
+                    self._fail_slot(slot, e)
+            return
+        self.cache = cache
+        self._verify_steps_total += 1
+        # Overlap the readback with admission bookkeeping only: a
+        # prefill tick would sync tables while the verified slots' host
+        # lengths are stale until n_emit lands.
+        overlap_t0 = time.perf_counter()
+        self._admit()
+        overlap_cost = time.perf_counter() - overlap_t0
+        host_emit = n_emit.tolist()
+        host_pending = pending_next.tolist()
+        self._decode_seconds_total += (time.perf_counter() - step_t0 -
+                                       overlap_cost)
+        for slot in range(self.max_slots):
+            request = self._slots[slot]
+            if request is None or not active_mask[slot]:
+                continue
+            m = int(host_emit[slot])
+            if m <= 0:
+                continue
+            emitted = []
+            for tok in inputs[slot, :m]:
+                emitted.append(int(tok))
+                if (request.eos_id is not None and
+                        int(tok) == request.eos_id):
+                    break  # post-eos acceptances are dead rows
+            # Count acceptance after the eos truncation: drafts accepted
+            # on the device but cut as post-eos rows were never
+            # delivered.
+            self._accepted_tokens_total += len(emitted) - 1
+            request.generated.extend(emitted)
+            self._tokens_total += len(emitted)
+            new_len = int(self._host_len[slot]) + len(emitted)
+            self._host_len[slot] = new_len
+            if len(emitted) < m:
+                # The device advanced by m: re-sync the truncated mirror.
+                self._bt_dirty = True
+            self._trim_slot_blocks(slot, new_len)
+            self._pending_tok[slot] = int(host_pending[slot])
+            finished = (
+                (request.eos_id is not None and
+                 emitted[-1] == request.eos_id) or
+                len(request.generated) >= request.max_new_tokens or
+                new_len >= self.max_len)
+            if finished:
+                observe = getattr(self._draft, 'observe', None)
+                if observe is not None:
+                    # Feed the completion corpus: a repeated query
+                    # drafts its answer from the last one.
+                    observe(request.token_ids + request.generated)
+                self._finish(request)
+                self._release_slot(slot)  # blocks back to the pool
 
     # -- serving loop ---------------------------------------------------
 
@@ -500,19 +1056,26 @@ class ContinuousBatchingEngine:
                 self._wake.wait(0.01)
                 self._wake.clear()
                 continue
+            if self._draft is not None:
+                self._spec_step(active_mask)
+                continue
             self._ensure_decode_blocks(active_mask)
             if not active_mask.any():
                 continue
             self._sync_tables()
             temps = [r.temperature if r else 0.0 for r in self._slots]
             positions = [int(n) for n in self._host_len]
+            lora_pages, adapter_ids = self._lora_step_args()
             step_t0 = time.perf_counter()
             try:
                 tokens, logits, cache = _decode_all_step(
                     self.params, self._last_logits, self.cache,
                     torch.as_tensor(active_mask, device=self.device),
-                    temps, self._seeds, positions, cfg=self.cfg)
+                    temps, self._seeds, positions, lora_pages,
+                    adapter_ids, cfg=self.cfg)
             except Exception as e:  # pylint: disable=broad-except
+                logger.warning('decode step failed: %s: %s',
+                               type(e).__name__, e)
                 for slot in range(self.max_slots):
                     if active_mask[slot] and self._slots[slot] is not None:
                         self._fail_slot(slot, e)
@@ -551,14 +1114,27 @@ class ContinuousBatchingEngine:
 
     def _submit(self, token_ids: List[int], max_new_tokens: int,
                 temperature: float, eos_id: Optional[int],
-                seed: int) -> _Request:
+                seed: int, adapter: Optional[str] = None) -> _Request:
         """Shared admission path: validate + enqueue."""
         if len(token_ids) >= self.max_len:
             raise ValueError(
                 f'prompt is {len(token_ids)} tokens; engine max_len is '
                 f'{self.max_len} (prompt + generation must fit)')
+        if adapter:
+            # Reject unknown adapters eagerly (a clean error, not an
+            # asynchronous prefill failure) and count demand.
+            with self._adapter_lock:
+                if adapter not in self._adapters:
+                    raise ValueError(
+                        f'adapter {adapter!r} is not registered '
+                        f'(register_adapter first)')
+                demand = self._adapter_demand.setdefault(
+                    adapter, {'requests': 0, 'last_request': 0.0,
+                              'last_evicted': 0.0})
+                demand['requests'] += 1
+                demand['last_request'] = time.time()
         request = _Request(list(token_ids), max_new_tokens, temperature,
-                           eos_id, seed)
+                           eos_id, seed, adapter=adapter or None)
         self._requests_total += 1
         self._pending.put(request)
         self._wake.set()
@@ -591,20 +1167,22 @@ class ContinuousBatchingEngine:
                    max_new_tokens: int = 32,
                    temperature: float = 0.0,
                    eos_id: Optional[int] = None,
-                   seed: int = 0) -> _Request:
+                   seed: int = 0,
+                   adapter: Optional[str] = None) -> _Request:
         """Non-blocking admission: returns the request handle — wait on
         ``handle.done``, then read ``handle.generated``/``handle.error``."""
         return self._submit(token_ids, max_new_tokens, temperature,
-                            eos_id, seed)
+                            eos_id, seed, adapter=adapter)
 
     def generate_ids(self, token_ids: List[int], *,
                      max_new_tokens: int = 32,
                      temperature: float = 0.0,
                      eos_id: Optional[int] = None,
                      seed: int = 0,
-                     timeout: float = 300.0) -> List[int]:
+                     timeout: float = 300.0,
+                     adapter: Optional[str] = None) -> List[int]:
         request = self._submit(token_ids, max_new_tokens, temperature,
-                               eos_id, seed)
+                               eos_id, seed, adapter=adapter)
         if not request.done.wait(timeout):
             raise TimeoutError('generation timed out')
         if request.error is not None:
@@ -633,12 +1211,29 @@ class ContinuousBatchingEngine:
                    temperature: float = 0.0,
                    eos_id: Optional[int] = None,
                    seed: int = 0,
-                   timeout: float = 300.0):
+                   timeout: float = 300.0,
+                   adapter: Optional[str] = None):
         """Yield generated token ids AS THEY LAND in the slot loop.
         Validation and admission happen eagerly."""
         request = self._submit(token_ids, max_new_tokens, temperature,
-                               eos_id, seed)
+                               eos_id, seed, adapter=adapter)
         return self.tail_tokens(request, eos_id=eos_id, timeout=timeout)
+
+    def stream_text(self, prompt: str, **kwargs: Any):
+        """Yield text deltas: the ids are decoded cumulatively (one
+        token may be a partial UTF-8 sequence; the running decode keeps
+        the deltas well formed)."""
+        self._require_tokenizer()
+        ids = self.tokenizer.encode(prompt)
+        out_ids: List[int] = []
+        text_so_far = ''
+        for token in self.stream_ids(ids, eos_id=self.tokenizer.eos_id,
+                                     **kwargs):
+            out_ids.append(token)
+            text = self.tokenizer.decode(out_ids)
+            delta, text_so_far = text[len(text_so_far):], text
+            if delta:
+                yield delta
 
     def generate_texts(self, prompts: List[str],
                        **kwargs: Any) -> List[str]:
@@ -653,12 +1248,18 @@ class ContinuousBatchingEngine:
             return [f.result() for f in futures]
 
     def stats(self) -> Dict[str, float]:
+        """The reference's stats schema, plus ``decode_steps`` (plain
+        decode steps; each launches the paged kernel once a layer). The
+        keys of features the port does not have yet (disaggregated KV
+        migration, live weight refresh) read 0."""
         total = self._pool.total_blocks
         free = self._pool.free_blocks
+        apool = self._adapter_pool
         return {
             'slots': self.max_slots,
             'active': sum(r is not None for r in self._slots),
             'pending': self._pending.qsize() + len(self._waiting),
+            # Monotonic counters (Prometheus counters on /metrics).
             'requests': self._requests_total,
             'completions': self._completions_total,
             'request_errors': self._errors_total,
@@ -673,6 +1274,33 @@ class ContinuousBatchingEngine:
             'prefix_cache_misses': self._prefix_misses_total,
             'prefix_tokens_reused': self._prefix_tokens_reused_total,
             'preemptions': self._preemptions_total,
+            # Disaggregated serving: not ported, always 0.
+            'kv_exports': 0,
+            'kv_imports': 0,
+            'kv_import_fallbacks': 0,
+            'kv_exports_pending': 0,
+            # Speculative decoding: the acceptance rate is
+            # accepted_tokens / draft_tokens.
+            'draft_tokens': self._draft_tokens_total,
+            'accepted_tokens': self._accepted_tokens_total,
+            'verify_steps': self._verify_steps_total,
+            'spec_window': self._spec_window,
+            # Live weight refresh: not ported, always 0.
+            'policy_version': 0,
+            'weight_refreshes': 0,
+            'refresh_shards': 0,
+            'refresh_seconds': 0.0,
+            # Multi-LoRA (0 on engines with no adapter pages).
+            'lora_hits': apool.hits if apool is not None else 0,
+            'lora_misses': apool.misses if apool is not None else 0,
+            'lora_evictions': apool.evictions if apool is not None else 0,
+            'lora_pages_total': apool.n_pages if apool is not None else 0,
+            'lora_pages_resident': (apool.resident_pages
+                                    if apool is not None else 0),
+            'lora_blocks_charged': (apool.blocks_charged
+                                    if apool is not None else 0),
+            'lora_adapters_registered': len(self._adapters),
+            # Point-in-time gauges: paged-pool pressure.
             'block_size': self.block_size,
             'blocks_total': total,
             'blocks_free': free,

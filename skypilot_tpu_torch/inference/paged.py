@@ -1,7 +1,8 @@
 """Host-side bookkeeping for the paged KV cache: block pool + prefix cache.
 
-The port's copy of ``BlockPool``, ``PrefixCache`` and ``chain_digests``
-from ``skypilot_tpu/inference/paged.py`` (host-side Python, unchanged).
+The port's copy of ``BlockPool``, ``PrefixCache``, ``chain_digests``,
+``adapter_chain_root`` and ``AdapterPagePool`` from
+``skypilot_tpu/inference/paged.py`` (host-side Python, unchanged).
 The device side (``models/decode.py`` ``PagedKVCache``) is pure data;
 the policy lives here, on the serving-loop thread:
 
@@ -13,16 +14,18 @@ the policy lives here, on the serving-loop thread:
   (parent digest, its token tuple), so a shared system prompt prefills
   once and later requests reference the same pool blocks. Only FULL
   prompt blocks are shared; a slot's tail block is always private.
+* ``AdapterPagePool`` — which LoRA adapter owns which device page slot;
+  a resident adapter charges blocks against the same ``BlockPool``.
 
 All structures are single-threaded by design — they are only touched
-from the engine's serving loop. ``AdapterPagePool`` and
-``BlockImporter`` (multi-LoRA, KV migration) are later slices.
+from the engine's serving loop. ``BlockImporter`` (KV migration between
+disaggregated roles) is a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 NULL_BLOCK = 0
 
@@ -247,3 +250,183 @@ def chain_digests(ids: Sequence[int], block_size: int,
         parent = PrefixCache._digest(parent, tokens)  # noqa: SLF001
         out.append(parent)
     return out
+
+
+# ---------------------------------------------------------------------
+# Multi-LoRA unified paging (adapter weight pages in the KV pool)
+# ---------------------------------------------------------------------
+
+
+def adapter_chain_root(adapter: Optional[str]) -> int:
+    """Prefix-chain root salt for an adapter (0 = base model).
+
+    LoRA v-projection deltas make cached V rows adapter-specific, so
+    each adapter's prefix chains must be disjoint from the base chains
+    and from every other adapter's. Never 0 for a named adapter."""
+    if not adapter:
+        return 0
+    return hash(('skyt-lora-root', adapter)) or 1
+
+
+@dataclasses.dataclass
+class _AdapterResidency:
+    page: int             # device page-slot index (1..n_pages)
+    blocks: List[int]     # charge blocks held against the shared pool
+    pins: int = 0         # live slots currently decoding this adapter
+
+
+class AdapterPagePool:
+    """Host-side policy for adapter weight pages in the shared pool.
+
+    The device side is a fixed stack of adapter page slots
+    (``models/lora.init_adapter_pages``; page 0 = base model, all
+    zeros). This class decides which adapter owns which page slot, and
+    a resident adapter charges ``ceil(nbytes / block_bytes)`` blocks
+    against the same :class:`BlockPool` the KV cache allocates from,
+    held for as long as it is resident: KV pressure and adapter
+    pressure share one budget.
+
+    Refcount-exact: a failed admission leaves the pool untouched, and
+    evicting every resident returns the pool to exactly its prior free
+    count. A slot decoding with an adapter pins it; pinned adapters
+    are never evicted, so a page in use is never overwritten.
+    """
+
+    def __init__(self, pool: BlockPool, n_pages: int,
+                 block_bytes: int) -> None:
+        if n_pages < 1:
+            raise ValueError('AdapterPagePool needs >= 1 page slot')
+        if block_bytes < 1:
+            raise ValueError('block_bytes must be >= 1')
+        self._pool = pool
+        self.n_pages = n_pages
+        self.block_bytes = block_bytes
+        # pop() order 1, 2, ... — deterministic, page 0 is the base.
+        self._free_pages: List[int] = list(range(n_pages, 0, -1))
+        self._resident: 'OrderedDict[str, _AdapterResidency]' = \
+            OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    @property
+    def resident_pages(self) -> int:
+        return len(self._resident)
+
+    @property
+    def blocks_charged(self) -> int:
+        return sum(len(r.blocks) for r in self._resident.values())
+
+    def blocks_for(self, nbytes: int) -> int:
+        """Charge-block count for an adapter of ``nbytes`` weights."""
+        return max(1, -(-int(nbytes) // self.block_bytes))
+
+    def resident_names(self) -> List[str]:
+        return list(self._resident)
+
+    def page_of(self, name: str) -> Optional[int]:
+        """Page index if resident (no LRU touch, no hit counting)."""
+        entry = self._resident.get(name)
+        return entry.page if entry is not None else None
+
+    def lookup(self, name: str) -> Optional[int]:
+        """Residency check on the request path: bumps LRU recency and
+        the hit/miss counters."""
+        entry = self._resident.get(name)
+        if entry is None:
+            self.misses += 1
+            return None
+        self._resident.move_to_end(name)
+        self.hits += 1
+        return entry.page
+
+    def admit(self, name: str, nbytes: int, *,
+              alloc: Optional[Callable[[], Optional[int]]] = None,
+              on_evict: Optional[Callable[[str], None]] = None
+              ) -> Optional[int]:
+        """Make ``name`` resident: claim a page slot (LRU-evicting idle
+        adapters if every slot is taken) and the charge blocks.
+        Returns the page index, or None when it can't fit right now
+        (every page pinned, or the pool can't supply the charge blocks
+        even after evicting idle adapters); a None return retains
+        nothing. Raises when the adapter can never fit the pool.
+
+        ``alloc`` overrides the raw allocator (the engine passes its
+        prefix-evicting ``_alloc_block``); ``on_evict`` observes each
+        LRU eviction BEFORE it mutates."""
+        if name in self._resident:
+            raise ValueError(f'adapter {name!r} is already resident')
+        if alloc is None:
+            alloc = self._pool.alloc
+        need = self.blocks_for(nbytes)
+        if need > self._pool.total_blocks:
+            raise ValueError(
+                f'adapter {name!r} needs {need} charge blocks; pool '
+                f'has {self._pool.total_blocks} total')
+        while not self._free_pages:
+            if self.evict_lru(on_evict=on_evict) is None:
+                return None
+        blocks: List[int] = []
+        try:
+            while len(blocks) < need:
+                block = alloc()
+                if block is not None:
+                    blocks.append(block)
+                    continue
+                if self.evict_lru(on_evict=on_evict) is None:
+                    for held in reversed(blocks):
+                        self._pool.decref(held)
+                    return None
+        except BaseException:
+            # A raising alloc/on_evict must not leak the charge blocks
+            # already held for this failed admission.
+            for held in reversed(blocks):
+                self._pool.decref(held)
+            raise
+        page = self._free_pages.pop()
+        self._resident[name] = _AdapterResidency(page=page,
+                                                 blocks=blocks)
+        return page
+
+    def evict_lru(self, on_evict: Optional[Callable[[str], None]] = None
+                  ) -> Optional[str]:
+        """Evict the least-recently-used UNPINNED resident: its page
+        slot and charge blocks return to their free lists. Returns the
+        evicted name, or None when every resident is pinned."""
+        for name, entry in self._resident.items():   # LRU order
+            if entry.pins:
+                continue
+            if on_evict is not None:
+                on_evict(name)        # may raise; nothing mutated yet
+            del self._resident[name]
+            for block in reversed(entry.blocks):
+                self._pool.decref(block)
+            self._free_pages.append(entry.page)
+            self.evictions += 1
+            return name
+        return None
+
+    def pin(self, name: str) -> None:
+        entry = self._resident.get(name)
+        if entry is None:
+            raise ValueError(f'pin of non-resident adapter {name!r}')
+        entry.pins += 1
+        # Pin state gates admissibility like refcounts do: bump the
+        # pool version so blocked admission retries re-run.
+        self._pool.version += 1
+
+    def unpin(self, name: str) -> None:
+        entry = self._resident.get(name)
+        if entry is None or entry.pins <= 0:
+            raise ValueError(f'unpin of unpinned adapter {name!r}')
+        entry.pins -= 1
+        self._pool.version += 1
+
+    def pins(self, name: str) -> int:
+        entry = self._resident.get(name)
+        return entry.pins if entry is not None else 0
+
+    def clear(self) -> None:
+        """Evict every unpinned resident (teardown accounting)."""
+        while self.evict_lru() is not None:
+            pass

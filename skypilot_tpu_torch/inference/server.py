@@ -3,29 +3,64 @@
 The port of ``skypilot_tpu/inference/server.py`` with the same payloads
 and the same two engines: ``--engine batch`` (the default, the
 monolithic ``InferenceEngine``) and ``--engine continuous`` (the
-continuous-batching engine)::
+continuous-batching engine, with speculative decoding and multi-LoRA
+adapters as options)::
 
     python -m skypilot_tpu_torch.inference.server --model llama3-8b \
-        [--engine continuous] [--quantize] [--quantize-kv]
+        [--engine continuous] [--quantize] [--quantize-kv] \
+        [--spec-decode] [--draft-k 4] \
+        [--lora-pages 4] [--lora-max-rank 16] [--lora-dir DIR]
 
 Endpoints:
-    GET  /health     -> 200 {"status": "ok", "model": ...}
-    GET  /stats      -> engine counters (JSON)
-    POST /generate   -> {"prompts": [...], "max_new_tokens": N,
-                         "temperature": t} -> {"outputs": [...]}
+    GET  /health               -> 200 {"status": "ok", "model": ...}
+    GET  /stats                -> engine counters (JSON)
+    GET  /metrics              -> the same counters, Prometheus text
+    GET  /adapters             -> per-adapter demand and residency
+    POST /generate             -> {"prompts": [...], "max_new_tokens":
+                                   N, "temperature": t, "adapter": a}
+                                  -> {"outputs": [...]}
+    POST /v1/completions       -> OpenAI-compatible, streamed as SSE
+    POST /v1/chat/completions     with "stream": true (continuous
+                                  engine only)
 
-``/metrics``, the OpenAI-compatible routes, streaming over HTTP and the
-other flags of the reference server are later slices.
+A request picks its LoRA adapter with the JSON ``adapter`` field or the
+``X-Skyt-Adapter`` header. The reference's disaggregated-serving routes
+(``/kv/*``, ``/disagg/prefill``), peer weight serving (``/fanout/*``),
+policy-store refresh and tracing headers are later slices.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import logging
+import os
 import sys
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from skypilot_tpu_torch.server.metrics import INFERENCE_COUNTER_STATS
+
 logger = logging.getLogger(__name__)
+
+
+def metrics_text(stats) -> str:
+    """Prometheus text of an engine's stats: the keys of
+    ``INFERENCE_COUNTER_STATS`` are counters named
+    ``skyt_inference_<key>_total``, every other number a gauge
+    ``skyt_inference_<key>`` (a gauge key ending ``_total`` is the
+    pool's capacity and is renamed ``..._capacity``)."""
+    lines = []
+    for key, value in sorted(stats.items()):
+        if isinstance(value, (int, float)):
+            kind = 'counter' if key in INFERENCE_COUNTER_STATS else 'gauge'
+            if kind == 'gauge' and key.endswith('_total'):
+                key = key[:-len('_total')] + '_capacity'
+            name = f'skyt_inference_{key}'
+            if kind == 'counter':
+                name += '_total'
+            lines.append(f'# TYPE {name} {kind}')
+            lines.append(f'{name} {value}')
+    return '\n'.join(lines) + '\n'
 
 
 def make_handler(engine):
@@ -37,19 +72,41 @@ def make_handler(engine):
             logger.debug(fmt, *args)
 
         def _json(self, code: int, payload) -> None:
-            body = json.dumps(payload).encode('utf-8')
+            self._body(code, json.dumps(payload).encode('utf-8'),
+                       'application/json')
+
+        def _body(self, code: int, body: bytes, ctype: str) -> None:
             self.send_response(code)
-            self.send_header('Content-Type', 'application/json')
+            self.send_header('Content-Type', ctype)
             self.send_header('Content-Length', str(len(body)))
             self.end_headers()
             self.wfile.write(body)
+
+        def _stats(self):
+            stats = engine.stats
+            return stats() if callable(stats) else stats
+
+        def _adapter_kwargs(self, req):
+            """Per-tenant LoRA adapter: the JSON ``adapter`` field or
+            the ``X-Skyt-Adapter`` header. Continuous engines only; the
+            engine rejects unknown adapters with a clean error."""
+            adapter = (req.get('adapter') or
+                       self.headers.get('X-Skyt-Adapter') or '')
+            if adapter and hasattr(engine, 'register_adapter'):
+                return {'adapter': str(adapter)}
+            return {}
 
         def do_GET(self):
             if self.path == '/health':
                 self._json(200, {'status': 'ok', 'model': engine.cfg.name})
             elif self.path == '/stats':
-                stats = engine.stats
-                self._json(200, stats() if callable(stats) else stats)
+                self._json(200, self._stats())
+            elif self.path == '/adapters':
+                stats_fn = getattr(engine, 'adapter_stats', None)
+                self._json(200, stats_fn() if stats_fn else {})
+            elif self.path == '/metrics':
+                self._body(200, metrics_text(self._stats()).encode(),
+                           'text/plain; version=0.0.4')
             else:
                 self._json(404, {'error': 'not found'})
 
@@ -59,6 +116,10 @@ def make_handler(engine):
                 req = json.loads(self.rfile.read(length) or b'{}')
                 if self.path == '/generate':
                     self._generate(req)
+                elif self.path == '/v1/completions':
+                    self._openai(req, chat=False)
+                elif self.path == '/v1/chat/completions':
+                    self._openai(req, chat=True)
                 else:
                     self._json(404, {'error': 'not found'})
             except Exception as e:  # pylint: disable=broad-except
@@ -74,10 +135,130 @@ def make_handler(engine):
                           temperature=float(req.get('temperature', 0.0)),
                           seed=int(req.get('seed', 0)))
             if hasattr(engine, 'generate_texts'):   # continuous engine
+                kwargs.update(self._adapter_kwargs(req))
                 outputs = engine.generate_texts(prompts, **kwargs)
             else:                                   # batch engine
                 outputs = engine.generate_text(prompts, **kwargs)
             self._json(200, {'outputs': outputs})
+
+        # -- OpenAI-compatible surface ------------------------------------
+
+        def _openai(self, req, chat: bool):
+            tok = engine.tokenizer
+            # A templated chat prompt renders its own BOS; encoding must
+            # not prepend a second one.
+            add_bos = True
+            if chat:
+                prompt = tok.apply_chat_template(req.get('messages') or [])
+                add_bos = not getattr(tok, 'chat_template', None)
+            else:
+                prompt = req.get('prompt', '')
+                if isinstance(prompt, list):
+                    prompt = prompt[0] if prompt else ''
+            # `null` is how OpenAI clients spell "default".
+            max_tokens = int(req.get('max_tokens') or 64)
+            kwargs = dict(max_new_tokens=max_tokens,
+                          temperature=float(req.get('temperature') or 0.0))
+            kwargs.update(self._adapter_kwargs(req))
+            rid = f'cmpl-{os.urandom(8).hex()}'
+            model = engine.cfg.name
+            if req.get('stream'):
+                if not hasattr(engine, 'stream_ids'):
+                    # A silent JSON body would break SSE clients.
+                    self._json(400, {
+                        'error': 'stream=true requires the continuous '
+                                 'engine (--engine continuous)'})
+                    return
+                self._openai_stream(rid, model, prompt, chat, kwargs,
+                                    add_bos=add_bos)
+                return
+            ids = tok.encode(prompt, add_bos=add_bos)
+            if hasattr(engine, 'generate_texts'):   # continuous engine
+                out_ids = engine.generate_ids(ids, eos_id=tok.eos_id,
+                                              **kwargs)
+            else:                                   # batch engine
+                out_ids = engine.generate_ids([ids], **kwargs)[0]
+                if tok.eos_id in out_ids:
+                    out_ids = out_ids[:out_ids.index(tok.eos_id)]
+            text = tok.decode(out_ids)
+            finish = 'length' if len(out_ids) >= max_tokens else 'stop'
+            if chat:
+                choice = {'index': 0, 'finish_reason': finish,
+                          'message': {'role': 'assistant',
+                                      'content': text}}
+                obj = 'chat.completion'
+            else:
+                choice = {'index': 0, 'finish_reason': finish,
+                          'text': text}
+                obj = 'text_completion'
+            self._json(200, {'id': rid, 'object': obj, 'model': model,
+                             'created': int(time.time()),
+                             'choices': [choice]})
+
+        def _openai_stream(self, rid, model, prompt, chat, kwargs,
+                           add_bos: bool = True):
+            # Whatever can fail with a clean 500 happens BEFORE the 200
+            # and the chunked headers go out.
+            tok = engine.tokenizer
+            ids = tok.encode(prompt, add_bos=add_bos)
+            token_iter = engine.stream_ids(ids, eos_id=tok.eos_id, **kwargs)
+            self.send_response(200)
+            self.send_header('Content-Type', 'text/event-stream')
+            self.send_header('Cache-Control', 'no-cache')
+            self.send_header('Transfer-Encoding', 'chunked')
+            self.end_headers()
+
+            def send(obj_bytes: bytes) -> None:
+                frame = b'data: ' + obj_bytes + b'\n\n'
+                self.wfile.write(f'{len(frame):x}\r\n'.encode() +
+                                 frame + b'\r\n')
+                self.wfile.flush()
+
+            created = int(time.time())
+            obj = 'chat.completion.chunk' if chat else 'text_completion'
+
+            def chunk(choice) -> bytes:
+                return json.dumps({'id': rid, 'object': obj,
+                                   'model': model, 'created': created,
+                                   'choices': [choice]}).encode()
+
+            try:
+                out_ids, text_so_far = [], ''
+                try:
+                    for token in token_iter:
+                        out_ids.append(token)
+                        text = tok.decode(out_ids)
+                        delta = text[len(text_so_far):]
+                        text_so_far = text
+                        if not delta:
+                            continue
+                        if chat:
+                            choice = {'index': 0, 'finish_reason': None,
+                                      'delta': {'content': delta}}
+                        else:
+                            choice = {'index': 0, 'finish_reason': None,
+                                      'text': delta}
+                        send(chunk(choice))
+                    finish = ('length'
+                              if len(out_ids) >= kwargs['max_new_tokens']
+                              else 'stop')
+                except Exception as e:  # pylint: disable=broad-except
+                    # Mid-stream failure: the status line is gone; send
+                    # an error frame and end the stream cleanly.
+                    logger.error('stream failed: %s', e, exc_info=True)
+                    send(json.dumps({'error': str(e)}).encode())
+                    finish = None
+                if finish is not None:
+                    final = ({'index': 0, 'finish_reason': finish,
+                              'delta': {}} if chat else
+                             {'index': 0, 'finish_reason': finish,
+                              'text': ''})
+                    send(chunk(final))
+                send(b'[DONE]')
+                self.wfile.write(b'0\r\n\r\n')
+                self.wfile.flush()
+            except (BrokenPipeError, ConnectionResetError):
+                pass  # the client went away mid-stream
 
     return Handler
 
@@ -89,7 +270,7 @@ def serve(engine, host: str, port: int) -> ThreadingHTTPServer:
     return server
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser()
     parser.add_argument('--model', default='tiny')
     parser.add_argument('--host', default='0.0.0.0')
@@ -115,13 +296,54 @@ def main(argv=None) -> int:
     parser.add_argument('--kv-blocks', type=int, default=None,
                         help='total paged KV pool blocks (default sized '
                              'to max_batch * max_len).')
+    parser.add_argument('--spec-decode', action='store_true', default=None,
+                        help='speculative decoding (continuous engine): '
+                             'n-gram drafts + one verify step per window; '
+                             'greedy output equals the plain engine\'s '
+                             '(default $SKYT_SPEC_DECODE).')
+    parser.add_argument('--draft-k', type=int, default=None,
+                        help='draft tokens per speculative verify step '
+                             '(default $SKYT_SPEC_DRAFT_K or 4).')
     parser.add_argument('--quantize', action='store_true',
                         help='int8 W8A8 weights (per-channel weights, '
                              'per-token activations).')
     parser.add_argument('--quantize-kv', action='store_true',
                         help='int8 KV cache (dequantized inside the '
                              'attention kernel).')
-    args = parser.parse_args(argv)
+    parser.add_argument('--lora-pages', type=int, default=None,
+                        help='device adapter page slots for multi-LoRA '
+                             'serving (continuous engine; default '
+                             '$SKYT_LORA_PAGES or 0 = off). Each '
+                             'resident adapter charges KV blocks from '
+                             'the shared paged pool.')
+    parser.add_argument('--lora-max-rank', type=int, default=None,
+                        help='largest adapter rank the page stack holds '
+                             '(default $SKYT_LORA_MAX_RANK or 8).')
+    parser.add_argument('--lora-dir', default=None,
+                        help='adapter registry root: every committed '
+                             'adapter under it is registered at '
+                             'startup.')
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    engine = build_engine(args)
+    server = serve(engine, args.host, args.port)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        if hasattr(engine, 'shutdown'):
+            engine.shutdown()
+    return 0
+
+
+def build_engine(args):
+    """The engine ``main``'s flags ask for, adapters registered from
+    ``--lora-dir``, warmed up by one short request."""
     if args.engine == 'continuous':
         from skypilot_tpu_torch.inference.continuous import (
             ContinuousBatchingEngine)
@@ -134,7 +356,17 @@ def main(argv=None) -> int:
             prefill_chunk=args.prefill_chunk,
             num_blocks=args.kv_blocks,
             quantize=args.quantize,
-            quantize_kv=args.quantize_kv)
+            quantize_kv=args.quantize_kv,
+            spec_decode=args.spec_decode,
+            draft_k=args.draft_k,
+            lora_pages=args.lora_pages,
+            lora_max_rank=args.lora_max_rank)
+        if args.lora_dir:
+            from skypilot_tpu_torch.serve import adapter_registry
+            names = adapter_registry.load_registry_into(engine,
+                                                        args.lora_dir)
+            logger.info('registered %d adapters from %s: %s', len(names),
+                        args.lora_dir, names)
         engine.generate_text('warmup', max_new_tokens=8)
     else:
         from skypilot_tpu_torch.inference.engine import InferenceEngine
@@ -144,16 +376,7 @@ def main(argv=None) -> int:
                                  quantize=args.quantize,
                                  quantize_kv=args.quantize_kv)
         engine.generate_text(['warmup'], max_new_tokens=8)
-    server = serve(engine, args.host, args.port)
-    try:
-        server.serve_forever()
-    except KeyboardInterrupt:
-        pass
-    finally:
-        server.server_close()
-        if hasattr(engine, 'shutdown'):
-            engine.shutdown()
-    return 0
+    return engine
 
 
 if __name__ == '__main__':

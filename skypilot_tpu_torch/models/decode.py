@@ -36,7 +36,10 @@ with new lengths) whose pool tensors they have updated, where the
 reference returns new arrays. Attention over the pool goes through
 ``ops/paged_attention.py`` (the Hopper kernel for CUDA tensors);
 chunked-prefill attention is plain PyTorch, as it is plain XLA in the
-reference. LoRA pages and MoE MLPs are later slices.
+reference. The multi-LoRA adapter page store (``models/lora.py``) is
+indexed by layer where the reference mounts it in the layer scan; with
+``lora_pages=None`` the paged functions run exactly the base ops. MoE
+MLPs are a later slice.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
+from skypilot_tpu_torch.models import lora as lora_lib
 from skypilot_tpu_torch.models.config import ModelConfig
 from skypilot_tpu_torch.models.llama import (_activate, apply_rope,
                                              fp32_logits, rope_table_for)
@@ -133,13 +137,30 @@ def _mlp(x: torch.Tensor, lp: Params, cfg: ModelConfig) -> torch.Tensor:
                          mlp['wo'], dt)
 
 
-def _qkv(x: torch.Tensor, lp: Params, cfg: ModelConfig, sin, cos):
+def _qkv(x: torch.Tensor, lp: Params, cfg: ModelConfig, sin, cos,
+         lora: Optional[Tuple[Params, torch.Tensor]] = None):
+    """q, k (roped) and v of one layer. ``lora``: (this layer's
+    adapter pages, per-row page ids); their q/v deltas are added before
+    RoPE, as in the reference."""
     dt = cfg.compute_dtype
     h = rms_norm(x, lp['ln_attn']['scale'], cfg.norm_eps)
     q = weight_einsum('bsd,dhk->bshk', h, lp['attn']['wq'], dt)
     k = weight_einsum('bsd,dhk->bshk', h, lp['attn']['wk'], dt)
     v = weight_einsum('bsd,dhk->bshk', h, lp['attn']['wv'], dt)
+    if lora is not None:
+        dq, dv = lora_lib.apply_lora_pages(h, *lora)
+        q = q + dq
+        v = v + dv
     return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
+
+
+def _lora_layer(lora_pages: Optional[Params], adapter_ids, layer: int
+                ) -> Optional[Tuple[Params, torch.Tensor]]:
+    """Layer ``layer``'s slice of the ``[L, P, ...]`` page store with
+    the page ids (the reference mounts the store in its layer scan)."""
+    if lora_pages is None:
+        return None
+    return ({k: v[layer] for k, v in lora_pages.items()}, adapter_ids)
 
 
 def _attn_out_and_mlp(x: torch.Tensor, attn: torch.Tensor, lp: Params,
@@ -487,7 +508,9 @@ def _chunk_attention(q: torch.Tensor, k_view: torch.Tensor,
 
 def prefill_chunk(params: Params, tokens: torch.Tensor, start: int,
                   n_new: int, slot: int, cache: PagedKVCache,
-                  cfg: ModelConfig) -> Tuple[torch.Tensor, PagedKVCache]:
+                  cfg: ModelConfig, lora_pages: Optional[Params] = None,
+                  adapter_id: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, PagedKVCache]:
     """Absorb one prompt chunk for one slot into the paged pool.
 
     tokens: [1, C] right-padded chunk; ``start``: positions already
@@ -496,7 +519,9 @@ def prefill_chunk(params: Params, tokens: torch.Tensor, start: int,
     the slot's rows ``[0, start)`` plus causally within the chunk.
     Writes the chunk's K/V rows into the pool in place (padding rows go
     to the null block) and sets ``lengths[slot] = start + n_new``.
-    Returns (last-valid-token logits [1, V] fp32, cache).
+    ``lora_pages``/``adapter_id``: the adapter page store and this
+    slot's page (0 = base, an exact-zero delta); None runs the base
+    ops only. Returns (last-valid-token logits [1, V] fp32, cache).
     """
     _, c = tokens.shape
     dev = tokens.device
@@ -512,9 +537,12 @@ def prefill_chunk(params: Params, tokens: torch.Tensor, start: int,
     write_rows = torch.where(valid_tok, bt_slot[blk] * bs + offs % bs,
                              torch.zeros_like(offs))         # [C]
     view_rows = _view_rows(bt_slot, bs)                      # [T]
+    adapter_ids = (torch.tensor([int(adapter_id or 0)], device=dev)
+                   if lora_pages is not None else None)
     for layer in range(cfg.n_layers):
         lp = _layer(params, layer)
-        q, k, v = _qkv(x, lp, cfg, sin, cos)
+        q, k, v = _qkv(x, lp, cfg, sin, cos,
+                       _lora_layer(lora_pages, adapter_ids, layer))
         kf = cache.k[layer].view(nb * bs, *cache.k.shape[3:])
         vf = cache.v[layer].view(nb * bs, *cache.v.shape[3:])
         if cache.quantized:
@@ -545,7 +573,9 @@ def prefill_chunk(params: Params, tokens: torch.Tensor, start: int,
 
 def paged_decode_step(params: Params, tokens: torch.Tensor,
                       cache: PagedKVCache, cfg: ModelConfig,
-                      active: Optional[torch.Tensor] = None
+                      active: Optional[torch.Tensor] = None,
+                      lora_pages: Optional[Params] = None,
+                      adapter_ids: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, PagedKVCache]:
     """One autoregressive step over the paged pool. tokens: [B].
 
@@ -553,7 +583,8 @@ def paged_decode_step(params: Params, tokens: torch.Tensor,
     advance. Returns (logits [B, V] fp32, cache with lengths advanced
     by ``active``)."""
     logits, cache = paged_verify_step(params, tokens[:, None], cache, cfg,
-                                      active=active)
+                                      active=active, lora_pages=lora_pages,
+                                      adapter_ids=adapter_ids)
     step = (torch.ones_like(cache.lengths) if active is None
             else active.to(torch.int32))
     return logits[:, 0], dataclasses.replace(cache,
@@ -563,7 +594,9 @@ def paged_decode_step(params: Params, tokens: torch.Tensor,
 def paged_verify_step(params: Params, tokens: torch.Tensor,
                       cache: PagedKVCache, cfg: ModelConfig,
                       active: Optional[torch.Tensor] = None,
-                      n_input: Optional[torch.Tensor] = None
+                      n_input: Optional[torch.Tensor] = None,
+                      lora_pages: Optional[Params] = None,
+                      adapter_ids: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, PagedKVCache]:
     """Process a Q-token window per slot in one pass (Q == 1 is plain
     decode). tokens: [B, Q]; position ``lengths[b] + j`` holds
@@ -571,6 +604,8 @@ def paged_verify_step(params: Params, tokens: torch.Tensor,
     fewer real inputs (their padded rows write to the null block and
     their padded logits are garbage the caller discards). The caller's
     block tables must cover ``lengths + n_input`` rows.
+    ``lora_pages``/``adapter_ids`` ([B] page per slot, default all 0):
+    per-slot adapter deltas on q/v; None runs the base ops only.
 
     Returns (logits [B, Q, V] fp32, cache with KV written in place and
     lengths UNCHANGED).
@@ -599,9 +634,12 @@ def paged_verify_step(params: Params, tokens: torch.Tensor,
     # slot reads one (null) row and its output is discarded.
     n_valid = torch.where(active, lens + q_len,
                           torch.ones_like(lens)).to(torch.int32)
+    if lora_pages is not None and adapter_ids is None:
+        adapter_ids = torch.zeros((b,), dtype=torch.int32, device=dev)
     for layer in range(cfg.n_layers):
         lp = _layer(params, layer)
-        q, k, v = _qkv(x, lp, cfg, sin, cos)
+        q, k, v = _qkv(x, lp, cfg, sin, cos,
+                       _lora_layer(lora_pages, adapter_ids, layer))
         kf = cache.k[layer].view(nb * bs, *cache.k.shape[3:])
         vf = cache.v[layer].view(nb * bs, *cache.v.shape[3:])
         k_pool_scale = v_pool_scale = None

@@ -9,9 +9,10 @@ MLP activation, ``init_params``, the attention and MLP blocks, the
 Differences of idiom from the reference: the layer loop is a Python
 loop over the stacked weights (the reference's ``lax.scan``), ``'full'``
 remat is ``torch.utils.checkpoint`` per layer, and the one-hot ("iota")
-embedding is an index lookup, which picks the same rows. MoE blocks,
-the LoRA q/v branch, the selective remat policies and pipeline stages
-belong to later slices and raise here.
+embedding is an index lookup, which picks the same rows. LoRA adapters
+mounted at ``params['layers']['lora']`` (``models/lora.py``) add their
+q/v deltas in the attention block. MoE blocks, the selective remat
+policies and pipeline stages belong to later slices and raise here.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from skypilot_tpu_torch.models.config import ModelConfig
+from skypilot_tpu_torch.models.lora import apply_lora_qv
 from skypilot_tpu_torch.ops.attention import multi_head_attention
 from skypilot_tpu_torch.ops.norms import rms_norm
 from skypilot_tpu_torch.utils.device import resolve_device
@@ -213,12 +215,18 @@ def fp32_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
 
 def _attention_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
                      sin: torch.Tensor, cos: torch.Tensor,
-                     segments: Optional[torch.Tensor] = None
+                     segments: Optional[torch.Tensor] = None,
+                     lora_params: Optional[Params] = None
                      ) -> torch.Tensor:
     dt = cfg.compute_dtype
     q = torch.einsum('bsd,dhk->bshk', x, lp['wq'].to(dt))
     k = torch.einsum('bsd,dhk->bshk', x, lp['wk'].to(dt))
     v = torch.einsum('bsd,dhk->bshk', x, lp['wv'].to(dt))
+    if lora_params is not None:
+        # LoRA deltas on q/v; the base weights stay as they are.
+        dq, dv = apply_lora_qv(x, lora_params)
+        q = q + dq
+        v = v + dv
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
     out = multi_head_attention(q, k, v, causal=True, segment_ids=segments,
@@ -241,7 +249,8 @@ def _decoder_layer(x: torch.Tensor, lp: Params, cfg: ModelConfig,
     """One dense decoder layer (the reference's aux loss is 0 here)."""
     h = rms_norm(x, lp['ln_attn']['scale'], cfg.norm_eps)
     x = x + _attention_block(h, lp['attn'], cfg, sin, cos,
-                             segments=segments)
+                             segments=segments,
+                             lora_params=lp.get('lora'))
     h = rms_norm(x, lp['ln_mlp']['scale'], cfg.norm_eps)
     return x + _mlp_block(h, lp['mlp'], cfg)
 
@@ -292,8 +301,9 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     """tokens [B, S] int -> logits [B, S, vocab] fp32 (or, with
     ``return_hidden``, the final normed hidden states [B, S, d_model]).
 
-    MoE configs, LoRA params, ``return_aux`` and ``pipeline_stages > 1``
-    raise with a pointer to ROADMAP.md."""
+    LoRA params at ``params['layers']['lora']`` add their q/v deltas.
+    MoE configs, ``return_aux`` and ``pipeline_stages > 1`` raise with a
+    pointer to ROADMAP.md."""
     if cfg.is_moe or return_aux:
         raise NotImplementedError(
             'MoE blocks and the router aux loss are not ported yet '
@@ -302,10 +312,6 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
         raise NotImplementedError(
             'pipeline stages are multi-device work, not ported yet '
             '(ROADMAP.md, queue A item 15)')
-    if 'lora' in params['layers']:
-        raise NotImplementedError(
-            'the LoRA q/v branch is not ported yet (ROADMAP.md, queue A '
-            'item 9)')
     _, s = tokens.shape
     dt = cfg.compute_dtype
     if positions is None:

@@ -702,3 +702,107 @@ def test_w8a8_generate_on_card_parts_only_at_rounding_ties(card,
     assert outs['fed'] == outs['cuda']
     if outs['cpu'] != outs['cuda']:
         assert '(None)' not in witness
+
+
+# ---------------------------------------------------------------------------
+# Speculative verify windows and LoRA pages on the card
+# ---------------------------------------------------------------------------
+
+def _verify_case(device, lora):
+    """TINY (head_dim 128, fp32 compute): two prompts prefilled into a
+    paged pool, then one Q=5 verify window (slot 1 padded to 3 inputs),
+    with or without adapter pages (slot 0 on page 1, slot 1 on page 0).
+    Returns (verify logits [2, 5, V], paged_attention launches)."""
+    from skypilot_tpu_torch.models import decode as decode_lib
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models import lora as lora_lib
+    from skypilot_tpu_torch.models.config import get_model_config
+    from skypilot_tpu_torch.utils.device import to_device
+    cfg = get_model_config('tiny', head_dim=128,
+                           compute_dtype=torch.float32)
+    # Drawn on the CPU: a generator on the card draws other numbers.
+    params = to_device(llama.init_params(7, cfg, device='cpu'),
+                       torch.device(device))
+    cache = decode_lib.init_paged_cache(cfg, 9, 16, 2, 4, device=device)
+    cache.block_tables.copy_(torch.tensor([[3, 1, 0, 0], [2, 4, 0, 0]]))
+    lora_args = {}
+    if lora:
+        pages = lora_lib.init_adapter_pages(cfg, 1, 4, device=device)
+        adapter = lora_lib.init_lora_params(5, cfg, 4, device='cpu')
+        gen = torch.Generator().manual_seed(6)
+        for key in ('wq_b', 'wv_b'):
+            adapter[key] = 0.05 * torch.randn(adapter[key].shape,
+                                              generator=gen)
+        lora_lib.write_adapter_page(pages, 1, adapter)
+        lora_args = dict(lora_pages=pages, adapter_ids=torch.tensor(
+            [1, 0], dtype=torch.int32, device=device))
+    for slot, prompt in enumerate(([3, 1, 4, 1, 5, 9, 2, 6] * 2,
+                                   [2, 7, 18, 28])):
+        tokens = torch.tensor([prompt], dtype=torch.int32, device=device)
+        _, cache = decode_lib.prefill_chunk(
+            params, tokens, 0, len(prompt), slot, cache, cfg,
+            lora_pages=lora_args.get('lora_pages'),
+            adapter_id=(1 - slot) if lora else None)
+    window = torch.tensor([[7, 8, 9, 10, 11], [12, 13, 14, 0, 0]],
+                          dtype=torch.int32, device=device)
+    n_input = torch.tensor([5, 3], dtype=torch.int32, device=device)
+    pa.reset_launch_counts()
+    logits, _ = decode_lib.paged_verify_step(params, window, cache, cfg,
+                                             n_input=n_input, **lora_args)
+    return logits.cpu(), pa.LAUNCHES['paged_attention'], cfg.n_layers
+
+
+@pytest.mark.parametrize('lora', [False, True], ids=['plain', 'lora'])
+def test_verify_window_on_card_matches_cpu(card, lora):
+    """A Q=5 verify window through the paged kernel (fp32 compute, so
+    the kernel's CUDA-core route) against the CPU's plain attention:
+    logits of the live rows within 1e-4 absolute; the kernel launched
+    once a layer."""
+    got, launches, n_layers = _verify_case('cuda', lora)
+    want, cpu_launches, _ = _verify_case('cpu', lora)
+    assert launches == n_layers and cpu_launches == 0
+    live = [(0, j) for j in range(5)] + [(1, j) for j in range(3)]
+    for b, j in live:
+        assert (got[b, j] - want[b, j]).abs().max().item() <= 1e-4, (b, j)
+
+
+def test_spec_and_lora_engines_on_card_match_cpu(card):
+    """Greedy tokens of a speculative engine (draft_k 4) and of a LoRA
+    engine on the card equal the plain engine's on the CPU and the LoRA
+    engine's on the CPU (TINY, head_dim 128, fp32 compute)."""
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models import lora as lora_lib
+    from skypilot_tpu_torch.models.config import get_model_config
+    cfg = get_model_config('tiny', head_dim=128,
+                           compute_dtype=torch.float32)
+    params = llama.init_params(7, cfg, device='cpu')
+    adapter = lora_lib.init_lora_params(5, cfg, 4, device='cpu')
+    gen = torch.Generator().manual_seed(6)
+    for key in ('wq_b', 'wv_b'):
+        adapter[key] = 0.05 * torch.randn(adapter[key].shape, generator=gen)
+    prompts = [[5, 6, 7, 8] * 3, [(7 * i + 3) % 512 for i in range(21)],
+               [9] * 6]
+    kw = dict(cfg=cfg, params=params, max_slots=2, max_len=96,
+              block_size=8, prefill_chunk=8)
+
+    def run(device, **extra):
+        engine = ContinuousBatchingEngine('tiny', device=device, **kw,
+                                          **extra)
+        try:
+            if 'lora_pages' in extra:
+                engine.register_adapter('a', adapter)
+                return [engine.generate_ids(p, max_new_tokens=16,
+                                            adapter='a') for p in prompts]
+            return [engine.generate_ids(p, max_new_tokens=16)
+                    for p in prompts]
+        finally:
+            engine.shutdown()
+
+    plain_cpu = run('cpu')
+    assert run('cuda', spec_decode=True, draft_k=4) == plain_cpu
+    assert run('cuda') == plain_cpu
+    lora_cpu = run('cpu', lora_pages=1, lora_max_rank=4)
+    assert run('cuda', lora_pages=1, lora_max_rank=4) == lora_cpu
+    assert lora_cpu != plain_cpu

@@ -57,7 +57,9 @@ def test_every_module_imports_with_jax_blocked():
     for mod in ('ops.paged_attention', 'ops.flash_attention',
                 'ops.attention', 'ops.decode_attention', 'train.loss',
                 'train.step', 'train.pretrain', 'inference.engine',
-                'batch.infer_worker'):
+                'batch.infer_worker', 'utils.env', 'inference.speculative',
+                'models.lora', 'data.ckpt_manifest',
+                'serve.adapter_registry', 'server.metrics'):
         assert 'skypilot_tpu_torch.' + mod in mods
     code = (
         'import sys\n'
@@ -124,9 +126,7 @@ def test_unported_engine_options_raise():
     from skypilot_tpu_torch.inference.continuous import (
         ContinuousBatchingEngine)
     from skypilot_tpu_torch.inference.engine import InferenceEngine
-    for kwargs in ({'spec_decode': True},
-                   {'lora_pages': 2}, {'role': 'prefill'},
-                   {'mesh': 'tensor=2'}):
+    for kwargs in ({'role': 'prefill'}, {'mesh': 'tensor=2'}):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             ContinuousBatchingEngine('tiny', device='cpu', **kwargs)
     for kwargs in ({'checkpoint_dir': '/nonexistent'},
