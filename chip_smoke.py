@@ -75,8 +75,7 @@ Phases, in order; any failure exits non-zero:
    B=8, S=2048, 20 steps; losses finite and falling; the flash counters
    must move by 2 x n_layers forward and n_layers each of dq and dk/dv
    per step (full remat), and no call may leave the kernels' gate. Step time, tokens/s, TFLOP/s, share of peak
-   and peak memory. Then three ``make_train_step`` steps with segment
-   ids: the segment kernels must run.
+   and peak memory.
 8. Small-model serving agreement: the engine on the card and on the CPU
    give the same greedy tokens (TINY, head_dim 128, fp32 compute).
 9. Continuous engine, full width: llama3-8b at full depth (bf16 weights from the
@@ -124,10 +123,34 @@ Phases, in order; any failure exits non-zero:
    gives the tokens it gives alone on a plain engine, each adapter
    other tokens; decode tok/s beside a plain engine's.
 
+16. Bench twin, train: ``skypilot_tpu_torch.bench`` ``--mode train`` at
+   its defaults (bench-1b7, Adafactor, bf16 params, full remat, B=8,
+   S=2048, 5 warmup and 20 timed steps): rc 0, one JSON line, a finite
+   loss, 2L forward, L dq and L dk/dv flash launches a step over the 25
+   steps, no call outside the kernels; MFU, tokens/s, s/step, peak GB.
+17. Remat policies: the same with ``--remat-policy`` save_attn,
+   save_dots and dots (1 + 3 steps each): 2L / L / L launches a step
+   (``models/llama.py:_remat_policy``); s/step and peak GB each.
+18. Packed documents: ``train.pretrain.main --packed`` on bench-1b7 (B=8,
+   S=2048, Adafactor, bf16 params, 3 steps) over a token file written
+   here (documents of mean length 500): only the segment kernels move
+   (2L / L / L a step), the native packer packs every batch, losses
+   finite.
+19. Resume: ``train.pretrain.main --checkpoint-dir`` on TINY with head
+   dim 128 (registered here as ``tiny-hd128``): 4 steps checkpointed at
+   2 and 4; a second run from a copy of step 2 alone resumes and must
+   give the first run's losses and step-4 state bitwise.
+20. Bench twin, decode: ``--mode decode`` at its defaults (bench-1b7
+   bf16, B=8, prompt 128, N=256): the decode kernel launches 22 times a
+   decode step, the flash forward 22 times a prefill.
+21. Bench twin, kernels: ``--mode kernels`` (every hand kernel against
+   its plain version at the reference's shapes and tolerances) exits 0.
+
 Then one JSON line listing every kernel (the paged kernels' launches are
-the sums of phases 9, 14 and 15, and of 10 and 14's int8 run), the
-``nvidia-smi`` name and power-limit line, and last ``{"ok": true,
-"device": {...}}``.
+the sums of phases 9, 14 and 15, and of 10 and 14's int8 run; the decode
+kernel's of phases 12 and 20; the flash kernels' of phases 7, 16, 17 and
+18), the ``nvidia-smi`` name and power-limit line, and last ``{"ok":
+true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1125,8 +1148,9 @@ def compare_flash(torch, label, dtype, got, errors) -> bool:
 
 
 def packed_segments(torch, b, s):
-    """Segment ids of packed documents as in ``train_segments``: a new
-    document starts at each position with probability 1/500."""
+    """Segment ids of documents of mean length 500, like phase 18's token
+    file: a new document starts at each position with probability
+    1/500."""
     gen = torch.Generator().manual_seed(3)
     starts = torch.rand((b, s), generator=gen) < 1 / 500
     return torch.cumsum(starts.int(), 1).int().cuda()
@@ -1446,7 +1470,6 @@ def phase_train(torch, fa, flops_peak, steps=20):
         f'{last["achieved_tflops"]:.2f} TFLOP/s = '
         f'{100 * result["peak_share"]:.2f}% of {flops_peak / 1e12:.0f}; '
         f'peak memory {peak_gb:.2f} GB; {steps} steps in {wall:.1f} s')
-    result['segments'] = train_segments(torch, fa, cfg)
     return result
 
 
@@ -1478,44 +1501,6 @@ def profile_train(torch, cfg, steps=2):
     gc.collect()
     torch.cuda.empty_cache()
     return profile_summary('profile-train', prof, wall_us, top=16)
-
-
-def train_segments(torch, fa, cfg, steps=3):
-    """Three ``make_train_step`` steps on batches with segment ids: the
-    segment kernels must run."""
-    import gc
-    from skypilot_tpu_torch.train import step as st
-    from skypilot_tpu_torch.train.pretrain import synthetic_batch
-    hp = st.TrainHParams(warmup_steps=1, total_steps=10)
-    state = st.create_train_state(1, cfg, hp)
-    step_fn = st.make_train_step(cfg, hp)
-    gen = torch.Generator().manual_seed(3)
-    fa.reset_launch_counts()
-    losses = []
-    for i in range(steps):
-        batch = synthetic_batch(100 + i, 8, 2048, cfg.vocab_size,
-                                torch.device('cuda'))
-        starts = torch.rand((8, 2048), generator=gen) < 1 / 500
-        batch['segments'] = torch.cumsum(starts.int(), 1).int().cuda()
-        state, m = step_fn(state, batch)
-        losses.append(float(m['loss']))
-    counts = dict(fa.LAUNCHES)
-    fallbacks = dict(fa.FALLBACKS)
-    n = cfg.n_layers * steps
-    expected = {'flash_fwd': 0, 'flash_dq': 0, 'flash_dkv': 0,
-                'flash_fwd_seg': 2 * n, 'flash_dq_seg': n,
-                'flash_dkv_seg': n}
-    del state
-    gc.collect()
-    torch.cuda.empty_cache()
-    if counts != expected or fallbacks['cuda'] or \
-            not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f'segment steps: launches {counts} (expected '
-                             f'{expected}), calls outside the kernels '
-                             f'{fallbacks}, losses {losses}')
-    log(f'[train] {steps} steps with segments: losses {losses}; launches '
-        f'{counts}')
-    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2409,6 +2394,250 @@ def phase_batch_engine(torch, da, fa, params, profile_window=False):
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phases 16-21: the bench twin, remat policies, --packed, resume
+# ---------------------------------------------------------------------------
+
+def run_json_main(main, argv):
+    """(rc, JSON lines) of an entry point's ``main(argv)``, its standard
+    output captured."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, [json.loads(x) for x in out.getvalue().splitlines()
+                if x.startswith('{')]
+
+
+def free_card(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def bench_train(torch, fa, argv, steps, label):
+    """``bench.main(['--mode', 'train'] + argv)`` with the flash counters
+    zeroed just before and read just after; gates its one JSON line, a
+    finite loss and 2L forward, L dq, L dk/dv launches per step (every
+    remat policy but 'none' re-runs the flash forward), none of them
+    segment kernels, no call outside the kernels."""
+    from skypilot_tpu_torch import bench
+    from skypilot_tpu_torch.models.config import get_model_config
+    n_layers = get_model_config('bench-1b7').n_layers
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    rc, lines = run_json_main(bench.main, ['--mode', 'train'] + argv)
+    torch.cuda.synchronize()
+    counts, fallbacks = dict(fa.LAUNCHES), dict(fa.FALLBACKS)
+    free_card(torch)
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f'{label}: bench rc {rc}, lines {lines}')
+    line = lines[0]
+    detail = line['detail']
+    n = n_layers * steps
+    expected = {'flash_fwd': 2 * n, 'flash_dq': n, 'flash_dkv': n,
+                'flash_fwd_seg': 0, 'flash_dq_seg': 0, 'flash_dkv_seg': 0}
+    if counts != expected or fallbacks['cuda'] or \
+            not math.isfinite(detail['loss']):
+        raise AssertionError(f'{label}: flash launches {counts} (expected '
+                             f'{expected}), calls outside the kernels '
+                             f'{fallbacks}, loss {detail["loss"]}')
+    log(f'[{label}] {json.dumps(line)}')
+    log(f'[{label}] {detail["remat_policy"]}: '
+        f'{detail["seconds_per_step"]:.4f} s/step, '
+        f'{detail["tokens_per_sec_per_chip"]} tokens/s, MFU {line["value"]}%'
+        f' of {detail["peak_tflops_per_chip"]:g} TFLOP/s, peak memory '
+        f'{detail["peak_memory_gb"]:.2f} GB; flash launches {counts} = '
+        f'2x{n_layers} fwd, {n_layers} dq, {n_layers} dkv x {steps} steps')
+    return dict(line=line, launches=counts)
+
+
+def phase_bench_train(torch, fa):
+    """Phase 16: the bench twin's train mode at its defaults (bench-1b7,
+    Adafactor, bf16 params, full remat, B=8, S=2048, 5 + 20 steps)."""
+    return bench_train(torch, fa, [], 25, 'bench-train')
+
+
+def phase_remat(torch, fa, steps=3):
+    """Phase 17: bench-1b7 Adafactor bf16 steps (1 warmup + ``steps``
+    timed) under each selective remat policy."""
+    out = {}
+    for policy in ('save_attn', 'save_dots', 'dots'):
+        out[policy] = bench_train(
+            torch, fa, ['--remat-policy', policy, '--warmup', '1',
+                        '--steps', str(steps)], 1 + steps, f'remat-{policy}')
+    return out
+
+
+def packed_tokens(path, n_tokens, eos_id, vocab, seed=0):
+    """A flat int32 token file of documents whose lengths are geometric
+    with mean 500, each ending in ``eos_id``."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    tokens = rng.randint(2, vocab, n_tokens).astype(np.int32)
+    tokens[rng.rand(n_tokens) < 1 / 500] = eos_id
+    np.save(path, tokens)
+
+
+def phase_packed(torch, fa, steps=3):
+    """Phase 18: ``pretrain.main --packed`` on bench-1b7 (B=8, S=2048,
+    Adafactor, bf16 params) over a token file written here: only the
+    segment kernels run (2L / L / L a step), the native packer packs
+    every batch, losses are finite."""
+    import os
+    import tempfile
+    from skypilot_tpu_torch.data import packer
+    from skypilot_tpu_torch.models.config import get_model_config
+    from skypilot_tpu_torch.train import pretrain
+    cfg = get_model_config('bench-1b7')
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'tokens.npy')
+        packed_tokens(path, 8 * 2049 * (steps + 2), 1, cfg.vocab_size)
+        argv = ['--model', 'bench-1b7', '--batch', '8', '--seq', '2048',
+                '--steps', str(steps), '--packed', '--data', path,
+                '--eos-id', '1', '--optimizer', 'adafactor',
+                '--param-dtype', 'bfloat16', '--warmup-steps', '1',
+                '--log-every', '1']
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        packer.reset_call_counts()
+        t0 = time.perf_counter()
+        rc, lines = run_json_main(pretrain.main, argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts, fallbacks = dict(fa.LAUNCHES), dict(fa.FALLBACKS)
+    calls = dict(packer.CALLS)
+    free_card(torch)
+    for line in lines:
+        log(f'[packed] {json.dumps(line)}')
+    losses = [x['loss'] for x in lines if 'loss' in x]
+    n = cfg.n_layers * steps
+    expected = {'flash_fwd': 0, 'flash_dq': 0, 'flash_dkv': 0,
+                'flash_fwd_seg': 2 * n, 'flash_dq_seg': n,
+                'flash_dkv_seg': n}
+    if rc != 0 or len(losses) != steps or \
+            not all(math.isfinite(x) for x in losses) or \
+            counts != expected or fallbacks['cuda'] or \
+            calls != {'native': steps, 'python': 0}:
+        raise AssertionError(
+            f'packed: rc {rc}, losses {losses}, flash launches {counts} '
+            f'(expected {expected}), calls outside the kernels '
+            f'{fallbacks}, packer calls {calls} (expected {steps} native)')
+    log(f'[packed] {steps} steps in {wall:.1f} s: flash launches {counts} '
+        f'= 2x{cfg.n_layers} fwd_seg, {cfg.n_layers} dq_seg, '
+        f'{cfg.n_layers} dkv_seg per step; packer calls {calls}')
+    return dict(launches=counts, losses=losses)
+
+
+RESUME_MODEL = 'tiny-hd128'
+
+
+def phase_resume(torch, fa):
+    """Phase 19: ``pretrain.main --checkpoint-dir`` on the card. TINY with
+    head_dim 128 (so the flash kernels run), registered here as
+    ``tiny-hd128``; Adafactor, bf16 params, B=4, S=128. Run A trains 4
+    steps, checkpointing at 2 and 4. Run B starts from a copy of A's
+    step 2 only, resumes and trains steps 3-4. B's logged losses and its
+    step-4 checkpoint (params and optimizer state) must equal A's
+    bitwise; the largest difference is printed."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    from skypilot_tpu_torch.models import config
+    from skypilot_tpu_torch.train import checkpoint, pretrain
+    if RESUME_MODEL not in config.MODEL_REGISTRY:
+        config.MODEL_REGISTRY.register(RESUME_MODEL)(dataclasses.replace(
+            config.TINY, name=RESUME_MODEL, head_dim=128))
+    cfg = config.get_model_config(RESUME_MODEL)
+    # 'none' remat (TINY's): one flash forward a layer and step.
+    want_fwd = 4 * cfg.n_layers * (1 if cfg.remat_policy == 'none' else 2)
+    base = ['--model', RESUME_MODEL, '--batch', '4', '--seq', '128',
+            '--steps', '4', '--checkpoint-every', '2', '--log-every', '1',
+            '--warmup-steps', '1', '--optimizer', 'adafactor',
+            '--param-dtype', 'bfloat16']
+    with tempfile.TemporaryDirectory() as tmp:
+        dir_a, dir_b = os.path.join(tmp, 'a'), os.path.join(tmp, 'b')
+        fa.reset_launch_counts()
+        rc_a, lines_a = run_json_main(pretrain.main,
+                                      base + ['--checkpoint-dir', dir_a])
+        launched = fa.LAUNCHES['flash_fwd']
+        shutil.copytree(os.path.join(dir_a, '2'), os.path.join(dir_b, '2'))
+        rc_b, lines_b = run_json_main(pretrain.main,
+                                      base + ['--checkpoint-dir', dir_b])
+        state_a = checkpoint.read_safetensors(
+            os.path.join(dir_a, '4', checkpoint.SHARD_NAME))
+        state_b = checkpoint.read_safetensors(
+            os.path.join(dir_b, '4', checkpoint.SHARD_NAME))
+        steps_b = [n for n in (2, 4)
+                   if checkpoint.step_manifest(dir_b, n) is not None]
+    loss_a = {x['step']: x['loss'] for x in lines_a if 'loss' in x}
+    loss_b = {x['step']: x['loss'] for x in lines_b if 'loss' in x}
+    diff = max(float((state_a[k].float() - state_b[k].float()).abs().max())
+               for k in state_a) if set(state_a) == set(state_b) else None
+    log(f'[resume] run A losses {loss_a}; run B {lines_b[0]}, losses '
+        f'{loss_b}; {len(state_a)} tensors of the step-4 states, largest '
+        f'difference {diff}')
+    if rc_a or rc_b or lines_b[0] != {'resumed_from_step': 2} or \
+            sorted(loss_b) != [3, 4] or \
+            any(loss_b[i] != loss_a[i] for i in loss_b) or diff != 0.0 or \
+            steps_b != [2, 4] or launched != want_fwd:
+        raise AssertionError(
+            f'resume: rc {rc_a}/{rc_b}, B {lines_b}, committed steps '
+            f'{steps_b}, flash fwd launches of A {launched} (expected '
+            f'{want_fwd}), state difference {diff}')
+    log('[resume] the resumed run reproduces the uninterrupted one '
+        'bitwise (losses, params, Adafactor statistics)')
+    return dict(max_state_diff=diff)
+
+
+def phase_bench_decode(torch, da, fa):
+    """Phase 20: the bench twin's decode mode at its defaults (bench-1b7,
+    bf16, B=8, prompt 128, N=256: generate at N and 2N after one warmup
+    of each): the decode kernel launches 22 times a decode step and the
+    flash forward 22 times a prefill."""
+    from skypilot_tpu_torch import bench
+    from skypilot_tpu_torch.models.config import get_model_config
+    n_layers = get_model_config('bench-1b7').n_layers
+    torch.cuda.synchronize()
+    da.reset_launch_counts()
+    fa.reset_launch_counts()
+    rc, lines = run_json_main(bench.main, ['--mode', 'decode'])
+    torch.cuda.synchronize()
+    counts, flash = dict(da.LAUNCHES), dict(fa.LAUNCHES)
+    free_card(torch)
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f'bench-decode: rc {rc}, lines {lines}')
+    line = lines[0]
+    new = line['detail']['new_tokens']
+    decode_steps = 2 * (new + 2 * new)
+    expected = {'decode_attention': n_layers * decode_steps,
+                'decode_attention_quant': 0}
+    log(f'[bench-decode] {json.dumps(line)}')
+    if counts != expected or flash['flash_fwd'] != 4 * n_layers or \
+            not line['value'] > 0:
+        raise AssertionError(
+            f'bench-decode: decode launches {counts} (expected {expected}),'
+            f' flash fwd {flash["flash_fwd"]} (expected {4 * n_layers})')
+    log(f'[bench-decode] {line["value"]} tokens/s; decode launches '
+        f'{counts["decode_attention"]} = {n_layers} x {decode_steps} '
+        f'decode steps')
+    return dict(line=line, launches=counts['decode_attention'])
+
+
+def phase_bench_kernels(torch):
+    """Phase 21: the bench twin's kernels mode: every hand kernel against
+    its plain version at the reference's shapes and tolerances."""
+    from skypilot_tpu_torch import bench
+    rc, lines = run_json_main(bench.main, ['--mode', 'kernels'])
+    free_card(torch)
+    log(f'[bench-kernels] {json.dumps(lines)}')
+    if rc != 0 or len(lines) != 1 or lines[0]['value'] != 1:
+        raise AssertionError(f'bench-kernels: rc {rc}')
+    return lines[0]
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for value in tree.values():
@@ -2460,6 +2689,7 @@ def main(argv=None) -> int:
     log(f'[smoke] kernel phases: paged {t1 - t0:.1f} s, decode '
         f'{t2 - t1:.1f} s, flash {time.perf_counter() - t2:.1f} s')
     engine, train, batch, spec, lora = {}, {}, {}, {}, {}
+    bench_tr, remat, packed, bench_dec = {}, {}, {}, {}
     if not args.skip_engine:
         phase_train_small(torch)
         train = phase_train(torch, fa, flops_peak)
@@ -2489,6 +2719,17 @@ def main(argv=None) -> int:
         lora = phase_lora_engine(torch, pa, params)
         log(f'[lora] summary {json.dumps(lora)}')
         del params
+        free_card(torch)
+        t0 = time.perf_counter()
+        bench_tr = phase_bench_train(torch, fa)
+        remat = phase_remat(torch, fa)
+        packed = phase_packed(torch, fa)
+        phase_resume(torch, fa)
+        t1 = time.perf_counter()
+        bench_dec = phase_bench_decode(torch, da, fa)
+        phase_bench_kernels(torch)
+        log(f'[smoke] phases 16-19 {t1 - t0:.1f} s, 20-21 '
+            f'{time.perf_counter() - t1:.1f} s')
     flash_src = 'skypilot_tpu/ops/pallas/flash_attention.py'
     replaces = {
         'paged_attention':
@@ -2515,22 +2756,31 @@ def main(argv=None) -> int:
                'flash_dkv': 'flash_attention.cu'}
     # Counts come only from the main paths' own runs (the continuous
     # engine's plain, speculative and LoRA windows for the paged
-    # kernels, the batch engine for the decode kernels, the bench-1b7
-    # trainer for the flash kernels): null when they were skipped,
-    # never a number this run did not measure.
-    tl = train.get('launches')
-    paged = [engine.get('launches'), spec.get('launches'),
-             lora.get('launches')]
-    paged_quant = [engine.get('launches_quant'),
-                   spec.get('launches_quant')]
-    launches = {'paged_attention':
-                    sum(paged) if None not in paged else None,
-                'paged_attention_quant':
-                    sum(paged_quant) if None not in paged_quant else None,
-                'decode_attention': batch.get('launches'),
-                'decode_attention_quant': batch.get('launches_quant')}
+    # kernels, the batch engine and the bench twin's decode mode for
+    # the decode kernels, the trainer's entry points for the flash
+    # kernels: phase 7, the bench twin's train mode and the remat
+    # policies, and --packed for the segment twins): null when they
+    # were skipped, never a number this run did not measure.
+    def total(parts):
+        return sum(parts) if None not in parts else None
+
+    trains = [train.get('launches'), bench_tr.get('launches'),
+              packed.get('launches')] + [
+        remat.get(p, {}).get('launches')
+        for p in ('save_attn', 'save_dots', 'dots')]
+    launches = {
+        'paged_attention': total([engine.get('launches'),
+                                  spec.get('launches'),
+                                  lora.get('launches')]),
+        'paged_attention_quant': total([engine.get('launches_quant'),
+                                        spec.get('launches_quant')]),
+        'decode_attention': total([batch.get('launches'),
+                                   bench_dec.get('launches')]),
+        'decode_attention_quant': batch.get('launches_quant')}
     for name in ('flash_fwd', 'flash_dq', 'flash_dkv'):
-        launches[name] = tl[name] + tl[name + '_seg'] if tl else None
+        launches[name] = total([
+            None if t is None else t[name] + t[name + '_seg']
+            for t in trains])
     kernels = [dict(name=name, route='cuda',
                     source='skypilot_tpu_torch/csrc/' + sources[name],
                     replaces=replaces[name], launches=launches[name],

@@ -4,24 +4,30 @@ Params are a plain dict with the JAX package's keys and its stacked
 ``[L, ...]`` layer layout (``models/convert.py`` carries a JAX pytree
 over as is). Here: RoPE tables (with the llama3 NTK scaling), the gated
 MLP activation, ``init_params``, the attention and MLP blocks, the
-``'none'`` and ``'full'`` remat policies and ``forward``.
+reference's five remat policies and ``forward``.
 
 Differences of idiom from the reference: the layer loop is a Python
-loop over the stacked weights (the reference's ``lax.scan``), ``'full'``
-remat is ``torch.utils.checkpoint`` per layer, and the one-hot ("iota")
-embedding is an index lookup, which picks the same rows. LoRA adapters
-mounted at ``params['layers']['lora']`` (``models/lora.py``) add their
-q/v deltas in the attention block. MoE blocks, the selective remat
-policies and pipeline stages belong to later slices and raise here.
+loop over the stacked weights (the reference's ``lax.scan``), remat is
+``torch.utils.checkpoint`` per layer (``_remat_policy`` says how the
+selective policies are kept), and the one-hot ("iota") embedding is an
+index lookup, which picks the same rows. LoRA adapters mounted at
+``params['layers']['lora']`` (``models/lora.py``) add their q/v deltas
+in the attention block. MoE blocks and pipeline stages belong to later
+slices and raise here.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
-from typing import Any, Dict, List, Optional, Tuple, Union
+import threading
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from skypilot_tpu_torch.models.config import ModelConfig
 from skypilot_tpu_torch.models.lora import apply_lora_qv
@@ -213,34 +219,66 @@ def fp32_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
 # Blocks
 # ---------------------------------------------------------------------------
 
+# The reference's ``checkpoint_name`` tags (its llama.py:191-233): the
+# tensor computed inside ``_named(name)`` is the one the selective remat
+# policies may save. The weight casts run before the context, so the
+# only product or sum inside it (``_TAGGED_OPS``) makes that tensor;
+# einsum's reshapes around it are not saved.
+_tag = threading.local()
+_TAGGED_OPS = (torch.ops.aten.bmm.default, torch.ops.aten.mm.default,
+               torch.ops.aten.mul.Tensor, torch.ops.aten.add.Tensor)
+
+
+@contextlib.contextmanager
+def _named(name: Optional[str]):
+    before = getattr(_tag, 'name', None)
+    _tag.name = name
+    try:
+        yield
+    finally:
+        _tag.name = before
+
+
 def _attention_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
                      sin: torch.Tensor, cos: torch.Tensor,
                      segments: Optional[torch.Tensor] = None,
                      lora_params: Optional[Params] = None
                      ) -> torch.Tensor:
     dt = cfg.compute_dtype
-    q = torch.einsum('bsd,dhk->bshk', x, lp['wq'].to(dt))
-    k = torch.einsum('bsd,dhk->bshk', x, lp['wk'].to(dt))
-    v = torch.einsum('bsd,dhk->bshk', x, lp['wv'].to(dt))
+    wq, wk, wv, wo = (lp[n].to(dt) for n in ('wq', 'wk', 'wv', 'wo'))
+    with _named(None if lora_params is not None else 'query_proj'):
+        q = torch.einsum('bsd,dhk->bshk', x, wq)
+    with _named('key_proj'):
+        k = torch.einsum('bsd,dhk->bshk', x, wk)
+    with _named(None if lora_params is not None else 'value_proj'):
+        v = torch.einsum('bsd,dhk->bshk', x, wv)
     if lora_params is not None:
-        # LoRA deltas on q/v; the base weights stay as they are.
+        # LoRA deltas on q/v; the base weights stay as they are. The
+        # tags go on the sums, as in the reference.
         dq, dv = apply_lora_qv(x, lora_params)
-        q = q + dq
-        v = v + dv
+        with _named('query_proj'):
+            q = q + dq
+        with _named('value_proj'):
+            v = v + dv
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
     out = multi_head_attention(q, k, v, causal=True, segment_ids=segments,
                                impl=cfg.attention_impl)
-    return torch.einsum('bshk,hkd->bsd', out, lp['wo'].to(dt))
+    with _named('attn_out'):
+        return torch.einsum('bshk,hkd->bsd', out, wo)
 
 
 def _mlp_block(x: torch.Tensor, lp: Params,
                cfg: ModelConfig) -> torch.Tensor:
     dt = cfg.compute_dtype
-    gate = torch.einsum('bsd,df->bsf', x, lp['wi_gate'].to(dt))
-    up = torch.einsum('bsd,df->bsf', x, lp['wi_up'].to(dt))
-    hidden = _activate(gate, cfg) * up
-    return torch.einsum('bsf,fd->bsd', hidden, lp['wo'].to(dt))
+    w_gate, w_up, wo = (lp[n].to(dt) for n in ('wi_gate', 'wi_up', 'wo'))
+    gate = torch.einsum('bsd,df->bsf', x, w_gate)
+    up = torch.einsum('bsd,df->bsf', x, w_up)
+    act = _activate(gate, cfg)
+    with _named('mlp_hidden'):
+        hidden = act * up
+    with _named('mlp_out'):
+        return torch.einsum('bsf,fd->bsd', hidden, wo)
 
 
 def _decoder_layer(x: torch.Tensor, lp: Params, cfg: ModelConfig,
@@ -255,21 +293,72 @@ def _decoder_layer(x: torch.Tensor, lp: Params, cfg: ModelConfig,
     return x + _mlp_block(h, lp['mlp'], cfg)
 
 
-def _remat_policy(cfg: ModelConfig) -> bool:
-    """True when each layer is rematerialized in the backward.
+_ATTN_NAMES = ('query_proj', 'key_proj', 'value_proj', 'attn_out')
+SAVED_NAMES = {'save_attn': frozenset(_ATTN_NAMES),
+               'save_dots': frozenset(_ATTN_NAMES +
+                                      ('mlp_hidden', 'mlp_out'))}
 
-    ``'full'`` saves nothing but the layer input and re-runs the layer
-    (``torch.utils.checkpoint``, non-reentrant); ``'none'`` saves every
-    activation. The selective policies are later work."""
+
+def _save_only_these_names(names: frozenset) -> Callable[..., Any]:
+    """jax.checkpoint_policies.save_only_these_names as a selective
+    checkpoint policy: the product or sum run inside ``_named(n)`` for
+    ``n`` in ``names`` is saved, every other op is recomputed."""
+    def policy(ctx, func, *args, **kwargs):
+        del ctx, args, kwargs
+        if func in _TAGGED_OPS and getattr(_tag, 'name', None) in names:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
+def _dots_with_no_batch_dims(ctx, func, *args, **kwargs):
+    """jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims: save
+    every matrix product without batch dims. ``torch.einsum`` lowers
+    the layer's weight products ('bsd,dhk->bshk' and the like) to a
+    ``bmm`` with a batch of one, and the attention products with batch
+    and heads to a ``bmm`` over B x H."""
+    del ctx, kwargs
+    if func is torch.ops.aten.mm.default or (
+            func is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_policy(cfg: ModelConfig) -> Optional[Callable[..., Any]]:
+    """How each layer is rematerialized in the backward: None (keep
+    every activation), ``torch.utils.checkpoint`` alone (full), or a
+    selective checkpoint policy. Flash forwards a layer runs in one
+    train step, with one dq and one dk/dv launch:
+
+    * ``none``: keep every activation; 1 forward.
+    * ``full``: save only the layer input and re-run the layer; 2.
+    * ``save_attn``: save ``query_proj``, ``key_proj``, ``value_proj``
+      and ``attn_out`` (the output after ``wo``); the norms, RoPE, the
+      attention and the MLP are recomputed; 2 (``wo``'s gradient and
+      the flash backward need the flash output, which no name saves,
+      as in the reference).
+    * ``save_dots``: those and ``mlp_hidden``, ``mlp_out``; 2.
+    * ``dots``: every weight product (``_dots_with_no_batch_dims``);
+      2, for the same reason.
+
+    The flash kernels are a ctypes launch inside an autograd Function,
+    which a selective policy never sees, so they always re-run under
+    remat, like the reference's Pallas calls."""
     if cfg.remat_policy == 'none':
-        return False
+        return None
     if cfg.remat_policy == 'full':
-        return True
-    if cfg.remat_policy in ('save_attn', 'save_dots', 'dots'):
-        raise NotImplementedError(
-            f'remat policy {cfg.remat_policy!r} is not ported yet '
-            '(ROADMAP.md, queue A item 14)')
-    raise ValueError(f'Unknown remat policy {cfg.remat_policy!r}')
+        return functools.partial(torch.utils.checkpoint.checkpoint,
+                                 use_reentrant=False)
+    if cfg.remat_policy == 'dots':
+        policy = _dots_with_no_batch_dims
+    elif cfg.remat_policy in SAVED_NAMES:
+        policy = _save_only_these_names(SAVED_NAMES[cfg.remat_policy])
+    else:
+        raise ValueError(f'Unknown remat policy {cfg.remat_policy!r}')
+    return functools.partial(
+        torch.utils.checkpoint.checkpoint, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                     policy))
 
 
 def _unstack(layers: Params, n_layers: int) -> List[Params]:
@@ -320,10 +409,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     x = params['embed']['embedding'][tokens.long()].to(dt)
     remat = _remat_policy(cfg)
     for lp in _unstack(params['layers'], cfg.n_layers):
-        if remat:
-            x = torch.utils.checkpoint.checkpoint(
-                _decoder_layer, x, lp, cfg, sin, cos, segments,
-                use_reentrant=False)
+        if remat is not None:
+            x = remat(_decoder_layer, x, lp, cfg, sin, cos, segments)
         else:
             x = _decoder_layer(x, lp, cfg, sin, cos, segments)
     x = rms_norm(x, params['final_norm']['scale'], cfg.norm_eps)

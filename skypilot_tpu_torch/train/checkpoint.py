@@ -1,0 +1,279 @@
+"""Checkpoint save/restore and the resume pattern: the port of
+``skypilot_tpu/train/checkpoint.py``.
+
+A checkpoint directory holds one subdirectory per step, named by the
+step number. Each holds ``state.safetensors``, every tensor of the train
+state by its '/'-joined key (``step``, ``params/layers/attn/wq``,
+``opt_state/count``, ``opt_state/v_row/embed/embedding``, ...; integers
+as 0-dim int64 tensors), and the manifest of ``data/ckpt_manifest.py``.
+
+The file is written by hand in the safetensors layout (an 8-byte
+little-endian header length, a JSON header of dtype, shape and byte
+offsets per tensor, then the raw bytes), so any safetensors reader
+reads it. The reference writes with orbax; reading its orbax
+checkpoints is out of scope.
+
+The commit protocol is the reference's: the shard file is written and
+fsynced first, ``fault_injection.inject(COMMIT_SITE)`` runs next, and
+the manifest is written last. ``latest_step`` reports committed steps
+only: a save that died before its manifest, or a torn manifest, reads
+as absent. After each commit the ``max_to_keep`` newest committed steps
+are kept and older ones removed.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+import shutil
+import struct
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from skypilot_tpu_torch.data import ckpt_manifest
+from skypilot_tpu_torch.utils import fault_injection
+
+logger = logging.getLogger(__name__)
+
+# Chaos site between the shard write and the manifest commit: a save
+# killed here must stay invisible to ``latest_step``.
+COMMIT_SITE = 'train.ckpt.commit'
+SHARD_NAME = 'state.safetensors'
+
+_DTYPES = {torch.float32: 'F32', torch.bfloat16: 'BF16',
+           torch.float16: 'F16', torch.float64: 'F64',
+           torch.int64: 'I64', torch.int32: 'I32', torch.int16: 'I16',
+           torch.int8: 'I8', torch.uint8: 'U8', torch.bool: 'BOOL'}
+_FROM_NAME = {v: k for k, v in _DTYPES.items()}
+
+
+# ---------------------------------------------------------------------------
+# safetensors files
+# ---------------------------------------------------------------------------
+
+def _raw_bytes(t: torch.Tensor) -> bytes:
+    t = t.detach().to('cpu').contiguous().reshape(-1)
+    return t.view(torch.uint8).numpy().tobytes()
+
+
+def write_safetensors(path: str, tensors: Dict[str, torch.Tensor]) -> None:
+    """Write ``tensors`` (in key order) to ``path`` and fsync it."""
+    header: Dict[str, Any] = {}
+    offset = 0
+    for name in sorted(tensors):
+        t = tensors[name]
+        if t.dtype not in _DTYPES:
+            raise TypeError(f'{name}: dtype {t.dtype} has no safetensors '
+                            'name')
+        size = t.numel() * t.element_size()
+        header[name] = {'dtype': _DTYPES[t.dtype], 'shape': list(t.shape),
+                        'data_offsets': [offset, offset + size]}
+        offset += size
+    raw = json.dumps(header, separators=(',', ':')).encode()
+    raw += b' ' * (-len(raw) % 8)
+    with open(path, 'wb') as f:
+        f.write(struct.pack('<Q', len(raw)))
+        f.write(raw)
+        for name in sorted(tensors):
+            f.write(_raw_bytes(tensors[name]))
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """The tensors of a safetensors file, on the CPU (its
+    ``__metadata__`` is skipped)."""
+    with open(path, 'rb') as f:
+        (size,) = struct.unpack('<Q', f.read(8))
+        header = json.loads(f.read(size))
+        data = bytearray(f.read())
+    header.pop('__metadata__', None)
+    out: Dict[str, torch.Tensor] = {}
+    for name, info in header.items():
+        dtype = _FROM_NAME[info['dtype']]
+        start, end = info['data_offsets']
+        if end > start:
+            flat = torch.frombuffer(data, dtype=torch.uint8, offset=start,
+                                    count=end - start).view(dtype)
+        else:
+            flat = torch.empty((0,), dtype=dtype)
+        out[name] = flat.reshape(info['shape'])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Trees
+# ---------------------------------------------------------------------------
+
+def _as_dict(tree: Any) -> Any:
+    """A TrainState (any dataclass) as a dict of its fields, shallowly:
+    ``dataclasses.asdict`` would copy every tensor."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return {f.name: getattr(tree, f.name)
+                for f in dataclasses.fields(tree)}
+    return tree
+
+
+def _flatten(tree: Any, prefix: str = '') -> Dict[str, Any]:
+    tree = _as_dict(tree)
+    if isinstance(tree, dict):
+        out: Dict[str, Any] = {}
+        for key in sorted(tree):
+            out.update(_flatten(tree[key], f'{prefix}{key}/'))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _to_tensors(flat: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    out = {}
+    for key, leaf in flat.items():
+        if isinstance(leaf, torch.Tensor):
+            out[key] = leaf
+        elif isinstance(leaf, int):
+            out[key] = torch.tensor(leaf, dtype=torch.int64)
+        else:
+            raise TypeError(f'{key}: cannot checkpoint a '
+                            f'{type(leaf).__name__}')
+    return out
+
+
+@torch.no_grad()
+def _restore_into(tree: Any, loaded: Dict[str, torch.Tensor],
+                  prefix: str = '') -> Any:
+    """``tree`` with every tensor overwritten in place from ``loaded``
+    (so it keeps its device and dtype) and every int replaced."""
+    node = _as_dict(tree)
+    if isinstance(node, dict):
+        rebuilt = {k: _restore_into(v, loaded, f'{prefix}{k}/')
+                   for k, v in node.items()}
+        if node is not tree:
+            return dataclasses.replace(tree, **rebuilt)
+        return rebuilt
+    key = prefix[:-1]
+    value = loaded[key]
+    if isinstance(tree, torch.Tensor):
+        if tuple(value.shape) != tuple(tree.shape):
+            raise ValueError(f'{key}: checkpoint shape {tuple(value.shape)}'
+                             f' != state shape {tuple(tree.shape)}')
+        tree.copy_(value)
+        return tree
+    return int(value)
+
+
+# ---------------------------------------------------------------------------
+# Steps
+# ---------------------------------------------------------------------------
+
+def _step_dir(directory: str, step: int) -> Optional[str]:
+    """The digit-named child of ``directory`` whose value is ``step``
+    (tolerant of zero-padding)."""
+    try:
+        entries = os.listdir(directory)
+    except OSError:
+        return None
+    for name in entries:
+        full = os.path.join(directory, name)
+        if name.isdigit() and int(name) == step and os.path.isdir(full):
+            return full
+    return None
+
+
+def _committed_steps(directory: str) -> Tuple[List[int], List[int]]:
+    """``(committed, uncommitted)`` step numbers by manifest presence (a
+    torn manifest reads as absent)."""
+    committed: List[int] = []
+    uncommitted: List[int] = []
+    try:
+        entries = os.listdir(directory)
+    except OSError:
+        return committed, uncommitted
+    for name in entries:
+        full = os.path.join(directory, name)
+        if not (name.isdigit() and os.path.isdir(full)):
+            continue
+        if ckpt_manifest.read(full) is not None:
+            committed.append(int(name))
+        else:
+            uncommitted.append(int(name))
+    return committed, uncommitted
+
+
+def save(directory: str, step: int, tree: Any,
+         max_to_keep: int = 3) -> None:
+    """Write step ``step`` of ``tree`` (a TrainState or a dict of
+    tensors and ints) and commit it; then keep the ``max_to_keep``
+    newest committed steps. An uncommitted directory of the same step
+    (a save that died) is replaced; a committed one raises."""
+    directory = os.path.abspath(os.path.expanduser(directory))
+    os.makedirs(directory, exist_ok=True)
+    old = _step_dir(directory, step)
+    if old is not None:
+        if ckpt_manifest.read(old) is not None:
+            raise FileExistsError(f'checkpoint step {step} is already '
+                                  f'committed in {directory}')
+        shutil.rmtree(old)
+    step_dir = os.path.join(directory, str(step))
+    os.makedirs(step_dir)
+    write_safetensors(os.path.join(step_dir, SHARD_NAME),
+                      _to_tensors(_flatten(tree)))
+    fault_injection.inject(COMMIT_SITE)
+    ckpt_manifest.write(step_dir, ckpt_manifest.build(step_dir, step=step))
+    committed, _ = _committed_steps(directory)
+    for stale in sorted(committed)[:-max_to_keep]:
+        shutil.rmtree(_step_dir(directory, stale), ignore_errors=True)
+    logger.info('Saved checkpoint step %d to %s', step, directory)
+
+
+def step_manifest(directory: str, step: int) -> Optional[dict]:
+    """The committed manifest of one step (None = absent or
+    uncommitted)."""
+    directory = os.path.abspath(os.path.expanduser(directory))
+    step_dir = _step_dir(directory, step)
+    if step_dir is None:
+        return None
+    return ckpt_manifest.read(step_dir)
+
+
+def latest_step(directory: str) -> Optional[int]:
+    """Newest COMMITTED step, or None. A pure read: nothing is
+    created."""
+    directory = os.path.abspath(os.path.expanduser(directory))
+    committed, uncommitted = _committed_steps(directory)
+    if uncommitted:
+        logger.warning('Ignoring uncommitted checkpoint step(s) %s in %s '
+                       '(save died before the manifest commit)',
+                       sorted(uncommitted), directory)
+    return max(committed) if committed else None
+
+
+def restore(directory: str, step: int, target: Any) -> Any:
+    """Step ``step`` restored into ``target``: its tensors are
+    overwritten in place (on their device, in their dtypes) and its ints
+    replaced; returns the restored tree. Keys must match exactly."""
+    directory = os.path.abspath(os.path.expanduser(directory))
+    step_dir = _step_dir(directory, step)
+    if step_dir is None or ckpt_manifest.read(step_dir) is None:
+        raise FileNotFoundError(f'no committed checkpoint step {step} in '
+                                f'{directory}')
+    loaded = read_safetensors(os.path.join(step_dir, SHARD_NAME))
+    want = set(_flatten(target))
+    if want != set(loaded):
+        raise ValueError(
+            f'checkpoint step {step} does not match the state: missing '
+            f'{sorted(want - set(loaded))}, extra '
+            f'{sorted(set(loaded) - want)}')
+    restored = _restore_into(target, loaded)
+    logger.info('Restored checkpoint step %d from %s', step, directory)
+    return restored
+
+
+def restore_latest(directory: str, init_fn: Callable[[], Any]) -> Any:
+    """The newest committed checkpoint restored into ``init_fn()``, or
+    ``init_fn()`` itself when there is none."""
+    step = latest_step(directory)
+    target = init_fn()
+    if step is None:
+        return target
+    return restore(directory, step, target)

@@ -3,6 +3,9 @@
 
     python -m skypilot_tpu_torch.train.pretrain --model bench-1b7 \\
         --batch 8 --seq 2048 --steps 20
+    python -m skypilot_tpu_torch.train.pretrain --model bench-1b7 \\
+        --optimizer adafactor --param-dtype bfloat16 --packed \\
+        --data tokens.npy --eos-id 1 --checkpoint-dir ckpt
     python -m skypilot_tpu_torch.train.pretrain --model tiny --device cpu
 
 Runs on the GPU unless ``--device cpu`` is given. Emits one JSON line per
@@ -10,14 +13,15 @@ Runs on the GPU unless ``--device cpu`` is given. Emits one JSON line per
     {"step": N, "loss": x, "tokens_per_sec": y, "achieved_tflops": z}
 and ``{"done": true, "final_step": N}`` at the end.
 
-Not ported yet, and raising with a pointer to ROADMAP.md: a ``--mesh``
-over more than one device, ``--checkpoint-dir`` (orbax in the
-reference), ``--packed`` (the native packer) and ``--optimizer
-adafactor``. Every flag of the reference still parses, so its command
-lines run unchanged or fail on the unported feature they name: so
-``--eos-id`` (read by ``--packed``), ``--checkpoint-every`` (read by
-``--checkpoint-dir``) and ``--moe-dispatch`` / ``--capacity-factor``
-(read by the MoE forward, which raises) take no effect of their own.
+``--checkpoint-dir`` restores the newest committed step (printing
+``{"resumed_from_step": n}``) and saves every ``--checkpoint-every``
+steps, at the last step, and before a resize exit
+(``train/checkpoint.py``). ``--packed`` packs the EOS-delimited
+documents of ``--data`` (``data/packer.py``; on the card the native
+packer must build) and counts only the real tokens (the weights) in
+tokens/s. A ``--mesh`` over more than one device raises with a pointer
+to ROADMAP.md; ``--moe-dispatch`` / ``--capacity-factor`` parse (the
+MoE forward raises).
 """
 from __future__ import annotations
 
@@ -110,7 +114,9 @@ def main(argv=None) -> int:
     parser.add_argument('--data', default='synthetic',
                         help="'synthetic' or a flat token .npy file")
     parser.add_argument('--packed', action='store_true', default=False,
-                        help='pack EOS-delimited documents (not ported)')
+                        help='Pack EOS-delimited documents from --data '
+                             'into padding-free batches (native C++ '
+                             'packer; segment-masked attention).')
     parser.add_argument('--eos-id', type=int, default=1,
                         help='Document delimiter token for --packed.')
     parser.add_argument('--checkpoint-dir', default=None)
@@ -122,7 +128,8 @@ def main(argv=None) -> int:
                         choices=[None, 'none', 'dots', 'save_attn',
                                  'save_dots', 'full'],
                         help='activation remat: full = least memory; '
-                             "only 'none' and 'full' are ported")
+                             'save_attn/save_dots trade memory for '
+                             'less recompute (models/llama.py).')
     parser.add_argument('--moe-dispatch', default=None,
                         choices=[None, 'dense', 'capacity'])
     parser.add_argument('--capacity-factor', type=float, default=None)
@@ -131,6 +138,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     from skypilot_tpu_torch.models.config import get_model_config
+    from skypilot_tpu_torch.train import checkpoint as ckpt_lib
     from skypilot_tpu_torch.train.step import (TrainHParams,
                                                create_train_state,
                                                make_train_step,
@@ -138,13 +146,6 @@ def main(argv=None) -> int:
     from skypilot_tpu_torch.utils.device import resolve_device
 
     _check_single_device(args.mesh)
-    if args.checkpoint_dir:
-        raise NotImplementedError(
-            'checkpoints are not ported yet (ROADMAP.md, queue A item 14)')
-    if args.packed:
-        raise NotImplementedError(
-            '--packed (the native packer) is not ported yet (ROADMAP.md, '
-            'queue A item 14)')
     device = resolve_device(args.device)
     overrides = {}
     if args.param_dtype:
@@ -162,23 +163,45 @@ def main(argv=None) -> int:
                       total_steps=max(args.steps, args.warmup_steps + 1),
                       optimizer=args.optimizer)
     state = create_train_state(0, cfg, hp, device=device)
+    start_step = 0
+    if args.checkpoint_dir:
+        latest = ckpt_lib.latest_step(args.checkpoint_dir)
+        if latest is not None:
+            state = ckpt_lib.restore(args.checkpoint_dir, latest, state)
+            start_step = state.step
+            print(json.dumps({'resumed_from_step': start_step}),
+                  flush=True)
     step_fn = make_train_step(cfg, hp)
 
     if args.data == 'synthetic':
         data_iter = None
+    elif args.packed:
+        from skypilot_tpu_torch.data.packer import packed_batch_iterator
+        data_iter = packed_batch_iterator(
+            args.data, batch=args.batch, seq=seq, eos_id=args.eos_id,
+            require_native=device.type == 'cuda')
     else:
         data_iter = file_batch_iterator(args.data, args.batch, seq, device)
     flops_per_token = cfg.flops_per_token(seq)
     window_t0 = time.perf_counter()
-    window_tokens = 0
-    for step in range(args.steps):
+    window_tokens = 0.0
+    for step in range(start_step, args.steps):
         if data_iter is not None:
             batch = next(data_iter)
         else:
             batch = synthetic_batch(step, args.batch, seq, cfg.vocab_size,
                                     device)
+        # REAL tokens, not grid cells: packed batches (host numpy) carry
+        # padding with weight 0, which must not count in throughput.
+        weights = batch['weights']
+        if isinstance(weights, np.ndarray):
+            real_tokens = float(weights.sum())
+            batch = {k: torch.from_numpy(v).to(device)
+                     for k, v in batch.items()}
+        else:
+            real_tokens = args.batch * seq
         state, metrics = step_fn(state, batch)
-        window_tokens += args.batch * seq
+        window_tokens += real_tokens
         if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
             loss = float(metrics['loss'])  # sync point
             elapsed = time.perf_counter() - window_t0
@@ -190,8 +213,17 @@ def main(argv=None) -> int:
                 'achieved_tflops': round(tps * flops_per_token / 1e12, 2),
             }), flush=True)
             window_t0 = time.perf_counter()
-            window_tokens = 0
+            window_tokens = 0.0
+        saved_this_step = bool(args.checkpoint_dir) and (
+            (step + 1) % args.checkpoint_every == 0 or
+            step + 1 == args.steps)
+        if saved_this_step:
+            ckpt_lib.save(args.checkpoint_dir, step + 1, state)
         if resize_requested():
+            # A step boundary is the only resize-safe point: params and
+            # optimizer state are consistent. Checkpoint, then exit 0.
+            if args.checkpoint_dir and not saved_this_step:
+                ckpt_lib.save(args.checkpoint_dir, step + 1, state)
             print(json.dumps({'resize_exit_at_step': step + 1}),
                   flush=True)
             return 0

@@ -1,13 +1,17 @@
 """Train state and train step on one card: the port of
 ``skypilot_tpu/train/step.py``.
 
-The optimizer is optax's ``chain(clip_by_global_norm(c), adamw(schedule,
-b1, b2, eps=1e-8, eps_root=0, weight_decay=wd))`` with its update rules
-written out in torch (not ``torch.optim``): the global norm clip (no
-change below the limit, else ``g / norm * limit``), Adam moments with
-bias correction at the incremented count, decoupled weight decay on
-every leaf (the reference's mask is None), and the learning rate of
-``warmup_cosine_decay_schedule`` at the count before the increment.
+The optimizers are the reference's optax chains with their update rules
+written out in torch (not ``torch.optim``):
+
+- ``adamw``: ``chain(clip_by_global_norm(c), adamw(schedule, b1, b2,
+  eps=1e-8, eps_root=0, weight_decay=wd))``: the global norm clip (no
+  change below the limit, else ``g / norm * limit``), Adam moments with
+  bias correction at the incremented count, decoupled weight decay on
+  every leaf (the reference's mask is None), and the learning rate of
+  ``warmup_cosine_decay_schedule`` at the count before the increment.
+- ``adafactor``: ``chain(clip_by_global_norm(c), adafactor(schedule,
+  weight_decay_rate=wd, decay_rate=b2))`` (class ``Adafactor``).
 
 Differences of idiom from the reference: there is no mesh (one card;
 passing one raises), no jit and no donation. The parameters and the
@@ -22,6 +26,7 @@ import math
 import os
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from skypilot_tpu_torch.models import llama
@@ -53,7 +58,8 @@ class TrainHParams:
     b2: float = 0.95
     grad_clip_norm: float = 1.0
     z_loss_coeff: float = 1e-4
-    # 'adamw' (2 fp32 moments/param); 'adafactor' is not ported yet.
+    # 'adamw' (2 fp32 moments/param) or 'adafactor' (factored second
+    # moment in the param's dtype, O(rows + cols) state per leaf).
     optimizer: str = 'adamw'
 
 
@@ -105,6 +111,15 @@ def warmup_cosine_decay(init_value: float, peak_value: float,
     return schedule
 
 
+def _schedule(hp: TrainHParams) -> Callable[[int], float]:
+    """The reference's learning-rate schedule for both optimizers."""
+    return warmup_cosine_decay(
+        init_value=0.0, peak_value=hp.learning_rate,
+        warmup_steps=hp.warmup_steps,
+        decay_steps=max(hp.total_steps, hp.warmup_steps + 1),
+        end_value=hp.learning_rate * 0.1)
+
+
 class AdamW:
     """clip_by_global_norm -> scale_by_adam -> add_decayed_weights ->
     scale_by_learning_rate(schedule), updating params in place.
@@ -115,11 +130,7 @@ class AdamW:
         self.hp = hp
         self.eps = 1e-8        # optax.adamw defaults
         self.eps_root = 0.0
-        self.schedule = warmup_cosine_decay(
-            init_value=0.0, peak_value=hp.learning_rate,
-            warmup_steps=hp.warmup_steps,
-            decay_steps=max(hp.total_steps, hp.warmup_steps + 1),
-            end_value=hp.learning_rate * 0.1)
+        self.schedule = _schedule(hp)
 
     def init(self, params: Params) -> Dict[str, Any]:
         def zeros(tree):
@@ -159,10 +170,168 @@ class AdamW:
                 'nu': state['nu']}, g_norm
 
 
-def make_optimizer(hp: TrainHParams) -> AdamW:
+def factored_dims(shape: Tuple[int, ...],
+                  min_dim_size_to_factor: int = 128
+                  ) -> Optional[Tuple[int, int]]:
+    """optax's ``_factored_dims``: the leaf's two largest dims (second
+    largest, largest) by numpy's own ``argsort`` of the shape, so ties
+    fall as they do in optax; None when the second largest is below
+    ``min_dim_size_to_factor`` or the leaf has fewer than two dims. On
+    bench-1b7's stacked leaves: ``wq [22, 2560, 20, 128]`` gives (3, 1),
+    ``wo [22, 20, 128, 2560]`` (2, 3), the norm scales ``[22, 2560]``
+    None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _in_dtype(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype``: a weakly typed scalar in JAX takes the
+    array's dtype before the op, where torch would keep it in float."""
+    return torch.tensor(x, dtype=dtype).item()
+
+
+def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """optax.global_norm: each leaf's sum of squares (accumulated in
+    fp32, stored in the leaf's dtype), summed over the leaves in order,
+    then the square root, all in that dtype."""
+    total = sum(torch.sum(torch.square(g.float())).to(g.dtype)
+                for g in grads)
+    return torch.sqrt(total)
+
+
+class Adafactor:
+    """``chain(clip_by_global_norm(c), adafactor(schedule,
+    weight_decay_rate=wd, decay_rate=b2))`` with optax's defaults
+    (``min_dim_size_to_factor=128``, ``eps=1e-30``, clipping threshold
+    1, parameter scale on, no momentum), updating params in place:
+
+    1. the global norm clip, in the grads' dtype (``g / norm * c`` above
+       the limit, ``g`` unchanged below it);
+    2. ``scale_by_factored_rms``: with ``beta = 1 - (count + 1) ** -b2``
+       (0 at the first step: ``b2`` is an exponent here, not a beta) and
+       ``g2 = g * g + eps``, a factored leaf (``factored_dims``, dims
+       ``d1`` < ``d0`` in size) keeps ``v_row = beta v_row + (1 - beta)
+       mean(g2, d0)`` and ``v_col`` likewise over ``d1`` and scales ``g``
+       by ``(v_row / mean(v_row over d1)) ** -0.5`` along ``d0`` and
+       ``v_col ** -0.5`` along ``d1``; any other leaf keeps a full ``v``
+       and scales by ``v ** -0.5``;
+    3. ``clip_by_block_rms(1)``: ``u / max(1, rms(u))`` per whole leaf;
+    4. ``u * lr(count)``;
+    5. ``u * max(rms(param), 1e-3)`` per whole leaf;
+    6. ``u + wd * param``: the weight decay comes after the learning
+       rate, so the rate does not scale it (each step shrinks every
+       param by ``wd``, as in the reference);
+    7. ``param - u``.
+
+    The statistics are stored in the param's dtype (bf16 params keep
+    bf16 statistics) and the means and decays run in fp32 where JAX
+    promotes them; scalars are rounded to the leaf's dtype first, as
+    JAX's weak types are. State: ``{'count': int, 'v_row', 'v_col',
+    'v'}``, each a params-like tree, unused statistics ``(1,)`` zeros:
+    optax's ``FactoredState`` names and shapes."""
+
+    min_dim_size_to_factor = 128
+    eps = 1e-30
+    clipping_threshold = 1.0
+    min_param_scale = 1e-3
+
+    def __init__(self, hp: TrainHParams):
+        self.hp = hp
+        self.decay_rate = hp.b2
+        self.schedule = _schedule(hp)
+
+    def _factored(self, shape) -> Optional[Tuple[int, int]]:
+        return factored_dims(tuple(shape), self.min_dim_size_to_factor)
+
+    def init(self, params: Params) -> Dict[str, Any]:
+        def stats(tree, which):
+            if isinstance(tree, dict):
+                return {k: stats(v, which) for k, v in tree.items()}
+            dims = self._factored(tree.shape)
+            shape = (1,)
+            if which == 'v' and dims is None:
+                shape = tuple(tree.shape)
+            elif which != 'v' and dims is not None:
+                drop = dims[1] if which == 'v_row' else dims[0]
+                shape = tuple(n for i, n in enumerate(tree.shape)
+                              if i != drop)
+            return torch.zeros(shape, dtype=tree.dtype, device=tree.device)
+        return {'count': 0, 'v_row': stats(params, 'v_row'),
+                'v_col': stats(params, 'v_col'), 'v': stats(params, 'v')}
+
+    def _decay(self, count: int) -> Tuple[float, float]:
+        """(beta, 1 - beta) at ``count``, computed in fp32."""
+        beta = np.float32(1.0) - np.float32(count + 1) ** np.float32(
+            -self.decay_rate)
+        return float(beta), float(np.float32(1.0) - beta)
+
+    @torch.no_grad()
+    def update_(self, params: Params, grads: List[torch.Tensor],
+                state: Dict[str, Any]) -> Tuple[Dict[str, Any],
+                                                torch.Tensor]:
+        """Apply one update in place. ``grads`` are in ``_leaves``
+        order. Returns (new state, global norm of the unclipped grads,
+        in their dtype)."""
+        hp = self.hp
+        g_norm = _global_norm(grads)
+        clipped = g_norm >= hp.grad_clip_norm
+        one = torch.ones_like(g_norm)
+        divisor = torch.where(clipped, g_norm, one)
+        factor = torch.where(clipped, one * hp.grad_clip_norm, one)
+        count = state['count']
+        beta, one_minus = self._decay(count)
+        lr = self.schedule(count)
+        for p, g, v_row, v_col, v in zip(
+                _leaves(params), grads, _leaves(state['v_row']),
+                _leaves(state['v_col']), _leaves(state['v'])):
+            dt = p.dtype
+            g = g.to(dt) / divisor.to(dt) * factor.to(dt)
+            g2 = g * g + _in_dtype(self.eps, dt)
+            dims = self._factored(p.shape)
+            if dims is not None:
+                d1, d0 = dims
+                new_row = (v_row.float() * beta + torch.mean(
+                    g2, dim=d0).float() * one_minus).to(dt)
+                new_col = (v_col.float() * beta + torch.mean(
+                    g2, dim=d1).float() * one_minus).to(dt)
+                del g2
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_mean = torch.mean(new_row, dim=reduced_d1,
+                                      keepdim=True)
+                row_factor = (new_row / row_mean) ** -0.5
+                col_factor = new_col ** -0.5
+                u = g * row_factor.unsqueeze(d0)
+                u.mul_(col_factor.unsqueeze(d1))
+                v_row.copy_(new_row)
+                v_col.copy_(new_col)
+            else:
+                new_v = (v.float() * beta + g2.float() * one_minus).to(dt)
+                del g2
+                u = g * new_v ** -0.5
+                v.copy_(new_v)
+            del g
+            rms = torch.sqrt(torch.mean(u * u))
+            u.div_(torch.clamp_min(rms / self.clipping_threshold, 1.0))
+            u.mul_(_in_dtype(lr, dt))
+            p_rms = torch.sqrt(torch.mean(p * p))
+            u.mul_(torch.clamp_min(p_rms,
+                                   _in_dtype(self.min_param_scale, dt)))
+            u.add_(p * _in_dtype(hp.weight_decay, dt))
+            p.sub_(u)
+        return {'count': count + 1, 'v_row': state['v_row'],
+                'v_col': state['v_col'], 'v': state['v']}, g_norm
+
+
+Optimizer = Union[AdamW, Adafactor]
+
+
+def make_optimizer(hp: TrainHParams) -> Optimizer:
     if hp.optimizer == 'adafactor':
-        raise NotImplementedError(
-            'adafactor is not ported yet (ROADMAP.md, queue A item 14)')
+        return Adafactor(hp)
     if hp.optimizer != 'adamw':
         raise ValueError(f'Unknown optimizer {hp.optimizer!r} '
                          f"(expected 'adamw' or 'adafactor')")
@@ -199,7 +368,7 @@ def create_train_state_from_params(params: Params, cfg: ModelConfig,
 
 
 def train_step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
-                  cfg: ModelConfig, optimizer: AdamW, hp: TrainHParams,
+                  cfg: ModelConfig, optimizer: Optimizer, hp: TrainHParams,
                   pipeline_stages: int = 1
                   ) -> Tuple[TrainState, Dict[str, Any]]:
     """One step. batch: tokens [B,S], targets [B,S], weights [B,S],

@@ -59,7 +59,9 @@ def test_every_module_imports_with_jax_blocked():
                 'train.step', 'train.pretrain', 'inference.engine',
                 'batch.infer_worker', 'utils.env', 'inference.speculative',
                 'models.lora', 'data.ckpt_manifest',
-                'serve.adapter_registry', 'server.metrics'):
+                'serve.adapter_registry', 'server.metrics',
+                'utils.fault_injection', 'train.checkpoint', 'data.packer',
+                'bench'):
         assert 'skypilot_tpu_torch.' + mod in mods
     code = (
         'import sys\n'
@@ -112,9 +114,11 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match='no CUDA device'):
         infer_worker.main(['--input', str(src), '--output',
                            str(tmp_path / 'out.jsonl')])
+    from skypilot_tpu_torch import bench
     from skypilot_tpu_torch.train import pretrain, step
     with pytest.raises(RuntimeError, match='no CUDA device'):
         pretrain.main(['--model', 'tiny', '--steps', '1'])
+    assert bench.main(['--mode', 'train']) == 1
     with pytest.raises(RuntimeError, match='no CUDA device'):
         step.create_train_state(0, get_model_config('tiny'),
                                 step.TrainHParams())

@@ -1,13 +1,16 @@
 """Port training path against the JAX reference on the CPU: the FLOP
-accounting, the loss, the schedule and AdamW against optax, the model
-forward and the train step.
+accounting, the loss, the schedule, AdamW and Adafactor against optax,
+the model forward, the train step under every remat policy and both
+optimizers.
 
 Inputs and batches come from seeded numpy; JAX parameters are carried
 over with ``models/convert.py``. The model runs TINY with head_dim 128
 (so both sides reach the flash kernel's gate; the JAX side runs its
 Pallas kernels in the interpreter) at fp32 compute. Tolerances: loss and
-logits 1e-5 relative / 2e-5 absolute (sums in another order); optimizer
-updates 1e-6; params after three train steps 1e-5.
+logits 1e-5 relative / 2e-5 absolute (sums in another order); AdamW
+updates 1e-6; Adafactor at fp32 1e-6 relative (statistics per element,
+params to their leaf's largest magnitude: ``0.9 p - u`` cancels near
+zero), at bf16 bitwise; params after three train steps 1e-5.
 """
 import dataclasses
 import functools
@@ -110,6 +113,122 @@ def test_adamw_updates_match_optax(scale):
                                    rtol=1e-6)
 
 
+_ADAFACTOR_LEAVES = {'a': (2, 128, 4, 32), 'b': (2, 128, 128),
+                     'c': (512, 128), 'd': (2, 128), 'e': (7,)}
+
+
+def _adafactor_pair(dtype):
+    hp = dict(learning_rate=1e-2, warmup_steps=1, total_steps=6,
+              optimizer='adafactor')
+    return (jstep.make_optimizer(jstep.TrainHParams(**hp)),
+            tstep.make_optimizer(tstep.TrainHParams(**hp)))
+
+
+def _check_adafactor(jparams, jstate, tparams, tstate, dtype):
+    factored = jstate[1][0]
+    assert tstate['count'] == int(factored.count)
+    for key in sorted(_ADAFACTOR_LEAVES):
+        got = tparams[key].float().numpy()
+        ref = np.asarray(jparams[key], np.float32)
+        if dtype == 'bfloat16':
+            np.testing.assert_array_equal(got, ref, err_msg=key)
+        else:
+            np.testing.assert_allclose(
+                got, ref, rtol=0, atol=1e-6 * np.abs(ref).max(),
+                err_msg=key)
+        for name in ('v_row', 'v_col', 'v'):
+            got = tstate[name][key]
+            ref = np.asarray(getattr(factored, name)[key], np.float32)
+            assert got.dtype == getattr(torch, dtype)
+            assert tuple(got.shape) == ref.shape, (name, key)
+            if dtype == 'bfloat16':
+                np.testing.assert_array_equal(got.float().numpy(), ref,
+                                              err_msg=f'{name} {key}')
+            else:
+                np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6,
+                                           err_msg=f'{name} {key}')
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('carry', [False, True],
+                         ids=['from_init', 'optax_state_carried'])
+def test_adafactor_updates_match_optax(dtype, carry):
+    """Three updates of factored ([2,128,4,32] over dims 1 and 3,
+    [2,128,128], [512,128]) and unfactored ([2,128], [7]) leaves, the
+    second one clipped by the global norm. With ``carry``, the first
+    update runs in optax only and its params and ``FactoredState`` are
+    carried into the port's state by name."""
+    rng = np.random.RandomState(2)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    params = {k: (rng.randn(*s) * 0.05).astype(np.float32)
+              for k, s in _ADAFACTOR_LEAVES.items()}
+    jopt, topt = _adafactor_pair(dtype)
+    jparams = {k: jnp.asarray(v, jdt) for k, v in params.items()}
+    jstate = jopt.init(jparams)
+    for i in range(3):
+        scale = 10.0 if i == 1 else 0.01
+        grads = {k: (rng.randn(*s) * scale).astype(np.float32)
+                 for k, s in _ADAFACTOR_LEAVES.items()}
+        jgrads = {k: jnp.asarray(v, jdt) for k, v in grads.items()}
+        if i == int(carry):
+            tparams = {k: torch.from_numpy(np.array(v, np.float32)).to(tdt)
+                       for k, v in jparams.items()}
+            tstate = topt.init(tparams)
+            if carry:
+                factored = jstate[1][0]
+                tstate['count'] = int(factored.count)
+                for name in ('v_row', 'v_col', 'v'):
+                    for k, v in getattr(factored, name).items():
+                        tstate[name][k].copy_(torch.from_numpy(
+                            np.array(v, np.float32)))
+        updates, jstate = jopt.update(jgrads, jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        if i < int(carry):
+            continue
+        tstate, norm = topt.update_(
+            tparams, [torch.from_numpy(grads[k]).to(tdt)
+                      for k in sorted(grads)], tstate)
+        np.testing.assert_allclose(norm.float().item(),
+                                   float(optax.global_norm(jgrads)),
+                                   rtol=1e-6)
+        _check_adafactor(jparams, jstate, tparams, tstate, dtype)
+
+
+def test_adafactor_factors_like_optax():
+    """Every leaf of bench-1b7 (shapes only) is factored over the dims
+    optax picks, with its statistics' shapes; TINY factors none."""
+    from optax._src import factorized
+    for name in ('bench-1b7', 'tiny'):
+        shapes = jax.eval_shape(functools.partial(
+            jllama.init_params, cfg=jconfig.get_model_config(name)),
+            jax.random.key(0))
+        for path, leaf in jax.tree_util.tree_leaves_with_path(shapes):
+            assert tstep.factored_dims(leaf.shape) == \
+                factorized._factored_dims(leaf.shape, True, 128), path
+        if name == 'tiny':
+            assert all(tstep.factored_dims(x.shape) is None
+                       for x in jax.tree.leaves(shapes))
+    dims = {'wq': (3, 1), 'wo': (2, 3)}
+    for key, want in dims.items():
+        shape = jax.eval_shape(functools.partial(
+            jllama.init_params, cfg=jconfig.get_model_config('bench-1b7')),
+            jax.random.key(0))['layers']['attn'][key].shape
+        assert tstep.factored_dims(shape) == want
+
+
+def test_adafactor_weight_decay_is_not_scaled_by_lr():
+    """With zero gradients the update is the weight decay alone, added
+    after the learning rate: every param shrinks by 10% a step (bf16:
+    1.0 -> 0.8984)."""
+    for dtype, want in ((torch.float32, 0.9), (torch.bfloat16, 0.8984375)):
+        params = {'w': torch.ones((3, 4), dtype=dtype)}
+        opt = tstep.make_optimizer(tstep.TrainHParams(
+            optimizer='adafactor', learning_rate=1e-6))
+        state = opt.init(params)
+        opt.update_(params, [torch.zeros_like(params['w'])], state)
+        assert torch.all(params['w'] == want)
+
+
 def _configs(**overrides):
     jcfg = jconfig.get_model_config('tiny', head_dim=128,
                                     compute_dtype=jnp.float32,
@@ -163,14 +282,23 @@ def test_forward_matches_jax(variant):
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize('remat', ['none', 'full'])
-def test_train_steps_match_jax(remat):
+@pytest.mark.parametrize('remat,optimizer', [
+    ('none', 'adamw'), ('full', 'adamw'), ('save_attn', 'adamw'),
+    ('save_dots', 'adamw'), ('dots', 'adamw'), ('full', 'adafactor')],
+    ids=['none', 'full', 'save_attn', 'save_dots', 'dots',
+         'full-adafactor'])
+def test_train_steps_match_jax(remat, optimizer):
     """Three steps with warmup 1 (so the weights move from step 2 on):
-    loss, grad norm and the params after."""
-    jcfg, tcfg = _configs(remat_policy=remat)
+    loss, grad norm and the params after. The Adafactor case widens
+    TINY to d_model 128, d_ff 256 so that its leaves are factored."""
+    widths = ({'d_model': 128, 'd_ff': 256} if optimizer == 'adafactor'
+              else {})
+    jcfg, tcfg = _configs(remat_policy=remat, **widths)
     jparams, tparams = _params(jcfg, tcfg, seed=4)
-    hp = tstep.TrainHParams(warmup_steps=1, total_steps=10)
-    jhp = jstep.TrainHParams(warmup_steps=1, total_steps=10)
+    hp = tstep.TrainHParams(warmup_steps=1, total_steps=10,
+                            optimizer=optimizer)
+    jhp = jstep.TrainHParams(warmup_steps=1, total_steps=10,
+                             optimizer=optimizer)
     jopt = jstep.make_optimizer(jhp)
     jstate = jstep.TrainState(step=jnp.zeros((), jnp.int32),
                               params=jparams, opt_state=jopt.init(jparams))
@@ -231,22 +359,64 @@ def test_file_batches(tmp_path):
 
 
 def test_unported_options_raise(monkeypatch, tmp_path):
-    for argv in (['--optimizer', 'adafactor'], ['--mesh', 'fsdp=2'],
-                 ['--checkpoint-dir', str(tmp_path)], ['--packed']):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            tpretrain.main(argv + ['--device', 'cpu', '--steps', '1'])
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        tpretrain.main(['--mesh', 'fsdp=2', '--device', 'cpu', '--steps',
+                        '1'])
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tstep.make_train_step(tconfig.get_model_config('tiny'),
                               tstep.TrainHParams(), mesh=object())
-    cfg = tconfig.get_model_config('tiny', remat_policy='save_attn')
+    cfg = tconfig.get_model_config('tiny')
     params = tllama.init_params(0, cfg, device='cpu')
     tokens = torch.zeros((1, 8), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tllama.forward(params, tokens, cfg)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tllama.forward(params, tokens, tconfig.get_model_config('tiny'),
-                       pipeline_stages=2)
+        tllama.forward(params, tokens, cfg, pipeline_stages=2)
     monkeypatch.setenv(tstep.RESIZE_SIGNAL_ENV, str(tmp_path / 'resize'))
     assert not tstep.resize_requested()
     (tmp_path / 'resize').touch()
     assert tstep.resize_requested()
+
+
+@pytest.mark.parametrize('policy,saved', [
+    ('save_attn', ['query_proj', 'key_proj', 'value_proj', 'attn_out']),
+    ('save_dots', ['query_proj', 'key_proj', 'value_proj', 'attn_out',
+                   'mlp_hidden', 'mlp_out']),
+    ('dots', ['query_proj', 'key_proj', 'value_proj', 'attn_out', None,
+              None, 'mlp_out'])])
+def test_selective_remat_saves_what_the_reference_names(policy, saved,
+                                                        monkeypatch):
+    """The ops each policy saves in a layer's forward, by the name in
+    force when they ran (``dots``: the seven weight products, two of
+    them untagged gate/up), and the gradients equal the unrematerialized
+    ones exactly."""
+    records = []
+    wrap = {'save_attn': '_save_only_these_names',
+            'save_dots': '_save_only_these_names',
+            'dots': '_dots_with_no_batch_dims'}[policy]
+    inner = getattr(tllama, wrap)
+
+    def recording(ctx, func, *args, **kwargs):
+        decision = (inner(tllama.SAVED_NAMES[policy])
+                    if wrap == '_save_only_these_names' else inner)(
+                        ctx, func, *args, **kwargs)
+        if decision == torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE \
+                and not ctx.is_recompute:
+            records.append(getattr(tllama._tag, 'name', None))
+        return decision
+
+    monkeypatch.setattr(tllama, wrap,
+                        (lambda names: recording)
+                        if wrap == '_save_only_these_names' else recording)
+    grads = {}
+    for remat in ('none', policy):
+        cfg = tconfig.get_model_config('tiny', head_dim=128,
+                                       compute_dtype=torch.float32,
+                                       remat_policy=remat)
+        params = tllama.init_params(0, cfg, device='cpu')
+        leaves = [x.requires_grad_(True) for x in tstep._leaves(params)]
+        tokens = torch.from_numpy(
+            np.random.RandomState(1).randint(0, 512, (2, 128)))
+        loss = tllama.forward(params, tokens, cfg).square().mean()
+        grads[remat] = torch.autograd.grad(loss, leaves)
+    assert records == saved * cfg.n_layers
+    for a, b in zip(grads['none'], grads[policy]):
+        assert torch.equal(a, b)
