@@ -146,11 +146,32 @@ Phases, in order; any failure exits non-zero:
 21. Bench twin, kernels: ``--mode kernels`` (every hand kernel against
    its plain version at the reference's shapes and tolerances) exits 0.
 
+22. MoE serving, full width and depth: deepseek-moe-16b (28 layers, 64
+   experts top 6, 16 heads = 16 kv heads of dim 128, dense dispatch;
+   seeded bf16 weights with an fp32 router, 32.8 GB, initialized on the
+   card) on the continuous engine (4 slots) and the batch engine
+   (max_batch 4) behind the port's HTTP server, 4 prompts of 131-255
+   tokens and 32 new tokens each: paged and decode launches rise by 28
+   a decode step, flash fwd by 28 a batch prefill, every logits row
+   finite; greedy tokens of the two engines compared (printed, not
+   gated); decode tok/s of each; one decode step (CUDA events) against
+   the bytes of every weight it reads, and its 28 MoE blocks alone
+   (with ``--profile`` also their share of a traced step); peak memory.
+23. The same continuous-engine requests on ``quantize_params(params,
+   quantize_moe=True)``: param bytes below 0.55x the bf16 tree, finite
+   logits, greedy agreement with phase 22 printed.
+24. gpt-oss-20b at full width and 4 of its 24 layers on the continuous
+   engine: the paged kernel at D=64, G=8, 4 launches a decode step.
+25. MoE training: three ``make_train_step`` steps on deepseek-moe-16b
+   at 2 layers with capacity dispatch (AdamW, fp32 params, B=4,
+   S=1024): finite losses, ``router_aux`` >= 1 - 1e-6, flash launches
+   2L / L / L a step.
+
 Then one JSON line listing every kernel (the paged kernels' launches are
-the sums of phases 9, 14 and 15, and of 10 and 14's int8 run; the decode
-kernel's of phases 12 and 20; the flash kernels' of phases 7, 16, 17 and
-18), the ``nvidia-smi`` name and power-limit line, and last ``{"ok":
-true, "device": {...}}``.
+the sums of phases 9, 14, 15, 22, 23 and 24, and of 10 and 14's int8
+run; the decode kernel's of phases 12, 20 and 22; the flash kernels' of
+phases 7, 16, 17, 18 and 25), the ``nvidia-smi`` name and power-limit
+line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -345,11 +366,12 @@ def blocks_left_out(c, seq, blocks, bs, nv_seq=None):
 
 def paged_faults(torch, pa, c, ref, kvh, bs, splits):
     """Errors of faults the kernel could make, built from the plain
-    output (Q=1; sequence 4 holds 1000 rows in 63 blocks): an interior
-    block skipped (its block 30), one split's partial dropped (its
-    second split's blocks), one (sequence, kv head) left unwritten
-    (sequence 1, kv head 3), and the last partial block skipped (rows
-    992-999)."""
+    output (Q=1; one sequence, 4 at B=8, 2 at B=4, holds 1000 rows in
+    63 blocks): an interior block skipped (its block 30), one split's
+    partial dropped (its second split's blocks), one (sequence, kv
+    head) left unwritten (sequence 1, kv head 3), and the last partial
+    block skipped (rows 992-999)."""
+    seq = c['nv'].tolist().index(1000)
     per = -(-63 // splits)
     cases = {'interior block skipped': dict(blocks=[30]),
              'one split dropped': dict(blocks=list(range(per, 2 * per))),
@@ -357,7 +379,7 @@ def paged_faults(torch, pa, c, ref, kvh, bs, splits):
                                                 nv_seq=1000 // bs * bs)}
     errs = {}
     for name, kw in cases.items():
-        bt, nv = blocks_left_out(c, 4, bs=bs, **kw)
+        bt, nv = blocks_left_out(c, seq, bs=bs, **kw)
         errs[name] = head_err(torch, run_plain(pa, c, bt, nv), ref, c['nv'])
     unwritten = ref.clone()
     g = ref.shape[2] // kvh
@@ -398,15 +420,19 @@ def masked_rows_err(torch, c, out, bs):
 
 LLAMA_PAGED = dict(kvh=8, g=4, d=128, bs=16, bps=128)
 LENGTHS8 = [1, 15, 16, 17, 1000, 2048, 1000, 2048]
+MOE_HEADS = {'H=16 KVH=16 D=128 (deepseek-moe-16b)': dict(kvh=16, g=1,
+                                                          d=128),
+             'H=64 KVH=8 D=64 (gpt-oss-20b)': dict(kvh=8, g=8, d=64)}
 
 
 def check_paged(torch, pa):
     """Kernels 1-2 against their plain version at llama3-8b heads, each
     output held by head_err: B=8 mixed lengths (Q=1 and 5), the engine's
     B=4 shape, B=40 (Q=1 and 5), bf16 / fp32 / int8 pools, stale pool
-    rows at +-1e4, D=64 and D=256; planted faults at B=8 Q=1; fully
-    masked verify rows against the uniform mean. Returns the largest
-    absolute error of each kernel."""
+    rows at +-1e4, D=64 and D=256; the MoE configs' heads (MOE_HEADS)
+    at B=8 and B=4, Q=1 and 5; planted faults at B=8 Q=1 and the MoE
+    heads' B=4 Q=1; fully masked verify rows against the uniform mean.
+    Returns the largest absolute error of each kernel."""
     llama, lengths8 = LLAMA_PAGED, LENGTHS8
     errors = {'paged_attention': 0.0, 'paged_attention_quant': 0.0}
     cases = []
@@ -430,6 +456,21 @@ def check_paged(torch, pa):
     cases.append(('bf16 D=256 H=16 KVH=16', 'bf16',
                   dict(kvh=16, g=1, d=256, bs=16, bps=128, b=8,
                        lengths=[1000] * 8, q_len=1), False))
+    # The MoE configs' heads: deepseek-moe-16b (G=1) and gpt-oss-20b
+    # (D=64, G=8), at B=8 and at the continuous engine's 4 slots (the
+    # split count of its decode steps).
+    engine_q1 = set()
+    for label, heads in MOE_HEADS.items():
+        for pool in ('bf16', 'int8'):
+            for q_len in (1, 5):
+                cases.append((f'{pool} Q={q_len} B=8 {label}', pool,
+                              dict(heads, bs=16, bps=128, b=8,
+                                   lengths=lengths8, q_len=q_len), False))
+                cases.append((f'{pool} Q={q_len} B=4 {label}', pool,
+                              dict(heads, bs=16, bps=128, b=4,
+                                   lengths=[1, 17, 1000, 2048],
+                                   q_len=q_len), False))
+            engine_q1.add(f'{pool} Q=1 B=4 {label}')
     failed = []
     for seed, (label, pool, shape, poison) in enumerate(cases):
         c = make_case(torch, pool=pool, seed=seed, poison=poison, **shape)
@@ -446,7 +487,7 @@ def check_paged(torch, pa):
         finite = bool(torch.isfinite(out[keep]).all().item())
         ok = (finite and rel <= PAGED_TOL[pool] and
               pa.LAUNCHES[name] == before + 1)
-        if label.endswith('Q=1 B=8'):
+        if label.endswith('Q=1 B=8') or label in engine_q1:
             faults = paged_faults(torch, pa, c, ref, shape['kvh'],
                                   shape['bs'], splits)
             caught = {n: e > PAGED_TOL[pool] for n, e in faults.items()}
@@ -507,6 +548,17 @@ def phase_kernels(torch, pa, bw, flops_peak):
             ms = time_ms(torch, lambda: run_kernel(pa, c), flush)
             bound_ms, bound_by = bound(c, 16, 128, bw, flops_peak)
             log(f'[kernels] {name} {label}: kernel {ms:.4f} ms, bound '
+                f'{bound_ms:.4f} ms ({bound_by}), '
+                f'{100 * bound_ms / ms:.1f}% of bound')
+            del c
+        for label, heads in MOE_HEADS.items():
+            c = make_case(torch, pool=pool, seed=102, **dict(
+                heads, bs=16, bps=128, b=8, lengths=lengths8, q_len=1))
+            ms = time_ms(torch, lambda: run_kernel(pa, c), flush)
+            plain_ms = time_ms(torch, lambda: run_plain(pa, c), flush)
+            bound_ms, bound_by = bound(c, 16, heads['d'], bw, flops_peak)
+            log(f'[kernels] {name} B=8 mixed Q=1 {label}: kernel '
+                f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
                 f'{bound_ms:.4f} ms ({bound_by}), '
                 f'{100 * bound_ms / ms:.1f}% of bound')
             del c
@@ -621,22 +673,30 @@ def rows_left_out(torch, c, seq, start, stop):
 def decode_faults(torch, da, c, ref, kvh):
     """Errors of faults the kernel could make, built from the plain
     output: one (sequence, kv head) left unwritten (sequence 1, kv head
-    3); in sequence 4 (n_valid 1000) an interior 16-row tile skipped
-    (rows 496-511) and the last partial tile skipped (rows 992-999); in
-    sequence 5 (n_valid 2048) its second split's rows skipped (the
-    cluster merge dropping a rank)."""
+    3); in the first sequence of 64 rows or more that ends inside a
+    16-row tile (n_valid 1000 at B=8, 257 at B=4 T=288) an interior
+    tile skipped (the one at n_valid / 2: rows 496-511 or 128-143) and
+    the last partial tile skipped; in the longest sequence (2048 or
+    288) its second split's rows skipped (the cluster merge dropping a
+    rank)."""
     unwritten = ref.clone()
     g = ref.shape[2] // kvh
     unwritten[1, :, 3 * g:4 * g] = 0
-    interior = run_decode_plain(da, rows_left_out(torch, c, 4, 496, 512))
+    lengths = c['nv'].tolist()
+    part = next(i for i, n in enumerate(lengths) if n >= 64 and n % 16)
+    mid = lengths[part] // 32 * 16
+    interior = run_decode_plain(da, rows_left_out(torch, c, part, mid,
+                                                  mid + 16))
     nv = c['nv'].clone()
-    nv[4] = nv[4] // 16 * 16
+    nv[part] = nv[part] // 16 * 16
     last = run_decode_plain(da, c, nv)
     b, t = c['k'].shape[:2]
     splits = da._num_splits(b, kvh, t)
     assert splits > 1, 'the split fault needs a call of several splits'
-    per = -(-int(c['nv'][5]) // 16 // splits) * 16
-    split = run_decode_plain(da, rows_left_out(torch, c, 5, per, 2 * per))
+    longest = lengths.index(max(lengths))
+    per = -(-lengths[longest] // 16 // splits) * 16
+    split = run_decode_plain(da, rows_left_out(torch, c, longest, per,
+                                               2 * per))
     return {'one (b, kv head) unwritten':
                 head_err(torch, unwritten, ref, c['nv']),
             'interior tile skipped': head_err(torch, interior, ref,
@@ -720,6 +780,8 @@ def decode_library_call(torch, c):
 
 
 LENGTHS_B4_ENGINE = [257, 200, 288, 131]
+DEEPSEEK_LABEL = 'H=16 KVH=16 D=128 (deepseek-moe-16b)'
+DEEPSEEK_DECODE = dict(kvh=16, g=1, d=128)
 
 
 def decode_timed_shapes(llama):
@@ -741,7 +803,8 @@ def phase_decode_kernels(torch, da, bw, flops_peak):
     paged kernels' B=8 mixed lengths at T=2048 (Q=1 and Q=5; bf16, fp32
     and int8), the batch engine's T=288, B=40 and B=128 (one split each),
     D=64 at T=300 and D=256, and caches whose stale rows hold +-1e4;
-    planted faults against the same limit; fully masked window rows
+    deepseek-moe-16b's heads (G=1) at B=8 T=2048 and B=4 T=288; planted
+    faults against the same limit; fully masked window rows
     against the mean of the rows read; then the times of
     ``decode_timed_shapes`` (bf16 and int8)."""
     llama = dict(kvh=8, g=4, d=128)
@@ -772,6 +835,17 @@ def phase_decode_kernels(torch, da, bw, flops_peak):
                   dict(kvh=16, g=1, d=256, b=8, t=1000,
                        lengths=[1, 31, 33, 64, 65, 200, 999, 1000],
                        q_len=5), False))
+    # deepseek-moe-16b's heads: G=1, at B=8 and at the batch engine's
+    # B=4 T=288 (its split count).
+    for cache in ('bf16', 'int8'):
+        for q_len in (1, 5):
+            cases.append((f'{cache} Q={q_len} B=8 T=2048 {DEEPSEEK_LABEL}',
+                          cache, dict(DEEPSEEK_DECODE, b=8, t=2048,
+                                      lengths=LENGTHS8, q_len=q_len),
+                          False))
+        cases.append((f'{cache} Q=1 B=4 T=288 {DEEPSEEK_LABEL}', cache,
+                      dict(DEEPSEEK_DECODE, b=4, t=288,
+                           lengths=LENGTHS_B4_ENGINE, q_len=1), False))
     errors = {'decode_attention': 0.0, 'decode_attention_quant': 0.0}
     failed = []
     for seed, (label, cache, shape, poison) in enumerate(cases):
@@ -788,7 +862,9 @@ def phase_decode_kernels(torch, da, bw, flops_peak):
         finite = bool(torch.isfinite(out).all().item())
         ok = (finite and rel <= DECODE_TOL[cache] and
               da.LAUNCHES[name] == before + 1)
-        if label.endswith('B=8 T=2048') and shape['q_len'] == 1:
+        if shape['q_len'] == 1 and (label.endswith('B=8 T=2048') or
+                                    label.endswith(f'B=4 T=288 '
+                                                   f'{DEEPSEEK_LABEL}')):
             faults = decode_faults(torch, da, c, ref, shape['kvh'])
             caught = {n: e > DECODE_TOL[cache] for n, e in faults.items()}
             log(f'[decode] {label}: planted faults, head error ' +
@@ -836,6 +912,16 @@ def phase_decode_kernels(torch, da, bw, flops_peak):
                 f'{bound_ms:.4f} ms ({bound_by}), '
                 f'{100 * bound_ms / ms:.1f}% of bound')
             del c
+        c = decode_case(torch, cache=cache, seed=401, **dict(
+            DEEPSEEK_DECODE, b=8, t=2048, lengths=LENGTHS8, q_len=1))
+        ms = time_ms(torch, lambda: run_decode(da, c), flush)
+        plain_ms = time_ms(torch, lambda: run_decode_plain(da, c), flush)
+        bound_ms, bound_by = decode_bound(c, bw, flops_peak)
+        log(f'[decode] {name} B=8 mixed T=2048 Q=1 {DEEPSEEK_LABEL}: '
+            f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+            f'{bound_ms:.4f} ms ({bound_by}), '
+            f'{100 * bound_ms / ms:.1f}% of bound')
+        del c
     del flush
     return rows
 
@@ -1030,7 +1116,9 @@ def planted_faults(torch, fa, q, k, v, do, causal, seg, ro, rlse, rgrads):
 def flash_cases():
     """(label, shape, dtype, causal, segments) of phase 5: bench-1b7's
     attention (B=2) both ways, with segment ids permuted per row, D=256,
-    the batch engine's prefill, and the pipeline's edge shapes: S=64 (one
+    the batch engine's prefill at llama3-8b's and deepseek-moe-16b's
+    heads, the MoE train steps' shape, and the pipeline's edge shapes:
+    S=64 (one
     tile: the ring's prologue and epilogue only) and S=192 (three tiles,
     no multiple of the two stages; the forward's 64-row CTA), GQA groups
     of 1 and 8."""
@@ -1053,6 +1141,14 @@ def flash_cases():
     # heads, four prompts in bucket 256.
     cases.append(('bf16 causal B=4 S=256 H=32 KVH=8 (batch-engine prefill)',
                   dict(b=4, s=256, h=32, kvh=8, d=128), 'bf16', True,
+                  False))
+    # deepseek-moe-16b's heads (G=1): its batch-engine prefill (phase 22)
+    # and its train steps (phase 25).
+    cases.append(('bf16 causal B=4 S=256 H=16 KVH=16 (MoE batch prefill)',
+                  dict(b=4, s=256, h=16, kvh=16, d=128), 'bf16', True,
+                  False))
+    cases.append(('bf16 causal B=4 S=1024 H=16 KVH=16 (MoE train)',
+                  dict(b=4, s=1024, h=16, kvh=16, d=128), 'bf16', True,
                   False))
     for dtype in ('bf16', 'fp32'):
         for s, h, kvh, causal, segments in ((64, 8, 8, True, True),
@@ -2638,6 +2734,616 @@ def phase_bench_kernels(torch):
     return lines[0]
 
 
+# ---------------------------------------------------------------------------
+# Phases 22-25: Mixture-of-Experts
+# ---------------------------------------------------------------------------
+
+MOE_TEXT = ('A mixture of experts routes every token to a few of its '
+            'feed-forward experts and mixes their outputs. ') * 4
+# Four prompts of 131-255 tokens (the batch engine's bucket 256), served
+# by both engines.
+MOE_PROMPTS = [MOE_TEXT[:n] for n in (130, 170, 211, 254)]
+MOE_NEW = 32
+
+
+def deepseek_params(torch):
+    """deepseek-moe-16b at full width and depth: bf16 weights (the
+    router fp32) from the port's seeded random init, on the card."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models.config import get_model_config
+    from skypilot_tpu_torch.models.quant import param_bytes
+    cfg = get_model_config('deepseek-moe-16b')
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = llama.init_params(0, cfg, device='cuda',
+                               weight_dtype=cfg.compute_dtype)
+    torch.cuda.synchronize()
+    nbytes = param_bytes(params)
+    log(f'[moe] deepseek-moe-16b init on card: {nbytes / 1e9:.2f} GB '
+        f'({sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B params) '
+        f'in {time.perf_counter() - t0:.1f} s')
+    return params, nbytes
+
+
+class FiniteLogits:
+    """Wraps ``decode.paged_decode_step`` and ``decode.prefill_chunk``
+    while in use: every logits row of an active slot must be finite
+    (read after the window; no sync inside the steps)."""
+
+    def __init__(self, torch):
+        from skypilot_tpu_torch.models import decode as decode_lib
+        self.torch, self.lib, self.flags = torch, decode_lib, []
+        self.saved = (decode_lib.paged_decode_step,
+                      decode_lib.prefill_chunk)
+
+    def __enter__(self):
+        step, chunk = self.saved
+
+        def paged_decode_step(*args, **kwargs):
+            logits, cache = step(*args, **kwargs)
+            active = kwargs.get('active')
+            rows = logits if active is None else logits[active]
+            self.flags.append(self.torch.isfinite(rows).all())
+            return logits, cache
+
+        def prefill_chunk(*args, **kwargs):
+            logits, cache = chunk(*args, **kwargs)
+            self.flags.append(self.torch.isfinite(logits).all())
+            return logits, cache
+
+        self.lib.paged_decode_step = paged_decode_step
+        self.lib.prefill_chunk = prefill_chunk
+        return self
+
+    def __exit__(self, *exc):
+        self.lib.paged_decode_step, self.lib.prefill_chunk = self.saved
+
+    def check(self, label):
+        if not self.flags or not all(bool(f) for f in self.flags):
+            raise AssertionError(f'{label}: non-finite logits in '
+                                 f'{sum(not bool(f) for f in self.flags)} '
+                                 f'of {len(self.flags)} steps')
+        log(f'[{label}] logits finite in all {len(self.flags)} prefill '
+            f'chunks and decode steps')
+
+
+def decode_step_bytes(params, cfg, batch, context):
+    """Bytes a decode step of the dense dispatch must move at least:
+    every layer weight (each expert is read for every token) and the LM
+    head once, ``batch`` embedding rows, and the K/V rows of
+    ``context`` positions a sequence; operations: 2 per weight element
+    and token, 4 per (query, key row, head dim)."""
+    from skypilot_tpu_torch.models.quant import param_bytes
+    weights = param_bytes(params['layers']) + param_bytes(
+        params['lm_head']) + param_bytes(params['final_norm'])
+    hd, kvh = cfg.resolved_head_dim, cfg.n_kv_heads
+    kv = batch * context * cfg.n_layers * 2 * kvh * hd * 2
+    rows = batch * cfg.d_model * 2
+    n_weights = sum(t.numel() for t in _leaves(params['layers'])) + \
+        params['lm_head']['w'].numel()
+    ops = 2 * batch * n_weights + \
+        4 * batch * context * cfg.n_layers * cfg.n_heads * hd
+    return weights + kv + rows, ops
+
+
+def decode_step_fns(torch, engine, context=256):
+    """(one ``paged_decode_step`` of every slot at ``context`` cached
+    rows, on a pool of its own so that the engine's pool and prefix
+    cache stay untouched; the step's n_layers MoE blocks alone on its
+    activations' shape)."""
+    from skypilot_tpu_torch.models import decode as decode_lib
+    from skypilot_tpu_torch.models import llama
+    cfg, b = engine.cfg, engine.max_slots
+    bps = context // 16 + 1
+    cache = decode_lib.init_paged_cache(cfg, b * bps + 1, 16, b, bps,
+                                        device='cuda')
+    cache.block_tables.copy_(torch.arange(1, b * bps + 1, device='cuda',
+                                          dtype=torch.int32).reshape(b, bps))
+    cache.lengths.fill_(context)
+    tokens = torch.arange(b, dtype=torch.int32, device='cuda') + 7
+    active = torch.ones(b, dtype=torch.bool, device='cuda')
+    x = torch.randn((b, 1, cfg.d_model), device='cuda').to(cfg.compute_dtype)
+    moe = [decode_lib._layer(engine.params, i)['moe']
+           for i in range(cfg.n_layers)]
+
+    def step():
+        with torch.no_grad():
+            decode_lib.paged_decode_step(engine.params, tokens, cache, cfg,
+                                         active=active)
+
+    def blocks():
+        with torch.no_grad():
+            for lp in moe:
+                llama._moe_block(x, lp, cfg, with_aux=False)
+
+    return step, blocks
+
+
+def events_ms(torch, fn, n=10):
+    """Median device time of ``fn`` over ``n`` runs after one warm-up
+    (CUDA events; the stream is idle before each)."""
+    fn()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def profile_moe_share(torch, step, blocks, steps=4):
+    """``--profile``: the device's kernel time in a traced window of
+    ``steps`` decode steps and in one of as many runs of the step's MoE
+    blocks alone; returns their ratio, the MoE blocks' share of the
+    step's device time."""
+    from torch.profiler import ProfilerActivity, profile
+    busy = {}
+    for tag, fn in (('profile-moe-step', step), ('profile-moe-blocks',
+                                                 blocks)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy[tag] = profile_summary(tag, prof, wall_us) * wall_us
+    share = busy['profile-moe-blocks'] / busy['profile-moe-step']
+    log(f'[profile-moe] device time a decode step '
+        f'{busy["profile-moe-step"] / steps / 1e3:.2f} ms, of its MoE '
+        f'blocks {busy["profile-moe-blocks"] / steps / 1e3:.2f} ms '
+        f'({100 * share:.1f}%)')
+    return share
+
+
+def drive_moe_continuous(torch, pa, engine, label):
+    """MOE_PROMPTS, concurrent, through /generate on the continuous
+    engine (paged launches = n_layers a decode step, checked by
+    ``drive_engine``), every logits row finite; returns (launches,
+    decode tok/s, {prompt ids: tokens})."""
+    probe = FiniteLogits(torch)
+    with probe:
+        counts, records, before, after, wall = drive_engine(
+            torch, pa, engine, 'paged_attention', MOE_PROMPTS, MOE_NEW)
+    probe.check(label)
+    rate = decode_rate(before, after)
+    steps = after['decode_steps'] - before['decode_steps']
+    tokens = after['tokens_generated'] - before['tokens_generated']
+    log(f'[{label}] {len(MOE_PROMPTS)} concurrent /generate: {tokens} '
+        f'tokens in {steps} decode steps, decode {rate:.1f} tok/s, wall '
+        f'{tokens / wall:.1f} tok/s ({wall:.2f} s)')
+    return (counts['paged_attention'], rate,
+            {tuple(ids): out for ids, out in records})
+
+
+def agreement(a, b):
+    """Share of ``b``'s tokens inside the common prefix of each pair."""
+    shared = sum(common_prefix(a[k], b[k]) for k in b)
+    return shared / max(1, sum(len(b[k]) for k in b))
+
+
+# One full-width MoE block against plain fp32 dense dispatch: the
+# largest per-token relative error (bf16 activations and experts, or
+# int8 experts, against fp32 products of the same weights).
+MOE_BLOCK_TOL = 2e-2
+# The engines' first-step logits at fp32 (the same weights, upcast a
+# layer at a time): the continuous engine's chunked prefill with plain
+# chunk attention and the batch engine's flash prefill compute one
+# function; the largest per-row relative error. At bf16 through 28
+# layers of seeded weights the two paths part by several percent a row,
+# as far as each lies from fp32 (printed, not gated: no limit there
+# separates rounding from a fault).
+ENGINE_FP32_TOL = 1e-3
+
+
+def row_err(got, ref) -> float:
+    """Largest relative error of a row (the last axis) of ``got``."""
+    got, ref = got.float(), ref.float()
+    return ((got - ref).norm(dim=-1) /
+            ref.norm(dim=-1).clamp_min(1e-30)).max().item()
+
+
+def plain_moe_block(torch, x, lp, cfg, k_top):
+    """The reference's dense ``_moe_block`` written out in fp32: router
+    logits, the top ``k_top`` and the softmax over them, every expert on
+    every token, the outputs combined by the one-hot weights; an int8
+    expert is q * scale. Returns (out, selected)."""
+    F = torch.nn.functional
+
+    def fp32(t):
+        return t.q.float() * t.scale if hasattr(t, 'scale') else t.float()
+
+    xf = x.float()
+    logits = torch.einsum('bsd,de->bse', xf, fp32(lp['router']))
+    top, selected = torch.topk(logits, k_top, dim=-1)
+    combine = torch.zeros_like(logits).scatter_(-1, selected,
+                                                torch.softmax(top, dim=-1))
+    gate = torch.einsum('bsd,edf->ebsf', xf, fp32(lp['wi_gate']))
+    up = torch.einsum('bsd,edf->ebsf', xf, fp32(lp['wi_up']))
+    act = (F.gelu(gate, approximate='tanh')
+           if cfg.activation == 'gelu_tanh' else F.silu(gate))
+    out = torch.einsum('ebsf,efd->ebsd', act * up, fp32(lp['wo']))
+    return torch.einsum('ebsd,bse->bsd', out, combine), selected
+
+
+def check_moe_block(torch, params, cfg, label):
+    """Layer 0's ``_moe_block`` (dense dispatch) at full width on the
+    decode step's [4, 1] and a prefill's [4, 64] tokens against
+    ``plain_moe_block``: the same choices, every token within
+    MOE_BLOCK_TOL; the plain block with one choice too few (a planted
+    fault) must exceed it. Returns the largest error."""
+    from skypilot_tpu_torch.models import decode as decode_lib
+    from skypilot_tpu_torch.models import llama
+    lp = decode_lib._layer(params, 0)['moe']
+    k_top = cfg.experts_per_token
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    worst = 0.0
+    for b, s in ((4, 1), (4, 64)):
+        x = torch.randn((b, s, cfg.d_model), device='cuda',
+                        generator=gen).to(cfg.compute_dtype)
+        with torch.no_grad():
+            got, _ = llama._moe_block(x, lp, cfg, with_aux=False)
+            chosen = llama._route(x, lp['router'], k_top)[2]
+            ref, selected = plain_moe_block(torch, x, lp, cfg, k_top)
+            fault = plain_moe_block(torch, x, lp, cfg, k_top - 1)[0]
+        err, fault_err = row_err(got, ref), row_err(fault, ref)
+        same = torch.equal(chosen, selected)
+        ok = (bool(torch.isfinite(got).all()) and same and
+              err <= MOE_BLOCK_TOL < fault_err)
+        log(f'[{label}] layer 0 MoE block, {b}x{s} tokens vs plain fp32 '
+            f'dense dispatch: choices {"equal" if same else "DIFFER"}, '
+            f'token error {err:.3e} (limit {MOE_BLOCK_TOL:g}); planted '
+            f'{k_top - 1} choices {fault_err:.3e} '
+            f'{"ok" if ok else "FAIL"}')
+        if not ok:
+            raise AssertionError(f'{label}: the MoE block disagrees with '
+                                 f'plain fp32, or the planted fault passes')
+        worst = max(worst, err)
+        del x, got, ref, fault
+    return worst
+
+
+class _Upcast:
+    """A stacked ``[L, ...]`` weight whose layer slices come out in
+    fp32 (``decode._layer`` indexes every leaf)."""
+
+    def __init__(self, stacked):
+        self.stacked = stacked
+
+    def __getitem__(self, index):
+        return self.stacked[index].float()
+
+
+def fp32_view(params):
+    """``params`` read in fp32: embedding, head and norms copied, the
+    layers upcast one at a time as the layer loop takes them."""
+    def walk(node, lazy):
+        if isinstance(node, dict):
+            return {k: walk(v, lazy) for k, v in node.items()}
+        return _Upcast(node) if lazy else node.float()
+    return {k: walk(v, k == 'layers') for k, v in params.items()}
+
+
+def first_step_logits(torch, engine, ids, chunk, params, cfg):
+    """Each prompt's first-token logits through the batch engine's
+    ``prefill`` (one padded batch, flash) and through the continuous
+    engine's ``prefill_chunk`` (``chunk`` rows at a time, as its
+    scheduler feeds them) on a pool of its own, both on ``params`` at
+    ``cfg``: (batch [B, V], continuous [B, V])."""
+    import numpy as np
+    from skypilot_tpu_torch.models import decode as decode_lib
+    lengths = np.array([len(x) for x in ids], np.int32)
+    tokens, lens = engine._batch(ids, lengths)
+    with torch.no_grad():
+        batch, _ = decode_lib.prefill(params, tokens, lens, cfg,
+                                      tokens.shape[1] + MOE_NEW)
+    rows = []
+    for prompt in ids:
+        cache = decode_lib.init_paged_cache(cfg, 129, 16, 1, 128,
+                                            device='cuda')
+        cache.block_tables.copy_(torch.arange(
+            1, 129, dtype=torch.int32, device='cuda')[None])
+        for pos in range(0, len(prompt), chunk):
+            part = prompt[pos:pos + chunk]
+            window = torch.zeros((1, chunk), dtype=torch.int32,
+                                 device='cuda')
+            window[0, :len(part)] = torch.tensor(part, dtype=torch.int32)
+            with torch.no_grad():
+                last, cache = decode_lib.prefill_chunk(
+                    params, window, pos, len(part), 0, cache, cfg)
+        rows.append(last[0])
+        del cache
+    return batch[:len(ids)], torch.stack(rows)
+
+
+def compare_engine_logits(torch, engine, ids, chunk, streams, batch_out):
+    """``first_step_logits`` of both engines at fp32, held to
+    ENGINE_FP32_TOL (the batch rows rolled by one prompt, a planted
+    fault, must exceed it), and at bf16 (the engines' own params),
+    printed beside each bf16 path's distance from the fp32 batch rows,
+    with the fp32 top-2 gaps of the rows and each engine's first token.
+    Returns a dict of the readings."""
+    import dataclasses
+    cfg = engine.cfg
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    bf_batch, bf_cont = first_step_logits(torch, engine, ids, chunk,
+                                          engine.params, cfg)
+    fp_batch, fp_cont = first_step_logits(
+        torch, engine, ids, chunk, fp32_view(engine.params), cfg32)
+    err32 = row_err(fp_cont, fp_batch)
+    fault = row_err(fp_cont, torch.roll(fp_batch, 1, dims=0))
+    out = dict(fp32_err=err32, bf16_err=row_err(bf_cont, bf_batch),
+               bf16_batch_vs_fp32=row_err(bf_batch, fp_batch),
+               bf16_continuous_vs_fp32=row_err(bf_cont, fp_batch),
+               bf16_largest_diff=(bf_cont - bf_batch).abs().max().item())
+    top2 = torch.topk(fp_batch, 2, dim=-1).values
+    out['fp32_top2_gaps'] = (top2[:, 0] - top2[:, 1]).tolist()
+    argmax = dict(fp32=list(zip(fp_cont.argmax(-1).tolist(),
+                                fp_batch.argmax(-1).tolist())),
+                  bf16=list(zip(bf_cont.argmax(-1).tolist(),
+                                bf_batch.argmax(-1).tolist())),
+                  served=[(streams[tuple(x)][0], o[0])
+                          for x, o in zip(ids, batch_out)])
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 (bf_batch, bf_cont, fp_batch, fp_cont))
+    ok = finite and err32 <= ENGINE_FP32_TOL < fault
+    log(f'[moe] first-step logits, continuous (chunks of {chunk}, plain '
+        f'chunk attention) vs batch engine (flash prefill): fp32 row '
+        f'error {err32:.3e} (limit {ENGINE_FP32_TOL:g}; planted rolled '
+        f'rows {fault:.3e}); bf16 row error {out["bf16_err"]:.3e}, '
+        f'largest difference {out["bf16_largest_diff"]:.3e}, bf16 from '
+        f'fp32: batch {out["bf16_batch_vs_fp32"]:.3e}, continuous '
+        f'{out["bf16_continuous_vs_fp32"]:.3e}; fp32 top-2 gaps '
+        f'{", ".join(f"{g:.3e}" for g in out["fp32_top2_gaps"])}; argmax '
+        f'(continuous, batch) {json.dumps(argmax)} '
+        f'{"ok" if ok else "FAIL"}')
+    if not ok:
+        raise AssertionError('moe: the engines\' fp32 first-step logits '
+                             'disagree, or the planted fault passes')
+    return out
+
+
+def phase_moe_serving(torch, pa, da, fa, params, param_gb, bw,
+                      flops_peak, profile_window=False):
+    """Phase 22: deepseek-moe-16b (28 layers, 64 experts top 6, MHA 16
+    heads of 128; dense dispatch) on both engines behind the port's HTTP
+    server: layer 0's MoE block against plain fp32 (check_moe_block);
+    the continuous engine (4 slots, max_len 2048) and the batch engine
+    (max_batch 4) serve MOE_PROMPTS with 32 new tokens; paged and decode
+    launches move by 28 a decode step; the engines' first-step logits
+    held to each other at fp32 (compare_engine_logits); their greedy tokens
+    compared (printed, not gated: bf16 near-ties); a decode step against
+    its bound; peak memory."""
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
+    from skypilot_tpu_torch.inference.engine import InferenceEngine
+    from skypilot_tpu_torch.models.config import get_model_config
+    cfg = get_model_config('deepseek-moe-16b')
+    n_layers = cfg.n_layers
+    result = {'param_gb': param_gb,
+              'block_err': check_moe_block(torch, params, cfg, 'moe')}
+    torch.cuda.reset_peak_memory_stats()
+    engine = ContinuousBatchingEngine('deepseek-moe-16b', params=params,
+                                      max_slots=4, max_len=2048,
+                                      block_size=16)
+    chunk = engine.prefill_chunk
+    try:
+        engine.generate_ids([1, 2, 3], max_new_tokens=2)  # warm-up
+        launches, rate, streams = drive_moe_continuous(
+            torch, pa, engine, 'moe')
+        result.update(launches=launches, continuous_tok_s=rate)
+        step, blocks = decode_step_fns(torch, engine)
+        step_ms, moe_ms = events_ms(torch, step), events_ms(torch, blocks)
+        nbytes, ops = decode_step_bytes(engine.params, cfg, 4, 257)
+        bytes_ms, ops_ms = nbytes / bw * 1e3, ops / flops_peak * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        result.update(step_ms=step_ms, step_bound_ms=bound_ms,
+                      moe_ms=moe_ms)
+        log(f'[moe] decode step of 4 slots at 256 cached rows: '
+            f'{step_ms:.2f} ms (CUDA events, median of 10); bound '
+            f'{bound_ms:.2f} ms ({nbytes / 1e9:.2f} GB at '
+            f'{bw / 1e12:.2f} TB/s; operations {ops_ms:.3f} ms), '
+            f'{100 * bound_ms / step_ms:.1f}% of bound; its 28 MoE blocks '
+            f'alone {moe_ms:.2f} ms ({100 * moe_ms / step_ms:.1f}% of the '
+            f'step)')
+        if profile_window:
+            result['moe_share_profiled'] = profile_moe_share(torch, step,
+                                                             blocks)
+        del step, blocks
+    finally:
+        engine.shutdown()
+    del engine
+
+    engine = InferenceEngine('deepseek-moe-16b', params=params, max_batch=4)
+    ids = [engine.tokenizer.encode(p) for p in MOE_PROMPTS]
+    if not all(128 < len(x) <= 256 for x in ids):
+        raise AssertionError(f'prompt lengths {[len(x) for x in ids]}')
+    engine.generate_text(['warmup'], max_new_tokens=8)
+    outputs, counts, flash, fallbacks, delta, wall = drive_batch(
+        torch, da, fa, engine, MOE_PROMPTS, MOE_NEW)
+    check_batch_counts('moe batch engine', counts, flash, fallbacks,
+                       {'decode_attention': n_layers * MOE_NEW,
+                        'decode_attention_quant': 0}, n_layers)
+    result['batch_launches'] = counts['decode_attention']
+    result['batch_tok_s'] = delta['tokens_generated'] / delta[
+        'decode_seconds']
+    log(f'[moe-batch] one /generate of 4 prompts: decode_attention '
+        f'{counts["decode_attention"]} launches = {n_layers} layers x '
+        f'{MOE_NEW} steps, flash fwd {flash["flash_fwd"]}; '
+        f'{delta["tokens_generated"]} tokens in '
+        f'{delta["decode_seconds"]:.3f} s = {result["batch_tok_s"]:.1f} '
+        f'tok/s (prefill included); request wall {wall:.3f} s')
+    batch_out = engine.generate_ids(ids, max_new_tokens=MOE_NEW)
+    result['peak_gb'] = torch.cuda.max_memory_allocated() / 1e9
+    log(f'[moe] peak memory of both engines {result["peak_gb"]:.2f} GB '
+        f'(weights {param_gb:.2f} GB)')
+    result['first_step'] = compare_engine_logits(
+        torch, engine, ids, chunk, streams, batch_out)
+    del engine
+    mine = {tuple(x): out for x, out in zip(ids, batch_out)}
+    share = agreement(streams, mine)
+    result['engines_agree'] = share
+    log(f'[moe] greedy tokens, batch vs continuous engine: '
+        f'{100 * share:.1f}% of the batch engine\'s tokens in the common '
+        f'prefix (not gated: bf16 near-ties; first-step logits above)')
+    result['streams'] = streams
+    return result
+
+
+def phase_moe_int8(torch, pa, qparams, bf16_gb, bf16_streams):
+    """Phase 23: the same continuous-engine requests on
+    ``quantize_params(params, quantize_moe=True)`` (int8 experts with
+    per-(layer, expert, out-channel) scales, W8A8 attention and head,
+    fp32 router): param bytes below 0.55x the bf16 tree, layer 0's MoE
+    block against plain fp32 of the dequantized experts, every request
+    complete with finite logits, greedy agreement with phase 22
+    printed."""
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
+    from skypilot_tpu_torch.models.config import get_model_config
+    from skypilot_tpu_torch.models.quant import param_bytes
+    q_gb = param_bytes(qparams) / 1e9
+    log(f'[moe-int8] int8 experts: {q_gb:.2f} GB = '
+        f'{q_gb / bf16_gb:.3f}x the bf16 tree (limit 0.55)')
+    if not q_gb < 0.55 * bf16_gb:
+        raise AssertionError('int8 experts: param bytes not below 0.55x')
+    block_err = check_moe_block(
+        torch, qparams, get_model_config('deepseek-moe-16b'), 'moe-int8')
+    engine = ContinuousBatchingEngine('deepseek-moe-16b', params=qparams,
+                                      max_slots=4, max_len=2048,
+                                      block_size=16)
+    try:
+        launches, rate, streams = drive_moe_continuous(
+            torch, pa, engine, 'moe-int8')
+    finally:
+        engine.shutdown()
+    share = agreement(bf16_streams, streams)
+    log(f'[moe-int8] greedy tokens vs the bf16 weights: {100 * share:.1f}% '
+        f'in the common prefix (not gated)')
+    return dict(launches=launches, tok_s=rate, param_gb=q_gb,
+                agree=share, block_err=block_err)
+
+
+def phase_gpt_oss(torch, pa):
+    """Phase 24: gpt-oss-20b at full width (d_model 2880, 32 experts top
+    4, 64 heads / 8 kv heads of dim 64, vocab 201088) and 4 of its 24
+    layers on the continuous engine: the paged kernel at D=64, G=8, 4
+    launches a decode step."""
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models.config import get_model_config
+    from skypilot_tpu_torch.models.quant import param_bytes
+    cfg = get_model_config('gpt-oss-20b', n_layers=4)
+    params = llama.init_params(1, cfg, device='cuda',
+                               weight_dtype=cfg.compute_dtype)
+    log(f'[gpt-oss] 4 layers: {param_bytes(params) / 1e9:.2f} GB')
+    engine = ContinuousBatchingEngine('gpt-oss-20b', cfg=cfg, params=params,
+                                      max_slots=4, max_len=2048,
+                                      block_size=16)
+    try:
+        engine.generate_ids([1, 2, 3], max_new_tokens=2)
+        launches, rate, _ = drive_moe_continuous(torch, pa, engine,
+                                                 'gpt-oss')
+    finally:
+        engine.shutdown()
+    del engine, params
+    free_card(torch)
+    return dict(launches=launches, tok_s=rate)
+
+
+def phase_moe_train(torch, fa, steps=3):
+    """Phase 25: ``make_train_step`` on deepseek-moe-16b at 2 of its 28
+    layers (full width; AdamW, fp32 params, full remat) with capacity
+    dispatch, B=4, S=1024: finite losses, router_aux >= 1 - 1e-6 (1 at
+    uniform balance), flash launches 2L / L / L a step, no call outside
+    the kernels."""
+    from skypilot_tpu_torch.models.config import get_model_config
+    from skypilot_tpu_torch.train import step as st
+    from skypilot_tpu_torch.train.pretrain import synthetic_batch
+    cfg = get_model_config('deepseek-moe-16b', n_layers=2,
+                           moe_dispatch='capacity')
+    hp = st.TrainHParams(warmup_steps=1, total_steps=10)
+    torch.cuda.reset_peak_memory_stats()
+    state = st.create_train_state(0, cfg, hp, device='cuda')
+    step_fn = st.make_train_step(cfg, hp)
+    batches = [synthetic_batch(i, 4, 1024, cfg.vocab_size,
+                               torch.device('cuda')) for i in range(steps)]
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    metrics, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(m[k]) for k in
+                        ('loss', 'total_loss', 'router_aux', 'grad_norm')})
+    counts, fallbacks = dict(fa.LAUNCHES), dict(fa.FALLBACKS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del state, batches
+    free_card(torch)
+    n = cfg.n_layers * steps
+    expected = {'flash_fwd': 2 * n, 'flash_dq': n, 'flash_dkv': n,
+                'flash_fwd_seg': 0, 'flash_dq_seg': 0, 'flash_dkv_seg': 0}
+    for i, m in enumerate(metrics):
+        log(f'[moe-train] step {i + 1}: {json.dumps(m)} in '
+            f'{times[i]:.3f} s')
+    ok = all(math.isfinite(m['loss']) and math.isfinite(m['total_loss'])
+             and m['router_aux'] >= 1 - 1e-6 for m in metrics)
+    if not ok or counts != expected or fallbacks['cuda']:
+        raise AssertionError(
+            f'moe-train: metrics {metrics}, flash launches {counts} '
+            f'(expected {expected}), calls outside the kernels {fallbacks}')
+    log(f'[moe-train] capacity dispatch, B=4 S=1024: steps 2-{steps} '
+        f'{statistics.median(times[1:]):.3f} s, peak {peak:.2f} GB; flash '
+        f'launches {counts} = 2x{cfg.n_layers} fwd, {cfg.n_layers} dq, '
+        f'{cfg.n_layers} dkv x {steps} steps')
+    return dict(launches=counts, metrics=metrics, peak_gb=peak)
+
+
+def run_moe_phases(torch, pa, da, fa, bw, flops_peak,
+                   profile_window=False):
+    """Phases 22-25 in order, deepseek-moe-16b's bf16 weights freed once
+    they are quantized; returns the launch counts for the kernels line
+    and a summary."""
+    from skypilot_tpu_torch.models.quant import quantize_params
+    t0 = time.perf_counter()
+    params, nbytes = deepseek_params(torch)
+    serving = phase_moe_serving(torch, pa, da, fa, params, nbytes / 1e9,
+                                bw, flops_peak,
+                                profile_window=profile_window)
+    t_quant = time.perf_counter()
+    qparams = quantize_params(params, quantize_moe=True)
+    del params
+    free_card(torch)
+    torch.cuda.synchronize()
+    log(f'[moe-int8] quantized in {time.perf_counter() - t_quant:.1f} s')
+    int8 = phase_moe_int8(torch, pa, qparams, nbytes / 1e9,
+                          serving.pop('streams'))
+    del qparams
+    free_card(torch)
+    t1 = time.perf_counter()
+    oss = phase_gpt_oss(torch, pa)
+    t2 = time.perf_counter()
+    train = phase_moe_train(torch, fa)
+    log(f'[smoke] MoE phases {time.perf_counter() - t0:.1f} s: deepseek '
+        f'serving and int8 {t1 - t0:.1f} s, gpt-oss {t2 - t1:.1f} s, '
+        f'training {time.perf_counter() - t2:.1f} s')
+    summary = dict(serving=serving, int8={k: v for k, v in int8.items()},
+                   gpt_oss=oss, train={k: train[k] for k in
+                                       ('metrics', 'peak_gb')})
+    log(f'[moe] summary {json.dumps(summary)}')
+    return dict(paged=serving['launches'] + int8['launches'] +
+                oss['launches'], decode=serving['batch_launches'],
+                train=train['launches'])
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for value in tree.values():
@@ -2689,7 +3395,7 @@ def main(argv=None) -> int:
     log(f'[smoke] kernel phases: paged {t1 - t0:.1f} s, decode '
         f'{t2 - t1:.1f} s, flash {time.perf_counter() - t2:.1f} s')
     engine, train, batch, spec, lora = {}, {}, {}, {}, {}
-    bench_tr, remat, packed, bench_dec = {}, {}, {}, {}
+    bench_tr, remat, packed, bench_dec, moe = {}, {}, {}, {}, {}
     if not args.skip_engine:
         phase_train_small(torch)
         train = phase_train(torch, fa, flops_peak)
@@ -2730,6 +3436,8 @@ def main(argv=None) -> int:
         phase_bench_kernels(torch)
         log(f'[smoke] phases 16-19 {t1 - t0:.1f} s, 20-21 '
             f'{time.perf_counter() - t1:.1f} s')
+        moe = run_moe_phases(torch, pa, da, fa, bw, flops_peak,
+                             profile_window=args.profile)
     flash_src = 'skypilot_tpu/ops/pallas/flash_attention.py'
     replaces = {
         'paged_attention':
@@ -2755,27 +3463,29 @@ def main(argv=None) -> int:
                'flash_dq': 'flash_attention.cu',
                'flash_dkv': 'flash_attention.cu'}
     # Counts come only from the main paths' own runs (the continuous
-    # engine's plain, speculative and LoRA windows for the paged
-    # kernels, the batch engine and the bench twin's decode mode for
-    # the decode kernels, the trainer's entry points for the flash
-    # kernels: phase 7, the bench twin's train mode and the remat
-    # policies, and --packed for the segment twins): null when they
-    # were skipped, never a number this run did not measure.
+    # engine's plain, speculative and LoRA windows and the MoE engines
+    # for the paged kernels, the batch engines and the bench twin's
+    # decode mode for the decode kernels, the trainer's entry points for
+    # the flash kernels: phase 7, the bench twin's train mode, the remat
+    # policies, the MoE train steps, and --packed for the segment
+    # twins): null when they were skipped, never a number this run did
+    # not measure.
     def total(parts):
         return sum(parts) if None not in parts else None
 
     trains = [train.get('launches'), bench_tr.get('launches'),
-              packed.get('launches')] + [
+              packed.get('launches'), moe.get('train')] + [
         remat.get(p, {}).get('launches')
         for p in ('save_attn', 'save_dots', 'dots')]
     launches = {
         'paged_attention': total([engine.get('launches'),
                                   spec.get('launches'),
-                                  lora.get('launches')]),
+                                  lora.get('launches'), moe.get('paged')]),
         'paged_attention_quant': total([engine.get('launches_quant'),
                                         spec.get('launches_quant')]),
         'decode_attention': total([batch.get('launches'),
-                                   bench_dec.get('launches')]),
+                                   bench_dec.get('launches'),
+                                   moe.get('decode')]),
         'decode_attention_quant': batch.get('launches_quant')}
     for name in ('flash_fwd', 'flash_dq', 'flash_dkv'):
         launches[name] = total([

@@ -44,7 +44,13 @@ def _expected_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
         'layers/ln_attn/scale': (n, d),
         'layers/ln_mlp/scale': (n, d),
     }
-    if not cfg.is_moe:
+    if cfg.is_moe:
+        e = cfg.num_experts
+        shapes.update({'layers/moe/router': (n, d, e),
+                       'layers/moe/wi_gate': (n, e, d, f),
+                       'layers/moe/wi_up': (n, e, d, f),
+                       'layers/moe/wo': (n, e, f, d)})
+    else:
         shapes.update({'layers/mlp/wi_gate': (n, d, f),
                        'layers/mlp/wi_up': (n, d, f),
                        'layers/mlp/wo': (n, f, d)})

@@ -38,8 +38,9 @@ reference returns new arrays. Attention over the pool goes through
 chunked-prefill attention is plain PyTorch, as it is plain XLA in the
 reference. The multi-LoRA adapter page store (``models/lora.py``) is
 indexed by layer where the reference mounts it in the layer scan; with
-``lora_pages=None`` the paged functions run exactly the base ops. MoE
-MLPs are a later slice.
+``lora_pages=None`` the paged functions run exactly the base ops. A
+MoE layer runs ``llama._moe_block`` in every prefill, decode and verify
+step, as the reference's ``_mlp`` does.
 """
 from __future__ import annotations
 
@@ -50,8 +51,9 @@ import torch
 
 from skypilot_tpu_torch.models import lora as lora_lib
 from skypilot_tpu_torch.models.config import ModelConfig
-from skypilot_tpu_torch.models.llama import (_activate, apply_rope,
-                                             fp32_logits, rope_table_for)
+from skypilot_tpu_torch.models.llama import (_activate, _moe_block,
+                                             apply_rope, fp32_logits,
+                                             rope_table_for)
 from skypilot_tpu_torch.models.quant import QTensor, weight_einsum
 from skypilot_tpu_torch.ops.attention import multi_head_attention
 from skypilot_tpu_torch.ops.common import NEG_INF
@@ -77,14 +79,15 @@ def serving_params(params: Params, cfg: ModelConfig) -> Params:
     """Store the projection and embedding weights in ``compute_dtype``
     once, at load. The reference casts fp32 weights to the compute
     dtype inside every einsum, so the results are the same and the
-    weights take half the memory; norm scales and W8A8 ``QTensor``s
-    stay as they are (the reference reads them in fp32 / int8)."""
+    weights take half the memory; norm scales, the MoE router and W8A8
+    ``QTensor``s stay as they are (the reference reads them in fp32 /
+    int8; the router routes in fp32)."""
     dt = cfg.compute_dtype
 
     def cast(node, key=''):
         if isinstance(node, dict):
             return {k: cast(v, k) for k, v in node.items()}
-        if key == 'scale' or isinstance(node, QTensor):
+        if key in ('scale', 'router') or isinstance(node, QTensor):
             return node
         return node.to(dt)
 
@@ -127,8 +130,10 @@ def _lm_head(params: Params, x: torch.Tensor,
 
 def _mlp(x: torch.Tensor, lp: Params, cfg: ModelConfig) -> torch.Tensor:
     if cfg.is_moe:
-        raise NotImplementedError(
-            'MoE blocks are not ported yet (ROADMAP.md, queue A)')
+        # The training block, dense or capacity per cfg.moe_dispatch (a
+        # padded chunk's rows route and claim capacity like real ones,
+        # as in the reference); the aux loss is a training term.
+        return _moe_block(x, lp['moe'], cfg, with_aux=False)[0]
     dt = cfg.compute_dtype
     mlp = lp['mlp']
     gate = weight_einsum('bsd,df->bsf', x, mlp['wi_gate'], dt)
@@ -457,6 +462,26 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                         lengths=lengths, block_tables=tables)
 
 
+def _write_rows(pool: torch.Tensor, rows: torch.Tensor,
+                values: torch.Tensor) -> None:
+    """``pool[rows] = values`` in place, where ``rows`` name the null row
+    (pool row 0) once for every padded or inactive input: each of those
+    writes carries the last one's value, so the null row ends the same on
+    every device and in every run, as the reference's serial scatter
+    leaves it. An index assignment keeps an unspecified one of duplicate
+    writes (on CUDA, and on the CPU when it splits the work), and padded
+    chunk queries read the null row: under capacity dispatch their
+    routes claim capacity from real tokens."""
+    flat = rows.reshape(-1)
+    values = values.reshape(flat.shape[0], *values.shape[rows.dim():])
+    null = flat == 0
+    order = torch.arange(flat.shape[0], device=flat.device)
+    last = torch.where(null, order, -1).amax().clamp_min(0)
+    null = null.view(-1, *[1] * (values.dim() - 1))
+    pool[flat] = torch.where(null, values.index_select(0, last[None]),
+                             values)
+
+
 def _view_rows(block_tables: torch.Tensor, block_size: int) -> torch.Tensor:
     """Block tables [..., BPS] -> flat pool row per view position
     [..., BPS*block_size] (the gather index of a slot's logical view)."""
@@ -550,17 +575,17 @@ def prefill_chunk(params: Params, tokens: torch.Tensor, start: int,
             v_q, v_s = quantize_kv(v)
             ksf = cache.k_scale[layer].view(nb * bs, -1)
             vsf = cache.v_scale[layer].view(nb * bs, -1)
-            kf[write_rows] = k_q[0]
-            vf[write_rows] = v_q[0]
-            ksf[write_rows] = k_s[0]
-            vsf[write_rows] = v_s[0]
+            _write_rows(kf, write_rows, k_q[0])
+            _write_rows(vf, write_rows, v_q[0])
+            _write_rows(ksf, write_rows, k_s[0])
+            _write_rows(vsf, write_rows, v_s[0])
             attn = _chunk_attention(q, kf[view_rows][None],
                                     vf[view_rows][None], offs,
                                     k_scale=ksf[view_rows][None],
                                     v_scale=vsf[view_rows][None])
         else:
-            kf[write_rows] = k[0].to(kf.dtype)
-            vf[write_rows] = v[0].to(vf.dtype)
+            _write_rows(kf, write_rows, k[0].to(kf.dtype))
+            _write_rows(vf, write_rows, v[0].to(vf.dtype))
             attn = _chunk_attention(q, kf[view_rows][None],
                                     vf[view_rows][None], offs)
         x = _attn_out_and_mlp(x, attn, lp, cfg)
@@ -646,15 +671,17 @@ def paged_verify_step(params: Params, tokens: torch.Tensor,
         if cache.quantized:
             k_q, k_s = quantize_kv(k)
             v_q, v_s = quantize_kv(v)
-            kf[write_rows] = k_q
-            vf[write_rows] = v_q
-            cache.k_scale[layer].view(nb * bs, -1)[write_rows] = k_s
-            cache.v_scale[layer].view(nb * bs, -1)[write_rows] = v_s
+            _write_rows(kf, write_rows, k_q)
+            _write_rows(vf, write_rows, v_q)
+            _write_rows(cache.k_scale[layer].view(nb * bs, -1), write_rows,
+                        k_s)
+            _write_rows(cache.v_scale[layer].view(nb * bs, -1), write_rows,
+                        v_s)
             k_pool_scale = cache.k_scale[layer]
             v_pool_scale = cache.v_scale[layer]
         else:
-            kf[write_rows] = k.to(kf.dtype)
-            vf[write_rows] = v.to(vf.dtype)
+            _write_rows(kf, write_rows, k.to(kf.dtype))
+            _write_rows(vf, write_rows, v.to(vf.dtype))
         attn = paged_attention(q, cache.k[layer], cache.v[layer],
                                cache.block_tables, n_valid,
                                k_scale=k_pool_scale, v_scale=v_pool_scale)

@@ -12,8 +12,13 @@ loop over the stacked weights (the reference's ``lax.scan``), remat is
 selective policies are kept), and the one-hot ("iota") embedding is an
 index lookup, which picks the same rows. LoRA adapters mounted at
 ``params['layers']['lora']`` (``models/lora.py``) add their q/v deltas
-in the attention block. MoE blocks and pipeline stages belong to later
-slices and raise here.
+in the attention block. MoE layers (``params['layers']['moe']``) route
+each token to its top-k experts with the reference's dense or capacity
+dispatch; the expert products are torch einsums, as they are XLA
+einsums in the reference, except dense dispatch's tokens times every
+expert: one ``bmm`` with the tokens broadcast (``_to_experts``), which
+reads each expert weight once where the einsum copies it first.
+Pipeline stages are multi-device work and raise here.
 """
 from __future__ import annotations
 
@@ -118,7 +123,8 @@ def init_params(seed: int, cfg: ModelConfig, *,
     ``cuda``), one layer at a time, and stored directly in
     ``weight_dtype`` (default ``cfg.param_dtype``), so a large model
     never passes through host memory and never holds a full fp32 copy
-    on the card. Norm scales stay in ``cfg.param_dtype``. The draws
+    on the card. Norm scales and the MoE router stay in
+    ``cfg.param_dtype``. The draws
     differ from ``jax.random``'s: parity tests carry JAX parameters over
     with ``models/convert.py`` instead.
     """
@@ -136,15 +142,13 @@ def init_params(seed: int, cfg: ModelConfig, *,
                                     generator=gen)
         return (out * in_size ** -0.5).to(wdt)
 
-    def stack_init(shape, in_size) -> torch.Tensor:
-        out = torch.empty((n_layer,) + shape, dtype=wdt, device=dev)
+    def stack_init(shape, in_size, dtype=None) -> torch.Tensor:
+        out = torch.empty((n_layer,) + shape, dtype=dtype or wdt,
+                          device=dev)
         for i in range(n_layer):
             out[i] = dense(shape, in_size)
         return out
 
-    if cfg.is_moe:
-        raise NotImplementedError(
-            'MoE blocks are not ported yet (ROADMAP.md, queue A)')
     ones = dict(dtype=cfg.param_dtype, device=dev)
     layers: Params = {
         'attn': {
@@ -155,12 +159,23 @@ def init_params(seed: int, cfg: ModelConfig, *,
         },
         'ln_attn': {'scale': torch.ones((n_layer, d), **ones)},
         'ln_mlp': {'scale': torch.ones((n_layer, d), **ones)},
-        'mlp': {
+    }
+    if cfg.is_moe:
+        e = cfg.num_experts
+        # The router stays in cfg.param_dtype, like the norm scales: the
+        # block routes in fp32 and it is d x E a layer.
+        layers['moe'] = {
+            'router': stack_init((d, e), d, dtype=cfg.param_dtype),
+            'wi_gate': stack_init((e, d, f), d),
+            'wi_up': stack_init((e, d, f), d),
+            'wo': stack_init((e, f, d), f),
+        }
+    else:
+        layers['mlp'] = {
             'wi_gate': stack_init((d, f), d),
             'wi_up': stack_init((d, f), d),
             'wo': stack_init((f, d), f),
-        },
-    }
+        }
     embed = torch.empty((v, d), dtype=torch.float32, device=dev)
     embed.normal_(0.0, 1.0, generator=gen)
     params: Params = {
@@ -281,16 +296,136 @@ def _mlp_block(x: torch.Tensor, lp: Params,
         return torch.einsum('bsf,fd->bsd', hidden, wo)
 
 
+def _router_aux_loss(router_logits: torch.Tensor, selected: torch.Tensor,
+                     e: int) -> torch.Tensor:
+    """Switch/GShard load-balancing loss: E * sum_e f_e * P_e, where f_e
+    is the fraction of tokens whose TOP-1 expert is e and P_e the mean
+    router probability of e; 1 at uniform balance."""
+    probs = torch.softmax(router_logits, dim=-1)              # [B,S,E]
+    top1 = F.one_hot(selected[..., 0], e).float()
+    f = top1.reshape(-1, e).mean(dim=0)
+    p = probs.reshape(-1, e).mean(dim=0)
+    return e * torch.sum(f * p)
+
+
+def _route(x: torch.Tensor, router: Any, k_top: int
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """fp32 router logits [.., E], then the top-k (descending, as
+    ``lax.top_k``) and the softmax over the k selected logits: (logits,
+    weights [.., k], selected [.., k])."""
+    logits = torch.einsum('bsd,de->bse', x.float(),
+                          router.to(torch.float32))
+    top, selected = torch.topk(logits, k_top, dim=-1)
+    return logits, torch.softmax(top, dim=-1), selected
+
+
+def _moe_block_capacity(x: torch.Tensor, lp: Params, cfg: ModelConfig,
+                        with_aux: bool = True
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Capacity dispatch (the reference's ``_moe_block_capacity``).
+
+    Tokens route in groups of ``min(S, moe_group_size)`` (one group when
+    S does not divide); each expert takes at most C = ceil(int(cf * G *
+    k) / E) tokens of a group, claimed k-major (every token's first
+    choice before any second choice, tokens in sequence order); an
+    assignment past C loses that expert's contribution. Padded rows
+    route like real ones, as in the reference. Returns (out, aux), aux
+    None without ``with_aux``."""
+    dt = cfg.compute_dtype
+    b, s, d = x.shape
+    e, k_top = cfg.num_experts, cfg.experts_per_token
+    group = min(s, cfg.moe_group_size)
+    if s % group:
+        group = s
+    bg = b * (s // group)
+    xg = x.reshape(bg, group, d)
+    capacity = max(1, -(-int(cfg.capacity_factor * group * k_top) // e))
+    logits, weights, selected = _route(xg, lp['router'], k_top)
+    aux = _router_aux_loss(logits, selected, e) if with_aux else None
+    mask = F.one_hot(selected, e).float()                    # [B',G,k,E]
+    mask_km = mask.transpose(1, 2).reshape(bg, k_top * group, e)
+    pos = torch.cumsum(mask_km, dim=1) - 1.0                 # [B',kG,E]
+    keep = mask_km * (pos < capacity)
+    # one_hot(pos, C) with the reference's zero rows for pos outside
+    # [0, C) (not-selected entries sit at -1).
+    slot = (pos[..., None] == torch.arange(
+        capacity, device=x.device, dtype=pos.dtype)).float() * \
+        keep[..., None]                                      # [B',kG,E,C]
+    slot = slot.reshape(bg, k_top, group, e, capacity).transpose(1, 2)
+    combine = torch.einsum('bsk,bskec->bsec', weights, slot)  # [B',G,E,C]
+    dispatch = (combine > 0.0).to(dt)
+    xe = torch.einsum('bsec,bsd->ebcd', dispatch, xg)        # [E,B',C,d]
+    w_gate, w_up, wo = (lp[n].to(dt) for n in ('wi_gate', 'wi_up', 'wo'))
+    gate = torch.einsum('ebcd,edf->ebcf', xe, w_gate)
+    up = torch.einsum('ebcd,edf->ebcf', xe, w_up)
+    act = _activate(gate, cfg)
+    with _named('mlp_hidden'):
+        hidden = act * up
+    out_e = torch.einsum('ebcf,efd->ebcd', hidden, wo)
+    combine = combine.to(dt)
+    with _named('mlp_out'):
+        y = torch.einsum('bsec,ebcd->bsd', combine, out_e)
+    return y.reshape(b, s, d), aux
+
+
+def _to_experts(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum('bsd,edf->ebsf', x, w) as one ``bmm`` whose x operand is
+    broadcast over the experts (batch stride 0). ``torch.einsum`` would
+    copy the permuted weight first: a second pass over every expert
+    weight in every decode step."""
+    b, s, d = x.shape
+    out = torch.matmul(x.reshape(1, b * s, d), w)           # [E,BS,f]
+    return out.reshape(w.shape[0], b, s, w.shape[-1])
+
+
+def _moe_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
+               with_aux: bool = True
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Top-k MoE (the reference's ``_moe_block``): dense dispatch runs
+    every expert on every token and combines the outputs with the
+    one-hot weights; ``cfg.moe_dispatch == 'capacity'`` takes
+    ``_moe_block_capacity``. A ``QTensor`` expert dequantizes through
+    ``.to(dt)``, as the reference's ``astype``. Returns (out, aux);
+    serving passes ``with_aux=False`` (aux None), where the reference's
+    jit drops the unused aux."""
+    if cfg.moe_dispatch == 'capacity':
+        return _moe_block_capacity(x, lp, cfg, with_aux)
+    dt = cfg.compute_dtype
+    e, k_top = cfg.num_experts, cfg.experts_per_token
+    logits, weights, selected = _route(x, lp['router'], k_top)
+    aux = _router_aux_loss(logits, selected, e) if with_aux else None
+    # sum_k one_hot(selected_k) * weight_k: the k experts are distinct.
+    combine = torch.zeros_like(logits).scatter_(-1, selected,
+                                                weights)     # [B,S,E]
+    w_gate, w_up, wo = (lp[n].to(dt) for n in ('wi_gate', 'wi_up', 'wo'))
+    gate = _to_experts(x, w_gate)
+    up = _to_experts(x, w_up)
+    act = _activate(gate, cfg)
+    with _named('mlp_hidden'):
+        hidden = act * up
+    expert_out = torch.einsum('ebsf,efd->ebsd', hidden, wo)
+    combine = combine.to(dt)
+    with _named('mlp_out'):
+        out = torch.einsum('ebsd,bse->bsd', expert_out, combine)
+    return out, aux
+
+
 def _decoder_layer(x: torch.Tensor, lp: Params, cfg: ModelConfig,
                    sin: torch.Tensor, cos: torch.Tensor,
-                   segments: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One dense decoder layer (the reference's aux loss is 0 here)."""
+                   segments: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer: (x, router aux loss), the aux 0 for a dense
+    MLP."""
     h = rms_norm(x, lp['ln_attn']['scale'], cfg.norm_eps)
     x = x + _attention_block(h, lp['attn'], cfg, sin, cos,
                              segments=segments,
                              lora_params=lp.get('lora'))
     h = rms_norm(x, lp['ln_mlp']['scale'], cfg.norm_eps)
-    return x + _mlp_block(h, lp['mlp'], cfg)
+    if cfg.is_moe:
+        out, aux = _moe_block(h, lp['moe'], cfg)
+        return x + out, aux
+    return (x + _mlp_block(h, lp['mlp'], cfg),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 _ATTN_NAMES = ('query_proj', 'key_proj', 'value_proj', 'attn_out')
@@ -316,10 +451,14 @@ def _dots_with_no_batch_dims(ctx, func, *args, **kwargs):
     every matrix product without batch dims. ``torch.einsum`` lowers
     the layer's weight products ('bsd,dhk->bshk' and the like) to a
     ``bmm`` with a batch of one, and the attention products with batch
-    and heads to a ``bmm`` over B x H."""
+    and heads to a ``bmm`` over B x H. The MoE block's products of the
+    tokens with every expert (``_to_experts``) are a ``bmm`` whose
+    token operand is broadcast (batch stride 0): no batch dims either,
+    as the reference's 'bsd,edf->ebsf'."""
     del ctx, kwargs
     if func is torch.ops.aten.mm.default or (
-            func is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+            func is torch.ops.aten.bmm.default and
+            (args[0].shape[0] == 1 or args[0].stride(0) == 0)):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -391,12 +530,9 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     ``return_hidden``, the final normed hidden states [B, S, d_model]).
 
     LoRA params at ``params['layers']['lora']`` add their q/v deltas.
-    MoE configs, ``return_aux`` and ``pipeline_stages > 1`` raise with a
-    pointer to ROADMAP.md."""
-    if cfg.is_moe or return_aux:
-        raise NotImplementedError(
-            'MoE blocks and the router aux loss are not ported yet '
-            '(ROADMAP.md, queue A item 13)')
+    ``return_aux``: also return the layer mean of the router aux loss
+    (0 for a dense model) as (logits, aux). ``pipeline_stages > 1``
+    raises with a pointer to ROADMAP.md."""
     if pipeline_stages > 1:
         raise NotImplementedError(
             'pipeline stages are multi-device work, not ported yet '
@@ -408,11 +544,14 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     sin, cos = rope_table_for(cfg, positions)
     x = params['embed']['embedding'][tokens.long()].to(dt)
     remat = _remat_policy(cfg)
+    aux = []
     for lp in _unstack(params['layers'], cfg.n_layers):
         if remat is not None:
-            x = remat(_decoder_layer, x, lp, cfg, sin, cos, segments)
+            x, layer_aux = remat(_decoder_layer, x, lp, cfg, sin, cos,
+                                 segments)
         else:
-            x = _decoder_layer(x, lp, cfg, sin, cos, segments)
+            x, layer_aux = _decoder_layer(x, lp, cfg, sin, cos, segments)
+        aux.append(layer_aux)
     x = rms_norm(x, params['final_norm']['scale'], cfg.norm_eps)
     if return_hidden:
         return x
@@ -420,4 +559,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
         head = params['embed']['embedding'].to(dt).t()
     else:
         head = params['lm_head']['w'].to(dt)
-    return fp32_logits(x, head)
+    logits = fp32_logits(x, head)
+    if return_aux:
+        return logits, torch.stack(aux).mean()
+    return logits

@@ -16,7 +16,10 @@
   accumulation would not do: at K = 14336 the sums reach 127^2 x K ~
   2.3e8 > 2^24.
 * ``quantize_params``: the decoder-layer projections and an untied LM
-  head; embeddings and norm scales stay fp. MoE experts are not ported.
+  head; embeddings and norm scales stay fp. MoE experts stay fp unless
+  ``quantize_moe``: then each expert tensor gets per-(layer, expert,
+  out-channel) scales, the router stays fp, and the MoE block
+  dequantizes them (``QTensor.to(dtype)``), as the reference does.
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ class QTensor:
 
     def astype(self, dt: torch.dtype) -> torch.Tensor:
         """Full dequantization (the drop-in for fp call sites)."""
-        return (self.q.float() * self.scale).to(dt)
+        return (self.q * self.scale).to(dt)     # int8 * fp32 -> fp32
 
     def to(self, target: Union[torch.dtype, str, torch.device]) -> Any:
         """A dtype dequantizes (like the reference's ``astype``); a
@@ -163,14 +166,12 @@ def maybe_quantize(params: Params, quantize: bool) -> Params:
 
 def quantize_params(params: Params, *, quantize_moe: bool = False) -> Params:
     """Quantize the decoder-layer projections (+ untied lm head); the
-    embeddings and norm scales stay fp, as in the reference."""
-    if quantize_moe:
-        raise NotImplementedError(
-            'MoE blocks are not ported yet (ROADMAP.md, queue A item 13)')
+    embeddings, norm scales and MoE router stay fp, as in the reference.
+    The MoE experts quantize only with ``quantize_moe``."""
     out: Params = {}
     for name, sub in params.items():
         if name == 'layers':
-            out[name] = _quantize_layers(sub)
+            out[name] = _quantize_layers(sub, quantize_moe)
         elif name == 'lm_head':
             out[name] = {'w': quantize_tensor(sub['w'], (0,))}   # [d, v]
         else:
@@ -178,7 +179,7 @@ def quantize_params(params: Params, *, quantize_moe: bool = False) -> Params:
     return out
 
 
-def _quantize_layers(layers: Params) -> Params:
+def _quantize_layers(layers: Params, quantize_moe: bool) -> Params:
     out: Params = {}
     for block, sub in layers.items():
         if block == 'attn':
@@ -193,6 +194,15 @@ def _quantize_layers(layers: Params) -> Params:
                 'wi_gate': _quantize_stacked(sub['wi_gate'], (1,)),
                 'wi_up': _quantize_stacked(sub['wi_up'], (1,)),
                 'wo': _quantize_stacked(sub['wo'], (1,)),    # [L,f,d]
+            }
+        elif block == 'moe' and quantize_moe:
+            # [L,e,d,f] / [L,e,f,d]: contract d / f, scales per (layer,
+            # expert, out-channel).
+            out[block] = {
+                'router': sub['router'],
+                'wi_gate': _quantize_stacked(sub['wi_gate'], (2,)),
+                'wi_up': _quantize_stacked(sub['wi_up'], (2,)),
+                'wo': _quantize_stacked(sub['wo'], (2,)),
             }
         else:
             out[block] = sub

@@ -19,9 +19,10 @@ steps, at the last step, and before a resize exit
 (``train/checkpoint.py``). ``--packed`` packs the EOS-delimited
 documents of ``--data`` (``data/packer.py``; on the card the native
 packer must build) and counts only the real tokens (the weights) in
-tokens/s. A ``--mesh`` over more than one device raises with a pointer
-to ROADMAP.md; ``--moe-dispatch`` / ``--capacity-factor`` parse (the
-MoE forward raises).
+tokens/s. ``--moe-dispatch`` / ``--capacity-factor`` set a MoE
+model's dispatch (``--model tiny-moe --moe-dispatch capacity``). A
+``--mesh`` over more than one device raises with a pointer to
+ROADMAP.md.
 """
 from __future__ import annotations
 

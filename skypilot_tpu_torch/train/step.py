@@ -372,29 +372,41 @@ def train_step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
                   pipeline_stages: int = 1
                   ) -> Tuple[TrainState, Dict[str, Any]]:
     """One step. batch: tokens [B,S], targets [B,S], weights [B,S],
-    optional positions and segments."""
+    optional positions and segments.
+
+    A MoE model (with ``router_aux_loss_coeff > 0``, no pipeline)
+    optimizes ``total_loss = loss + coeff * router_aux``, the layer mean
+    of the router load-balancing loss; ``loss`` stays the plain cross
+    entropy, and ``router_aux`` is 0 for a dense model."""
+    use_aux = (cfg.is_moe and cfg.router_aux_loss_coeff > 0
+               and pipeline_stages == 1)
     leaves = _leaves(state.params)
-    logits = llama.forward(state.params, batch['tokens'], cfg,
-                           positions=batch.get('positions'),
-                           segments=batch.get('segments'),
-                           pipeline_stages=pipeline_stages)
+    out = llama.forward(state.params, batch['tokens'], cfg,
+                        positions=batch.get('positions'),
+                        segments=batch.get('segments'),
+                        pipeline_stages=pipeline_stages,
+                        return_aux=use_aux)
+    logits, aux = out if use_aux else (out, None)
     loss, _ = cross_entropy_loss(logits, batch['targets'],
                                  batch.get('weights'),
                                  z_loss_coeff=hp.z_loss_coeff)
-    del logits
-    # Dense models only: the router aux loss is 0.
-    grads = torch.autograd.grad(loss, leaves)
+    del logits, out
+    total_loss = loss
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    else:
+        total_loss = loss + cfg.router_aux_loss_coeff * aux
+    grads = torch.autograd.grad(total_loss, leaves)
     opt_state, grad_norm = optimizer.update_(state.params, list(grads),
                                              state.opt_state)
     del grads
-    loss = loss.detach()
     metrics = {
-        'loss': loss,
-        'total_loss': loss,
+        'loss': loss.detach(),
+        'total_loss': total_loss.detach(),
         'grad_norm': grad_norm,
         'step': state.step,
-        'router_aux': torch.zeros((), dtype=torch.float32,
-                                  device=loss.device),
+        # 1.0 = a perfectly balanced router.
+        'router_aux': aux.detach().float(),
     }
     return TrainState(step=state.step + 1, params=state.params,
                       opt_state=opt_state), metrics

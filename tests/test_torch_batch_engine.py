@@ -32,6 +32,7 @@ from skypilot_tpu_torch.inference.continuous import ContinuousBatchingEngine
 from skypilot_tpu_torch.inference.engine import InferenceEngine
 from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import decode as tdecode
+from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.models import quant as tquant
 from skypilot_tpu_torch.models.config import get_model_config as torch_config
 from skypilot_tpu_torch.models.config import with_int8_kv_cache as torch_int8
@@ -334,8 +335,20 @@ def test_quantize_params_halves_bytes_and_keeps_structure(engines):
     assert attn['wq'].scale.shape == (2, 1, 4, 16)
     assert isinstance(qparams['embed']['embedding'], torch.Tensor)
     assert set(qparams) == set(params)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tquant.quantize_params(params, quantize_moe=True)
+    # quantize_moe on a MoE tree: the experts become QTensors with
+    # per-(layer, expert, out-channel) scales, the router stays fp.
+    moe_cfg = torch_config('tiny-moe')
+    moe = tquant.quantize_params(
+        llama.init_params(0, moe_cfg, device='cpu'),
+        quantize_moe=True)['layers']['moe']
+    n, e, d, f = (moe_cfg.n_layers, moe_cfg.num_experts, moe_cfg.d_model,
+                  moe_cfg.d_ff)
+    for name, out in (('wi_gate', f), ('wi_up', f), ('wo', d)):
+        assert isinstance(moe[name], tquant.QTensor)
+        assert moe[name].q.dtype == torch.int8
+        assert moe[name].scale.shape == (n, e, 1, out)
+    assert isinstance(moe['router'], torch.Tensor)
+    assert moe['router'].dtype == torch.float32
 
 
 def test_quantized_prefill_logits(engines):

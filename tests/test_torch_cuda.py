@@ -806,3 +806,111 @@ def test_spec_and_lora_engines_on_card_match_cpu(card):
     lora_cpu = run('cpu', lora_pages=1, lora_max_rank=4)
     assert run('cuda', lora_pages=1, lora_max_rank=4) == lora_cpu
     assert lora_cpu != plain_cpu
+
+
+# The MoE configs' attention heads: deepseek-moe-16b (16 heads on 16 kv
+# heads of 128: G=1) and gpt-oss-20b (64 on 8 of dim 64: G=8).
+MOE_HEADS = {'G1_D128': dict(kvh=16, g=1, d=128),
+             'G8_D64': dict(kvh=8, g=8, d=64)}
+
+
+@pytest.mark.parametrize('q_len', [1, 5])
+@pytest.mark.parametrize('heads', list(MOE_HEADS))
+@pytest.mark.parametrize('quant', [False, True], ids=['bf16', 'int8'])
+def test_paged_kernel_moe_heads_match_plain(card, quant, heads, q_len):
+    q, k, v, bt, nv, ks, vs = _case(card, torch.bfloat16, quant, q_len,
+                                    **MOE_HEADS[heads])
+    name = 'paged_attention_quant' if quant else 'paged_attention'
+    before = pa.LAUNCHES[name]
+    out = pa.paged_attention(q, k, v, bt, nv, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES[name] == before + 1
+    ref = pa.paged_attention_reference(q, k, v, bt, nv, ks, vs)
+    assert torch.isfinite(out).all()
+    assert _head_err(out, ref, nv) <= PAGED_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize('q_len', [1, 5])
+@pytest.mark.parametrize('cache', ['bf16', 'int8'])
+def test_decode_kernel_g1_d128_matches_plain(card, cache, q_len):
+    """deepseek-moe-16b's heads (G=1) on the batch engine's kernels."""
+    from skypilot_tpu_torch.ops import decode_attention as da
+    lengths = (1, 15, 16, 17, 1000, 2048, 1000, 2048)
+    q, k, v, nv, ks, vs = _decode_case(card, cache, q_len, 2048, lengths,
+                                       d=128, g=1, kvh=16)
+    name = 'decode_attention_quant' if cache == 'int8' else \
+        'decode_attention'
+    before = da.LAUNCHES[name]
+    out = da.decode_attention(q, k, v, nv, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES[name] == before + 1
+    ref = da.xla_decode_attention(q, k, v, nv, ks, vs)
+    keep = _live_rows(nv, q_len)
+    assert torch.isfinite(out).all()
+    err = ((out.float() - ref.float()).abs() * keep).max().item()
+    assert err <= DECODE_TOL[cache]
+
+
+@pytest.mark.parametrize('dispatch', ['dense', 'capacity'])
+def test_moe_engines_on_card_match_cpu(card, dispatch):
+    """TINY_MOE with head_dim 128 at fp32 compute: greedy tokens of both
+    engines on the card (paged and decode kernels, MoE products on the
+    card) equal their CPU runs, under dense dispatch and under capacity
+    dispatch at capacity 0.5, where a 64-row prefill chunk drops half
+    its assignments and its padding rows claim capacity. Those rows
+    read the pool's null row, which every padded write aims at: the
+    pool writes leave it the same on both devices. The prefill routes
+    of these prompts keep their top-3 order by at least 6.7e-4 (padding
+    rows) and 2.0e-3 (real rows) against logit differences of at most
+    2.1e-6 between the devices (tools/moe_route_diff.py, seed 7)."""
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
+    from skypilot_tpu_torch.inference.engine import InferenceEngine
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models.config import get_model_config
+    cfg = get_model_config('tiny-moe', head_dim=128,
+                           compute_dtype=torch.float32,
+                           moe_dispatch=dispatch, capacity_factor=0.5)
+    params = llama.init_params(7, cfg, device='cpu')
+    prompts = [[3, 1, 4, 1, 5], [2, 7, 18] * 9, [31, 41, 59, 26, 5, 3]]
+    outs = {}
+    for device in ('cuda', 'cpu'):
+        engine = ContinuousBatchingEngine('tiny-moe', cfg=cfg,
+                                          params=params, device=device,
+                                          max_slots=2, max_len=96)
+        try:
+            outs[device] = [engine.generate_ids(p, max_new_tokens=8)
+                            for p in prompts]
+        finally:
+            engine.shutdown()
+        batch = InferenceEngine('tiny-moe', cfg=cfg, params=params,
+                                device=device, max_batch=4)
+        outs[device].append(batch.generate_ids(prompts, max_new_tokens=8))
+    assert outs['cuda'] == outs['cpu']
+
+
+def test_moe_capacity_drops_on_card_match_cpu(card):
+    """The capacity block with drops (capacity 0.25: C = 8 of 64 rows x
+    2 choices / 4 experts) on the card against the CPU, fp32, on inputs
+    whose every router row keeps its top-2 order by more than 1e-5 (so
+    that the k-major claims are the same on both devices): outputs to
+    1e-5, and most assignments dropped."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models.config import get_model_config
+    cfg = get_model_config('tiny-moe', compute_dtype=torch.float32,
+                           moe_dispatch='capacity', capacity_factor=0.25)
+    params = llama.init_params(3, cfg, device='cpu')
+    lp = {k: v[0] for k, v in params['layers']['moe'].items()}
+    x = torch.randn((2, 64, cfg.d_model),
+                    generator=torch.Generator().manual_seed(4))
+    logits = torch.einsum('bsd,de->bse', x, lp['router'])
+    top = torch.sort(logits, dim=-1, descending=True).values
+    assert (top[..., :2] - top[..., 1:3]).min().item() > 1e-5
+    want, want_aux = llama._moe_block(x, lp, cfg)
+    got, got_aux = llama._moe_block(
+        x.to(card), {k: v.to(card) for k, v in lp.items()}, cfg)
+    assert (got.cpu() - want).abs().max().item() <= 1e-5
+    assert abs(got_aux.item() - want_aux.item()) <= 1e-6
+    dense, _ = llama._moe_block(
+        x, lp, get_model_config('tiny-moe', compute_dtype=torch.float32))
+    assert (dense - want).abs().max().item() > 1e-2
