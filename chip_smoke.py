@@ -33,7 +33,8 @@ Phases, in order; any failure exits non-zero:
 4. Decode kernels vs plain: each decode-attention kernel (kernels 3-4,
    the batch engine's) against its plain PyTorch version at llama3-8b
    heads: B=8 mixed lengths 1..2048 at T=2048 with Q=1 and Q=5, the batch
-   engine's T=288, B=40 and B=128 (one split), caches whose stale rows
+   engine's T=288 at B=4 and for a lone request (B=1, with planted
+   faults), B=40 and B=128 (one split), caches whose stale rows
    hold +-1e4 (Q=1 and Q=5), D=64 at T=300 (off the 16-row tile) and
    D=256; bf16, fp32 and int8 caches; each output held by its error
    normalized per (sequence, head) (``head_err``), with planted faults
@@ -51,7 +52,8 @@ Phases, in order; any failure exits non-zero:
    segment ids, and with segment ids that do not increase along a row
    (bf16, causal and not); once at D=256; once at the batch engine's
    prefill shape (llama3-8b heads H=32, KVH=8, B=4, S=256, bf16,
-   causal); at the ring's edge shapes S=64 and S=192 with GQA groups 1
+   causal), its lone request's (B=1, S=256) and the LoRA finetune's
+   (B=4, S=512); at the ring's edge shapes S=64 and S=192 with GQA groups 1
    and 8, bf16 and fp32; each output's error normalized per 64-row tile
    of one head (``tile_err``), and the dq kernel's delta against the
    plain one. A second backward must give bitwise the same dq, dk and
@@ -167,17 +169,41 @@ Phases, in order; any failure exits non-zero:
    S=1024): finite losses, ``router_aux`` >= 1 - 1e-6, flash launches
    2L / L / L a step.
 
+26. Serving from a checkpoint directory, full width and depth (run after
+   phase 15, on phase 9's weights): ``hf_interop.save_checkpoint`` of
+   the llama3-8b params in bf16 (16.06 GB) plus the committed
+   tokenizer fixture (``skypilot_tpu_torch/testdata/tokenizer_llama3``)
+   into a scratch directory (free space checked first; removed at the
+   end); ``load_checkpoint`` on the card must give every tensor bitwise
+   and peak at most the params + 2 x the largest tensor; then the
+   port's server built from ``--hf-checkpoint DIR``, continuous engine
+   and then batch engine (freed between): four lone /generate
+   requests, one at a time, whose tokens a twin engine on the in-memory
+   params must reproduce; paged launches n_layers a decode step,
+   decode launches n_layers x 32 and flash fwd n_layers a request; one
+   /v1/chat/completions through the fixture's chat template; save and
+   load GB/s, load peak, time to first token and decode tok/s.
+27. Finetune on that directory: ``train.finetune.main`` with LoRA rank
+   8, 3 steps, B=4, S=512 and ``--adapter-export-dir``: finite losses,
+   the trained B leaves nonzero, flash launches per step 2L forward
+   (L without remat), L dq, L dk/dv; then the server with
+   ``--hf-checkpoint DIR --lora-dir REG``: the adapter registers
+   against the checkpoint's digest, and a request naming it gives
+   first-token logits that differ from the base request's; s/step and
+   peak GB.
+
 Then one JSON line listing every kernel (the paged kernels' launches are
-the sums of phases 9, 14, 15, 22, 23 and 24, and of 10 and 14's int8
-run; the decode kernel's of phases 12, 20 and 22; the flash kernels' of
-phases 7, 16, 17, 18 and 25), the ``nvidia-smi`` name and power-limit
-line, and last ``{"ok": true, "device": {...}}``.
+the sums of phases 9, 14, 15, 22, 23, 24, 26 and 27, and of 10 and 14's
+int8 run; the decode kernel's of phases 12, 20, 22 and 26; the flash
+kernels' of phases 7, 16, 17, 18, 25 and 27), the ``nvidia-smi`` name and
+power-limit line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -383,7 +409,7 @@ def paged_faults(torch, pa, c, ref, kvh, bs, splits):
         errs[name] = head_err(torch, run_plain(pa, c, bt, nv), ref, c['nv'])
     unwritten = ref.clone()
     g = ref.shape[2] // kvh
-    unwritten[1, :, 3 * g:4 * g] = 0
+    unwritten[min(1, ref.shape[0] - 1), :, 3 * g:4 * g] = 0
     errs['one (b, kv head) unwritten'] = head_err(torch, unwritten, ref,
                                                   c['nv'])
     return errs
@@ -672,16 +698,17 @@ def rows_left_out(torch, c, seq, start, stop):
 
 def decode_faults(torch, da, c, ref, kvh):
     """Errors of faults the kernel could make, built from the plain
-    output: one (sequence, kv head) left unwritten (sequence 1, kv head
-    3); in the first sequence of 64 rows or more that ends inside a
-    16-row tile (n_valid 1000 at B=8, 257 at B=4 T=288) an interior
+    output: one (sequence, kv head) left unwritten (sequence 1, or 0 at
+    B=1; kv head 3); in the first sequence of 64 rows or more that ends
+    inside a 16-row tile (n_valid 1000 at B=8, 257 at B=4 T=288, 205 at
+    B=1) an interior
     tile skipped (the one at n_valid / 2: rows 496-511 or 128-143) and
     the last partial tile skipped; in the longest sequence (2048 or
     288) its second split's rows skipped (the cluster merge dropping a
     rank)."""
     unwritten = ref.clone()
     g = ref.shape[2] // kvh
-    unwritten[1, :, 3 * g:4 * g] = 0
+    unwritten[min(1, ref.shape[0] - 1), :, 3 * g:4 * g] = 0
     lengths = c['nv'].tolist()
     part = next(i for i, n in enumerate(lengths) if n >= 64 and n % 16)
     mid = lengths[part] // 32 * 16
@@ -803,8 +830,9 @@ def phase_decode_kernels(torch, da, bw, flops_peak):
     paged kernels' B=8 mixed lengths at T=2048 (Q=1 and Q=5; bf16, fp32
     and int8), the batch engine's T=288, B=40 and B=128 (one split each),
     D=64 at T=300 and D=256, and caches whose stale rows hold +-1e4;
-    deepseek-moe-16b's heads (G=1) at B=8 T=2048 and B=4 T=288; planted
-    faults against the same limit; fully masked window rows
+    deepseek-moe-16b's heads (G=1) at B=8 T=2048 and B=4 T=288; the
+    batch engine's lone request (B=1 T=288); planted faults against the
+    same limit; fully masked window rows
     against the mean of the rows read; then the times of
     ``decode_timed_shapes`` (bf16 and int8)."""
     llama = dict(kvh=8, g=4, d=128)
@@ -817,6 +845,10 @@ def phase_decode_kernels(torch, da, bw, flops_peak):
         cases.append((f'{cache} Q=1 B=4 T=288 (batch engine)', cache,
                       dict(llama, b=4, t=288, lengths=LENGTHS_B4_ENGINE,
                            q_len=1), False))
+        # One request alone in the batch engine (phase 26).
+        cases.append((f'{cache} Q=1 B=1 T=288 (batch engine, lone)', cache,
+                      dict(llama, b=1, t=288, lengths=[205], q_len=1),
+                      False))
         for q_len in (1, 5):
             cases.append((f'{cache} Q={q_len} B=8 T=2048 stale rows +-1e4',
                           cache, dict(llama, b=8, t=2048, lengths=LENGTHS8,
@@ -864,7 +896,8 @@ def phase_decode_kernels(torch, da, bw, flops_peak):
               da.LAUNCHES[name] == before + 1)
         if shape['q_len'] == 1 and (label.endswith('B=8 T=2048') or
                                     label.endswith(f'B=4 T=288 '
-                                                   f'{DEEPSEEK_LABEL}')):
+                                                   f'{DEEPSEEK_LABEL}') or
+                                    label.endswith('(batch engine, lone)')):
             faults = decode_faults(torch, da, c, ref, shape['kvh'])
             caught = {n: e > DECODE_TOL[cache] for n, e in faults.items()}
             log(f'[decode] {label}: planted faults, head error ' +
@@ -1117,7 +1150,8 @@ def flash_cases():
     """(label, shape, dtype, causal, segments) of phase 5: bench-1b7's
     attention (B=2) both ways, with segment ids permuted per row, D=256,
     the batch engine's prefill at llama3-8b's and deepseek-moe-16b's
-    heads, the MoE train steps' shape, and the pipeline's edge shapes:
+    heads, its lone request (B=1), the LoRA finetune's B=4 S=512, the
+    MoE train steps' shape, and the pipeline's edge shapes:
     S=64 (one
     tile: the ring's prologue and epilogue only) and S=192 (three tiles,
     no multiple of the two stages; the forward's 64-row CTA), GQA groups
@@ -1141,6 +1175,15 @@ def flash_cases():
     # heads, four prompts in bucket 256.
     cases.append(('bf16 causal B=4 S=256 H=32 KVH=8 (batch-engine prefill)',
                   dict(b=4, s=256, h=32, kvh=8, d=128), 'bf16', True,
+                  False))
+    # The batch engine serving one request at a time (phase 26: batch
+    # bucket 1, prompt bucket 256) and the LoRA finetune's steps
+    # (phase 27: B=4 S=512).
+    cases.append(('bf16 causal B=1 S=256 H=32 KVH=8 (batch-engine lone '
+                  'prefill)', dict(b=1, s=256, h=32, kvh=8, d=128), 'bf16',
+                  True, False))
+    cases.append(('bf16 causal B=4 S=512 H=32 KVH=8 (finetune)',
+                  dict(b=4, s=512, h=32, kvh=8, d=128), 'bf16', True,
                   False))
     # deepseek-moe-16b's heads (G=1): its batch-engine prefill (phase 22)
     # and its train steps (phase 25).
@@ -1613,19 +1656,28 @@ def post_generate(port: int, prompts, max_new_tokens: int):
         return json.loads(resp.read())
 
 
-def recorded_ids(engine):
-    """Record the token ids behind each text request (the HTTP payload
-    carries text; the check needs ids)."""
-    records = []
-    inner = engine.generate_ids
+class CallRecorder:
+    """Records every ``generate_ids`` call of an engine (its arguments
+    and result) while in use, so a twin engine can replay them; on exit
+    the engine's own method is back (no reference cycle keeps a
+    dropped engine's memory until the next collection)."""
 
-    def generate_ids(ids, **kwargs):
-        out = inner(ids, **kwargs)
-        records.append((list(ids), list(out)))
-        return out
+    def __init__(self, engine):
+        self.engine, self.calls = engine, []
 
-    engine.generate_ids = generate_ids
-    return records
+    def __enter__(self):
+        inner = self.engine.generate_ids
+
+        def generate_ids(*args, **kwargs):
+            out = inner(*args, **kwargs)
+            self.calls.append((args, kwargs, out))
+            return out
+
+        self.engine.generate_ids = generate_ids
+        return self
+
+    def __exit__(self, *exc):
+        del self.engine.generate_ids
 
 
 def phase_small_agreement(torch):
@@ -1672,38 +1724,39 @@ def drive_engine(torch, pa, engine, kernel, prompts, max_new_tokens):
     stats before, stats after, wall seconds)."""
     server, port = serve_engine(engine)
     try:
-        records = recorded_ids(engine)
-        before = engine.stats()
-        results = [None] * len(prompts)
-        errors = []
+        with CallRecorder(engine) as recorder:
+            before = engine.stats()
+            results = [None] * len(prompts)
+            errors = []
 
-        def run(i):
-            try:
-                results[i] = post_generate(port, [prompts[i]],
-                                           max_new_tokens)
-            except Exception as e:  # collected, then raised below
-                errors.append(e)
+            def run(i):
+                try:
+                    results[i] = post_generate(port, [prompts[i]],
+                                               max_new_tokens)
+                except Exception as e:  # collected, then raised below
+                    errors.append(e)
 
-        threads = [threading.Thread(target=run, args=(i,))
-                   for i in range(len(prompts))]
-        torch.cuda.synchronize()
-        pa.reset_launch_counts()
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = dict(pa.LAUNCHES)
-        after = engine.stats()
-        if errors:
-            raise errors[0]
-        if any(r is None or len(r['outputs']) != 1 for r in results):
-            raise AssertionError(f'bad /generate payloads: {results}')
+            threads = [threading.Thread(target=run, args=(i,))
+                       for i in range(len(prompts))]
+            torch.cuda.synchronize()
+            pa.reset_launch_counts()
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(pa.LAUNCHES)
+            after = engine.stats()
+            if errors:
+                raise errors[0]
+            if any(r is None or len(r['outputs']) != 1 for r in results):
+                raise AssertionError(f'bad /generate payloads: {results}')
     finally:
         server.shutdown()
         server.server_close()
+    records = [(list(args[0]), list(out)) for args, _, out in recorder.calls]
     vocab = engine.cfg.vocab_size
     if len(records) != len(prompts):
         raise AssertionError(f'{len(records)} records for '
@@ -2487,6 +2540,444 @@ def phase_batch_engine(torch, da, fa, params, profile_window=False):
         raise AssertionError('W8A8 prefill logits not finite or not close '
                              'to the bf16 ones')
     del engine
+    return result
+
+
+# ---------------------------------------------------------------------------
+# Phases 26-27: llama3-8b from a checkpoint directory, and the finetune loop
+# ---------------------------------------------------------------------------
+
+CKPT_TEXT = ('A checkpoint directory holds config.json, the safetensors '
+             'shards and the tokenizer files; the engine loads them onto '
+             'the card. ') * 4
+# 129-256 tokens each with the fixture's tokenizer (batch bucket 256).
+CKPT_PROMPTS = [CKPT_TEXT[:n] for n in (240, 300, 360, 430)]
+CKPT_MESSAGES = [{'role': 'system', 'content': 'Answer in one line.'},
+                 {'role': 'user', 'content': 'What does the loader read?'}]
+CKPT_NEW = 32
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       'skypilot_tpu_torch', 'testdata', 'tokenizer_llama3')
+
+
+def scratch_dir(need_bytes):
+    """A fresh directory with ``need_bytes`` free: under the temp
+    directory, else under the checkout's git-ignored ``build/``."""
+    import shutil
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    seen = []
+    for root in (tempfile.gettempdir(), os.path.join(here, 'build')):
+        os.makedirs(root, exist_ok=True)
+        free = shutil.disk_usage(root).free
+        seen.append(f'{root}: {free / 1e9:.1f} GB free')
+        if free >= need_bytes:
+            log(f'[ckpt] writing under {root} ({free / 1e9:.1f} GB free)')
+            return tempfile.mkdtemp(prefix='smoke_ckpt_', dir=root)
+    raise RuntimeError(f'no room for the {need_bytes / 1e9:.1f} GB the '
+                       f'checkpoint phases write ({"; ".join(seen)}); '
+                       'the depth is not cut quietly')
+
+
+def flat_tree(tree, prefix=''):
+    if isinstance(tree, dict):
+        out = {}
+        for key, value in tree.items():
+            out.update(flat_tree(value, f'{prefix}{key}/'))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def same_bits(torch, loaded, drawn):
+    """``loaded`` holds exactly ``drawn``'s numbers (a bf16 load of an
+    fp32 leaf: equal after the exact widening, and ``drawn`` exact in
+    bf16)."""
+    if loaded.dtype == drawn.dtype:
+        if loaded.dtype == torch.bfloat16:
+            return torch.equal(loaded.view(torch.int16),
+                               drawn.view(torch.int16))
+        return torch.equal(loaded, drawn)
+    return torch.equal(loaded.to(drawn.dtype), drawn)
+
+
+def engine_stats(engine):
+    stats = engine.stats
+    return dict(stats() if callable(stats) else stats)
+
+
+def drive_lone(torch, engine, prompts, reset):
+    """Lone ``/generate`` requests, one at a time, through the port's
+    HTTP server: counters zeroed just before, read (by the caller) just
+    after. Returns (the recorded generate_ids calls, stats before,
+    stats after, wall s)."""
+    server, port = serve_engine(engine)
+    try:
+        with CallRecorder(engine) as recorder:
+            before = engine_stats(engine)
+            torch.cuda.synchronize()
+            reset()
+            t0 = time.perf_counter()
+            for prompt in prompts:
+                payload = post_generate(port, [prompt], CKPT_NEW)
+                if len(payload.get('outputs', [])) != 1:
+                    raise AssertionError(f'bad /generate payload '
+                                         f'{payload}')
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            after = engine_stats(engine)
+    finally:
+        server.shutdown()
+        server.server_close()
+    return recorder.calls, before, after, wall
+
+
+def replay(label, calls, twin):
+    """The twin (in-memory params) gives each recorded call's tokens."""
+    for args, kwargs, out in calls:
+        again = twin.generate_ids(*args, **kwargs)
+        if again != out:
+            raise AssertionError(f'{label}: the checkpoint engine gave '
+                                 f'{out}, the in-memory one {again}')
+    log(f'[ckpt] {label}: {len(calls)} lone requests give the '
+        f'in-memory engine\'s tokens exactly')
+
+
+def check_chat(port, engine):
+    """One /v1/chat/completions rendered through the checkpoint's own
+    chat template (bos and header tokens as single ids)."""
+    with CallRecorder(engine) as recorder:
+        payload = post_json(port, '/v1/chat/completions',
+                            {'messages': CKPT_MESSAGES, 'max_tokens': 8})
+    tok = engine.tokenizer
+    want = tok.encode(tok.apply_chat_template(CKPT_MESSAGES),
+                      add_bos=False)
+    (args, _, _), = recorder.calls
+    header = tok._tok.token_to_id('<|start_header_id|>')
+    if list(args[0]) != want or want[0] != tok.bos_id or \
+            want.count(header) != 3 or \
+            payload['choices'][0]['message']['role'] != 'assistant':
+        raise AssertionError(f'chat prompt {args[0][:16]} (want '
+                             f'{want[:16]}), payload {payload}')
+    log(f'[ckpt] /v1/chat/completions: {len(want)} prompt ids through '
+        f'the fixture template (bos {tok.bos_id}, 3 headers)')
+
+
+def phase_checkpoint_serving(torch, pa, da, fa, params, directory,
+                             plain):
+    """Phase 26 on ``directory`` (written here): save, load bitwise
+    with its peak, then serve it on each engine (see the docstring)."""
+    import shutil
+    from skypilot_tpu_torch.inference import server as server_lib
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
+    from skypilot_tpu_torch.inference.engine import InferenceEngine
+    from skypilot_tpu_torch.models import hf_interop
+    from skypilot_tpu_torch.models.config import get_model_config
+    cfg = get_model_config('llama3-8b')
+    n_layers = cfg.n_layers
+    result = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hf_interop.save_checkpoint(params, cfg, directory, dtype=torch.bfloat16)
+    result['save_s'] = time.perf_counter() - t0
+    for name in ('tokenizer.json', 'tokenizer_config.json'):
+        shutil.copy(os.path.join(FIXTURE, name), directory)
+    file_gb = os.path.getsize(os.path.join(directory,
+                                           'model.safetensors')) / 1e9
+    result['file_gb'] = file_gb
+    result['save_gb_s'] = file_gb / result['save_s']
+    log(f'[ckpt] save_checkpoint: {file_gb:.2f} GB in '
+        f'{result["save_s"]:.2f} s ({result["save_gb_s"]:.2f} GB/s)')
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loaded, lcfg = hf_interop.load_checkpoint(directory,
+                                              dtype=torch.bfloat16,
+                                              device='cuda')
+    torch.cuda.synchronize()
+    result['load_s'] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(loaded))
+    with hf_interop.SafetensorsReader(
+            os.path.join(directory, 'model.safetensors')) as reader:
+        largest = max(reader.get(k).numel() * reader.get(k).element_size()
+                      for k in reader.keys())
+    bound = param_bytes + 2 * largest
+    result.update(load_gb_s=file_gb / result['load_s'], peak_gb=peak / 1e9,
+                  param_gb=param_bytes / 1e9, peak_bound_gb=bound / 1e9)
+    log(f'[ckpt] load_checkpoint: {result["load_s"]:.2f} s '
+        f'({result["load_gb_s"]:.2f} GB/s; read right after the write, '
+        f'so from the page cache); peak {result["peak_gb"]:.3f} GB for '
+        f'{result["param_gb"]:.3f} GB of params (bound '
+        f'{result["peak_bound_gb"]:.3f} GB = params + 2 x the largest '
+        f'file tensor, {largest / 1e9:.3f} GB)')
+    if peak > bound:
+        raise AssertionError(f'load peak {peak} B above {bound} B')
+    drawn, got = flat_tree(params), flat_tree(loaded)
+    if sorted(drawn) != sorted(got) or not all(
+            same_bits(torch, got[k], drawn[k]) for k in drawn):
+        bad = [k for k in drawn if k not in got or
+               not same_bits(torch, got[k], drawn[k])]
+        raise AssertionError(f'loaded tensors differ: {bad[:8]}')
+    log(f'[ckpt] all {len(drawn)} loaded tensors equal the drawn params '
+        'bitwise')
+    del loaded, got
+    free_card(torch)
+
+    flags = ['--hf-checkpoint', directory, '--max-batch', '4']
+    # Continuous engine, then the batch engine, each freed before the
+    # next; each against a twin on the in-memory params.
+    engine = server_lib.build_engine(server_lib.parse_args(
+        flags + ['--engine', 'continuous', '--max-len', '2048',
+                 '--block-size', '16']))
+    try:
+        rec, before, after, wall = drive_lone(
+            torch, engine, CKPT_PROMPTS, pa.reset_launch_counts)
+        counts = dict(pa.LAUNCHES)
+        steps = after['decode_steps'] - before['decode_steps']
+        if counts['paged_attention'] != n_layers * steps or steps <= 0 \
+                or counts['paged_attention_quant']:
+            raise AssertionError(f'paged launches {counts} in {steps} '
+                                 'decode steps')
+        result['paged'] = counts['paged_attention']
+        result['decode_tok_s'] = decode_rate(before, after)
+        log(f'[ckpt] continuous: paged_attention {counts["paged_attention"]}'
+            f' = {n_layers} x {steps} decode steps; decode '
+            f'{result["decode_tok_s"]:.1f} tok/s over 4 lone requests '
+            f'(phase 9, 4 concurrent: {plain["decode_tok_s"]:.1f}); wall '
+            f'{wall:.2f} s')
+        server, port = serve_engine(engine)
+        try:
+            check_chat(port, engine)
+        finally:
+            server.shutdown()
+            server.server_close()
+        ids = engine.tokenizer.encode(CKPT_PROMPTS[1])
+        engine.generate_ids(ids, max_new_tokens=4)
+        t0 = time.perf_counter()
+        stream = engine.stream_ids(ids, max_new_tokens=4)
+        next(stream)
+        result['ttft_ms'] = (time.perf_counter() - t0) * 1e3
+        list(stream)
+        log(f'[ckpt] time to first token ({len(ids)}-token prompt): '
+            f'{result["ttft_ms"]:.1f} ms (phase 9: '
+            f'{plain["ttft_ms"]:.1f} ms)')
+    finally:
+        engine.shutdown()
+    del engine
+    free_card(torch)
+    twin = ContinuousBatchingEngine(hf_checkpoint=directory, params=params,
+                                    cfg=lcfg, max_slots=4, max_len=2048,
+                                    block_size=16)
+    try:
+        replay('continuous', rec, twin)
+    finally:
+        twin.shutdown()
+    del twin
+    free_card(torch)
+
+    engine = server_lib.build_engine(server_lib.parse_args(
+        flags + ['--engine', 'batch']))
+    lengths = [len(engine.tokenizer.encode(p)) for p in CKPT_PROMPTS]
+    if not all(128 < n <= 256 for n in lengths):
+        raise AssertionError(f'prompt lengths {lengths}')
+
+    def reset():
+        da.reset_launch_counts()
+        fa.reset_launch_counts()
+
+    rec, before, after, wall = drive_lone(torch, engine, CKPT_PROMPTS,
+                                          reset)
+    counts, flash = dict(da.LAUNCHES), dict(fa.LAUNCHES)
+    check_batch_counts('ckpt batch engine', counts, flash,
+                       dict(fa.FALLBACKS),
+                       {'decode_attention': 4 * n_layers * CKPT_NEW,
+                        'decode_attention_quant': 0}, 4 * n_layers)
+    result['decode'] = counts['decode_attention']
+    result['batch_flash_fwd'] = flash['flash_fwd']
+    tokens = after['tokens_generated'] - before['tokens_generated']
+    result['batch_tok_s'] = tokens / (after['decode_seconds'] -
+                                      before['decode_seconds'])
+    log(f'[ckpt] batch: decode_attention {counts["decode_attention"]} = '
+        f'4 requests x {n_layers} x {CKPT_NEW}, flash fwd '
+        f'{flash["flash_fwd"]} (prompts of {lengths} tokens); '
+        f'{result["batch_tok_s"]:.1f} generated tok/s; wall {wall:.2f} s')
+    del engine
+    free_card(torch)
+    twin = InferenceEngine(hf_checkpoint=directory, params=params, cfg=lcfg,
+                           max_batch=4)
+    replay('batch', rec, twin)
+    del twin
+    free_card(torch)
+    return result
+
+
+class RecordPrefill:
+    """Records the logits of every ``decode.prefill_chunk`` call while
+    in use (each lone request's last one holds its first-token
+    logits)."""
+
+    def __init__(self):
+        from skypilot_tpu_torch.models import decode as decode_lib
+        self.lib, self.saved, self.rows = decode_lib, None, []
+
+    def __enter__(self):
+        self.saved = self.lib.prefill_chunk
+
+        def prefill_chunk(*args, **kwargs):
+            logits, cache = self.saved(*args, **kwargs)
+            self.rows.append(logits.float().clone())
+            return logits, cache
+
+        self.lib.prefill_chunk = prefill_chunk
+        return self
+
+    def __exit__(self, *exc):
+        self.lib.prefill_chunk = self.saved
+
+
+def run_timed_main(main, argv):
+    """(rc, [(seconds since the start, JSON line)]) of ``main(argv)``,
+    each standard-output line stamped as it is written."""
+    import contextlib
+    import io
+
+    class Stamped(io.StringIO):
+        def __init__(self):
+            super().__init__()
+            self.t0, self.stamps = time.perf_counter(), []
+
+        def write(self, s):
+            for line in s.splitlines():
+                if line.startswith('{'):
+                    self.stamps.append((time.perf_counter() - self.t0,
+                                        json.loads(line)))
+            return super().write(s)
+
+    out = Stamped()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, out.stamps
+
+
+def phase_finetune(torch, pa, fa, directory, work):
+    """Phase 27: ``train.finetune`` (LoRA rank 8, 3 steps, B=4, S=512)
+    on the phase 26 directory, its adapter exported against the base's
+    digest, then served beside that base."""
+    import numpy as np
+    from skypilot_tpu_torch.inference import server as server_lib
+    from skypilot_tpu_torch.models import hf_interop
+    from skypilot_tpu_torch.serve import adapter_registry
+    from skypilot_tpu_torch.train import finetune
+    cfg = hf_interop.load_config(directory)
+    n_layers, steps = cfg.n_layers, 3
+    corpus = os.path.join(work, 'corpus.txt')
+    registry = os.path.join(work, 'adapters')
+    with open(corpus, 'w', encoding='utf-8') as f:
+        f.write('\n'.join([CKPT_TEXT, SPEC_TEXT * 3] + CKPT_PROMPTS) + '\n')
+    # The flash forward runs once a layer, twice when remat re-runs the
+    # layer in the backward (every policy but 'none':
+    # models/llama.py:_remat_policy); dq and dk/dv once a layer.
+    per_step = {'flash_fwd': n_layers * (1 if cfg.remat_policy == 'none'
+                                         else 2),
+                'flash_dq': n_layers, 'flash_dkv': n_layers}
+    expected = {k: v * steps for k, v in per_step.items()}
+    expected.update(flash_fwd_seg=0, flash_dq_seg=0, flash_dkv_seg=0)
+    free_card(torch)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    rc, stamps = run_timed_main(finetune.main, [
+        '--hf-checkpoint', directory, '--data', corpus, '--lora-rank', '8',
+        '--steps', str(steps), '--batch', '4', '--seq', '512',
+        '--adapter-export-dir', registry, '--log-every', '1'])
+    torch.cuda.synchronize()
+    counts, fallbacks = dict(fa.LAUNCHES), dict(fa.FALLBACKS)
+    peak = torch.cuda.max_memory_allocated() - base
+    free_card(torch)
+    lines = [line for _, line in stamps]
+    step_t = [t for t, line in stamps if 'step' in line]
+    losses = [line['loss'] for line in lines if 'step' in line]
+    if rc != 0 or len(losses) != steps or \
+            not all(math.isfinite(x) for x in losses) or \
+            counts != expected or fallbacks['cuda']:
+        raise AssertionError(f'finetune rc {rc}, lines {lines}, flash '
+                             f'{counts} (expected {expected}), calls '
+                             f'outside the kernels {fallbacks}')
+    _, lora, meta = adapter_registry.load_adapter(
+        os.path.join(registry, 'adapter'))
+    if not all(np.any(lora[k] != 0) for k in ('wq_b', 'wv_b')):
+        raise AssertionError('the trained B leaves are still zero')
+    result = {'finetune': counts, 'losses': losses,
+              'step_s': step_t[-1] - step_t[-2],
+              'finetune_peak_gb': peak / 1e9}
+    log(f'[finetune] losses {losses}; {result["step_s"]:.3f} s a step '
+        f'(steps 2 -> 3); peak {peak / 1e9:.2f} GB above the '
+        f'{base / 1e9:.2f} GB already held; flash {counts} = '
+        f'{per_step} x {steps} steps (remat {cfg.remat_policy}); adapter '
+        f'rank {meta["rank"]}, base {meta["base_digest"][:12]}')
+
+    engine = server_lib.build_engine(server_lib.parse_args([
+        '--hf-checkpoint', directory, '--engine', 'continuous',
+        '--max-batch', '4', '--max-len', '2048', '--lora-pages', '2',
+        '--lora-max-rank', '8', '--lora-dir', registry]))
+    server, port = serve_engine(engine)
+    try:
+        if list(engine.adapter_stats()) != ['adapter'] or \
+                engine.base_digest != meta['base_digest']:
+            raise AssertionError(f'adapter not registered: '
+                                 f'{engine.adapter_stats()}, base '
+                                 f'{engine.base_digest[:12]}')
+        before = engine.stats()
+        torch.cuda.synchronize()
+        pa.reset_launch_counts()
+        with RecordPrefill() as rec:
+            post_generate(port, [CKPT_PROMPTS[0]], 8)
+            n_base = len(rec.rows)
+            post_json(port, '/generate', {'prompts': [CKPT_PROMPTS[0]],
+                                          'max_new_tokens': 8,
+                                          'adapter': 'adapter'})
+        torch.cuda.synchronize()
+        launches = dict(pa.LAUNCHES)['paged_attention']
+        steps_run = engine.stats()['decode_steps'] - before['decode_steps']
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.shutdown()
+    base_row, adapter_row = rec.rows[n_base - 1], rec.rows[-1]
+    diff = float((base_row - adapter_row).abs().max())
+    if launches != n_layers * steps_run or not (
+            torch.isfinite(base_row).all() and
+            torch.isfinite(adapter_row).all()) or diff == 0.0:
+        raise AssertionError(f'adapter serving: paged {launches} in '
+                             f'{steps_run} steps, logits apart {diff}')
+    result['lora_paged'] = launches
+    log(f'[finetune] served with --lora-dir: adapter registered against '
+        f'the checkpoint digest; its first-token logits differ from the '
+        f'base\'s by up to {diff:.4g}; paged_attention {launches} = '
+        f'{n_layers} x {steps_run} decode steps')
+    del engine
+    free_card(torch)
+    return result
+
+
+def run_checkpoint_phases(torch, pa, da, fa, params, plain):
+    """Phases 26-27 in one scratch directory, removed at the end."""
+    import shutil
+    need = sum(t.numel() * 2 for t in _leaves(params)) + (2 << 30)
+    work = scratch_dir(need)
+    directory = os.path.join(work, 'llama3-8b')
+    t0 = time.perf_counter()
+    try:
+        result = phase_checkpoint_serving(torch, pa, da, fa, params,
+                                          directory, plain)
+        t1 = time.perf_counter()
+        result.update(phase_finetune(torch, pa, fa, directory, work))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f'[smoke] phase 26 {t1 - t0:.1f} s, 27 '
+        f'{time.perf_counter() - t1:.1f} s')
     return result
 
 
@@ -3396,6 +3887,7 @@ def main(argv=None) -> int:
         f'{t2 - t1:.1f} s, flash {time.perf_counter() - t2:.1f} s')
     engine, train, batch, spec, lora = {}, {}, {}, {}, {}
     bench_tr, remat, packed, bench_dec, moe = {}, {}, {}, {}, {}
+    ckpt = {}
     if not args.skip_engine:
         phase_train_small(torch)
         train = phase_train(torch, fa, flops_peak)
@@ -3424,6 +3916,8 @@ def main(argv=None) -> int:
         log(f'[spec] summary {json.dumps(spec)}')
         lora = phase_lora_engine(torch, pa, params)
         log(f'[lora] summary {json.dumps(lora)}')
+        ckpt = run_checkpoint_phases(torch, pa, da, fa, params, engine)
+        log(f'[ckpt] summary {json.dumps(ckpt)}')
         del params
         free_card(torch)
         t0 = time.perf_counter()
@@ -3463,29 +3957,33 @@ def main(argv=None) -> int:
                'flash_dq': 'flash_attention.cu',
                'flash_dkv': 'flash_attention.cu'}
     # Counts come only from the main paths' own runs (the continuous
-    # engine's plain, speculative and LoRA windows and the MoE engines
-    # for the paged kernels, the batch engines and the bench twin's
+    # engine's plain, speculative and LoRA windows, the MoE engines and
+    # the checkpoint-served engines of phases 26-27 for the paged
+    # kernels, the batch engines (phase 26's too) and the bench twin's
     # decode mode for the decode kernels, the trainer's entry points for
     # the flash kernels: phase 7, the bench twin's train mode, the remat
-    # policies, the MoE train steps, and --packed for the segment
-    # twins): null when they were skipped, never a number this run did
-    # not measure.
+    # policies, the MoE train steps, the finetune of phase 27, and
+    # --packed for the segment twins): null when they were skipped,
+    # never a number this run did not measure.
     def total(parts):
         return sum(parts) if None not in parts else None
 
     trains = [train.get('launches'), bench_tr.get('launches'),
-              packed.get('launches'), moe.get('train')] + [
+              packed.get('launches'), moe.get('train'),
+              ckpt.get('finetune')] + [
         remat.get(p, {}).get('launches')
         for p in ('save_attn', 'save_dots', 'dots')]
     launches = {
         'paged_attention': total([engine.get('launches'),
                                   spec.get('launches'),
-                                  lora.get('launches'), moe.get('paged')]),
+                                  lora.get('launches'), moe.get('paged'),
+                                  ckpt.get('paged'),
+                                  ckpt.get('lora_paged')]),
         'paged_attention_quant': total([engine.get('launches_quant'),
                                         spec.get('launches_quant')]),
         'decode_attention': total([batch.get('launches'),
                                    bench_dec.get('launches'),
-                                   moe.get('decode')]),
+                                   moe.get('decode'), ckpt.get('decode')]),
         'decode_attention_quant': batch.get('launches_quant')}
     for name in ('flash_fwd', 'flash_dq', 'flash_dkv'):
         launches[name] = total([

@@ -9,8 +9,9 @@ or ``--output``. The batch ``InferenceEngine`` loads once per process::
         --input prompts.jsonl --output out.jsonl [--embeddings]
     python -m skypilot_tpu_torch.batch.infer_worker --device cpu ...
 
-Runs on the card unless ``--device cpu`` asks for the CPU. HF
-checkpoint directories as ``--model`` are not ported yet.
+A directory as ``--model`` is an HF checkpoint: its weights load in
+bf16 and its own tokenizer serves (``models/hf_interop.py``). Runs on
+the card unless ``--device cpu`` asks for the CPU.
 """
 from __future__ import annotations
 
@@ -24,7 +25,9 @@ from typing import List, Optional
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument('--model', default='tiny',
-                        help='registered model name')
+                        help='registered model name, or an HF checkpoint '
+                             'directory (config.json + safetensors + '
+                             'tokenizer.json)')
     parser.add_argument('--max-new-tokens', type=int, default=128)
     parser.add_argument('--embeddings', action='store_true',
                         help='emit L2-normalized text embeddings '
@@ -41,10 +44,6 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help='override $BATCH_OUTPUT (local testing)')
     args = parser.parse_args(argv)
 
-    if os.path.isdir(args.model):
-        raise NotImplementedError(
-            'HF checkpoint directories are not ported yet (ROADMAP.md, '
-            'queue A item 11)')
     in_path = args.input or os.environ['BATCH_INPUT']
     out_path = args.output or os.environ['BATCH_OUTPUT']
     records = []
@@ -55,8 +54,13 @@ def main(argv: Optional[List[str]] = None) -> int:
                 records.append(json.loads(line))
 
     from skypilot_tpu_torch.inference.engine import InferenceEngine
-    engine = InferenceEngine(args.model, device=args.device,
-                             max_batch=args.max_batch)
+    if os.path.isdir(args.model):
+        engine = InferenceEngine(hf_checkpoint=args.model,
+                                 device=args.device,
+                                 max_batch=args.max_batch)
+    else:
+        engine = InferenceEngine(args.model, device=args.device,
+                                 max_batch=args.max_batch)
     prompts = [r.get('prompt', '') for r in records]
     if args.embeddings:
         vectors = engine.embed_text(prompts)

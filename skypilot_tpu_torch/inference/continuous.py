@@ -58,12 +58,13 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from skypilot_tpu_torch.inference.engine import restore_params
 from skypilot_tpu_torch.inference.paged import (AdapterPagePool, BlockPool,
                                                 PrefixCache,
                                                 adapter_chain_root)
 from skypilot_tpu_torch.inference.tokenizer import get_tokenizer
 from skypilot_tpu_torch.models import decode as decode_lib
-from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import hf_interop, llama
 from skypilot_tpu_torch.models import lora as lora_lib
 from skypilot_tpu_torch.models.config import (ModelConfig, get_model_config,
                                               with_int8_kv_cache)
@@ -305,10 +306,13 @@ class _PrefillState:
 class ContinuousBatchingEngine:
     """generate() admits into the shared decode loop; thread-safe.
 
-    ``params``: a port params dict (``models/convert.py`` carries JAX
-    params over); default: ``llama.init_params`` from ``seed`` on the
-    device. ``device``: default ``cuda`` (raises without a GPU); pass
-    ``'cpu'`` to run on the CPU. ``spec_decode``/``draft_k``/``draft``:
+    The weights, in order: ``params`` (a port params dict;
+    ``models/convert.py`` carries JAX params over), ``hf_checkpoint``
+    (an HF directory, in bf16, with its tokenizer), ``checkpoint_dir``
+    (a training checkpoint's newest step), else ``llama.init_params``
+    from ``seed`` on the device (see ``engine.py``). ``device``:
+    default ``cuda`` (raises without a GPU); pass ``'cpu'`` to run on
+    the CPU. ``spec_decode``/``draft_k``/``draft``:
     speculative decoding (defaults ``SKYT_SPEC_DECODE``,
     ``SKYT_SPEC_DRAFT_K``; the n-gram draft of ``SKYT_SPEC_NGRAM_MAX``).
     ``lora_pages``/``lora_max_rank``/``lora_max_active``: multi-LoRA
@@ -342,22 +346,32 @@ class ContinuousBatchingEngine:
                  lora_max_rank: Optional[int] = None,
                  lora_max_active: Optional[int] = None,
                  base_digest: Optional[str] = None) -> None:
-        unported = {'checkpoint_dir': checkpoint_dir,
-                    'hf_checkpoint': hf_checkpoint, 'mesh': mesh,
-                    'role': role}
-        for name, value in unported.items():
-            if value:
-                raise NotImplementedError(
-                    f'{name}= is not ported yet (ROADMAP.md, queue A)')
+        if mesh:
+            raise NotImplementedError(
+                'mesh= is multi-device work, not ported yet (ROADMAP.md, '
+                'queue A item 15)')
+        if role:
+            raise NotImplementedError(
+                'role= (disaggregated prefill/decode) is not ported yet '
+                '(ROADMAP.md, queue A item 10)')
         self.device = resolve_device(device)
+        # Real-weights path: see engine.py (models/hf_interop.py).
+        if hf_checkpoint:
+            params, cfg = hf_interop.resolve_engine_inputs(
+                hf_checkpoint, params, cfg, device=self.device)
         self.cfg = cfg or get_model_config(model)
         if quantize_kv:
             self.cfg = with_int8_kv_cache(self.cfg)
-        self.tokenizer = get_tokenizer()
+        self.tokenizer = get_tokenizer(hf_checkpoint,
+                                       require=bool(hf_checkpoint))
         # A model whose vocab can't cover the tokenizer still serves the
         # id-level APIs; only the TEXT entry points are refused.
         self._tokenizer_fits = (self.tokenizer.vocab_size <=
                                 self.cfg.vocab_size)
+        if hf_checkpoint and not self._tokenizer_fits:
+            raise ValueError(
+                f'Model vocab {self.cfg.vocab_size} < tokenizer '
+                f'vocab {self.tokenizer.vocab_size}')
         self.max_slots = max_slots
         self.max_len = min(max_len or self.cfg.max_seq_len,
                            self.cfg.max_seq_len)
@@ -372,6 +386,9 @@ class ContinuousBatchingEngine:
         # would take (+1 for the reserved null block).
         self.num_blocks = (num_blocks or
                            max_slots * self.blocks_per_slot + 1)
+        if params is None and checkpoint_dir:
+            params = restore_params(checkpoint_dir, self.cfg, seed,
+                                    self.device)
         if params is None:
             params = llama.init_params(seed, self.cfg, device=self.device,
                                        weight_dtype=self.cfg.compute_dtype)

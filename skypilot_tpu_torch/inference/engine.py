@@ -11,10 +11,13 @@ decode-attention kernel on the card. ``embed_text`` mean-pools the
 final hidden states of ``llama.forward``.
 
 ``device``: default ``cuda`` (raises without a GPU); pass ``'cpu'`` to
-run on the CPU. ``params``: a port params dict (``models/convert.py``
-carries JAX params over); default ``llama.init_params`` from ``seed``
-on the device, in the compute dtype. Checkpoint and HF loading and
-tensor-parallel meshes are not ported yet and raise.
+run on the CPU. The weights, in order: ``params`` (a port params dict;
+``models/convert.py`` carries JAX params over), ``hf_checkpoint`` (an
+HF directory, loaded in bf16 by ``models/hf_interop.py``, whose
+tokenizer then serves), ``checkpoint_dir`` (the newest step of a
+training checkpoint, ``train/checkpoint.py``), else
+``llama.init_params`` from ``seed`` on the device, in the compute
+dtype. Tensor-parallel meshes are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -27,11 +30,24 @@ import torch
 
 from skypilot_tpu_torch.inference.tokenizer import get_tokenizer
 from skypilot_tpu_torch.models import decode as decode_lib
-from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import hf_interop, llama
 from skypilot_tpu_torch.models.config import (ModelConfig, get_model_config,
                                               with_int8_kv_cache)
 from skypilot_tpu_torch.models.quant import maybe_quantize
+from skypilot_tpu_torch.train.checkpoint import restore_latest
 from skypilot_tpu_torch.utils.device import resolve_device, to_device
+
+
+def restore_params(checkpoint_dir: str, cfg: ModelConfig, seed: int,
+                   device: torch.device):
+    """The params of the newest committed step of a training checkpoint
+    directory (``train/checkpoint.py``: ``pretrain``'s or
+    ``finetune``'s full-mode output) in ``cfg.param_dtype`` on
+    ``device``; ``init_params`` from ``seed`` when it holds none."""
+    return restore_latest(
+        checkpoint_dir,
+        lambda: llama.init_params(seed, cfg, device=device),
+        subtree='params')
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -72,26 +88,32 @@ class InferenceEngine:
                  quantize: bool = False,
                  quantize_kv: bool = False,
                  mesh: Optional[Any] = None) -> None:
-        unported = {'hf_checkpoint': (hf_checkpoint, 11),
-                    'checkpoint_dir': (checkpoint_dir, 14),
-                    'mesh': (mesh, 15)}
-        for name, (value, item) in unported.items():
-            if value:
-                raise NotImplementedError(
-                    f'{name}= is not ported yet (ROADMAP.md, queue A item '
-                    f'{item})')
+        if mesh:
+            raise NotImplementedError(
+                'mesh= is multi-device work, not ported yet (ROADMAP.md, '
+                'queue A item 15)')
         self.device = resolve_device(device)
+        # hf_checkpoint: an HF-layout dir (config.json + safetensors +
+        # tokenizer.json): published weights and their own tokenizer
+        # (models/hf_interop.py). The cfg/params args then come from it.
+        if hf_checkpoint:
+            params, cfg = hf_interop.resolve_engine_inputs(
+                hf_checkpoint, params, cfg, device=self.device)
         self.cfg = cfg or get_model_config(model)
         if quantize_kv:
             # int8 KV cache, dequantized inside the decode kernel.
             self.cfg = with_int8_kv_cache(self.cfg)
-        self.tokenizer = get_tokenizer()
+        self.tokenizer = get_tokenizer(hf_checkpoint,
+                                       require=bool(hf_checkpoint))
         if self.tokenizer.vocab_size > self.cfg.vocab_size:
             raise ValueError(
                 f'Model vocab {self.cfg.vocab_size} < tokenizer '
                 f'vocab {self.tokenizer.vocab_size}')
         self.max_batch = max_batch
         self._lock = threading.Lock()
+        if params is None and checkpoint_dir:
+            params = restore_params(checkpoint_dir, self.cfg, seed,
+                                    self.device)
         if params is None:
             params = llama.init_params(seed, self.cfg, device=self.device,
                                        weight_dtype=self.cfg.compute_dtype)

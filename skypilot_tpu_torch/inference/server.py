@@ -10,6 +10,13 @@ adapters as options)::
         [--engine continuous] [--quantize] [--quantize-kv] \
         [--spec-decode] [--draft-k 4] \
         [--lora-pages 4] [--lora-max-rank 16] [--lora-dir DIR]
+    python -m skypilot_tpu_torch.inference.server --hf-checkpoint DIR \
+        [--engine continuous] [--lora-pages 4 --lora-dir REG]
+
+``--hf-checkpoint`` serves an HF directory's weights (bf16) with its own
+tokenizer and chat template; ``--checkpoint-dir`` serves the newest step
+of a training checkpoint. With ``--lora-dir``, the served checkpoint's
+content digest is the base every adapter must have been trained on.
 
 Endpoints:
     GET  /health               -> 200 {"status": "ok", "model": ...}
@@ -273,6 +280,15 @@ def serve(engine, host: str, port: int) -> ThreadingHTTPServer:
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser()
     parser.add_argument('--model', default='tiny')
+    parser.add_argument('--checkpoint-dir', default=None,
+                        help='training checkpoint directory '
+                             '(train/checkpoint.py): serve the params of '
+                             'its newest committed step.')
+    parser.add_argument('--hf-checkpoint', default=None,
+                        help='HF-layout checkpoint dir (config.json + '
+                             'safetensors + tokenizer.json): serve its '
+                             'weights with its own BPE tokenizer '
+                             '(models/hf_interop.py).')
     parser.add_argument('--host', default='0.0.0.0')
     parser.add_argument('--port', type=int, default=8080)
     parser.add_argument('--device', default=None,
@@ -347,8 +363,18 @@ def build_engine(args):
     if args.engine == 'continuous':
         from skypilot_tpu_torch.inference.continuous import (
             ContinuousBatchingEngine)
+        base_digest = None
+        if args.lora_dir:
+            # Bind the served base to its content digest so adapter
+            # registration can reject mispointed registries.
+            from skypilot_tpu_torch.serve import adapter_registry
+            ckpt = args.hf_checkpoint or args.checkpoint_dir
+            if ckpt and os.path.isdir(ckpt):
+                base_digest = adapter_registry.checkpoint_digest(ckpt)
         engine = ContinuousBatchingEngine(
             args.model,
+            checkpoint_dir=args.checkpoint_dir,
+            hf_checkpoint=args.hf_checkpoint,
             device=args.device,
             max_slots=args.max_batch,
             max_len=args.max_len,
@@ -360,7 +386,8 @@ def build_engine(args):
             spec_decode=args.spec_decode,
             draft_k=args.draft_k,
             lora_pages=args.lora_pages,
-            lora_max_rank=args.lora_max_rank)
+            lora_max_rank=args.lora_max_rank,
+            base_digest=base_digest)
         if args.lora_dir:
             from skypilot_tpu_torch.serve import adapter_registry
             names = adapter_registry.load_registry_into(engine,
@@ -371,6 +398,8 @@ def build_engine(args):
     else:
         from skypilot_tpu_torch.inference.engine import InferenceEngine
         engine = InferenceEngine(args.model,
+                                 checkpoint_dir=args.checkpoint_dir,
+                                 hf_checkpoint=args.hf_checkpoint,
                                  device=args.device,
                                  max_batch=args.max_batch,
                                  quantize=args.quantize,

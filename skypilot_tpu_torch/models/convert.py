@@ -18,6 +18,7 @@ packages can be fed the same adapters.
 """
 from __future__ import annotations
 
+import sys
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
@@ -85,10 +86,19 @@ def tensor_from_numpy(array: np.ndarray,
 
 
 def tensor_to_numpy(tensor: torch.Tensor) -> np.ndarray:
-    """A tensor as a numpy array (bf16 as ml_dtypes bfloat16)."""
+    """A tensor as a numpy array (bf16 as ml_dtypes bfloat16).
+
+    numpy has no bf16 of its own: the JAX package's bf16 arrays carry
+    ``ml_dtypes``' type, which the port does not import (the card
+    machine lacks it). A bf16 tensor converts only in a process where
+    it is already loaded (by JAX: the parity tests), and raises
+    elsewhere."""
     tensor = tensor.detach().cpu().contiguous()
     if tensor.dtype == torch.bfloat16:
-        import ml_dtypes  # the dtype the JAX side's arrays carry
+        ml_dtypes = sys.modules.get('ml_dtypes')
+        if ml_dtypes is None:
+            raise TypeError('a bf16 tensor has no numpy dtype in this '
+                            'process (ml_dtypes is not loaded)')
         bits = tensor.view(torch.int16).numpy().astype(np.uint16)
         return bits.view(ml_dtypes.bfloat16)
     return tensor.numpy().copy()

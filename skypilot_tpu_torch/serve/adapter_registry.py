@@ -42,6 +42,14 @@ def _host(value: Any) -> np.ndarray:
     return np.asarray(value)
 
 
+def _leaf_bytes(value: Any) -> bytes:
+    """A leaf's raw bytes (a bf16 tensor's without a numpy bf16)."""
+    if isinstance(value, torch.Tensor):
+        t = value.detach().cpu().contiguous().reshape(-1)
+        return t.view(torch.uint8).numpy().tobytes()
+    return np.ascontiguousarray(value).tobytes()
+
+
 def _leaves_with_path(node: Any, path: Tuple[str, ...] = ()):
     """(key path, leaf) pairs of a params dict, the key path spelled as
     the reference's ``str(jax key path)`` (``DictKey(key='...')`` per
@@ -71,7 +79,7 @@ def params_digest(params: Any) -> str:
         leaves.append((text, leaf))
     for text, leaf in sorted(leaves, key=lambda kv: kv[0]):
         sha.update(text.encode())
-        sha.update(np.ascontiguousarray(_host(leaf)).tobytes())
+        sha.update(_leaf_bytes(leaf))
     return sha.hexdigest()
 
 

@@ -7,7 +7,7 @@ state by its '/'-joined key (``step``, ``params/layers/attn/wq``,
 ``opt_state/count``, ``opt_state/v_row/embed/embedding``, ...; integers
 as 0-dim int64 tensors), and the manifest of ``data/ckpt_manifest.py``.
 
-The file is written by hand in the safetensors layout (an 8-byte
+The file is written and read by ``utils/safetensors_io.py`` (an 8-byte
 little-endian header length, a JSON header of dtype, shape and byte
 offsets per tensor, then the raw bytes), so any safetensors reader
 reads it. The reference writes with orbax; reading its orbax
@@ -23,17 +23,17 @@ are kept and older ones removed.
 from __future__ import annotations
 
 import dataclasses
-import json
 import logging
 import os
 import shutil
-import struct
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from skypilot_tpu_torch.data import ckpt_manifest
 from skypilot_tpu_torch.utils import fault_injection
+from skypilot_tpu_torch.utils.safetensors_io import (SafetensorsReader,
+                                                    write_safetensors)
 
 logger = logging.getLogger(__name__)
 
@@ -42,65 +42,16 @@ logger = logging.getLogger(__name__)
 COMMIT_SITE = 'train.ckpt.commit'
 SHARD_NAME = 'state.safetensors'
 
-_DTYPES = {torch.float32: 'F32', torch.bfloat16: 'BF16',
-           torch.float16: 'F16', torch.float64: 'F64',
-           torch.int64: 'I64', torch.int32: 'I32', torch.int16: 'I16',
-           torch.int8: 'I8', torch.uint8: 'U8', torch.bool: 'BOOL'}
-_FROM_NAME = {v: k for k, v in _DTYPES.items()}
-
 
 # ---------------------------------------------------------------------------
 # safetensors files
 # ---------------------------------------------------------------------------
 
-def _raw_bytes(t: torch.Tensor) -> bytes:
-    t = t.detach().to('cpu').contiguous().reshape(-1)
-    return t.view(torch.uint8).numpy().tobytes()
-
-
-def write_safetensors(path: str, tensors: Dict[str, torch.Tensor]) -> None:
-    """Write ``tensors`` (in key order) to ``path`` and fsync it."""
-    header: Dict[str, Any] = {}
-    offset = 0
-    for name in sorted(tensors):
-        t = tensors[name]
-        if t.dtype not in _DTYPES:
-            raise TypeError(f'{name}: dtype {t.dtype} has no safetensors '
-                            'name')
-        size = t.numel() * t.element_size()
-        header[name] = {'dtype': _DTYPES[t.dtype], 'shape': list(t.shape),
-                        'data_offsets': [offset, offset + size]}
-        offset += size
-    raw = json.dumps(header, separators=(',', ':')).encode()
-    raw += b' ' * (-len(raw) % 8)
-    with open(path, 'wb') as f:
-        f.write(struct.pack('<Q', len(raw)))
-        f.write(raw)
-        for name in sorted(tensors):
-            f.write(_raw_bytes(tensors[name]))
-        f.flush()
-        os.fsync(f.fileno())
-
-
 def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
     """The tensors of a safetensors file, on the CPU (its
     ``__metadata__`` is skipped)."""
-    with open(path, 'rb') as f:
-        (size,) = struct.unpack('<Q', f.read(8))
-        header = json.loads(f.read(size))
-        data = bytearray(f.read())
-    header.pop('__metadata__', None)
-    out: Dict[str, torch.Tensor] = {}
-    for name, info in header.items():
-        dtype = _FROM_NAME[info['dtype']]
-        start, end = info['data_offsets']
-        if end > start:
-            flat = torch.frombuffer(data, dtype=torch.uint8, offset=start,
-                                    count=end - start).view(dtype)
-        else:
-            flat = torch.empty((0,), dtype=dtype)
-        out[name] = flat.reshape(info['shape'])
-    return out
+    with SafetensorsReader(path) as reader:
+        return {name: reader.get(name).clone() for name in reader.keys()}
 
 
 # ---------------------------------------------------------------------------
@@ -217,7 +168,7 @@ def save(directory: str, step: int, tree: Any,
     step_dir = os.path.join(directory, str(step))
     os.makedirs(step_dir)
     write_safetensors(os.path.join(step_dir, SHARD_NAME),
-                      _to_tensors(_flatten(tree)))
+                      _to_tensors(_flatten(tree)), fsync=True)
     fault_injection.inject(COMMIT_SITE)
     ckpt_manifest.write(step_dir, ckpt_manifest.build(step_dir, step=step))
     committed, _ = _committed_steps(directory)
@@ -248,16 +199,24 @@ def latest_step(directory: str) -> Optional[int]:
     return max(committed) if committed else None
 
 
-def restore(directory: str, step: int, target: Any) -> Any:
+def restore(directory: str, step: int, target: Any,
+            subtree: Optional[str] = None) -> Any:
     """Step ``step`` restored into ``target``: its tensors are
     overwritten in place (on their device, in their dtypes) and its ints
-    replaced; returns the restored tree. Keys must match exactly."""
+    replaced; returns the restored tree. Keys must match exactly; with
+    ``subtree`` (e.g. ``'params'`` of a saved train state), the keys
+    under that name must match ``target``'s and the rest are not read
+    into it."""
     directory = os.path.abspath(os.path.expanduser(directory))
     step_dir = _step_dir(directory, step)
     if step_dir is None or ckpt_manifest.read(step_dir) is None:
         raise FileNotFoundError(f'no committed checkpoint step {step} in '
                                 f'{directory}')
     loaded = read_safetensors(os.path.join(step_dir, SHARD_NAME))
+    if subtree:
+        prefix = subtree + '/'
+        loaded = {k[len(prefix):]: v for k, v in loaded.items()
+                  if k.startswith(prefix)}
     want = set(_flatten(target))
     if want != set(loaded):
         raise ValueError(
@@ -269,11 +228,13 @@ def restore(directory: str, step: int, target: Any) -> Any:
     return restored
 
 
-def restore_latest(directory: str, init_fn: Callable[[], Any]) -> Any:
-    """The newest committed checkpoint restored into ``init_fn()``, or
-    ``init_fn()`` itself when there is none."""
+def restore_latest(directory: str, init_fn: Callable[[], Any],
+                   subtree: Optional[str] = None) -> Any:
+    """The newest committed checkpoint restored into ``init_fn()`` (see
+    ``restore`` for ``subtree``), or ``init_fn()`` itself when there is
+    none."""
     step = latest_step(directory)
     target = init_fn()
     if step is None:
         return target
-    return restore(directory, step, target)
+    return restore(directory, step, target, subtree)

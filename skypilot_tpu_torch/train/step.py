@@ -123,14 +123,20 @@ def _schedule(hp: TrainHParams) -> Callable[[int], float]:
 class AdamW:
     """clip_by_global_norm -> scale_by_adam -> add_decayed_weights ->
     scale_by_learning_rate(schedule), updating params in place.
+    ``schedule`` (step -> learning rate) defaults to the reference's
+    warmup-cosine of ``hp``; ``clip=False`` drops the clipping, which
+    with a constant schedule is plain ``optax.adamw``.
 
     State: ``{'count': int, 'mu': params-like, 'nu': params-like}``."""
 
-    def __init__(self, hp: TrainHParams):
+    def __init__(self, hp: TrainHParams,
+                 schedule: Optional[Callable[[int], float]] = None,
+                 clip: bool = True):
         self.hp = hp
         self.eps = 1e-8        # optax.adamw defaults
         self.eps_root = 0.0
-        self.schedule = _schedule(hp)
+        self.schedule = schedule or _schedule(hp)
+        self.clip = clip
 
     def init(self, params: Params) -> Dict[str, Any]:
         def zeros(tree):
@@ -142,24 +148,26 @@ class AdamW:
 
     @torch.no_grad()
     def update_(self, params: Params, grads: List[torch.Tensor],
-                state: Dict[str, Any]) -> Tuple[Dict[str, Any],
-                                                torch.Tensor]:
+                state: Dict[str, Any]
+                ) -> Tuple[Dict[str, Any], Optional[torch.Tensor]]:
         """Apply one update in place. ``grads`` are in ``_leaves``
-        order. Returns (new state, global norm of the unclipped
-        grads)."""
+        order. Returns (new state, global norm of the unclipped grads;
+        None without clipping)."""
         hp = self.hp
-        g_norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                                for g in grads))
-        clip = torch.where(g_norm < hp.grad_clip_norm,
-                           torch.ones_like(g_norm),
-                           hp.grad_clip_norm / g_norm)
+        g_norm = clip = None
+        if self.clip:
+            g_norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                    for g in grads))
+            clip = torch.where(g_norm < hp.grad_clip_norm,
+                               torch.ones_like(g_norm),
+                               hp.grad_clip_norm / g_norm)
         count_inc = state['count'] + 1
         bc1 = 1.0 - hp.b1 ** count_inc
         bc2 = 1.0 - hp.b2 ** count_inc
         lr = self.schedule(state['count'])
         for p, g, mu, nu in zip(_leaves(params), grads,
                                 _leaves(state['mu']), _leaves(state['nu'])):
-            g = g.float() * clip
+            g = g.float() if clip is None else g.float() * clip
             mu.mul_(hp.b1).add_(g, alpha=1.0 - hp.b1)
             nu.mul_(hp.b2).addcmul_(g, g, value=1.0 - hp.b2)
             update = (mu / bc1) / (torch.sqrt(nu / bc2 + self.eps_root) +
@@ -271,8 +279,8 @@ class Adafactor:
 
     @torch.no_grad()
     def update_(self, params: Params, grads: List[torch.Tensor],
-                state: Dict[str, Any]) -> Tuple[Dict[str, Any],
-                                                torch.Tensor]:
+                state: Dict[str, Any]
+                ) -> Tuple[Dict[str, Any], Optional[torch.Tensor]]:
         """Apply one update in place. ``grads`` are in ``_leaves``
         order. Returns (new state, global norm of the unclipped grads,
         in their dtype)."""

@@ -914,3 +914,58 @@ def test_moe_capacity_drops_on_card_match_cpu(card):
     dense, _ = llama._moe_block(
         x, lp, get_model_config('tiny-moe', compute_dtype=torch.float32))
     assert (dense - want).abs().max().item() > 1e-2
+
+
+@pytest.mark.parametrize('dtype', [None, torch.bfloat16],
+                         ids=['fp32', 'bf16'])
+def test_checkpoint_loads_on_card_as_on_cpu(card, tmp_path, dtype):
+    """A TINY (head_dim 128) HF checkpoint written by the port loads on
+    the card bitwise equal to its CPU load."""
+    from skypilot_tpu_torch.models import hf_interop, llama
+    from skypilot_tpu_torch.models.config import get_model_config
+    cfg = get_model_config('tiny', head_dim=128)
+    hf_interop.save_checkpoint(llama.init_params(5, cfg, device='cpu'),
+                               cfg, str(tmp_path))
+    cpu, _ = hf_interop.load_checkpoint(str(tmp_path), dtype=dtype,
+                                        device='cpu')
+    gpu, gcfg = hf_interop.load_checkpoint(str(tmp_path), dtype=dtype,
+                                           device=card)
+
+    def leaves(tree, prefix=''):
+        if isinstance(tree, dict):
+            for key, value in tree.items():
+                yield from leaves(value, f'{prefix}{key}/')
+        else:
+            yield prefix, tree
+
+    got = dict(leaves(gpu))
+    for key, want in leaves(cpu):
+        assert got[key].device.type == 'cuda'
+        assert got[key].dtype == want.dtype == (dtype or torch.float32)
+        assert torch.equal(got[key].cpu().view(torch.int16)
+                           if want.dtype == torch.bfloat16
+                           else got[key].cpu(),
+                           want.view(torch.int16)
+                           if want.dtype == torch.bfloat16 else want), key
+
+
+def test_tokenizer_fixture_holds_on_card_machine(card):
+    """On the card machine's Python, the port's tokenizer.json reader
+    gives the fixture's recorded ids (those of the ``tokenizers``
+    library) and text back. That the port never imports ``tokenizers``
+    is what ``test_torch_isolation.py`` holds, with the library blocked;
+    this test does not depend on whether the library is installed."""
+    import json
+    import os
+    from skypilot_tpu_torch.inference.tokenizer import HFTokenizer
+    fixture = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'skypilot_tpu_torch', 'testdata',
+        'tokenizer_llama3')
+    tok = HFTokenizer(fixture)
+    with open(os.path.join(fixture, 'expected.json'),
+              encoding='utf-8') as f:
+        expected = json.load(f)
+    assert len(expected) >= 20
+    for case in expected:
+        assert tok.encode(case['text'], add_bos=False) == case['ids']
+        assert tok._tok.decode(case['ids']) == case['text']

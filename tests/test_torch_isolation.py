@@ -1,9 +1,11 @@
 """The PyTorch port stands alone: no JAX, nothing of the JAX package.
 
 ``skypilot_tpu_torch`` (and ``chip_smoke.py``) must import with ``jax``
-and ``skypilot_tpu`` blocked, their sources must not name either, and
-entry points must refuse to run quietly on the CPU when no GPU is
-present.
+and ``skypilot_tpu`` blocked, their sources must not name either, nor
+the libraries the card machine lacks (``tokenizers``, ``transformers``,
+``safetensors``, ``ml_dtypes``, ``regex``: the port reads safetensors
+and tokenizer.json files itself), and entry points must refuse to run
+quietly on the CPU when no GPU is present.
 """
 import ast
 import os
@@ -17,6 +19,9 @@ from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.join(REPO_ROOT, 'skypilot_tpu_torch')
 CHIP_SMOKE = os.path.join(REPO_ROOT, 'chip_smoke.py')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'skypilot_tpu',
+             'tokenizers', 'transformers', 'safetensors', 'ml_dtypes',
+             'regex')
 
 
 def _package_modules():
@@ -46,8 +51,7 @@ def _forbidden_imports(path):
             names = [node.module]
         for name in names:
             root = name.split('.')[0]
-            if root in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',
-                        'skypilot_tpu'):
+            if root in FORBIDDEN:
                 bad.append(name)
     return bad
 
@@ -61,12 +65,13 @@ def test_every_module_imports_with_jax_blocked():
                 'models.lora', 'data.ckpt_manifest',
                 'serve.adapter_registry', 'server.metrics',
                 'utils.fault_injection', 'train.checkpoint', 'data.packer',
-                'bench'):
+                'bench', 'models.hf_interop', 'inference.bpe',
+                'train.finetune'):
         assert 'skypilot_tpu_torch.' + mod in mods
     code = (
         'import sys\n'
-        "sys.modules['jax'] = None\n"
-        "sys.modules['skypilot_tpu'] = None\n"
+        f'for name in {FORBIDDEN!r}:\n'
+        '    sys.modules[name] = None\n'
         'import importlib\n'
         f'for m in {mods!r}:\n'
         '    importlib.import_module(m)\n'
@@ -115,9 +120,12 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
         infer_worker.main(['--input', str(src), '--output',
                            str(tmp_path / 'out.jsonl')])
     from skypilot_tpu_torch import bench
-    from skypilot_tpu_torch.train import pretrain, step
+    from skypilot_tpu_torch.train import finetune, pretrain, step
     with pytest.raises(RuntimeError, match='no CUDA device'):
         pretrain.main(['--model', 'tiny', '--steps', '1'])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        finetune.main(['--hf-checkpoint', str(tmp_path), '--data',
+                       str(src), '--steps', '1'])
     assert bench.main(['--mode', 'train']) == 1
     with pytest.raises(RuntimeError, match='no CUDA device'):
         step.create_train_state(0, get_model_config('tiny'),
@@ -126,18 +134,23 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
     assert params['layers']['attn']['wq'].device.type == 'cpu'
 
 
-def test_unported_engine_options_raise():
+def test_unported_engine_options_raise(tmp_path):
+    """``mesh=`` and ``role=`` raise with their queue items; the
+    checkpoint options are ported (a missing HF directory is an error
+    of the input, not a pointer to ROADMAP.md)."""
     from skypilot_tpu_torch.inference.continuous import (
         ContinuousBatchingEngine)
     from skypilot_tpu_torch.inference.engine import InferenceEngine
-    for kwargs in ({'role': 'prefill'}, {'mesh': 'tensor=2'}):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
+    for kwargs, item in (({'role': 'prefill'}, 'item 10'),
+                         ({'mesh': 'tensor=2'}, 'item 15')):
+        with pytest.raises(NotImplementedError, match='ROADMAP.*' + item):
             ContinuousBatchingEngine('tiny', device='cpu', **kwargs)
-    for kwargs in ({'checkpoint_dir': '/nonexistent'},
-                   {'hf_checkpoint': '/nonexistent'},
-                   {'mesh': 'tensor=2'}):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            InferenceEngine('tiny', device='cpu', **kwargs)
+    with pytest.raises(NotImplementedError, match='ROADMAP.*item 15'):
+        InferenceEngine('tiny', device='cpu', mesh='tensor=2')
+    for engine in (InferenceEngine, ContinuousBatchingEngine):
+        with pytest.raises(FileNotFoundError):
+            engine('tiny', device='cpu',
+                   hf_checkpoint=str(tmp_path / 'nonexistent'))
 
 
 def test_quantize_works_on_both_engines():
