@@ -191,10 +191,30 @@ Phases, in order; any failure exits non-zero:
    against the checkpoint's digest, and a request naming it gives
    first-token logits that differ from the base request's; s/step and
    peak GB.
+28. Disaggregated prefill/decode, full width and depth (after phase 27,
+   on phase 9's weights): a prefill-role and a decode-role continuous
+   engine (4 slots, max_len 2048, block 16), and a decode-role twin,
+   each behind the port's server on localhost. The script drives both
+   hops as the serve LB does: ``/disagg/prefill`` on the prefill server,
+   then ``/generate`` on the decode server with ``X-Skyt-Kv-Request-Id``
+   and ``X-Skyt-Kv-Endpoint``. Four lone requests of 131-255 tokens + 32,
+   one at a time: greedy tokens exactly the twin's single-hop (local
+   prefill) answer; no paged launch during hop 1 and n_layers a decode
+   step during hop 2; exports +1 with none pending after, imports +1,
+   no fallback and no decode-side prefill chunk; the handoff histogram
+   observed. Then a request sharing 11 full blocks with a lone one: a
+   direct ``KvPuller`` pull moves fewer blocks than it has, 11 resident,
+   and its two-hop tokens equal the twin's; and a burst of 4 through
+   both hops at once (counters gated, agreement with the twin's
+   concurrent streams printed). Again on int8 pools (kernel 2), lone
+   requests only. Any WARNING from the port's serving modules (a failed
+   pull, an import fallback, a retry) fails the phase. Pool GB, handoff
+   seconds (pull + import) and bytes moved per request, decode tok/s
+   beside the twin's.
 
 Then one JSON line listing every kernel (the paged kernels' launches are
-the sums of phases 9, 14, 15, 22, 23, 24, 26 and 27, and of 10 and 14's
-int8 run; the decode kernel's of phases 12, 20, 22 and 26; the flash
+the sums of phases 9, 14, 15, 22, 23, 24, 26, 27 and 28, and of 10, 14
+and 28's int8 runs; the decode kernel's of phases 12, 20, 22 and 26; the flash
 kernels' of phases 7, 16, 17, 18, 25 and 27), the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -2982,6 +3002,314 @@ def run_checkpoint_phases(torch, pa, da, fa, params, plain):
 
 
 # ---------------------------------------------------------------------------
+# Phase 28: disaggregated prefill/decode
+# ---------------------------------------------------------------------------
+
+# Four lone prompts of 131-255 tokens (the byte tokenizer: one token a
+# byte after BOS), no two sharing a first block; the burst's four more.
+DISAGG_TEXT = ('A prefill replica absorbs the prompt and parks its KV '
+               'blocks; the decode replica pulls them and streams. ') * 4
+DISAGG_LONE = [f'Lone request {i}: {DISAGG_TEXT}'[:n]
+               for i, n in enumerate((130, 170, 210, 254))]
+DISAGG_BURST = [f'Burst request {i}: {DISAGG_TEXT}'[:n]
+                for i, n in enumerate((140, 180, 220, 250))]
+
+
+class WarningLog:
+    """Collects every WARNING or worse that the port's serving modules
+    log while in use (a failed pull, a KV import fallback, a retry)."""
+
+    def __init__(self):
+        import logging
+        self.records = []
+        self.logger = logging.getLogger('skypilot_tpu_torch.inference')
+        self.handler = logging.Handler(logging.WARNING)
+        self.handler.emit = lambda r: self.records.append(
+            f'{r.name}: {r.getMessage()}')
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+class SubmitRecorder:
+    """Records the handle of every request an engine admits (its
+    ``_submit``), so the script reads the ids each HTTP request gave."""
+
+    def __init__(self, engine):
+        self.engine, self.handles = engine, []
+
+    def __enter__(self):
+        inner = self.engine._submit
+
+        def submit(*args, **kwargs):
+            handle = inner(*args, **kwargs)
+            self.handles.append(handle)
+            return handle
+
+        self.engine._submit = submit
+        return self
+
+    def __exit__(self, *exc):
+        del self.engine._submit
+
+
+def two_hop(pre_port, dec_port, prompt, max_new_tokens):
+    """Both hops of the serve LB's two-hop route, driven as the LB
+    drives them: the client's body to the prefill replica's
+    ``/disagg/prefill``, then to the decode replica with the export's id
+    and endpoint. Returns the prefill hop's answer."""
+    body = {'prompts': [prompt], 'max_new_tokens': max_new_tokens}
+    hop1 = post_json(pre_port, '/disagg/prefill', body,
+                     {'X-Skyt-Disagg-Path': '/generate'})
+    post_json(dec_port, '/generate', body,
+              {'X-Skyt-Kv-Request-Id': hop1['request_id'],
+               'X-Skyt-Kv-Endpoint': f'http://127.0.0.1:{pre_port}'})
+    return hop1
+
+
+def disagg_pool(torch, pa, params, quantize_kv, full):
+    """Phase 28 for one pool type: a prefill-role and a decode-role
+    engine on phase 9's tree, each behind the port's server, and a
+    decode-role twin on the same tree whose single-hop (local prefill)
+    answers the two-hop answers must equal exactly. Lone requests, then
+    with ``full`` a shared-prefix request and a concurrent burst."""
+    from skypilot_tpu_torch.inference import kv_migrate
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
+    from skypilot_tpu_torch.server import metrics
+    tag = 'int8' if quantize_kv else 'bf16'
+    kernel = 'paged_attention_quant' if quantize_kv else 'paged_attention'
+    kw = dict(params=params, max_slots=4, max_len=2048, block_size=16,
+              quantize_kv=quantize_kv)
+    engines = {role: ContinuousBatchingEngine('llama3-8b', role=role, **kw)
+               for role in ('prefill', 'decode')}
+    engines['twin'] = ContinuousBatchingEngine('llama3-8b', role='decode',
+                                               **kw)
+    pre, dec, twin = engines['prefill'], engines['decode'], engines['twin']
+    n_layers = dec.cfg.n_layers
+    servers = {}
+    result = {}
+    try:
+        for role, engine in engines.items():
+            gb = sum(t.numel() * t.element_size()
+                     for t in engine._pool_fields().values()) / 1e9
+            log(f'[disagg {tag}] {role} pool '
+                f'{tuple(engine.cache.k.shape)} {engine.cache.k.dtype}: '
+                f'{gb:.3f} GB')
+            servers[role] = serve_engine(engine)
+        ports = {role: port for role, (_, port) in servers.items()}
+        # Warm-up, outside every counted window.
+        pre.exporter.pop(pre.prefill_and_export([1, 2, 3]))
+        dec.generate_ids([1, 2, 3], max_new_tokens=2)
+        twin.generate_ids([1, 2, 3], max_new_tokens=2)
+        with WarningLog() as warnings, SubmitRecorder(dec) as dec_rec, \
+                SubmitRecorder(twin) as twin_rec:
+            # Single-hop answers of every prompt on the twin.
+            before_twin = twin.stats()
+            for prompt in DISAGG_LONE:
+                post_json(ports['twin'], '/generate',
+                          {'prompts': [prompt], 'max_new_tokens': 32})
+            lone_want = [list(h.generated) for h in twin_rec.handles]
+            result['twin_tok_s'] = decode_rate(before_twin, twin.stats())
+            # Lone two-hop requests, one at a time.
+            launches, handoff, moved_bytes = 0, [], []
+            tokens, seconds = 0, 0.0
+            for i, prompt in enumerate(DISAGG_LONE):
+                before_pre, before_dec = pre.stats(), dec.stats()
+                pulled0 = metrics.KV_MIGRATE_BYTES.value(direction='pull')
+                samples0 = len(metrics.DISAGG_HANDOFF.samples())
+                torch.cuda.synchronize()
+                pa.reset_launch_counts()
+                hop1 = post_json(ports['prefill'], '/disagg/prefill',
+                                 {'prompts': [prompt],
+                                  'max_new_tokens': 32},
+                                 {'X-Skyt-Disagg-Path': '/generate'})
+                torch.cuda.synchronize()
+                hop1_counts = dict(pa.LAUNCHES)
+                post_json(ports['decode'], '/generate',
+                          {'prompts': [prompt], 'max_new_tokens': 32},
+                          {'X-Skyt-Kv-Request-Id': hop1['request_id'],
+                           'X-Skyt-Kv-Endpoint':
+                               f'http://127.0.0.1:{ports["prefill"]}'})
+                torch.cuda.synchronize()
+                counts = dict(pa.LAUNCHES)
+                after_pre, after_dec = pre.stats(), dec.stats()
+                got = list(dec_rec.handles[-1].generated)
+                steps = after_dec['decode_steps'] - before_dec['decode_steps']
+                checks = {
+                    'tokens equal the twin single-hop': got == lone_want[i],
+                    'no paged launch in hop 1':
+                        hop1_counts['paged_attention'] == 0 and
+                        hop1_counts['paged_attention_quant'] == 0,
+                    'paged launches = layers x decode steps':
+                        steps > 0 and counts[kernel] == n_layers * steps,
+                    'exports +1': after_pre['kv_exports'] ==
+                        before_pre['kv_exports'] + 1,
+                    'exports pending 0': after_pre['kv_exports_pending'] == 0,
+                    'imports +1': after_dec['kv_imports'] ==
+                        before_dec['kv_imports'] + 1,
+                    'no fallback': after_dec['kv_import_fallbacks'] == 0,
+                    'no decode-side prefill chunk':
+                        after_dec['prefill_chunks'] ==
+                        before_dec['prefill_chunks'],
+                    'handoff observed':
+                        len(metrics.DISAGG_HANDOFF.samples()) ==
+                        samples0 + 1,
+                }
+                failed = [name for name, ok in checks.items() if not ok]
+                if failed:
+                    raise AssertionError(
+                        f'[disagg {tag}] lone request {i} '
+                        f'({hop1["n_tokens"]} tokens): {failed}; tokens '
+                        f'{got} vs single-hop {lone_want[i]}; launches '
+                        f'{hop1_counts} then {counts}, {steps} steps')
+                launches += counts[kernel]
+                handoff.append(metrics.DISAGG_HANDOFF.samples()[-1])
+                moved_bytes.append(
+                    metrics.KV_MIGRATE_BYTES.value(direction='pull') -
+                    pulled0)
+                tokens += (after_dec['tokens_generated'] -
+                           before_dec['tokens_generated'])
+                seconds += (after_dec['decode_seconds'] -
+                            before_dec['decode_seconds'])
+            result['lone_tok_s'] = tokens / seconds if seconds else 0.0
+            result['handoff_s'] = handoff
+            result['bytes'] = moved_bytes
+            log(f'[disagg {tag}] 4 lone two-hop requests of '
+                f'{[len(dec.tokenizer.encode(p)) for p in DISAGG_LONE]} '
+                f'tokens: greedy tokens equal the single-hop twin; '
+                f'{launches} {kernel} launches = {n_layers} x decode '
+                f'steps; handoff (pull + import) '
+                f'{", ".join(f"{1e3 * s:.1f}" for s in handoff)} ms; '
+                f'moved {", ".join(f"{b / 1e6:.2f}" for b in moved_bytes)} '
+                f'MB; decode {result["lone_tok_s"]:.1f} tok/s (the twin '
+                f'single-hop: {result["twin_tok_s"]:.1f})')
+            result['launches'] = launches
+            if not full:
+                if warnings.records:
+                    raise AssertionError(f'[disagg {tag}] the serving '
+                                         f'modules logged: '
+                                         f'{warnings.records}')
+                return result
+            # Shared prefix: 11 full blocks of the last lone prompt.
+            shared = DISAGG_LONE[3][:175] + ' and a different ending.'
+            ids = dec.tokenizer.encode(shared)
+            hop1 = post_json(ports['prefill'], '/disagg/prefill',
+                             {'prompts': [shared], 'max_new_tokens': 32},
+                             {'X-Skyt-Disagg-Path': '/generate'})
+            source = kv_migrate.HTTPKvSource(
+                f'http://127.0.0.1:{ports["prefill"]}')
+            pulled = kv_migrate.KvPuller(source).pull(
+                hop1['request_id'],
+                resident_digests=dec.probe_resident(ids))
+            total = len(ids) // dec.block_size
+            if not (pulled.moved < total and pulled.resident >= 10 and
+                    pulled.moved + pulled.resident == total):
+                raise AssertionError(
+                    f'[disagg {tag}] shared prefix: moved {pulled.moved}, '
+                    f'resident {pulled.resident} of {total} blocks')
+            before_dec = dec.stats()
+            pa.reset_launch_counts()
+            post_json(ports['decode'], '/generate',
+                      {'prompts': [shared], 'max_new_tokens': 32},
+                      {'X-Skyt-Kv-Request-Id': hop1['request_id'],
+                       'X-Skyt-Kv-Endpoint':
+                           f'http://127.0.0.1:{ports["prefill"]}'})
+            torch.cuda.synchronize()
+            launches += pa.LAUNCHES[kernel]
+            post_json(ports['twin'], '/generate',
+                      {'prompts': [shared], 'max_new_tokens': 32})
+            after_dec = dec.stats()
+            if (dec_rec.handles[-1].generated !=
+                    twin_rec.handles[-1].generated or
+                    after_dec['kv_imports'] != before_dec['kv_imports'] + 1
+                    or after_dec['prefill_chunks'] !=
+                    before_dec['prefill_chunks']):
+                raise AssertionError(f'[disagg {tag}] shared-prefix '
+                                     f'request: {after_dec}')
+            log(f'[disagg {tag}] shared prefix ({len(ids)} tokens): a '
+                f'direct pull moved {pulled.moved} of {total} full '
+                f'blocks, {pulled.resident} resident; its two-hop tokens '
+                f'equal the single-hop twin')
+            # Concurrent burst: four requests through both hops at once.
+            n_twin = len(twin_rec.handles)
+            run_concurrently([
+                (lambda p=p: post_json(ports['twin'], '/generate',
+                                       {'prompts': [p],
+                                        'max_new_tokens': 32}))
+                for p in DISAGG_BURST])
+            burst_want = {tuple(h.token_ids): list(h.generated)
+                          for h in twin_rec.handles[n_twin:]}
+            before_pre, before_dec = pre.stats(), dec.stats()
+            n_dec = len(dec_rec.handles)
+            torch.cuda.synchronize()
+            pa.reset_launch_counts()
+            run_concurrently([
+                (lambda p=p: two_hop(ports['prefill'], ports['decode'], p,
+                                     32))
+                for p in DISAGG_BURST])
+            torch.cuda.synchronize()
+            counts = dict(pa.LAUNCHES)
+            after_pre, after_dec = pre.stats(), dec.stats()
+            steps = after_dec['decode_steps'] - before_dec['decode_steps']
+            agree = sum(list(h.generated) == burst_want[tuple(h.token_ids)]
+                        for h in dec_rec.handles[n_dec:])
+            checks = {
+                'exports +4': after_pre['kv_exports'] ==
+                    before_pre['kv_exports'] + 4,
+                'exports pending 0': after_pre['kv_exports_pending'] == 0,
+                'imports +4': after_dec['kv_imports'] ==
+                    before_dec['kv_imports'] + 4,
+                'no fallback': after_dec['kv_import_fallbacks'] == 0,
+                'no decode-side prefill chunk':
+                    after_dec['prefill_chunks'] ==
+                    before_dec['prefill_chunks'],
+                'paged launches = layers x decode steps':
+                    steps > 0 and counts[kernel] == n_layers * steps,
+            }
+            failed = [name for name, ok in checks.items() if not ok]
+            if failed:
+                raise AssertionError(f'[disagg {tag}] burst: {failed}; '
+                                     f'{counts}, {steps} steps')
+            launches += counts[kernel]
+            result['burst_tok_s'] = decode_rate(before_dec, after_dec)
+            log(f'[disagg {tag}] burst of 4 through both hops: '
+                f'{counts[kernel]} launches = {n_layers} x {steps} steps; '
+                f'{agree} of 4 streams equal the twin\'s concurrent '
+                f'single-hop streams; decode '
+                f'{result["burst_tok_s"]:.1f} tok/s')
+            if warnings.records:
+                raise AssertionError(f'[disagg {tag}] the serving modules '
+                                     f'logged: {warnings.records}')
+        result['launches'] = launches
+    finally:
+        for server, _ in servers.values():
+            server.shutdown()
+            server.server_close()
+        for engine in engines.values():
+            engine.shutdown()
+    return result
+
+
+def phase_disagg(torch, pa, params):
+    """Phase 28: the bf16 pool, then the int8 pool (kernel 2) on lone
+    requests."""
+    t0 = time.perf_counter()
+    bf16 = disagg_pool(torch, pa, params, quantize_kv=False, full=True)
+    free_card(torch)
+    int8 = disagg_pool(torch, pa, params, quantize_kv=True, full=False)
+    free_card(torch)
+    log(f'[smoke] phase 28 {time.perf_counter() - t0:.1f} s')
+    return {'launches': bf16['launches'],
+            'launches_quant': int8['launches'],
+            'bf16': bf16, 'int8': int8}
+
+
+# ---------------------------------------------------------------------------
 # Phases 16-21: the bench twin, remat policies, --packed, resume
 # ---------------------------------------------------------------------------
 
@@ -3887,7 +4215,7 @@ def main(argv=None) -> int:
         f'{t2 - t1:.1f} s, flash {time.perf_counter() - t2:.1f} s')
     engine, train, batch, spec, lora = {}, {}, {}, {}, {}
     bench_tr, remat, packed, bench_dec, moe = {}, {}, {}, {}, {}
-    ckpt = {}
+    ckpt, disagg = {}, {}
     if not args.skip_engine:
         phase_train_small(torch)
         train = phase_train(torch, fa, flops_peak)
@@ -3918,6 +4246,8 @@ def main(argv=None) -> int:
         log(f'[lora] summary {json.dumps(lora)}')
         ckpt = run_checkpoint_phases(torch, pa, da, fa, params, engine)
         log(f'[ckpt] summary {json.dumps(ckpt)}')
+        disagg = phase_disagg(torch, pa, params)
+        log(f'[disagg] summary {json.dumps(disagg)}')
         del params
         free_card(torch)
         t0 = time.perf_counter()
@@ -3957,9 +4287,9 @@ def main(argv=None) -> int:
                'flash_dq': 'flash_attention.cu',
                'flash_dkv': 'flash_attention.cu'}
     # Counts come only from the main paths' own runs (the continuous
-    # engine's plain, speculative and LoRA windows, the MoE engines and
-    # the checkpoint-served engines of phases 26-27 for the paged
-    # kernels, the batch engines (phase 26's too) and the bench twin's
+    # engine's plain, speculative and LoRA windows, the MoE engines, the
+    # checkpoint-served engines of phases 26-27 and the decode-role
+    # engines of phase 28 for the paged kernels, the batch engines (phase 26's too) and the bench twin's
     # decode mode for the decode kernels, the trainer's entry points for
     # the flash kernels: phase 7, the bench twin's train mode, the remat
     # policies, the MoE train steps, the finetune of phase 27, and
@@ -3978,9 +4308,11 @@ def main(argv=None) -> int:
                                   spec.get('launches'),
                                   lora.get('launches'), moe.get('paged'),
                                   ckpt.get('paged'),
-                                  ckpt.get('lora_paged')]),
+                                  ckpt.get('lora_paged'),
+                                  disagg.get('launches')]),
         'paged_attention_quant': total([engine.get('launches_quant'),
-                                        spec.get('launches_quant')]),
+                                        spec.get('launches_quant'),
+                                        disagg.get('launches_quant')]),
         'decode_attention': total([batch.get('launches'),
                                    bench_dec.get('launches'),
                                    moe.get('decode'), ckpt.get('decode')]),

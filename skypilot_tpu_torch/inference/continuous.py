@@ -25,6 +25,14 @@ The port of ``skypilot_tpu/inference/continuous.py``'s engine core:
   demand from the host registry, charged against the KV block pool
   (``AdapterPagePool``); admission is deficit-round-robin across
   adapters (one lane per adapter).
+* **Disaggregated roles** (``role=`` / ``SKYT_DISAGG_ROLE``): a
+  ``'prefill'`` engine never decodes: a finished prefill's KV blocks,
+  partial tail block and fp32 last-logits row are packed
+  (``inference/kv_migrate.py``) into ``self.exporter`` and the slot's
+  blocks return to the pool at once. A ``'decode'`` engine admits a
+  pulled export (``submit_migrated``) through a refcount-exact
+  ``BlockImporter`` and decodes without a prefill pass; any import
+  failure falls back to a local re-prefill of the same tokens.
 
 One decode step runs every slot together (``paged_decode_step``, whose
 attention is the Hopper paged-attention kernel on the card); a
@@ -38,16 +46,15 @@ Sampling is a function of (seed, position): the plain step samples at
 both through ``_sample_seed``, so a speculative or resumed stream is the
 plain stream at any temperature (bitwise where the logits are).
 
-Not ported yet (constructor arguments that raise when set):
-disaggregated roles, tensor-parallel meshes, checkpoint and HF loading;
-likewise live weight refresh (``stats()`` reports its keys as 0),
-tracing spans and the adapter chaos sites (the failure paths behind
-them are ported).
+Not ported yet: tensor-parallel meshes (``mesh=`` raises); live weight
+refresh (``stats()`` reports its keys as 0), tracing spans and the
+adapter chaos sites (the failure paths behind them are ported).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import logging
 import math
 import queue
@@ -58,10 +65,13 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from skypilot_tpu_torch.inference import kv_migrate
 from skypilot_tpu_torch.inference.engine import restore_params
-from skypilot_tpu_torch.inference.paged import (AdapterPagePool, BlockPool,
+from skypilot_tpu_torch.inference.paged import (AdapterPagePool,
+                                                BlockImporter, BlockPool,
                                                 PrefixCache,
-                                                adapter_chain_root)
+                                                adapter_chain_root,
+                                                chain_digests)
 from skypilot_tpu_torch.inference.tokenizer import get_tokenizer
 from skypilot_tpu_torch.models import decode as decode_lib
 from skypilot_tpu_torch.models import hf_interop, llama
@@ -70,6 +80,7 @@ from skypilot_tpu_torch.models.config import (ModelConfig, get_model_config,
                                               with_int8_kv_cache)
 from skypilot_tpu_torch.models.convert import tensor_from_numpy
 from skypilot_tpu_torch.models.quant import maybe_quantize
+from skypilot_tpu_torch.server import metrics
 from skypilot_tpu_torch.utils import env
 from skypilot_tpu_torch.utils.device import resolve_device, to_device
 
@@ -192,6 +203,13 @@ class _Request:
         self.generated: List[int] = []
         self.done = threading.Event()
         self.error: Optional[BaseException] = None
+        # Disaggregated serving: the engine-assigned id a prefill-role
+        # export is keyed by; ``migration`` holds the decode side's
+        # pulled KV (``kv_migrate.PulledKv``) until it imports or falls
+        # back to a local re-prefill.
+        self.request_id = ''
+        self.migration = None
+        self.handoff_start: Optional[float] = None
 
 
 class _DrrQueue:
@@ -318,6 +336,8 @@ class ContinuousBatchingEngine:
     ``lora_pages``/``lora_max_rank``/``lora_max_active``: multi-LoRA
     serving (defaults ``SKYT_LORA_*``; 0 pages = off); ``base_digest``
     binds the engine to its base weights for ``register_adapter``.
+    ``role``: ``'prefill'``, ``'decode'`` or ``''`` (colocated; default
+    ``SKYT_DISAGG_ROLE``).
     """
 
     def __init__(self,
@@ -350,10 +370,19 @@ class ContinuousBatchingEngine:
             raise NotImplementedError(
                 'mesh= is multi-device work, not ported yet (ROADMAP.md, '
                 'queue A item 15)')
-        if role:
-            raise NotImplementedError(
-                'role= (disaggregated prefill/decode) is not ported yet '
-                '(ROADMAP.md, queue A item 10)')
+        # Disaggregated serving role: '' = colocated, 'prefill' = chunked
+        # prefill only, finished KV parked in the exporter for the decode
+        # fleet to pull; 'decode' = imports migrated KV and batch-decodes
+        # (prefill only as the re-prefill fallback).
+        if role is None:
+            role = env.get_str('SKYT_DISAGG_ROLE')
+        if role not in ('', 'prefill', 'decode'):
+            raise ValueError(
+                f"SKYT_DISAGG_ROLE must be '', 'prefill' or 'decode', "
+                f'got {role!r}')
+        self.role = role
+        self.exporter = (kv_migrate.KvExporter()
+                         if role == 'prefill' else None)
         self.device = resolve_device(device)
         # Real-weights path: see engine.py (models/hf_interop.py).
         if hf_checkpoint:
@@ -494,6 +523,10 @@ class ContinuousBatchingEngine:
         self._draft_tokens_total = 0
         self._accepted_tokens_total = 0
         self._verify_steps_total = 0
+        self._kv_exports_total = 0
+        self._kv_imports_total = 0
+        self._kv_import_fallbacks_total = 0
+        self._request_ids = itertools.count(1)
         self._stop = threading.Event()
         self._wake = threading.Event()
         self._thread = threading.Thread(target=self._loop,
@@ -745,7 +778,22 @@ class ContinuousBatchingEngine:
 
     def _begin_prefill(self, request: _Request, slot: int) -> bool:
         """Returns False when the pool can't fit the prompt right now
-        (request stays queued); raises when it never can."""
+        (request stays queued); raises when it never can. A migrated
+        request imports its pulled KV instead, or falls back to a local
+        re-prefill of the same tokens when the import fails."""
+        if request.migration is not None:
+            try:
+                return self._import_migrated(request, slot,
+                                             request.migration)
+            except Exception as e:  # pylint: disable=broad-except
+                # The refcount-exact abort already ran: re-prefill the
+                # same tokens; sampling at (seed, position) keeps the
+                # stream identical.
+                logger.warning('KV import failed (%s: %s); falling back '
+                               'to local re-prefill', type(e).__name__, e)
+                self._kv_import_fallbacks_total += 1
+                request.migration = None
+                request.handoff_start = None
         ids = request.token_ids + request.generated
         plen = len(ids)
         needed_total = math.ceil(plen / self.block_size)
@@ -858,6 +906,12 @@ class ContinuousBatchingEngine:
         self._prefill_chunks_total += 1
         if state.pos >= len(ids):
             self._prefilling.pop(0)
+            if self.role == 'prefill':
+                # Prefill fleet: never decode. Pack the slot's KV and
+                # last logits for the decode side's pull and give the
+                # blocks straight back (the export holds host copies).
+                self._export_prefill(request, slot, ids, last[0])
+                return
             self._last_logits[slot] = last[0].float()
             self._seeds[slot] = request.seed
             if self._draft is not None:
@@ -872,6 +926,222 @@ class ContinuousBatchingEngine:
                 self._prefix.insert(ids, self._slot_blocks[slot],
                                     root=adapter_chain_root(
                                         request.adapter))
+
+    # -- disaggregated prefill/decode -----------------------------------
+
+    def _pool_fields(self) -> Dict[str, torch.Tensor]:
+        """The pool tensors a block's payload carries, by wire name."""
+        cache = self.cache
+        fields = {'k': cache.k, 'v': cache.v}
+        if cache.quantized:
+            fields.update(k_scale=cache.k_scale, v_scale=cache.v_scale)
+        return fields
+
+    def _read_block_arrays(self, block_ids: List[int]
+                           ) -> List[Dict[str, torch.Tensor]]:
+        """Host copies of the pool KV at ``block_ids`` (one batched
+        device read per field), one name->tensor dict per block:
+        ``k``/``v`` [L, block_size, kv_heads, head_dim] and, for an int8
+        pool, ``k_scale``/``v_scale`` [L, block_size, kv_heads]."""
+        if not block_ids:
+            return []
+        idx = torch.tensor(block_ids, dtype=torch.long, device=self.device)
+        # Block-major on the device, so each block's slice of the host
+        # copy is contiguous; the copy never aliases the pool.
+        host = {name: pool.index_select(1, idx).transpose(0, 1)
+                .contiguous().cpu()
+                for name, pool in self._pool_fields().items()}
+        return [{name: tensor[i] for name, tensor in host.items()}
+                for i in range(len(block_ids))]
+
+    def _write_block_arrays(self, writes: List[tuple]) -> None:
+        """Scatter ``(block_id, arrays)`` payloads into the pool in place
+        (one batched host->device write per field). A payload whose
+        fields, dtypes or shapes are not this pool's raises before any
+        field is written."""
+        if not writes:
+            return
+        fields = self._pool_fields()
+        for _, arrays in writes:
+            if set(arrays) != set(fields):
+                raise RuntimeError(f'migrated block carries '
+                                   f'{sorted(arrays)}; this pool holds '
+                                   f'{sorted(fields)}')
+            for name, pool in fields.items():
+                array = arrays[name]
+                want = (pool.shape[0],) + tuple(pool.shape[2:])
+                if array.dtype != pool.dtype or tuple(array.shape) != want:
+                    raise RuntimeError(
+                        f'migrated {name} is {array.dtype} '
+                        f'{tuple(array.shape)}; this pool takes '
+                        f'{pool.dtype} {want}')
+        idx = torch.tensor([b for b, _ in writes], dtype=torch.long,
+                           device=self.device)
+        for name, pool in fields.items():
+            stacked = torch.stack([arrays[name] for _, arrays in writes],
+                                  dim=1)
+            pool.index_copy_(1, idx, stacked.to(self.device))
+
+    def _export_prefill(self, request: _Request, slot: int,
+                        ids: List[int], last_row: torch.Tensor) -> None:
+        """Prefill-role completion: serialize the slot's KV (full blocks
+        one by one, the migration's delta unit; the partial tail block
+        and the fp32 last-logits row as the tail), park it in the
+        exporter, finish the request with no generated token and release
+        the slot."""
+        plen = len(ids)
+        n_full = plen // self.block_size
+        blocks = self._slot_blocks[slot]
+        root = adapter_chain_root(request.adapter)
+        try:
+            host = self._read_block_arrays(blocks)
+            payloads = [kv_migrate.pack_arrays(host[i])
+                        for i in range(n_full)]
+            tail_arrays = {'logits': last_row.float()}
+            if plen % self.block_size:
+                for name, array in host[n_full].items():
+                    tail_arrays[f'tail_{name}'] = array
+            export = kv_migrate.KvExport(
+                request_id=request.request_id, ids=list(ids),
+                block_size=self.block_size,
+                digests=chain_digests(ids, self.block_size, root=root),
+                blocks=payloads, tail=kv_migrate.pack_arrays(tail_arrays),
+                meta={'seed': request.seed, 'n_tokens': plen,
+                      'adapter': request.adapter or ''},
+                created=time.monotonic())
+        except Exception as e:  # pylint: disable=broad-except
+            logger.warning('KV export failed: %s: %s', type(e).__name__, e)
+            self._fail_slot(slot, e, prefill=True)
+            return
+        self.exporter.put(export)
+        self._kv_exports_total += 1
+        if self._prefix is not None:
+            # Later prompts sharing this prefix prefill only their suffix,
+            # and their exports list the shared blocks under the same
+            # chain digests.
+            self._prefix.insert(ids, blocks, root=root)
+        self._finish(request)
+        self._release_slot(slot)
+
+    def _import_migrated(self, request: _Request, slot: int,
+                         pulled) -> bool:
+        """Decode-role admission of a migrated prefill: acquire blocks
+        through a refcount-exact import (the resident prefix re-used in
+        place, payloads written only into freshly allocated blocks), set
+        the slot's last logits and enter decode with no prefill compute.
+        Returns False when the pool cannot fit it right now (the request
+        stays queued); raises on any integrity problem, with the pool
+        and the prefix cache exactly as they were."""
+        ids = request.token_ids + request.generated
+        plen = len(ids)
+        manifest = pulled.manifest
+        if (manifest['n_tokens'] != plen or
+                manifest['block_size'] != self.block_size):
+            raise RuntimeError(
+                f'migration manifest mismatch: {manifest["n_tokens"]} '
+                f'tokens/bs={manifest["block_size"]} vs local '
+                f'{plen}/bs={self.block_size}')
+        root = adapter_chain_root(request.adapter)
+        digests = chain_digests(ids, self.block_size, root=root)
+        if [row['digest'] for row in manifest['blocks']] != digests:
+            raise RuntimeError('migration chain digests diverge from the '
+                               'local token stream')
+        n_full = plen // self.block_size
+        needed_total = math.ceil(plen / self.block_size)
+        if needed_total > self._pool.total_blocks:
+            raise RuntimeError(
+                f'migrated prompt needs {needed_total} KV blocks; pool '
+                f'has {self._pool.total_blocks}')
+        # The admission watermark of _begin_prefill: one tail block of
+        # headroom per active decoder.
+        resident_now = (self._prefix.resident_chain(ids, root=root)
+                        if self._prefix is not None else [])
+        need_private = needed_total - len(resident_now)
+        avail = self._pool.free_blocks + (
+            self._prefix.reclaimable_blocks if self._prefix is not None
+            else 0)
+        if avail < need_private + sum(self._decoding):
+            return False
+        adapter_page = 0
+        if request.adapter:
+            page = self._ensure_adapter_resident(request.adapter)
+            if page is None:
+                return False
+            adapter_page = page
+            # Pinned now: the import's own allocations go through
+            # _alloc_block, whose adapter eviction must not take it.
+            self._adapter_pool.pin(request.adapter)
+        importer = BlockImporter(self._pool, self._prefix)
+        got = importer.begin(ids, needed_total, block_size=self.block_size,
+                             alloc=self._alloc_block, root=root)
+        if got is None:
+            if request.adapter:
+                self._adapter_pool.unpin(request.adapter)
+            return False
+        blocks, n_resident = got
+        try:
+            writes = []
+            for i in range(n_full):
+                if i < n_resident:
+                    continue  # resident: the cached copy is canonical
+                payload = pulled.payloads[i]
+                if payload is None:
+                    # The pull's residency probe was optimistic and the
+                    # entry was evicted since: the payload never moved.
+                    raise RuntimeError(f'block {i} evicted mid-migration '
+                                       'and its payload was not pulled')
+                writes.append((blocks[i], kv_migrate.unpack_arrays(payload)))
+            tail = kv_migrate.unpack_arrays(pulled.tail)
+            if plen % self.block_size:
+                tail_block = {name[len('tail_'):]: array
+                              for name, array in tail.items()
+                              if name.startswith('tail_')}
+                if not tail_block:
+                    raise RuntimeError('migration tail payload is missing '
+                                       'the partial block')
+                writes.append((blocks[n_full], tail_block))
+            logits = tail['logits']
+            if tuple(logits.shape) != (self.cfg.vocab_size,):
+                raise RuntimeError(f'migrated logits row is '
+                                   f'{tuple(logits.shape)}; vocab is '
+                                   f'{self.cfg.vocab_size}')
+            self._write_block_arrays(writes)
+            self._last_logits[slot] = logits.to(self.device, torch.float32)
+        except Exception:
+            importer.abort()
+            if request.adapter:
+                self._adapter_pool.unpin(request.adapter)
+            raise
+        importer.commit()
+        if not request.admitted:
+            request.admitted = True
+            self._queue_wait_seconds_total += max(
+                0.0, time.monotonic() - request.arrival)
+        self._slot_blocks[slot] = list(blocks)
+        self._host_bt[slot, :] = 0
+        self._host_bt[slot, :len(blocks)] = blocks
+        self._host_len[slot] = plen
+        self._bt_dirty = True
+        self._slots[slot] = request
+        self._slot_adapter[slot] = adapter_page
+        self._slot_adapter_name[slot] = request.adapter or None
+        self._admit_seq += 1
+        self._admit_order[slot] = self._admit_seq
+        self._seeds[slot] = request.seed
+        if self._draft is not None:
+            self._pending_tok[slot] = _sample_pending_step(
+                self._last_logits[slot], request.seed, plen,
+                request.temperature)
+        self._decoding[slot] = True
+        if self._prefix is not None:
+            self._prefix.insert(ids, blocks, root=root)
+        request.migration = None  # a later preemption re-prefills
+        self._kv_imports_total += 1
+        if request.handoff_start is not None:
+            metrics.DISAGG_HANDOFF.observe(
+                max(0.0, time.monotonic() - request.handoff_start))
+            request.handoff_start = None
+        return True
 
     def _preempt(self, slot: int, active_mask: np.ndarray) -> None:
         """Release a slot's blocks (decoding OR mid-prefill) and requeue
@@ -1131,12 +1401,18 @@ class ContinuousBatchingEngine:
 
     def _submit(self, token_ids: List[int], max_new_tokens: int,
                 temperature: float, eos_id: Optional[int],
-                seed: int, adapter: Optional[str] = None) -> _Request:
+                seed: int, adapter: Optional[str] = None,
+                migration=None,
+                handoff_start: Optional[float] = None) -> _Request:
         """Shared admission path: validate + enqueue."""
         if len(token_ids) >= self.max_len:
             raise ValueError(
                 f'prompt is {len(token_ids)} tokens; engine max_len is '
                 f'{self.max_len} (prompt + generation must fit)')
+        if self.role == 'prefill' and max_new_tokens > 0:
+            raise RuntimeError(
+                'a prefill-role engine never decodes; use '
+                'prefill_and_export (or clear SKYT_DISAGG_ROLE)')
         if adapter:
             # Reject unknown adapters eagerly (a clean error, not an
             # asynchronous prefill failure) and count demand.
@@ -1152,10 +1428,70 @@ class ContinuousBatchingEngine:
                 demand['last_request'] = time.time()
         request = _Request(list(token_ids), max_new_tokens, temperature,
                            eos_id, seed, adapter=adapter or None)
+        request.request_id = f'r{next(self._request_ids)}'
+        request.migration = migration
+        request.handoff_start = handoff_start
         self._requests_total += 1
         self._pending.put(request)
         self._wake.set()
         return request
+
+    # -- disaggregated-serving public surface ---------------------------
+
+    def prefill_and_export(self, token_ids: List[int], *,
+                           temperature: float = 0.0,
+                           eos_id: Optional[int] = None,
+                           seed: int = 0,
+                           timeout: float = 300.0) -> str:
+        """Prefill-role entry: absorb the prompt (chunked, prefix-cache
+        accelerated) and park the serialized KV in ``self.exporter``.
+        Returns the request id the export is keyed by: the decode side
+        pulls ``/kv/manifest/<id>`` etc. from this replica."""
+        if self.role != 'prefill':
+            raise RuntimeError(
+                "prefill_and_export needs role='prefill' "
+                '(SKYT_DISAGG_ROLE)')
+        request = self._submit(token_ids, 0, temperature, eos_id, seed)
+        if not request.done.wait(timeout):
+            raise TimeoutError('prefill timed out')
+        if request.error is not None:
+            raise request.error
+        return request.request_id
+
+    def probe_resident(self, token_ids: List[int],
+                       adapter: Optional[str] = None) -> List[int]:
+        """Chain digests of the full-block prefix already resident in
+        this engine's prefix cache: read-only, the decode side's input
+        to the migration's delta manifest (those blocks are not pulled).
+        Adapter chains live under their own root, so probe with the
+        adapter the request decodes with."""
+        if self._prefix is None:
+            return []
+        return self._prefix.resident_chain(
+            token_ids, root=adapter_chain_root(adapter))
+
+    def submit_migrated(self, token_ids: List[int], pulled, *,
+                        max_new_tokens: int = 32,
+                        temperature: float = 0.0,
+                        eos_id: Optional[int] = None,
+                        seed: int = 0,
+                        handoff_start: Optional[float] = None
+                        ) -> _Request:
+        """Decode-role entry: admit a pulled migration
+        (``kv_migrate.PulledKv``). The serving loop imports the blocks
+        refcount-exactly and decodes with no prefill pass; any import
+        failure falls back to a local re-prefill of ``token_ids``, so the
+        request always completes. Returns the request handle (stream
+        with :meth:`tail_tokens` or wait on ``request.done``).
+        ``handoff_start`` (``time.monotonic``) stamps
+        ``skyt_disagg_handoff_seconds`` when the import lands."""
+        if self.role == 'prefill':
+            raise RuntimeError("a prefill-role engine never decodes; "
+                               "submit_migrated needs role='decode' "
+                               "(or colocated)")
+        return self._submit(token_ids, max_new_tokens, temperature,
+                            eos_id, seed, migration=pulled,
+                            handoff_start=handoff_start)
 
     def tail_tokens(self, request: _Request, *,
                     eos_id: Optional[int] = None,
@@ -1267,8 +1603,8 @@ class ContinuousBatchingEngine:
     def stats(self) -> Dict[str, float]:
         """The reference's stats schema, plus ``decode_steps`` (plain
         decode steps; each launches the paged kernel once a layer). The
-        keys of features the port does not have yet (disaggregated KV
-        migration, live weight refresh) read 0."""
+        keys of live weight refresh, which the port does not have yet,
+        read 0."""
         total = self._pool.total_blocks
         free = self._pool.free_blocks
         apool = self._adapter_pool
@@ -1291,11 +1627,12 @@ class ContinuousBatchingEngine:
             'prefix_cache_misses': self._prefix_misses_total,
             'prefix_tokens_reused': self._prefix_tokens_reused_total,
             'preemptions': self._preemptions_total,
-            # Disaggregated serving: not ported, always 0.
-            'kv_exports': 0,
-            'kv_imports': 0,
-            'kv_import_fallbacks': 0,
-            'kv_exports_pending': 0,
+            # Disaggregated serving (kv_exports_pending is a gauge).
+            'kv_exports': self._kv_exports_total,
+            'kv_imports': self._kv_imports_total,
+            'kv_import_fallbacks': self._kv_import_fallbacks_total,
+            'kv_exports_pending': (len(self.exporter)
+                                   if self.exporter is not None else 0),
             # Speculative decoding: the acceptance rate is
             # accepted_tokens / draft_tokens.
             'draft_tokens': self._draft_tokens_total,

@@ -1,7 +1,7 @@
 """Host-side bookkeeping for the paged KV cache: block pool + prefix cache.
 
 The port's copy of ``BlockPool``, ``PrefixCache``, ``chain_digests``,
-``adapter_chain_root`` and ``AdapterPagePool`` from
+``BlockImporter``, ``adapter_chain_root`` and ``AdapterPagePool`` from
 ``skypilot_tpu/inference/paged.py`` (host-side Python, unchanged).
 The device side (``models/decode.py`` ``PagedKVCache``) is pure data;
 the policy lives here, on the serving-loop thread:
@@ -14,12 +14,15 @@ the policy lives here, on the serving-loop thread:
   (parent digest, its token tuple), so a shared system prompt prefills
   once and later requests reference the same pool blocks. Only FULL
   prompt blocks are shared; a slot's tail block is always private.
+* ``BlockImporter`` — the refcount-exact begin/commit/abort of a KV
+  block import (disaggregated serving's decode side): an aborted import
+  leaves the pool and the prefix cache exactly as they were.
 * ``AdapterPagePool`` — which LoRA adapter owns which device page slot;
   a resident adapter charges blocks against the same ``BlockPool``.
 
 All structures are single-threaded by design — they are only touched
-from the engine's serving loop. ``BlockImporter`` (KV migration between
-disaggregated roles) is a later slice.
+from the engine's serving loop (``PrefixCache.resident_chain`` is the
+read-only exception).
 """
 from __future__ import annotations
 
@@ -250,6 +253,99 @@ def chain_digests(ids: Sequence[int], block_size: int,
         parent = PrefixCache._digest(parent, tokens)  # noqa: SLF001
         out.append(parent)
     return out
+
+
+class BlockImporter:
+    """All-or-nothing block acquisition for a KV-block import.
+
+    A migration import must be *refcount-exact*: if the transfer dies
+    mid-flight (peer death, corrupt payload, timeout), the pool and
+    prefix cache must be returned to EXACTLY their pre-import state —
+    same refcounts, same cached entries — so the request can fall back
+    to a local re-prefill with zero leaked blocks (the r13 speculative
+    rollback discipline, applied to migration).
+
+    Usage::
+
+        importer = BlockImporter(pool, prefix)
+        got = importer.begin(ids, needed_total, block_size=bs)
+        if got is None:       # pool can't fit it right now; nothing held
+            ...
+        blocks, n_resident = got
+        try:
+            ... copy the non-resident block payloads in ...
+            importer.commit()     # refs now owned by the caller's slot
+        except Exception:
+            importer.abort()      # exact pre-import state restored
+            raise
+    """
+
+    def __init__(self, pool: BlockPool,
+                 prefix: Optional[PrefixCache] = None) -> None:
+        self._pool = pool
+        self._prefix = prefix
+        self._resident: List[int] = []
+        self._allocated: List[int] = []
+        self._active = False
+
+    @property
+    def active(self) -> bool:
+        return self._active
+
+    def begin(self, ids: Sequence[int], needed_total: int, *,
+              block_size: int,
+              alloc: Optional[Callable[[], Optional[int]]] = None,
+              root: int = 0
+              ) -> Optional[Tuple[List[int], int]]:
+        """Acquire ``needed_total`` blocks for token sequence ``ids``:
+        the cached full-block prefix first (shared — increfed through
+        the prefix cache, these blocks' payloads never move), then
+        freshly allocated private blocks for the remainder. Returns
+        ``(blocks, n_resident)``, or ``None`` when the pool cannot
+        supply the private blocks right now — in which case NOTHING is
+        retained (the failed attempt is invisible to the pool beyond
+        its version counter).
+
+        ``alloc`` overrides the raw allocator (the engine passes its
+        prefix-evicting ``_alloc_block``)."""
+        if self._active:
+            raise RuntimeError('BlockImporter already has an open import')
+        if alloc is None:
+            alloc = self._pool.alloc
+        resident: List[int] = []
+        if self._prefix is not None:
+            limit = min(len(ids), needed_total * block_size)
+            resident = self._prefix.lookup(ids, limit_tokens=limit,
+                                           root=root)
+        self._resident = resident
+        self._allocated = []
+        self._active = True
+        while len(resident) + len(self._allocated) < needed_total:
+            block = alloc()
+            if block is None:
+                self.abort()
+                return None
+            self._allocated.append(block)
+        return list(resident) + list(self._allocated), len(resident)
+
+    def commit(self) -> None:
+        """The import landed: the caller's slot now owns every
+        reference this importer took."""
+        self._resident = []
+        self._allocated = []
+        self._active = False
+
+    def abort(self) -> None:
+        """Undo every reference this import took, newest first —
+        refcounts and prefix-cache entries end exactly where they were
+        before :meth:`begin`. Idempotent; a no-op after commit."""
+        for block in reversed(self._allocated):
+            self._pool.decref(block)
+        for block in reversed(self._resident):
+            self._pool.decref(block)
+        self._resident = []
+        self._allocated = []
+        self._active = False
 
 
 # ---------------------------------------------------------------------

@@ -3,13 +3,14 @@
 The port of ``skypilot_tpu/inference/server.py`` with the same payloads
 and the same two engines: ``--engine batch`` (the default, the
 monolithic ``InferenceEngine``) and ``--engine continuous`` (the
-continuous-batching engine, with speculative decoding and multi-LoRA
-adapters as options)::
+continuous-batching engine, with speculative decoding, multi-LoRA
+adapters and disaggregated roles as options)::
 
     python -m skypilot_tpu_torch.inference.server --model llama3-8b \
         [--engine continuous] [--quantize] [--quantize-kv] \
         [--spec-decode] [--draft-k 4] \
-        [--lora-pages 4] [--lora-max-rank 16] [--lora-dir DIR]
+        [--lora-pages 4] [--lora-max-rank 16] [--lora-dir DIR] \
+        [--role prefill|decode]
     python -m skypilot_tpu_torch.inference.server --hf-checkpoint DIR \
         [--engine continuous] [--lora-pages 4 --lora-dir REG]
 
@@ -29,11 +30,22 @@ Endpoints:
     POST /v1/completions       -> OpenAI-compatible, streamed as SSE
     POST /v1/chat/completions     with "stream": true (continuous
                                   engine only)
+    POST /disagg/prefill       -> {"request_id": id, "n_tokens": n}
+                                  (prefill role: hop 1 of the serve
+                                  load balancer's two-hop route)
+    GET  /kv/manifest|block|tail/<id>  (prefill role: the KV export)
+    POST /kv/release/<id>      -> drop a pulled export
 
 A request picks its LoRA adapter with the JSON ``adapter`` field or the
-``X-Skyt-Adapter`` header. The reference's disaggregated-serving routes
-(``/kv/*``, ``/disagg/prefill``), peer weight serving (``/fanout/*``),
-policy-store refresh and tracing headers are later slices.
+``X-Skyt-Adapter`` header. Disaggregated serving (``--role``): the load
+balancer sends the client's body to a prefill replica's
+``/disagg/prefill`` (``X-Skyt-Disagg-Path`` names the API it was sent
+to), then to a decode replica with ``X-Skyt-Kv-Request-Id`` and
+``X-Skyt-Kv-Endpoint``: the decode replica pulls the KV
+(``inference/kv_migrate.py``) and decodes without a prefill pass, or
+prefills locally when the pull fails. The reference's peer weight
+serving (``/fanout/*``), policy-store refresh and tracing headers are
+later slices.
 """
 from __future__ import annotations
 
@@ -45,6 +57,7 @@ import sys
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from skypilot_tpu_torch.inference import kv_migrate
 from skypilot_tpu_torch.server.metrics import INFERENCE_COUNTER_STATS
 
 logger = logging.getLogger(__name__)
@@ -114,6 +127,22 @@ def make_handler(engine):
             elif self.path == '/metrics':
                 self._body(200, metrics_text(self._stats()).encode(),
                            'text/plain; version=0.0.4')
+            elif self.path.startswith('/kv/'):
+                # The KV-migration surface (prefill role only): the
+                # decode fleet pulls manifests, blocks and tails here.
+                exporter = getattr(engine, 'exporter', None)
+                if exporter is None:
+                    self._json(404, {'error': 'not a prefill replica'})
+                    return
+                status, headers, body = kv_migrate.handle_kv_get(
+                    self.path, exporter,
+                    range_header=self.headers.get('Range'))
+                self.send_response(status)
+                for key, value in headers.items():
+                    self.send_header(key, value)
+                self.send_header('Content-Length', str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
             else:
                 self._json(404, {'error': 'not found'})
 
@@ -127,6 +156,17 @@ def make_handler(engine):
                     self._openai(req, chat=False)
                 elif self.path == '/v1/chat/completions':
                     self._openai(req, chat=True)
+                elif self.path == '/disagg/prefill':
+                    self._disagg_prefill(req)
+                elif self.path.startswith('/kv/release/'):
+                    exporter = getattr(engine, 'exporter', None)
+                    if exporter is None:
+                        self._json(404,
+                                   {'error': 'not a prefill replica'})
+                        return
+                    status, _headers, body = kv_migrate.handle_kv_release(
+                        self.path, exporter)
+                    self._body(status, body, 'application/json')
                 else:
                     self._json(404, {'error': 'not found'})
             except Exception as e:  # pylint: disable=broad-except
@@ -136,6 +176,82 @@ def make_handler(engine):
                 except (BrokenPipeError, ConnectionResetError):
                     pass
 
+        # -- disaggregated serving ----------------------------------------
+
+        def _prompt_ids(self, path, req):
+            """Token ids of the request's single prompt, derived the same
+            way on the prefill and the decode replica (both run this code
+            over the same body); the import cross-checks chain digests,
+            so a divergence falls back to a local re-prefill. None for
+            shapes the two-hop route does not carry (several prompts)."""
+            tok = engine.tokenizer
+            if path == '/v1/chat/completions':
+                prompt = tok.apply_chat_template(req.get('messages') or [])
+                add_bos = not getattr(tok, 'chat_template', None)
+            elif path == '/v1/completions':
+                prompt = req.get('prompt', '')
+                if isinstance(prompt, list):
+                    prompt = prompt[0] if prompt else ''
+                add_bos = True
+            else:  # /generate
+                prompts = req.get('prompts') or [req.get('prompt', '')]
+                if len(prompts) != 1:
+                    return None
+                prompt = prompts[0]
+                add_bos = True
+            return tok.encode(prompt, add_bos=add_bos)
+
+        def _disagg_prefill(self, req):
+            """Hop 1 of the two-hop route: absorb the prompt and park its
+            KV for the decode fleet's pull. The body is the client's;
+            ``X-Skyt-Disagg-Path`` says which API to parse it as."""
+            if getattr(engine, 'role', '') != 'prefill':
+                self._json(400, {'error': 'not a prefill replica'})
+                return
+            path = self.headers.get('X-Skyt-Disagg-Path', '/generate')
+            ids = self._prompt_ids(path, req)
+            if ids is None:
+                self._json(400, {'error': 'not a single-prompt request'})
+                return
+            request_id = engine.prefill_and_export(
+                ids, temperature=float(req.get('temperature') or 0.0),
+                seed=int(req.get('seed') or 0))
+            self._json(200, {'request_id': request_id,
+                             'n_tokens': len(ids)})
+
+        def _migrated_request(self, ids, kwargs):
+            """Hop 2: when the prefill hop stamped this request with a KV
+            export (``X-Skyt-Kv-*`` headers), pull the delta and enter
+            decode directly. None: the caller prefills locally (a dead
+            prefill replica or a failed pull costs latency, never the
+            request). A pulled export is released at once. Requests that
+            name an adapter prefill locally (exports are base-model
+            chains) and release the export unread."""
+            request_id = self.headers.get('X-Skyt-Kv-Request-Id')
+            endpoint = self.headers.get('X-Skyt-Kv-Endpoint')
+            if (not request_id or not endpoint or ids is None or
+                    not hasattr(engine, 'submit_migrated') or
+                    getattr(engine, 'role', '') == 'prefill'):
+                return None
+            try:
+                source = kv_migrate.HTTPKvSource(endpoint)
+                pulled = None
+                if not kwargs.get('adapter'):
+                    handoff_start = time.monotonic()
+                    pulled = kv_migrate.KvPuller(source).pull(
+                        request_id,
+                        resident_digests=engine.probe_resident(ids))
+                source.release(request_id)
+                if pulled is None:
+                    return None
+                return engine.submit_migrated(
+                    ids, pulled, handoff_start=handoff_start, **kwargs)
+            except Exception as e:  # pylint: disable=broad-except
+                logger.warning(
+                    'KV pull for %s failed (%s: %s); falling back to '
+                    'local prefill', request_id, type(e).__name__, e)
+                return None
+
         def _generate(self, req):
             prompts = req.get('prompts') or [req.get('prompt', '')]
             kwargs = dict(max_new_tokens=int(req.get('max_new_tokens', 32)),
@@ -143,6 +259,15 @@ def make_handler(engine):
                           seed=int(req.get('seed', 0)))
             if hasattr(engine, 'generate_texts'):   # continuous engine
                 kwargs.update(self._adapter_kwargs(req))
+                tok = engine.tokenizer
+                migrated = self._migrated_request(
+                    self._prompt_ids('/generate', req),
+                    dict(eos_id=tok.eos_id, **kwargs))
+                if migrated is not None:
+                    out_ids = list(engine.tail_tokens(migrated,
+                                                      eos_id=tok.eos_id))
+                    self._json(200, {'outputs': [tok.decode(out_ids)]})
+                    return
                 outputs = engine.generate_texts(prompts, **kwargs)
             else:                                   # batch engine
                 outputs = engine.generate_text(prompts, **kwargs)
@@ -181,8 +306,14 @@ def make_handler(engine):
                 return
             ids = tok.encode(prompt, add_bos=add_bos)
             if hasattr(engine, 'generate_texts'):   # continuous engine
-                out_ids = engine.generate_ids(ids, eos_id=tok.eos_id,
-                                              **kwargs)
+                migrated = self._migrated_request(
+                    ids, dict(eos_id=tok.eos_id, **kwargs))
+                if migrated is not None:
+                    out_ids = list(engine.tail_tokens(migrated,
+                                                      eos_id=tok.eos_id))
+                else:
+                    out_ids = engine.generate_ids(ids, eos_id=tok.eos_id,
+                                                  **kwargs)
             else:                                   # batch engine
                 out_ids = engine.generate_ids([ids], **kwargs)[0]
                 if tok.eos_id in out_ids:
@@ -208,7 +339,15 @@ def make_handler(engine):
             # and the chunked headers go out.
             tok = engine.tokenizer
             ids = tok.encode(prompt, add_bos=add_bos)
-            token_iter = engine.stream_ids(ids, eos_id=tok.eos_id, **kwargs)
+            migrated = self._migrated_request(
+                ids, dict(eos_id=tok.eos_id, **kwargs))
+            if migrated is not None:
+                # The first tokens stream as soon as the import lands: the
+                # handoff is the time to first token, not a re-prefill.
+                token_iter = engine.tail_tokens(migrated, eos_id=tok.eos_id)
+            else:
+                token_iter = engine.stream_ids(ids, eos_id=tok.eos_id,
+                                               **kwargs)
             self.send_response(200)
             self.send_header('Content-Type', 'text/event-stream')
             self.send_header('Cache-Control', 'no-cache')
@@ -339,6 +478,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help='adapter registry root: every committed '
                              'adapter under it is registered at '
                              'startup.')
+    parser.add_argument('--role', default=None,
+                        choices=['prefill', 'decode'],
+                        help='disaggregated serving role (continuous '
+                             'engine; default $SKYT_DISAGG_ROLE): prefill '
+                             'replicas export KV for the decode fleet to '
+                             'pull, decode replicas import it and stream '
+                             'tokens.')
     return parser.parse_args(argv)
 
 
@@ -387,6 +533,7 @@ def build_engine(args):
             draft_k=args.draft_k,
             lora_pages=args.lora_pages,
             lora_max_rank=args.lora_max_rank,
+            role=args.role,
             base_digest=base_digest)
         if args.lora_dir:
             from skypilot_tpu_torch.serve import adapter_registry
@@ -394,7 +541,12 @@ def build_engine(args):
                                                         args.lora_dir)
             logger.info('registered %d adapters from %s: %s', len(names),
                         args.lora_dir, names)
-        engine.generate_text('warmup', max_new_tokens=8)
+        if engine.role == 'prefill':
+            # Warm the prefill path; drop the throwaway export.
+            engine.exporter.pop(engine.prefill_and_export(
+                engine.tokenizer.encode('warmup')))
+        else:
+            engine.generate_text('warmup', max_new_tokens=8)
     else:
         from skypilot_tpu_torch.inference.engine import InferenceEngine
         engine = InferenceEngine(args.model,

@@ -1,11 +1,21 @@
-"""The counter/gauge split of the inference server's ``/metrics``.
+"""The port's serving metrics.
 
-The port's copy of ``INFERENCE_COUNTER_STATS`` from
-``skypilot_tpu/server/metrics.py``: the engine stats that are
-cumulative render as Prometheus counters (``skyt_inference_<key>_total``,
-rate()-able); every other numeric stat is a point-in-time gauge.
+* ``INFERENCE_COUNTER_STATS``: the port's copy of the counter/gauge split
+  of the inference server's ``/metrics`` (``skypilot_tpu/server/
+  metrics.py``): the engine stats that are cumulative render as
+  Prometheus counters (``skyt_inference_<key>_total``, rate()-able);
+  every other numeric stat is a point-in-time gauge.
+* The disaggregated-serving families of that registry, in-process:
+  ``KV_MIGRATE_BLOCKS`` / ``KV_MIGRATE_BYTES`` (incremented by
+  ``inference/kv_migrate.py``) and the ``DISAGG_HANDOFF`` histogram
+  (observed by the decode engine when a migrated import lands), with
+  the reference's names, labels and buckets. ``reset_for_tests`` clears
+  them.
 """
 from __future__ import annotations
+
+import threading
+from typing import Dict, Iterable, List, Tuple
 
 INFERENCE_COUNTER_STATS = frozenset({
     'requests', 'completions', 'request_errors',
@@ -26,3 +36,111 @@ INFERENCE_COUNTER_STATS = frozenset({
     # policy_version stays a gauge.
     'weight_refreshes', 'refresh_shards', 'refresh_seconds',
 })
+
+_lock = threading.Lock()
+LabelKey = Tuple[Tuple[str, str], ...]
+
+
+def _label_key(name: str, allowed: Tuple[str, ...],
+               labels: Dict[str, str]) -> LabelKey:
+    if set(labels) != set(allowed):
+        raise ValueError(f'{name} takes labels {sorted(allowed)}, got '
+                         f'{sorted(labels)}')
+    return tuple(sorted((k, str(v)) for k, v in labels.items()))
+
+
+class Counter:
+    """A monotonic counter per label set."""
+
+    def __init__(self, name: str, help_text: str,
+                 labels: Tuple[str, ...] = ()) -> None:
+        self.name = name
+        self.help = help_text
+        self.labels = labels
+        self._values: Dict[LabelKey, float] = {}
+
+    def inc(self, amount: float = 1.0, **labels: str) -> None:
+        key = _label_key(self.name, self.labels, labels)
+        with _lock:
+            self._values[key] = self._values.get(key, 0.0) + amount
+
+    def value(self, **labels: str) -> float:
+        key = _label_key(self.name, self.labels, labels)
+        with _lock:
+            return self._values.get(key, 0.0)
+
+
+class Histogram:
+    """Cumulative bucket counts, sum and count per label set, and a
+    window of the last 1000 observations."""
+
+    def __init__(self, name: str, help_text: str,
+                 buckets: Iterable[float],
+                 labels: Tuple[str, ...] = ()) -> None:
+        self.name = name
+        self.help = help_text
+        self.labels = labels
+        self.buckets = tuple(sorted(buckets))
+        self._counts: Dict[LabelKey, List[int]] = {}
+        self._sums: Dict[LabelKey, float] = {}
+        self._totals: Dict[LabelKey, int] = {}
+        self._samples: Dict[LabelKey, List[float]] = {}
+
+    def observe(self, value: float, **labels: str) -> None:
+        key = _label_key(self.name, self.labels, labels)
+        with _lock:
+            counts = self._counts.setdefault(key, [0] * len(self.buckets))
+            for i, bound in enumerate(self.buckets):
+                if value <= bound:
+                    counts[i] += 1
+            self._sums[key] = self._sums.get(key, 0.0) + value
+            self._totals[key] = self._totals.get(key, 0) + 1
+            window = self._samples.setdefault(key, [])
+            window.append(value)
+            del window[:-1000]
+
+    def count(self, **labels: str) -> int:
+        key = _label_key(self.name, self.labels, labels)
+        with _lock:
+            return self._totals.get(key, 0)
+
+    def samples(self, **labels: str) -> List[float]:
+        """The window of recent observations, oldest first."""
+        key = _label_key(self.name, self.labels, labels)
+        with _lock:
+            return list(self._samples.get(key, []))
+
+
+_TTFB_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                 0.5, 1, 2.5, 5, 10, 30, float('inf'))
+
+DISAGG_HANDOFF = Histogram(
+    'skyt_disagg_handoff_seconds',
+    'Prefill->decode handoff latency: prefill completion to the '
+    'decode replica resuming the stream (KV migration + import; the '
+    'TTFT tax disaggregation pays for specialized fleets)',
+    buckets=_TTFB_BUCKETS)
+KV_MIGRATE_BLOCKS = Counter(
+    'skyt_kv_migrate_blocks_total',
+    'KV blocks handled by prefill->decode migrations by outcome '
+    '(moved = payload crossed the wire, resident = delta-manifest hit '
+    'on the decode side\'s PrefixCache so nothing moved, '
+    'corrupt_retry = digest mismatch discarded and re-pulled — a '
+    'corrupt block is never decoded)',
+    labels=('outcome',))
+KV_MIGRATE_BYTES = Counter(
+    'skyt_kv_migrate_bytes_total',
+    'KV migration payload bytes by direction (push = served by the '
+    'prefill side, pull = received verified by the decode side)',
+    labels=('direction',))
+
+_ALL = (DISAGG_HANDOFF, KV_MIGRATE_BLOCKS, KV_MIGRATE_BYTES)
+
+
+def reset_for_tests() -> None:
+    with _lock:
+        for metric in _ALL:
+            for attr in ('_values', '_counts', '_sums', '_totals',
+                         '_samples'):
+                if hasattr(metric, attr):
+                    getattr(metric, attr).clear()

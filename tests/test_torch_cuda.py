@@ -969,3 +969,68 @@ def test_tokenizer_fixture_holds_on_card_machine(card):
     for case in expected:
         assert tok.encode(case['text'], add_bos=False) == case['ids']
         assert tok._tok.decode(case['ids']) == case['text']
+
+
+@pytest.mark.parametrize('quantize_kv', [False, True], ids=['bf16', 'int8'])
+def test_kv_block_round_trip_between_card_engines(card, quantize_kv):
+    """Pool blocks of a prefill-role engine on the card, read by
+    ``_read_block_arrays``, packed, unpacked and written by
+    ``_write_block_arrays`` into a decode-role engine's pool at other
+    block ids, are bitwise the source blocks (k, v and, for an int8 pool,
+    the fp32 row scales); then a full migration through the two engines
+    decodes the colocated engine's greedy tokens."""
+    from skypilot_tpu_torch.inference import kv_migrate
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models.config import get_model_config
+    cfg = get_model_config('tiny', head_dim=128)   # bf16 compute
+    params = llama.init_params(3, cfg, device='cuda')
+    kw = dict(cfg=cfg, params=params, device='cuda', max_slots=2,
+              max_len=96, quantize_kv=quantize_kv)
+    pre = ContinuousBatchingEngine('tiny', role='prefill', **kw)
+    dec = ContinuousBatchingEngine('tiny', role='decode', **kw)
+    colo = ContinuousBatchingEngine('tiny', **kw)
+    try:
+        prompt = [(11 * i + 5) % 512 for i in range(40)]
+        rid = pre.prefill_and_export(prompt)
+        fields = pre._pool_fields()
+        assert (set(fields) == {'k', 'v', 'k_scale', 'v_scale'}) == \
+            quantize_kv
+        assert fields['k'].dtype == (torch.int8 if quantize_kv
+                                     else torch.bfloat16)
+        src, dst = [1, 2, 3], [7, 5, 9]
+        host = pre._read_block_arrays(src)
+        payloads = [kv_migrate.pack_arrays(arrays) for arrays in host]
+        dec._write_block_arrays(
+            [(block, kv_migrate.unpack_arrays(payload))
+             for block, payload in zip(dst, payloads)])
+        torch.cuda.synchronize()
+        for name, pool in fields.items():
+            got = dec._pool_fields()[name][:, dst]
+            want = pool[:, src]
+            assert got.dtype == want.dtype
+            assert torch.equal(got.contiguous().view(torch.uint8),
+                               want.contiguous().view(torch.uint8)), name
+        # The blocks written above are not in dec's pool bookkeeping:
+        # clear them before the real migration.
+        for pool in dec._pool_fields().values():
+            pool[:, dst] = 0
+        pulled = kv_migrate.KvPuller(
+            kv_migrate.LocalKvSource(pre.exporter),
+            sleep=lambda _s: None).pull(
+                rid, resident_digests=dec.probe_resident(prompt))
+        kernel = 'paged_attention_quant' if quantize_kv else \
+            'paged_attention'
+        before = pa.LAUNCHES[kernel]
+        request = dec.submit_migrated(prompt, pulled, max_new_tokens=8)
+        tokens = list(dec.tail_tokens(request))
+        after = pa.LAUNCHES[kernel]
+        assert tokens == colo.generate_ids(prompt, max_new_tokens=8)
+        stats = dec.stats()
+        assert stats['kv_imports'] == 1 and stats['kv_import_fallbacks'] == 0
+        assert stats['prefill_chunks'] == 0
+        assert after - before == cfg.n_layers * stats['decode_steps']
+    finally:
+        for engine in (pre, dec, colo):
+            engine.shutdown()

@@ -66,7 +66,8 @@ def test_every_module_imports_with_jax_blocked():
                 'serve.adapter_registry', 'server.metrics',
                 'utils.fault_injection', 'train.checkpoint', 'data.packer',
                 'bench', 'models.hf_interop', 'inference.bpe',
-                'train.finetune'):
+                'train.finetune', 'inference.kv_migrate',
+                'utils.resilience'):
         assert 'skypilot_tpu_torch.' + mod in mods
     code = (
         'import sys\n'
@@ -135,16 +136,22 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
 
 
 def test_unported_engine_options_raise(tmp_path):
-    """``mesh=`` and ``role=`` raise with their queue items; the
-    checkpoint options are ported (a missing HF directory is an error
-    of the input, not a pointer to ROADMAP.md)."""
+    """``mesh=`` raises with its queue item; ``role=`` and the
+    checkpoint options are ported (an unknown role and a missing HF
+    directory are errors of the input, not pointers to ROADMAP.md)."""
     from skypilot_tpu_torch.inference.continuous import (
         ContinuousBatchingEngine)
     from skypilot_tpu_torch.inference.engine import InferenceEngine
-    for kwargs, item in (({'role': 'prefill'}, 'item 10'),
-                         ({'mesh': 'tensor=2'}, 'item 15')):
-        with pytest.raises(NotImplementedError, match='ROADMAP.*' + item):
-            ContinuousBatchingEngine('tiny', device='cpu', **kwargs)
+    with pytest.raises(NotImplementedError, match='ROADMAP.*item 15'):
+        ContinuousBatchingEngine('tiny', device='cpu', mesh='tensor=2')
+    engine = ContinuousBatchingEngine('tiny', device='cpu', max_slots=1,
+                                      max_len=32, role='prefill')
+    try:
+        assert engine.role == 'prefill' and engine.exporter is not None
+    finally:
+        engine.shutdown()
+    with pytest.raises(ValueError, match='SKYT_DISAGG_ROLE'):
+        ContinuousBatchingEngine('tiny', device='cpu', role='both')
     with pytest.raises(NotImplementedError, match='ROADMAP.*item 15'):
         InferenceEngine('tiny', device='cpu', mesh='tensor=2')
     for engine in (InferenceEngine, ContinuousBatchingEngine):
