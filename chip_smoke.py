@@ -16,15 +16,17 @@ Phases, in order; any failure exits non-zero:
    PyTorch version on the same card tensors, at llama3-8b attention
    shapes (H=32, KVH=8, D=128, BS=16; shuffled block tables; lengths
    1..2048), decode (Q=1) and verify (Q=5) windows, bf16 / fp32 / int8
-   pools, head dims 64 and 256, the engine's own B=4 shape, B=40, and a
-   pool whose rows past each slot's length hold +-1e4; each output held
-   by its error normalized per (sequence, head) (``head_err``), with
-   planted faults (an interior block, one split's blocks or the last
-   partial block of a 1000-row slot skipped; a (sequence, kv head)
-   unwritten) that must exceed the same limit, and fully masked verify
-   rows held to the mean of the V rows of the blocks read. Then times
-   (median of CUDA-event timings, L2 flushed before each launch) at the
-   B=8 mixed-length decode shape: kernel, plain version, and
+   pools, head dims 64 and 256, the engine's own B=4 shape, B=40, a
+   pool whose rows past each slot's length hold +-1e4, the MoE configs'
+   heads, and bench-1b7's heads (G=5) at the GRPO rollout engine's 8
+   slots of 65-129 rows; each output held by its error normalized per
+   (sequence, head) (``head_err``), with planted faults (an interior
+   block, one split's blocks or the last partial block of a 1000-row
+   slot, or of the GRPO shape's 120-row slot, skipped; a (sequence, kv
+   head) unwritten) that must exceed the same limit, and fully masked
+   verify rows held to the mean of the V rows of the blocks read. Then
+   times (median of CUDA-event timings, L2 flushed before each launch)
+   at the B=8 mixed-length decode shape: kernel, plain version, and
    ``F.scaled_dot_product_attention`` over the gathered view (a
    yardstick only; the port never calls it), beside the bound; the
    kernel alone at B=8 mixed Q=5 and B=128 mixed Q=1 beside their
@@ -52,8 +54,9 @@ Phases, in order; any failure exits non-zero:
    segment ids, and with segment ids that do not increase along a row
    (bf16, causal and not); once at D=256; once at the batch engine's
    prefill shape (llama3-8b heads H=32, KVH=8, B=4, S=256, bf16,
-   causal), its lone request's (B=1, S=256) and the LoRA finetune's
-   (B=4, S=512); at the ring's edge shapes S=64 and S=192 with GQA groups 1
+   causal), its lone request's (B=1, S=256), the LoRA finetune's
+   (B=4, S=512) and the GRPO learner's (bench-1b7 heads, B=8, S=128);
+   at the ring's edge shapes S=64 and S=192 with GQA groups 1
    and 8, bf16 and fp32; each output's error normalized per 64-row tile
    of one head (``tile_err``), and the dq kernel's delta against the
    plain one. A second backward must give bitwise the same dq, dk and
@@ -212,11 +215,39 @@ Phases, in order; any failure exits non-zero:
    seconds (pull + import) and bytes moved per request, decode tok/s
    beside the twin's.
 
+29. GRPO with live weight refresh, full width and depth (after phase 28;
+   its own ``[smoke]`` line): ``grpo.main``'s loop (``grpo.run`` of its
+   parsed argv) on bench-1b7, 3 steps of 2 prompts x 4 rollouts, prompt
+   65 + 64 new tokens at temperature 1, rollouts from the continuous
+   engine (8 slots), a learner step at B=8, S=128 (fp32, optax's plain
+   AdamW) and a full live refresh after each: the paged kernel launches
+   22 a decode step, flash 2L / L / L a learner step with no fallback;
+   weight_refreshes and policy_version 3; every engine leaf the
+   learner's cast to bf16 bit for bit; a temperature-0 wave of unseen
+   prompts token for token a fresh engine's on the learner's params; a
+   delta refresh negating ``layers/mlp/wo`` changes a lone request's
+   greedy tokens and a drain refresh restoring it brings them back. Per
+   step rollout / learn / refresh seconds and peak memory.
+30. The RL pipeline and the eval server: ``RLPipeline`` at bench-1b7's
+   full width and 2 of its 22 layers (registered here as
+   ``bench-1b7-l2``), 2 rollout replicas, staleness bound 3, queue 2, 5
+   learner steps (without a live refresh the valve admits at most 4
+   batches), one fault at each of ``rl.rollout.generate``,
+   ``rl.refresh.pull`` and ``rl.learn.step``: staleness max <= 3, no
+   batch lost, the faulted batch requeued, >= 1 live refresh, paged 2
+   launches a decode step of both replicas, flash 2L / L / L a learner
+   step. Then the port's server with ``--policy-store`` on the same
+   store (under a scratch directory, removed at the end): it serves the
+   store's version, leaves equal to the store's arrays in bf16, before
+   its first ``/generate``, and ``GET /fanout/*`` hands a
+   ``FanoutPuller`` the store's manifest and bytes.
+
 Then one JSON line listing every kernel (the paged kernels' launches are
-the sums of phases 9, 14, 15, 22, 23, 24, 26, 27 and 28, and of 10, 14
-and 28's int8 runs; the decode kernel's of phases 12, 20, 22 and 26; the flash
-kernels' of phases 7, 16, 17, 18, 25 and 27), the ``nvidia-smi`` name and
-power-limit line, and last ``{"ok": true, "device": {...}}``.
+the sums of phases 9, 14, 15, 22, 23, 24, 26, 27, 28, 29 and 30, and of
+10, 14 and 28's int8 runs; the decode kernel's of phases 12, 20, 22 and
+26; the flash kernels' of phases 7, 16, 17, 18, 25, 27, 29 and 30), the
+``nvidia-smi`` name and power-limit line, and last ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -410,19 +441,21 @@ def blocks_left_out(c, seq, blocks, bs, nv_seq=None):
     return bt, nv
 
 
-def paged_faults(torch, pa, c, ref, kvh, bs, splits):
+def paged_faults(torch, pa, c, ref, kvh, bs, splits, rows=1000):
     """Errors of faults the kernel could make, built from the plain
-    output (Q=1; one sequence, 4 at B=8, 2 at B=4, holds 1000 rows in
-    63 blocks): an interior block skipped (its block 30), one split's
+    output (Q=1) on the sequence that holds ``rows`` rows (1000 rows in
+    63 blocks: sequence 4 at B=8, 2 at B=4): an interior block skipped
+    (block 30, or the middle one of a shorter sequence), one split's
     partial dropped (its second split's blocks), one (sequence, kv
     head) left unwritten (sequence 1, kv head 3), and the last partial
-    block skipped (rows 992-999)."""
-    seq = c['nv'].tolist().index(1000)
-    per = -(-63 // splits)
-    cases = {'interior block skipped': dict(blocks=[30]),
+    block skipped (rows 992-999 of 1000)."""
+    seq = c['nv'].tolist().index(rows)
+    nblk = -(-rows // bs)
+    per = -(-nblk // splits)
+    cases = {'interior block skipped': dict(blocks=[min(30, nblk // 2)]),
              'one split dropped': dict(blocks=list(range(per, 2 * per))),
              'last partial block skipped': dict(blocks=[],
-                                                nv_seq=1000 // bs * bs)}
+                                                nv_seq=rows // bs * bs)}
     errs = {}
     for name, kw in cases.items():
         bt, nv = blocks_left_out(c, seq, bs=bs, **kw)
@@ -469,6 +502,13 @@ LENGTHS8 = [1, 15, 16, 17, 1000, 2048, 1000, 2048]
 MOE_HEADS = {'H=16 KVH=16 D=128 (deepseek-moe-16b)': dict(kvh=16, g=1,
                                                           d=128),
              'H=64 KVH=8 D=64 (gpt-oss-20b)': dict(kvh=8, g=8, d=64)}
+# bench-1b7's heads (G=5, the one group size that is not a power of
+# two) at the GRPO rollout engine's shape (phase 29): 8 slots of 9
+# blocks (max_len 130), prompts of 65 rows growing to 129; the planted
+# faults go on the 120-row sequence (8 blocks, the last one partial).
+GRPO_PAGED = dict(kvh=4, g=5, d=128, bs=16, bps=9, b=8,
+                  lengths=[65, 72, 81, 96, 100, 113, 120, 129], q_len=1)
+GRPO_FAULT_ROWS = 120
 
 
 def check_paged(torch, pa):
@@ -477,8 +517,10 @@ def check_paged(torch, pa):
     B=4 shape, B=40 (Q=1 and 5), bf16 / fp32 / int8 pools, stale pool
     rows at +-1e4, D=64 and D=256; the MoE configs' heads (MOE_HEADS)
     at B=8 and B=4, Q=1 and 5; planted faults at B=8 Q=1 and the MoE
-    heads' B=4 Q=1; fully masked verify rows against the uniform mean.
-    Returns the largest absolute error of each kernel."""
+    heads' B=4 Q=1; bench-1b7's heads at the GRPO rollout engine's
+    shape (GRPO_PAGED, bf16 Q=1, with planted faults); fully masked
+    verify rows against the uniform mean. Returns the largest absolute
+    error of each kernel."""
     llama, lengths8 = LLAMA_PAGED, LENGTHS8
     errors = {'paged_attention': 0.0, 'paged_attention_quant': 0.0}
     cases = []
@@ -517,6 +559,8 @@ def check_paged(torch, pa):
                                    lengths=[1, 17, 1000, 2048],
                                    q_len=q_len), False))
             engine_q1.add(f'{pool} Q=1 B=4 {label}')
+    grpo_label = 'bf16 Q=1 B=8 H=20 KVH=4 (GRPO rollouts)'
+    cases.append((grpo_label, 'bf16', GRPO_PAGED, False))
     failed = []
     for seed, (label, pool, shape, poison) in enumerate(cases):
         c = make_case(torch, pool=pool, seed=seed, poison=poison, **shape)
@@ -533,9 +577,11 @@ def check_paged(torch, pa):
         finite = bool(torch.isfinite(out[keep]).all().item())
         ok = (finite and rel <= PAGED_TOL[pool] and
               pa.LAUNCHES[name] == before + 1)
-        if label.endswith('Q=1 B=8') or label in engine_q1:
-            faults = paged_faults(torch, pa, c, ref, shape['kvh'],
-                                  shape['bs'], splits)
+        if label.endswith('Q=1 B=8') or label in engine_q1 or \
+                label == grpo_label:
+            faults = paged_faults(
+                torch, pa, c, ref, shape['kvh'], shape['bs'], splits,
+                GRPO_FAULT_ROWS if label == grpo_label else 1000)
             caught = {n: e > PAGED_TOL[pool] for n, e in faults.items()}
             log(f'[kernels] {label}: planted faults, head error ' +
                 ', '.join(f'{n} {e:.3e}{"" if caught[n] else " MISSED"}'
@@ -1171,7 +1217,8 @@ def flash_cases():
     attention (B=2) both ways, with segment ids permuted per row, D=256,
     the batch engine's prefill at llama3-8b's and deepseek-moe-16b's
     heads, its lone request (B=1), the LoRA finetune's B=4 S=512, the
-    MoE train steps' shape, and the pipeline's edge shapes:
+    MoE train steps' shape, the GRPO learner's B=8 S=128, and the
+    pipeline's edge shapes:
     S=64 (one
     tile: the ring's prologue and epilogue only) and S=192 (three tiles,
     no multiple of the two stages; the forward's 64-row CTA), GQA groups
@@ -1204,6 +1251,11 @@ def flash_cases():
                   True, False))
     cases.append(('bf16 causal B=4 S=512 H=32 KVH=8 (finetune)',
                   dict(b=4, s=512, h=32, kvh=8, d=128), 'bf16', True,
+                  False))
+    # The GRPO learner's steps (phase 29: 2 prompts x 4 rollouts of
+    # 65 + 64 tokens) at bench-1b7's heads.
+    cases.append(('bf16 causal B=8 S=128 H=20 KVH=4 (GRPO learner)',
+                  dict(b=8, s=128, h=20, kvh=4, d=128), 'bf16', True,
                   False))
     # deepseek-moe-16b's heads (G=1): its batch-engine prefill (phase 22)
     # and its train steps (phase 25).
@@ -1873,6 +1925,7 @@ def llama3_params(torch):
 def phase_engine(torch, pa, params, profile_window=False):
     from skypilot_tpu_torch.inference.continuous import (
         ContinuousBatchingEngine)
+    free_card(torch)
     engine = ContinuousBatchingEngine('llama3-8b', params=params,
                                       max_slots=4, max_len=2048,
                                       block_size=16)
@@ -1927,6 +1980,7 @@ def phase_engine(torch, pa, params, profile_window=False):
         engine.shutdown()
     del engine
     # Phase 10: int8 KV on the same weights.
+    free_card(torch)
     engine = ContinuousBatchingEngine('llama3-8b', params=params,
                                       max_slots=4, max_len=2048,
                                       block_size=16, quantize_kv=True)
@@ -2100,6 +2154,7 @@ def phase_spec_engine(torch, pa, params, plain):
     for quant in (False, True):
         kernel = 'paged_attention_quant' if quant else 'paged_attention'
         tag = 'spec-int8' if quant else 'spec'
+        free_card(torch)
         engine = ContinuousBatchingEngine(
             'llama3-8b', params=params, max_slots=4, max_len=2048,
             block_size=16, spec_decode=True, draft_k=4, quantize_kv=quant)
@@ -2257,6 +2312,7 @@ def phase_lora_engine(torch, pa, params):
               'so a cold adapter costs blocks, not a fleet.')
     adapters = {'tenant-16': tiny_adapter(torch, cfg, 16, 11, LORA_B_SCALE),
                 'tenant-8': tiny_adapter(torch, cfg, 8, 12, LORA_B_SCALE)}
+    free_card(torch)
     engine = ContinuousBatchingEngine('llama3-8b', params=params,
                                       max_slots=4, max_len=2048,
                                       block_size=16, lora_pages=4,
@@ -2321,6 +2377,7 @@ def phase_lora_engine(torch, pa, params):
     finally:
         engine.shutdown()
     del engine
+    free_card(torch)
     plain = ContinuousBatchingEngine('llama3-8b', params=params,
                                      max_slots=4, max_len=2048,
                                      block_size=16)
@@ -2579,9 +2636,10 @@ FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        'skypilot_tpu_torch', 'testdata', 'tokenizer_llama3')
 
 
-def scratch_dir(need_bytes):
+def scratch_dir(need_bytes, tag='ckpt'):
     """A fresh directory with ``need_bytes`` free: under the temp
-    directory, else under the checkout's git-ignored ``build/``."""
+    directory, else under the checkout's git-ignored ``build/``
+    (``tag`` names the phases that write there)."""
     import shutil
     import tempfile
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2591,10 +2649,10 @@ def scratch_dir(need_bytes):
         free = shutil.disk_usage(root).free
         seen.append(f'{root}: {free / 1e9:.1f} GB free')
         if free >= need_bytes:
-            log(f'[ckpt] writing under {root} ({free / 1e9:.1f} GB free)')
-            return tempfile.mkdtemp(prefix='smoke_ckpt_', dir=root)
+            log(f'[{tag}] writing under {root} ({free / 1e9:.1f} GB free)')
+            return tempfile.mkdtemp(prefix=f'smoke_{tag}_', dir=root)
     raise RuntimeError(f'no room for the {need_bytes / 1e9:.1f} GB the '
-                       f'checkpoint phases write ({"; ".join(seen)}); '
+                       f'{tag} phases write ({"; ".join(seen)}); '
                        'the depth is not cut quietly')
 
 
@@ -3085,6 +3143,7 @@ def disagg_pool(torch, pa, params, quantize_kv, full):
     kernel = 'paged_attention_quant' if quantize_kv else 'paged_attention'
     kw = dict(params=params, max_slots=4, max_len=2048, block_size=16,
               quantize_kv=quantize_kv)
+    free_card(torch)
     engines = {role: ContinuousBatchingEngine('llama3-8b', role=role, **kw)
                for role in ('prefill', 'decode')}
     engines['twin'] = ContinuousBatchingEngine('llama3-8b', role='decode',
@@ -3310,6 +3369,360 @@ def phase_disagg(torch, pa, params):
 
 
 # ---------------------------------------------------------------------------
+# Phases 29-30: GRPO with live weight refresh, the RL pipeline
+# ---------------------------------------------------------------------------
+
+GRPO_STEPS = 3
+GRPO_ARGV = ['--model', 'bench-1b7', '--steps', str(GRPO_STEPS),
+             '--prompts-per-step', '2', '--group-size', '4',
+             '--prompt-len', '65', '--max-new-tokens', '64',
+             '--temperature', '1.0', '--log-every', '1']
+RL_BASE = 'bench-1b7'
+RL_MODEL = 'bench-1b7-l2'   # RL_BASE at full width, 2 of its layers
+
+
+def learner_flash(cfg, steps):
+    """Flash launches of ``steps`` learner steps under full remat: 2L
+    forward (forward and recompute), L dq, L dk/dv a step."""
+    n = cfg.n_layers * steps
+    return {'flash_fwd': 2 * n, 'flash_dq': n, 'flash_dkv': n,
+            'flash_fwd_seg': 0, 'flash_dq_seg': 0, 'flash_dkv_seg': 0}
+
+
+def check_served_leaves(torch, engine, params, cfg, label):
+    """Every engine leaf is ``serving_params`` of ``params`` (the fp32
+    learner's leaf rounded to bf16, norm scales fp32), bit for bit."""
+    from skypilot_tpu_torch.inference.continuous import flatten_param_paths
+    from skypilot_tpu_torch.models import decode
+    with torch.no_grad():
+        want = flatten_param_paths(decode.serving_params(params, cfg))
+    got = flatten_param_paths(engine.params)
+    bad = [p for p, leaf in got.items()
+           if leaf.dtype != want[p].dtype or not torch.equal(leaf, want[p])]
+    if set(got) != set(want) or bad:
+        raise AssertionError(f'{label}: engine leaves differ from the '
+                             f'learner\'s cast to bf16: {bad[:4]}')
+    log(f'[{label}] {len(got)} engine leaves = the learner\'s cast as '
+        f'serving_params casts, bit for bit')
+
+
+def phase_grpo(torch, pa, fa, device='cuda'):
+    """Phase 29: ``grpo.main``'s loop (``grpo.run`` of its parsed argv)
+    on bench-1b7 at full width and depth: 3 steps of 2 prompts x 4
+    rollouts, prompt 65 + 64 new tokens at temperature 1 from the
+    continuous engine (8 slots), a learner step at B=8, S=128 and a live
+    full refresh after each. Gates: the paged kernel 22 launches a
+    decode step, flash 2L / L / L a learner step and no fallback;
+    weight_refreshes and policy_version 3; every engine leaf the
+    learner's cast to bf16 bit for bit; a temperature-0 wave of unseen
+    prompts equal to a fresh engine's on the learner's params; a delta
+    refresh negating ``layers/mlp/wo`` changes a lone request's greedy
+    tokens and a drain refresh restoring it brings them back."""
+    import contextlib
+    import io
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
+    from skypilot_tpu_torch.train import grpo
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_launch_counts()
+    fa.reset_launch_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        run = grpo.run(grpo.parse_args(GRPO_ARGV + ['--device', device]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paged, flash = dict(pa.LAUNCHES), dict(fa.LAUNCHES)
+    fallbacks = dict(fa.FALLBACKS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    learner, engine, cfg = run['learner'], run['engine'], run['cfg']
+    lines = [json.loads(x) for x in out.getvalue().splitlines()
+             if x.startswith('{')]
+    try:
+        for line in lines:
+            log(f'[grpo] {json.dumps(line)}')
+        steps = [x for x in lines if 'loss' in x]
+        if len(steps) != GRPO_STEPS or lines[-1] != {
+                'done': True, 'final_step': GRPO_STEPS} or not all(
+                    math.isfinite(x['loss']) for x in steps):
+            raise AssertionError(f'grpo lines {lines}')
+        stats = engine.stats()
+        n_layers = cfg.n_layers
+        want_paged = n_layers * stats['decode_steps']
+        if paged['paged_attention'] != want_paged or \
+                paged['paged_attention_quant'] or \
+                stats['decode_steps'] < 64:
+            raise AssertionError(f'paged launches {paged}, expected '
+                                 f'{want_paged} = {n_layers} x '
+                                 f'{stats["decode_steps"]} decode steps')
+        if flash != learner_flash(cfg, GRPO_STEPS) or fallbacks['cuda']:
+            raise AssertionError(f'flash launches {flash}, expected '
+                                 f'{learner_flash(cfg, GRPO_STEPS)}; '
+                                 f'calls outside the kernels {fallbacks}')
+        if not (stats['weight_refreshes'] == stats['policy_version'] ==
+                engine.policy_version == learner.version == GRPO_STEPS):
+            raise AssertionError(f'refresh counters {stats}')
+        log(f'[grpo] paged_attention {paged["paged_attention"]} = '
+            f'{n_layers} x {stats["decode_steps"]} decode steps; flash '
+            f'{flash}; {stats["weight_refreshes"]} refreshes of '
+            f'{stats["refresh_shards"] // stats["weight_refreshes"]} '
+            f'leaves, {stats["refresh_seconds"]:.4f} s in all; '
+            f'policy_version {stats["policy_version"]}')
+        log(f'[grpo] per step (rollout / learn / refresh s): ' + ', '.join(
+            f'{x["rollout_s"]:.3f} / {x["learn_s"]:.3f} / '
+            f'{x["refresh_s"]:.4f}' for x in steps) +
+            f'; {wall:.1f} s in all; peak memory {peak_gb:.2f} GB; '
+            f'{nvidia_smi_line()}')
+        check_served_leaves(torch, engine, learner.params, cfg, 'grpo')
+        # A wave of prompts no step used (no cached prefix of the old
+        # weights), at temperature 0, from the refreshed engine and from
+        # a fresh engine on the learner's params.
+        pool, _ = grpo.make_prompts(42, 256, 65, cfg.vocab_size)
+        tiled = torch.repeat_interleave(pool[200:202], 4, dim=0).tolist()
+        wave, version = grpo.engine_rollouts(
+            engine, tiled, max_new_tokens=64, temperature=0.0, step=99)
+        fresh = ContinuousBatchingEngine(cfg=cfg, params=learner.params,
+                                         device=device, max_slots=8,
+                                         max_len=130)
+        try:
+            twin, _ = grpo.engine_rollouts(
+                fresh, tiled, max_new_tokens=64, temperature=0.0, step=99)
+        finally:
+            fresh.shutdown()
+        del fresh
+        if version != GRPO_STEPS or not torch.equal(wave, twin):
+            raise AssertionError(
+                f'refreshed wave (version {version}) differs from a fresh '
+                f'engine\'s: {(wave != twin).sum().item()} of '
+                f'{wave.numel()} tokens')
+        log(f'[grpo] temperature-0 wave of 8 x 64 tokens from the '
+            f'refreshed engine = a fresh engine\'s on the learner\'s '
+            f'params, token for token')
+        delta = delta_refresh(torch, engine, pool[210, :15].tolist())
+    finally:
+        engine.shutdown()
+    result = dict(paged=paged['paged_attention'], flash=flash,
+                  decode_steps=stats['decode_steps'], wall_s=wall,
+                  peak_gb=peak_gb,
+                  steps=[{k: x[k] for k in ('rollout_s', 'learn_s',
+                                            'refresh_s', 'loss',
+                                            'mean_reward')}
+                         for x in steps],
+                  refresh_seconds=stats['refresh_seconds'], **delta)
+    del run, learner, engine
+    free_card(torch)
+    return result
+
+
+def delta_refresh(torch, engine, ids):
+    """A full-size delta refresh on a serving engine: negate one stacked
+    leaf (``layers/mlp/wo``, every layer's MLP output), a lone greedy
+    request's tokens change; restore it with ``mode='drain'``, they come
+    back. Returns the two refresh wall times."""
+    from skypilot_tpu_torch.inference.continuous import flatten_param_paths
+    path = 'layers/mlp/wo'
+    original = flatten_param_paths(engine.params)[path].clone()
+    before = engine.generate_ids(ids, max_new_tokens=32)
+    v = engine.policy_version
+    t0 = time.perf_counter()
+    engine.refresh_weights({path: -original}, version=v + 1)
+    negate_s = time.perf_counter() - t0
+    changed = engine.generate_ids(ids, max_new_tokens=32)
+    t0 = time.perf_counter()
+    engine.refresh_weights({path: original}, version=v + 2, mode='drain')
+    restore_s = time.perf_counter() - t0
+    after = engine.generate_ids(ids, max_new_tokens=32)
+    if changed == before or after != before or \
+            engine.policy_version != v + 2:
+        raise AssertionError(f'delta refresh of {path}: before {before}, '
+                             f'negated {changed}, restored {after}')
+    log(f'[grpo] delta refresh of {path} {tuple(original.shape)} '
+        f'({original.numel() * original.element_size() / 1e9:.3f} GB): '
+        f'tokens changed; restored by a drain refresh, the tokens are '
+        f'back; refresh walls {negate_s:.4f} / {restore_s:.4f} s')
+    return {'delta_refresh_s': [negate_s, restore_s]}
+
+
+def phase_rl_pipeline(torch, pa, fa, work, device='cuda'):
+    """Phase 30: ``RLPipeline`` at bench-1b7's full width and 2 of its 22
+    layers (each version commits the fp32 tree, 1.21 GB, and each
+    replica keeps a copy): 2 rollout replicas (8 slots each), staleness
+    bound 3, queue 2, 5 learner steps, prompts 65 + 64 new tokens; one
+    fault at each rl.* site. Gates the summary's invariants, paged
+    launches 2 a decode step of both replicas and flash 2L / L / L a
+    learner step. Then the port's server with ``--policy-store`` on the
+    same store serves its version before the first ``/generate``, and
+    hands a ``FanoutPuller`` the store's bytes through ``GET
+    /fanout/*``."""
+    import dataclasses
+    from skypilot_tpu_torch.jobs import rl_pipeline as rl
+    from skypilot_tpu_torch.models import config
+    from skypilot_tpu_torch.utils import fault_injection
+    if RL_MODEL not in config.MODEL_REGISTRY:
+        config.MODEL_REGISTRY.register(RL_MODEL)(dataclasses.replace(
+            config.get_model_config(RL_BASE), name=RL_MODEL,
+            n_layers=2))
+    cfg = config.get_model_config(RL_MODEL)
+    store = os.path.join(work, 'store')
+    pcfg = rl.PipelineConfig(rollout_replicas=2, max_staleness=3,
+                             queue_batches=2, refresh_mode='step',
+                             refresh_concurrency=1, store=store)
+    # 5 steps: the valve lets at most 4 batches be produced from the
+    # initial policy (3, or 4 when both replicas pass it at once), so
+    # the run cannot finish without a live refresh.
+    steps = 5
+    pipe = rl.RLPipeline(cfg, pcfg, steps=steps, prompts_per_step=2,
+                         group_size=4, prompt_len=65, max_new_tokens=64,
+                         num_prompts=64, max_slots=8, device=device)
+    os.environ[fault_injection.SPEC_ENV] = ','.join([
+        f'{rl.LEARN_STEP_SITE}:Exception:times=1',
+        f'{rl.ROLLOUT_GENERATE_SITE}:Exception:times=1',
+        f'{rl.REFRESH_PULL_SITE}:OSError:times=1'])
+    fault_injection.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_launch_counts()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        summary = pipe.run()
+    finally:
+        os.environ.pop(fault_injection.SPEC_ENV, None)
+        fault_injection.reset()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paged, flash = dict(pa.LAUNCHES), dict(fa.LAUNCHES)
+    fallbacks = dict(fa.FALLBACKS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f'[rl] summary {json.dumps(summary)}')
+    decode_steps = sum(w.engine.stats()['decode_steps']
+                       for w in pipe.workers)
+    checks = {
+        'steps': summary['steps'] == steps,
+        'staleness_max <= 3': summary['staleness_max'] <= 3,
+        'no batch lost': summary['batches_unretired'] ==
+        pipe.queue.depth() and summary['batches_acked'] >= steps,
+        'refreshes >= 1': summary['refreshes'] >= 1,
+        'one learner fault, requeued': summary['learn_faults'] == 1 and
+        summary['batches_requeued'] >= 1,
+        'one killed wave': summary['worker_errors'] == 1,
+        'a killed pull': summary['refresh_errors'] >= 1,
+        'paged 2 a decode step': paged['paged_attention'] ==
+        cfg.n_layers * decode_steps > 0,
+        'flash 2L / L / L a step': flash == learner_flash(cfg, steps),
+        'no flash fallback': not fallbacks['cuda'],
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f'pipeline checks failed {failed}: paged '
+                             f'{paged}, {decode_steps} decode steps, '
+                             f'flash {flash}, fallbacks {fallbacks}')
+    log(f'[rl] {steps} steps in {wall:.1f} s: staleness max '
+        f'{summary["staleness_max"]}, {summary["refreshes"]} live '
+        f'refreshes (p50 {summary["refresh_p50_s"]:.3f} s commit to '
+        f'swap), {summary["rollout_tokens_per_s"]:.1f} rollout tok/s; '
+        f'paged {paged["paged_attention"]} = {cfg.n_layers} x '
+        f'{decode_steps} decode steps; flash {flash}; peak '
+        f'{peak_gb:.2f} GB')
+    version = rl.PolicyStore(store).version()
+    del pipe
+    free_card(torch)
+    result = dict(paged=paged['paged_attention'], flash=flash, wall_s=wall,
+                  peak_gb=peak_gb, summary=summary)
+    result.update(eval_server(torch, store, version, work, device))
+    return result
+
+
+def eval_server(torch, store, version, work, device):
+    """The port's server on the pipeline's store: ``build_engine`` with
+    ``--policy-store`` pulls before it returns, so the engine serves
+    ``version`` before its first ``/generate``; its leaves are the
+    store's arrays cast to bf16; ``GET /fanout/*`` over the store
+    (``SKYT_FANOUT_DIR``) hands a ``FanoutPuller`` whose bucket serves
+    nothing the store's manifest and bytes."""
+    import numpy as np
+    from skypilot_tpu_torch.data import ckpt_manifest, fanout
+    from skypilot_tpu_torch.inference import server as server_lib
+    from skypilot_tpu_torch.inference.continuous import flatten_param_paths
+    from skypilot_tpu_torch.models.convert import tensor_from_numpy
+    import tempfile
+    weights = os.path.join(store, 'weights')
+    os.environ[fanout.DIR_ENV] = weights
+    # The watcher pulls into a new temporary directory: keep it under
+    # ``work``, which the caller removes.
+    saved, tempfile.tempdir = tempfile.tempdir, work
+    try:
+        engine = server_lib.build_engine(server_lib.parse_args([
+            '--model', RL_MODEL, '--engine', 'continuous', '--max-batch',
+            '4', '--max-len', '256', '--policy-store', store, '--device',
+            device]))
+    finally:
+        tempfile.tempdir = saved
+    try:
+        if engine.policy_version != version:
+            raise AssertionError(f'served version {engine.policy_version}'
+                                 f', store {version}')
+        for path, leaf in flatten_param_paths(engine.params).items():
+            want = tensor_from_numpy(np.load(os.path.join(
+                weights, *path.split('/')) + '.npy'), leaf.device).to(
+                    leaf.dtype)
+            if not torch.equal(leaf, want):
+                raise AssertionError(f'{path}: served leaf is not the '
+                                     f'store\'s')
+        server, port = serve_engine(engine)
+        try:
+            out = post_generate(port, ['the policy store'], 16)
+            endpoint = f'http://127.0.0.1:{port}'
+            manifest = fanout.fetch_manifest(endpoint, timeout=30.0)
+            dest = os.path.join(work, 'fanout-pull')
+            t0 = time.perf_counter()
+            result = fanout.FanoutPuller(
+                manifest, dest,
+                [fanout.HTTPPeerSource(1, endpoint, timeout=60.0)],
+                fanout.CallableSource('bucket', lambda s, o: b'',
+                                      is_peer=False)).pull()
+            pull_s = time.perf_counter() - t0
+        finally:
+            server.shutdown()
+            server.server_close()
+    finally:
+        engine.shutdown()
+        os.environ.pop(fanout.DIR_ENV, None)
+    if manifest != ckpt_manifest.read(weights) or \
+            ckpt_manifest.verify(dest, manifest) or \
+            set(result['sources'].values()) != {'peer:1'}:
+        raise AssertionError(f'/fanout pull differs from the store: '
+                             f'{result}')
+    nbytes = sum(s['size'] for s in manifest['shards'])
+    log(f'[rl-eval] --policy-store: serving version {version} before the '
+        f'first /generate ({len(out["outputs"][0])} chars back), leaves '
+        f'= the store\'s; GET /fanout/* handed a FanoutPuller '
+        f'{result["fetched"]} shards, {nbytes / 1e9:.3f} GB, the '
+        f'store\'s digests, in {pull_s:.2f} s')
+    return {'fanout_pull_s': pull_s, 'fanout_gb': nbytes / 1e9}
+
+
+def run_rl_phases(torch, pa, fa):
+    """Phases 29-30; phase 30 writes under a scratch directory, removed
+    at the end."""
+    import shutil
+    t0 = time.perf_counter()
+    grpo_result = phase_grpo(torch, pa, fa)
+    t1 = time.perf_counter()
+    work = scratch_dir(8 << 30, 'rl')
+    try:
+        pipeline = phase_rl_pipeline(torch, pa, fa, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f'[smoke] phase 29 {t1 - t0:.1f} s, 30 '
+        f'{time.perf_counter() - t1:.1f} s')
+    return {'paged': grpo_result['paged'] + pipeline['paged'],
+            'flash': [grpo_result['flash'], pipeline['flash']],
+            'grpo': grpo_result, 'pipeline': pipeline}
+
+
+# ---------------------------------------------------------------------------
 # Phases 16-21: the bench twin, remat policies, --packed, resume
 # ---------------------------------------------------------------------------
 
@@ -3326,6 +3739,11 @@ def run_json_main(main, argv):
 
 
 def free_card(torch):
+    """Collect garbage, then return cached blocks to the card. A
+    continuous engine keeps its own copy of a caller's weights, and one
+    served over HTTP stays reachable from its handler class (a reference
+    cycle) until a collection: phases that build engines on one shared
+    tree call this before each."""
     import gc
     gc.collect()
     torch.cuda.empty_cache()
@@ -3947,6 +4365,7 @@ def phase_moe_serving(torch, pa, da, fa, params, param_gb, bw,
     result = {'param_gb': param_gb,
               'block_err': check_moe_block(torch, params, cfg, 'moe')}
     torch.cuda.reset_peak_memory_stats()
+    free_card(torch)
     engine = ContinuousBatchingEngine('deepseek-moe-16b', params=params,
                                       max_slots=4, max_len=2048,
                                       block_size=16)
@@ -4033,6 +4452,7 @@ def phase_moe_int8(torch, pa, qparams, bf16_gb, bf16_streams):
         raise AssertionError('int8 experts: param bytes not below 0.55x')
     block_err = check_moe_block(
         torch, qparams, get_model_config('deepseek-moe-16b'), 'moe-int8')
+    free_card(torch)
     engine = ContinuousBatchingEngine('deepseek-moe-16b', params=qparams,
                                       max_slots=4, max_len=2048,
                                       block_size=16)
@@ -4215,7 +4635,7 @@ def main(argv=None) -> int:
         f'{t2 - t1:.1f} s, flash {time.perf_counter() - t2:.1f} s')
     engine, train, batch, spec, lora = {}, {}, {}, {}, {}
     bench_tr, remat, packed, bench_dec, moe = {}, {}, {}, {}, {}
-    ckpt, disagg = {}, {}
+    ckpt, disagg, rl = {}, {}, {}
     if not args.skip_engine:
         phase_train_small(torch)
         train = phase_train(torch, fa, flops_peak)
@@ -4250,6 +4670,9 @@ def main(argv=None) -> int:
         log(f'[disagg] summary {json.dumps(disagg)}')
         del params
         free_card(torch)
+        rl = run_rl_phases(torch, pa, fa)
+        log('[rl] phases 29-30 summary ' + json.dumps(
+            {k: v for k, v in rl.items() if k in ('grpo', 'pipeline')}))
         t0 = time.perf_counter()
         bench_tr = phase_bench_train(torch, fa)
         remat = phase_remat(torch, fa)
@@ -4289,12 +4712,14 @@ def main(argv=None) -> int:
     # Counts come only from the main paths' own runs (the continuous
     # engine's plain, speculative and LoRA windows, the MoE engines, the
     # checkpoint-served engines of phases 26-27 and the decode-role
-    # engines of phase 28 for the paged kernels, the batch engines (phase 26's too) and the bench twin's
-    # decode mode for the decode kernels, the trainer's entry points for
-    # the flash kernels: phase 7, the bench twin's train mode, the remat
-    # policies, the MoE train steps, the finetune of phase 27, and
-    # --packed for the segment twins): null when they were skipped,
-    # never a number this run did not measure.
+    # engines of phase 28 and the GRPO rollout engines of phases 29-30
+    # for the paged kernels, the batch engines (phase 26's too) and the
+    # bench twin's decode mode for the decode kernels, the trainer's
+    # entry points for the flash kernels: phase 7, the bench twin's train
+    # mode, the remat policies, the MoE train steps, the finetune of
+    # phase 27, the GRPO learners of phases 29-30, and --packed for the
+    # segment twins): null when they were skipped, never a number this
+    # run did not measure.
     def total(parts):
         return sum(parts) if None not in parts else None
 
@@ -4302,14 +4727,15 @@ def main(argv=None) -> int:
               packed.get('launches'), moe.get('train'),
               ckpt.get('finetune')] + [
         remat.get(p, {}).get('launches')
-        for p in ('save_attn', 'save_dots', 'dots')]
+        for p in ('save_attn', 'save_dots', 'dots')] + rl.get(
+            'flash', [None])
     launches = {
         'paged_attention': total([engine.get('launches'),
                                   spec.get('launches'),
                                   lora.get('launches'), moe.get('paged'),
                                   ckpt.get('paged'),
                                   ckpt.get('lora_paged'),
-                                  disagg.get('launches')]),
+                                  disagg.get('launches'), rl.get('paged')]),
         'paged_attention_quant': total([engine.get('launches_quant'),
                                         spec.get('launches_quant'),
                                         disagg.get('launches_quant')]),

@@ -1,8 +1,9 @@
 """Content-addressed shard manifests: the checkpoint commit protocol.
 
 The port's copy of the part of ``skypilot_tpu/data/ckpt_manifest.py``
-the adapter registry uses, byte-compatible with it: a directory written
-by either package reads in the other.
+the adapter registry, the checkpoints, the weight fan-out and the RL
+policy store use, byte-compatible with it: a directory written by
+either package reads in the other.
 
 A checkpoint directory is a bag of shard files plus ONE manifest
 (:data:`MANIFEST_NAME`) listing every shard with its sha256 and size.
@@ -129,6 +130,27 @@ def read(root: str) -> Optional[Dict[str, Any]]:
                        '%s', path)
         return None
     return payload
+
+
+def shard_map(payload: Dict[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """``rel_path -> shard entry`` for one manifest payload."""
+    return {s['path']: s for s in payload.get('shards', ())}
+
+
+def diff(old: Optional[Dict[str, Any]],
+         new: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Shards of ``new`` absent from ``old`` or whose digest changed:
+    the incremental-refresh transfer set. ``old=None`` means a cold
+    start: every shard moves."""
+    if old is None:
+        return list(new.get('shards', ()))
+    prev = shard_map(old)
+    out = []
+    for shard in new.get('shards', ()):
+        before = prev.get(shard['path'])
+        if before is None or before['sha256'] != shard['sha256']:
+            out.append(shard)
+    return out
 
 
 def verify(root: str,

@@ -46,9 +46,29 @@ Sampling is a function of (seed, position): the plain step samples at
 both through ``_sample_seed``, so a speculative or resumed stream is the
 plain stream at any temperature (bitwise where the logits are).
 
-Not ported yet: tensor-parallel meshes (``mesh=`` raises); live weight
-refresh (``stats()`` reports its keys as 0), tracing spans and the
-adapter chaos sites (the failure paths behind them are ported).
+* **Live weight refresh** (``request_refresh`` / ``refresh_weights``):
+  new weights, a ``flatten_param_paths``-keyed delta or a whole tree,
+  are copied into the engine's own leaves at the top of a serving-loop
+  iteration (a step boundary), so KV written by the old weights stays
+  valid and only later positions see the new ones; ``mode='drain'``
+  first holds admission and lets in-flight requests finish. Each
+  request carries the ``policy_version`` it was submitted under (the RL
+  rollout path's staleness). The engine owns its weights: a leaf that
+  would share storage with the caller's params is copied at
+  construction (the reference's arrays are immutable, torch tensors are
+  not: a learner's in-place optimizer step must not reach the served
+  weights), and a refresh copies its source into the engine's dtype
+  when it is requested, so the version labels the weights as they were
+  then. ``refresh_seconds`` in ``stats()`` adds up the time of those
+  two copies: on the card, device time on a stream of their own, so
+  decode steps in flight are not in it (the reference times its tick's
+  wall clock). Chaos site ``infer.weights.refresh`` (``utils/
+  fault_injection.py``): a fault there fails the refresh's ticket and
+  leaves the weights and the version as they were.
+
+Not ported yet: tensor-parallel meshes (``mesh=`` raises), tracing
+spans and the adapter chaos sites (the failure paths behind them are
+ported).
 """
 from __future__ import annotations
 
@@ -79,9 +99,9 @@ from skypilot_tpu_torch.models import lora as lora_lib
 from skypilot_tpu_torch.models.config import (ModelConfig, get_model_config,
                                               with_int8_kv_cache)
 from skypilot_tpu_torch.models.convert import tensor_from_numpy
-from skypilot_tpu_torch.models.quant import maybe_quantize
+from skypilot_tpu_torch.models.quant import QTensor, maybe_quantize
 from skypilot_tpu_torch.server import metrics
-from skypilot_tpu_torch.utils import env
+from skypilot_tpu_torch.utils import env, fault_injection
 from skypilot_tpu_torch.utils.device import resolve_device, to_device
 
 logger = logging.getLogger(__name__)
@@ -89,7 +109,77 @@ logger = logging.getLogger(__name__)
 DEFAULT_BLOCK_SIZE = 16
 DEFAULT_PREFILL_CHUNK = 64
 
+# Chaos site (utils/fault_injection): a live weight swap, before any
+# leaf is written.
+WEIGHT_REFRESH_SITE = 'infer.weights.refresh'
+
 _MASK64 = (1 << 64) - 1
+
+
+def flatten_param_paths(params) -> Dict[str, Any]:
+    """Stable ``'/'``-joined path -> leaf map for a params tree (nested
+    dicts, lists and tuples): the reference's function, giving the same
+    paths for the same tree. The RL pipeline's policy store names its
+    shards by these paths and the refresh resolves them back. Dicts walk
+    in sorted key order, so the map does not depend on insertion
+    order."""
+    flat: Dict[str, Any] = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for key in sorted(node):
+                walk(node[key], prefix + (str(key),))
+        elif isinstance(node, (list, tuple)):
+            for i, value in enumerate(node):
+                walk(value, prefix + (str(i),))
+        else:
+            flat['/'.join(prefix)] = node
+
+    walk(params, ())
+    return flat
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, QTensor):
+        return [tree.q, tree.scale]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def _owned(tree, given) -> Any:
+    """``tree`` detached from autograd, with every tensor that shares
+    storage with a tensor of ``given`` (the caller's params; ``None``
+    when the engine made or loaded its own) copied."""
+    shared = {t.untyped_storage().data_ptr() for t in _tensors(given)}
+
+    def own(node):
+        if isinstance(node, dict):
+            return {k: own(v) for k, v in node.items()}
+        if isinstance(node, QTensor):
+            return QTensor(own(node.q), own(node.scale))
+        node = node.detach()
+        if node.untyped_storage().data_ptr() in shared:
+            return node.clone()
+        return node
+
+    return own(tree)
+
+
+class _WeightRefresh:
+    """A queued live weight swap: ``copies`` pairs each engine leaf with
+    its new value, already in the leaf's dtype and on its device. The
+    serving loop applies it at a step boundary, then sets ``done``
+    (``error`` on failure)."""
+
+    def __init__(self, copies, version, mode, prepare_seconds) -> None:
+        self.copies = copies
+        self.version = version
+        self.mode = mode
+        self.prepare_seconds = prepare_seconds
+        self.applied_shards = 0
+        self.done = threading.Event()
+        self.error: Optional[BaseException] = None
 
 
 def _sample_seed(seed: int, position: int) -> int:
@@ -210,6 +300,9 @@ class _Request:
         self.request_id = ''
         self.migration = None
         self.handoff_start: Optional[float] = None
+        # The engine's policy version when the request was submitted:
+        # the RL rollout path computes a batch's staleness from it.
+        self.policy_version = 0
 
 
 class _DrrQueue:
@@ -384,6 +477,9 @@ class ContinuousBatchingEngine:
         self.exporter = (kv_migrate.KvExporter()
                          if role == 'prefill' else None)
         self.device = resolve_device(device)
+        # The caller's own tree, the only one that can change under the
+        # engine: the engine copies the leaves it would share with it.
+        given = params
         # Real-weights path: see engine.py (models/hf_interop.py).
         if hf_checkpoint:
             params, cfg = hf_interop.resolve_engine_inputs(
@@ -421,9 +517,10 @@ class ContinuousBatchingEngine:
         if params is None:
             params = llama.init_params(seed, self.cfg, device=self.device,
                                        weight_dtype=self.cfg.compute_dtype)
-        params = to_device(params, self.device)
-        self.params = decode_lib.serving_params(
-            maybe_quantize(params, quantize), self.cfg)
+        with torch.no_grad():
+            self.params = _owned(decode_lib.serving_params(
+                maybe_quantize(to_device(params, self.device), quantize),
+                self.cfg), given)
         self.cache = decode_lib.init_paged_cache(
             self.cfg, self.num_blocks, self.block_size, max_slots,
             self.blocks_per_slot, device=self.device)
@@ -527,6 +624,18 @@ class ContinuousBatchingEngine:
         self._kv_imports_total = 0
         self._kv_import_fallbacks_total = 0
         self._request_ids = itertools.count(1)
+        # Live weight refresh: tickets queue here; the serving loop
+        # applies them at the top of an iteration. A drain ticket at the
+        # head holds admission until the engine is idle.
+        self.policy_version = 0
+        self._refresh_queue: 'queue.Queue[_WeightRefresh]' = queue.Queue()
+        self._refresh_hold = False
+        self._weight_refreshes_total = 0
+        self._refresh_shards_total = 0
+        self._refresh_seconds_total = 0.0
+        # The refresh copies' own stream (see _timed_copies).
+        self._refresh_stream = (torch.cuda.Stream(self.device)
+                                if self.device.type == 'cuda' else None)
         self._stop = threading.Event()
         self._wake = threading.Event()
         self._thread = threading.Thread(target=self._loop,
@@ -748,6 +857,8 @@ class ContinuousBatchingEngine:
         """Bookkeeping-only admission: assign a free slot, reference
         cached prefix blocks, allocate private blocks for the prompt.
         The compute (chunked prefill) happens in ``_prefill_tick``."""
+        if self._refresh_hold:
+            return  # a drain-mode refresh is pending: admission held
         while True:
             try:
                 self._waiting.push(self._pending.get_nowait())
@@ -1331,8 +1442,161 @@ class ContinuousBatchingEngine:
         with torch.no_grad():
             self._loop_body()
 
+    # -- live weight refresh --------------------------------------------
+
+    def request_refresh(self, updates=None, *, params=None,
+                        version: Optional[int] = None,
+                        mode: str = 'step') -> _WeightRefresh:
+        """Queue a live weight refresh; returns the ticket (wait on
+        ``.done``, then check ``.error``).
+
+        Exactly one of ``updates`` (a ``flatten_param_paths``-keyed dict
+        of new values, tensors or numpy arrays: the delta path) or
+        ``params`` (a whole tree with the engine's paths) must be given.
+        The new values are copied into the engine's dtype and device
+        here, before this returns, so a caller may change its tensors
+        at once; the serving loop copies them into the engine's leaves
+        at the next step boundary. Raises ``KeyError`` for a path the
+        engine does not have (or, with ``params``, one it lacks),
+        ``ValueError`` for a shape that is not the leaf's, and
+        ``TypeError`` for a W8A8 ``QTensor`` leaf, which cannot take an
+        unquantized value; the weights and the version are then
+        untouched. ``mode='step'`` swaps with generation running;
+        ``'drain'`` holds admission and waits for in-flight requests
+        first. ``version`` defaults to the current one plus one."""
+        if (updates is None) == (params is None):
+            raise ValueError(
+                'pass exactly one of updates= (delta shards) or '
+                'params= (full tree)')
+        if mode not in ('step', 'drain'):
+            raise ValueError(
+                f"refresh mode must be 'step' or 'drain', got {mode!r}")
+        targets = flatten_param_paths(self.params)
+        new = updates if params is None else flatten_param_paths(params)
+        unknown = sorted(set(new) - set(targets))
+        if unknown:
+            raise KeyError(
+                f'refresh updates name {len(unknown)} unknown param '
+                f'shards (first: {unknown[:3]}); learner and engine '
+                f'param trees have diverged')
+        missing = sorted(set(targets) - set(new)) if params is not None \
+            else []
+        if missing:
+            raise KeyError(f'full refresh lacks {len(missing)} param '
+                           f'shards (first: {missing[:3]})')
+        pairs = []
+        for path in sorted(new):
+            leaf = targets[path]
+            if isinstance(leaf, QTensor):
+                raise TypeError(
+                    f'{path} is an int8 W8A8 weight; a refresh '
+                    f'cannot write an unquantized value into it')
+            value = new[path]
+            if not isinstance(value, torch.Tensor):
+                value = tensor_from_numpy(np.asarray(value))
+            if tuple(value.shape) != tuple(leaf.shape):
+                raise ValueError(
+                    f'refresh of {path}: shape {tuple(value.shape)} '
+                    f'!= the engine leaf\'s {tuple(leaf.shape)}')
+            pairs.append((leaf, value.detach()))
+
+        def snapshot():
+            return [(leaf, value.to(device=leaf.device, dtype=leaf.dtype,
+                                    copy=True)) for leaf, value in pairs]
+
+        copies, seconds = self._timed_copies(snapshot)
+        ticket = _WeightRefresh(copies, version, mode, seconds)
+        self._refresh_queue.put(ticket)
+        self._wake.set()
+        return ticket
+
+    def refresh_weights(self, updates=None, *, params=None,
+                        version: Optional[int] = None,
+                        mode: str = 'step',
+                        timeout: float = 120.0) -> int:
+        """Blocking :meth:`request_refresh`; returns the new
+        ``policy_version``."""
+        ticket = self.request_refresh(updates, params=params,
+                                      version=version, mode=mode)
+        if not ticket.done.wait(timeout):
+            raise TimeoutError('weight refresh timed out')
+        if ticket.error is not None:
+            raise ticket.error
+        return self.policy_version
+
+    def _refresh_tick(self) -> None:
+        """Serving loop only: apply the queued refreshes at the step
+        boundary (the top of a loop iteration, before admission,
+        prefill or decode read the weights). Each copy writes an engine
+        leaf in place, on the stream the steps run on."""
+        while not self._refresh_queue.empty():
+            ticket = self._refresh_queue.queue[0]  # peek; sole consumer
+            if ticket.mode == 'drain':
+                self._refresh_hold = True
+                if any(r is not None for r in self._slots) or \
+                        self._prefilling:
+                    return  # in-flight work finishes on the old weights
+            self._refresh_queue.get_nowait()
+            seconds = 0.0
+            try:
+                fault_injection.inject(WEIGHT_REFRESH_SITE)
+                n_shards, seconds = self._timed_copies(
+                    lambda: self._apply_updates(ticket.copies))
+                self.policy_version = (int(ticket.version)
+                                       if ticket.version is not None
+                                       else self.policy_version + 1)
+                ticket.applied_shards = n_shards
+                self._weight_refreshes_total += 1
+                self._refresh_shards_total += n_shards
+            except Exception as e:  # pylint: disable=broad-except
+                ticket.error = e
+                logger.warning('live weight refresh failed: %s: %s',
+                               type(e).__name__, e)
+            finally:
+                ticket.copies = []
+                self._refresh_seconds_total += (ticket.prepare_seconds +
+                                                seconds)
+                queued = self._refresh_queue.queue
+                self._refresh_hold = bool(queued) and \
+                    queued[0].mode == 'drain'
+                ticket.done.set()
+
+    def _apply_updates(self, copies) -> int:
+        """Write each (engine leaf, new value) pair in place; the values
+        already have the leaf's dtype, device and shape
+        (``request_refresh`` made them). Returns the number of leaves
+        written."""
+        for leaf, value in copies:
+            leaf.copy_(value)
+        return len(copies)
+
+    def _timed_copies(self, enqueue):
+        """Run ``enqueue`` (a refresh's copies) to completion and return
+        (its result, its seconds). On the card the copies run on the
+        engine's refresh stream, after the work already queued on the
+        calling thread's stream (a decode step in flight, a learner's
+        last update), and the seconds are the device time between CUDA
+        events around them alone: ``refresh_seconds`` counts the copies
+        and no decode work. On the CPU, wall seconds."""
+        if self.device.type != 'cuda':
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = enqueue()
+            return out, time.perf_counter() - t0
+        stream = self._refresh_stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.no_grad(), torch.cuda.stream(stream):
+            start.record(stream)
+            out = enqueue()
+            end.record(stream)
+        end.synchronize()
+        return out, start.elapsed_time(end) / 1e3
+
     def _loop_body(self) -> None:
         while not self._stop.is_set():
+            self._refresh_tick()
             self._admit()
             self._prefill_tick()
             active_mask = np.array(self._decoding, bool)
@@ -1428,6 +1692,7 @@ class ContinuousBatchingEngine:
                 demand['last_request'] = time.time()
         request = _Request(list(token_ids), max_new_tokens, temperature,
                            eos_id, seed, adapter=adapter or None)
+        request.policy_version = self.policy_version
         request.request_id = f'r{next(self._request_ids)}'
         request.migration = migration
         request.handoff_start = handoff_start
@@ -1522,8 +1787,11 @@ class ContinuousBatchingEngine:
                    eos_id: Optional[int] = None,
                    seed: int = 0,
                    adapter: Optional[str] = None) -> _Request:
-        """Non-blocking admission: returns the request handle — wait on
-        ``handle.done``, then read ``handle.generated``/``handle.error``."""
+        """Non-blocking admission (the RL rollout path submits a whole
+        prompt group, then harvests): returns the request handle — wait
+        on ``handle.done``, then read ``handle.generated`` /
+        ``handle.error``; ``handle.policy_version`` is the weights'
+        version it was submitted under."""
         return self._submit(token_ids, max_new_tokens, temperature,
                             eos_id, seed, adapter=adapter)
 
@@ -1602,9 +1870,7 @@ class ContinuousBatchingEngine:
 
     def stats(self) -> Dict[str, float]:
         """The reference's stats schema, plus ``decode_steps`` (plain
-        decode steps; each launches the paged kernel once a layer). The
-        keys of live weight refresh, which the port does not have yet,
-        read 0."""
+        decode steps; each launches the paged kernel once a layer)."""
         total = self._pool.total_blocks
         free = self._pool.free_blocks
         apool = self._adapter_pool
@@ -1639,11 +1905,11 @@ class ContinuousBatchingEngine:
             'accepted_tokens': self._accepted_tokens_total,
             'verify_steps': self._verify_steps_total,
             'spec_window': self._spec_window,
-            # Live weight refresh: not ported, always 0.
-            'policy_version': 0,
-            'weight_refreshes': 0,
-            'refresh_shards': 0,
-            'refresh_seconds': 0.0,
+            # Live weight refresh (policy_version is a gauge).
+            'policy_version': self.policy_version,
+            'weight_refreshes': self._weight_refreshes_total,
+            'refresh_shards': self._refresh_shards_total,
+            'refresh_seconds': round(self._refresh_seconds_total, 4),
             # Multi-LoRA (0 on engines with no adapter pages).
             'lora_hits': apool.hits if apool is not None else 0,
             'lora_misses': apool.misses if apool is not None else 0,

@@ -13,6 +13,8 @@ adapters and disaggregated roles as options)::
         [--role prefill|decode]
     python -m skypilot_tpu_torch.inference.server --hf-checkpoint DIR \
         [--engine continuous] [--lora-pages 4 --lora-dir REG]
+    python -m skypilot_tpu_torch.inference.server --engine continuous \
+        --policy-store STORE
 
 ``--hf-checkpoint`` serves an HF directory's weights (bf16) with its own
 tokenizer and chat template; ``--checkpoint-dir`` serves the newest step
@@ -35,6 +37,10 @@ Endpoints:
                                   load balancer's two-hop route)
     GET  /kv/manifest|block|tail/<id>  (prefill role: the KV export)
     POST /kv/release/<id>      -> drop a pulled export
+    GET  /fanout/manifest      -> the committed weights manifest of
+    GET  /fanout/shard/<sha>      ``SKYT_FANOUT_DIR``, and its shards
+                                  (Range-resumable): what sibling
+                                  replicas pull (``data/fanout.py``)
 
 A request picks its LoRA adapter with the JSON ``adapter`` field or the
 ``X-Skyt-Adapter`` header. Disaggregated serving (``--role``): the load
@@ -43,9 +49,14 @@ balancer sends the client's body to a prefill replica's
 to), then to a decode replica with ``X-Skyt-Kv-Request-Id`` and
 ``X-Skyt-Kv-Endpoint``: the decode replica pulls the KV
 (``inference/kv_migrate.py``) and decodes without a prefill pass, or
-prefills locally when the pull fails. The reference's peer weight
-serving (``/fanout/*``), policy-store refresh and tracing headers are
-later slices.
+prefills locally when the pull fails.
+
+``--policy-store STORE`` (or ``SKYT_RL_STORE``; continuous engine)
+serves an RL pipeline's policy store (``jobs/rl_pipeline.py``): the
+committed policy is pulled before the first request, then the store is
+polled every ``SKYT_RL_EVAL_POLL_S`` seconds and each newer version's
+shard delta refreshes the engine in place. The reference's tracing
+headers are a later slice.
 """
 from __future__ import annotations
 
@@ -54,11 +65,15 @@ import json
 import logging
 import os
 import sys
+import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
 
+from skypilot_tpu_torch.data import fanout
 from skypilot_tpu_torch.inference import kv_migrate
 from skypilot_tpu_torch.server.metrics import INFERENCE_COUNTER_STATS
+from skypilot_tpu_torch.utils import env
 
 logger = logging.getLogger(__name__)
 
@@ -140,6 +155,20 @@ def make_handler(engine):
                 self.send_response(status)
                 for key, value in headers.items():
                     self.send_header(key, value)
+                self.send_header('Content-Length', str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+            elif self.path.startswith('/fanout/'):
+                # Peer weight serving: sibling replicas pull committed
+                # shards from here instead of the bucket (the weights
+                # dir is SKYT_FANOUT_DIR).
+                status, headers, body = fanout.handle_peer_get(
+                    self.path, range_header=self.headers.get('Range'))
+                ctype = headers.pop('Content-Type', 'application/json')
+                self.send_response(status)
+                for key, value in headers.items():
+                    self.send_header(key, value)
+                self.send_header('Content-Type', ctype)
                 self.send_header('Content-Length', str(len(body)))
                 self.end_headers()
                 self.wfile.write(body)
@@ -409,6 +438,56 @@ def make_handler(engine):
     return Handler
 
 
+def watch_policy_store(engine, store_root: str,
+                       poll_s: Optional[float] = None) -> threading.Thread:
+    """Serve an RL pipeline's policy store live (continuous engine):
+    pull the committed policy before returning (into an empty local
+    copy the manifest diff is the whole tree), then poll the store from
+    a daemon thread and refresh the engine in place with each newer
+    version's shard delta, at a step boundary. A pull that races a
+    publish is retried at the next poll. The local copy lives in a new
+    temporary directory."""
+    import tempfile
+
+    from skypilot_tpu_torch.jobs.rl_pipeline import PolicyStore
+
+    if poll_s is None:
+        poll_s = env.get_float('SKYT_RL_EVAL_POLL_S', minimum=0.1)
+    store = PolicyStore(store_root)
+    dest = tempfile.mkdtemp(prefix='skyt-eval-policy-')
+    served = [-1]
+
+    def pull_once() -> bool:
+        if store.version() in (None, served[0]):
+            return False
+        res = store.pull(dest)
+        if res is None or res['version'] == served[0]:
+            return False
+        if res['updates']:
+            engine.refresh_weights(updates=res['updates'],
+                                   version=res['version'], mode='step')
+        served[0] = res['version']
+        logger.info('policy store %s: serving version %d (%d shards, '
+                    '%d bytes pulled)', store_root, res['version'],
+                    res['shards_pulled'], res['bytes_pulled'])
+        return True
+
+    pull_once()  # blocking: never serve the random-init weights
+
+    def loop() -> None:
+        while True:
+            time.sleep(poll_s)
+            try:
+                pull_once()
+            except Exception as e:  # pylint: disable=broad-except
+                logger.warning('policy store poll failed: %s', e)
+
+    thread = threading.Thread(target=loop, name='policy-store-watch',
+                              daemon=True)
+    thread.start()
+    return thread
+
+
 def serve(engine, host: str, port: int) -> ThreadingHTTPServer:
     server = ThreadingHTTPServer((host, port), make_handler(engine))
     logger.info('Inference server for %s on %s:%d', engine.cfg.name, host,
@@ -485,6 +564,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                              'replicas export KV for the decode fleet to '
                              'pull, decode replicas import it and stream '
                              'tokens.')
+    parser.add_argument('--policy-store', default=None,
+                        help='RL-pipeline policy store to serve '
+                             '(continuous engine; default '
+                             '$SKYT_RL_STORE): pull the committed policy '
+                             'before serving, then poll every '
+                             '$SKYT_RL_EVAL_POLL_S seconds and refresh '
+                             'the engine in place with the shard delta '
+                             'of each newer version.')
     return parser.parse_args(argv)
 
 
@@ -541,6 +628,9 @@ def build_engine(args):
                                                         args.lora_dir)
             logger.info('registered %d adapters from %s: %s', len(names),
                         args.lora_dir, names)
+        policy_store = args.policy_store or env.get_str('SKYT_RL_STORE')
+        if policy_store:
+            watch_policy_store(engine, policy_store)
         if engine.role == 'prefill':
             # Warm the prefill path; drop the throwaway export.
             engine.exporter.pop(engine.prefill_and_export(

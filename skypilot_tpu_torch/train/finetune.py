@@ -47,7 +47,8 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from skypilot_tpu_torch.train.step import AdamW, TrainHParams, _leaves
+from skypilot_tpu_torch.train.step import (AdamW, TrainHParams, _leaves,
+                                           plain_adamw)
 
 
 def text_batch_iterator(path: str, tokenizer, batch: int, seq: int,
@@ -91,14 +92,6 @@ def skip_batches(data_iter: Iterator[Any], n: int) -> None:
     reference's finetune restarts its iterator at the first batch)."""
     for _ in range(n):
         next(data_iter)
-
-
-def lora_optimizer(learning_rate: float) -> AdamW:
-    """``optax.adamw(learning_rate)`` at its defaults, as ``AdamW``: a
-    constant learning rate and no clipping."""
-    return AdamW(TrainHParams(learning_rate=learning_rate, b1=0.9,
-                              b2=0.999, weight_decay=1e-4),
-                 schedule=lambda count: learning_rate, clip=False)
 
 
 def make_lora_step(base_params, cfg, optimizer: AdamW):
@@ -224,7 +217,7 @@ def run(args: argparse.Namespace, *, lora_init=None,
         else:
             lora_params = {k: v.to(device=device, dtype=torch.float32)
                            for k, v in lora_init.items()}
-        optimizer = lora_optimizer(args.learning_rate)
+        optimizer = plain_adamw(args.learning_rate)
         opt_state = optimizer.init(lora_params)
         start_step = 0
         if args.checkpoint_dir:

@@ -178,6 +178,15 @@ class AdamW:
                 'nu': state['nu']}, g_norm
 
 
+def plain_adamw(learning_rate: float) -> AdamW:
+    """``optax.adamw(learning_rate)`` at its defaults, as ``AdamW``:
+    betas (0.9, 0.999), eps 1e-8, weight decay 1e-4, a constant learning
+    rate and no clipping (the finetune's LoRA optimizer and GRPO's)."""
+    return AdamW(TrainHParams(learning_rate=learning_rate, b1=0.9,
+                              b2=0.999, weight_decay=1e-4),
+                 schedule=lambda count: learning_rate, clip=False)
+
+
 def factored_dims(shape: Tuple[int, ...],
                   min_dim_size_to_factor: int = 128
                   ) -> Optional[Tuple[int, int]]:

@@ -1034,3 +1034,131 @@ def test_kv_block_round_trip_between_card_engines(card, quantize_kv):
     finally:
         for engine in (pre, dec, colo):
             engine.shutdown()
+
+
+def test_full_refresh_on_card_equals_serving_params(card):
+    """A full live refresh of a bf16 engine on the card from an fp32
+    learner tree: every leaf is ``serving_params`` of that tree (bf16
+    rounding, norm scales fp32), bit for bit, and the engine serves it."""
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine, flatten_param_paths)
+    from skypilot_tpu_torch.models import decode, llama
+    from skypilot_tpu_torch.models.config import get_model_config
+    cfg = get_model_config('tiny', head_dim=128)
+    params = llama.init_params(3, cfg, device=card)          # fp32
+    engine = ContinuousBatchingEngine(cfg=cfg, device=card, seed=9,
+                                      max_slots=2, max_len=64)
+    try:
+        assert engine.refresh_weights(params=params, version=2) == 2
+        with torch.no_grad():
+            want = flatten_param_paths(decode.serving_params(params, cfg))
+        for path, leaf in flatten_param_paths(engine.params).items():
+            assert leaf.dtype == want[path].dtype, path
+            assert torch.equal(leaf, want[path]), path
+        # Device time of TINY's copies (microseconds): read unrounded,
+        # as stats() rounds to 1e-4 s.
+        assert engine._refresh_seconds_total > 0
+        assert len(engine.generate_ids([5, 6, 7], max_new_tokens=4)) == 4
+    finally:
+        engine.shutdown()
+
+
+def test_grpo_step_flash_launches_at_s128(card):
+    """One GRPO learner step on TINY with head_dim 128 at S = 65 + 64 - 1
+    = 128: the flash kernels run (1 forward, 1 dq, 1 dk/dv a layer
+    without remat; 2 forwards under full remat) and nothing leaves
+    their gate."""
+    import numpy as np
+    from skypilot_tpu_torch.models.config import get_model_config
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.train import grpo
+    rng = np.random.default_rng(0)
+    prompts = np.repeat(rng.integers(3, 512, (2, 65)), 4, axis=0)
+    generated = rng.integers(0, 512, (8, 64))
+    rewards = rng.random(8).astype(np.float32)
+    for remat, fwd in (('none', 1), ('full', 2)):
+        cfg = get_model_config('tiny', head_dim=128, remat_policy=remat)
+        learner = grpo.GrpoLearner(cfg, device=card)
+        fa.reset_launch_counts()
+        out = learner.learn_rollouts(prompts, generated, rewards, 4)
+        torch.cuda.synchronize()
+        n = cfg.n_layers
+        assert fa.LAUNCHES == {'flash_fwd': fwd * n, 'flash_fwd_seg': 0,
+                               'flash_dq': n, 'flash_dq_seg': 0,
+                               'flash_dkv': n, 'flash_dkv_seg': 0}
+        assert fa.FALLBACKS['cuda'] == 0
+        assert np.isfinite(out['loss']) and learner.version == 1
+
+
+def test_paged_kernel_grpo_heads_match_plain(card):
+    """bench-1b7's heads (H=20 on 4 kv heads: G=5, a group that is not a
+    power of two) at the GRPO rollout engine's shape: 8 slots of 9
+    blocks holding 65 to 129 rows, bf16, Q=1."""
+    q, k, v, bt, nv, ks, vs = _case(
+        card, torch.bfloat16, False, 1, d=128, g=5, kvh=4, bps=9,
+        lengths=(65, 72, 81, 96, 100, 113, 120, 129))
+    before = pa.LAUNCHES['paged_attention']
+    out = pa.paged_attention(q, k, v, bt, nv)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES['paged_attention'] == before + 1
+    ref = pa.paged_attention_reference(q, k, v, bt, nv)
+    assert torch.isfinite(out).all()
+    assert _head_err(out, ref, nv) <= PAGED_TOL[torch.bfloat16]
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict)
+            else v.detach().to(device) for k, v in tree.items()}
+
+
+def test_grpo_gradients_on_card_match_cpu(card):
+    """The GRPO loss and every gradient of one learner batch at S=128
+    (TINY, head_dim 128, fp32 compute) through the flash kernels on the
+    card, against the same params and batch on the CPU (plain
+    attention): loss and mean log-prob within 1e-5 of the mean
+    log-prob's size, each gradient within 1e-4 of its largest entry
+    (the fp32 flash kernels' own limit)."""
+    import numpy as np
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models.config import get_model_config
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.train import grpo
+    from skypilot_tpu_torch.train.step import _leaves, _trainable
+    cfg = get_model_config('tiny', head_dim=128,
+                           compute_dtype=torch.float32)
+    rng = np.random.default_rng(1)
+    prompts = np.repeat(rng.integers(3, 512, (2, 65)), 4, axis=0)
+    tokens = torch.from_numpy(np.concatenate(
+        [prompts, rng.integers(0, 512, (8, 64))], axis=1)).int()
+    gen_mask = torch.cat([torch.zeros(8, 65, dtype=torch.int32),
+                          torch.ones(8, 64, dtype=torch.int32)], dim=1)
+    advantages = grpo.grpo_advantages(
+        torch.from_numpy(rng.random(8).astype(np.float32)), 4)
+    params = llama.init_params(3, cfg, device='cpu')
+    got = {}
+    for dev in (torch.device('cpu'), card):
+        tree = _trainable(_tree_to(params, dev))
+        fa.reset_launch_counts()
+        loss, mean_lp = grpo.grpo_loss(tree, tokens.to(dev),
+                                       gen_mask.to(dev),
+                                       advantages.to(dev), cfg)
+        grads = torch.autograd.grad(loss, _leaves(tree))
+        if dev.type == 'cuda':
+            torch.cuda.synchronize()
+            n = cfg.n_layers
+            assert fa.LAUNCHES == {'flash_fwd': n, 'flash_fwd_seg': 0,
+                                   'flash_dq': n, 'flash_dq_seg': 0,
+                                   'flash_dkv': n, 'flash_dkv_seg': 0}
+            assert fa.FALLBACKS['cuda'] == 0
+        got[dev.type] = (loss.item(), mean_lp.item(),
+                         [g.detach().cpu() for g in grads])
+    (loss, mean_lp, grads), (ref_loss, ref_lp, ref_grads) = (
+        got['cuda'], got['cpu'])
+    scale = abs(ref_lp)
+    assert abs(loss - ref_loss) <= 1e-5 * scale
+    assert abs(mean_lp - ref_lp) <= 1e-5 * scale
+    errs = [((g - r).abs().max() / r.abs().max().clamp_min(1e-30)).item()
+            for g, r in zip(grads, ref_grads)]
+    print(f'loss {loss} vs {ref_loss}, mean log-prob {mean_lp} vs '
+          f'{ref_lp}, gradient errors {errs}')
+    assert all(np.isfinite(errs)) and max(errs) <= 1e-4

@@ -67,7 +67,8 @@ def test_every_module_imports_with_jax_blocked():
                 'utils.fault_injection', 'train.checkpoint', 'data.packer',
                 'bench', 'models.hf_interop', 'inference.bpe',
                 'train.finetune', 'inference.kv_migrate',
-                'utils.resilience'):
+                'utils.resilience', 'data.fanout', 'train.grpo',
+                'jobs.rl_pipeline'):
         assert 'skypilot_tpu_torch.' + mod in mods
     code = (
         'import sys\n'
@@ -128,6 +129,13 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
         finetune.main(['--hf-checkpoint', str(tmp_path), '--data',
                        str(src), '--steps', '1'])
     assert bench.main(['--mode', 'train']) == 1
+    from skypilot_tpu_torch.jobs import rl_pipeline
+    from skypilot_tpu_torch.train import grpo
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        grpo.main(['--model', 'tiny', '--steps', '1'])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        rl_pipeline.main(['--model', 'tiny', '--steps', '1', '--store',
+                          str(tmp_path / 'store')])
     with pytest.raises(RuntimeError, match='no CUDA device'):
         step.create_train_state(0, get_model_config('tiny'),
                                 step.TrainHParams())
