@@ -242,10 +242,33 @@ Phases, in order; any failure exits non-zero:
    its first ``/generate``, and ``GET /fanout/*`` hands a
    ``FanoutPuller`` the store's manifest and bytes.
 
+31. Tensor-parallel serving (after the MoE phases): llama3-8b at full
+   width and depth at ``mesh='tensor=2'``, two ranks
+   (``parallel/launch.py``) sharing the one card over ``gloo``, each
+   building its shard from the same seeded init as phase 9. First
+   kernels 1-5 timed at one rank's shapes (H=16, KVH=4; phases 3-5 hold
+   them against the plain versions with planted faults). Then on both
+   ranks the continuous engine (4 prompts of 131-255 tokens + 16 new;
+   bf16, then int8 pool with every collective timed; then n-gram
+   drafts, draft_k 4) and the batch engine (one batch, bf16 then int8
+   cache): each rank's launch counts must be n_layers a decode or
+   verify step (paged), n_layers x 16 (decode) and n_layers a prefill
+   (flash), no flash fallback. The
+   first decode step's logits (gathered to the driver) against one
+   rank's on the same weights within ``TP_LOGIT_TOL`` a row; the common
+   greedy prefix with one rank's batch engine printed, not gated. Then
+   ``inference.server --mesh tensor=2`` (its own two ranks) answers
+   ``/generate`` and ``/v1/completions`` and ``/stats`` names the mesh
+   and the backend. Printed beside the card's name and power limit:
+   each rank's peak memory, decode tok/s at tensor=2 against one rank's
+   and the collectives' share of a timed run, labelled "two ranks on
+   one card over gloo: not a TP speed".
+
 Then one JSON line listing every kernel (the paged kernels' launches are
-the sums of phases 9, 14, 15, 22, 23, 24, 26, 27, 28, 29 and 30, and of
-10, 14 and 28's int8 runs; the decode kernel's of phases 12, 20, 22 and
-26; the flash kernels' of phases 7, 16, 17, 18, 25, 27, 29 and 30), the
+the sums of phases 9, 14, 15, 22, 23, 24, 26, 27, 28, 29, 30 and 31, and
+of 10, 14, 28 and 31's int8 runs; the decode kernels' of phases 12, 20,
+22, 26 and 31; the flash kernels' of phases 7, 16, 17, 18, 25, 27, 29
+and 30, and phase 31's batch prefills' forwards), the
 ``nvidia-smi`` name and power-limit line, and last ``{"ok": true,
 "device": {...}}``.
 """
@@ -506,6 +529,16 @@ MOE_HEADS = {'H=16 KVH=16 D=128 (deepseek-moe-16b)': dict(kvh=16, g=1,
 # two) at the GRPO rollout engine's shape (phase 29): 8 slots of 9
 # blocks (max_len 130), prompts of 65 rows growing to 129; the planted
 # faults go on the 120-row sequence (8 blocks, the last one partial).
+# llama3-8b's heads on one rank of tensor=2 (phase 31): H=16, KVH=4, G=4.
+TP_HEADS = dict(kvh=4, g=4, d=128)
+TP_LABEL = 'H=16 KVH=4 D=128 (llama3-8b tensor=2 shard)'
+# New tokens a request in phase 31: each decode step of two ranks sharing
+# the card makes ~66 gloo collectives of ~2 ms each
+# (ops/collectives_bench.py on the card), so its decode runs are short.
+TP_NEW = 16
+# Phase 31's batch engine: 4 prompts in bucket 256 + TP_NEW rows.
+TP_DECODE = dict(TP_HEADS, b=4, t=256 + TP_NEW,
+                 lengths=[257, 200, 256 + TP_NEW, 131], q_len=1)
 GRPO_PAGED = dict(kvh=4, g=5, d=128, bs=16, bps=9, b=8,
                   lengths=[65, 72, 81, 96, 100, 113, 120, 129], q_len=1)
 GRPO_FAULT_ROWS = 120
@@ -559,6 +592,15 @@ def check_paged(torch, pa):
                                    lengths=[1, 17, 1000, 2048],
                                    q_len=q_len), False))
             engine_q1.add(f'{pool} Q=1 B=4 {label}')
+    # One rank's heads of llama3-8b at tensor=2, at the continuous
+    # engine's 4 slots: decode and verify windows, fp and int8 pools.
+    for pool in ('bf16', 'int8'):
+        for q_len in (1, 5):
+            cases.append((f'{pool} Q={q_len} B=4 {TP_LABEL}', pool,
+                          dict(TP_HEADS, bs=16, bps=128, b=4,
+                               lengths=[1, 17, 1000, 2048], q_len=q_len),
+                          False))
+        engine_q1.add(f'{pool} Q=1 B=4 {TP_LABEL}')
     grpo_label = 'bf16 Q=1 B=8 H=20 KVH=4 (GRPO rollouts)'
     cases.append((grpo_label, 'bf16', GRPO_PAGED, False))
     failed = []
@@ -944,6 +986,10 @@ def phase_decode_kernels(torch, da, bw, flops_peak):
         cases.append((f'{cache} Q=1 B=4 T=288 {DEEPSEEK_LABEL}', cache,
                       dict(DEEPSEEK_DECODE, b=4, t=288,
                            lengths=LENGTHS_B4_ENGINE, q_len=1), False))
+    # One rank's heads of llama3-8b at tensor=2 (phase 31's batch engine).
+    for cache in ('bf16', 'int8'):
+        cases.append((f'{cache} Q=1 B=4 T={TP_DECODE["t"]} {TP_LABEL}',
+                      cache, TP_DECODE, False))
     errors = {'decode_attention': 0.0, 'decode_attention_quant': 0.0}
     failed = []
     for seed, (label, cache, shape, poison) in enumerate(cases):
@@ -963,6 +1009,7 @@ def phase_decode_kernels(torch, da, bw, flops_peak):
         if shape['q_len'] == 1 and (label.endswith('B=8 T=2048') or
                                     label.endswith(f'B=4 T=288 '
                                                    f'{DEEPSEEK_LABEL}') or
+                                    label.endswith(TP_LABEL) or
                                     label.endswith('(batch engine, lone)')):
             faults = decode_faults(torch, da, c, ref, shape['kvh'])
             caught = {n: e > DECODE_TOL[cache] for n, e in faults.items()}
@@ -1257,6 +1304,11 @@ def flash_cases():
     cases.append(('bf16 causal B=8 S=128 H=20 KVH=4 (GRPO learner)',
                   dict(b=8, s=128, h=20, kvh=4, d=128), 'bf16', True,
                   False))
+    # One rank's heads of llama3-8b at tensor=2: the batch engine's
+    # prefill under the mesh (phase 31).
+    cases.append(('bf16 causal B=4 S=256 H=16 KVH=4 (tensor=2 batch-engine '
+                  'prefill)', dict(b=4, s=256, h=16, kvh=4, d=128), 'bf16',
+                  True, False))
     # deepseek-moe-16b's heads (G=1): its batch-engine prefill (phase 22)
     # and its train steps (phase 25).
     cases.append(('bf16 causal B=4 S=256 H=16 KVH=16 (MoE batch prefill)',
@@ -4591,6 +4643,363 @@ def _leaves(tree):
         yield tree
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: tensor-parallel serving, llama3-8b at tensor=2 on the one card
+# ---------------------------------------------------------------------------
+
+# The first decode step's logits under tensor=2 against one rank's, per
+# row: ||tp - one|| / ||one||. Justification: the two runs differ only
+# in where the row-parallel projections (wo and mlp.wo, 64 a step) round
+# to bf16: one rank rounds its single fp32-accumulated GEMM, tensor=2
+# sums two fp32 partials and rounds once; the results differ by at most
+# one bf16 ulp (2^-8 relative) in an element, about 2^-9 on average, and
+# 64 independent such perturbations compound as a random walk through
+# the residual stream: sqrt(64) * 2^-9 = 1.6e-2. The limit is three
+# times that.
+TP_LOGIT_TOL = 5e-2
+TP_TIMED = 'continuous int8 KV, collectives timed'
+TP_RUNS = (('continuous', {}), (TP_TIMED, {'quantize_kv': True}),
+           ('continuous speculative', {'spec_decode': True, 'draft_k': 4}),
+           ('batch', {}), ('batch int8 KV', {'quantize_kv': True}))
+
+
+def tp_prompts():
+    text = ('Tensor parallelism splits every attention head group and '
+            'every MLP column block across the ranks. ') * 4
+    return [text[:n] for n in (130, 170, 211, 254)]
+
+
+def _tp_engine(label, options):
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
+    from skypilot_tpu_torch.inference.engine import InferenceEngine
+    if label.startswith('batch'):
+        return InferenceEngine('llama3-8b', seed=0, mesh='tensor=2',
+                               max_batch=4, **options)
+    return ContinuousBatchingEngine('llama3-8b', seed=0, mesh='tensor=2',
+                                    max_slots=4, max_len=2048,
+                                    block_size=16, **options)
+
+
+def tp_rank(rank, world, prompts, new):
+    """One rank of phase 31. Every rank builds each run's engine from
+    the seeded init (its shard of llama3-8b), zeroes the launch counts,
+    and serves: the driver drives the prompts, the follower runs its
+    plans until the driver shuts down; then both read the counts. After
+    the batch engine, both ranks run one prefill and one decode step on
+    its shards for the logits check. Returns each run's counts, stats
+    (driver), peak and steady memory, and the driver's logits."""
+    import gc
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.models import decode as decode_lib
+    from skypilot_tpu_torch.ops import decode_attention as da
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    from skypilot_tpu_torch.parallel import sharding as psharding
+    out = {'rank': rank, 'runs': {}}
+    for label, options in TP_RUNS:
+        psharding.time_collectives(label == TP_TIMED)
+        psharding.collective_stats(reset=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine = _tp_engine(label, options)
+        steady_gb = torch.cuda.memory_allocated() / 1e9
+        run = {'init_peak_gb': torch.cuda.max_memory_allocated() / 1e9,
+               'steady_gb': steady_gb}
+        torch.cuda.synchronize()
+        for module in (pa, da, fa):
+            module.reset_launch_counts()
+        if engine.is_driver:
+            before = (dict(engine.stats) if label.startswith('batch')
+                      else engine.stats())
+            ids = [engine.tokenizer.encode(p) for p in prompts]
+            t0 = time.perf_counter()
+            if label.startswith('batch'):
+                run['tokens'] = engine.generate_ids(ids, max_new_tokens=new)
+            else:
+                handles = [engine.submit_ids(x, max_new_tokens=new)
+                           for x in ids]
+                for h in handles:
+                    if not h.done.wait(600) or h.error is not None:
+                        raise RuntimeError(f'request failed: {h.error}')
+                run['tokens'] = [list(h.generated) for h in handles]
+            torch.cuda.synchronize()
+            run['wall_s'] = time.perf_counter() - t0
+            after = (dict(engine.stats) if label.startswith('batch')
+                     else engine.stats())
+            run['delta'] = {k: after[k] - before[k] for k in before
+                            if isinstance(before[k], (int, float))}
+            run['mesh'] = {k: v for k, v in after.items()
+                           if k.startswith('mesh')}
+            run['collectives'] = psharding.collective_stats()
+            engine.shutdown()
+        else:
+            engine.follow()
+        torch.cuda.synchronize()
+        run['launches'] = {**dict(pa.LAUNCHES), **dict(da.LAUNCHES),
+                           **{k: v for k, v in fa.LAUNCHES.items()
+                              if k == 'flash_fwd'}}
+        run['flash_fallbacks'] = fa.FALLBACKS['cuda']
+        run['peak_gb'] = torch.cuda.max_memory_allocated() / 1e9
+        if label == 'batch':
+            # The logits check: one prefill and one decode step on the
+            # shards, every rank in the mesh context (SPMD).
+            ids = [engine.tokenizer.encode(p) for p in prompts]
+            with torch.no_grad(), psharding.mesh_context(engine._tp):
+                tokens, lens = engine._batch(
+                    ids, np.array([len(x) for x in ids], np.int32))
+                logits0, cache = decode_lib.prefill(
+                    engine.params, tokens, lens, engine.cfg,
+                    tokens.shape[1] + 8)
+                first = torch.argmax(logits0, dim=-1).to(torch.int32)
+                logits1, _ = decode_lib.decode_step(engine.params, first,
+                                                    cache, engine.cfg)
+            if engine.is_driver:
+                run['logits'] = logits1[:len(ids)].float().cpu().numpy()
+        out['runs'][label] = run
+        del engine
+    psharding.time_collectives(False)
+    return out
+
+
+def tp_single_rank(torch, prompts, new):
+    """The same prompts on one rank, from llama3_params' weights (the
+    same seeded init): the batch engine's tokens, its first decode
+    step's logits (as in tp_rank) and the continuous engine's decode
+    rate."""
+    import numpy as np
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
+    from skypilot_tpu_torch.inference.engine import InferenceEngine
+    from skypilot_tpu_torch.models import decode as decode_lib
+    params = llama3_params(torch)
+    batch = InferenceEngine('llama3-8b', params=params, max_batch=4)
+    ids = [batch.tokenizer.encode(p) for p in prompts]
+    out = {'tokens': batch.generate_ids(ids, max_new_tokens=new)}
+    with torch.no_grad():
+        tokens, lens = batch._batch(ids, np.array([len(x) for x in ids],
+                                                  np.int32))
+        logits0, cache = decode_lib.prefill(batch.params, tokens, lens,
+                                            batch.cfg, tokens.shape[1] + 8)
+        first = torch.argmax(logits0, dim=-1).to(torch.int32)
+        logits1, _ = decode_lib.decode_step(batch.params, first, cache,
+                                            batch.cfg)
+    out['logits'] = logits1[:len(ids)].float().cpu().numpy()
+    del batch, cache, logits0, logits1
+    free_card(torch)
+    engine = ContinuousBatchingEngine('llama3-8b', params=params,
+                                      max_slots=4, max_len=2048,
+                                      block_size=16)
+    try:
+        before = engine.stats()
+        concurrent_ids(engine, prompts, new)
+        out['decode_tok_s'] = decode_rate(before, engine.stats())
+    finally:
+        engine.shutdown()
+    del engine, params
+    free_card(torch)
+    return out
+
+
+def tp_shard_times(torch, pa, da, fa, bw, flops_peak):
+    """Kernels 1-5 at one rank's shapes of llama3-8b at tensor=2 (H=16,
+    KVH=4): the continuous engine's 4 slots (paged, bf16 and int8), the
+    batch engine's B=4 T=272 (decode, bf16 and int8) and its prefill
+    B=4 S=256 (flash forward): kernel, plain and bound."""
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8,
+                        device='cuda')
+    rows = {}
+    for name, pool in (('paged_attention', 'bf16'),
+                       ('paged_attention_quant', 'int8')):
+        c = make_case(torch, pool=pool, seed=700, **dict(
+            TP_HEADS, bs=16, bps=128, b=4, lengths=[1, 17, 1000, 2048],
+            q_len=1))
+        rows[name] = dict(ms=time_ms(torch, lambda: run_kernel(pa, c), flush),
+                          plain_ms=time_ms(torch, lambda: run_plain(pa, c),
+                                           flush))
+        rows[name]['bound_ms'], rows[name]['bound_by'] = bound(
+            c, 16, 128, bw, flops_peak)
+        del c
+    for name, cache in (('decode_attention', 'bf16'),
+                        ('decode_attention_quant', 'int8')):
+        c = decode_case(torch, cache=cache, seed=701, **TP_DECODE)
+        rows[name] = dict(ms=time_ms(torch, lambda: run_decode(da, c), flush),
+                          plain_ms=time_ms(torch,
+                                           lambda: run_decode_plain(da, c),
+                                           flush))
+        rows[name]['bound_ms'], rows[name]['bound_by'] = decode_bound(
+            c, bw, flops_peak)
+        del c
+    q, k, v, _, _ = flash_case(torch, b=4, s=256, h=16, kvh=4, d=128,
+                               dtype='bf16', segments=False, seed=702)
+    rows['flash_fwd'] = dict(
+        ms=time_ms(torch, lambda: fa.flash_forward_kernel(q, k, v), flush),
+        plain_ms=time_ms(torch, lambda: fa.flash_forward_reference(q, k, v),
+                         flush))
+    rows['flash_fwd']['bound_ms'], rows['flash_fwd']['bound_by'] = \
+        flash_bound(4, 256, 16, 4, 128, 2, 'fwd', bw, flops_peak)
+    del q, k, v, flush
+    for name, row in rows.items():
+        log(f'[tp] {name} at the tensor=2 shard shape: kernel '
+            f'{row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, bound '
+            f'{row["bound_ms"]:.4f} ms ({row["bound_by"]}), '
+            f'{100 * row["bound_ms"] / row["ms"]:.1f}% of bound')
+    return rows
+
+
+def check_tp_runs(ranks, n_layers, new):
+    """Each rank's launches against the driver's steps: paged n_layers a
+    decode or verify step, decode n_layers x ``new``, flash n_layers a
+    batch prefill, no flash fallback; both ranks alike."""
+    driver = ranks[0]['runs']
+    for label, _ in TP_RUNS:
+        delta = driver[label]['delta']
+        if label.startswith('batch'):
+            kernel = ('decode_attention_quant' if 'int8' in label
+                      else 'decode_attention')
+            expected = {kernel: n_layers * new, 'flash_fwd': n_layers}
+        else:
+            kernel = ('paged_attention_quant' if 'int8' in label
+                      else 'paged_attention')
+            steps = delta['decode_steps'] + delta['verify_steps']
+            if steps <= 0 or ('speculative' in label) != (
+                    delta['verify_steps'] > 0):
+                raise AssertionError(f'[tp] {label}: steps {delta}')
+            expected = {kernel: n_layers * steps, 'flash_fwd': 0}
+        for r in ranks:
+            run = r['runs'][label]
+            got = {k: run['launches'][k] for k in expected}
+            others = {k: v for k, v in run['launches'].items()
+                      if k not in expected and v}
+            if got != expected or others or run['flash_fallbacks']:
+                raise AssertionError(
+                    f'[tp] rank {r["rank"]} {label}: launches '
+                    f'{run["launches"]} (expected {expected}), flash '
+                    f'fallbacks {run["flash_fallbacks"]}')
+        log(f'[tp] {label}: each rank launched {expected} ('
+            f'{n_layers} layers x {delta.get("decode_steps", new)} decode '
+            f'+ {delta.get("verify_steps", 0)} verify steps)')
+
+
+def tp_server(torch, prompts, smi):
+    """``inference.server --mesh tensor=2`` on the card as a user starts
+    it: it starts its own two ranks; /generate and /v1/completions
+    answer, /stats names the mesh and the backend; SIGTERM stops it."""
+    import signal
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, '-m', 'skypilot_tpu_torch.inference.server',
+           '--model', 'llama3-8b', '--mesh', 'tensor=2', '--engine',
+           'continuous', '--max-batch', '4', '--max-len', '2048',
+           '--host', '127.0.0.1', '--port', str(port)]
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError('--mesh server exited: ' +
+                                     proc.stdout.read()[-4000:])
+            try:
+                get_url(port, '/health')
+                break
+            except OSError:
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError('--mesh server never came up')
+                time.sleep(1.0)
+        up_s = time.perf_counter() - t0
+        gen = post_json(port, '/generate', {'prompts': prompts[:2],
+                                            'max_new_tokens': 16})
+        comp = post_json(port, '/v1/completions',
+                         {'prompt': prompts[0], 'max_tokens': 16})
+        stats = json.loads(get_url(port, '/stats'))
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    if len(gen.get('outputs', [])) != 2 or not comp.get('choices'):
+        raise AssertionError(f'[tp] server payloads {gen} {comp}')
+    if stats.get('mesh') != "Mesh({'tensor': 2})" or \
+            stats.get('mesh_backend') not in ('gloo', 'nccl') or \
+            len(stats.get('mesh_devices', [])) != 2:
+        raise AssertionError(f'[tp] /stats does not name the mesh: {stats}')
+    log(f'[tp] server --mesh tensor=2 up in {up_s:.1f} s; /generate and '
+        f'/v1/completions answered; /stats mesh {stats["mesh"]}, backend '
+        f'{stats["mesh_backend"]}, devices {stats["mesh_devices"]}; {smi}')
+    return {'up_s': up_s, 'backend': stats['mesh_backend']}
+
+
+def phase_tp(torch, pa, da, fa, bw, flops_peak, smi):
+    """Phase 31: llama3-8b at full width and depth served at tensor=2 by
+    two ranks that share the one card (gloo), both engines, then the
+    --mesh server. Returns the launch totals for the kernels line and
+    the numbers PERF.md keeps."""
+    from skypilot_tpu_torch.models.config import get_model_config
+    from skypilot_tpu_torch.parallel.launch import launch
+    import numpy as np
+    t0 = time.perf_counter()
+    n_layers = get_model_config('llama3-8b').n_layers
+    shard = tp_shard_times(torch, pa, da, fa, bw, flops_peak)
+    free_card(torch)
+    prompts = tp_prompts()
+    ranks = launch(tp_rank, 2, prompts, TP_NEW, device='cuda')
+    t1 = time.perf_counter()
+    check_tp_runs(ranks, n_layers, TP_NEW)
+    single = tp_single_rank(torch, prompts, TP_NEW)
+    driver = ranks[0]['runs']
+    tp_logits, one = driver['batch']['logits'], single['logits']
+    rel = (np.linalg.norm(tp_logits - one, axis=-1) /
+           np.linalg.norm(one, axis=-1))
+    abs_err = float(np.abs(tp_logits - one).max())
+    prefix = [common_prefix(a, b) for a, b in
+              zip(driver['batch']['tokens'], single['tokens'])]
+    label = 'two ranks on one card over gloo: not a TP speed'
+    log(f'[tp] first decode step logits, tensor=2 vs one rank: relative '
+        f'L2 per row {[float(f"{x:.3e}") for x in rel]} (limit '
+        f'{TP_LOGIT_TOL:g}), max abs {abs_err:.3e}; common greedy prefix '
+        f'of {TP_NEW} tokens {prefix} (not gated)')
+    if not np.isfinite(tp_logits).all() or rel.max() > TP_LOGIT_TOL:
+        raise AssertionError(f'[tp] tensor=2 logits off one rank\'s: {rel}')
+    plain = driver['continuous']
+    tok_s = (plain['delta']['tokens_generated'] /
+             plain['delta']['decode_seconds'])
+    timed = driver[TP_TIMED]
+    share = timed['collectives']['seconds'] / timed['wall_s']
+    for r in ranks:
+        peaks = {k: round(v['peak_gb'], 2) for k, v in r['runs'].items()}
+        log(f'[tp] rank {r["rank"]} peak GB by run {peaks}; steady after '
+            f'build {r["runs"]["continuous"]["steady_gb"]:.2f} GB ({smi})')
+    log(f'[tp] decode {tok_s:.1f} tok/s at tensor=2 vs '
+        f'{single["decode_tok_s"]:.1f} tok/s on one rank (4 requests, '
+        f'{TP_NEW} new; {label}; {smi})')
+    log(f'[tp] collectives {timed["collectives"]["calls"]} calls, '
+        f'{timed["collectives"]["seconds"]:.3f} s of a '
+        f'{timed["wall_s"]:.3f} s run = {100 * share:.1f}% of it, each '
+        f'timed with the card synchronized ({label}; {smi})')
+    log(f'[tp] backend {driver["continuous"]["mesh"]["mesh_backend"]}, '
+        f'devices {driver["continuous"]["mesh"]["mesh_devices"]}')
+    server = tp_server(torch, prompts, smi)
+    launches = {}
+    for r in ranks:
+        for run in r['runs'].values():
+            for k, v in run['launches'].items():
+                launches[k] = launches.get(k, 0) + v
+    log(f'[smoke] phase 31 {time.perf_counter() - t0:.1f} s (ranks '
+        f'{t1 - t0:.1f} s)')
+    return {'launches': launches, 'tok_s': tok_s,
+            'single_tok_s': single['decode_tok_s'],
+            'collective_share': share, 'logit_rel': float(rel.max()),
+            'shard_times': shard, 'server': server}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--skip-engine', action='store_true',
@@ -4635,7 +5044,7 @@ def main(argv=None) -> int:
         f'{t2 - t1:.1f} s, flash {time.perf_counter() - t2:.1f} s')
     engine, train, batch, spec, lora = {}, {}, {}, {}, {}
     bench_tr, remat, packed, bench_dec, moe = {}, {}, {}, {}, {}
-    ckpt, disagg, rl = {}, {}, {}
+    ckpt, disagg, rl, tp = {}, {}, {}, {}
     if not args.skip_engine:
         phase_train_small(torch)
         train = phase_train(torch, fa, flops_peak)
@@ -4685,6 +5094,10 @@ def main(argv=None) -> int:
             f'{time.perf_counter() - t1:.1f} s')
         moe = run_moe_phases(torch, pa, da, fa, bw, flops_peak,
                              profile_window=args.profile)
+        free_card(torch)
+        tp = phase_tp(torch, pa, da, fa, bw, flops_peak, smi)
+        log('[tp] phase 31 summary ' + json.dumps(
+            {k: v for k, v in tp.items() if k != 'launches'}))
     flash_src = 'skypilot_tpu/ops/pallas/flash_attention.py'
     replaces = {
         'paged_attention':
@@ -4723,6 +5136,8 @@ def main(argv=None) -> int:
     def total(parts):
         return sum(parts) if None not in parts else None
 
+    tp_launches = tp.get('launches', {})
+
     trains = [train.get('launches'), bench_tr.get('launches'),
               packed.get('launches'), moe.get('train'),
               ckpt.get('finetune')] + [
@@ -4735,18 +5150,25 @@ def main(argv=None) -> int:
                                   lora.get('launches'), moe.get('paged'),
                                   ckpt.get('paged'),
                                   ckpt.get('lora_paged'),
-                                  disagg.get('launches'), rl.get('paged')]),
-        'paged_attention_quant': total([engine.get('launches_quant'),
-                                        spec.get('launches_quant'),
-                                        disagg.get('launches_quant')]),
+                                  disagg.get('launches'), rl.get('paged'),
+                                  tp_launches.get('paged_attention')]),
+        'paged_attention_quant': total([
+            engine.get('launches_quant'), spec.get('launches_quant'),
+            disagg.get('launches_quant'),
+            tp_launches.get('paged_attention_quant')]),
         'decode_attention': total([batch.get('launches'),
                                    bench_dec.get('launches'),
-                                   moe.get('decode'), ckpt.get('decode')]),
-        'decode_attention_quant': batch.get('launches_quant')}
+                                   moe.get('decode'), ckpt.get('decode'),
+                                   tp_launches.get('decode_attention')]),
+        'decode_attention_quant': total([
+            batch.get('launches_quant'),
+            tp_launches.get('decode_attention_quant')])}
     for name in ('flash_fwd', 'flash_dq', 'flash_dkv'):
         launches[name] = total([
             None if t is None else t[name] + t[name + '_seg']
             for t in trains])
+    if launches['flash_fwd'] is not None and tp_launches:
+        launches['flash_fwd'] += tp_launches['flash_fwd']
     kernels = [dict(name=name, route='cuda',
                     source='skypilot_tpu_torch/csrc/' + sources[name],
                     replaces=replaces[name], launches=launches[name],

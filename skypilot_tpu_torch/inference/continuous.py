@@ -66,13 +66,26 @@ plain stream at any temperature (bitwise where the logits are).
   fault_injection.py``): a fault there fails the refresh's ticket and
   leaves the weights and the version as they were.
 
-Not ported yet: tensor-parallel meshes (``mesh=`` raises), tracing
-spans and the adapter chaos sites (the failure paths behind them are
-ported).
+* **Tensor-parallel serving** (``mesh='tensor=N'``,
+  ``inference/sharding.py``): the engine is built on each of N ranks
+  (``parallel/launch.py``), each holding its shard of the weights and
+  its kv heads of the pool. The scheduler decides admissions from
+  wall-clock arrivals, so the ranks could not each run it and agree:
+  rank 0 of the tensor axis is the driver, which alone runs the
+  scheduler thread and samples, and before every model step broadcasts
+  the step's plan (the tokens, scalars, lengths and block tables that
+  ``prefill_chunk`` / ``paged_decode_step`` / ``paged_verify_step``
+  take; a speculative window is the verify step at Q = k+1). The other
+  ranks run only those steps, in ``follow()``, until the driver's
+  ``shutdown()``. A failed step under a mesh is fatal to the engine
+  (the ranks' collectives would no longer line up). LoRA pages, MoE
+  configs, disaggregated roles and weight refresh raise under a mesh
+  (ROADMAP.md, queue A item 15).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import itertools
 import logging
@@ -85,7 +98,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from skypilot_tpu_torch.inference import kv_migrate
+from skypilot_tpu_torch.inference import kv_migrate, sharding
 from skypilot_tpu_torch.inference.engine import restore_params
 from skypilot_tpu_torch.inference.paged import (AdapterPagePool,
                                                 BlockImporter, BlockPool,
@@ -99,9 +112,10 @@ from skypilot_tpu_torch.models import lora as lora_lib
 from skypilot_tpu_torch.models.config import (ModelConfig, get_model_config,
                                               with_int8_kv_cache)
 from skypilot_tpu_torch.models.convert import tensor_from_numpy
-from skypilot_tpu_torch.models.quant import QTensor, maybe_quantize
+from skypilot_tpu_torch.models.quant import QTensor
+from skypilot_tpu_torch.parallel.sharding import mesh_context
 from skypilot_tpu_torch.server import metrics
-from skypilot_tpu_torch.utils import env, fault_injection
+from skypilot_tpu_torch.utils import env, fault_injection, tracing
 from skypilot_tpu_torch.utils.device import resolve_device, to_device
 
 logger = logging.getLogger(__name__)
@@ -109,11 +123,20 @@ logger = logging.getLogger(__name__)
 DEFAULT_BLOCK_SIZE = 16
 DEFAULT_PREFILL_CHUNK = 64
 
-# Chaos site (utils/fault_injection): a live weight swap, before any
-# leaf is written.
+# Chaos sites (utils/fault_injection): the two host-side edges of
+# adapter residency (pulling a cold adapter into a device page, and
+# LRU-evicting an idle one to make room), and a live weight swap, before
+# any leaf is written.
+LORA_FETCH_SITE = 'infer.lora.fetch'
+LORA_EVICT_SITE = 'infer.lora.evict'
 WEIGHT_REFRESH_SITE = 'infer.weights.refresh'
 
 _MASK64 = (1 << 64) - 1
+
+# Tensor-parallel step plans (inference/sharding.StepChannel).
+_PLAN_PREFILL = 2
+_PLAN_DECODE = 3
+_PLAN_VERIFY = 4
 
 
 def flatten_param_paths(params) -> Dict[str, Any]:
@@ -212,11 +235,16 @@ def _sample_tokens(logits: torch.Tensor, seeds: Sequence[int],
 
 
 def _decode_all_step(params, last_logits, cache, active, temps, seeds,
-                     positions, lora_pages=None, adapter_ids=None, *, cfg):
+                     positions, lora_pages=None, adapter_ids=None, *, cfg,
+                     announce=None):
     """One step for every slot: sample from the last logits, advance.
     ``lora_pages``/``adapter_ids`` are None on a non-LoRA engine and on
-    an all-base batch: the step is then exactly the base step."""
+    an all-base batch: the step is then exactly the base step.
+    ``announce(tokens, active)``: a tensor-parallel driver's plan,
+    published between the sampling and the step."""
     tokens = _sample_tokens(last_logits, seeds, positions, temps)
+    if announce is not None:
+        announce(tokens, active)
     logits, cache = decode_lib.paged_decode_step(
         params, tokens, cache, cfg, active=active, lora_pages=lora_pages,
         adapter_ids=adapter_ids)
@@ -232,7 +260,7 @@ def _sample_pending_step(logits_row, seed, length, temp):
 
 def _spec_verify_all_step(params, cache, inputs, n_input, active, temps,
                           seeds, positions, lora_pages=None,
-                          adapter_ids=None, *, cfg, q_len):
+                          adapter_ids=None, *, cfg, q_len, announce=None):
     """One speculative verify step for every slot.
 
     ``inputs`` [B, Q]: the pending token, then the draft proposals
@@ -246,8 +274,12 @@ def _spec_verify_all_step(params, cache, inputs, n_input, active, temps,
     target that did not match (or the bonus token after a fully
     accepted window): the plain engine's next token, carried to the
     next step. Lengths advance by ``n_emit`` on the device; the host
-    rolls back further (eos, caps) by truncating its mirror."""
+    rolls back further (eos, caps) by truncating its mirror.
+    ``announce(inputs, n_input, active)``: a tensor-parallel driver's
+    plan, published before the step."""
     lengths0 = cache.lengths
+    if announce is not None:
+        announce(inputs, n_input, active)
     logits, cache = decode_lib.paged_verify_step(
         params, inputs, cache, cfg, active=active, n_input=n_input,
         lora_pages=lora_pages, adapter_ids=adapter_ids)
@@ -272,7 +304,10 @@ def _spec_verify_all_step(params, cache, inputs, n_input, active, temps,
 
 
 def _prefill_chunk_step(params, tokens, start, n_new, slot, cache,
-                        lora_pages=None, adapter_id=None, *, cfg):
+                        lora_pages=None, adapter_id=None, *, cfg,
+                        announce=None):
+    if announce is not None:
+        announce(tokens, start, n_new, slot)
     return decode_lib.prefill_chunk(params, tokens, start, n_new, slot,
                                     cache, cfg, lora_pages=lora_pages,
                                     adapter_id=adapter_id)
@@ -289,10 +324,17 @@ class _Request:
         self.seed = seed
         self.adapter = adapter  # registered LoRA adapter name or None
         self.arrival = time.monotonic()
+        self.arrival_wall = time.time()
         self.admitted = False  # queue-wait counted once, not per resume
         self.generated: List[int] = []
         self.done = threading.Event()
         self.error: Optional[BaseException] = None
+        # Distributed tracing (armed deployments with an incoming
+        # context only): the per-request engine span; queue-wait /
+        # prefill-chunk / decode / preempt child spans hang off it.
+        self.span = None
+        self.decode_start_wall: Optional[float] = None
+        self.decode_start_mono: Optional[float] = None
         # Disaggregated serving: the engine-assigned id a prefill-role
         # export is keyed by; ``migration`` holds the decode side's
         # pulled KV (``kv_migrate.PulledKv``) until it imports or falls
@@ -459,10 +501,6 @@ class ContinuousBatchingEngine:
                  lora_max_rank: Optional[int] = None,
                  lora_max_active: Optional[int] = None,
                  base_digest: Optional[str] = None) -> None:
-        if mesh:
-            raise NotImplementedError(
-                'mesh= is multi-device work, not ported yet (ROADMAP.md, '
-                'queue A item 15)')
         # Disaggregated serving role: '' = colocated, 'prefill' = chunked
         # prefill only, finished KV parked in the exporter for the decode
         # fleet to pull; 'decode' = imports migrated KV and batch-decodes
@@ -487,6 +525,14 @@ class ContinuousBatchingEngine:
         self.cfg = cfg or get_model_config(model)
         if quantize_kv:
             self.cfg = with_int8_kv_cache(self.cfg)
+        sharding.check_unported(
+            mesh, self.cfg, role=bool(role), lora_pages=(
+                lora_pages if lora_pages is not None
+                else env.get_int('SKYT_LORA_PAGES')) > 0)
+        self._mesh = sharding.mesh_serving(mesh, self.device, self.cfg)
+        self._tp = None
+        if self._mesh is not None:
+            self.device, self._tp = self._mesh.device, self._mesh.tp
         self.tokenizer = get_tokenizer(hf_checkpoint,
                                        require=bool(hf_checkpoint))
         # A model whose vocab can't cover the tokenizer still serves the
@@ -518,12 +564,20 @@ class ContinuousBatchingEngine:
             params = llama.init_params(seed, self.cfg, device=self.device,
                                        weight_dtype=self.cfg.compute_dtype)
         with torch.no_grad():
+            params, self.cfg, _ = sharding.prepare_engine(
+                to_device(params, self.device), self.cfg,
+                self._mesh and self._mesh.mesh, quantize=quantize,
+                device_type=self.device.type)
             self.params = _owned(decode_lib.serving_params(
-                maybe_quantize(to_device(params, self.device), quantize),
-                self.cfg), given)
-        self.cache = decode_lib.init_paged_cache(
-            self.cfg, self.num_blocks, self.block_size, max_slots,
-            self.blocks_per_slot, device=self.device)
+                params, self.cfg), given)
+        del params
+        sharding.release_unsharded(self._mesh, self.device)
+        with mesh_context(self._tp):
+            self.cache = sharding.shard_paged_cache(
+                decode_lib.init_paged_cache(
+                    self.cfg, self.num_blocks, self.block_size, max_slots,
+                    self.blocks_per_slot, device=self.device),
+                self._mesh and self._mesh.mesh, self.cfg)
         # Host-side bookkeeping (serving-loop thread only).
         self._pool = BlockPool(self.num_blocks)
         self._prefix: Optional[PrefixCache] = (
@@ -638,10 +692,13 @@ class ContinuousBatchingEngine:
                                 if self.device.type == 'cuda' else None)
         self._stop = threading.Event()
         self._wake = threading.Event()
+        # Under a mesh: the error that ended the driver's loop (fatal).
+        self._fatal: Optional[BaseException] = None
         self._thread = threading.Thread(target=self._loop,
                                         name='continuous-batching',
                                         daemon=True)
-        self._thread.start()
+        if self._mesh is None or self._mesh.driver:
+            self._thread.start()
 
     # -- block-table plumbing -------------------------------------------
 
@@ -705,7 +762,47 @@ class ContinuousBatchingEngine:
             self._errors_total += 1
         else:
             self._completions_total += 1
+        if request.span is not None:
+            self._record_decode_segment(request)
+            request.span.finish(error=error,
+                                tokens=len(request.generated))
+            request.span = None
         request.done.set()
+
+    @staticmethod
+    def _record_decode_segment(request: _Request) -> None:
+        """Close the current ``infer.decode`` span segment (finish OR
+        preempt): segments end at preemption, so the requeue wait and
+        the re-prefill are not billed as decode."""
+        if request.span is None or request.decode_start_wall is None \
+                or request.decode_start_mono is None:
+            return
+        tracing.record_span(
+            'infer.decode', request.span.context,
+            request.decode_start_wall,
+            max(0.0, time.monotonic() - request.decode_start_mono),
+            service='inference', tokens=len(request.generated))
+        request.decode_start_wall = None
+        request.decode_start_mono = None
+
+    def _note_admitted(self, request: _Request) -> None:
+        """Count a request's queue wait once (not again on a resume) and
+        record its ``infer.queue_wait`` span."""
+        if request.admitted:
+            return
+        request.admitted = True
+        wait_s = max(0.0, time.monotonic() - request.arrival)
+        self._queue_wait_seconds_total += wait_s
+        if request.span is not None:
+            tracing.record_span('infer.queue_wait', request.span.context,
+                                request.arrival_wall, wait_s,
+                                service='inference')
+
+    @staticmethod
+    def _start_decode_segment(request: _Request) -> None:
+        if request.decode_start_wall is None:
+            request.decode_start_wall = time.time()
+            request.decode_start_mono = time.monotonic()
 
     def _fail_slot(self, slot: int, error: BaseException,
                    prefill: bool = False) -> None:
@@ -792,8 +889,9 @@ class ContinuousBatchingEngine:
 
     def _note_adapter_evict(self, name: str) -> None:
         """Observes every adapter-page eviction BEFORE the pool
-        mutates (demand bookkeeping; the reference also raises its
-        chaos faults here)."""
+        mutates (chaos site ``infer.lora.evict``, demand bookkeeping):
+        a fault here aborts the eviction with the pool as it was."""
+        fault_injection.inject(LORA_EVICT_SITE)
         demand = self._adapter_demand.setdefault(
             name, {'requests': 0, 'last_request': 0.0,
                    'last_evicted': 0.0})
@@ -801,9 +899,10 @@ class ContinuousBatchingEngine:
 
     def _fetch_adapter(self, entry: Dict[str, Any]) -> Dict[str, Any]:
         """Stage a missed adapter's weights on the device, in the page
-        store's dtype, before a page is claimed for it (the reference
-        raises its ``infer.lora.fetch`` chaos faults at this point: a
-        failure here fails the request and retains nothing)."""
+        store's dtype, before a page is claimed for it (chaos site
+        ``infer.lora.fetch``: a failure here fails the request and
+        retains nothing)."""
+        fault_injection.inject(LORA_FETCH_SITE)
         ref = self._lora_store['wq_a']
         return {key: value.to(device=ref.device, dtype=ref.dtype)
                 for key, value in entry['lora'].items()}
@@ -968,10 +1067,7 @@ class ContinuousBatchingEngine:
                 self._prefix_tokens_reused_total += start
             else:
                 self._prefix_misses_total += 1
-        if not request.admitted:
-            request.admitted = True
-            self._queue_wait_seconds_total += max(
-                0.0, time.monotonic() - request.arrival)
+        self._note_admitted(request)
         self._slot_blocks[slot] = blocks
         self._host_bt[slot, :] = 0
         self._host_bt[slot, :len(blocks)] = blocks
@@ -1000,12 +1096,18 @@ class ContinuousBatchingEngine:
         lora_pages, _ = self._lora_step_args()
         adapter_id = (int(self._slot_adapter[slot])
                       if lora_pages is not None else None)
+        chunk_wall = time.time()
+        chunk_mono = time.monotonic()
         try:
-            last, cache = _prefill_chunk_step(
-                self.params, torch.as_tensor(tokens, device=self.device),
-                state.pos, len(chunk), slot, self.cache, lora_pages,
-                adapter_id, cfg=self.cfg)
+            with self._step_guard():
+                last, cache = _prefill_chunk_step(
+                    self.params, torch.as_tensor(tokens, device=self.device),
+                    state.pos, len(chunk), slot, self.cache, lora_pages,
+                    adapter_id, cfg=self.cfg, announce=self._announcer(
+                        _PLAN_PREFILL))
         except Exception as e:  # pylint: disable=broad-except
+            if self._mesh is not None:
+                raise  # fatal under a mesh: see _loop
             logger.warning('chunked prefill failed: %s: %s',
                            type(e).__name__, e)
             self._prefilling.pop(0)
@@ -1015,6 +1117,12 @@ class ContinuousBatchingEngine:
         state.pos += len(chunk)
         self._host_len[slot] = state.pos
         self._prefill_chunks_total += 1
+        if request.span is not None:
+            tracing.record_span(
+                'infer.prefill_chunk', request.span.context, chunk_wall,
+                max(0.0, time.monotonic() - chunk_mono),
+                service='inference', tokens=len(chunk), slot=slot,
+                pos=state.pos)
         if state.pos >= len(ids):
             self._prefilling.pop(0)
             if self.role == 'prefill':
@@ -1033,6 +1141,7 @@ class ContinuousBatchingEngine:
                     self._last_logits[slot], request.seed, state.pos,
                     request.temperature)
             self._decoding[slot] = True
+            self._start_decode_segment(request)
             if self._prefix is not None:
                 self._prefix.insert(ids, self._slot_blocks[slot],
                                     root=adapter_chain_root(
@@ -1224,10 +1333,7 @@ class ContinuousBatchingEngine:
                 self._adapter_pool.unpin(request.adapter)
             raise
         importer.commit()
-        if not request.admitted:
-            request.admitted = True
-            self._queue_wait_seconds_total += max(
-                0.0, time.monotonic() - request.arrival)
+        self._note_admitted(request)
         self._slot_blocks[slot] = list(blocks)
         self._host_bt[slot, :] = 0
         self._host_bt[slot, :len(blocks)] = blocks
@@ -1244,6 +1350,7 @@ class ContinuousBatchingEngine:
                 self._last_logits[slot], request.seed, plen,
                 request.temperature)
         self._decoding[slot] = True
+        self._start_decode_segment(request)
         if self._prefix is not None:
             self._prefix.insert(ids, blocks, root=root)
         request.migration = None  # a later preemption re-prefills
@@ -1265,6 +1372,14 @@ class ContinuousBatchingEngine:
         active_mask[slot] = False
         self._preemptions_total += 1
         if request is not None:
+            if request.span is not None:
+                # Close the decode segment here: the requeue wait and
+                # the resume's re-prefill are not decode.
+                self._record_decode_segment(request)
+                tracing.record_span(
+                    'infer.preempt', request.span.context, time.time(),
+                    0.0, service='inference', slot=slot,
+                    generated=len(request.generated))
             self._waiting.push_front(request)
             self._wake.set()
 
@@ -1370,14 +1485,18 @@ class ContinuousBatchingEngine:
         lora_pages, adapter_ids = self._lora_step_args()
         step_t0 = time.perf_counter()
         try:
-            n_emit, pending_next, cache = _spec_verify_all_step(
-                self.params, self.cache,
-                torch.as_tensor(inputs, device=self.device),
-                torch.as_tensor(n_input, device=self.device),
-                torch.as_tensor(active_mask, device=self.device),
-                temps, self._seeds, positions, lora_pages, adapter_ids,
-                cfg=self.cfg, q_len=q_len)
+            with self._step_guard():
+                n_emit, pending_next, cache = _spec_verify_all_step(
+                    self.params, self.cache,
+                    torch.as_tensor(inputs, device=self.device),
+                    torch.as_tensor(n_input, device=self.device),
+                    torch.as_tensor(active_mask, device=self.device),
+                    temps, self._seeds, positions, lora_pages, adapter_ids,
+                    cfg=self.cfg, q_len=q_len,
+                    announce=self._announcer(_PLAN_VERIFY))
         except Exception as e:  # pylint: disable=broad-except
+            if self._mesh is not None:
+                raise  # fatal under a mesh: see _loop
             logger.warning('speculative verify step failed: %s: %s',
                            type(e).__name__, e)
             for slot in range(self.max_slots):
@@ -1439,8 +1558,114 @@ class ContinuousBatchingEngine:
     # -- serving loop ---------------------------------------------------
 
     def _loop(self) -> None:
-        with torch.no_grad():
-            self._loop_body()
+        with torch.no_grad(), mesh_context(self._tp):
+            if self._mesh is None:
+                self._loop_body()
+                return
+            try:
+                self._loop_body()
+            except Exception as e:  # pylint: disable=broad-except
+                # A failed step under a mesh is fatal: the ranks'
+                # collectives no longer line up.
+                logger.exception('tensor-parallel step failed; the engine '
+                                 'stops serving')
+                self._fatal = e
+                self._fail_everything(e)
+
+    # -- tensor-parallel driver and followers ---------------------------
+
+    def _step_guard(self):
+        """The plan channel's lock around a step (plan + collectives),
+        so the keep-alive never lands inside one; a no-op unsharded."""
+        if self._mesh is None:
+            return contextlib.nullcontext()
+        return self._mesh.channel.lock
+
+    def _announcer(self, op: int):
+        """The step's plan publisher on a mesh's driver, else None. The
+        plan is the step's own arguments, then the pool's lengths and
+        block tables as the step will read them."""
+        if self._mesh is None:
+            return None
+
+        def announce(*args):
+            scalars = [a for a in args if not isinstance(a, torch.Tensor)]
+            tensors = [a for a in args if isinstance(a, torch.Tensor)]
+            if op == _PLAN_PREFILL:
+                scalars.append(tensors[0].shape[1])
+            elif op == _PLAN_VERIFY:
+                scalars.append(tensors[0].shape[1])
+            self._mesh.channel.publish(op, scalars, *tensors,
+                                       self.cache.lengths,
+                                       self.cache.block_tables)
+
+        return announce
+
+    def _fail_everything(self, error: BaseException) -> None:
+        """Fail every request the engine holds (the fatal path)."""
+        for slot in range(self.max_slots):
+            if self._slots[slot] is not None:
+                self._fail_slot(slot, error)
+        self._prefilling = []
+        while self._waiting:
+            self._finish(self._waiting.pop(), error)
+        while True:
+            try:
+                self._finish(self._pending.get_nowait(), error)
+            except queue.Empty:
+                break
+
+    @property
+    def is_driver(self) -> bool:
+        """True unless this engine is a follower rank of a mesh."""
+        return self._mesh is None or self._mesh.driver
+
+    def follow(self) -> None:
+        """A follower rank's loop: run each step the driver announces
+        on this rank's shards (the plan brings the lengths and block
+        tables; this rank keeps only its part of the pool); returns
+        when the driver shuts down."""
+        if self._mesh is None or self._mesh.driver:
+            raise RuntimeError('follow() runs on the follower ranks of a '
+                               'tensor-parallel mesh')
+        slots, bps = self.max_slots, self.blocks_per_slot
+        with torch.no_grad(), mesh_context(self._tp):
+            while True:
+                op, payload = self._mesh.channel.receive()
+                if op == sharding.PLAN_STOP:
+                    return
+                plan = sharding.PlanReader(payload)
+                if op == _PLAN_PREFILL:
+                    start, n_new, slot, c = plan.ints(4)
+                    tokens = plan.take(c, (1, c), torch.int32)
+                elif op == _PLAN_DECODE:
+                    tokens = plan.take(slots, None, torch.int32)
+                    active = plan.take(slots, None, torch.bool)
+                elif op == _PLAN_VERIFY:
+                    (q_len,) = plan.ints(1)
+                    tokens = plan.take(slots * q_len, (slots, q_len),
+                                       torch.int32)
+                    n_input = plan.take(slots, None, torch.int32)
+                    active = plan.take(slots, None, torch.bool)
+                else:
+                    continue  # keep-alive
+                cache = dataclasses.replace(
+                    self.cache,
+                    lengths=plan.take(slots, None, torch.int32),
+                    block_tables=plan.take(slots * bps, (slots, bps),
+                                           torch.int32))
+                if op == _PLAN_PREFILL:
+                    _, self.cache = decode_lib.prefill_chunk(
+                        self.params, tokens, start, n_new, slot, cache,
+                        self.cfg)
+                elif op == _PLAN_DECODE:
+                    _, self.cache = decode_lib.paged_decode_step(
+                        self.params, tokens, cache, self.cfg,
+                        active=active)
+                else:
+                    _, self.cache = decode_lib.paged_verify_step(
+                        self.params, tokens, cache, self.cfg,
+                        active=active, n_input=n_input)
 
     # -- live weight refresh --------------------------------------------
 
@@ -1464,6 +1689,10 @@ class ContinuousBatchingEngine:
         untouched. ``mode='step'`` swaps with generation running;
         ``'drain'`` holds admission and waits for in-flight requests
         first. ``version`` defaults to the current one plus one."""
+        if self._mesh is not None:
+            raise NotImplementedError(
+                'weight refresh under a tensor-parallel mesh is not '
+                'ported yet (ROADMAP.md, queue A item 15)')
         if (updates is None) == (params is None):
             raise ValueError(
                 'pass exactly one of updates= (delta shards) or '
@@ -1619,12 +1848,16 @@ class ContinuousBatchingEngine:
             lora_pages, adapter_ids = self._lora_step_args()
             step_t0 = time.perf_counter()
             try:
-                tokens, logits, cache = _decode_all_step(
-                    self.params, self._last_logits, self.cache,
-                    torch.as_tensor(active_mask, device=self.device),
-                    temps, self._seeds, positions, lora_pages,
-                    adapter_ids, cfg=self.cfg)
+                with self._step_guard():
+                    tokens, logits, cache = _decode_all_step(
+                        self.params, self._last_logits, self.cache,
+                        torch.as_tensor(active_mask, device=self.device),
+                        temps, self._seeds, positions, lora_pages,
+                        adapter_ids, cfg=self.cfg,
+                        announce=self._announcer(_PLAN_DECODE))
             except Exception as e:  # pylint: disable=broad-except
+                if self._mesh is not None:
+                    raise  # fatal under a mesh: see _loop
                 logger.warning('decode step failed: %s: %s',
                                type(e).__name__, e)
                 for slot in range(self.max_slots):
@@ -1665,10 +1898,20 @@ class ContinuousBatchingEngine:
 
     def _submit(self, token_ids: List[int], max_new_tokens: int,
                 temperature: float, eos_id: Optional[int],
-                seed: int, adapter: Optional[str] = None,
+                seed: int, trace_ctx=None, adapter: Optional[str] = None,
                 migration=None,
                 handoff_start: Optional[float] = None) -> _Request:
-        """Shared admission path: validate + enqueue."""
+        """Shared admission path: validate + enqueue. ``trace_ctx`` (a
+        ``tracing.SpanContext``, e.g. parsed from the serving request's
+        ``traceparent``) opens a per-request ``infer.request`` span
+        whose children are the queue-wait, prefill-chunk, decode and
+        preempt spans; only the driver of a mesh records them (it alone
+        runs the scheduler)."""
+        if self._mesh is not None:
+            self._mesh.require_driver('submitting a request')
+            if self._fatal is not None:
+                raise RuntimeError('the engine stopped after a failed '
+                                   'tensor-parallel step') from self._fatal
         if len(token_ids) >= self.max_len:
             raise ValueError(
                 f'prompt is {len(token_ids)} tokens; engine max_len is '
@@ -1696,6 +1939,11 @@ class ContinuousBatchingEngine:
         request.request_id = f'r{next(self._request_ids)}'
         request.migration = migration
         request.handoff_start = handoff_start
+        if trace_ctx is not None:
+            request.span = tracing.start_span(
+                'infer.request', parent=trace_ctx, service='inference',
+                prompt_tokens=len(token_ids),
+                max_new_tokens=max_new_tokens)
         self._requests_total += 1
         self._pending.put(request)
         self._wake.set()
@@ -1707,7 +1955,8 @@ class ContinuousBatchingEngine:
                            temperature: float = 0.0,
                            eos_id: Optional[int] = None,
                            seed: int = 0,
-                           timeout: float = 300.0) -> str:
+                           timeout: float = 300.0,
+                           trace_ctx=None) -> str:
         """Prefill-role entry: absorb the prompt (chunked, prefix-cache
         accelerated) and park the serialized KV in ``self.exporter``.
         Returns the request id the export is keyed by: the decode side
@@ -1716,7 +1965,8 @@ class ContinuousBatchingEngine:
             raise RuntimeError(
                 "prefill_and_export needs role='prefill' "
                 '(SKYT_DISAGG_ROLE)')
-        request = self._submit(token_ids, 0, temperature, eos_id, seed)
+        request = self._submit(token_ids, 0, temperature, eos_id, seed,
+                               trace_ctx=trace_ctx)
         if not request.done.wait(timeout):
             raise TimeoutError('prefill timed out')
         if request.error is not None:
@@ -1740,8 +1990,8 @@ class ContinuousBatchingEngine:
                         temperature: float = 0.0,
                         eos_id: Optional[int] = None,
                         seed: int = 0,
-                        handoff_start: Optional[float] = None
-                        ) -> _Request:
+                        handoff_start: Optional[float] = None,
+                        trace_ctx=None) -> _Request:
         """Decode-role entry: admit a pulled migration
         (``kv_migrate.PulledKv``). The serving loop imports the blocks
         refcount-exactly and decodes with no prefill pass; any import
@@ -1755,8 +2005,8 @@ class ContinuousBatchingEngine:
                                "submit_migrated needs role='decode' "
                                "(or colocated)")
         return self._submit(token_ids, max_new_tokens, temperature,
-                            eos_id, seed, migration=pulled,
-                            handoff_start=handoff_start)
+                            eos_id, seed, trace_ctx=trace_ctx,
+                            migration=pulled, handoff_start=handoff_start)
 
     def tail_tokens(self, request: _Request, *,
                     eos_id: Optional[int] = None,
@@ -1786,14 +2036,16 @@ class ContinuousBatchingEngine:
                    temperature: float = 0.0,
                    eos_id: Optional[int] = None,
                    seed: int = 0,
-                   adapter: Optional[str] = None) -> _Request:
+                   adapter: Optional[str] = None,
+                   trace_ctx=None) -> _Request:
         """Non-blocking admission (the RL rollout path submits a whole
         prompt group, then harvests): returns the request handle — wait
         on ``handle.done``, then read ``handle.generated`` /
         ``handle.error``; ``handle.policy_version`` is the weights'
         version it was submitted under."""
         return self._submit(token_ids, max_new_tokens, temperature,
-                            eos_id, seed, adapter=adapter)
+                            eos_id, seed, trace_ctx=trace_ctx,
+                            adapter=adapter)
 
     def generate_ids(self, token_ids: List[int], *,
                      max_new_tokens: int = 32,
@@ -1801,9 +2053,11 @@ class ContinuousBatchingEngine:
                      eos_id: Optional[int] = None,
                      seed: int = 0,
                      timeout: float = 300.0,
-                     adapter: Optional[str] = None) -> List[int]:
+                     adapter: Optional[str] = None,
+                     trace_ctx=None) -> List[int]:
         request = self._submit(token_ids, max_new_tokens, temperature,
-                               eos_id, seed, adapter=adapter)
+                               eos_id, seed, trace_ctx=trace_ctx,
+                               adapter=adapter)
         if not request.done.wait(timeout):
             raise TimeoutError('generation timed out')
         if request.error is not None:
@@ -1833,11 +2087,13 @@ class ContinuousBatchingEngine:
                    eos_id: Optional[int] = None,
                    seed: int = 0,
                    timeout: float = 300.0,
-                   adapter: Optional[str] = None):
+                   adapter: Optional[str] = None,
+                   trace_ctx=None):
         """Yield generated token ids AS THEY LAND in the slot loop.
         Validation and admission happen eagerly."""
         request = self._submit(token_ids, max_new_tokens, temperature,
-                               eos_id, seed, adapter=adapter)
+                               eos_id, seed, trace_ctx=trace_ctx,
+                               adapter=adapter)
         return self.tail_tokens(request, eos_id=eos_id, timeout=timeout)
 
     def stream_text(self, prompt: str, **kwargs: Any):
@@ -1874,7 +2130,9 @@ class ContinuousBatchingEngine:
         total = self._pool.total_blocks
         free = self._pool.free_blocks
         apool = self._adapter_pool
+        mesh = self._mesh.info if self._mesh is not None else {}
         return {
+            **mesh,
             'slots': self.max_slots,
             'active': sum(r is not None for r in self._slots),
             'pending': self._pending.qsize() + len(self._waiting),
@@ -1931,6 +2189,11 @@ class ContinuousBatchingEngine:
         }
 
     def shutdown(self) -> None:
+        """Stop the serving loop; under a mesh the driver then releases
+        the followers' ``follow`` loops."""
         self._stop.set()
         self._wake.set()
-        self._thread.join(timeout=10)
+        if self._thread.is_alive():
+            self._thread.join(timeout=10)
+        if self._mesh is not None and self._mesh.driver:
+            self._mesh.channel.close()

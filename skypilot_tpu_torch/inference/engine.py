@@ -17,7 +17,16 @@ HF directory, loaded in bf16 by ``models/hf_interop.py``, whose
 tokenizer then serves), ``checkpoint_dir`` (the newest step of a
 training checkpoint, ``train/checkpoint.py``), else
 ``llama.init_params`` from ``seed`` on the device, in the compute
-dtype. Tensor-parallel meshes are not ported yet and raise.
+dtype.
+
+``mesh='tensor=N'`` (tensor-parallel serving, ``inference/sharding.py``):
+build the engine on each of N ranks (``parallel/launch.py``). Each keeps
+its shard of the weights; the driver (tensor index 0) serves the calls
+and announces each ``generate`` to the followers, which run it on their
+shards in ``follow()`` until the driver's ``shutdown()``. Prefill runs
+the flash kernel and decode the decode kernel on each rank's heads; the
+driver samples and broadcasts each step's tokens. ``embed_text`` raises
+under a mesh (ROADMAP.md, queue A item 15).
 """
 from __future__ import annotations
 
@@ -28,14 +37,19 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from skypilot_tpu_torch.inference import sharding
 from skypilot_tpu_torch.inference.tokenizer import get_tokenizer
 from skypilot_tpu_torch.models import decode as decode_lib
 from skypilot_tpu_torch.models import hf_interop, llama
 from skypilot_tpu_torch.models.config import (ModelConfig, get_model_config,
                                               with_int8_kv_cache)
-from skypilot_tpu_torch.models.quant import maybe_quantize
+from skypilot_tpu_torch.parallel.sharding import mesh_context
 from skypilot_tpu_torch.train.checkpoint import restore_latest
 from skypilot_tpu_torch.utils.device import resolve_device, to_device
+
+
+# The batch engine's one plan: a padded batch to generate.
+_PLAN_GENERATE = 2
 
 
 def restore_params(checkpoint_dir: str, cfg: ModelConfig, seed: int,
@@ -88,10 +102,6 @@ class InferenceEngine:
                  quantize: bool = False,
                  quantize_kv: bool = False,
                  mesh: Optional[Any] = None) -> None:
-        if mesh:
-            raise NotImplementedError(
-                'mesh= is multi-device work, not ported yet (ROADMAP.md, '
-                'queue A item 15)')
         self.device = resolve_device(device)
         # hf_checkpoint: an HF-layout dir (config.json + safetensors +
         # tokenizer.json): published weights and their own tokenizer
@@ -103,6 +113,11 @@ class InferenceEngine:
         if quantize_kv:
             # int8 KV cache, dequantized inside the decode kernel.
             self.cfg = with_int8_kv_cache(self.cfg)
+        sharding.check_unported(mesh, self.cfg)
+        self._mesh = sharding.mesh_serving(mesh, self.device, self.cfg)
+        self._tp = None
+        if self._mesh is not None:
+            self.device, self._tp = self._mesh.device, self._mesh.tp
         self.tokenizer = get_tokenizer(hf_checkpoint,
                                        require=bool(hf_checkpoint))
         if self.tokenizer.vocab_size > self.cfg.vocab_size:
@@ -117,11 +132,17 @@ class InferenceEngine:
         if params is None:
             params = llama.init_params(seed, self.cfg, device=self.device,
                                        weight_dtype=self.cfg.compute_dtype)
-        params = to_device(params, self.device)
-        self.params = decode_lib.serving_params(
-            maybe_quantize(params, quantize), self.cfg)
-        self.stats: Dict[str, float] = {
+        params, self.cfg, _ = sharding.prepare_engine(
+            to_device(params, self.device), self.cfg,
+            self._mesh and self._mesh.mesh, quantize=quantize,
+            device_type=self.device.type)
+        self.params = decode_lib.serving_params(params, self.cfg)
+        del params
+        sharding.release_unsharded(self._mesh, self.device)
+        self.stats: Dict[str, Any] = {
             'requests': 0, 'tokens_generated': 0, 'decode_seconds': 0.0}
+        if self._mesh is not None:
+            self.stats.update(self._mesh.info)
 
     def _batch(self, ids: List[List[int]], lengths: np.ndarray):
         """Right-padded [batch bucket, prompt bucket] tokens and lengths
@@ -152,16 +173,16 @@ class InferenceEngine:
                     prompts[i:i + self.max_batch], max_new_tokens,
                     temperature, seed))
             return out
+        if self._mesh is not None:
+            self._mesh.require_driver('generate_ids')
         b = len(prompts)
         lengths = np.array([len(p) for p in prompts], np.int32)
         n_new = _bucket(max_new_tokens, minimum=8)
         tokens, pad_lengths = self._batch(prompts, lengths)
         with self._lock, torch.no_grad():
             t0 = time.perf_counter()
-            generated, gen_lengths = decode_lib.generate(
-                self.params, tokens, pad_lengths, self.cfg,
-                max_new_tokens=n_new, temperature=temperature,
-                eos_id=self.tokenizer.eos_id, seed=seed)
+            generated, gen_lengths = self._generate(
+                tokens, pad_lengths, n_new, temperature, seed)
             generated = generated.cpu().numpy()
             gen_lengths = gen_lengths.cpu().numpy()
             elapsed = time.perf_counter() - t0
@@ -172,6 +193,65 @@ class InferenceEngine:
             generated[i, :min(int(gen_lengths[i]), max_new_tokens)].tolist()
             for i in range(b)
         ]
+
+    def _generate(self, tokens: torch.Tensor, lengths: torch.Tensor,
+                  n_new: int, temperature: float, seed: int):
+        """``decode_lib.generate`` of one padded batch; under a mesh the
+        driver first announces it (its shapes, sampling arguments,
+        tokens and lengths) and every rank runs it in the mesh
+        context."""
+        eos = self.tokenizer.eos_id
+        if self._mesh is None:
+            return decode_lib.generate(
+                self.params, tokens, lengths, self.cfg,
+                max_new_tokens=n_new, temperature=temperature, eos_id=eos,
+                seed=seed)
+        with self._mesh.channel.lock, mesh_context(self._tp):
+            self._mesh.channel.publish(
+                _PLAN_GENERATE,
+                [tokens.shape[0], tokens.shape[1], n_new,
+                 sharding.float_bits(temperature), seed,
+                 -1 if eos is None else eos], tokens, lengths)
+            return decode_lib.generate(
+                self.params, tokens, lengths, self.cfg,
+                max_new_tokens=n_new, temperature=temperature, eos_id=eos,
+                seed=seed)
+
+    @property
+    def is_driver(self) -> bool:
+        """True unless this engine is a follower rank of a mesh."""
+        return self._mesh is None or self._mesh.driver
+
+    def follow(self) -> None:
+        """A follower rank's loop: run each ``generate`` the driver
+        announces on this rank's shards; returns when the driver shuts
+        down."""
+        if self._mesh is None or self._mesh.driver:
+            raise RuntimeError('follow() runs on the follower ranks of a '
+                               'tensor-parallel mesh')
+        channel = self._mesh.channel
+        with torch.no_grad(), mesh_context(self._tp):
+            while True:
+                op, payload = channel.receive()
+                if op == sharding.PLAN_STOP:
+                    return
+                if op != _PLAN_GENERATE:
+                    continue
+                plan = sharding.PlanReader(payload)
+                b, s, n_new, temp_bits, seed, eos = plan.ints(6)
+                tokens = plan.take(b * s, (b, s), torch.int32)
+                lengths = plan.take(b, None, torch.int32)
+                decode_lib.generate(
+                    self.params, tokens, lengths, self.cfg,
+                    max_new_tokens=n_new,
+                    temperature=sharding.bits_float(temp_bits),
+                    eos_id=None if eos < 0 else eos, seed=seed)
+
+    def shutdown(self) -> None:
+        """Under a mesh, the driver releases the followers' ``follow``
+        loops; a no-op otherwise."""
+        if self._mesh is not None and self._mesh.driver:
+            self._mesh.channel.close()
 
     def generate_text(self, prompts: List[str],
                       max_new_tokens: int = 32,
@@ -187,6 +267,10 @@ class InferenceEngine:
         """[len(texts), d_model] L2-normalized fp32 embeddings: final
         hidden states (``llama.forward(return_hidden=True)``, no LM head)
         mean-pooled over the real tokens of each right-padded prompt."""
+        if self._mesh is not None:
+            raise NotImplementedError(
+                'embed_text under a tensor-parallel mesh is not ported yet '
+                '(ROADMAP.md, queue A item 15)')
         if not texts:
             return np.zeros((0, self.cfg.d_model), np.float32)
         if len(texts) > self.max_batch:

@@ -15,6 +15,8 @@ adapters and disaggregated roles as options)::
         [--engine continuous] [--lora-pages 4 --lora-dir REG]
     python -m skypilot_tpu_torch.inference.server --engine continuous \
         --policy-store STORE
+    python -m skypilot_tpu_torch.inference.server --model llama3-8b \
+        --mesh tensor=2 [--engine continuous]
 
 ``--hf-checkpoint`` serves an HF directory's weights (bf16) with its own
 tokenizer and chat template; ``--checkpoint-dir`` serves the newest step
@@ -55,8 +57,19 @@ prefills locally when the pull fails.
 serves an RL pipeline's policy store (``jobs/rl_pipeline.py``): the
 committed policy is pulled before the first request, then the store is
 polled every ``SKYT_RL_EVAL_POLL_S`` seconds and each newer version's
-shard delta refreshes the engine in place. The reference's tracing
-headers are a later slice.
+shard delta refreshes the engine in place.
+
+A ``traceparent`` header (W3C; forwarded by the serve load balancer)
+makes the continuous engine record its ``infer.*`` spans into the
+caller's trace when ``SKYT_TRACE_SAMPLE`` arms tracing
+(``utils/tracing.py``).
+
+``--mesh tensor=N`` serves tensor-parallel (``inference/sharding.py``):
+the server starts its own N ranks (``parallel/launch.py``), each builds
+the engine on its shard, rank 0 (the driver) serves HTTP and the others
+follow its step plans; ``/stats`` names the mesh, the process-group
+backend and each rank's device. Stopping the server (SIGTERM, Ctrl-C)
+stops every rank.
 """
 from __future__ import annotations
 
@@ -73,7 +86,7 @@ from typing import Optional
 from skypilot_tpu_torch.data import fanout
 from skypilot_tpu_torch.inference import kv_migrate
 from skypilot_tpu_torch.server.metrics import INFERENCE_COUNTER_STATS
-from skypilot_tpu_torch.utils import env
+from skypilot_tpu_torch.utils import env, tracing
 
 logger = logging.getLogger(__name__)
 
@@ -130,6 +143,18 @@ def make_handler(engine):
             if adapter and hasattr(engine, 'register_adapter'):
                 return {'adapter': str(adapter)}
             return {}
+
+        def _trace_kwargs(self):
+            """Incoming ``traceparent`` (forwarded by the serve LB) ->
+            the engine's ``trace_ctx``, so the queue-wait, prefill and
+            decode spans join the caller's distributed trace. Continuous
+            engine only: the batch engine has no per-request
+            lifecycle."""
+            if not tracing.armed() or not hasattr(engine, 'stream_ids'):
+                return {}
+            ctx = tracing.parse_traceparent(
+                self.headers.get(tracing.TRACEPARENT_HEADER))
+            return {'trace_ctx': ctx} if ctx is not None else {}
 
         def do_GET(self):
             if self.path == '/health':
@@ -244,7 +269,7 @@ def make_handler(engine):
                 return
             request_id = engine.prefill_and_export(
                 ids, temperature=float(req.get('temperature') or 0.0),
-                seed=int(req.get('seed') or 0))
+                seed=int(req.get('seed') or 0), **self._trace_kwargs())
             self._json(200, {'request_id': request_id,
                              'n_tokens': len(ids)})
 
@@ -287,6 +312,7 @@ def make_handler(engine):
                           temperature=float(req.get('temperature', 0.0)),
                           seed=int(req.get('seed', 0)))
             if hasattr(engine, 'generate_texts'):   # continuous engine
+                kwargs.update(self._trace_kwargs())
                 kwargs.update(self._adapter_kwargs(req))
                 tok = engine.tokenizer
                 migrated = self._migrated_request(
@@ -320,6 +346,7 @@ def make_handler(engine):
             max_tokens = int(req.get('max_tokens') or 64)
             kwargs = dict(max_new_tokens=max_tokens,
                           temperature=float(req.get('temperature') or 0.0))
+            kwargs.update(self._trace_kwargs())
             kwargs.update(self._adapter_kwargs(req))
             rid = f'cmpl-{os.urandom(8).hex()}'
             model = engine.cfg.name
@@ -564,6 +591,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                              'replicas export KV for the decode fleet to '
                              'pull, decode replicas import it and stream '
                              'tokens.')
+    parser.add_argument('--mesh', default=None,
+                        help="tensor-parallel serving, e.g. 'tensor=2': "
+                             'the server starts one rank per shard and '
+                             'rank 0 serves HTTP.')
     parser.add_argument('--policy-store', default=None,
                         help='RL-pipeline policy store to serve '
                              '(continuous engine; default '
@@ -577,7 +608,14 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.mesh:
+        return serve_mesh(args)
     engine = build_engine(args)
+    run_server(engine, args)
+    return 0
+
+
+def run_server(engine, args) -> None:
     server = serve(engine, args.host, args.port)
     try:
         server.serve_forever()
@@ -587,7 +625,37 @@ def main(argv=None) -> int:
         server.server_close()
         if hasattr(engine, 'shutdown'):
             engine.shutdown()
+
+
+def serve_mesh(args) -> int:
+    """``--mesh``: start one rank per shard of the mesh and serve from
+    the driver rank until the server is stopped."""
+    import math
+    from skypilot_tpu_torch.parallel import launch
+    from skypilot_tpu_torch.parallel.mesh import parse_mesh_spec
+    from skypilot_tpu_torch.utils.device import resolve_device
+    device = resolve_device(args.device)
+    degrees = parse_mesh_spec(args.mesh).values()
+    world = math.prod(d for d in degrees if d != -1)
+    if -1 in degrees:
+        if device.type != 'cuda':
+            raise ValueError(f'mesh {args.mesh!r}: a -1 axis counts '
+                             'GPUs; name the degree on the CPU')
+        import torch
+        world = max(torch.cuda.device_count() // world, 1) * world
+    launch.launch(_serve_rank, world, args, device=device.type)
     return 0
+
+
+def _serve_rank(rank: int, world: int, args) -> None:
+    """One rank of ``--mesh``: the driver serves HTTP, the others follow
+    its plans (both return when the server stops)."""
+    del rank, world
+    engine = build_engine(args)
+    if engine.is_driver:
+        run_server(engine, args)
+    else:
+        engine.follow()
 
 
 def build_engine(args):
@@ -616,6 +684,7 @@ def build_engine(args):
             num_blocks=args.kv_blocks,
             quantize=args.quantize,
             quantize_kv=args.quantize_kv,
+            mesh=args.mesh,
             spec_decode=args.spec_decode,
             draft_k=args.draft_k,
             lora_pages=args.lora_pages,
@@ -631,11 +700,11 @@ def build_engine(args):
         policy_store = args.policy_store or env.get_str('SKYT_RL_STORE')
         if policy_store:
             watch_policy_store(engine, policy_store)
-        if engine.role == 'prefill':
+        if engine.is_driver and engine.role == 'prefill':
             # Warm the prefill path; drop the throwaway export.
             engine.exporter.pop(engine.prefill_and_export(
                 engine.tokenizer.encode('warmup')))
-        else:
+        elif engine.is_driver:
             engine.generate_text('warmup', max_new_tokens=8)
     else:
         from skypilot_tpu_torch.inference.engine import InferenceEngine
@@ -645,8 +714,10 @@ def build_engine(args):
                                  device=args.device,
                                  max_batch=args.max_batch,
                                  quantize=args.quantize,
-                                 quantize_kv=args.quantize_kv)
-        engine.generate_text(['warmup'], max_new_tokens=8)
+                                 quantize_kv=args.quantize_kv,
+                                 mesh=args.mesh)
+        if engine.is_driver:
+            engine.generate_text(['warmup'], max_new_tokens=8)
     return engine
 
 

@@ -41,6 +41,19 @@ indexed by layer where the reference mounts it in the layer scan; with
 ``lora_pages=None`` the paged functions run exactly the base ops. A
 MoE layer runs ``llama._moe_block`` in every prefill, decode and verify
 step, as the reference's ``_mlp`` does.
+
+Tensor parallelism (inside ``parallel.sharding.mesh_context``, one
+process per shard, params sliced by ``inference/sharding.py``): the
+column-parallel projections (``wq``/``wk``/``wv``, ``wi_*``) give each
+rank its heads and its part of the MLP; attention runs on those heads
+(the same kernels at the shard's shapes, the cache holding only this
+rank's kv heads); the row-parallel ``wo`` and ``mlp.wo`` end with an
+all-reduce of fp32 partial sums (int32 for W8A8, whose activation scale
+is the max over every rank's part); the embedding is vocab-sharded
+(masked lookup plus all-reduce) and so is the LM head, whose columns
+are assembled on every rank by an all-reduce of zero-padded shards
+(exact), so the driver samples from the whole row. ``generate``
+broadcasts the driver's draw each step. MoE layers raise under a mesh.
 """
 from __future__ import annotations
 
@@ -60,6 +73,8 @@ from skypilot_tpu_torch.ops.common import NEG_INF
 from skypilot_tpu_torch.ops.decode_attention import decode_attention
 from skypilot_tpu_torch.ops.norms import rms_norm
 from skypilot_tpu_torch.ops.paged_attention import paged_attention
+from skypilot_tpu_torch.parallel.sharding import (ambient_tensor_parallelism,
+                                                  divides)
 from skypilot_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -108,7 +123,45 @@ def _embed(params: Params, tokens: torch.Tensor,
     # The reference's iota one-hot einsum (use_iota_embed) picks the
     # same rows exactly; a gather is its plain form.
     table = params['embed']['embedding']
-    return table[tokens.long()].to(cfg.compute_dtype)
+    tp = ambient_tensor_parallelism()
+    if tp.degree == 1:
+        return table[tokens.long()].to(cfg.compute_dtype)
+    # Vocab-sharded table: this rank holds rows [rank*Vl, (rank+1)*Vl).
+    # A token outside them reads zeros, so the sum over the ranks has one
+    # nonzero term and is the row itself, exactly.
+    local = tokens.long() - tp.rank * table.shape[0]
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(mine, local, 0)].float()
+    rows = torch.where(mine[..., None], rows, 0.0)
+    return tp.all_reduce(rows).to(cfg.compute_dtype)
+
+
+def _gather_vocab(local: torch.Tensor) -> torch.Tensor:
+    """Vocab-sharded fp32 logits [..., V/tp] -> [..., V] on every rank:
+    each rank writes its columns into zeros and the sum over the ranks
+    (one nonzero term a column, so exact) assembles the row; the
+    sampling rank reads it."""
+    tp = ambient_tensor_parallelism()
+    if tp.degree == 1:
+        return local
+    v = local.shape[-1]
+    full = local.new_zeros(*local.shape[:-1], v * tp.degree)
+    full[..., tp.rank * v:(tp.rank + 1) * v] = local
+    return tp.all_reduce(full)
+
+
+def _row_reduce():
+    """The all-reduce a row-parallel projection (``wo``, ``mlp.wo``)
+    ends with under tensor parallelism, else None."""
+    tp = ambient_tensor_parallelism()
+    return tp.all_reduce if tp.degree > 1 else None
+
+
+def _local_kv_heads(cfg: ModelConfig) -> int:
+    """This rank's kv heads: all of them, or ``n_kv_heads / tensor``
+    under tensor parallelism (the pool holds only this rank's heads)."""
+    return divides(cfg.n_kv_heads, ambient_tensor_parallelism().degree,
+                   'n_kv_heads')
 
 
 def _lm_head(params: Params, x: torch.Tensor,
@@ -121,15 +174,19 @@ def _lm_head(params: Params, x: torch.Tensor,
     if cfg.tie_embeddings:
         head = params['embed']['embedding'].to(dt).t()
     elif isinstance(params['lm_head']['w'], QTensor):
-        return weight_einsum('bsd,dv->bsv', x, params['lm_head']['w'],
-                             torch.float32)
+        return _gather_vocab(weight_einsum(
+            'bsd,dv->bsv', x, params['lm_head']['w'], torch.float32))
     else:
         head = params['lm_head']['w'].to(dt)
-    return fp32_logits(x.to(dt), head)
+    return _gather_vocab(fp32_logits(x.to(dt), head))
 
 
 def _mlp(x: torch.Tensor, lp: Params, cfg: ModelConfig) -> torch.Tensor:
     if cfg.is_moe:
+        if ambient_tensor_parallelism().degree > 1:
+            raise NotImplementedError(
+                'MoE layers under a tensor-parallel mesh are not ported '
+                'yet (ROADMAP.md, queue A item 15)')
         # The training block, dense or capacity per cfg.moe_dispatch (a
         # padded chunk's rows route and claim capacity like real ones,
         # as in the reference); the aux loss is a training term.
@@ -139,7 +196,7 @@ def _mlp(x: torch.Tensor, lp: Params, cfg: ModelConfig) -> torch.Tensor:
     gate = weight_einsum('bsd,df->bsf', x, mlp['wi_gate'], dt)
     up = weight_einsum('bsd,df->bsf', x, mlp['wi_up'], dt)
     return weight_einsum('bsf,fd->bsd', _activate(gate, cfg) * up,
-                         mlp['wo'], dt)
+                         mlp['wo'], dt, reduce=_row_reduce())
 
 
 def _qkv(x: torch.Tensor, lp: Params, cfg: ModelConfig, sin, cos,
@@ -171,7 +228,7 @@ def _lora_layer(lora_pages: Optional[Params], adapter_ids, layer: int
 def _attn_out_and_mlp(x: torch.Tensor, attn: torch.Tensor, lp: Params,
                       cfg: ModelConfig) -> torch.Tensor:
     x = x + weight_einsum('bshk,hkd->bsd', attn, lp['attn']['wo'],
-                          cfg.compute_dtype)
+                          cfg.compute_dtype, reduce=_row_reduce())
     h = rms_norm(x, lp['ln_mlp']['scale'], cfg.norm_eps)
     return x + _mlp(h, lp, cfg)
 
@@ -210,7 +267,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             f"kv_cache_dtype must be 'compute' or 'int8', got "
             f'{cfg.kv_cache_dtype!r}')
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+    shape = (cfg.n_layers, batch, max_len, _local_kv_heads(cfg),
              cfg.resolved_head_dim)
     lengths = torch.zeros((batch,), dtype=torch.int32, device=dev)
     if cfg.kv_cache_dtype == 'int8':
@@ -227,16 +284,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def _prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       cfg: ModelConfig, mesh: Optional[Any] = None
-                       ) -> torch.Tensor:
-    """Prefill attention on one card: ``multi_head_attention`` (the flash
-    kernels inside the reference's gate, i.e. prompt buckets that are
-    multiples of 128). The reference's tensor-parallel shard_map branch
-    is multi-device work."""
-    if mesh is not None:
-        raise NotImplementedError(
-            'tensor-parallel prefill is multi-device work, not ported yet '
-            '(ROADMAP.md, queue A item 15)')
+                       cfg: ModelConfig) -> torch.Tensor:
+    """Prefill attention: ``multi_head_attention`` (the flash kernels
+    inside the reference's gate, i.e. prompt buckets that are multiples
+    of 128). Under tensor parallelism q/k/v hold this rank's heads (the
+    column-parallel projections made them), so each rank runs the same
+    kernel on its head shard with no collective: the reference's
+    shard_map over the head axis."""
     return multi_head_attention(q, k, v, causal=True, impl=cfg.attention_impl)
 
 
@@ -377,8 +431,11 @@ def generate(params: Params, tokens: torch.Tensor, lengths: torch.Tensor,
                             s + max_new_tokens)
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     out = []
+    tp = ambient_tensor_parallelism()
     for _ in range(max_new_tokens):
         tok = sample(logits, gen, temperature)
+        if tp.degree > 1:
+            tok = tp.broadcast(tok)   # the driver's draw, on every rank
         tok = torch.where(done, torch.full_like(tok, max(eos, 0)), tok)
         done = done | (tok == eos)
         logits, cache = decode_step(params, tok, cache, cfg)
@@ -444,7 +501,7 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     if num_blocks < 2:
         raise ValueError('num_blocks must be >= 2 (block 0 is reserved)')
     dev = resolve_device(device)
-    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
+    shape = (cfg.n_layers, num_blocks, block_size, _local_kv_heads(cfg),
              cfg.resolved_head_dim)
     lengths = torch.zeros((slots,), dtype=torch.int32, device=dev)
     tables = torch.zeros((slots, blocks_per_slot), dtype=torch.int32,

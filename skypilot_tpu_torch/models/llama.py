@@ -189,6 +189,42 @@ def init_params(seed: int, cfg: ModelConfig, *,
     return params
 
 
+def param_logical_axes(cfg: ModelConfig) -> Params:
+    """Dict mirroring ``init_params``, leaves = tuples of logical axis
+    names (``parallel/sharding.py`` maps them to mesh axes)."""
+    layers: Params = {
+        'attn': {
+            'wq': ('layers', 'embed', 'heads', 'head_dim'),
+            'wk': ('layers', 'embed', 'kv_heads', 'head_dim'),
+            'wv': ('layers', 'embed', 'kv_heads', 'head_dim'),
+            'wo': ('layers', 'heads', 'head_dim', 'embed'),
+        },
+        'ln_attn': {'scale': ('layers', 'norm')},
+        'ln_mlp': {'scale': ('layers', 'norm')},
+    }
+    if cfg.is_moe:
+        layers['moe'] = {
+            'router': ('layers', 'embed', None),
+            'wi_gate': ('layers', 'expert', 'embed', 'mlp'),
+            'wi_up': ('layers', 'expert', 'embed', 'mlp'),
+            'wo': ('layers', 'expert', 'mlp', 'embed'),
+        }
+    else:
+        layers['mlp'] = {
+            'wi_gate': ('layers', 'embed', 'mlp'),
+            'wi_up': ('layers', 'embed', 'mlp'),
+            'wo': ('layers', 'mlp', 'embed'),
+        }
+    axes: Params = {
+        'embed': {'embedding': ('vocab', 'embed')},
+        'layers': layers,
+        'final_norm': {'scale': ('norm',)},
+    }
+    if not cfg.tie_embeddings:
+        axes['lm_head'] = {'w': ('embed', 'vocab')}
+    return axes
+
+
 # ---------------------------------------------------------------------------
 # Vocab projection with an fp32 result
 # ---------------------------------------------------------------------------

@@ -24,7 +24,8 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
@@ -87,16 +88,24 @@ def _quantize_stacked(w: torch.Tensor,
                    torch.stack([p.scale for p in parts]))
 
 
+def _absmax(x32: torch.Tensor, n_contract: int) -> torch.Tensor:
+    axes = tuple(range(x32.dim() - n_contract, x32.dim()))
+    return torch.amax(torch.abs(x32), dim=axes, keepdim=True)
+
+
+def _quantize_by(x32: torch.Tensor, absmax: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    scale = torch.clamp(absmax, min=_EPS) / 127.0
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
 def _quantize_activations(x: torch.Tensor, n_contract: int
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token dynamic int8: reduce over the trailing ``n_contract``
     axes."""
-    axes = tuple(range(x.dim() - n_contract, x.dim()))
     x32 = x.float()
-    absmax = torch.amax(torch.abs(x32), dim=axes, keepdim=True)
-    scale = torch.clamp(absmax, min=_EPS) / 127.0
-    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
-    return q, scale
+    return _quantize_by(x32, _absmax(x32, n_contract))
 
 
 def _pad_to(x: torch.Tensor, dim: int, multiple: int,
@@ -122,18 +131,11 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a.contiguous(), b.contiguous())[:m, :n]
 
 
-def weight_einsum(spec: str, x: torch.Tensor, w: Any,
-                  dt: torch.dtype) -> torch.Tensor:
-    """``einsum(spec, x, w)`` in ``dt``; the W8A8 product for a QTensor.
-
-    ``spec`` must contract x's TRAILING axes against w's LEADING axes in
-    the same order, with the output = x's batch axes then w's output
-    axes (true for every projection of the model: 'bsd,dhk->bshk',
-    'bshk,hkd->bsd', 'bsd,df->bsf', 'bsf,fd->bsd', 'bsd,dv->bsv'). A
-    plain tensor takes the fp einsum in ``dt``; a weight already stored
-    in ``dt`` is used as is."""
-    if not isinstance(w, QTensor):
-        return torch.einsum(spec, x.to(dt), w.to(dt))
+def _split_spec(spec: str) -> Tuple[int, str]:
+    """(number of contracted axes, w's output axes) of a projection
+    spec, which must contract x's TRAILING axes against w's LEADING
+    axes in the same order, with the output = x's batch axes then w's
+    output axes."""
     lhs, out_spec = spec.split('->')
     x_spec, w_spec = lhs.split(',')
     contracted = [a for a in x_spec if a in w_spec]
@@ -143,12 +145,54 @@ def weight_einsum(spec: str, x: torch.Tensor, w: Any,
             w_spec[:n_c] != ''.join(contracted) or
             out_spec != x_spec[:len(x_spec) - n_c] + w_out):
         raise ValueError(f'weight_einsum cannot scale {spec!r}')
-    x_q, x_scale = _quantize_activations(x, n_c)
+    return n_c, w_out
+
+
+def weight_einsum(spec: str, x: torch.Tensor, w: Any,
+                  dt: torch.dtype,
+                  reduce: Optional[Callable[[torch.Tensor, str],
+                                            torch.Tensor]] = None
+                  ) -> torch.Tensor:
+    """``einsum(spec, x, w)`` in ``dt``; the W8A8 product for a QTensor.
+
+    ``spec`` is a projection ('bsd,dhk->bshk', 'bshk,hkd->bsd',
+    'bsd,df->bsf', 'bsf,fd->bsd', 'bsd,dv->bsv'; see ``_split_spec``).
+    A plain tensor takes the fp einsum in ``dt``; a weight already
+    stored in ``dt`` is used as is.
+
+    ``reduce`` (tensor-parallel serving): ``x`` and ``w`` hold this
+    rank's part of the contracted axes (a row-parallel projection) and
+    ``reduce(t, op)`` sums (``'sum'``) or maxes (``'max'``) ``t`` over
+    the ranks in place. The partial products are summed in fp32 (int32
+    for W8A8, exact) and rounded to ``dt`` once, and a W8A8 activation
+    scale is the max over every rank's part: the numbers the reference
+    computes on the whole contraction."""
+    if not isinstance(w, QTensor):
+        if reduce is None:
+            return torch.einsum(spec, x.to(dt), w.to(dt))
+        from skypilot_tpu_torch.models.llama import _mm_fp32_out
+        n_c, _ = _split_spec(spec)
+        k = w.shape[:n_c].numel()
+        out = _mm_fp32_out(x.to(dt).reshape(-1, k),
+                           w.to(dt).reshape(k, -1))
+        out = reduce(out, 'sum')
+        return out.reshape(*x.shape[:x.dim() - n_c],
+                           *w.shape[n_c:]).to(dt)
+    n_c, w_out = _split_spec(spec)
+    if reduce is None:
+        x_q, x_scale = _quantize_activations(x, n_c)
+    else:
+        # This rank's part of the contraction: the scale is the absmax
+        # over every rank's part.
+        x32 = x.float()
+        x_q, x_scale = _quantize_by(x32, reduce(_absmax(x32, n_c), 'max'))
     batch = x.shape[:x.dim() - n_c]
     k = 1
     for size in x.shape[x.dim() - n_c:]:
         k *= size
     out = int8_matmul(x_q.reshape(-1, k), w.q.reshape(k, -1))
+    if reduce is not None:
+        out = reduce(out, 'sum')
     out = out.reshape(*batch, *w.q.shape[n_c:]).float()
     x_s = x_scale.reshape(*batch, *([1] * len(w_out)))
     w_s = w.scale.reshape(w.scale.shape[n_c:])

@@ -6,10 +6,13 @@ causal and segment masks with the finite ``NEG_INF``). ``impl='auto'``
 and ``'pallas'`` route to ``ops/flash_attention.py``: the Hopper kernels
 for CUDA tensors, their plain PyTorch versions for CPU tensors.
 
-The reference's ``_flash_under_mesh`` shard_maps the kernel over an
-ambient device mesh; the port runs on one card and has no mesh, so it
-has no counterpart here. The sequence-parallel paths (``'ring'``,
-``'ulysses'``) are multi-device work (ROADMAP.md, queue A item 15).
+The reference's ``_flash_under_mesh`` shard_maps the kernel over the
+head axis of an ambient device mesh. Here each tensor-parallel rank is
+its own process and its q/k/v already hold only its heads
+(``models/decode.py``), so the same call runs the kernel on the shard:
+the per-head case needs no code of its own. The sequence-parallel paths
+(``'ring'``, ``'ulysses'``) belong to the training half of the
+multi-device work (ROADMAP.md, queue A item 15 (b)) and raise.
 """
 from __future__ import annotations
 
@@ -70,7 +73,7 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     impl: 'auto' | 'pallas' (the flash kernels; their plain versions for
     CPU tensors) | 'xla' (``xla_attention``). 'ring' and 'ulysses'
-    raise until the multi-device slice."""
+    raise: they are the training half of the multi-device work."""
     if impl in ('auto', 'pallas'):
         from skypilot_tpu_torch.ops.flash_attention import flash_attention
         return flash_attention(q, k, v, causal=causal,
@@ -79,6 +82,7 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return xla_attention(q, k, v, causal=causal, segment_ids=segment_ids)
     if impl in ('ring', 'ulysses'):
         raise NotImplementedError(
-            f'{impl} attention is sequence-parallel multi-device work, '
-            'not ported yet (ROADMAP.md, queue A item 15)')
+            f'{impl} attention is sequence-parallel training work, not '
+            'ported yet (ROADMAP.md, queue A item 15 (b), the training '
+            'half)')
     raise ValueError(f'Unknown attention impl {impl!r}')

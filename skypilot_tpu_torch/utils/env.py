@@ -7,7 +7,8 @@ reads (speculative decoding, disaggregated serving and multi-LoRA
 serving), the two of the weight fan-out's that its replica side
 reads (``data/fanout.py``; the controller's are not ported) and the RL
 pipeline's (``jobs/rl_pipeline.py``, ``inference/server.py
---policy-store``), with the same parsing: an unset or unparsable value
+--policy-store``) and the tracing knobs (``utils/tracing.py``,
+``utils/trace_store.py``), with the same parsing: an unset or unparsable value
 reads as the declared default, an empty string reads as unset, a
 boolean is false for ``''``, ``0``, ``false``, ``no`` and ``off``, and
 a number below the caller's ``minimum`` reads as the default. A
@@ -45,6 +46,12 @@ DECLARATIONS: Dict[str, Tuple[str, object]] = {
     'SKYT_RL_FLEET': ('int', 1),
     'SKYT_RL_STORE': ('path', None),
     'SKYT_RL_EVAL_POLL_S': ('float', 10.0),
+    'SKYT_TRACE_SAMPLE': ('float', None),
+    'SKYT_TRACE_SLOW_MS': ('float', 10000.0),
+    'SKYT_TRACE_BUFFER': ('int', 512),
+    'SKYT_TRACE_DIR': ('path', None),
+    'SKYT_SERVER_DIR': ('path', None),
+    'SKYT_STATE_DIR': ('path', '~/.skyt'),
 }
 
 _FALSE = frozenset(('', '0', 'false', 'no', 'off'))

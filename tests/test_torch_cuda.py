@@ -1162,3 +1162,30 @@ def test_grpo_gradients_on_card_match_cpu(card):
     print(f'loss {loss} vs {ref_loss}, mean log-prob {mean_lp} vs '
           f'{ref_lp}, gradient errors {errs}')
     assert all(np.isfinite(errs)) and max(errs) <= 1e-4
+
+
+def test_tp_engines_on_card_match_one_rank(card):
+    """Two ranks on the card (gloo) under ``mesh='tensor=2'``: gloo
+    takes the CUDA collectives the step uses, and both engines' greedy
+    tokens at TINY (head_dim 128, fp32 compute) equal one rank's, each
+    rank launching the paged and decode kernels on its shard."""
+    import importlib
+    import os
+    import sys
+    from skypilot_tpu_torch import _build
+    from skypilot_tpu_torch.parallel.launch import launch
+    # The ranks import the probe by name: its directory goes on the
+    # path they inherit.
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'tools'))
+    probe = importlib.import_module('tp_probe')
+    _build.build_all()
+    ranks = launch(probe.rank_main, 2, device='cuda')
+    single = probe._engines(torch, None)
+    for r in ranks:
+        assert all(v is True for v in r['collectives'].values()), r
+        assert r['backend'] == 'gloo'
+        assert r['tp']['launches']['paged_attention'] > 0
+        assert r['tp']['launches']['decode_attention'] > 0
+    for name in ('batch', 'continuous'):
+        assert ranks[0]['tp'][name] == single[name]

@@ -15,6 +15,7 @@ import sys
 import pytest
 import torch
 from torch_threads import few_torch_threads  # noqa: F401 (autouse)
+from torch_tp_ranks import one_thread_ranks  # noqa: F401 (autouse)
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.join(REPO_ROOT, 'skypilot_tpu_torch')
@@ -68,7 +69,10 @@ def test_every_module_imports_with_jax_blocked():
                 'bench', 'models.hf_interop', 'inference.bpe',
                 'train.finetune', 'inference.kv_migrate',
                 'utils.resilience', 'data.fanout', 'train.grpo',
-                'jobs.rl_pipeline'):
+                'jobs.rl_pipeline', 'parallel.mesh', 'parallel.sharding',
+                'parallel.launch', 'inference.sharding',
+                'ops.collectives_bench', 'utils.tracing',
+                'utils.trace_store'):
         assert 'skypilot_tpu_torch.' + mod in mods
     code = (
         'import sys\n'
@@ -144,14 +148,18 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
 
 
 def test_unported_engine_options_raise(tmp_path):
-    """``mesh=`` raises with its queue item; ``role=`` and the
-    checkpoint options are ported (an unknown role and a missing HF
-    directory are errors of the input, not pointers to ROADMAP.md)."""
+    """Under a mesh, LoRA pages, a disaggregated role and MoE configs
+    raise with their queue item (weight refresh is pinned on a running
+    mesh in ``test_torch_tp_serving.py``); ``role=`` and the checkpoint
+    options are ported (an unknown role and a missing HF directory are
+    errors of the input, not pointers to ROADMAP.md)."""
     from skypilot_tpu_torch.inference.continuous import (
         ContinuousBatchingEngine)
     from skypilot_tpu_torch.inference.engine import InferenceEngine
-    with pytest.raises(NotImplementedError, match='ROADMAP.*item 15'):
-        ContinuousBatchingEngine('tiny', device='cpu', mesh='tensor=2')
+    for option in (dict(lora_pages=2), dict(role='prefill')):
+        with pytest.raises(NotImplementedError, match='ROADMAP.*item 15'):
+            ContinuousBatchingEngine('tiny', device='cpu', mesh='tensor=2',
+                                     **option)
     engine = ContinuousBatchingEngine('tiny', device='cpu', max_slots=1,
                                       max_len=32, role='prefill')
     try:
@@ -160,12 +168,39 @@ def test_unported_engine_options_raise(tmp_path):
         engine.shutdown()
     with pytest.raises(ValueError, match='SKYT_DISAGG_ROLE'):
         ContinuousBatchingEngine('tiny', device='cpu', role='both')
-    with pytest.raises(NotImplementedError, match='ROADMAP.*item 15'):
-        InferenceEngine('tiny', device='cpu', mesh='tensor=2')
+    for engine in (InferenceEngine, ContinuousBatchingEngine):
+        with pytest.raises(NotImplementedError, match='ROADMAP.*item 15'):
+            engine('tiny-moe', device='cpu', mesh='tensor=2')
     for engine in (InferenceEngine, ContinuousBatchingEngine):
         with pytest.raises(FileNotFoundError):
             engine('tiny', device='cpu',
                    hf_checkpoint=str(tmp_path / 'nonexistent'))
+
+
+def test_spawned_ranks_serve_with_jax_blocked():
+    """The ranks of a tensor-parallel launch import no JAX: with ``jax``
+    and the JAX package blocked in each spawned rank, the continuous
+    engine still serves under ``mesh='tensor=2'``, and the weights come
+    from the port's own seeded init."""
+    import numpy as np
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.parallel.launch import launch
+    import torch_tp_ranks as ranks
+    params = llama.init_params(0, ranks.tiny_config(), device='cpu')
+
+    def to_numpy(tree):
+        if isinstance(tree, dict):
+            return {k: to_numpy(v) for k, v in tree.items()}
+        return tree.numpy()
+
+    out = launch(ranks.serve_cases, 2, to_numpy(params), ['continuous'],
+                 True, device='cpu')
+    for rank in (0, 1):
+        assert out[rank]['jax_loaded'] is False
+    tokens = out[0]['cases']['continuous']['tokens']
+    assert [len(t) for t in tokens] == [ranks.N_NEW] * len(ranks.PROMPTS)
+    assert all(0 <= t < 512 for row in tokens for t in row)
+    assert np.asarray(tokens).dtype.kind == 'i'
 
 
 def test_quantize_works_on_both_engines():
