@@ -55,7 +55,10 @@ Phases, in order; any failure exits non-zero:
    (bf16, causal and not); once at D=256; once at the batch engine's
    prefill shape (llama3-8b heads H=32, KVH=8, B=4, S=256, bf16,
    causal), its lone request's (B=1, S=256), the LoRA finetune's
-   (B=4, S=512) and the GRPO learner's (bench-1b7 heads, B=8, S=128);
+   (B=4, S=512), the GRPO learner's (bench-1b7 heads, B=8, S=128) and
+   one rank's shard of bench-1b7's training attention on phase 32's
+   meshes (B=4 H=20 KVH=4 at fsdp=2, B=8 H=10 KVH=2 at tensor=2, which
+   does not split the batch; with and without segment ids);
    at the ring's edge shapes S=64 and S=192 with GQA groups 1
    and 8, bf16 and fp32; each output's error normalized per 64-row tile
    of one head (``tile_err``), and the dq kernel's delta against the
@@ -264,11 +267,34 @@ Phases, in order; any failure exits non-zero:
    and the collectives' share of a timed run, labelled "two ranks on
    one card over gloo: not a TP speed".
 
+32. Mesh training (after phase 31): bench-1b7 at full width and
+   ``MESH_LAYERS`` (2) of its 22 layers (registered as ``bench-1b7-l2``)
+   through ``train.pretrain.main`` on two ranks sharing the card over
+   ``gloo`` (``parallel/launch.py``), phase 7's AdamW, fp32 params and
+   full remat, B=8, S=2048, 3 steps each: ``--mesh fsdp=2`` (a
+   checkpoint at step 2), ``--mesh tensor=2`` and ``--mesh fsdp=2
+   --packed``. First kernels 5-10 timed at one rank's shapes (B=4
+   H=20 KVH=4 at fsdp=2, B=8 H=10 KVH=2 at tensor=2; phase 5 holds them
+   against the plain versions with planted faults). On each rank: rc 0,
+   only rank 0 prints, finite losses, flash launches 2L / L / L a step
+   (only the ``_seg`` kernels with packed documents), no call outside
+   the kernels, every attention call on the rank's shard (4 rows of 20
+   heads at fsdp=2, 8 rows of 10 heads at tensor=2). Each mesh's
+   first-step loss and gradient norm and second-step loss against one
+   rank's on the same params and batches, and the fsdp=2 run's step 2
+   resumed on one rank against that run's step 3, within ``MESH_TOL``
+   (1e-4 relative on each); a planted fault, a
+   tensor=2 run with the attention output's all-reduce skipped in every
+   layer, must fail that gate. Printed beside the card's name and
+   power limit: each rank's peak memory, the step time and the
+   collectives' share of it, labelled "two ranks on one card over gloo:
+   not a training speed".
+
 Then one JSON line listing every kernel (the paged kernels' launches are
 the sums of phases 9, 14, 15, 22, 23, 24, 26, 27, 28, 29, 30 and 31, and
 of 10, 14, 28 and 31's int8 runs; the decode kernels' of phases 12, 20,
-22, 26 and 31; the flash kernels' of phases 7, 16, 17, 18, 25, 27, 29
-and 30, and phase 31's batch prefills' forwards), the
+22, 26 and 31; the flash kernels' of phases 7, 16, 17, 18, 25, 27, 29,
+30 and 32, and phase 31's batch prefills' forwards), the
 ``nvidia-smi`` name and power-limit line, and last ``{"ok": true,
 "device": {...}}``.
 """
@@ -532,6 +558,10 @@ MOE_HEADS = {'H=16 KVH=16 D=128 (deepseek-moe-16b)': dict(kvh=16, g=1,
 # llama3-8b's heads on one rank of tensor=2 (phase 31): H=16, KVH=4, G=4.
 TP_HEADS = dict(kvh=4, g=4, d=128)
 TP_LABEL = 'H=16 KVH=4 D=128 (llama3-8b tensor=2 shard)'
+# One rank's shard of bench-1b7's training attention at phase 32's
+# global B=8: fsdp=2 splits the batch, tensor=2 the heads.
+MESH_SHARDS = (('fsdp=2', dict(b=4, h=20, kvh=4)),
+               ('tensor=2', dict(b=8, h=10, kvh=2)))
 # New tokens a request in phase 31: each decode step of two ranks sharing
 # the card makes ~66 gloo collectives of ~2 ms each
 # (ops/collectives_bench.py on the card), so its decode runs are short.
@@ -1309,6 +1339,17 @@ def flash_cases():
     cases.append(('bf16 causal B=4 S=256 H=16 KVH=4 (tensor=2 batch-engine '
                   'prefill)', dict(b=4, s=256, h=16, kvh=4, d=128), 'bf16',
                   True, False))
+    # One rank's shard of bench-1b7's training attention (phase 32): its
+    # 4 of the 8 rows at fsdp=2; all 8 rows (tensor does not split the
+    # batch) and its 10 of 20 query and 2 of 4 kv heads at tensor=2;
+    # plain and packed documents.
+    for label, shard in MESH_SHARDS:
+        for segments in (False, True):
+            cases.append((f'bf16 causal{" seg" if segments else ""} '
+                          f'B={shard["b"]} S=2048 H={shard["h"]} '
+                          f'KVH={shard["kvh"]} ({label} train)',
+                          dict(s=2048, d=128, **shard), 'bf16', True,
+                          segments))
     # deepseek-moe-16b's heads (G=1): its batch-engine prefill (phase 22)
     # and its train steps (phase 25).
     cases.append(('bf16 causal B=4 S=256 H=16 KVH=16 (MoE batch prefill)',
@@ -5000,6 +5041,399 @@ def phase_tp(torch, pa, da, fa, bw, flops_peak, smi):
             'shard_times': shard, 'server': server}
 
 
+# ---------------------------------------------------------------------------
+# Phase 32: mesh training, bench-1b7 at full width on two ranks of the card
+# ---------------------------------------------------------------------------
+
+MESH_BASE = 'bench-1b7'
+# Depth cut from 22 to keep the phase near 90 s: every fsdp collective
+# moves a layer's weights or gradients through host memory (gloo), ~0.5 s
+# a layer a step at this width (tools/train_mesh_probe.py on the card).
+MESH_LAYERS = 2
+MESH_MODEL = f'bench-1b7-l{MESH_LAYERS}'
+MESH_STEPS = 3
+MESH_ARGV = ['--model', MESH_MODEL, '--batch', '8', '--seq', '2048',
+             '--warmup-steps', '1', '--log-every', '1']
+# A mesh run against one rank's on the same params and batches, relative:
+# the first step's loss and gradient norm, the second step's loss (after
+# one AdamW update from the sharded gradients), and a step resumed on one
+# rank from the fsdp=2 run's checkpoint against that run's own. Only bf16
+# rounding differs: at tensor=2 the row-parallel products sum two
+# fp32-accumulated partials each rounded to bf16 where one rank rounds
+# once, and the backward's all-reduces over tensor sum bf16 partial
+# input gradients; at fsdp=2 only the GEMMs' blocking over fewer rows
+# differs. These are random errors of about 2^-9 an element; the loss
+# and the norm each average millions of them. The limit sits above every
+# reading on the H100 (at most 4.1e-6 on a loss, 1.6e-5 on the norm;
+# PERF.md) and below what a dropped reduction moves: the planted fault
+# (``plant_unreduced_attention``) must fail it.
+MESH_TOL = {'loss': 1e-4, 'grad_norm': 1e-4}
+MESH_LABEL = 'two ranks on one card over gloo: not a training speed'
+
+
+def register_mesh_model():
+    """``bench-1b7`` at full width and ``MESH_LAYERS`` layers, registered
+    in this process (a spawned rank registers it again)."""
+    import dataclasses
+    from skypilot_tpu_torch.models import config
+    if MESH_MODEL not in config.MODEL_REGISTRY:
+        config.MODEL_REGISTRY.register(MESH_MODEL)(dataclasses.replace(
+            config.get_model_config(MESH_BASE), name=MESH_MODEL,
+            n_layers=MESH_LAYERS))
+    return config.get_model_config(MESH_MODEL)
+
+
+class StepRecorder:
+    """While entered, every train step ``make_train_step`` builds records
+    its unrounded loss and gradient norm, its wall time and the
+    collectives' seconds inside it (the card synchronized before and
+    after; with ``time_collectives`` on, around each collective too), and
+    every flash call its (batch rows, query heads)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.steps, self.shapes = [], set()
+
+    def __enter__(self):
+        from skypilot_tpu_torch.ops import flash_attention as fa
+        from skypilot_tpu_torch.parallel import sharding as psharding
+        from skypilot_tpu_torch.train import step as tstep
+        torch, real_step = self.torch, tstep.make_train_step
+        real_flash = fa.flash_attention
+        self._restore = lambda: (setattr(tstep, 'make_train_step',
+                                         real_step),
+                                 setattr(fa, 'flash_attention', real_flash))
+
+        def flash(q, *args, **kwargs):
+            self.shapes.add((int(q.shape[0]), int(q.shape[2])))
+            return real_flash(q, *args, **kwargs)
+
+        def make_train_step(cfg, hp, mesh=None):
+            step = real_step(cfg, hp, mesh)
+
+            def run(state, batch):
+                torch.cuda.synchronize()
+                c0 = psharding.collective_stats()['seconds']
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                loss = float(metrics['loss'])
+                torch.cuda.synchronize()
+                self.steps.append(dict(
+                    loss=loss, grad_norm=float(metrics['grad_norm']),
+                    wall_s=time.perf_counter() - t0,
+                    collective_s=psharding.collective_stats()['seconds']
+                    - c0))
+                return state, metrics
+            return run
+
+        tstep.make_train_step, fa.flash_attention = make_train_step, flash
+        return self
+
+    def __exit__(self, *exc):
+        self._restore()
+
+
+def plant_unreduced_attention():
+    """Planted fault for phase 32's gate: the attention output's
+    all-reduce over ``tensor`` skipped in every layer, so each rank adds
+    only its own heads' part to the residual stream. Returns the undo."""
+    from skypilot_tpu_torch.models import llama
+    real_block, real_reduce = llama._attention_block, llama.reduce_from_tensor
+
+    def block(*args, **kwargs):
+        llama.reduce_from_tensor = lambda x, par: x
+        try:
+            return real_block(*args, **kwargs)
+        finally:
+            llama.reduce_from_tensor = real_reduce
+
+    llama._attention_block = block
+    return lambda: setattr(llama, '_attention_block', real_block)
+
+
+def mesh_train_rank(rank, world, runs):
+    """One rank of phase 32: each run's ``pretrain.main(argv)`` (its
+    output captured; with ``fault``, under ``plant_unreduced_attention``)
+    with the flash counts zeroed just before and read just after, its
+    steps and attention shapes (``StepRecorder``, every collective
+    timed), its wall time and peak memory."""
+    import torch
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.parallel import sharding as psharding
+    from skypilot_tpu_torch.train import pretrain
+    del world
+    register_mesh_model()
+    psharding.time_collectives(True)
+    out = {'rank': rank, 'runs': {}}
+    try:
+        for label, argv, fault in runs:
+            psharding.collective_stats(reset=True)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            undo = plant_unreduced_attention() if fault else None
+            try:
+                with StepRecorder(torch) as rec:
+                    rc, lines = run_json_main(pretrain.main, argv)
+            finally:
+                if undo is not None:
+                    undo()
+            torch.cuda.synchronize()
+            stats = psharding.collective_stats()
+            out['runs'][label] = {
+                'rc': rc, 'lines': lines, 'launches': dict(fa.LAUNCHES),
+                'fallbacks': fa.FALLBACKS['cuda'],
+                'shapes': sorted(rec.shapes), 'steps': rec.steps,
+                'wall_s': time.perf_counter() - t0,
+                'collectives': stats['by_kind'],
+                'collective_s': stats['seconds_by_kind'],
+                'peak_gb': torch.cuda.max_memory_allocated() / 1e9}
+    finally:
+        psharding.time_collectives(False)
+    return out
+
+
+def mesh_shard_times(torch, fa, bw, flops_peak):
+    """Kernels 5-10 at one rank's shapes of bench-1b7's training
+    attention (S=2048, bf16, causal; ``MESH_SHARDS``: B=4 H=20 KVH=4 at
+    fsdp=2, B=8 H=10 KVH=2 at tensor=2), plain and packed documents:
+    kernel, plain and bound. Phase 5 holds them against the plain
+    versions."""
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8,
+                        device='cuda')
+    rows = {}
+    for label, shard in MESH_SHARDS:
+        b, h, kvh = shard['b'], shard['h'], shard['kvh']
+        shp = dict(s=2048, d=128, **shard)
+        q, k, v, do, _ = flash_case(torch, dtype='bf16', segments=False,
+                                    seed=800, **shp)
+        for seg in (None, packed_segments(torch, b, 2048)):
+            kw = dict(segment_ids=seg)
+            o, lse = fa.flash_forward_kernel(q, k, v, **kw)
+            _, delta = fa.flash_dq_kernel(q, k, v, o, lse, do, **kw)
+            pairs = None
+            if seg is not None:
+                lengths = torch.unique_consecutive(
+                    seg + 10 ** 6 * torch.arange(b, device='cuda')[:, None],
+                    return_counts=True)[1].double()
+                pairs = (lengths * (lengths + 1) / 2).sum().item()
+            for name, which, kernel, plain in (
+                    ('flash_fwd', 'fwd',
+                     lambda: fa.flash_forward_kernel(q, k, v, **kw),
+                     lambda: fa.flash_forward_reference(q, k, v, **kw)),
+                    ('flash_dq', 'dq',
+                     lambda: fa.flash_dq_kernel(q, k, v, o, lse, do, **kw),
+                     lambda: fa.flash_dq_reference(q, k, v, o, lse, do,
+                                                   **kw)),
+                    ('flash_dkv', 'dkv',
+                     lambda: fa.flash_dkv_kernel(q, k, v, lse, do, delta,
+                                                 **kw),
+                     lambda: fa.flash_dkv_reference(q, k, v, o, lse, do,
+                                                    **kw))):
+                key = f'{name}{"" if seg is None else "_seg"} {label}'
+                row = dict(ms=time_ms(torch, kernel, flush),
+                           plain_ms=time_ms(torch, plain, flush))
+                row['bound_ms'], row['bound_by'] = flash_bound(
+                    itemsize=2, which=which, bw=bw, flops_peak=flops_peak,
+                    pairs=pairs, seg=seg is not None, **shp)
+                rows[key] = row
+                log(f'[mesh] {key} shard B={b} S=2048 H={h} KVH={kvh}: '
+                    f'kernel {row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f}'
+                    f' ms, bound {row["bound_ms"]:.4f} ms '
+                    f'({row["bound_by"]}), '
+                    f'{100 * row["bound_ms"] / row["ms"]:.1f}% of bound')
+            del o, lse, delta
+        del q, k, v, do
+    del flush
+    return rows
+
+
+def rel_gap(value, reference):
+    return abs(value - reference) / abs(reference)
+
+
+def mesh_gaps(steps, reference):
+    """A run's first-step loss and gradient norm and second-step loss
+    against one rank's (``StepRecorder`` steps), relative."""
+    return {'loss 1': rel_gap(steps[0]['loss'], reference[0]['loss']),
+            'grad_norm 1': rel_gap(steps[0]['grad_norm'],
+                                   reference[0]['grad_norm']),
+            'loss 2': rel_gap(steps[1]['loss'], reference[1]['loss'])}
+
+
+def within(gaps):
+    """Every gap within its ``MESH_TOL`` limit."""
+    return all(v <= MESH_TOL[k.split()[0]] for k, v in gaps.items())
+
+
+def check_mesh_runs(ranks, cfg):
+    """Every run on both ranks: rc 0, only rank 0 prints, finite losses,
+    flash launches 2L / L / L a step (the _seg kernels alone with packed
+    documents), no call outside the kernels, and every attention call on
+    the rank's shard: 4 rows of 20 heads at fsdp=2, 8 rows of 10 heads at
+    tensor=2."""
+    n = cfg.n_layers * MESH_STEPS
+    for r in ranks:
+        for label, run in r['runs'].items():
+            seg = '_seg' if 'packed' in label else ''
+            expected = {k: 0 for k in ('flash_fwd', 'flash_dq', 'flash_dkv',
+                                       'flash_fwd_seg', 'flash_dq_seg',
+                                       'flash_dkv_seg')}
+            expected.update({'flash_fwd' + seg: 2 * n, 'flash_dq' + seg: n,
+                             'flash_dkv' + seg: n})
+            shard = dict(MESH_SHARDS)[label.split()[0]]
+            shape = [(shard['b'], shard['h'])]
+            losses = [x['loss'] for x in run['lines'] if 'loss' in x]
+            printed_ok = (len(losses) == MESH_STEPS if r['rank'] == 0
+                          else run['lines'] == [])
+            if run['rc'] != 0 or not printed_ok or \
+                    not all(math.isfinite(x) for x in losses) or \
+                    run['launches'] != expected or run['fallbacks'] or \
+                    run['shapes'] != shape:
+                raise AssertionError(
+                    f'[mesh] rank {r["rank"]} {label}: rc {run["rc"]}, '
+                    f'lines {run["lines"]}, launches {run["launches"]} '
+                    f'(expected {expected}), fallbacks {run["fallbacks"]}, '
+                    f'(rows, heads) of the calls {run["shapes"]} (expected '
+                    f'{shape})')
+        log(f'[mesh] rank {r["rank"]}: every run launched 2x{cfg.n_layers} '
+            f'fwd, {cfg.n_layers} dq, {cfg.n_layers} dkv a step x '
+            f'{MESH_STEPS} steps (the _seg kernels with packed documents); '
+            'shapes ' + ', '.join(f'{k} {v["shapes"]}'
+                                  for k, v in r['runs'].items()))
+
+
+def phase_mesh_train(torch, fa, bw, flops_peak, smi):
+    """Phase 32: bench-1b7 at full width (``MESH_LAYERS`` layers) trained
+    through ``train.pretrain.main`` by two ranks sharing the card over
+    gloo, each rank running its shard of the flash kernels: ``--mesh
+    fsdp=2`` (checkpointing at step 2), ``--mesh tensor=2`` and ``--mesh
+    fsdp=2 --packed`` (phase 7's AdamW, fp32 params and full remat;
+    B=8, S=2048, 3 steps each). Each mesh's first-step loss and gradient
+    norm and second-step loss against one rank's on the same params and
+    batches, and a resume of the fsdp=2 run's step 2 on one rank against
+    that run's step 3, within ``MESH_TOL``; a tensor=2 run with the
+    attention's all-reduce skipped (``plant_unreduced_attention``) must
+    fail that gate. Returns the launch totals for the kernels line and
+    the numbers PERF.md keeps."""
+    import shutil
+    from skypilot_tpu_torch.data import packer
+    from skypilot_tpu_torch.parallel.launch import launch
+    from skypilot_tpu_torch.train import pretrain
+    from skypilot_tpu_torch.models.llama import param_shapes
+    t0 = time.perf_counter()
+    cfg = register_mesh_model()
+    log(f'[mesh] depth cut: bench-1b7 at full width (d_model '
+        f'{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} kv heads, '
+        f'd_ff {cfg.d_ff}, vocab {cfg.vocab_size}) and {cfg.n_layers} of '
+        f'its 22 layers')
+    shard = mesh_shard_times(torch, fa, bw, flops_peak)
+    free_card(torch)
+    packer.load_native()
+    # Up to three fp32 AdamW checkpoints of the cut model (params, mu,
+    # nu) at once.
+    nbytes = 3 * 4 * sum(x.numel() for x in _leaves(param_shapes(cfg)))
+    work = scratch_dir(3 * nbytes, 'mesh')
+    try:
+        data = os.path.join(work, 'tokens.npy')
+        packed_tokens(data, 8 * 2049 * (MESH_STEPS + 2), 1, cfg.vocab_size)
+        ckpt = os.path.join(work, 'ckpt')
+        packed = ['--packed', '--data', data, '--eos-id', '1']
+        steps = ['--steps', str(MESH_STEPS)]
+        runs = [('fsdp=2', MESH_ARGV + steps + [
+                    '--mesh', 'fsdp=2', '--checkpoint-dir', ckpt,
+                    '--checkpoint-every', '2'], False),
+                ('tensor=2', MESH_ARGV + steps + ['--mesh', 'tensor=2'],
+                 False),
+                ('fsdp=2 packed', MESH_ARGV + steps + ['--mesh', 'fsdp=2']
+                 + packed, False),
+                ('tensor=2 fault', MESH_ARGV + [
+                    '--steps', '2', '--mesh', 'tensor=2'], True)]
+        t1 = time.perf_counter()
+        ranks = launch(mesh_train_rank, 2, runs, device='cuda')
+        t2 = time.perf_counter()
+        # The planted fault's run is no part of the main path's counts.
+        faulted = [r['runs'].pop('tensor=2 fault') for r in ranks][0]
+        check_mesh_runs(ranks, cfg)
+        # One rank on the same params and batches: two steps; then the
+        # fsdp=2 run's step 2 resumed on one rank.
+        one = {}
+        with StepRecorder(torch) as rec:
+            for label, extra in (('synthetic', []), ('packed', packed)):
+                rc, _ = run_json_main(pretrain.main, MESH_ARGV + [
+                    '--steps', '2'] + extra)
+                if rc != 0 or len(rec.steps) % 2:
+                    raise AssertionError(f'[mesh] one rank {label}: rc {rc}')
+                one[label] = rec.steps[-2:]
+                free_card(torch)
+            shutil.rmtree(os.path.join(ckpt, str(MESH_STEPS)))
+            rc, resumed = run_json_main(pretrain.main, MESH_ARGV + steps + [
+                '--checkpoint-dir', ckpt, '--checkpoint-every', '100'])
+            one['resume'] = rec.steps[-1]['loss']
+            resumed_steps = len(rec.steps) - 4
+        free_card(torch)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    driver = ranks[0]['runs']
+    if rc != 0 or {'resumed_from_step': 2} not in resumed or \
+            resumed_steps != 1:
+        raise AssertionError(f'[mesh] one-rank resume: rc {rc}, {resumed}')
+    if faulted['rc'] != 0 or len(faulted['steps']) != 2:
+        raise AssertionError(f'[mesh] planted fault run: rc '
+                             f'{faulted["rc"]}, steps {faulted["steps"]}')
+    gaps = {label: mesh_gaps(driver[label]['steps'], one[ref])
+            for label, ref in (('fsdp=2', 'synthetic'),
+                               ('tensor=2', 'synthetic'),
+                               ('fsdp=2 packed', 'packed'))}
+    gaps['resume'] = {'loss 3': rel_gap(one['resume'],
+                                        driver['fsdp=2']['steps'][2]['loss'])}
+    fault = mesh_gaps(faulted['steps'], one['synthetic'])
+    for label, row in list(gaps.items()) + [('planted fault', fault)]:
+        log(f'[mesh] {label} vs one rank on the same params and batches, '
+            f'relative: ' + ', '.join(f'{k} {v:.2e}' for k, v in row.items())
+            + f' (limits {MESH_TOL})')
+    off = {label: row for label, row in gaps.items() if not within(row)}
+    if off:
+        raise AssertionError(f'[mesh] mesh runs off one rank\'s: {off}')
+    if within(fault):
+        raise AssertionError(f'[mesh] the planted fault (attention output '
+                             f'not reduced over tensor) passed the gate: '
+                             f'{fault}')
+    numbers = {}
+    for label in driver:
+        seconds = {k: round(v, 3)
+                   for k, v in driver[label]['collective_s'].items()}
+        later = driver[label]['steps'][1:]
+        walls = [x['wall_s'] for x in later]
+        numbers[label] = {
+            'step_s': statistics.median(walls),
+            'collective_share': sum(x['collective_s'] for x in later) /
+            sum(walls),
+            'run_s': driver[label]['wall_s'],
+            'peak_gb': [r['runs'][label]['peak_gb'] for r in ranks],
+            'collectives': driver[label]['collectives'],
+            'collective_s': driver[label]['collective_s']}
+        log(f'[mesh] {label}: step {numbers[label]["step_s"]:.3f} s '
+            f'(median of steps 2-{MESH_STEPS}, every collective timed), '
+            f'collectives {100 * numbers[label]["collective_share"]:.1f}% '
+            f'of it; the run {numbers[label]["run_s"]:.1f} s; peak GB by '
+            f'rank {[round(x, 2) for x in numbers[label]["peak_gb"]]}; '
+            f'calls {numbers[label]["collectives"]}, seconds {seconds} '
+            f'({MESH_LABEL}; {smi})')
+    launches = {}
+    for r in ranks:
+        for run in r['runs'].values():
+            for k, v in run['launches'].items():
+                launches[k] = launches.get(k, 0) + v
+    log(f'[smoke] phase 32 {time.perf_counter() - t0:.1f} s (shard times '
+        f'{t1 - t0:.1f} s, ranks {t2 - t1:.1f} s)')
+    return {'launches': launches, 'gaps': gaps, 'fault': fault,
+            'runs': numbers,
+            'shard_times': shard}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--skip-engine', action='store_true',
@@ -5044,7 +5478,7 @@ def main(argv=None) -> int:
         f'{t2 - t1:.1f} s, flash {time.perf_counter() - t2:.1f} s')
     engine, train, batch, spec, lora = {}, {}, {}, {}, {}
     bench_tr, remat, packed, bench_dec, moe = {}, {}, {}, {}, {}
-    ckpt, disagg, rl, tp = {}, {}, {}, {}
+    ckpt, disagg, rl, tp, mesh = {}, {}, {}, {}, {}
     if not args.skip_engine:
         phase_train_small(torch)
         train = phase_train(torch, fa, flops_peak)
@@ -5098,6 +5532,10 @@ def main(argv=None) -> int:
         tp = phase_tp(torch, pa, da, fa, bw, flops_peak, smi)
         log('[tp] phase 31 summary ' + json.dumps(
             {k: v for k, v in tp.items() if k != 'launches'}))
+        free_card(torch)
+        mesh = phase_mesh_train(torch, fa, bw, flops_peak, smi)
+        log('[mesh] phase 32 summary ' + json.dumps(
+            {k: v for k, v in mesh.items() if k != 'launches'}))
     flash_src = 'skypilot_tpu/ops/pallas/flash_attention.py'
     replaces = {
         'paged_attention':
@@ -5130,9 +5568,10 @@ def main(argv=None) -> int:
     # bench twin's decode mode for the decode kernels, the trainer's
     # entry points for the flash kernels: phase 7, the bench twin's train
     # mode, the remat policies, the MoE train steps, the finetune of
-    # phase 27, the GRPO learners of phases 29-30, and --packed for the
-    # segment twins): null when they were skipped, never a number this
-    # run did not measure.
+    # phase 27, the GRPO learners of phases 29-30, --packed for the
+    # segment twins, and both ranks of the mesh trainers of phase 32):
+    # null when they were skipped, never a number this run did not
+    # measure.
     def total(parts):
         return sum(parts) if None not in parts else None
 
@@ -5163,6 +5602,7 @@ def main(argv=None) -> int:
         'decode_attention_quant': total([
             batch.get('launches_quant'),
             tp_launches.get('decode_attention_quant')])}
+    trains.append(mesh.get('launches'))
     for name in ('flash_fwd', 'flash_dq', 'flash_dkv'):
         launches[name] = total([
             None if t is None else t[name] + t[name + '_seg']

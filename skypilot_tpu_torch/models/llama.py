@@ -18,6 +18,20 @@ dispatch; the expert products are torch einsums, as they are XLA
 einsums in the reference, except dense dispatch's tokens times every
 expert: one ``bmm`` with the tokens broadcast (``_to_experts``), which
 reads each expert weight once where the einsum copies it first.
+
+Under a training mesh (``parallel``: this rank's ``TensorParallel``,
+from ``train/step.py``) the params are this rank's shards under
+``parallel/sharding.DEFAULT_RULES`` and the tokens its rows of the
+batch: each layer gathers its weights whole along ``embed`` over
+``fsdp`` (``gather_fsdp``, in the compute dtype), runs ``wq``/``wk``/
+``wv``/``wi_*`` column-parallel and ``wo``/``mlp.wo`` row-parallel over
+``tensor`` (Megatron's conjugate pair), looks the tokens up in its
+vocab rows and sums over ``tensor``, and returns its vocab columns of
+the logits: the loss combines them over ``tensor`` (a vocab-parallel
+cross entropy, ``train/loss.py``) instead of gathering [B, S, V]. The
+context is an argument, not ambient state: a remat recompute runs in
+the autograd thread and re-issues the layer's collectives in the same
+order on every rank.
 Pipeline stages are multi-device work and raise here.
 """
 from __future__ import annotations
@@ -38,6 +52,10 @@ from skypilot_tpu_torch.models.config import ModelConfig
 from skypilot_tpu_torch.models.lora import apply_lora_qv
 from skypilot_tpu_torch.ops.attention import multi_head_attention
 from skypilot_tpu_torch.ops.norms import rms_norm
+from skypilot_tpu_torch.parallel.sharding import (TensorParallel,
+                                                  copy_to_tensor,
+                                                  gather_fsdp,
+                                                  reduce_from_tensor)
 from skypilot_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -225,6 +243,36 @@ def param_logical_axes(cfg: ModelConfig) -> Params:
     return axes
 
 
+def param_shapes(cfg: ModelConfig) -> Params:
+    """Every param's full shape (``init_params``'s), as a tree of
+    meta tensors."""
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    h, kv, hd, n = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                    cfg.n_layers)
+    shapes = {
+        'attn': {'wq': (n, d, h, hd), 'wk': (n, d, kv, hd),
+                 'wv': (n, d, kv, hd), 'wo': (n, h, hd, d)},
+        'ln_attn': {'scale': (n, d)}, 'ln_mlp': {'scale': (n, d)},
+    }
+    if cfg.is_moe:
+        e = cfg.num_experts
+        shapes['moe'] = {'router': (n, d, e), 'wi_gate': (n, e, d, f),
+                         'wi_up': (n, e, d, f), 'wo': (n, e, f, d)}
+    else:
+        shapes['mlp'] = {'wi_gate': (n, d, f), 'wi_up': (n, d, f),
+                         'wo': (n, f, d)}
+    tree = {'embed': {'embedding': (v, d)}, 'layers': shapes,
+            'final_norm': {'scale': (d,)}}
+    if not cfg.tie_embeddings:
+        tree['lm_head'] = {'w': (d, v)}
+
+    def meta(node):
+        if isinstance(node, dict):
+            return {k: meta(x) for k, x in node.items()}
+        return torch.empty(node, dtype=cfg.param_dtype, device='meta')
+    return meta(tree)
+
+
 # ---------------------------------------------------------------------------
 # Vocab projection with an fp32 result
 # ---------------------------------------------------------------------------
@@ -290,13 +338,19 @@ def _named(name: Optional[str]):
         _tag.name = before
 
 
+# One device: every degree 1, so each helper below is the plain op.
+_ONE_DEVICE = TensorParallel()
+
+
 def _attention_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
                      sin: torch.Tensor, cos: torch.Tensor,
                      segments: Optional[torch.Tensor] = None,
-                     lora_params: Optional[Params] = None
-                     ) -> torch.Tensor:
+                     lora_params: Optional[Params] = None,
+                     par: TensorParallel = _ONE_DEVICE) -> torch.Tensor:
     dt = cfg.compute_dtype
-    wq, wk, wv, wo = (lp[n].to(dt) for n in ('wq', 'wk', 'wv', 'wo'))
+    wq, wk, wv = (gather_fsdp(lp[n], par, 0, dt) for n in ('wq', 'wk', 'wv'))
+    wo = gather_fsdp(lp['wo'], par, 2, dt)
+    x = copy_to_tensor(x, par)
     with _named(None if lora_params is not None else 'query_proj'):
         q = torch.einsum('bsd,dhk->bshk', x, wq)
     with _named('key_proj'):
@@ -316,20 +370,25 @@ def _attention_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
     out = multi_head_attention(q, k, v, causal=True, segment_ids=segments,
                                impl=cfg.attention_impl)
     with _named('attn_out'):
-        return torch.einsum('bshk,hkd->bsd', out, wo)
+        out = torch.einsum('bshk,hkd->bsd', out, wo)
+    return reduce_from_tensor(out, par)
 
 
-def _mlp_block(x: torch.Tensor, lp: Params,
-               cfg: ModelConfig) -> torch.Tensor:
+def _mlp_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
+               par: TensorParallel = _ONE_DEVICE) -> torch.Tensor:
     dt = cfg.compute_dtype
-    w_gate, w_up, wo = (lp[n].to(dt) for n in ('wi_gate', 'wi_up', 'wo'))
+    w_gate, w_up = (gather_fsdp(lp[n], par, 0, dt)
+                    for n in ('wi_gate', 'wi_up'))
+    wo = gather_fsdp(lp['wo'], par, 1, dt)
+    x = copy_to_tensor(x, par)
     gate = torch.einsum('bsd,df->bsf', x, w_gate)
     up = torch.einsum('bsd,df->bsf', x, w_up)
     act = _activate(gate, cfg)
     with _named('mlp_hidden'):
         hidden = act * up
     with _named('mlp_out'):
-        return torch.einsum('bsf,fd->bsd', hidden, wo)
+        out = torch.einsum('bsf,fd->bsd', hidden, wo)
+    return reduce_from_tensor(out, par)
 
 
 def _router_aux_loss(router_logits: torch.Tensor, selected: torch.Tensor,
@@ -448,19 +507,20 @@ def _moe_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
 
 def _decoder_layer(x: torch.Tensor, lp: Params, cfg: ModelConfig,
                    sin: torch.Tensor, cos: torch.Tensor,
-                   segments: Optional[torch.Tensor] = None
+                   segments: Optional[torch.Tensor] = None,
+                   par: TensorParallel = _ONE_DEVICE
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decoder layer: (x, router aux loss), the aux 0 for a dense
     MLP."""
     h = rms_norm(x, lp['ln_attn']['scale'], cfg.norm_eps)
     x = x + _attention_block(h, lp['attn'], cfg, sin, cos,
                              segments=segments,
-                             lora_params=lp.get('lora'))
+                             lora_params=lp.get('lora'), par=par)
     h = rms_norm(x, lp['ln_mlp']['scale'], cfg.norm_eps)
     if cfg.is_moe:
         out, aux = _moe_block(h, lp['moe'], cfg)
         return x + out, aux
-    return (x + _mlp_block(h, lp['mlp'], cfg),
+    return (x + _mlp_block(h, lp['mlp'], cfg, par),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
@@ -556,46 +616,73 @@ def _unstack(layers: Params, n_layers: int) -> List[Params]:
     return out
 
 
+def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+           par: TensorParallel) -> torch.Tensor:
+    """The token rows of the embedding in the compute dtype. The table
+    is gathered over fsdp in its own dtype (its gradient scatters there,
+    as on one device); under tensor, this rank holds the vocab rows
+    [rank*Vl, (rank+1)*Vl), a token outside them reads zeros, and the
+    sum over the tensor group (one nonzero term) is the row itself."""
+    table = params['embed']['embedding']
+    table = gather_fsdp(table, par, 1, table.dtype)
+    if par.degree == 1:
+        return table[tokens.long()].to(cfg.compute_dtype)
+    local = tokens.long() - par.rank * table.shape[0]
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(mine, local, 0)].to(cfg.compute_dtype)
+    return reduce_from_tensor(torch.where(mine[..., None], rows, 0.0), par)
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             positions: Optional[torch.Tensor] = None,
             segments: Optional[torch.Tensor] = None,
             pipeline_stages: int = 1,
             return_aux: bool = False,
-            return_hidden: bool = False) -> torch.Tensor:
+            return_hidden: bool = False,
+            parallel: Optional[TensorParallel] = None) -> torch.Tensor:
     """tokens [B, S] int -> logits [B, S, vocab] fp32 (or, with
     ``return_hidden``, the final normed hidden states [B, S, d_model]).
 
     LoRA params at ``params['layers']['lora']`` add their q/v deltas.
     ``return_aux``: also return the layer mean of the router aux loss
-    (0 for a dense model) as (logits, aux). ``pipeline_stages > 1``
-    raises with a pointer to ROADMAP.md."""
+    (0 for a dense model) as (logits, aux). ``parallel``: this rank's
+    place on a training mesh; params, tokens, positions and segments are
+    then its shards and rows, and the logits its rows and, under
+    ``tensor``, its block of the vocab.
+    ``pipeline_stages > 1`` raises with a pointer to ROADMAP.md."""
     if pipeline_stages > 1:
         raise NotImplementedError(
             'pipeline stages are multi-device work, not ported yet '
-            '(ROADMAP.md, queue A item 15)')
+            '(ROADMAP.md, queue A item 15 (c))')
+    par = parallel or _ONE_DEVICE
+    if par is not _ONE_DEVICE and (cfg.is_moe or 'lora' in params['layers']):
+        raise NotImplementedError(
+            'MoE and LoRA layers under a training mesh are not ported yet '
+            '(ROADMAP.md, queue A item 15 (c))')
     _, s = tokens.shape
     dt = cfg.compute_dtype
     if positions is None:
         positions = torch.arange(s, device=tokens.device)
     sin, cos = rope_table_for(cfg, positions)
-    x = params['embed']['embedding'][tokens.long()].to(dt)
+    x = _embed(params, tokens, cfg, par)
     remat = _remat_policy(cfg)
     aux = []
     for lp in _unstack(params['layers'], cfg.n_layers):
         if remat is not None:
             x, layer_aux = remat(_decoder_layer, x, lp, cfg, sin, cos,
-                                 segments)
+                                 segments, par)
         else:
-            x, layer_aux = _decoder_layer(x, lp, cfg, sin, cos, segments)
+            x, layer_aux = _decoder_layer(x, lp, cfg, sin, cos, segments,
+                                          par)
         aux.append(layer_aux)
     x = rms_norm(x, params['final_norm']['scale'], cfg.norm_eps)
     if return_hidden:
         return x
     if cfg.tie_embeddings:
-        head = params['embed']['embedding'].to(dt).t()
+        head = gather_fsdp(params['embed']['embedding'], par, 1, dt).t()
     else:
-        head = params['lm_head']['w'].to(dt)
-    logits = fp32_logits(x, head)
+        head = gather_fsdp(params['lm_head']['w'], par, 0, dt)
+    logits = fp32_logits(copy_to_tensor(x, par), head)
     if return_aux:
         return logits, torch.stack(aux).mean()
     return logits

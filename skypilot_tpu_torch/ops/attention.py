@@ -7,16 +7,23 @@ and ``'pallas'`` route to ``ops/flash_attention.py``: the Hopper kernels
 for CUDA tensors, their plain PyTorch versions for CPU tensors.
 
 The reference's ``_flash_under_mesh`` shard_maps the kernel over the
-head axis of an ambient device mesh. Here each tensor-parallel rank is
-its own process and its q/k/v already hold only its heads
-(``models/decode.py``), so the same call runs the kernel on the shard:
-the per-head case needs no code of its own. The sequence-parallel paths
-(``'ring'``, ``'ulysses'``) belong to the training half of the
-multi-device work (ROADMAP.md, queue A item 15 (b)) and raise.
+batch axes (``data``, ``fsdp``) and the head axis (``tensor``) of an
+ambient device mesh. Here each rank is its own process and its q/k/v
+already hold only its batch rows and heads (``models/llama.py`` under a
+training mesh, ``models/decode.py`` under a serving one), with its rows
+of the segment ids, so the same call runs the kernel on the shard: the
+per-shard case needs no code of its own. ``check_mesh`` is what remains
+of the reference's dispatch: the layouts it sends elsewhere raise when
+the mesh is built. Heads that ``tensor`` does not divide are a
+``ValueError`` (the reference falls back to XLA attention over
+replicated heads there); a ``seq`` or ``stage`` degree above 1 and the
+sequence-parallel paths (``'ring'``, ``'ulysses'``) belong to the next
+slice of the multi-device work (ROADMAP.md, queue A item 15 (c)) and
+raise.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -65,6 +72,22 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         v.float()).to(v.dtype)
 
 
+def check_mesh(shape: Dict[str, int], n_heads: int, n_kv_heads: int) -> None:
+    """Raise unless attention runs per shard on a mesh of this ``shape``
+    (axis -> degree): no ``seq`` or ``stage`` split, and query and kv
+    heads that the ``tensor`` degree divides."""
+    for axis in ('seq', 'stage'):
+        if shape.get(axis, 1) > 1:
+            raise NotImplementedError(
+                f'a {axis} degree above 1 is multi-device work of the next '
+                'slice, not ported yet (ROADMAP.md, queue A item 15 (c))')
+    tp = shape.get('tensor', 1)
+    if n_heads % tp or n_kv_heads % tp:
+        raise ValueError(
+            f'tensor={tp} does not divide {n_heads} query and {n_kv_heads} '
+            'kv heads: attention runs per head shard')
+
+
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          segment_ids: Optional[torch.Tensor] = None,
@@ -83,6 +106,5 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl in ('ring', 'ulysses'):
         raise NotImplementedError(
             f'{impl} attention is sequence-parallel training work, not '
-            'ported yet (ROADMAP.md, queue A item 15 (b), the training '
-            'half)')
+            'ported yet (ROADMAP.md, queue A item 15 (c))')
     raise ValueError(f'Unknown attention impl {impl!r}')

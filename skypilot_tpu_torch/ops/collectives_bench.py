@@ -14,11 +14,10 @@ The process-group backend follows the launcher's rule, and the line
 says which (``detail.backend``, ``detail.path``): ranks that share one
 card talk over ``gloo``, which moves a CUDA tensor's bytes through host
 memory; that is the path the tensor-parallel serving step takes on
-such a machine, not NVLink or NCCL bandwidth. ``gloo`` reduces CUDA
-tensors in place but gathers and scatters only host tensors, so those
-two ops stage through host memory explicitly, inside the timed loop.
-``ppermute`` belongs to the training half of the multi-device work
-(ROADMAP.md, queue A item 15 (b)).
+such a machine, not NVLink or NCCL bandwidth. ``gloo`` takes CUDA
+tensors for all three ops (``tools/train_mesh_probe.py`` on the card).
+``ppermute`` belongs to the sequence-parallel slice of the multi-device
+work (ROADMAP.md, queue A item 15 (c)).
 """
 from __future__ import annotations
 
@@ -43,21 +42,19 @@ def _bus_factor(op: str, n: int) -> float:
     return 1.0
 
 
-def _collective(op: str, x: torch.Tensor, group, n: int, staged: bool):
-    """One call of ``op`` on this rank's shard ``x``; ``staged``: copy
-    through host memory (gloo's gathers take host tensors only)."""
+def _collective(op: str, x: torch.Tensor, group, n: int):
+    """One call of ``op`` on this rank's shard ``x``."""
     import torch.distributed as dist
     if op == 'all_reduce':
         dist.all_reduce(x, group=group)
         return x
-    src = x.cpu() if staged else x
     if op == 'all_gather':
-        out = src.new_empty(src.numel() * n)
-        dist.all_gather_into_tensor(out, src, group=group)
+        out = x.new_empty(x.numel() * n)
+        dist.all_gather_into_tensor(out, x, group=group)
     else:
-        out = src.new_empty(src.numel() // n)
-        dist.reduce_scatter_tensor(out, src, group=group)
-    return out.to(x.device) if staged else out
+        out = x.new_empty(x.numel() // n)
+        dist.reduce_scatter_tensor(out, x, group=group)
+    return out
 
 
 def _rank_bench(rank: int, world: int, ops, size_mb: float, iters: int,
@@ -69,7 +66,6 @@ def _rank_bench(rank: int, world: int, ops, size_mb: float, iters: int,
     group = mesh.group('x')
     device = rank_device(rank, device_type)
     backend = dist.get_backend(group)
-    staged = backend == 'gloo' and device.type == 'cuda'
     elems = int(size_mb * 1e6 / 4)
     elems -= elems % (world * world)
     lines = []
@@ -78,13 +74,13 @@ def _rank_bench(rank: int, world: int, ops, size_mb: float, iters: int,
         x = torch.arange(elems // world, dtype=torch.float32,
                          device=device)
         for _ in range(max(warmup, 1)):
-            _collective(op, x, group, world, staged and op != 'all_reduce')
+            _collective(op, x, group, world)
         if device.type == 'cuda':
             torch.cuda.synchronize(device)
         dist.barrier(group=group)
         t0 = time.perf_counter()
         for _ in range(iters):
-            _collective(op, x, group, world, staged and op != 'all_reduce')
+            _collective(op, x, group, world)
         if device.type == 'cuda':
             torch.cuda.synchronize(device)
         elapsed = time.perf_counter() - t0
@@ -103,8 +99,8 @@ def _rank_bench(rank: int, world: int, ops, size_mb: float, iters: int,
                 'devices': world,
                 'device_kind': kind,
                 'backend': backend,
-                'path': ('gloo through host memory' if staged or
-                         device.type == 'cpu' else backend),
+                'path': ('gloo through host memory' if backend == 'gloo'
+                         else backend),
             },
         })
     return lines if rank == 0 else None

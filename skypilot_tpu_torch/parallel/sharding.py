@@ -120,7 +120,7 @@ class NamedSharding:
     mesh: Mesh
     spec: PartitionSpec
 
-    def _split(self, dim: int, rank: int) -> Tuple[int, int]:
+    def split(self, dim: int, rank: int) -> Tuple[int, int]:
         """(number of shards, this rank's shard index) along ``dim``."""
         entry = self.spec[dim] if dim < len(self.spec) else None
         if entry is None:
@@ -138,7 +138,7 @@ class NamedSharding:
         """Rank ``rank``'s block of ``x`` (a copy when it is a part)."""
         out = x
         for dim in range(x.dim()):
-            count, index = self._split(dim, rank)
+            count, index = self.split(dim, rank)
             if count == 1 or x.shape[dim] == 1:
                 continue
             if x.shape[dim] % count:
@@ -148,6 +148,30 @@ class NamedSharding:
             size = x.shape[dim] // count
             out = out.narrow(dim, index * size, size)
         return out if out is x else out.clone()
+
+    def full_shape(self, local: Sequence[int]) -> Tuple[int, ...]:
+        """The whole array's shape from a block's (``gather``'s)."""
+        shape = list(local)
+        for dim, entry in enumerate(self.spec[:len(shape)]):
+            for axis in ((entry,) if isinstance(entry, str)
+                         else tuple(entry or ())):
+                shape[dim] *= self.mesh.shape[axis]
+        return tuple(shape)
+
+    def gather(self, x: torch.Tensor, tp: 'TensorParallel') -> torch.Tensor:
+        """The whole array from this rank's block ``x``: along each
+        sharded dim, the blocks of the dim's mesh axes joined, minor
+        axis first (collective over those axes)."""
+        x = x.detach()
+        for dim in range(x.dim()):
+            entry = self.spec[dim] if dim < len(self.spec) else None
+            if entry is None:
+                continue
+            axes = (entry,) if isinstance(entry, str) else tuple(entry)
+            for axis in reversed(axes):
+                if self.mesh.shape[axis] > 1:
+                    x = tp.all_gather(x, dim, axis)
+        return x
 
 
 def logical_sharding(mesh: Mesh, logical_axes: Sequence[Optional[str]],
@@ -193,10 +217,13 @@ def shard_params_pytree(mesh: Mesh, logical_axes_tree, params, *,
 
 
 # ---------------------------------------------------------------------------
-# The ambient tensor-parallel group
+# This rank's groups: the tensor axis (serving and training), and the
+# batch axes data and fsdp (training)
 # ---------------------------------------------------------------------------
 
 _collective_time = {'calls': 0, 'seconds': 0.0, 'timed': False}
+_collective_kinds: Dict[str, int] = {}
+_collective_kind_seconds: Dict[str, float] = {}
 
 
 def time_collectives(enabled: bool) -> None:
@@ -206,25 +233,69 @@ def time_collectives(enabled: bool) -> None:
     _collective_time['timed'] = bool(enabled)
 
 
-def collective_stats(reset: bool = False) -> Dict[str, float]:
+def collective_stats(reset: bool = False) -> Dict[str, Any]:
+    """Calls and seconds (timed ones) of every collective since the last
+    reset, and both by kind and axis (``'all_gather fsdp'``, ...)."""
     out = {'calls': _collective_time['calls'],
-           'seconds': _collective_time['seconds']}
+           'seconds': _collective_time['seconds'],
+           'by_kind': dict(_collective_kinds),
+           'seconds_by_kind': dict(_collective_kind_seconds)}
     if reset:
         _collective_time['calls'] = 0
         _collective_time['seconds'] = 0.0
+        _collective_kinds.clear()
+        _collective_kind_seconds.clear()
     return out
+
+
+# Mesh axes a rank of a training mesh keeps a group for.
+TRAIN_AXES = ('data', 'fsdp', 'tensor')
 
 
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
-    """This rank's place on the ``tensor`` axis: its process group, the
-    degree and its index along the axis (``group`` None at degree 1)."""
+    """This rank's place on the mesh. ``group``, ``degree`` and ``rank``
+    are the ``tensor`` axis (what serving uses: its process group, the
+    degree and this rank's index along it; ``group`` None at degree 1);
+    ``data_*`` and ``fsdp_*`` the same for the batch axes of a training
+    mesh. Every collective names its axis and is a no-op at degree
+    1."""
     mesh: Optional[Mesh] = None
     group: Any = None
     degree: int = 1
     rank: int = 0
+    data_group: Any = None
+    data: int = 1
+    data_rank: int = 0
+    fsdp_group: Any = None
+    fsdp: int = 1
+    fsdp_rank: int = 0
 
-    def _run(self, x: torch.Tensor, call) -> torch.Tensor:
+    def axis(self, name: str) -> Tuple[Any, int, int]:
+        """(group, degree, this rank's index) along ``name``."""
+        if name == 'tensor':
+            return self.group, self.degree, self.rank
+        if name == 'data':
+            return self.data_group, self.data, self.data_rank
+        if name == 'fsdp':
+            return self.fsdp_group, self.fsdp, self.fsdp_rank
+        raise ValueError(f'no group for mesh axis {name!r}')
+
+    @property
+    def batch_degree(self) -> int:
+        """Shards of the batch: data x fsdp (rule 'batch')."""
+        return self.data * self.fsdp
+
+    @property
+    def batch_index(self) -> int:
+        """This rank's block of the batch, data major."""
+        return self.data_rank * self.fsdp + self.fsdp_rank
+
+    def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the batch ranks (data x fsdp)."""
+        return self.all_reduce(self.all_reduce(x, axis='fsdp'), axis='data')
+
+    def _run(self, x: torch.Tensor, call, kind: str) -> torch.Tensor:
         timed = _collective_time['timed']
         if timed:
             if x.is_cuda:
@@ -232,26 +303,140 @@ class TensorParallel:
             t0 = time.perf_counter()
         call()
         _collective_time['calls'] += 1
+        _collective_kinds[kind] = _collective_kinds.get(kind, 0) + 1
         if timed:
             if x.is_cuda:
                 torch.cuda.synchronize(x.device)
-            _collective_time['seconds'] += time.perf_counter() - t0
+            took = time.perf_counter() - t0
+            _collective_time['seconds'] += took
+            _collective_kind_seconds[kind] = \
+                _collective_kind_seconds.get(kind, 0.0) + took
         return x
 
-    def all_reduce(self, x: torch.Tensor, op: str = 'sum') -> torch.Tensor:
-        """In place over the group: ``'sum'`` or ``'max'``."""
+    def all_reduce(self, x: torch.Tensor, op: str = 'sum',
+                   axis: str = 'tensor') -> torch.Tensor:
+        """In place over the axis's group: ``'sum'`` or ``'max'``."""
         import torch.distributed as dist
+        group, degree, _ = self.axis(axis)
+        if degree == 1:
+            return x
         reduce_op = {'sum': dist.ReduceOp.SUM, 'max': dist.ReduceOp.MAX}[op]
         x = x.contiguous()
         return self._run(x, lambda: dist.all_reduce(x, op=reduce_op,
-                                                    group=self.group))
+                                                    group=group),
+                         f'all_reduce {axis}')
 
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """In place from the group's index ``src``."""
+        """In place from the tensor group's index ``src``."""
         import torch.distributed as dist
         root = dist.get_global_rank(self.group, src)
         return self._run(x, lambda: dist.broadcast(x, src=root,
-                                                   group=self.group))
+                                                   group=self.group),
+                         'broadcast tensor')
+
+    def all_gather(self, x: torch.Tensor, dim: int,
+                   axis: str) -> torch.Tensor:
+        """The axis's shards of ``x`` joined along ``dim`` in index
+        order (a new tensor)."""
+        import torch.distributed as dist
+        group, degree, _ = self.axis(axis)
+        if degree == 1:
+            return x
+        front = x.movedim(dim, 0).contiguous()
+        out = front.new_empty((degree * front.shape[0],) + front.shape[1:])
+        self._run(out, lambda: dist.all_gather_into_tensor(
+            out, front, group=group), f'all_gather {axis}')
+        return out.movedim(0, dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int,
+                       axis: str) -> torch.Tensor:
+        """The sum of ``x`` over the axis's group, this rank's block of
+        it along ``dim`` (a new tensor)."""
+        import torch.distributed as dist
+        group, degree, _ = self.axis(axis)
+        if degree == 1:
+            return x
+        front = x.movedim(dim, 0).contiguous()
+        out = front.new_empty((front.shape[0] // degree,) + front.shape[1:])
+        self._run(out, lambda: dist.reduce_scatter_tensor(
+            out, front, group=group), f'reduce_scatter {axis}')
+        return out.movedim(0, dim)
+
+
+class _CopyToTensor(torch.autograd.Function):
+    """Megatron's f: identity forward; the backward sums the gradient
+    over the tensor group (each rank's heads or columns give a part of
+    it)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.tp.all_reduce(grad.clone()), None
+
+
+class _ReduceFromTensor(torch.autograd.Function):
+    """Megatron's g: the forward sums the partial results over the
+    tensor group; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.all_reduce(x.clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFsdp(torch.autograd.Function):
+    """A parameter's fsdp shard, cast to ``dtype``, gathered whole along
+    its ``embed`` dim; the backward sums the gradient over the fsdp group
+    in fp32 and keeps this rank's block, in the shard's dtype."""
+
+    @staticmethod
+    def forward(ctx, shard, tp, dim, dtype):
+        ctx.tp, ctx.dim, ctx.dtype = tp, dim, shard.dtype
+        return tp.all_gather(shard.to(dtype), dim, 'fsdp')
+
+    @staticmethod
+    def backward(ctx, grad):
+        part = ctx.tp.reduce_scatter(grad.float(), ctx.dim, 'fsdp')
+        return part.to(ctx.dtype), None, None, None
+
+
+def copy_to_tensor(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """The input of column-parallel projections (``wq``/``wk``/``wv``,
+    ``wi_*``, the LM head)."""
+    return x if tp.degree == 1 else _CopyToTensor.apply(x, tp)
+
+
+def reduce_from_tensor(x: torch.Tensor,
+                       tp: TensorParallel) -> torch.Tensor:
+    """The output of row-parallel projections (``wo``, ``mlp.wo``) and
+    of the vocab-sharded embedding lookup."""
+    return x if tp.degree == 1 else _ReduceFromTensor.apply(x, tp)
+
+
+def gather_fsdp(shard: torch.Tensor, tp: TensorParallel, dim: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """``shard.to(dtype)`` whole along ``dim`` over the fsdp group."""
+    if tp.fsdp == 1:
+        return shard.to(dtype)
+    return _GatherFsdp.apply(shard, tp, dim, dtype)
+
+
+def gather_params_pytree(shardings, params, tp: TensorParallel):
+    """The whole arrays of a tree of this rank's blocks under a tree of
+    ``NamedSharding`` (collective over the blocks' axes; ints pass)."""
+    if isinstance(params, dict):
+        return {k: gather_params_pytree(shardings[k], v, tp)
+                for k, v in params.items()}
+    if not isinstance(params, torch.Tensor):
+        return params
+    return shardings.gather(params, tp)
 
 
 _SINGLE = TensorParallel()
@@ -259,13 +444,23 @@ _ambient = threading.local()
 
 
 def tensor_parallel_of(mesh: Optional[Mesh]) -> TensorParallel:
-    """The ``TensorParallel`` of this process's rank on ``mesh``."""
-    if mesh is None or mesh.shape.get('tensor', 1) <= 1:
+    """The ``TensorParallel`` of this process's rank on ``mesh``: a group
+    for each of its ``data``, ``fsdp`` and ``tensor`` axes above degree
+    1 (every rank must call it: the groups are built collectively)."""
+    if mesh is None or all(mesh.shape.get(a, 1) <= 1 for a in TRAIN_AXES):
         return TensorParallel(mesh=mesh)
     import torch.distributed as dist
-    return TensorParallel(mesh=mesh, group=mesh.group('tensor'),
-                          degree=mesh.shape['tensor'],
-                          rank=mesh.coords(dist.get_rank())['tensor'])
+    coords = mesh.coords(dist.get_rank())
+    fields = {}
+    for axis, prefix in (('tensor', ''), ('data', 'data_'),
+                         ('fsdp', 'fsdp_')):
+        size = mesh.shape.get(axis, 1)
+        if size > 1:
+            fields[prefix + 'group'] = mesh.group(axis)
+            fields['degree' if axis == 'tensor' else axis] = size
+            fields['rank' if axis == 'tensor' else prefix + 'rank'] = \
+                coords[axis]
+    return TensorParallel(mesh=mesh, **fields)
 
 
 def ambient_tensor_parallelism() -> TensorParallel:

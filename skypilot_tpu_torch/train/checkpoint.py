@@ -19,10 +19,19 @@ the manifest is written last. ``latest_step`` reports committed steps
 only: a save that died before its manifest, or a torn manifest, reads
 as absent. After each commit the ``max_to_keep`` newest committed steps
 are kept and older ones removed.
+
+On a training mesh (``shardings``: the ``train/step.state_shardings`` of
+the tree, each rank holding its blocks) every rank joins the gather of
+each whole tensor, one at a time as rank 0 writes it (the same file and
+manifest a one-card run writes), and a barrier follows; ``restore``
+into any mesh reads the whole tensors and keeps each rank's blocks, so
+a step written at one mesh resumes at another (the reference's
+topology-change restore).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import os
 import shutil
@@ -31,8 +40,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from skypilot_tpu_torch.data import ckpt_manifest
+from skypilot_tpu_torch.parallel.sharding import (NamedSharding,
+                                                  tensor_parallel_of)
 from skypilot_tpu_torch.utils import fault_injection
-from skypilot_tpu_torch.utils.safetensors_io import (SafetensorsReader,
+from skypilot_tpu_torch.utils.safetensors_io import (Deferred,
+                                                    SafetensorsReader,
                                                     write_safetensors)
 
 logger = logging.getLogger(__name__)
@@ -68,13 +80,20 @@ def _as_dict(tree: Any) -> Any:
 
 
 def _flatten(tree: Any, prefix: str = '') -> Dict[str, Any]:
-    tree = _as_dict(tree)
+    if not isinstance(tree, NamedSharding):
+        tree = _as_dict(tree)
     if isinstance(tree, dict):
         out: Dict[str, Any] = {}
         for key in sorted(tree):
             out.update(_flatten(tree[key], f'{prefix}{key}/'))
         return out
     return {prefix[:-1]: tree}
+
+
+def _flat_shardings(shardings: Any) -> Tuple[Any, Dict[str, Any]]:
+    """(the mesh, each key's ``NamedSharding``) of a shardings tree."""
+    flat = _flatten(shardings)
+    return next(iter(flat.values())).mesh, flat
 
 
 def _to_tensors(flat: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -151,12 +170,37 @@ def _committed_steps(directory: str) -> Tuple[List[int], List[int]]:
     return committed, uncommitted
 
 
-def save(directory: str, step: int, tree: Any,
-         max_to_keep: int = 3) -> None:
+def save(directory: str, step: int, tree: Any, max_to_keep: int = 3,
+         shardings: Any = None) -> None:
     """Write step ``step`` of ``tree`` (a TrainState or a dict of
     tensors and ints) and commit it; then keep the ``max_to_keep``
     newest committed steps. An uncommitted directory of the same step
-    (a save that died) is replaced; a committed one raises."""
+    (a save that died) is replaced; a committed one raises.
+    ``shardings``: ``tree`` is this rank's blocks on a mesh; every rank
+    calls ``save``, rank 0 writes the whole tensors."""
+    flat = _to_tensors(_flatten(tree))
+    if shardings is None:
+        _write(directory, step, flat, max_to_keep)
+        return
+    import torch.distributed as dist
+    mesh, sh = _flat_shardings(shardings)
+    par = tensor_parallel_of(mesh)
+    if dist.get_rank() == 0:
+        # Each whole tensor is gathered as the writer reaches it and
+        # freed once written: the host never holds the whole state.
+        _write(directory, step, {
+            key: Deferred(sh[key].full_shape(t.shape), t.dtype, t.device,
+                          functools.partial(sh[key].gather, t, par))
+            for key, t in flat.items()}, max_to_keep)
+    else:
+        # The same gathers in the writer's (name) order.
+        for key in sorted(flat):
+            sh[key].gather(flat[key], par)
+    dist.barrier()
+
+
+def _write(directory: str, step: int, flat: Dict[str, Any],
+           max_to_keep: int) -> None:
     directory = os.path.abspath(os.path.expanduser(directory))
     os.makedirs(directory, exist_ok=True)
     old = _step_dir(directory, step)
@@ -167,8 +211,7 @@ def save(directory: str, step: int, tree: Any,
         shutil.rmtree(old)
     step_dir = os.path.join(directory, str(step))
     os.makedirs(step_dir)
-    write_safetensors(os.path.join(step_dir, SHARD_NAME),
-                      _to_tensors(_flatten(tree)), fsync=True)
+    write_safetensors(os.path.join(step_dir, SHARD_NAME), flat, fsync=True)
     fault_injection.inject(COMMIT_SITE)
     ckpt_manifest.write(step_dir, ckpt_manifest.build(step_dir, step=step))
     committed, _ = _committed_steps(directory)
@@ -200,30 +243,37 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore(directory: str, step: int, target: Any,
-            subtree: Optional[str] = None) -> Any:
+            subtree: Optional[str] = None, shardings: Any = None) -> Any:
     """Step ``step`` restored into ``target``: its tensors are
     overwritten in place (on their device, in their dtypes) and its ints
     replaced; returns the restored tree. Keys must match exactly; with
     ``subtree`` (e.g. ``'params'`` of a saved train state), the keys
     under that name must match ``target``'s and the rest are not read
-    into it."""
+    into it. ``shardings``: ``target`` holds this rank's blocks on a
+    mesh, whatever mesh wrote the step; each rank reads its blocks of
+    the whole tensors."""
     directory = os.path.abspath(os.path.expanduser(directory))
     step_dir = _step_dir(directory, step)
     if step_dir is None or ckpt_manifest.read(step_dir) is None:
         raise FileNotFoundError(f'no committed checkpoint step {step} in '
                                 f'{directory}')
-    loaded = read_safetensors(os.path.join(step_dir, SHARD_NAME))
-    if subtree:
-        prefix = subtree + '/'
-        loaded = {k[len(prefix):]: v for k, v in loaded.items()
-                  if k.startswith(prefix)}
-    want = set(_flatten(target))
-    if want != set(loaded):
-        raise ValueError(
-            f'checkpoint step {step} does not match the state: missing '
-            f'{sorted(want - set(loaded))}, extra '
-            f'{sorted(set(loaded) - want)}')
-    restored = _restore_into(target, loaded)
+    with SafetensorsReader(os.path.join(step_dir, SHARD_NAME)) as reader:
+        prefix = subtree + '/' if subtree else ''
+        names = {k[len(prefix):]: k for k in reader.keys()
+                 if k.startswith(prefix)}
+        want = set(_flatten(target))
+        if want != set(names):
+            raise ValueError(
+                f'checkpoint step {step} does not match the state: missing '
+                f'{sorted(want - set(names))}, extra '
+                f'{sorted(set(names) - want)}')
+        loaded = {k: reader.get(name) for k, name in names.items()}
+        if shardings is not None:
+            import torch.distributed as dist
+            rank, (_, sh) = dist.get_rank(), _flat_shardings(shardings)
+            loaded = {k: sh[k].slice(v, rank) for k, v in loaded.items()}
+        restored = _restore_into(target, loaded)
+        del loaded
     logger.info('Restored checkpoint step %d from %s', step, directory)
     return restored
 

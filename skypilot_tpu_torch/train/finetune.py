@@ -14,12 +14,15 @@ result exports back to HF layout (LoRA adapters merged into the dense
 weights), servable by the port's engines or anything else that reads
 Llama safetensors.
 
-Two modes, on one card (the CPU with ``--device cpu``):
+Two modes (the CPU with ``--device cpu``):
 
 * **full** (``--lora-rank 0``): every parameter trains in fp32 with the
   pretrain step (``train/step.py``: AdamW with global-norm clipping and
   the reference's warmup-cosine schedule, warmup ``min(10, steps)``).
-  A ``--mesh`` over more than one device raises, as in ``pretrain``.
+  ``--mesh`` trains over ``data``/``fsdp``/``tensor`` as ``pretrain``
+  does: the command starts its own ranks, each loads the checkpoint
+  and keeps its blocks, the batch rounds up to data x fsdp, only rank
+  0 prints, and the export holds the whole (gathered) weights.
 * **LoRA** (``--lora-rank R``): the base weights are frozen in bf16 with
   no optimizer state; the q/v adapters train in fp32 under the
   reference's plain ``optax.adamw(lr)``: no clipping, no schedule,
@@ -166,12 +169,14 @@ def run(args: argparse.Namespace, *, lora_init=None,
     adapter's seeded init (tests carry the reference's over);
     ``config_overrides`` go to the loaded config (e.g. the compute
     dtype). Returns the losses, the final (merged) params, the config
-    and the adapter (None in full mode)."""
+    and the adapter (None in full mode). A full finetune on a mesh of
+    more than one rank runs in each rank of the launch (``main``), and
+    every rank returns the whole params."""
     from skypilot_tpu_torch.inference.tokenizer import get_tokenizer
     from skypilot_tpu_torch.models import hf_interop
     from skypilot_tpu_torch.models import lora as lora_lib
     from skypilot_tpu_torch.train import checkpoint as ckpt_lib
-    from skypilot_tpu_torch.train.pretrain import (_check_single_device,
+    from skypilot_tpu_torch.train.pretrain import (enter_mesh,
                                                    file_batch_iterator)
     from skypilot_tpu_torch.utils.device import resolve_device
 
@@ -180,14 +185,16 @@ def run(args: argparse.Namespace, *, lora_init=None,
     if use_lora and args.mesh:
         _emit({'warning': '--mesh is ignored with --lora-rank > 0 (LoRA '
                           'runs unsharded)'})
-    if not use_lora:
-        _check_single_device(args.mesh)
     # LoRA: a frozen bf16 base halves resident memory and has no
     # optimizer state. Full: fp32 master weights.
     params, cfg = hf_interop.load_checkpoint(
         args.hf_checkpoint,
         dtype=torch.bfloat16 if use_lora else torch.float32,
         device=device, **config_overrides)
+    mesh, is_main = None, True
+    if not use_lora:
+        _, mesh, is_main = enter_mesh(args, cfg, device)
+    emit = _emit if is_main else _quiet
     seq = min(args.seq, cfg.max_seq_len)
     if args.data.endswith('.npy'):
         data_iter = file_batch_iterator(args.data, args.batch, seq, device)
@@ -202,7 +209,7 @@ def run(args: argparse.Namespace, *, lora_init=None,
 
     def log(step: int, loss: torch.Tensor, mode: str) -> None:
         if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
-            _emit({'step': step + 1, 'loss': round(float(loss), 4),
+            emit({'step': step + 1, 'loss': round(float(loss), 4),
                    'mode': mode})
 
     def checkpoint_due(step: int) -> bool:
@@ -264,29 +271,40 @@ def run(args: argparse.Namespace, *, lora_init=None,
                    'adapter_name': adapter_name, 'rank': args.lora_rank})
     else:
         from skypilot_tpu_torch.train.step import (
-            create_train_state_from_params, make_train_step)
+            create_train_state_from_params, make_train_step,
+            state_shardings)
         hp = TrainHParams(learning_rate=args.learning_rate,
                           warmup_steps=min(10, args.steps),
                           total_steps=max(args.steps, 11))
-        state = create_train_state_from_params(params, cfg, hp)
+        state = create_train_state_from_params(params, cfg, hp, mesh)
+        del params
+        shardings = (None if mesh is None
+                     else state_shardings(mesh, cfg, hp))
         start_step = 0
         if args.checkpoint_dir:
             latest = ckpt_lib.latest_step(args.checkpoint_dir)
             if latest is not None:
-                state = ckpt_lib.restore(args.checkpoint_dir, latest, state)
+                state = ckpt_lib.restore(args.checkpoint_dir, latest, state,
+                                         shardings=shardings)
                 start_step = state.step
-                _emit({'resumed_from_step': start_step})
+                emit({'resumed_from_step': start_step})
         skip_batches(data_iter, start_step)
-        step_fn = make_train_step(cfg, hp)
+        step_fn = make_train_step(cfg, hp, mesh)
         for step in range(start_step, args.steps):
             state, metrics = step_fn(state, next(data_iter))
             losses.append(float(metrics['loss']))
             log(step, metrics['loss'], 'full')
             if checkpoint_due(step):
-                ckpt_lib.save(args.checkpoint_dir, step + 1, state)
+                ckpt_lib.save(args.checkpoint_dir, step + 1, state,
+                              shardings=shardings)
         final_params = state.params
+        if mesh is not None:
+            from skypilot_tpu_torch.parallel.sharding import (
+                gather_params_pytree, tensor_parallel_of)
+            final_params = gather_params_pytree(
+                shardings.params, final_params, tensor_parallel_of(mesh))
 
-    if args.export_dir:
+    if args.export_dir and is_main:
         hf_interop.save_checkpoint(final_params, cfg, args.export_dir,
                                    dtype=torch.float32)
         # Ship the tokenizer along so the export serves end-to-end.
@@ -294,14 +312,29 @@ def run(args: argparse.Namespace, *, lora_init=None,
             src = os.path.join(args.hf_checkpoint, fn)
             if os.path.exists(src):
                 shutil.copy(src, os.path.join(args.export_dir, fn))
-        _emit({'exported': args.export_dir})
-    _emit({'done': True, 'seconds': round(time.perf_counter() - t0, 1)})
+        emit({'exported': args.export_dir})
+    emit({'done': True, 'seconds': round(time.perf_counter() - t0, 1)})
     return {'losses': losses, 'params': final_params, 'cfg': cfg,
             'lora': lora_params}
 
 
+def _quiet(obj) -> None:
+    del obj
+
+
 def main(argv=None) -> int:
-    run(parse_args(argv))
+    from skypilot_tpu_torch.models.hf_interop import load_config
+    from skypilot_tpu_torch.train.pretrain import start_ranks
+    from skypilot_tpu_torch.utils.device import resolve_device
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_args(argv)
+    if args.lora_rank == 0:
+        device = resolve_device(args.device)
+        code = start_ranks(main, argv, args.mesh,
+                           load_config(args.hf_checkpoint), device.type)
+        if code is not None:
+            return code
+    run(args)
     return 0
 
 

@@ -1,8 +1,10 @@
-"""Pretraining entry point on one card: the port of
+"""Pretraining entry point, on one card or over a mesh: the port of
 ``skypilot_tpu/train/pretrain.py``.
 
     python -m skypilot_tpu_torch.train.pretrain --model bench-1b7 \\
         --batch 8 --seq 2048 --steps 20
+    python -m skypilot_tpu_torch.train.pretrain --model bench-1b7 \\
+        --mesh fsdp=2
     python -m skypilot_tpu_torch.train.pretrain --model bench-1b7 \\
         --optimizer adafactor --param-dtype bfloat16 --packed \\
         --data tokens.npy --eos-id 1 --checkpoint-dir ckpt
@@ -20,14 +22,27 @@ steps, at the last step, and before a resize exit
 documents of ``--data`` (``data/packer.py``; on the card the native
 packer must build) and counts only the real tokens (the weights) in
 tokens/s. ``--moe-dispatch`` / ``--capacity-factor`` set a MoE
-model's dispatch (``--model tiny-moe --moe-dispatch capacity``). A
-``--mesh`` over more than one device raises with a pointer to
-ROADMAP.md.
+model's dispatch (``--model tiny-moe --moe-dispatch capacity``).
+
+``--mesh`` (``data``, ``fsdp``, ``tensor``; ``train/step.py``) takes one
+process per rank: run as a command, it starts its own ranks
+(``parallel/launch.py``; ``gloo`` when they share a card), each of which
+runs this same ``main`` inside the process group. The degrees multiply
+to the rank count; a -1 axis takes the GPUs the others leave (1 on the
+CPU). As in the reference, ``SKYT_ELASTIC_SLICES`` re-solves the mesh's
+DCN axes (``MeshConfig.resolve``), the batch rounds up to data x fsdp
+(``{"batch_rounded_to": n}``), a resume prints ``{"mesh_devices": n,
+...}``, only rank 0 prints, checkpoints hold whole tensors (rank 0
+writes them) and restore into any mesh, and a resize request is
+rank 0's decision, broadcast, so that every rank stops at the same
+step. A ``seq``, ``stage`` or ``expert`` degree above 1 and MoE models
+on a mesh raise with a pointer to ROADMAP.md.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import sys
 import time
@@ -48,13 +63,98 @@ def parse_mesh(spec: Optional[str]) -> Dict[str, int]:
     return out
 
 
-def _check_single_device(spec: Optional[str]) -> None:
-    """One card: every axis degree must be 1 (or -1, which resolves to
-    1 on one device)."""
-    if any(degree not in (1, -1) for degree in parse_mesh(spec).values()):
-        raise NotImplementedError(
-            f'mesh {spec!r} spans more than one device; multi-device '
-            'training is not ported yet (ROADMAP.md, queue A item 15)')
+def mesh_ranks(config, device_type: str) -> int:
+    """The ranks a ``MeshConfig`` takes: the product of its degrees, a -1
+    axis taking the GPUs the others leave (at least 1; 1 on the CPU)."""
+    sizes = config.axis_sizes()
+    known = math.prod(n for n in sizes if n != -1)
+    if -1 not in sizes:
+        return known
+    count = torch.cuda.device_count() if device_type == 'cuda' else 1
+    return known * max(1, count // known)
+
+
+def training_mesh(spec: Optional[str], cfg, device_type: str):
+    """(mesh config resolved for its ranks, rank count) of ``--mesh``
+    under ``SKYT_ELASTIC_SLICES``; what the slice does not train on
+    raises here, before any rank starts."""
+    from skypilot_tpu_torch.parallel.mesh import MESH_AXIS_NAMES, MeshConfig
+    from skypilot_tpu_torch.train.step import check_training_mesh
+    config = MeshConfig(**parse_mesh(spec))
+    slices = os.environ.get('SKYT_ELASTIC_SLICES')
+    if slices:
+        # The recipe's mesh describes the FULL gang; the DCN axes
+        # re-solve for the surviving slice count.
+        config = config.with_num_slices(int(slices))
+    world = mesh_ranks(config, device_type)
+    config = config.resolve(world)
+    if world > 1:
+        check_training_mesh(dict(zip(MESH_AXIS_NAMES, config.axis_sizes())),
+                            cfg)
+    return config, world
+
+
+def is_launched() -> bool:
+    """True inside a rank of a process group (``parallel/launch.py``)."""
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+def rank_decides(flag: bool, device: torch.device) -> bool:
+    """Rank 0's ``flag`` on every rank (one broadcast; the flag itself
+    off a process group)."""
+    if not is_launched():
+        return flag
+    import torch.distributed as dist
+    t = torch.tensor([int(flag)], device=device)
+    dist.broadcast(t, src=0)
+    return bool(t.item())
+
+
+def _rank_main(rank: int, world: int, entry, argv) -> int:
+    del rank, world
+    return entry(argv)
+
+
+def start_ranks(entry, argv, spec: Optional[str], cfg,
+                device_type: str) -> Optional[int]:
+    """Rank 0's exit code of ``entry(argv)`` run on the ranks that
+    ``--mesh spec`` takes, started here (``parallel/launch.py``) when
+    they are more than one and this process is not one of them; None
+    when this process trains itself."""
+    if is_launched():
+        return None
+    _, world = training_mesh(spec, cfg, device_type)
+    if world == 1:
+        return None
+    from skypilot_tpu_torch.parallel.launch import launch
+    return launch(_rank_main, world, entry, argv, device=device_type)[0]
+
+
+def enter_mesh(args: argparse.Namespace, cfg, device: torch.device):
+    """(resolved ``MeshConfig``, mesh or None for one rank, whether this
+    rank prints) of ``args.mesh`` inside a launched rank. The batch
+    rounds up to data x fsdp, so every batch shard is non-empty (rank 0
+    prints ``{"batch_rounded_to": n}``)."""
+    from skypilot_tpu_torch.parallel.mesh import build_mesh
+    mesh_config, world = training_mesh(args.mesh, cfg, device.type)
+    if world == 1:
+        return mesh_config, None, True
+    if not is_launched():
+        raise RuntimeError(f'--mesh {args.mesh} takes {world} ranks: run '
+                           'the command (main), which starts them')
+    import torch.distributed as dist
+    if dist.get_world_size() != world:
+        raise ValueError(f'mesh {args.mesh!r} takes {world} ranks, the '
+                         f'process group has {dist.get_world_size()}')
+    mesh = build_mesh(mesh_config, device_type=device.type)
+    is_main = dist.get_rank() == 0
+    batch_div = mesh.shape['data'] * mesh.shape['fsdp']
+    batch = -(-args.batch // batch_div) * batch_div
+    if batch != args.batch and is_main:
+        print(json.dumps({'batch_rounded_to': batch}), flush=True)
+    args.batch = batch
+    return mesh_config, mesh, is_main
 
 
 def synthetic_batch(step: int, batch: int, seq: int, vocab_size: int,
@@ -111,7 +211,8 @@ def main(argv=None) -> int:
     parser.add_argument('--optimizer', default='adamw',
                         choices=['adamw', 'adafactor'])
     parser.add_argument('--mesh', default=None,
-                        help='one card only: absent, or degrees of 1')
+                        help="e.g. 'fsdp=2', 'tensor=2', "
+                             "'data=2,fsdp=-1' (default fsdp=-1)")
     parser.add_argument('--data', default='synthetic',
                         help="'synthetic' or a flat token .npy file")
     parser.add_argument('--packed', action='store_true', default=False,
@@ -136,6 +237,7 @@ def main(argv=None) -> int:
     parser.add_argument('--capacity-factor', type=float, default=None)
     parser.add_argument('--device', default=None,
                         help="'cuda' (default) or 'cpu'")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
 
     from skypilot_tpu_torch.models.config import get_model_config
@@ -143,10 +245,10 @@ def main(argv=None) -> int:
     from skypilot_tpu_torch.train.step import (TrainHParams,
                                                create_train_state,
                                                make_train_step,
-                                               resize_requested)
+                                               resize_requested,
+                                               state_shardings)
     from skypilot_tpu_torch.utils.device import resolve_device
 
-    _check_single_device(args.mesh)
     device = resolve_device(args.device)
     overrides = {}
     if args.param_dtype:
@@ -158,21 +260,33 @@ def main(argv=None) -> int:
     if args.capacity_factor is not None:
         overrides['capacity_factor'] = args.capacity_factor
     cfg = get_model_config(args.model, **overrides)
+    code = start_ranks(main, argv, args.mesh, cfg, device.type)
+    if code is not None:
+        return code
+    mesh_config, mesh, is_main = enter_mesh(args, cfg, device)
     seq = min(args.seq or 1024, cfg.max_seq_len)
     hp = TrainHParams(learning_rate=args.learning_rate,
                       warmup_steps=args.warmup_steps,
                       total_steps=max(args.steps, args.warmup_steps + 1),
                       optimizer=args.optimizer)
-    state = create_train_state(0, cfg, hp, device=device)
+    state = create_train_state(0, cfg, hp, mesh, device=device)
+    shardings = None if mesh is None else state_shardings(mesh, cfg, hp)
     start_step = 0
     if args.checkpoint_dir:
         latest = ckpt_lib.latest_step(args.checkpoint_dir)
         if latest is not None:
-            state = ckpt_lib.restore(args.checkpoint_dir, latest, state)
+            # Any mesh restores a checkpoint of any other: the files
+            # hold whole tensors, each rank reads its blocks.
+            state = ckpt_lib.restore(args.checkpoint_dir, latest, state,
+                                     shardings=shardings)
             start_step = state.step
-            print(json.dumps({'resumed_from_step': start_step}),
-                  flush=True)
-    step_fn = make_train_step(cfg, hp)
+            if is_main:
+                print(json.dumps({'resumed_from_step': start_step}),
+                      flush=True)
+                print(json.dumps({'mesh_devices': mesh_config.num_devices,
+                                  'num_slices': mesh_config.num_slices}),
+                      flush=True)
+    step_fn = make_train_step(cfg, hp, mesh)
 
     if args.data == 'synthetic':
         data_iter = None
@@ -207,28 +321,35 @@ def main(argv=None) -> int:
             loss = float(metrics['loss'])  # sync point
             elapsed = time.perf_counter() - window_t0
             tps = window_tokens / max(elapsed, 1e-9)
-            print(json.dumps({
-                'step': step + 1,
-                'loss': round(loss, 4),
-                'tokens_per_sec': round(tps, 1),
-                'achieved_tflops': round(tps * flops_per_token / 1e12, 2),
-            }), flush=True)
+            if is_main:
+                print(json.dumps({
+                    'step': step + 1,
+                    'loss': round(loss, 4),
+                    'tokens_per_sec': round(tps, 1),
+                    'achieved_tflops': round(tps * flops_per_token / 1e12,
+                                             2),
+                }), flush=True)
             window_t0 = time.perf_counter()
             window_tokens = 0.0
         saved_this_step = bool(args.checkpoint_dir) and (
             (step + 1) % args.checkpoint_every == 0 or
             step + 1 == args.steps)
         if saved_this_step:
-            ckpt_lib.save(args.checkpoint_dir, step + 1, state)
-        if resize_requested():
+            ckpt_lib.save(args.checkpoint_dir, step + 1, state,
+                          shardings=shardings)
+        if rank_decides(resize_requested(), device):
             # A step boundary is the only resize-safe point: params and
             # optimizer state are consistent. Checkpoint, then exit 0.
             if args.checkpoint_dir and not saved_this_step:
-                ckpt_lib.save(args.checkpoint_dir, step + 1, state)
-            print(json.dumps({'resize_exit_at_step': step + 1}),
-                  flush=True)
+                ckpt_lib.save(args.checkpoint_dir, step + 1, state,
+                              shardings=shardings)
+            if is_main:
+                print(json.dumps({'resize_exit_at_step': step + 1}),
+                      flush=True)
             return 0
-    print(json.dumps({'done': True, 'final_step': args.steps}), flush=True)
+    if is_main:
+        print(json.dumps({'done': True, 'final_step': args.steps}),
+              flush=True)
     return 0
 
 

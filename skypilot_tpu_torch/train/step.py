@@ -1,4 +1,4 @@
-"""Train state and train step on one card: the port of
+"""Train state and train step, on one card or over a mesh: the port of
 ``skypilot_tpu/train/step.py``.
 
 The optimizers are the reference's optax chains with their update rules
@@ -13,11 +13,36 @@ written out in torch (not ``torch.optim``):
 - ``adafactor``: ``chain(clip_by_global_norm(c), adafactor(schedule,
   weight_decay_rate=wd, decay_rate=b2))`` (class ``Adafactor``).
 
-Differences of idiom from the reference: there is no mesh (one card;
-passing one raises), no jit and no donation. The parameters and the
-Adam moments are updated in place, which keeps one copy of each on the
-card where the reference's pure update would allocate new arrays. The
-step count is a Python int.
+Under a mesh over ``data``, ``fsdp`` and ``tensor`` (one process per
+rank, ``parallel/launch.py``) each rank holds its block of every leaf
+under ``parallel/sharding.DEFAULT_RULES`` (``state_shardings``: an
+optimizer leaf shards like its param only on an exact shape match,
+every other leaf is whole on every rank) and trains on its rows of the
+batch. The step:
+
+- runs ``llama.forward`` on the shards (fsdp gathers, Megatron's
+  column/row-parallel pair over ``tensor``, the rank's vocab columns of
+  the logits), the loss combining the vocab blocks over ``tensor`` and
+  normalized by the weight sum of the WHOLE batch (``train/loss.py``);
+- sums each gradient over the batch ranks: an fsdp-sharded leaf's
+  arrives reduce-scattered over ``fsdp`` (the gather's backward) and
+  is all-reduced over ``data``, any other leaf's is all-reduced over
+  both (a ``tensor`` rank's replicated leaves already hold the whole
+  gradient);
+- counts each element of the gradient once in the global norm, and runs
+  the optimizers on the blocks: AdamW elementwise, Adafactor with its
+  factored statistics, its update RMS and its parameter RMS reduced
+  over each leaf's shard groups (``LeafShard``).
+
+The reference's numbers under a mesh are its one-device numbers up to
+the order of the sums; so are the port's. MoE configs, ``seq``,
+``stage`` and ``expert`` degrees above 1 raise (ROADMAP.md, queue A
+item 15 (c)).
+
+Differences of idiom from the reference: no jit and no donation. The
+parameters and the Adam moments are updated in place, which keeps one
+copy of each on the card where the reference's pure update would
+allocate new arrays. The step count is a Python int.
 """
 from __future__ import annotations
 
@@ -31,6 +56,16 @@ import torch
 
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.models.config import ModelConfig
+from skypilot_tpu_torch.ops.attention import check_mesh
+from skypilot_tpu_torch.parallel.mesh import Mesh
+from skypilot_tpu_torch.parallel.sharding import (DEFAULT_RULES,
+                                                  LogicalAxisRules,
+                                                  NamedSharding,
+                                                  PartitionSpec,
+                                                  TensorParallel,
+                                                  param_shardings,
+                                                  shard_params_pytree,
+                                                  tensor_parallel_of)
 from skypilot_tpu_torch.train.loss import cross_entropy_loss
 from skypilot_tpu_torch.utils.device import resolve_device
 
@@ -82,11 +117,193 @@ def _leaves(tree: Params) -> List[torch.Tensor]:
     return out
 
 
-def _no_mesh(mesh: Any) -> None:
-    if mesh is not None:
+def _tree_map(fn: Callable[..., Any], tree: Params, extras) -> Params:
+    """``fn(leaf, extra)`` over the leaves in ``_leaves`` order, ``extras``
+    an iterator in that order."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, tree[k], extras) for k in sorted(tree)}
+    return fn(tree, next(extras))
+
+
+# ---------------------------------------------------------------------------
+# The mesh
+# ---------------------------------------------------------------------------
+
+def mesh_parallel(mesh: Optional[Mesh],
+                  cfg: ModelConfig) -> Optional[TensorParallel]:
+    """This rank's ``TensorParallel`` on ``mesh``, None for no mesh or a
+    one-rank mesh. What the slice does not cover raises first, before
+    any process group is touched: MoE configs and an ``expert`` degree
+    above 1 (the router aux loss is a global mean: it comes with the
+    expert axis), a ``seq`` or ``stage`` degree above 1 and heads that
+    ``tensor`` does not divide (``ops/attention.check_mesh``)."""
+    if mesh is None or mesh.size == 1:
+        return None
+    check_training_mesh(mesh.shape, cfg)
+    return tensor_parallel_of(mesh)
+
+
+def check_training_mesh(shape: Dict[str, int], cfg: ModelConfig) -> None:
+    """Raise for a mesh ``shape`` (axis -> degree, more than one rank)
+    that this slice does not train on (see ``mesh_parallel``)."""
+    if cfg.is_moe or shape.get('expert', 1) > 1:
         raise NotImplementedError(
-            'device meshes are multi-device work, not ported yet: the port '
-            'trains on one card (ROADMAP.md, queue A item 15)')
+            'MoE training and the expert axis under a mesh of more than '
+            'one rank are not ported yet (ROADMAP.md, queue A item 15 '
+            '(c))')
+    check_mesh(shape, cfg.n_heads, cfg.n_kv_heads)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafShard:
+    """One leaf's place on a training mesh: per dim the number of blocks
+    and this rank's index, the mesh axes that split it (degree > 1), and
+    the rank's groups. A leaf whole on every rank has no axes."""
+    par: TensorParallel
+    splits: Tuple[Tuple[int, int], ...]
+    axes: Tuple[str, ...]
+
+    @classmethod
+    def of(cls, sharding: NamedSharding, par: TensorParallel,
+           ndim: int) -> 'LeafShard':
+        import torch.distributed as dist
+        rank = dist.get_rank()
+        axes = []
+        for entry in sharding.spec:
+            for axis in ((entry,) if isinstance(entry, str)
+                         else tuple(entry or ())):
+                if sharding.mesh.shape[axis] > 1:
+                    axes.append(axis)
+        return cls(par, tuple(sharding.split(d, rank) for d in range(ndim)),
+                   tuple(axes))
+
+    def full_shape(self, local: Tuple[int, ...]) -> Tuple[int, ...]:
+        if not self.axes:
+            return tuple(local)
+        return tuple(n * c for n, (c, _) in zip(local, self.splits))
+
+    def sum_(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the leaf's shard groups."""
+        for axis in self.axes:
+            x = self.par.all_reduce(x, axis=axis)
+        return x
+
+    def mean(self, x: torch.Tensor, dim: Optional[int] = None
+             ) -> torch.Tensor:
+        """``torch.mean`` of the whole leaf from this rank's block ``x``:
+        over everything, or along ``dim`` (whole on every rank), the sums
+        in fp32, the result in ``x``'s dtype."""
+        if not self.axes:
+            return torch.mean(x) if dim is None else torch.mean(x, dim=dim)
+        full = self.full_shape(tuple(x.shape))
+        if dim is None:
+            return (self.sum_(x.float().sum()) / math.prod(full)).to(x.dtype)
+        whole = x.new_zeros(full[:dim] + full[dim + 1:], dtype=torch.float32)
+        self.block(whole, dim).copy_(x.float().sum(dim))
+        return (self.sum_(whole) / full[dim]).to(x.dtype)
+
+    def block(self, whole: torch.Tensor, dropped: int) -> torch.Tensor:
+        """This rank's block (a view) of ``whole``, an array of the
+        leaf's full shape without dim ``dropped``."""
+        splits = self.splits[:dropped] + self.splits[dropped + 1:]
+        for d, (count, index) in enumerate(splits):
+            if count > 1:
+                size = whole.shape[d] // count
+                whole = whole.narrow(d, index * size, size)
+        return whole
+
+
+# A leaf off any mesh.
+_WHOLE = LeafShard(TensorParallel(), (), ())
+
+
+def _layout(mesh: Optional[Mesh], cfg: ModelConfig, hp: 'TrainHParams',
+            par: Optional[TensorParallel]) -> Optional[List[LeafShard]]:
+    """Each param's ``LeafShard`` under ``state_shardings``, in
+    ``_leaves`` order (None off a mesh)."""
+    if par is None:
+        return None
+    sh = _leaves(state_shardings(mesh, cfg, hp).params)
+    shapes = _leaves(llama.param_shapes(cfg))
+    return [LeafShard.of(s, par, t.dim()) for s, t in zip(sh, shapes)]
+
+
+def state_shardings(mesh: Mesh, cfg: ModelConfig, hp: 'TrainHParams',
+                    rules: LogicalAxisRules = DEFAULT_RULES
+                    ) -> 'TrainState':
+    """A TrainState of ``NamedSharding``: the params under the rules; an
+    optimizer leaf mirrors the param whose key path is the longest
+    suffix of its own only when its shape is that param's exactly
+    (AdamW's mu and nu, Adafactor's unfactored v), whatever other param
+    shares the shape (d_ff == d_model makes ``wi_gate`` and ``mlp.wo``
+    the same shape with transposed shardings); every other leaf
+    (Adafactor's v_row and v_col, the counts) is whole on every rank."""
+    param_sh = param_shardings(mesh, llama.param_logical_axes(cfg), rules)
+    shapes = llama.param_shapes(cfg)
+    replicated = NamedSharding(mesh, PartitionSpec())
+    flat_sh = dict(_paths(param_sh))
+    flat_shape = dict(_paths(shapes))
+    opt = make_optimizer(hp).init(shapes)
+
+    def mirror(node, path):
+        if isinstance(node, dict):
+            return {k: mirror(v, path + (k,)) for k, v in node.items()}
+        for start in range(len(path)):
+            suffix = path[start:]
+            if suffix in flat_sh:
+                if tuple(flat_shape[suffix].shape) == tuple(node.shape):
+                    return flat_sh[suffix]
+                break
+        return replicated
+
+    opt_sh = {k: (replicated if not isinstance(v, dict) else mirror(v, (k,)))
+              for k, v in opt.items()}
+    return TrainState(step=replicated, params=param_sh, opt_state=opt_sh)
+
+
+def _paths(tree: Params, prefix: Tuple[str, ...] = ()):
+    """(key path, leaf) pairs of a dict tree."""
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _paths(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def _batch_rows(batch: Dict[str, Any], par: TensorParallel
+                ) -> Dict[str, Any]:
+    """This rank's rows of every [B, ...] entry of a global batch (rule
+    'batch': over (data, fsdp), data major)."""
+    out = {}
+    for key, value in batch.items():
+        rows = value.shape[0]
+        if rows % par.batch_degree:
+            raise ValueError(f'batch {key} of {rows} rows does not divide '
+                             f'over data x fsdp = {par.batch_degree}')
+        n = rows // par.batch_degree
+        out[key] = value[par.batch_index * n:(par.batch_index + 1) * n]
+    return out
+
+
+def _square_sums(grads: List[torch.Tensor],
+                 layout: Optional[List[LeafShard]]) -> List[torch.Tensor]:
+    """Each leaf's fp32 sum of squares over the WHOLE gradient: a
+    sharded leaf's blocks summed over its shard groups, a leaf whole on
+    every rank counted once (its copies off index 0 of an axis that does
+    not split it add zeros; the adds are exact)."""
+    sums = [torch.sum(torch.square(g.float())) for g in grads]
+    if layout is None:
+        return sums
+    par = layout[0].par
+    vec = torch.stack(sums)
+    for axis in ('fsdp', 'tensor'):
+        _, degree, index = par.axis(axis)
+        if degree == 1:
+            continue
+        keep = [1.0 if axis in leaf.axes or index == 0 else 0.0
+                for leaf in layout]
+        vec = par.all_reduce(vec * vec.new_tensor(keep), axis=axis)
+    return list(vec.unbind())
 
 
 def warmup_cosine_decay(init_value: float, peak_value: float,
@@ -125,18 +342,22 @@ class AdamW:
     scale_by_learning_rate(schedule), updating params in place.
     ``schedule`` (step -> learning rate) defaults to the reference's
     warmup-cosine of ``hp``; ``clip=False`` drops the clipping, which
-    with a constant schedule is plain ``optax.adamw``.
+    with a constant schedule is plain ``optax.adamw``. ``layout``: each
+    leaf's ``LeafShard`` on a mesh (the moments are blocks like their
+    params; only the clip's norm reduces).
 
     State: ``{'count': int, 'mu': params-like, 'nu': params-like}``."""
 
     def __init__(self, hp: TrainHParams,
                  schedule: Optional[Callable[[int], float]] = None,
-                 clip: bool = True):
+                 clip: bool = True,
+                 layout: Optional[List[LeafShard]] = None):
         self.hp = hp
         self.eps = 1e-8        # optax.adamw defaults
         self.eps_root = 0.0
         self.schedule = schedule or _schedule(hp)
         self.clip = clip
+        self.layout = layout
 
     def init(self, params: Params) -> Dict[str, Any]:
         def zeros(tree):
@@ -156,8 +377,7 @@ class AdamW:
         hp = self.hp
         g_norm = clip = None
         if self.clip:
-            g_norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                                    for g in grads))
+            g_norm = torch.sqrt(sum(_square_sums(grads, self.layout)))
             clip = torch.where(g_norm < hp.grad_clip_norm,
                                torch.ones_like(g_norm),
                                hp.grad_clip_norm / g_norm)
@@ -211,12 +431,13 @@ def _in_dtype(x: float, dtype: torch.dtype) -> float:
     return torch.tensor(x, dtype=dtype).item()
 
 
-def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+def _global_norm(grads: List[torch.Tensor],
+                 layout: Optional[List[LeafShard]] = None) -> torch.Tensor:
     """optax.global_norm: each leaf's sum of squares (accumulated in
     fp32, stored in the leaf's dtype), summed over the leaves in order,
     then the square root, all in that dtype."""
-    total = sum(torch.sum(torch.square(g.float())).to(g.dtype)
-                for g in grads)
+    total = sum(s.to(g.dtype)
+                for s, g in zip(_square_sums(grads, layout), grads))
     return torch.sqrt(total)
 
 
@@ -249,36 +470,52 @@ class Adafactor:
     promotes them; scalars are rounded to the leaf's dtype first, as
     JAX's weak types are. State: ``{'count': int, 'v_row', 'v_col',
     'v'}``, each a params-like tree, unused statistics ``(1,)`` zeros:
-    optax's ``FactoredState`` names and shapes."""
+    optax's ``FactoredState`` names and shapes.
+
+    ``layout``: each leaf's ``LeafShard`` on a mesh. A leaf factors as
+    its WHOLE shape does; ``v`` is a block like its param, ``v_row`` and
+    ``v_col`` are whole on every rank (their means over a split dim
+    summed over the leaf's shard groups), and each leaf's update RMS and
+    parameter RMS are over the whole leaf."""
 
     min_dim_size_to_factor = 128
     eps = 1e-30
     clipping_threshold = 1.0
     min_param_scale = 1e-3
 
-    def __init__(self, hp: TrainHParams):
+    def __init__(self, hp: TrainHParams,
+                 layout: Optional[List[LeafShard]] = None):
         self.hp = hp
         self.decay_rate = hp.b2
         self.schedule = _schedule(hp)
+        self.layout = layout
 
     def _factored(self, shape) -> Optional[Tuple[int, int]]:
         return factored_dims(tuple(shape), self.min_dim_size_to_factor)
 
+    def _whole(self, p: torch.Tensor,
+               leaf: Optional[LeafShard]) -> Tuple[int, ...]:
+        return tuple(p.shape) if leaf is None else leaf.full_shape(p.shape)
+
     def init(self, params: Params) -> Dict[str, Any]:
-        def stats(tree, which):
-            if isinstance(tree, dict):
-                return {k: stats(v, which) for k, v in tree.items()}
-            dims = self._factored(tree.shape)
-            shape = (1,)
-            if which == 'v' and dims is None:
-                shape = tuple(tree.shape)
-            elif which != 'v' and dims is not None:
-                drop = dims[1] if which == 'v_row' else dims[0]
-                shape = tuple(n for i, n in enumerate(tree.shape)
-                              if i != drop)
-            return torch.zeros(shape, dtype=tree.dtype, device=tree.device)
-        return {'count': 0, 'v_row': stats(params, 'v_row'),
-                'v_col': stats(params, 'v_col'), 'v': stats(params, 'v')}
+        def stats(which):
+            def make(p, leaf):
+                whole = self._whole(p, leaf)
+                dims = self._factored(whole)
+                shape = (1,)
+                if which == 'v' and dims is None:
+                    shape = tuple(p.shape)
+                elif which != 'v' and dims is not None:
+                    drop = dims[1] if which == 'v_row' else dims[0]
+                    shape = tuple(n for i, n in enumerate(whole)
+                                  if i != drop)
+                return torch.zeros(shape, dtype=p.dtype, device=p.device)
+            return _tree_map(make, params, self._leaf_iter(params))
+        return {'count': 0, 'v_row': stats('v_row'),
+                'v_col': stats('v_col'), 'v': stats('v')}
+
+    def _leaf_iter(self, params: Params):
+        return iter(self.layout or [None] * len(_leaves(params)))
 
     def _decay(self, count: int) -> Tuple[float, float]:
         """(beta, 1 - beta) at ``count``, computed in fp32."""
@@ -294,7 +531,7 @@ class Adafactor:
         order. Returns (new state, global norm of the unclipped grads,
         in their dtype)."""
         hp = self.hp
-        g_norm = _global_norm(grads)
+        g_norm = _global_norm(grads, self.layout)
         clipped = g_norm >= hp.grad_clip_norm
         one = torch.ones_like(g_norm)
         divisor = torch.where(clipped, g_norm, one)
@@ -302,27 +539,29 @@ class Adafactor:
         count = state['count']
         beta, one_minus = self._decay(count)
         lr = self.schedule(count)
-        for p, g, v_row, v_col, v in zip(
+        for p, g, v_row, v_col, v, leaf in zip(
                 _leaves(params), grads, _leaves(state['v_row']),
-                _leaves(state['v_col']), _leaves(state['v'])):
+                _leaves(state['v_col']), _leaves(state['v']),
+                self._leaf_iter(params)):
             dt = p.dtype
+            leaf = leaf or _WHOLE
             g = g.to(dt) / divisor.to(dt) * factor.to(dt)
             g2 = g * g + _in_dtype(self.eps, dt)
-            dims = self._factored(p.shape)
+            dims = self._factored(leaf.full_shape(p.shape))
             if dims is not None:
                 d1, d0 = dims
-                new_row = (v_row.float() * beta + torch.mean(
-                    g2, dim=d0).float() * one_minus).to(dt)
-                new_col = (v_col.float() * beta + torch.mean(
-                    g2, dim=d1).float() * one_minus).to(dt)
+                new_row = (v_row.float() * beta + leaf.mean(
+                    g2, d0).float() * one_minus).to(dt)
+                new_col = (v_col.float() * beta + leaf.mean(
+                    g2, d1).float() * one_minus).to(dt)
                 del g2
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
                 row_mean = torch.mean(new_row, dim=reduced_d1,
                                       keepdim=True)
                 row_factor = (new_row / row_mean) ** -0.5
                 col_factor = new_col ** -0.5
-                u = g * row_factor.unsqueeze(d0)
-                u.mul_(col_factor.unsqueeze(d1))
+                u = g * leaf.block(row_factor, d0).unsqueeze(d0)
+                u.mul_(leaf.block(col_factor, d1).unsqueeze(d1))
                 v_row.copy_(new_row)
                 v_col.copy_(new_col)
             else:
@@ -331,10 +570,10 @@ class Adafactor:
                 u = g * new_v ** -0.5
                 v.copy_(new_v)
             del g
-            rms = torch.sqrt(torch.mean(u * u))
+            rms = torch.sqrt(leaf.mean(u * u))
             u.div_(torch.clamp_min(rms / self.clipping_threshold, 1.0))
             u.mul_(_in_dtype(lr, dt))
-            p_rms = torch.sqrt(torch.mean(p * p))
+            p_rms = torch.sqrt(leaf.mean(p * p))
             u.mul_(torch.clamp_min(p_rms,
                                    _in_dtype(self.min_param_scale, dt)))
             u.add_(p * _in_dtype(hp.weight_decay, dt))
@@ -346,13 +585,14 @@ class Adafactor:
 Optimizer = Union[AdamW, Adafactor]
 
 
-def make_optimizer(hp: TrainHParams) -> Optimizer:
+def make_optimizer(hp: TrainHParams,
+                   layout: Optional[List[LeafShard]] = None) -> Optimizer:
     if hp.optimizer == 'adafactor':
-        return Adafactor(hp)
+        return Adafactor(hp, layout)
     if hp.optimizer != 'adamw':
         raise ValueError(f'Unknown optimizer {hp.optimizer!r} '
                          f"(expected 'adamw' or 'adafactor')")
-    return AdamW(hp)
+    return AdamW(hp, layout=layout)
 
 
 def _trainable(params: Params) -> Params:
@@ -362,34 +602,43 @@ def _trainable(params: Params) -> Params:
 
 
 def create_train_state(seed: int, cfg: ModelConfig, hp: TrainHParams,
-                       mesh: Any = None, *,
+                       mesh: Optional[Mesh] = None, *,
                        device: Optional[Union[str, torch.device]] = None
                        ) -> TrainState:
     """Initialize params (``llama.init_params`` on the card, in
-    ``cfg.param_dtype``) and the optimizer state."""
-    _no_mesh(mesh)
+    ``cfg.param_dtype``) and the optimizer state. On a mesh every rank
+    draws the whole init from the same seed and keeps its block, so the
+    values are the one-device init's."""
+    mesh_parallel(mesh, cfg)       # what the slice does not cover raises
     params = llama.init_params(seed, cfg, device=resolve_device(device))
-    return create_train_state_from_params(params, cfg, hp)
+    return create_train_state_from_params(params, cfg, hp, mesh)
 
 
 def create_train_state_from_params(params: Params, cfg: ModelConfig,
                                    hp: TrainHParams,
-                                   mesh: Any = None) -> TrainState:
+                                   mesh: Optional[Mesh] = None
+                                   ) -> TrainState:
     """TrainState around EXISTING params (finetuning a loaded
-    checkpoint); the params are trained in place."""
-    del cfg  # layout comes from the params themselves
-    _no_mesh(mesh)
-    optimizer = make_optimizer(hp)
+    checkpoint): one device trains them in place; on a mesh this rank
+    keeps (copies of) its blocks."""
+    par = mesh_parallel(mesh, cfg)
+    if par is not None:
+        import torch.distributed as dist
+        params = shard_params_pytree(mesh, llama.param_logical_axes(cfg),
+                                     params, rank=dist.get_rank())
+    optimizer = make_optimizer(hp, _layout(mesh, cfg, hp, par))
     return TrainState(step=0, params=_trainable(params),
                       opt_state=optimizer.init(params))
 
 
 def train_step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
                   cfg: ModelConfig, optimizer: Optimizer, hp: TrainHParams,
-                  pipeline_stages: int = 1
+                  pipeline_stages: int = 1,
+                  parallel: Optional[TensorParallel] = None
                   ) -> Tuple[TrainState, Dict[str, Any]]:
     """One step. batch: tokens [B,S], targets [B,S], weights [B,S],
-    optional positions and segments.
+    optional positions and segments (on a mesh: this rank's rows;
+    ``parallel`` its place, ``optimizer`` built on its layout).
 
     A MoE model (with ``router_aux_loss_coeff > 0``, no pipeline)
     optimizes ``total_loss = loss + coeff * router_aux``, the layer mean
@@ -402,19 +651,24 @@ def train_step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
                         positions=batch.get('positions'),
                         segments=batch.get('segments'),
                         pipeline_stages=pipeline_stages,
-                        return_aux=use_aux)
+                        return_aux=use_aux, parallel=parallel)
     logits, aux = out if use_aux else (out, None)
     loss, _ = cross_entropy_loss(logits, batch['targets'],
                                  batch.get('weights'),
-                                 z_loss_coeff=hp.z_loss_coeff)
+                                 z_loss_coeff=hp.z_loss_coeff,
+                                 parallel=parallel)
     del logits, out
     total_loss = loss
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     else:
         total_loss = loss + cfg.router_aux_loss_coeff * aux
-    grads = torch.autograd.grad(total_loss, leaves)
-    opt_state, grad_norm = optimizer.update_(state.params, list(grads),
+    grads = list(torch.autograd.grad(total_loss, leaves))
+    if parallel is not None:
+        grads = _sum_grads(grads, optimizer.layout, parallel)
+        # This rank's loss is its share of the batch mean.
+        loss = total_loss = parallel.batch_sum(loss.detach().clone())
+    opt_state, grad_norm = optimizer.update_(state.params, grads,
                                              state.opt_state)
     del grads
     metrics = {
@@ -429,25 +683,51 @@ def train_step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
                       opt_state=opt_state), metrics
 
 
-def make_train_step(cfg: ModelConfig, hp: TrainHParams, mesh: Any = None
+def _sum_grads(grads: List[torch.Tensor], layout: List[LeafShard],
+               par: TensorParallel) -> List[torch.Tensor]:
+    """Each gradient summed over the batch ranks: an fsdp-sharded leaf's
+    is already summed over fsdp (its gather's backward reduce-scatters),
+    the rest are summed over fsdp here; all over data."""
+    out = []
+    for g, leaf in zip(grads, layout):
+        if 'fsdp' not in leaf.axes:
+            g = par.all_reduce(g, axis='fsdp')
+        out.append(par.all_reduce(g, axis='data'))
+    return out
+
+
+def make_train_step(cfg: ModelConfig, hp: TrainHParams,
+                    mesh: Optional[Mesh] = None
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Tuple[TrainState, Dict[str, Any]]]:
-    """The train step for one card (no jit: PyTorch runs eagerly)."""
-    _no_mesh(mesh)
-    optimizer = make_optimizer(hp)
+    """The train step (no jit: PyTorch runs eagerly). It takes the
+    GLOBAL batch, as the reference's jitted step does: on a mesh each
+    rank trains on its rows, and every rank returns the same metrics."""
+    par = mesh_parallel(mesh, cfg)
+    optimizer = make_optimizer(hp, _layout(mesh, cfg, hp, par))
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        return train_step_fn(state, batch, cfg, optimizer, hp)
+        if par is not None:
+            batch = _batch_rows(batch, par)
+        return train_step_fn(state, batch, cfg, optimizer, hp,
+                             parallel=par)
 
     return step
 
 
-def make_forward(cfg: ModelConfig, mesh: Any = None):
-    """An inference forward: (params, tokens) -> fp32 logits."""
-    _no_mesh(mesh)
+def make_forward(cfg: ModelConfig, mesh: Optional[Mesh] = None):
+    """An inference forward: (params, tokens) -> fp32 logits of the
+    whole batch (on a mesh: the rank's shards and the global tokens; the
+    rows are gathered back on every rank)."""
+    par = mesh_parallel(mesh, cfg)
 
     @torch.no_grad()
     def fwd(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return llama.forward(params, tokens, cfg)
+        if par is None:
+            return llama.forward(params, tokens, cfg)
+        rows = _batch_rows({'tokens': tokens}, par)['tokens']
+        logits = par.all_gather(
+            llama.forward(params, rows, cfg, parallel=par), -1, 'tensor')
+        return par.all_gather(par.all_gather(logits, 0, 'fsdp'), 0, 'data')
 
     return fwd

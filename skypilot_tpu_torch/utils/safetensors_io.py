@@ -12,16 +12,21 @@ model on the card never holds a host copy of it. Its bytes equal the
 reference writer's (``skypilot_tpu/models/hf_interop.py``) for the same
 tensors.
 
+A value may also be a ``Deferred``: a tensor of known shape, dtype and
+device made only when the writer reaches it, so a caller that gathers
+each tensor (``train/checkpoint.py`` on a mesh) holds one at a time.
+
 ``models/hf_interop.py`` (HF checkpoints) and ``train/checkpoint.py``
 (training state) both read and write through this module.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import mmap
 import os
 import struct
-from typing import Any, BinaryIO, Dict, List, Optional, Tuple
+from typing import Any, BinaryIO, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -110,6 +115,34 @@ class SafetensorsReader:
         self.close()
 
 
+@dataclasses.dataclass(frozen=True)
+class Deferred:
+    """A tensor that ``make()`` returns when the writer reaches it: the
+    header needs only its shape, dtype and device."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    device: torch.device
+    make: Callable[[], torch.Tensor]
+
+    def numel(self) -> int:
+        n = 1
+        for size in self.shape:
+            n *= size
+        return n
+
+    @property
+    def is_cuda(self) -> bool:
+        return self.device.type == 'cuda'
+
+    def get(self) -> torch.Tensor:
+        t = self.make()
+        if tuple(t.shape) != tuple(self.shape) or t.dtype != self.dtype:
+            raise ValueError(f'deferred tensor made {tuple(t.shape)} '
+                             f'{t.dtype}, declared {tuple(self.shape)} '
+                             f'{self.dtype}')
+        return t
+
+
 def _device_layout(t: torch.Tensor, dtype: Optional[torch.dtype]
                    ) -> torch.Tensor:
     """``t`` cast to ``dtype`` and laid out contiguously on its own
@@ -146,19 +179,28 @@ def _write_to(f: BinaryIO, tensors: Dict[str, torch.Tensor],
     staging = (torch.empty(largest_on_card, dtype=torch.uint8,
                            pin_memory=True) if largest_on_card else None)
     for name in names:
-        flat = _device_layout(tensors[name], dtype)
-        if not flat.numel():
-            continue
-        raw = flat.view(torch.uint8)
-        if raw.is_cuda:
-            host = staging[:raw.numel()]
-            host.copy_(raw)
-        else:
-            host = raw
-        f.write(host.numpy())
+        t = tensors[name]
+        _write_one(f, t.get() if isinstance(t, Deferred) else t, dtype,
+                   staging)
 
 
-def write_safetensors(path: str, tensors: Dict[str, torch.Tensor],
+def _write_one(f: BinaryIO, t: torch.Tensor, dtype: Optional[torch.dtype],
+               staging: Optional[torch.Tensor]) -> None:
+    """One tensor's bytes (through ``staging`` from the card); nothing
+    of it is referenced once this returns."""
+    flat = _device_layout(t, dtype)
+    if not flat.numel():
+        return
+    raw = flat.view(torch.uint8)
+    if raw.is_cuda:
+        host = staging[:raw.numel()]
+        host.copy_(raw)
+    else:
+        host = raw
+    f.write(host.numpy())
+
+
+def write_safetensors(path: str, tensors: Dict[str, Any],
                       metadata: Optional[Dict[str, str]] = None, *,
                       dtype: Optional[torch.dtype] = None,
                       fsync: bool = False) -> None:
@@ -167,7 +209,8 @@ def write_safetensors(path: str, tensors: Dict[str, torch.Tensor],
     ``path + '.tmp'``, one tensor at a time, then rename it to ``path``;
     ``dtype`` casts every tensor as it is written, and ``fsync`` syncs
     the file before the rename. Tensors on the card reach the host
-    through one pinned staging buffer of the largest one's size."""
+    through one pinned staging buffer of the largest one's size. A
+    ``Deferred`` value is made as its turn comes, in name order."""
     tmp = path + '.tmp'
     with open(tmp, 'wb') as f:
         _write_to(f, tensors, metadata, dtype)

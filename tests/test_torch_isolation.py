@@ -203,6 +203,31 @@ def test_spawned_ranks_serve_with_jax_blocked():
     assert np.asarray(tokens).dtype.kind == 'i'
 
 
+def test_spawned_training_rank_takes_a_step_with_jax_blocked():
+    """The ranks of a training mesh import no JAX: with ``jax`` and the
+    JAX package blocked in each spawned rank, two ranks at ``fsdp=2``
+    take a train step on the port's own seeded init."""
+    import numpy as np
+    from skypilot_tpu_torch.models import convert, llama
+    from skypilot_tpu_torch.parallel.launch import launch
+    import torch_train_ranks as train_ranks
+    cfg = train_ranks.tiny_config()
+    rng = np.random.RandomState(0)
+    tokens = rng.randint(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    run = {'name': 'step', 'hp': {'warmup_steps': 1, 'total_steps': 4},
+           'params': convert.params_to_numpy(
+               llama.init_params(0, cfg, device='cpu')),
+           'batches': [{'tokens': tokens,
+                        'targets': np.roll(tokens, -1, axis=1),
+                        'weights': np.ones((4, 32), np.float32)}]}
+    out = launch(train_ranks.mesh_checks, 2, 'fsdp=2', [run], None, True,
+                 device='cpu')
+    for rank in (0, 1):
+        assert out[rank]['jax_loaded'] is False
+        metrics = out[rank]['runs']['step']['metrics']
+        assert len(metrics) == 1 and np.isfinite(metrics[0]['loss'])
+
+
 def test_quantize_works_on_both_engines():
     """W8A8 (``quantize=True``) serves on the batch and the continuous
     engine (CPU): int8 layer weights, tokens in the vocab."""

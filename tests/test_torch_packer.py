@@ -125,8 +125,8 @@ def test_pretrain_packed_counts_real_tokens(tmp_path, capsys,
     from skypilot_tpu_torch.train import step as tstep
     inner = tstep.make_train_step
 
-    def recording(cfg, hp):
-        fn = inner(cfg, hp)
+    def recording(cfg, hp, mesh=None):
+        fn = inner(cfg, hp, mesh)
 
         def step(state, batch):
             seen.append(float(batch['weights'].sum()))

@@ -359,12 +359,25 @@ def test_file_batches(tmp_path):
 
 
 def test_unported_options_raise(monkeypatch, tmp_path):
+    """What the mesh-training slice does not cover raises before any rank
+    starts: seq, stage and expert degrees above 1 and MoE models on a
+    mesh (the next slice, ROADMAP.md), and heads that tensor does not
+    divide; pipeline stages in the forward."""
+    for spec in ('seq=2', 'stage=2', 'expert=2'):
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            tpretrain.main(['--mesh', spec, '--device', 'cpu', '--steps',
+                            '1'])
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tpretrain.main(['--mesh', 'fsdp=2', '--device', 'cpu', '--steps',
-                        '1'])
+        tpretrain.main(['--model', 'tiny-moe', '--mesh', 'fsdp=2',
+                        '--device', 'cpu', '--steps', '1'])
+    with pytest.raises(ValueError, match='does not divide'):
+        tpretrain.main(['--mesh', 'tensor=4', '--device', 'cpu',
+                        '--steps', '1'])
+    from skypilot_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    two = build_mesh(MeshConfig(fsdp=2), devices=[0, 1], device_type='cpu')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tstep.make_train_step(tconfig.get_model_config('tiny'),
-                              tstep.TrainHParams(), mesh=object())
+        tstep.make_train_step(tconfig.get_model_config('tiny-moe'),
+                              tstep.TrainHParams(), mesh=two)
     cfg = tconfig.get_model_config('tiny')
     params = tllama.init_params(0, cfg, device='cpu')
     tokens = torch.zeros((1, 8), dtype=torch.int32)

@@ -1,0 +1,229 @@
+"""Rank-side halves of the mesh-training tests.
+
+``skypilot_tpu_torch.parallel.launch.launch`` runs these functions in
+spawned ranks (``gloo`` on the CPU). A rank imports this module and,
+through it, only torch and the port: never a test module, which imports
+jax. Every function returns plain Python and numpy values; the gathered
+(whole) arrays come back from rank 0 only.
+"""
+import contextlib
+import io
+import json
+import sys
+
+import numpy as np
+import torch
+
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'skypilot_tpu')
+
+
+def tiny_config(**overrides):
+    from skypilot_tpu_torch.models.config import get_model_config
+    base = dict(n_heads=4, n_kv_heads=2, compute_dtype=torch.float32)
+    base.update(overrides)
+    return get_model_config('tiny', **base)
+
+
+def _mesh(spec):
+    from skypilot_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from skypilot_tpu_torch.parallel.mesh import parse_mesh_spec
+    if spec is None:
+        return None
+    return build_mesh(MeshConfig(**{'fsdp': 1, **parse_mesh_spec(spec)}),
+                      device_type='cpu')
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().float().numpy().copy()
+    return tree
+
+
+def _torch_batch(batch):
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+
+
+def mesh_checks(rank, world, spec, runs, loss_case=None, block_jax=False):
+    """Every check of one mesh ``spec`` in one launch. Each run of
+    ``runs``: its params (numpy, whole) placed on the mesh, then
+    ``make_train_step`` on each of its global batches; returns per run
+    the metrics of every step, this rank's blocks of the initial params,
+    the shapes of its optimizer leaves and (rank 0) the whole params
+    after the last step. ``loss_case`` (logits, targets, weights):
+    ``loss_shares`` of it. ``block_jax``: jax and the JAX package are
+    blocked in this rank first, and the result says whether jax
+    loaded."""
+    if block_jax:
+        for name in FORBIDDEN:
+            sys.modules[name] = None
+    import torch.distributed as dist
+    from skypilot_tpu_torch.parallel.sharding import tensor_parallel_of
+    mesh = _mesh(spec)
+    par = tensor_parallel_of(mesh)
+    out = {'rank': rank, 'coords': mesh.coords(rank),
+           'runs': {run['name']: _train_run(run, mesh, par, rank)
+                    for run in runs}}
+    if loss_case is not None:
+        out['loss'] = _loss_shares(par, *loss_case)
+    if block_jax:
+        out['jax_loaded'] = sys.modules.get('jax') is not None
+    dist.barrier()
+    return out
+
+
+def _train_run(run, mesh, par, rank):
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.parallel.sharding import gather_params_pytree
+    from skypilot_tpu_torch.train import step as tstep
+    cfg = tiny_config(**run.get('overrides', {}))
+    hp = tstep.TrainHParams(**run['hp'])
+    params = convert.params_from_numpy(run['params'], cfg, device='cpu')
+    state = tstep.create_train_state_from_params(params, cfg, hp, mesh)
+    del params
+    result = {
+        'initial': _numpy(state.params),
+        'opt_shapes': {k: {'/'.join(p): tuple(v.shape) for p, v in
+                           tstep._paths(tree)}
+                       for k, tree in state.opt_state.items()
+                       if isinstance(tree, dict)},
+        'metrics': []}
+    step = tstep.make_train_step(cfg, hp, mesh)
+    fa.reset_launch_counts()
+    for batch in run['batches']:
+        state, metrics = step(state, _torch_batch(batch))
+        result['metrics'].append(
+            {'loss': float(metrics['loss']),
+             'grad_norm': float(metrics['grad_norm']),
+             'step': metrics['step']})
+    result['flash_fallbacks'] = fa.FALLBACKS['cpu']
+    shardings = tstep.state_shardings(mesh, cfg, hp)
+    whole = gather_params_pytree(shardings.params, state.params, par)
+    if rank == 0:
+        result['final'] = _numpy(whole)
+    return result
+
+
+def attention_checks(rank, world, spec, q, k, v, seg, runs=()):
+    """The per-shard flash attention on mesh ``spec``: this rank's rows
+    of q/k/v (batch over data x fsdp) and heads (over tensor) through
+    ``multi_head_attention(impl='pallas')`` (the kernels' plain versions
+    on the CPU), without and with its rows of ``seg``, and the gradients
+    of sum(out^2) with respect to its blocks; then ``runs`` as
+    ``mesh_checks`` runs them."""
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops.attention import multi_head_attention
+    from skypilot_tpu_torch.parallel.sharding import tensor_parallel_of
+    mesh = _mesh(spec)
+    par = tensor_parallel_of(mesh)
+    nb, bi = par.batch_degree, par.batch_index
+    b, h, kvh = q.shape[0] // nb, q.shape[2] // par.degree, \
+        k.shape[2] // par.degree
+
+    def local(x, heads):
+        x = torch.from_numpy(x)[bi * b:(bi + 1) * b]
+        return x[:, :, par.rank * heads:(par.rank + 1) * heads].clone()
+
+    ql, kl, vl = local(q, h), local(k, kvh), local(v, kvh)
+    segl = torch.from_numpy(seg)[bi * b:(bi + 1) * b]
+    fa.reset_launch_counts()
+    out = {'rank': rank, 'rows': (bi * b, (bi + 1) * b),
+           'heads': (par.rank * h, (par.rank + 1) * h),
+           'kv_heads': (par.rank * kvh, (par.rank + 1) * kvh)}
+    out['plain'] = multi_head_attention(ql, kl, vl, causal=True,
+                                        impl='pallas').numpy()
+    out['segments'] = multi_head_attention(ql, kl, vl, causal=True,
+                                           segment_ids=segl,
+                                           impl='pallas').numpy()
+    grads = [x.clone().requires_grad_(True) for x in (ql, kl, vl)]
+    loss = (multi_head_attention(*grads, causal=True,
+                                 impl='pallas').float() ** 2).sum()
+    loss.backward()
+    out['grads'] = [g.grad.numpy() for g in grads]
+    out['fallbacks'] = fa.FALLBACKS['cpu']
+    out['runs'] = {run['name']: _train_run(run, mesh, par, rank)
+                   for run in runs}
+    return out
+
+
+def _loss_shares(par, logits, targets, weights):
+    """This rank's rows of a batch (and, under tensor, its block of the
+    vocab) through ``cross_entropy_loss`` on the mesh: its share of the
+    mean, the whole batch's weight sum, and the mean of its rows
+    alone."""
+    from skypilot_tpu_torch.train import loss as tloss
+    from skypilot_tpu_torch.train.step import _batch_rows
+    rows = _batch_rows({'logits': torch.from_numpy(logits),
+                        'targets': torch.from_numpy(targets),
+                        'weights': torch.from_numpy(weights)}, par)
+    width = logits.shape[-1] // par.degree
+    block = rows['logits'][..., par.rank * width:(par.rank + 1) * width]
+    share, total = tloss.cross_entropy_loss(
+        block, rows['targets'], rows['weights'], z_loss_coeff=1e-4,
+        parallel=par)
+    own, _ = tloss.cross_entropy_loss(rows['logits'], rows['targets'],
+                                      rows['weights'], z_loss_coeff=1e-4)
+    return {'share': float(share), 'total': float(total),
+            'own_mean': float(own)}
+
+
+def run_main(rank, world, module, argv):
+    """``module.main(argv)`` in this rank, its stdout captured: (rc, the
+    JSON lines it printed)."""
+    import importlib
+    main = importlib.import_module(module).main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return {'rc': rc, 'lines': [json.loads(x) for x in
+                                buf.getvalue().splitlines()
+                                if x.startswith('{')]}
+
+
+def checkpoint_cycle(rank, world, spec, directory, restore):
+    """TINY (AdamW) at mesh ``spec`` (None: one process, no mesh) on the
+    synthetic batch of step 0 (B=8, S=64). Without ``restore``: two
+    steps from the seed-0 init, a checkpoint of step 2 (whole tensors,
+    rank 0 writes), then a third step; with it: the latest step of
+    ``directory`` restored into a seed-1 state, then one step. Returns
+    the losses and the step count after."""
+    from skypilot_tpu_torch.train import checkpoint as ckpt_lib
+    from skypilot_tpu_torch.train import step as tstep
+    from skypilot_tpu_torch.train.pretrain import synthetic_batch
+    del world
+    mesh = _mesh(spec)
+    cfg = tiny_config()
+    hp = tstep.TrainHParams(warmup_steps=2, total_steps=10)
+    shardings = None if mesh is None else tstep.state_shardings(mesh, cfg,
+                                                                hp)
+    state = tstep.create_train_state(1 if restore else 0, cfg, hp, mesh,
+                                     device='cpu')
+    step = tstep.make_train_step(cfg, hp, mesh)
+    batch = synthetic_batch(0, 8, 64, cfg.vocab_size)
+    losses = []
+    if restore:
+        state = ckpt_lib.restore(directory, ckpt_lib.latest_step(directory),
+                                 state, shardings=shardings)
+    else:
+        for _ in range(2):
+            state, metrics = step(state, batch)
+            losses.append(float(metrics['loss']))
+        ckpt_lib.save(directory, state.step, state, shardings=shardings)
+    state, metrics = step(state, batch)
+    losses.append(float(metrics['loss']))
+    return {'rank': rank, 'losses': losses, 'step': state.step}
+
+
+def finetune_run(rank, world, argv):
+    """``train.finetune.run`` of ``argv`` in this rank at fp32 compute
+    (rank 0 prints): the losses."""
+    from skypilot_tpu_torch.train import finetune
+    del world
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = finetune.run(finetune.parse_args(argv),
+                           compute_dtype=torch.float32)
+    return {'rank': rank, 'losses': out['losses'],
+            'lines': buf.getvalue().splitlines()}
