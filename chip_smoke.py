@@ -58,7 +58,9 @@ Phases, in order; any failure exits non-zero:
    (B=4, S=512), the GRPO learner's (bench-1b7 heads, B=8, S=128) and
    one rank's shard of bench-1b7's training attention on phase 32's
    meshes (B=4 H=20 KVH=4 at fsdp=2, B=8 H=10 KVH=2 at tensor=2, which
-   does not split the batch; with and without segment ids);
+   does not split the batch; with and without segment ids), one ring
+   block of phase 33 (B=8 S=1024 H=20 KVH=4: causal, full, causal with
+   segment ids);
    at the ring's edge shapes S=64 and S=192 with GQA groups 1
    and 8, bf16 and fp32; each output's error normalized per 64-row tile
    of one head (``tile_err``), and the dq kernel's delta against the
@@ -67,6 +69,14 @@ Phases, in order; any failure exits non-zero:
    key tile skipped by the forward or by dq, with segments a key tile
    that shares a document skipped by the forward, a group head
    dropped, delta off by a constant) must exceed the same limits. Then
+   kernels 6, 8 and 10 with the key rows' segment ids apart from the
+   query rows' (``kv_segment_ids``): an earlier ring block at that
+   shape (bf16; fp32 at B=2), full, documents across the block boundary
+   and in half the rows one starting on it; the forward against plain
+   on the rows that keep a key, the rows that keep none finite with no
+   weight in the ring's merge, dq and dk/dv from the merged o and lse
+   against plain, and the plain outputs with the key ids ignored must
+   fail the limits. Then
    at the trainer's shape (B=8, bf16, causal) the
    outputs against plain once more, and the times, causal and with
    packed documents (the ``_seg`` twins): each kernel, its plain
@@ -271,8 +281,8 @@ Phases, in order; any failure exits non-zero:
    ``MESH_LAYERS`` (2) of its 22 layers (registered as ``bench-1b7-l2``)
    through ``train.pretrain.main`` on two ranks sharing the card over
    ``gloo`` (``parallel/launch.py``), phase 7's AdamW, fp32 params and
-   full remat, B=8, S=2048, 3 steps each: ``--mesh fsdp=2`` (a
-   checkpoint at step 2), ``--mesh tensor=2`` and ``--mesh fsdp=2
+   full remat, B=8, S=2048, 2 steps each: ``--mesh fsdp=2`` (a
+   checkpoint at step 1), ``--mesh tensor=2`` and ``--mesh fsdp=2
    --packed``. First kernels 5-10 timed at one rank's shapes (B=4
    H=20 KVH=4 at fsdp=2, B=8 H=10 KVH=2 at tensor=2; phase 5 holds them
    against the plain versions with planted faults). On each rank: rc 0,
@@ -281,8 +291,8 @@ Phases, in order; any failure exits non-zero:
    the kernels, every attention call on the rank's shard (4 rows of 20
    heads at fsdp=2, 8 rows of 10 heads at tensor=2). Each mesh's
    first-step loss and gradient norm and second-step loss against one
-   rank's on the same params and batches, and the fsdp=2 run's step 2
-   resumed on one rank against that run's step 3, within ``MESH_TOL``
+   rank's on the same params and batches, and the fsdp=2 run's step 1
+   resumed on one rank against that run's step 2, within ``MESH_TOL``
    (1e-4 relative on each); a planted fault, a
    tensor=2 run with the attention output's all-reduce skipped in every
    layer, must fail that gate. Printed beside the card's name and
@@ -290,11 +300,33 @@ Phases, in order; any failure exits non-zero:
    collectives' share of it, labelled "two ranks on one card over gloo:
    not a training speed".
 
+33. Sequence-parallel training (after phase 32): bench-1b7 at full
+   width and ``MESH_LAYERS`` layers through ``train.pretrain.main`` on
+   two ranks sharing the card over ``gloo`` at ``--mesh seq=2`` (phase
+   32's AdamW, fp32 params and full remat, B=8, S=2048, 3 steps each,
+   ``SEQ_STEPS``):
+   the ring through ``'auto'``, the ring on packed documents and Ulysses
+   (``attention_impl='ulysses'``, registered as
+   ``bench-1b7-l2-ulysses``: 10 query and 2 kv heads a rank after the
+   all-to-all). First kernels 5-10 timed at one ring block (B=8 S=1024
+   H=20 KVH=4: causal, full, and with key ids apart; phase 5 holds them
+   against the plain versions). On each rank: rc 0, only rank 0 prints,
+   finite losses, flash launches the block counts (rank r of the ring
+   visits r + 1 key blocks a pass: 2(r+1)L / (r+1)L / (r+1)L a step
+   under full remat; Ulysses 2L / L / L; the ``_seg`` kernels alone with
+   packed documents), no call outside the kernels. Each run's
+   first-step loss and gradient norm and second-step loss against one
+   rank's on the same params and batches (phase 32's) within
+   ``MESH_TOL``; a planted fault, a ring hop that does not rotate, must
+   fail that gate. Printed beside the card's name and power limit: each
+   rank's peak memory, the step time and the collectives' share of it,
+   labelled "two ranks on one card over gloo: not a training speed".
+
 Then one JSON line listing every kernel (the paged kernels' launches are
 the sums of phases 9, 14, 15, 22, 23, 24, 26, 27, 28, 29, 30 and 31, and
 of 10, 14, 28 and 31's int8 runs; the decode kernels' of phases 12, 20,
 22, 26 and 31; the flash kernels' of phases 7, 16, 17, 18, 25, 27, 29,
-30 and 32, and phase 31's batch prefills' forwards), the
+30, 32 and 33, and phase 31's batch prefills' forwards), the
 ``nvidia-smi`` name and power-limit line, and last ``{"ok": true,
 "device": {...}}``.
 """
@@ -562,6 +594,9 @@ TP_LABEL = 'H=16 KVH=4 D=128 (llama3-8b tensor=2 shard)'
 # global B=8: fsdp=2 splits the batch, tensor=2 the heads.
 MESH_SHARDS = (('fsdp=2', dict(b=4, h=20, kvh=4)),
                ('tensor=2', dict(b=8, h=10, kvh=2)))
+# One ring block of bench-1b7's training attention at phase 33's seq=2:
+# all 8 rows, all heads, half of the 2048 columns.
+RING_BLOCK = dict(b=8, s=1024, h=20, kvh=4, d=128)
 # New tokens a request in phase 31: each decode step of two ranks sharing
 # the card makes ~66 gloo collectives of ~2 ms each
 # (ops/collectives_bench.py on the card), so its decode runs are short.
@@ -1170,7 +1205,8 @@ def flash_bound(b, s, h, kvh, d, itemsize, which, bw, flops_peak,
     (query, key) pair the mask keeps; ``pairs`` defaults to the causal
     B*S^2/2) at the bf16 peak against the bytes of each input read once
     and each output written once (dq reads o and do and writes dq and
-    delta; segment ids add 4 bytes a position)."""
+    delta; each array of segment ids, ``seg`` of them, adds 4 bytes a
+    position)."""
     qb = b * s * h * d * itemsize
     kvb = b * s * kvh * d * itemsize
     stat = b * h * s * 4
@@ -1181,8 +1217,7 @@ def flash_bound(b, s, h, kvh, d, itemsize, which, bw, flops_peak,
     nbytes = {'fwd': qb + 2 * kvb + qb + stat,
               'dq': 3 * qb + 2 * kvb + stat + qb + stat,
               'dkv': 2 * qb + 2 * kvb + 2 * stat + 2 * kvb}[which]
-    if seg:
-        nbytes += b * s * 4
+    nbytes += int(seg) * b * s * 4
     bytes_ms = nbytes / bw * 1e3
     ops_ms = flops / flops_peak * 1e3
     return (max(bytes_ms, ops_ms),
@@ -1350,6 +1385,15 @@ def flash_cases():
                           f'KVH={shard["kvh"]} ({label} train)',
                           dict(s=2048, d=128, **shard), 'bf16', True,
                           segments))
+    # One ring block of bench-1b7's training attention at seq=2 (phase
+    # 33): the diagonal block (causal; with packed documents the query
+    # and key ids are one block's) and a block of earlier positions
+    # (full). Blocks whose key ids are another block's: ring_block_checks.
+    for causal, segments in ((True, False), (False, False), (True, True)):
+        cases.append((f'bf16 {"causal" if causal else "full"}'
+                      f'{" seg" if segments else ""} B=8 S=1024 H=20 KVH=4 '
+                      f'(seq=2 ring block)', RING_BLOCK, 'bf16', causal,
+                      segments))
     # deepseek-moe-16b's heads (G=1): its batch-engine prefill (phase 22)
     # and its train steps (phase 25).
     cases.append(('bf16 causal B=4 S=256 H=16 KVH=16 (MoE batch prefill)',
@@ -1423,11 +1467,111 @@ def phase_flash_kernels(torch, fa, bw, flops_peak):
             failed.append(label)
         del q, k, v, do, o, lse, dq, dk, dv, dq2, dk2, dv2, delta, ro, rlse
         del rgrads, got
+    failed += ring_block_checks(torch, fa, errors)
     rows = flash_times(torch, fa, errors, bw, flops_peak, failed)
     if failed:
         raise AssertionError(f'flash kernels disagree with plain, or a '
                              f'planted fault passes the limit: {failed}')
     return rows
+
+
+def ring_segments(torch, b, s, seed):
+    """Packed segment ids of two neighbouring ring blocks of ``s``
+    columns each, (query block's, key block's): documents of mean length
+    300 across both, and in the first half of the rows a document that
+    starts exactly at the block boundary, so that every query row of
+    the query block's first tiles loses every key of the key block (the
+    forward visits no key tile there)."""
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed)
+    starts = torch.rand((b, 2 * s), generator=gen, device='cuda') < 1 / 300
+    starts[: b // 2, s] = True
+    ids = torch.cumsum(starts.int(), dim=1).to(torch.int32)
+    return ids[:, s:].contiguous(), ids[:, :s].contiguous()
+
+
+def ring_block_inputs(torch, fa, shp, dtype, seed):
+    """One off-diagonal ring block as the ring's backward sees it: q and
+    do of the query block, k and v of an earlier key block, the two
+    blocks' segment ids, and o and lse merged over the query block's own
+    (diagonal, causal) block and the key block, so every row has a
+    finite lse."""
+    from skypilot_tpu_torch.ops.ring_attention import merge_blocks
+    q, k, v, do, _ = flash_case(torch, dtype=dtype, segments=False,
+                                seed=seed, **shp)
+    _, k_own, v_own, _, _ = flash_case(torch, dtype=dtype, segments=False,
+                                       seed=seed + 1000, **shp)
+    seg, kv_seg = ring_segments(torch, shp['b'], shp['s'], seed)
+    parts = [fa.flash_forward_reference(q, k_own, v_own, causal=True,
+                                        segment_ids=seg),
+             fa.flash_forward_reference(q, k, v, causal=False,
+                                        segment_ids=seg,
+                                        kv_segment_ids=kv_seg)]
+    o, lse = merge_blocks(parts)
+    return q, k, v, do, seg, kv_seg, o.to(q.dtype), lse
+
+
+def ring_block_checks(torch, fa, errors):
+    """Kernels 6, 8 and 10 with key segment ids apart from the query
+    ids (``kv_segment_ids``): an earlier ring block of bench-1b7's
+    training attention at seq=2 (``RING_BLOCK``, bf16) and a smaller one
+    in fp32, full (not causal), packed documents crossing the block
+    boundary and, in half the rows, one starting on it. The forward
+    against the plain version on the rows that keep a key; the rows
+    that keep none must come back finite with an lse that gives them no
+    weight in the ring's merge (exp(lse - merged lse) == 0); dq and
+    dk/dv from the merged o and lse (as the ring's backward calls them)
+    against the plain versions. The plain outputs with the key ids
+    ignored (the query ids used for the keys), a fault a kernel that
+    dropped ``seg_k`` would make, must fail the same limits. Returns the
+    labels that failed."""
+    failed = []
+    for dtype, shp in (('bf16', RING_BLOCK),
+                       ('fp32', dict(RING_BLOCK, b=2))):
+        label = (f'{dtype} full seg B={shp["b"]} S={shp["s"]} H={shp["h"]}'
+                 f' KVH={shp["kvh"]} key ids apart (seq=2 ring block)')
+        q, k, v, do, seg, kv_seg, mo, mlse = ring_block_inputs(
+            torch, fa, shp, dtype, 4100)
+        kw = dict(causal=False, segment_ids=seg, kv_segment_ids=kv_seg)
+        o, lse = fa.flash_forward_kernel(q, k, v, **kw)
+        dq, delta = fa.flash_dq_kernel(q, k, v, mo, mlse, do, **kw)
+        dk, dv = fa.flash_dkv_kernel(q, k, v, mlse, do, delta, **kw)
+        torch.cuda.synchronize()
+        ro, rlse = fa.flash_forward_reference(q, k, v, **kw)
+        rgrads = fa.flash_backward_reference(q, k, v, mo, mlse, do, **kw)
+        empty = ~(seg[:, :, None] == kv_seg[:, None, :]).any(-1)  # [B, S]
+        weight = torch.exp(lse - mlse).transpose(1, 2)[empty]
+        empty_ok = (bool(torch.isfinite(o).all()) and
+                    bool(torch.isfinite(lse).all()) and
+                    bool((weight == 0).all()))
+        keep = (~empty)[:, :, None, None]
+        keep_stat = (~empty)[:, None, :]
+        got = (('o', o * keep, ro * keep),
+               ('lse', lse * keep_stat, rlse * keep_stat)) + tuple(
+            zip(('dq', 'dk', 'dv'), (dq, dk, dv), rgrads))
+        ok = compare_flash(torch, label, dtype, got, errors)
+        # The fault: key ids taken to be the query ids.
+        wo, wlse = fa.flash_forward_reference(q, k, v, causal=False,
+                                              segment_ids=seg)
+        wgrads = fa.flash_backward_reference(q, k, v, mo, mlse, do,
+                                             causal=False, segment_ids=seg)
+        fwd_tol, grad_tol = FLASH_TOL[dtype]
+        faults = {'o': tile_err(wo * keep, ro * keep)}
+        faults.update({n: tile_err(w, r) for n, w, r in
+                       zip(('dq', 'dk', 'dv'), wgrads, rgrads)})
+        caught = all(e > (fwd_tol if n == 'o' else grad_tol)
+                     for n, e in faults.items())
+        log(f'[flash] {label}: {int(empty.sum())} of {empty.numel()} '
+            f'query rows keep no key (weight in the merge '
+            f'{float(weight.max()) if weight.numel() else 0.0:g}, finite '
+            f'{empty_ok}); planted fault (key ids ignored), tile error ' +
+            ', '.join(f'{n} {e:.3e}' for n, e in faults.items()) +
+            ('' if caught else ' MISSED'))
+        if not (ok and empty_ok and caught and bool(empty.any())):
+            failed.append(label)
+        del q, k, v, do, o, lse, dq, dk, dv, delta, ro, rlse, rgrads, got
+        del wo, wlse, wgrads, mo, mlse
+    return failed
 
 
 def compare_flash(torch, label, dtype, got, errors) -> bool:
@@ -5051,7 +5195,16 @@ MESH_BASE = 'bench-1b7'
 # a layer a step at this width (tools/train_mesh_probe.py on the card).
 MESH_LAYERS = 2
 MESH_MODEL = f'bench-1b7-l{MESH_LAYERS}'
-MESH_STEPS = 3
+SEQ_ULYSSES_MODEL = f'{MESH_MODEL}-ulysses'
+# Two steps a run: the second step's loss is the gate's, and the fsdp=2
+# run's checkpoint of step 1 resumes into step 2 (cut from 3 when phase
+# 33 joined, to hold the smoke's time).
+MESH_STEPS = 2
+# Phase 33's steps a run; its packed run is held to phase 32's one-rank
+# packed steps, so both phases pack the same token file
+# (``MESH_TOKENS``: ``packed_tokens`` draws depend on its length).
+SEQ_STEPS = 3
+MESH_TOKENS = 8 * 2049 * (SEQ_STEPS + 2)
 MESH_ARGV = ['--model', MESH_MODEL, '--batch', '8', '--seq', '2048',
              '--warmup-steps', '1', '--log-every', '1']
 # A mesh run against one rank's on the same params and batches, relative:
@@ -5073,13 +5226,18 @@ MESH_LABEL = 'two ranks on one card over gloo: not a training speed'
 
 def register_mesh_model():
     """``bench-1b7`` at full width and ``MESH_LAYERS`` layers, registered
-    in this process (a spawned rank registers it again)."""
+    in this process (a spawned rank registers it again), and its twin
+    with Ulysses attention (phase 33)."""
     import dataclasses
     from skypilot_tpu_torch.models import config
     if MESH_MODEL not in config.MODEL_REGISTRY:
         config.MODEL_REGISTRY.register(MESH_MODEL)(dataclasses.replace(
             config.get_model_config(MESH_BASE), name=MESH_MODEL,
             n_layers=MESH_LAYERS))
+        config.MODEL_REGISTRY.register(SEQ_ULYSSES_MODEL)(
+            dataclasses.replace(config.get_model_config(MESH_MODEL),
+                                name=SEQ_ULYSSES_MODEL,
+                                attention_impl='ulysses'))
     return config.get_model_config(MESH_MODEL)
 
 
@@ -5151,11 +5309,25 @@ def plant_unreduced_attention():
     return lambda: setattr(llama, '_attention_block', real_block)
 
 
+def plant_still_ring():
+    """Planted fault for phase 33's gate: a ring hop that does not rotate
+    (each rank keeps its own K/V block and its dk/dv accumulators).
+    Returns the undo."""
+    from skypilot_tpu_torch.parallel.sharding import TensorParallel
+    real = TensorParallel.ring_shift
+    TensorParallel.ring_shift = lambda self, xs, axis='seq': list(xs)
+    return lambda: setattr(TensorParallel, 'ring_shift', real)
+
+
+PLANTED = {'attention unreduced': plant_unreduced_attention,
+           'ring not rotating': plant_still_ring}
+
+
 def mesh_train_rank(rank, world, runs):
-    """One rank of phase 32: each run's ``pretrain.main(argv)`` (its
-    output captured; with ``fault``, under ``plant_unreduced_attention``)
-    with the flash counts zeroed just before and read just after, its
-    steps and attention shapes (``StepRecorder``, every collective
+    """One rank of phases 32 and 33: each run's ``pretrain.main(argv)``
+    (its output captured; with a ``fault``, under that ``PLANTED``
+    fault) with the flash counts zeroed just before and read just after,
+    its steps and attention shapes (``StepRecorder``, every collective
     timed), its wall time and peak memory."""
     import torch
     from skypilot_tpu_torch.ops import flash_attention as fa
@@ -5173,7 +5345,7 @@ def mesh_train_rank(rank, world, runs):
             torch.cuda.synchronize()
             fa.reset_launch_counts()
             t0 = time.perf_counter()
-            undo = plant_unreduced_attention() if fault else None
+            undo = PLANTED[fault]() if fault else None
             try:
                 with StepRecorder(torch) as rec:
                     rc, lines = run_json_main(pretrain.main, argv)
@@ -5309,14 +5481,14 @@ def phase_mesh_train(torch, fa, bw, flops_peak, smi):
     """Phase 32: bench-1b7 at full width (``MESH_LAYERS`` layers) trained
     through ``train.pretrain.main`` by two ranks sharing the card over
     gloo, each rank running its shard of the flash kernels: ``--mesh
-    fsdp=2`` (checkpointing at step 2), ``--mesh tensor=2`` and ``--mesh
+    fsdp=2`` (checkpointing at step 1), ``--mesh tensor=2`` and ``--mesh
     fsdp=2 --packed`` (phase 7's AdamW, fp32 params and full remat;
-    B=8, S=2048, 3 steps each). Each mesh's first-step loss and gradient
-    norm and second-step loss against one rank's on the same params and
-    batches, and a resume of the fsdp=2 run's step 2 on one rank against
-    that run's step 3, within ``MESH_TOL``; a tensor=2 run with the
-    attention's all-reduce skipped (``plant_unreduced_attention``) must
-    fail that gate. Returns the launch totals for the kernels line and
+    B=8, S=2048, ``MESH_STEPS`` steps each). Each mesh's first-step loss
+    and gradient norm and second-step loss against one rank's on the
+    same params and batches, and a resume of the fsdp=2 run's step 1 on
+    one rank against that run's step 2, within ``MESH_TOL``; a tensor=2
+    run with the attention's all-reduce skipped
+    (``plant_unreduced_attention``) must fail that gate. Returns the launch totals for the kernels line and
     the numbers PERF.md keeps."""
     import shutil
     from skypilot_tpu_torch.data import packer
@@ -5338,19 +5510,20 @@ def phase_mesh_train(torch, fa, bw, flops_peak, smi):
     work = scratch_dir(3 * nbytes, 'mesh')
     try:
         data = os.path.join(work, 'tokens.npy')
-        packed_tokens(data, 8 * 2049 * (MESH_STEPS + 2), 1, cfg.vocab_size)
+        packed_tokens(data, MESH_TOKENS, 1, cfg.vocab_size)
         ckpt = os.path.join(work, 'ckpt')
         packed = ['--packed', '--data', data, '--eos-id', '1']
         steps = ['--steps', str(MESH_STEPS)]
         runs = [('fsdp=2', MESH_ARGV + steps + [
                     '--mesh', 'fsdp=2', '--checkpoint-dir', ckpt,
-                    '--checkpoint-every', '2'], False),
+                    '--checkpoint-every', '1'], None),
                 ('tensor=2', MESH_ARGV + steps + ['--mesh', 'tensor=2'],
-                 False),
+                 None),
                 ('fsdp=2 packed', MESH_ARGV + steps + ['--mesh', 'fsdp=2']
-                 + packed, False),
+                 + packed, None),
                 ('tensor=2 fault', MESH_ARGV + [
-                    '--steps', '2', '--mesh', 'tensor=2'], True)]
+                    '--steps', '2', '--mesh', 'tensor=2'],
+                 'attention unreduced')]
         t1 = time.perf_counter()
         ranks = launch(mesh_train_rank, 2, runs, device='cuda')
         t2 = time.perf_counter()
@@ -5358,7 +5531,7 @@ def phase_mesh_train(torch, fa, bw, flops_peak, smi):
         faulted = [r['runs'].pop('tensor=2 fault') for r in ranks][0]
         check_mesh_runs(ranks, cfg)
         # One rank on the same params and batches: two steps; then the
-        # fsdp=2 run's step 2 resumed on one rank.
+        # fsdp=2 run's step 1 resumed on one rank.
         one = {}
         with StepRecorder(torch) as rec:
             for label, extra in (('synthetic', []), ('packed', packed)):
@@ -5377,7 +5550,7 @@ def phase_mesh_train(torch, fa, bw, flops_peak, smi):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     driver = ranks[0]['runs']
-    if rc != 0 or {'resumed_from_step': 2} not in resumed or \
+    if rc != 0 or {'resumed_from_step': MESH_STEPS - 1} not in resumed or \
             resumed_steps != 1:
         raise AssertionError(f'[mesh] one-rank resume: rc {rc}, {resumed}')
     if faulted['rc'] != 0 or len(faulted['steps']) != 2:
@@ -5387,8 +5560,8 @@ def phase_mesh_train(torch, fa, bw, flops_peak, smi):
             for label, ref in (('fsdp=2', 'synthetic'),
                                ('tensor=2', 'synthetic'),
                                ('fsdp=2 packed', 'packed'))}
-    gaps['resume'] = {'loss 3': rel_gap(one['resume'],
-                                        driver['fsdp=2']['steps'][2]['loss'])}
+    gaps['resume'] = {f'loss {MESH_STEPS}': rel_gap(
+        one['resume'], driver['fsdp=2']['steps'][-1]['loss'])}
     fault = mesh_gaps(faulted['steps'], one['synthetic'])
     for label, row in list(gaps.items()) + [('planted fault', fault)]:
         log(f'[mesh] {label} vs one rank on the same params and batches, '
@@ -5430,8 +5603,221 @@ def phase_mesh_train(torch, fa, bw, flops_peak, smi):
     log(f'[smoke] phase 32 {time.perf_counter() - t0:.1f} s (shard times '
         f'{t1 - t0:.1f} s, ranks {t2 - t1:.1f} s)')
     return {'launches': launches, 'gaps': gaps, 'fault': fault,
-            'runs': numbers,
-            'shard_times': shard}
+            'runs': numbers, 'shard_times': shard, 'one': one}
+
+
+# ---------------------------------------------------------------------------
+# Phase 33: sequence-parallel training, bench-1b7 at full width, seq=2
+# ---------------------------------------------------------------------------
+
+SEQ_ARGV = MESH_ARGV + ['--steps', str(SEQ_STEPS), '--mesh', 'seq=2']
+
+
+def pair_count(torch, seg, kv_seg):
+    """(query, key) pairs of a full block that the segment mask keeps."""
+    top = int(max(seg.max(), kv_seg.max())) + 1
+    counts = [torch.zeros((seg.shape[0], top), device=seg.device,
+                          dtype=torch.float64).scatter_add_(
+                              1, x.long(), torch.ones_like(x,
+                                                           dtype=torch.float64))
+              for x in (seg, kv_seg)]
+    return (counts[0] * counts[1]).sum().item()
+
+
+def ring_block_times(torch, fa, bw, flops_peak):
+    """Kernels 5-10 at one ring block of phase 33 (``RING_BLOCK``: B=8
+    S=1024 H=20 KVH=4, bf16): rows 5 / 7 / 9 on the diagonal block
+    (causal) and on a block of earlier positions (full), rows 6 / 8 / 10
+    on an earlier block whose key ids are its own (``ring_segments``):
+    kernel, plain and bound (the pairs the mask keeps). Phase 5 holds
+    them against the plain versions."""
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8,
+                        device='cuda')
+    rows = {}
+    shp = RING_BLOCK
+    q, k, v, do, seg, kv_seg, o_m, lse_m = ring_block_inputs(
+        torch, fa, shp, 'bf16', 900)
+    cases = (('causal', dict(causal=True), shp['b'] * shp['s'] ** 2 / 2,
+              False),
+             ('full', dict(causal=False), shp['b'] * shp['s'] ** 2, False),
+             ('full seg, key ids apart', dict(
+                 causal=False, segment_ids=seg, kv_segment_ids=kv_seg),
+              pair_count(torch, seg, kv_seg), True))
+    for label, kw, pairs, seg_on in cases:
+        o, lse = fa.flash_forward_kernel(q, k, v, **kw)
+        if seg_on:  # the ring's backward: the merged o and lse
+            o, lse = o_m, lse_m
+        _, delta = fa.flash_dq_kernel(q, k, v, o, lse, do, **kw)
+        for name, which, kernel, plain in (
+                ('flash_fwd', 'fwd',
+                 lambda: fa.flash_forward_kernel(q, k, v, **kw),
+                 lambda: fa.flash_forward_reference(q, k, v, **kw)),
+                ('flash_dq', 'dq',
+                 lambda: fa.flash_dq_kernel(q, k, v, o, lse, do, **kw),
+                 lambda: fa.flash_dq_reference(q, k, v, o, lse, do, **kw)),
+                ('flash_dkv', 'dkv',
+                 lambda: fa.flash_dkv_kernel(q, k, v, lse, do, delta, **kw),
+                 lambda: fa.flash_dkv_reference(q, k, v, o, lse, do,
+                                                **kw))):
+            key = f'{name}{"_seg" if seg_on else ""} {label}'
+            row = dict(ms=time_ms(torch, kernel, flush),
+                       plain_ms=time_ms(torch, plain, flush))
+            row['bound_ms'], row['bound_by'] = flash_bound(
+                itemsize=2, which=which, bw=bw, flops_peak=flops_peak,
+                pairs=pairs, seg=2 if seg_on else 0, **shp)
+            rows[key] = row
+            log(f'[seq] {key} ring block B=8 S=1024 H=20 KVH=4: kernel '
+                f'{row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, '
+                f'bound {row["bound_ms"]:.4f} ms ({row["bound_by"]}), '
+                f'{100 * row["bound_ms"] / row["ms"]:.1f}% of bound')
+        del o, lse, delta
+    del q, k, v, do, seg, kv_seg, o_m, lse_m, flush
+    return rows
+
+
+def seq_expected(cfg, label, seq_rank):
+    """Flash launches a rank of seq=2 makes over ``SEQ_STEPS`` steps
+    under full remat: the ring visits seq_rank + 1 key blocks a pass
+    (two forward passes, one backward a layer), Ulysses one full
+    sequence; the _seg kernels alone with packed documents."""
+    blocks = 1 if 'ulysses' in label else seq_rank + 1
+    n = cfg.n_layers * SEQ_STEPS * blocks
+    seg = '_seg' if 'packed' in label else ''
+    expected = {k: 0 for k in ('flash_fwd', 'flash_dq', 'flash_dkv',
+                               'flash_fwd_seg', 'flash_dq_seg',
+                               'flash_dkv_seg')}
+    expected.update({'flash_fwd' + seg: 2 * n, 'flash_dq' + seg: n,
+                     'flash_dkv' + seg: n})
+    return expected
+
+
+def check_seq_runs(ranks, cfg):
+    """Every run on both ranks: rc 0, only rank 0 prints, finite losses,
+    flash launches the block counts (``seq_expected``), no call outside
+    the kernels, no flash attention call on the ring (its blocks launch
+    the kernels themselves) and Ulysses's on the whole sequence for 10
+    of the 20 heads (8 rows)."""
+    for r in ranks:
+        for label, run in r['runs'].items():
+            expected = seq_expected(cfg, label, r['rank'])
+            shapes = [(8, cfg.n_heads // 2)] if 'ulysses' in label else []
+            losses = [x['loss'] for x in run['lines'] if 'loss' in x]
+            printed_ok = (len(losses) == SEQ_STEPS if r['rank'] == 0
+                          else run['lines'] == [])
+            if run['rc'] != 0 or not printed_ok or \
+                    not all(math.isfinite(x) for x in losses) or \
+                    run['launches'] != expected or run['fallbacks'] or \
+                    run['shapes'] != shapes:
+                raise AssertionError(
+                    f'[seq] rank {r["rank"]} {label}: rc {run["rc"]}, '
+                    f'lines {run["lines"]}, launches {run["launches"]} '
+                    f'(expected {expected}), fallbacks {run["fallbacks"]}, '
+                    f'(rows, heads) of the flash_attention calls '
+                    f'{run["shapes"]} (expected {shapes})')
+        log(f'[seq] rank {r["rank"]}: launches ' + '; '.join(
+            f'{k} {v["launches"]}' for k, v in r['runs'].items()) +
+            f' (ring: {r["rank"] + 1} key blocks a pass)')
+
+
+def phase_seq_train(torch, fa, bw, flops_peak, smi, one=None):
+    """Phase 33: bench-1b7 at full width (``MESH_LAYERS`` layers) trained
+    through ``train.pretrain.main`` by two ranks sharing the card over
+    gloo at ``--mesh seq=2`` (phase 32's AdamW, fp32 params, full remat,
+    B=8, S=2048, 3 steps each): the ring through ``'auto'``, the ring on
+    packed documents (kernels 6 / 8 / 10, a key block's ids apart from
+    the query block's) and Ulysses (``attention_impl='ulysses'``, 10
+    query and 2 kv heads a rank after the all-to-all). Each run's
+    first-step loss and gradient norm and second-step loss against one
+    rank's on the same params and batches (phase 32's, ``one``; run here
+    when None) within ``MESH_TOL``; a ring whose hop does not rotate
+    (``plant_still_ring``) must fail that gate. Returns the launch
+    totals for the kernels line and the numbers PERF.md keeps."""
+    from skypilot_tpu_torch.data import packer
+    from skypilot_tpu_torch.parallel.launch import launch
+    from skypilot_tpu_torch.train import pretrain
+    import shutil
+    t0 = time.perf_counter()
+    cfg = register_mesh_model()
+    block = ring_block_times(torch, fa, bw, flops_peak)
+    free_card(torch)
+    packer.load_native()
+    work = scratch_dir(1 << 30, 'seq')
+    try:
+        data = os.path.join(work, 'tokens.npy')
+        packed_tokens(data, MESH_TOKENS, 1, cfg.vocab_size)
+        packed = ['--packed', '--data', data, '--eos-id', '1']
+        runs = [('seq=2', SEQ_ARGV, None),
+                ('seq=2 packed', SEQ_ARGV + packed, None),
+                ('seq=2 ulysses', SEQ_ARGV + ['--model', SEQ_ULYSSES_MODEL],
+                 None),
+                ('seq=2 fault', MESH_ARGV + ['--steps', '2', '--mesh',
+                                             'seq=2'], 'ring not rotating')]
+        t1 = time.perf_counter()
+        ranks = launch(mesh_train_rank, 2, runs, device='cuda')
+        t2 = time.perf_counter()
+        faulted = [r['runs'].pop('seq=2 fault') for r in ranks][0]
+        check_seq_runs(ranks, cfg)
+        if one is None:
+            one = {}
+            with StepRecorder(torch) as rec:
+                for label, extra in (('synthetic', []), ('packed', packed)):
+                    rc, _ = run_json_main(pretrain.main, MESH_ARGV + [
+                        '--steps', '2'] + extra)
+                    if rc != 0:
+                        raise AssertionError(f'[seq] one rank {label}: rc '
+                                             f'{rc}')
+                    one[label] = rec.steps[-2:]
+                    free_card(torch)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if faulted['rc'] != 0 or len(faulted['steps']) != 2:
+        raise AssertionError(f'[seq] planted fault run: rc '
+                             f'{faulted["rc"]}, steps {faulted["steps"]}')
+    driver = ranks[0]['runs']
+    gaps = {label: mesh_gaps(driver[label]['steps'], one[ref])
+            for label, ref in (('seq=2', 'synthetic'),
+                               ('seq=2 packed', 'packed'),
+                               ('seq=2 ulysses', 'synthetic'))}
+    fault = mesh_gaps(faulted['steps'], one['synthetic'])
+    for label, row in list(gaps.items()) + [('planted fault', fault)]:
+        log(f'[seq] {label} vs one rank on the same params and batches, '
+            f'relative: ' + ', '.join(f'{k} {v:.2e}' for k, v in row.items())
+            + f' (limits {MESH_TOL})')
+    off = {label: row for label, row in gaps.items() if not within(row)}
+    if off:
+        raise AssertionError(f'[seq] seq=2 runs off one rank\'s: {off}')
+    if within(fault):
+        raise AssertionError(f'[seq] the planted fault (a ring hop that '
+                             f'does not rotate) passed the gate: {fault}')
+    numbers = {}
+    for label in driver:
+        later = driver[label]['steps'][1:]
+        walls = [x['wall_s'] for x in later]
+        numbers[label] = {
+            'step_s': statistics.median(walls),
+            'collective_share': sum(x['collective_s'] for x in later) /
+            sum(walls),
+            'run_s': driver[label]['wall_s'],
+            'peak_gb': [r['runs'][label]['peak_gb'] for r in ranks],
+            'collectives': driver[label]['collectives'],
+            'collective_s': {k: round(v, 3) for k, v in
+                             driver[label]['collective_s'].items()}}
+        log(f'[seq] {label}: step {numbers[label]["step_s"]:.3f} s '
+            f'(median of steps 2-{SEQ_STEPS}, every collective timed), '
+            f'collectives {100 * numbers[label]["collective_share"]:.1f}% '
+            f'of it; the run {numbers[label]["run_s"]:.1f} s; peak GB by '
+            f'rank {[round(x, 2) for x in numbers[label]["peak_gb"]]}; '
+            f'calls {numbers[label]["collectives"]}, seconds '
+            f'{numbers[label]["collective_s"]} ({MESH_LABEL}; {smi})')
+    launches = {}
+    for r in ranks:
+        for run in r['runs'].values():
+            for k, v in run['launches'].items():
+                launches[k] = launches.get(k, 0) + v
+    log(f'[smoke] phase 33 {time.perf_counter() - t0:.1f} s (ring block '
+        f'times {t1 - t0:.1f} s, ranks {t2 - t1:.1f} s)')
+    return {'launches': launches, 'gaps': gaps, 'fault': fault,
+            'runs': numbers, 'block_times': block}
 
 
 def main(argv=None) -> int:
@@ -5478,7 +5864,7 @@ def main(argv=None) -> int:
         f'{t2 - t1:.1f} s, flash {time.perf_counter() - t2:.1f} s')
     engine, train, batch, spec, lora = {}, {}, {}, {}, {}
     bench_tr, remat, packed, bench_dec, moe = {}, {}, {}, {}, {}
-    ckpt, disagg, rl, tp, mesh = {}, {}, {}, {}, {}
+    ckpt, disagg, rl, tp, mesh, seq = {}, {}, {}, {}, {}, {}
     if not args.skip_engine:
         phase_train_small(torch)
         train = phase_train(torch, fa, flops_peak)
@@ -5535,7 +5921,11 @@ def main(argv=None) -> int:
         free_card(torch)
         mesh = phase_mesh_train(torch, fa, bw, flops_peak, smi)
         log('[mesh] phase 32 summary ' + json.dumps(
-            {k: v for k, v in mesh.items() if k != 'launches'}))
+            {k: v for k, v in mesh.items() if k not in ('launches', 'one')}))
+        free_card(torch)
+        seq = phase_seq_train(torch, fa, bw, flops_peak, smi, mesh['one'])
+        log('[seq] phase 33 summary ' + json.dumps(
+            {k: v for k, v in seq.items() if k != 'launches'}))
     flash_src = 'skypilot_tpu/ops/pallas/flash_attention.py'
     replaces = {
         'paged_attention':
@@ -5569,7 +5959,8 @@ def main(argv=None) -> int:
     # entry points for the flash kernels: phase 7, the bench twin's train
     # mode, the remat policies, the MoE train steps, the finetune of
     # phase 27, the GRPO learners of phases 29-30, --packed for the
-    # segment twins, and both ranks of the mesh trainers of phase 32):
+    # segment twins, and both ranks of the mesh trainers of phases 32
+    # and 33):
     # null when they were skipped, never a number this run did not
     # measure.
     def total(parts):
@@ -5602,7 +5993,7 @@ def main(argv=None) -> int:
         'decode_attention_quant': total([
             batch.get('launches_quant'),
             tp_launches.get('decode_attention_quant')])}
-    trains.append(mesh.get('launches'))
+    trains += [mesh.get('launches'), seq.get('launches')]
     for name in ('flash_fwd', 'flash_dq', 'flash_dkv'):
         launches[name] = total([
             None if t is None else t[name] + t[name + '_seg']

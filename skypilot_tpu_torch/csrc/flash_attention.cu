@@ -10,7 +10,10 @@
 //   * _bwd_dkv_kernel (:254), _bwd_dkv_kernel_seg (:325)
 //                          -> flash_dkv_bf16 (bf16), flash_dkv_f32 (fp32)
 // The _seg bodies are the same body with a segment-id mask, so here each
-// kernel is one template with SEG on or off.
+// kernel is one template with SEG on or off. As the TPU kernel's
+// seg_q_ref / seg_k_ref, the query rows' and the key rows' ids are two
+// arrays (seg, seg_k), the same one unless the caller gives both: a ring
+// attention block pairs one rank's query rows with another's keys.
 //
 // What they compute (q [B,S,H,D], k/v [B,S,KVH,D], the model layout read
 // in place, no transposes; kv head of query head h is h / (H / KVH)):
@@ -58,8 +61,10 @@
 //     runs beside the other's products;
 //   * exp2 on log2-scaled scores, the causal mask only on the tiles that
 //     cross the diagonal, the heaviest q tiles first;
-//   * with segment ids, a key tile whose id range [min, max] misses the
-//     q tile's is skipped with its loads: exact for ids in any order.
+//   * with segment ids, a key tile whose id range [min, max] (of seg_k)
+//     misses the q tile's (of seg) is skipped with its loads: exact for
+//     ids in any order; a q tile that meets no key tile writes o = 0 and
+//     the lse of an empty row (no weight in a merge over key blocks).
 // At D = 128 a CTA has two consumer warpgroups (128 rows) and streams
 // 128-key tiles where S % 128 = 0; else, and at D = 256, one (64 rows,
 // 64-key tiles).
@@ -754,8 +759,9 @@ template <int D, bool SEG>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const int* __restrict__ seg,
-                  float* __restrict__ o, float* __restrict__ lse, int S, int H,
-                  int KVH, int causal, float scale) {
+                  const int* __restrict__ seg_k, float* __restrict__ o,
+                  float* __restrict__ lse, int S, int H, int KVH, int causal,
+                  float scale) {
   using T = float;
   constexpr int BN = stream_rows<T, D>();
   constexpr int P = D + pad<T>();
@@ -803,7 +809,7 @@ __global__ void __launch_bounds__(kThreads)
     load_rows<T, D>(sV, P, v_base + (long)kt * BN * kv_row, kv_row, BN);
     if (SEG) {
       for (int i = threadIdx.x; i < BN; i += kThreads)
-        sSeg[i] = seg[(long)b * S + kt * BN + i];
+        sSeg[i] = seg_k[(long)b * S + kt * BN + i];
     }
     __syncthreads();
 
@@ -881,8 +887,9 @@ __global__ void __launch_bounds__(kThreads)
                  const float* __restrict__ v, const float* __restrict__ o,
                  const float* __restrict__ dout,
                  const float* __restrict__ lse, float* __restrict__ delta,
-                 const int* __restrict__ seg, float* __restrict__ dq, int S,
-                 int H, int KVH, int causal, float scale) {
+                 const int* __restrict__ seg, const int* __restrict__ seg_k,
+                 float* __restrict__ dq, int S, int H, int KVH, int causal,
+                 float scale) {
   using T = float;
   constexpr int BN = stream_rows<T, D>();
   constexpr int P = D + pad<T>();
@@ -936,7 +943,7 @@ __global__ void __launch_bounds__(kThreads)
     load_rows<T, D>(sV, P, v_base + (long)kt * BN * kv_row, kv_row, BN);
     if (SEG) {
       for (int i = threadIdx.x; i < BN; i += kThreads)
-        sSeg[i] = seg[(long)b * S + kt * BN + i];
+        sSeg[i] = seg_k[(long)b * S + kt * BN + i];
     }
     __syncthreads();
 
@@ -979,9 +986,9 @@ __global__ void __launch_bounds__(kThreads)
                   const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta,
-                  const int* __restrict__ seg, float* __restrict__ dk,
-                  float* __restrict__ dv, int S, int H, int KVH, int causal,
-                  float scale) {
+                  const int* __restrict__ seg, const int* __restrict__ seg_k,
+                  float* __restrict__ dk, float* __restrict__ dv, int S, int H,
+                  int KVH, int causal, float scale) {
   using T = float;
   constexpr int BN = kDkvRows;
   constexpr int P = D + pad<T>();
@@ -1015,8 +1022,8 @@ __global__ void __launch_bounds__(kThreads)
   const int c0 = k0 + warp * 16 + g;  // this lane's keys: c0, c0 + 8
   int seg_c[2] = {0, 0};
   if (SEG) {
-    seg_c[0] = seg[(long)b * S + c0];
-    seg_c[1] = seg[(long)b * S + c0 + 8];
+    seg_c[0] = seg_k[(long)b * S + c0];
+    seg_c[1] = seg_k[(long)b * S + c0 + 8];
   }
   float dk_acc[NO][4];
   float dv_acc[NO][4];
@@ -1096,8 +1103,9 @@ __global__ void __launch_bounds__(32 * WARPS)
                   const bf16* __restrict__ v, const bf16* __restrict__ o,
                   const bf16* __restrict__ dout,
                   const float* __restrict__ lse, float* __restrict__ delta,
-                  const int* __restrict__ seg, bf16* __restrict__ dq, int S,
-                  int H, int KVH, int causal, float scale) {
+                  const int* __restrict__ seg, const int* __restrict__ seg_k,
+                  bf16* __restrict__ dq, int S, int H, int KVH, int causal,
+                  float scale) {
   constexpr int MT = kDqMT;
   constexpr int NTH = 32 * WARPS;
   constexpr int ROWS = 16 * MT * WARPS;
@@ -1131,6 +1139,7 @@ __global__ void __launch_bounds__(32 * WARPS)
   const bf16* k_base = k + (long)b * S * kv_row + (long)kh * D;
   const bf16* v_base = v + (long)b * S * kv_row + (long)kh * D;
   const int* seg_b = seg + (long)b * S;
+  const int* segk_b = seg_k + (long)b * S;
   const int n_tiles = causal ? (q0 + ROWS) / BN : S / BN;
 
   auto load_tile = [&](int kt) {
@@ -1139,7 +1148,7 @@ __global__ void __launch_bounds__(32 * WARPS)
     copy_rows<D, NTH>(tK, P, k_base + (long)kt * BN * kv_row, kv_row, BN);
     copy_rows<D, NTH>(tK + BN * P, P, v_base + (long)kt * BN * kv_row,
                       kv_row, BN);
-    if (SEG) copy_words<NTH>(sSeg + st * BN, seg_b + kt * BN, BN);
+    if (SEG) copy_words<NTH>(sSeg + st * BN, segk_b + kt * BN, BN);
   };
 
   copy_rows<D, NTH>(sQ, P, q + q_off, q_row, ROWS);
@@ -1277,9 +1286,9 @@ __global__ void __launch_bounds__(kThreads)
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta,
-                   const int* __restrict__ seg, bf16* __restrict__ dk,
-                   bf16* __restrict__ dv, int S, int H, int KVH, int causal,
-                   float scale) {
+                   const int* __restrict__ seg, const int* __restrict__ seg_k,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H,
+                   int KVH, int causal, float scale) {
   constexpr int BQ = kDkvQueries;
   constexpr int DO = bf16_cols<D>();
   constexpr int P = D + 8;
@@ -1340,8 +1349,8 @@ __global__ void __launch_bounds__(kThreads)
   const int c0 = k0 + warp * 16 + g;  // this lane's keys: c0, c0 + 8
   int seg_c[2] = {0, 0};
   if (SEG) {
-    seg_c[0] = seg_b[c0];
-    seg_c[1] = seg_b[c0 + 8];
+    seg_c[0] = seg_k[(long)b * S + c0];
+    seg_c[1] = seg_k[(long)b * S + c0 + 8];
   }
   const float scale_log2 = scale * kLog2e;
   const bf16* sKw = sK + warp * 16 * P;
@@ -1482,12 +1491,14 @@ size_t fwd_bf16_smem(int s) {
 }
 
 // SEG: the key tiles among the first n_tiles whose segment-id range
-// [min, max] meets the query tile's, as bits of `bits`; returns their
-// count. A tile outside that range holds no key of any query's segment,
-// whatever the order of the ids, so skipping it is exact.
+// [min, max] (of the key ids segk_b) meets the query tile's (of seg_b),
+// as bits of `bits`; returns their count. A tile outside that range holds
+// no key of any query's segment, whatever the order of the ids, so
+// skipping it is exact. With key ids apart from the query ids (a block of
+// another rank's keys) the count can be 0.
 template <int NTH, int BM, int BN>
 __device__ int visited_tiles(uint32_t* bits, int* count, const int* seg_b,
-                             int q0, int n_tiles) {
+                             const int* segk_b, int q0, int n_tiles) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   for (int w = threadIdx.x; w <= n_tiles / 32; w += NTH) bits[w] = 0;
@@ -1506,7 +1517,7 @@ __device__ int visited_tiles(uint32_t* bits, int* count, const int* seg_b,
     int lo = INT_MAX, hi = INT_MIN;
 #pragma unroll
     for (int i = lane; i < BN; i += 32) {
-      const int x = seg_b[kt * BN + i];
+      const int x = segk_b[kt * BN + i];
       lo = min(lo, x);
       hi = max(hi, x);
     }
@@ -1542,7 +1553,8 @@ __global__ void __launch_bounds__(128 * (WG + 1), 1)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   const int* __restrict__ seg, bf16* __restrict__ o,
+                   const int* __restrict__ seg,
+                   const int* __restrict__ seg_k, bf16* __restrict__ o,
                    float* __restrict__ lse, int S, int H, int KVH,
                    int causal, float scale) {
   constexpr int NTH = 128 * WG;  // consumer threads
@@ -1582,6 +1594,7 @@ __global__ void __launch_bounds__(128 * (WG + 1), 1)
   const int g = lane >> 2;
   const int t = lane & 3;
   const int* seg_b = seg + (long)b * S;
+  const int* segk_b = seg_k + (long)b * S;
   if (threadIdx.x == 0) {
     for (int r = 0; r < 2; ++r) {
       for (int i = 0; i < kFwdStages; ++i) {
@@ -1592,11 +1605,25 @@ __global__ void __launch_bounds__(128 * (WG + 1), 1)
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   int n_tiles = causal ? (q0 + BM) / BN : S / BN;
-  if constexpr (SEG)
-    n_tiles = visited_tiles<NTH + 128, BM, BN>(bits, count, seg_b, q0,
-                                               n_tiles);
-  else
+  if constexpr (SEG) {
+    n_tiles = visited_tiles<NTH + 128, BM, BN>(bits, count, seg_b, segk_b,
+                                               q0, n_tiles);
+    if (n_tiles == 0) {
+      // No key of the tile's documents in this block: every row is
+      // masked, as a row is whose visited keys are all masked (o = 0,
+      // lse of l = 0), so that a merge over key blocks gives it no
+      // weight. n_tiles is the same in every thread.
+      const long q_row = (long)H * D;
+      for (int i = threadIdx.x; i < BM * D; i += blockDim.x)
+        o[((long)b * S + q0 + i / D) * q_row + (long)h * D + i % D] =
+            __float2bfloat16(0.f);
+      for (int i = threadIdx.x; i < BM; i += blockDim.x)
+        lse[((long)b * H + h) * S + q0 + i] = kNegInf * kLn2 + logf(1e-30f);
+      return;
+    }
+  } else {
     __syncthreads();  // the barriers are initialised
+  }
 
   if (wg == WG) {
     // The producer warpgroup hands most of its registers to the
@@ -1628,7 +1655,7 @@ __global__ void __launch_bounds__(128 * (WG + 1), 1)
             tma_load(sK + st * kTile + c * BN * 64, &tk, 64 * c, kh,
                      b * S + k_tile * BN, &full[0][st]);
           if (SEG)
-            bulk_load(sSeg + st * BN, seg_b + k_tile * BN, sizeof(int) * BN,
+            bulk_load(sSeg + st * BN, segk_b + k_tile * BN, sizeof(int) * BN,
                       &full[0][st]);
         }
         if (i > 0) {  // V tile i - 1
@@ -1823,7 +1850,8 @@ struct Args {
   const void* dout;
   const float* lse_in;
   float* delta;  // written by dq, read by dk/dv
-  const int* seg;
+  const int* seg;    // query rows' segment ids
+  const int* seg_k;  // key rows' (seg when the caller passed none)
   void* out0;  // o, dq or dk
   void* out1;  // dv
   float* lse_out;
@@ -1880,8 +1908,8 @@ cudaError_t run_fwd_bf16(const Args& a) {
     return cudaErrorInvalidValue;
   return launch(flash_fwd_bf16<D, SEG, WG>, dim3(a.h, a.b, a.s / (64 * WG)),
                 128 * (WG + 1), fwd_bf16_smem<D, SEG, WG>(a.s), a.stream, tq,
-                tk, tv, a.seg, static_cast<bf16*>(a.out0), a.lse_out, a.s,
-                a.h, a.kvh, a.causal, a.scale);
+                tk, tv, a.seg, a.seg_k, static_cast<bf16*>(a.out0), a.lse_out,
+                a.s, a.h, a.kvh, a.causal, a.scale);
 }
 
 template <typename T, int D, bool SEG>
@@ -1894,8 +1922,8 @@ cudaError_t run_fwd(const Args& a) {
     return launch(flash_fwd_f32<D, SEG>, dim3(a.s / kBM, a.h, a.b), kThreads,
                   fwd_f32_smem<D>(), a.stream, static_cast<const T*>(a.q),
                   static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-                  a.seg, static_cast<T*>(a.out0), a.lse_out, a.s, a.h, a.kvh,
-                  a.causal, a.scale);
+                  a.seg, a.seg_k, static_cast<T*>(a.out0), a.lse_out, a.s, a.h,
+                  a.kvh, a.causal, a.scale);
   }
 }
 
@@ -1909,8 +1937,8 @@ cudaError_t run_dq_bf16(const Args& a) {
                 static_cast<const bf16*>(a.v),
                 static_cast<const bf16*>(a.o_in),
                 static_cast<const bf16*>(a.dout), a.lse_in, a.delta, a.seg,
-                static_cast<bf16*>(a.out0), a.s, a.h, a.kvh, a.causal,
-                a.scale);
+                a.seg_k, static_cast<bf16*>(a.out0), a.s, a.h, a.kvh,
+                a.causal, a.scale);
 }
 
 template <typename T, int D, bool SEG>
@@ -1924,7 +1952,7 @@ cudaError_t run_dq(const Args& a) {
                   static_cast<const T*>(a.k), static_cast<const T*>(a.v),
                   static_cast<const T*>(a.o_in),
                   static_cast<const T*>(a.dout), a.lse_in, a.delta, a.seg,
-                  static_cast<T*>(a.out0), a.s, a.h, a.kvh, a.causal,
+                  a.seg_k, static_cast<T*>(a.out0), a.s, a.h, a.kvh, a.causal,
                   a.scale);
 }
 
@@ -1940,13 +1968,13 @@ cudaError_t run_dkv(const Args& a) {
     return launch(flash_dkv_bf16<D, SEG>,
                   dim3(a.kvh * (D / bf16_cols<D>()), a.b, a.s / kBM),
                   kThreads, dkv_bf16_smem<D>(), a.stream, q, k, v, dout,
-                  a.lse_in, a.delta, a.seg, dk, dv, a.s, a.h, a.kvh, a.causal,
-                  a.scale);
+                  a.lse_in, a.delta, a.seg, a.seg_k, dk, dv, a.s, a.h, a.kvh,
+                  a.causal, a.scale);
   else
     return launch(flash_dkv_f32<D, SEG>, dim3(a.s / kBM, a.kvh, a.b),
                   kThreads, dkv_f32_smem<D>(), a.stream, q, k, v, dout,
-                  a.lse_in, a.delta, a.seg, dk, dv, a.s, a.h, a.kvh, a.causal,
-                  a.scale);
+                  a.lse_in, a.delta, a.seg, a.seg_k, dk, dv, a.s, a.h, a.kvh,
+                  a.causal, a.scale);
 }
 
 // which kernel a launch asks for
@@ -1989,38 +2017,42 @@ cudaError_t dispatch(int which, int dtype, int d, const Args& a) {
 extern "C" {
 
 // o [B,S,H,D] and lse [B,H,S] (fp32) from q [B,S,H,D], k/v [B,S,KVH,D];
-// seg [B,S] int32 or null.
+// seg [B,S] int32 or null: the query rows' segment ids; seg_k [B,S] the
+// key rows' (a ring block pairs one rank's queries with another's keys),
+// null for seg itself.
 int skyt_flash_fwd(const void* q, const void* k, const void* v,
-                   const int* seg, void* o, float* lse, int b, int s, int h,
-                   int kvh, int d, int causal, float scale, int dtype,
-                   void* stream) {
-  Args a = {q, k, v, nullptr, nullptr, nullptr, nullptr, seg, o, nullptr,
-            lse, b, s, h, kvh, causal, scale,
-            static_cast<cudaStream_t>(stream)};
+                   const int* seg, const int* seg_k, void* o, float* lse,
+                   int b, int s, int h, int kvh, int d, int causal,
+                   float scale, int dtype, void* stream) {
+  Args a = {q, k, v, nullptr, nullptr, nullptr, nullptr, seg,
+            seg_k != nullptr ? seg_k : seg, o, nullptr, lse, b, s, h, kvh,
+            causal, scale, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(dispatch(kFwd, dtype, d, a));
 }
 
 // dq [B,S,H,D] and delta = rowsum(do * o) [B,H,S] fp32 from q, o, do
-// [B,S,H,D], k, v and lse [B,H,S] fp32.
+// [B,S,H,D], k, v and lse [B,H,S] fp32; seg and seg_k as for the forward.
 int skyt_flash_bwd_dq(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const float* lse,
-                      float* delta, const int* seg, void* dq, int b, int s,
-                      int h, int kvh, int d, int causal, float scale,
-                      int dtype, void* stream) {
-  Args a = {q, k, v, o, dout, lse, delta, seg, dq, nullptr, nullptr,
-            b, s, h, kvh, causal, scale, static_cast<cudaStream_t>(stream)};
+                      float* delta, const int* seg, const int* seg_k,
+                      void* dq, int b, int s, int h, int kvh, int d,
+                      int causal, float scale, int dtype, void* stream) {
+  Args a = {q, k, v, o, dout, lse, delta, seg,
+            seg_k != nullptr ? seg_k : seg, dq, nullptr, nullptr, b, s, h,
+            kvh, causal, scale, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(dispatch(kDq, dtype, d, a));
 }
 
-// dk, dv [B,S,KVH,D] from q, k, v, do, lse and the dq kernel's delta.
+// dk, dv [B,S,KVH,D] from q, k, v, do, lse and the dq kernel's delta;
+// seg and seg_k as for the forward.
 int skyt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
-                       const int* seg, void* dk, void* dv, int b, int s,
-                       int h, int kvh, int d, int causal, float scale,
-                       int dtype, void* stream) {
-  Args a = {q, k, v, nullptr, dout, lse, const_cast<float*>(delta), seg, dk,
-            dv, nullptr, b, s, h, kvh, causal, scale,
-            static_cast<cudaStream_t>(stream)};
+                       const int* seg, const int* seg_k, void* dk, void* dv,
+                       int b, int s, int h, int kvh, int d, int causal,
+                       float scale, int dtype, void* stream) {
+  Args a = {q, k, v, nullptr, dout, lse, const_cast<float*>(delta), seg,
+            seg_k != nullptr ? seg_k : seg, dk, dv, nullptr, b, s, h, kvh,
+            causal, scale, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(dispatch(kDkv, dtype, d, a));
 }
 

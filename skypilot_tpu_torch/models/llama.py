@@ -28,7 +28,11 @@ batch: each layer gathers its weights whole along ``embed`` over
 ``tensor`` (Megatron's conjugate pair), looks the tokens up in its
 vocab rows and sums over ``tensor``, and returns its vocab columns of
 the logits: the loss combines them over ``tensor`` (a vocab-parallel
-cross entropy, ``train/loss.py``) instead of gathering [B, S, V]. The
+cross entropy, ``train/loss.py``) instead of gathering [B, S, V]. Under
+``seq`` the tokens (and positions and segments) are the rank's block of
+the columns: the default positions start at its block's first column,
+attention runs over the ``seq`` group (``ops/ring_attention.py``) and
+everything else is per token. The
 context is an argument, not ambient state: a remat recompute runs in
 the autograd thread and re-issues the layer's collectives in the same
 order on every rank.
@@ -368,7 +372,7 @@ def _attention_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
     out = multi_head_attention(q, k, v, causal=True, segment_ids=segments,
-                               impl=cfg.attention_impl)
+                               impl=cfg.attention_impl, parallel=par)
     with _named('attn_out'):
         out = torch.einsum('bshk,hkd->bsd', out, wo)
     return reduce_from_tensor(out, par)
@@ -647,8 +651,9 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     ``return_aux``: also return the layer mean of the router aux loss
     (0 for a dense model) as (logits, aux). ``parallel``: this rank's
     place on a training mesh; params, tokens, positions and segments are
-    then its shards and rows, and the logits its rows and, under
-    ``tensor``, its block of the vocab.
+    then its shards and rows (under ``seq``, its block of the columns),
+    and the logits its rows and, under ``tensor``, its block of the
+    vocab.
     ``pipeline_stages > 1`` raises with a pointer to ROADMAP.md."""
     if pipeline_stages > 1:
         raise NotImplementedError(
@@ -662,7 +667,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     _, s = tokens.shape
     dt = cfg.compute_dtype
     if positions is None:
-        positions = torch.arange(s, device=tokens.device)
+        # Under seq the tokens are this rank's block of columns.
+        positions = par.seq_rank * s + torch.arange(s, device=tokens.device)
     sin, cos = rope_table_for(cfg, positions)
     x = _embed(params, tokens, cfg, par)
     remat = _remat_policy(cfg)

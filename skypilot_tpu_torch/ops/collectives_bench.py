@@ -8,16 +8,19 @@ Starts one rank per GPU, at least 2 (2 on the CPU; ``parallel/launch.py``) on a 
 ``Mesh`` and times ``torch.distributed``'s collectives over it. One
 JSON line per op: algbw (payload / time) and busbw (algbw times the
 ring-traffic factor of nccl-tests: 2(n-1)/n for all-reduce, (n-1)/n
-for all-gather and reduce-scatter), as the reference reports them.
+for all-gather and reduce-scatter, 1 for ppermute), as the reference
+reports them. ``ppermute`` is one hop of the ring (each rank's shard to
+the next), through the port's ``TensorParallel.ring_shift``: the hop
+that ring attention makes.
 
 The process-group backend follows the launcher's rule, and the line
 says which (``detail.backend``, ``detail.path``): ranks that share one
 card talk over ``gloo``, which moves a CUDA tensor's bytes through host
 memory; that is the path the tensor-parallel serving step takes on
 such a machine, not NVLink or NCCL bandwidth. ``gloo`` takes CUDA
-tensors for all three ops (``tools/train_mesh_probe.py`` on the card).
-``ppermute`` belongs to the sequence-parallel slice of the multi-device
-work (ROADMAP.md, queue A item 15 (c)).
+tensors for all three ops (``tools/train_mesh_probe.py`` on the card);
+``ring_shift`` stages a CUDA tensor through host memory itself under
+``gloo`` (its docstring), and the line's path says so.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import time
 import numpy as np
 import torch
 
-OPS = ('all_reduce', 'all_gather', 'reduce_scatter')
+OPS = ('all_reduce', 'all_gather', 'reduce_scatter', 'ppermute')
 
 
 def _bus_factor(op: str, n: int) -> float:
@@ -42,9 +45,13 @@ def _bus_factor(op: str, n: int) -> float:
     return 1.0
 
 
-def _collective(op: str, x: torch.Tensor, group, n: int):
-    """One call of ``op`` on this rank's shard ``x``."""
+def _collective(op: str, x: torch.Tensor, group, n: int, ring=None):
+    """One call of ``op`` on this rank's shard ``x`` (``ring``: the
+    ``TensorParallel`` whose ``seq`` axis is the group, for
+    ``ppermute``)."""
     import torch.distributed as dist
+    if op == 'ppermute':
+        return ring.ring_shift([x])[0]
     if op == 'all_reduce':
         dist.all_reduce(x, group=group)
         return x
@@ -62,8 +69,11 @@ def _rank_bench(rank: int, world: int, ops, size_mb: float, iters: int,
     import torch.distributed as dist
     from skypilot_tpu_torch.parallel.launch import rank_device
     from skypilot_tpu_torch.parallel.mesh import Mesh
+    from skypilot_tpu_torch.parallel.sharding import TensorParallel
     mesh = Mesh(np.arange(world), ('x',), device_type)
     group = mesh.group('x')
+    ring = TensorParallel(mesh=mesh, seq_group=group, seq=world,
+                          seq_rank=rank)
     device = rank_device(rank, device_type)
     backend = dist.get_backend(group)
     elems = int(size_mb * 1e6 / 4)
@@ -74,13 +84,13 @@ def _rank_bench(rank: int, world: int, ops, size_mb: float, iters: int,
         x = torch.arange(elems // world, dtype=torch.float32,
                          device=device)
         for _ in range(max(warmup, 1)):
-            _collective(op, x, group, world)
+            _collective(op, x, group, world, ring)
         if device.type == 'cuda':
             torch.cuda.synchronize(device)
         dist.barrier(group=group)
         t0 = time.perf_counter()
         for _ in range(iters):
-            _collective(op, x, group, world)
+            _collective(op, x, group, world, ring)
         if device.type == 'cuda':
             torch.cuda.synchronize(device)
         elapsed = time.perf_counter() - t0
@@ -99,8 +109,10 @@ def _rank_bench(rank: int, world: int, ops, size_mb: float, iters: int,
                 'devices': world,
                 'device_kind': kind,
                 'backend': backend,
-                'path': ('gloo through host memory' if backend == 'gloo'
-                         else backend),
+                'path': (('gloo through host memory' +
+                          (', staged by ring_shift' if op == 'ppermute' and
+                           device.type == 'cuda' else ''))
+                         if backend == 'gloo' else backend),
             },
         })
     return lines if rank == 0 else None

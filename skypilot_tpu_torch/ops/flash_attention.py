@@ -23,6 +23,12 @@ Two implementations behind it:
   P.V), for CPU tensors (the tier-1 tests) and as the kernels'
   comparison on the card.
 
+The kernel wrappers and the plain versions also take
+``kv_segment_ids``, the key rows' segment ids apart from the query
+rows' (the TPU kernel's ``seg_q_ref`` / ``seg_k_ref``):
+``ops/ring_attention.py`` pairs one rank's query block with another
+rank's key block. Without it the key rows' ids are the query rows'.
+
 The gate is the reference's ``_supported``: equal query and key
 lengths, 128-multiple blocks (so S % 128 == 0), head_dim % 128 == 0 and
 a whole GQA group. Outside it the call warns once and runs
@@ -93,28 +99,33 @@ def _supported(q: torch.Tensor, k: torch.Tensor) -> bool:
 # ---------------------------------------------------------------------------
 
 def _mask(s: int, device, causal: bool,
-          segment_ids: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """Boolean keep-mask broadcastable to [B, KVH, G, Sq, Sk]."""
+          segment_ids: Optional[torch.Tensor],
+          kv_segment_ids: Optional[torch.Tensor] = None
+          ) -> Optional[torch.Tensor]:
+    """Boolean keep-mask broadcastable to [B, KVH, G, Sq, Sk]; the key
+    rows' segment ids are ``kv_segment_ids`` where given, else the query
+    rows'."""
     mask = None
     if causal:
         pos = torch.arange(s, device=device)
         mask = (pos[:, None] >= pos[None, :])[None, None, None]
     if segment_ids is not None:
-        seg = (segment_ids[:, :, None] ==
-               segment_ids[:, None, :])[:, None, None]
+        keys = segment_ids if kv_segment_ids is None else kv_segment_ids
+        seg = (segment_ids[:, :, None] == keys[:, None, :])[:, None, None]
         mask = seg if mask is None else mask & seg
     return mask
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
-            segment_ids: Optional[torch.Tensor]):
+            segment_ids: Optional[torch.Tensor],
+            kv_segment_ids: Optional[torch.Tensor] = None):
     """Scaled, masked fp32 scores [B, KVH, G, S, S] and the scaled
     grouped queries [B, S, KVH, G, D]."""
     b, s, h, d = q.shape
     kvh = k.shape[2]
     qg = q.float().reshape(b, s, kvh, h // kvh, d) * (d ** -0.5)
     sc = torch.einsum('bqhgd,bkhd->bhgqk', qg, k.float())
-    mask = _mask(s, q.device, causal, segment_ids)
+    mask = _mask(s, q.device, causal, segment_ids, kv_segment_ids)
     if mask is not None:
         sc = torch.where(mask, sc, NEG_INF)
     return sc, qg
@@ -122,12 +133,15 @@ def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
 
 def flash_forward_reference(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True,
-                            segment_ids: Optional[torch.Tensor] = None
+                            segment_ids: Optional[torch.Tensor] = None,
+                            kv_segment_ids: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernels' function in plain PyTorch: (o [B,S,H,D] in
-    q's type, lse [B,H,S] fp32)."""
+    q's type, lse [B,H,S] fp32). A row with no key left (possible only
+    with ``kv_segment_ids``) gets the mean of v and an lse of about
+    ``NEG_INF``: no weight in a merge over key blocks."""
     b, s, h, d = q.shape
-    sc, _ = _scores(q, k, causal, segment_ids)
+    sc, _ = _scores(q, k, causal, segment_ids, kv_segment_ids)
     m = sc.amax(dim=-1, keepdim=True)
     p = torch.exp(sc - m)
     l_safe = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
@@ -142,13 +156,13 @@ def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
 
 
-def _probs(q, k, v, o, lse, do, causal, segment_ids):
+def _probs(q, k, v, o, lse, do, causal, segment_ids, kv_segment_ids=None):
     """p = exp(s - lse) and ds = p (do v^T - delta), [B,KVH,G,S,S] fp32,
     with the scaled grouped q and the grouped fp32 do."""
     b, s, h, d = q.shape
     kvh = k.shape[2]
     g = h // kvh
-    sc, qg = _scores(q, k, causal, segment_ids)
+    sc, qg = _scores(q, k, causal, segment_ids, kv_segment_ids)
     p = torch.exp(sc - lse.reshape(b, kvh, g, s, 1))
     dog = do.float().reshape(b, s, kvh, g, d)
     dp = torch.einsum('bqhgd,bkhd->bhgqk', dog, v.float())
@@ -169,19 +183,23 @@ def _dkv(p, ds, qg, dog, k, v):
 
 
 def flash_dq_reference(q, k, v, o, lse, do, *, causal: bool = True,
-                       segment_ids: Optional[torch.Tensor] = None
+                       segment_ids: Optional[torch.Tensor] = None,
+                       kv_segment_ids: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """The dq kernel's function in plain PyTorch: ds k * scale."""
-    _, ds, _, _ = _probs(q, k, v, o, lse, do, causal, segment_ids)
+    _, ds, _, _ = _probs(q, k, v, o, lse, do, causal, segment_ids,
+                         kv_segment_ids)
     return _dq(ds, q, k)
 
 
 def flash_dkv_reference(q, k, v, o, lse, do, *, causal: bool = True,
-                        segment_ids: Optional[torch.Tensor] = None
+                        segment_ids: Optional[torch.Tensor] = None,
+                        kv_segment_ids: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dk/dv kernel's function in plain PyTorch: (ds^T q * scale,
     p^T do), summed over the GQA group in fp32."""
-    p, ds, qg, dog = _probs(q, k, v, o, lse, do, causal, segment_ids)
+    p, ds, qg, dog = _probs(q, k, v, o, lse, do, causal, segment_ids,
+                            kv_segment_ids)
     return _dkv(p, ds, qg, dog, k, v)
 
 
@@ -189,13 +207,15 @@ def flash_backward_reference(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              lse: torch.Tensor, do: torch.Tensor, *,
                              causal: bool = True,
-                             segment_ids: Optional[torch.Tensor] = None
+                             segment_ids: Optional[torch.Tensor] = None,
+                             kv_segment_ids: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """Both backward kernels' function in plain PyTorch, from the saved
     lse: p = exp(s - lse), ds = p (do v^T - delta). Returns (dq, dk,
     dv) in q's, k's and v's types."""
-    p, ds, qg, dog = _probs(q, k, v, o, lse, do, causal, segment_ids)
+    p, ds, qg, dog = _probs(q, k, v, o, lse, do, causal, segment_ids,
+                            kv_segment_ids)
     return (_dq(ds, q, k),) + _dkv(p, ds, qg, dog, k, v)
 
 
@@ -209,11 +229,11 @@ def _library() -> ctypes.CDLL:
         from skypilot_tpu_torch import _build
         lib = _build.load_library('flash_attention')
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.skyt_flash_fwd.argtypes = [p] * 6 + [i] * 6 + [f, i, p]
+        lib.skyt_flash_fwd.argtypes = [p] * 7 + [i] * 6 + [f, i, p]
         lib.skyt_flash_fwd.restype = i
-        lib.skyt_flash_bwd_dq.argtypes = [p] * 9 + [i] * 6 + [f, i, p]
+        lib.skyt_flash_bwd_dq.argtypes = [p] * 10 + [i] * 6 + [f, i, p]
         lib.skyt_flash_bwd_dq.restype = i
-        lib.skyt_flash_bwd_dkv.argtypes = [p] * 9 + [i] * 6 + [f, i, p]
+        lib.skyt_flash_bwd_dkv.argtypes = [p] * 10 + [i] * 6 + [f, i, p]
         lib.skyt_flash_bwd_dkv.restype = i
         _lib = lib
     return _lib
@@ -224,12 +244,17 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f'flash_attention kernel: {msg}')
 
 
-def _check_inputs(q, k, v, segment_ids, *extra) -> None:
+def _check_inputs(q, k, v, segment_ids, kv_segment_ids, *extra) -> None:
     """Raise on anything the kernels do not take."""
     b, s, h, d = q.shape
     tensors = [q, k, v] + [x for x in extra if x is not None]
-    if segment_ids is not None:
-        tensors.append(segment_ids)
+    _check(kv_segment_ids is None or segment_ids is not None,
+           'key segment ids need the query rows\' segment ids')
+    for ids in (segment_ids, kv_segment_ids):
+        if ids is not None:
+            tensors.append(ids)
+            _check(ids.dtype == torch.int32 and tuple(ids.shape) == (b, s),
+                   'segment ids must be int32 [B,S]')
     dev = q.device
     _check(all(x.is_cuda and x.device == dev for x in tensors),
            'all tensors must be on one CUDA device')
@@ -242,10 +267,6 @@ def _check_inputs(q, k, v, segment_ids, *extra) -> None:
            f'{k.shape[2]} kv heads')
     _check(d in _HEAD_DIMS, f'head dim {d} (one of {_HEAD_DIMS})')
     _check(s % 64 == 0, f'sequence length {s} not a multiple of 64')
-    if segment_ids is not None:
-        _check(segment_ids.dtype == torch.int32 and
-               tuple(segment_ids.shape) == (b, s),
-               'segment ids must be int32 [B,S]')
     _check(all(x.is_contiguous() for x in tensors),
            'inputs must be contiguous')
     _check(all(x.data_ptr() % 16 == 0 for x in tensors),
@@ -258,17 +279,21 @@ def _ptr(x: Optional[torch.Tensor]):
 
 def flash_forward_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
-                         segment_ids: Optional[torch.Tensor] = None
+                         segment_ids: Optional[torch.Tensor] = None,
+                         kv_segment_ids: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel: (o [B,S,H,D], lse [B,H,S] fp32)."""
-    _check_inputs(q, k, v, segment_ids)
+    """Launch the forward kernel: (o [B,S,H,D], lse [B,H,S] fp32).
+    ``kv_segment_ids``: the key rows' segment ids where they are not the
+    query rows' (a ring attention block)."""
+    _check_inputs(q, k, v, segment_ids, kv_segment_ids)
     b, s, h, d = q.shape
     lib = _library()
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     err = lib.skyt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(segment_ids),
-        o.data_ptr(), lse.data_ptr(), b, s, h, k.shape[2], d, int(causal),
+        _ptr(kv_segment_ids), o.data_ptr(), lse.data_ptr(), b, s, h,
+        k.shape[2], d, int(causal),
         d ** -0.5, _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -295,11 +320,12 @@ def _check_stats(q, *stats) -> None:
 
 
 def flash_dq_kernel(q, k, v, o, lse, do, *, causal: bool = True,
-                    segment_ids: Optional[torch.Tensor] = None
+                    segment_ids: Optional[torch.Tensor] = None,
+                    kv_segment_ids: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dq kernel: (dq [B,S,H,D], delta = rowsum(do * o)
     [B,H,S] fp32, which the dk/dv kernel takes)."""
-    _check_inputs(q, k, v, segment_ids, o, do, lse)
+    _check_inputs(q, k, v, segment_ids, kv_segment_ids, o, do, lse)
     _check(o.shape == q.shape and o.dtype == q.dtype and
            do.shape == q.shape and do.dtype == q.dtype,
            'o and do must match q')
@@ -311,7 +337,7 @@ def flash_dq_kernel(q, k, v, o, lse, do, *, causal: bool = True,
     err = lib.skyt_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(segment_ids),
-        dq.data_ptr(), *common)
+        _ptr(kv_segment_ids), dq.data_ptr(), *common)
     if err != 0:
         raise RuntimeError(f'flash dq kernel launch failed: CUDA error '
                            f'{err}')
@@ -321,10 +347,11 @@ def flash_dq_kernel(q, k, v, o, lse, do, *, causal: bool = True,
 
 
 def flash_dkv_kernel(q, k, v, lse, do, delta, *, causal: bool = True,
-                     segment_ids: Optional[torch.Tensor] = None
+                     segment_ids: Optional[torch.Tensor] = None,
+                     kv_segment_ids: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dk/dv kernel (``delta`` from the dq kernel)."""
-    _check_inputs(q, k, v, segment_ids, do, lse, delta)
+    _check_inputs(q, k, v, segment_ids, kv_segment_ids, do, lse, delta)
     _check(do.shape == q.shape and do.dtype == q.dtype, 'do must match q')
     _check_stats(q, lse, delta)
     common = _backward_common(q, k, causal)
@@ -333,8 +360,8 @@ def flash_dkv_kernel(q, k, v, lse, do, delta, *, causal: bool = True,
     dv = torch.empty_like(v)
     err = lib.skyt_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), _ptr(segment_ids), dk.data_ptr(),
-        dv.data_ptr(), *common)
+        lse.data_ptr(), delta.data_ptr(), _ptr(segment_ids),
+        _ptr(kv_segment_ids), dk.data_ptr(), dv.data_ptr(), *common)
     if err != 0:
         raise RuntimeError(f'flash dk/dv kernel launch failed: CUDA error '
                            f'{err}')

@@ -25,6 +25,10 @@ world_size, *args)``; rank 0's caller gets every rank's return value.
 ``target`` is a callable importable by reference or a
 ``'module:function'`` string; the spawned ranks import only its module
 (and what it imports), never the launcher's ``__main__`` test module.
+The arguments reach the ranks through a pickle file in the same
+temporary directory, not through the spawn pipe: a ``start()`` whose
+pickle outgrows the pipe's buffer (64 KiB) blocks until that child has
+imported its modules, which would start the ranks one after another.
 Return values travel through a pipe: keep them to plain Python and
 numpy values.
 """
@@ -33,6 +37,7 @@ from __future__ import annotations
 import datetime
 import importlib
 import os
+import pickle
 import queue as queue_lib
 import shutil
 import signal
@@ -95,10 +100,12 @@ def _die_with_parent() -> None:
 
 
 def _rank_main(rank, world_size, init_file, backend, device_type, target,
-               args, results) -> None:
+               args_file, results) -> None:
     _die_with_parent()
     import torch.distributed as dist
     try:
+        with open(args_file, 'rb') as f:
+            args = pickle.load(f)
         device = rank_device(rank, device_type)
         if device.type == 'cuda':
             torch.cuda.set_device(device)
@@ -131,11 +138,12 @@ def launch(target: Union[str, Callable[..., Any]], world_size: int,
           f'{backend} ({reason})', file=sys.stderr, flush=True)
     ctx = mp.get_context('spawn')
     tmp = tempfile.mkdtemp(prefix='skyt-ranks-')
+    args_file = os.path.join(tmp, 'args.pkl')
     results = ctx.Queue()
     procs = [ctx.Process(
         target=_rank_main, name=f'rank{rank}', daemon=True,
         args=(rank, world_size, os.path.join(tmp, 'store'), backend,
-              device_type, target, args, results))
+              device_type, target, args_file, results))
         for rank in range(world_size)]
     outputs: List[Any] = [None] * world_size
     done = set()
@@ -143,6 +151,8 @@ def launch(target: Union[str, Callable[..., Any]], world_size: int,
     deadline = None
     previous = _terminate_on_sigterm()
     try:
+        with open(args_file, 'wb') as f:
+            pickle.dump(args, f, protocol=pickle.HIGHEST_PROTOCOL)
         for proc in procs:
             proc.start()
         while len(done) < world_size:

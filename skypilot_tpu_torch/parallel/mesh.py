@@ -142,6 +142,7 @@ class Mesh:
         self.axis_names = tuple(axis_names)
         self.device_type = device_type
         self._device_mesh = None
+        self._groups: Dict[Tuple[str, ...], object] = {}
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -173,6 +174,26 @@ class Mesh:
     def group(self, axis: str):
         """The process group of this rank's line along ``axis``."""
         return self.device_mesh.get_group(axis)
+
+    def group_over(self, axes: Sequence[str]):
+        """The process group of the ranks that share this rank's index
+        on every axis but ``axes``: one group across several axes (every
+        rank must call it, in the same order: the groups are built
+        collectively)."""
+        key = tuple(axes)
+        if key not in self._groups:
+            import torch.distributed as dist
+            self._groups[key], _ = dist.new_subgroups_by_enumeration(
+                self.lines_over(key))
+        return self._groups[key]
+
+    def lines_over(self, axes: Sequence[str]) -> List[List[int]]:
+        """The rank sets that vary only along ``axes``, each in mesh
+        order: the members of ``group_over(axes)``'s groups."""
+        dims = [self.axis_names.index(a) for a in axes]
+        rest = [d for d in range(self.devices.ndim) if d not in dims]
+        size = math.prod(self.devices.shape[d] for d in dims)
+        return self.devices.transpose(rest + dims).reshape(-1, size).tolist()
 
     def __repr__(self) -> str:
         return describe_mesh(self)

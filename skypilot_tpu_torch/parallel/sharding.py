@@ -24,9 +24,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 import time
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -217,8 +218,8 @@ def shard_params_pytree(mesh: Mesh, logical_axes_tree, params, *,
 
 
 # ---------------------------------------------------------------------------
-# This rank's groups: the tensor axis (serving and training), and the
-# batch axes data and fsdp (training)
+# This rank's groups: the tensor axis (serving and training), the batch
+# axes data and fsdp and the sequence axis seq (training)
 # ---------------------------------------------------------------------------
 
 _collective_time = {'calls': 0, 'seconds': 0.0, 'timed': False}
@@ -249,7 +250,7 @@ def collective_stats(reset: bool = False) -> Dict[str, Any]:
 
 
 # Mesh axes a rank of a training mesh keeps a group for.
-TRAIN_AXES = ('data', 'fsdp', 'tensor')
+TRAIN_AXES = ('data', 'fsdp', 'seq', 'tensor')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,9 +258,13 @@ class TensorParallel:
     """This rank's place on the mesh. ``group``, ``degree`` and ``rank``
     are the ``tensor`` axis (what serving uses: its process group, the
     degree and this rank's index along it; ``group`` None at degree 1);
-    ``data_*`` and ``fsdp_*`` the same for the batch axes of a training
-    mesh. Every collective names its axis and is a no-op at degree
-    1."""
+    ``data_*``, ``fsdp_*`` and ``seq_*`` the same for the batch axes and
+    the sequence axis of a training mesh. Two groups span several axes,
+    so that a sum over them is one collective: ``tokens`` (data x fsdp x
+    seq, every rank that holds other tokens of the batch) and
+    ``replicas`` (data x seq, the ranks that hold the same fsdp block of
+    a leaf). Every collective names its axis or group and is a no-op at
+    degree 1."""
     mesh: Optional[Mesh] = None
     group: Any = None
     degree: int = 1
@@ -270,15 +275,31 @@ class TensorParallel:
     fsdp_group: Any = None
     fsdp: int = 1
     fsdp_rank: int = 0
+    seq_group: Any = None
+    seq: int = 1
+    seq_rank: int = 0
+    tokens_group: Any = None
+    tokens: int = 1
+    replicas_group: Any = None
+    replicas: int = 1
 
     def axis(self, name: str) -> Tuple[Any, int, int]:
-        """(group, degree, this rank's index) along ``name``."""
+        """(group, degree, this rank's index) along ``name``: a mesh axis
+        or one of the groups ``'tokens'`` and ``'replicas'``."""
         if name == 'tensor':
             return self.group, self.degree, self.rank
         if name == 'data':
             return self.data_group, self.data, self.data_rank
         if name == 'fsdp':
             return self.fsdp_group, self.fsdp, self.fsdp_rank
+        if name == 'seq':
+            return self.seq_group, self.seq, self.seq_rank
+        if name == 'tokens':
+            return (self.tokens_group, self.tokens,
+                    self.batch_index * self.seq + self.seq_rank)
+        if name == 'replicas':
+            return (self.replicas_group, self.replicas,
+                    self.data_rank * self.seq + self.seq_rank)
         raise ValueError(f'no group for mesh axis {name!r}')
 
     @property
@@ -291,9 +312,11 @@ class TensorParallel:
         """This rank's block of the batch, data major."""
         return self.data_rank * self.fsdp + self.fsdp_rank
 
-    def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the batch ranks (data x fsdp)."""
-        return self.all_reduce(self.all_reduce(x, axis='fsdp'), axis='data')
+    def token_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over every rank that holds other tokens of the
+        batch, its rows (data x fsdp) and its columns (seq), in one
+        all-reduce over ``tokens`` (in place)."""
+        return self.all_reduce(x, axis='tokens')
 
     def _run(self, x: torch.Tensor, call, kind: str) -> torch.Tensor:
         timed = _collective_time['timed']
@@ -347,6 +370,68 @@ class TensorParallel:
         self._run(out, lambda: dist.all_gather_into_tensor(
             out, front, group=group), f'all_gather {axis}')
         return out.movedim(0, dim)
+
+    def ring_shift(self, xs: Sequence[torch.Tensor],
+                   axis: str = 'seq') -> List[torch.Tensor]:
+        """One hop of the ring along ``axis``, the reference's
+        ``ppermute`` with ``perm = [(i, (i + 1) % n)]``: each tensor of
+        ``xs`` goes to the next index and this rank gets the previous
+        index's (new tensors), all in one batch of point-to-point ops.
+        Under ``gloo`` a CUDA tensor is staged through a host copy here,
+        explicitly: gloo's send and receive move host memory (its
+        collectives stage CUDA tensors themselves)."""
+        import torch.distributed as dist
+        group, degree, index = self.axis(axis)
+        if degree == 1:
+            return list(xs)
+        staged = (any(x.is_cuda for x in xs) and
+                  dist.get_backend(group) == 'gloo')
+        sends = [x.detach().contiguous() for x in xs]
+        if staged:
+            sends = [x.cpu() for x in sends]
+        recvs = [torch.empty_like(x) for x in sends]
+        dst = dist.get_global_rank(group, (index + 1) % degree)
+        src = dist.get_global_rank(group, (index - 1) % degree)
+
+        def hop():
+            ops = [dist.P2POp(dist.isend, x, dst, group=group)
+                   for x in sends]
+            ops += [dist.P2POp(dist.irecv, x, src, group=group)
+                    for x in recvs]
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+
+        self._run(recvs[0], hop, f'ring_shift {axis}')
+        if staged:
+            return [y.to(x.device) for x, y in zip(xs, recvs)]
+        return recvs
+
+    def all_to_all(self, x: torch.Tensor, split_dim: int, concat_dim: int,
+                   axis: str = 'seq') -> torch.Tensor:
+        """The reference's tiled ``lax.all_to_all``: ``x`` cut into the
+        axis's degree blocks along ``split_dim``, block j sent to index
+        j, and the blocks received joined along ``concat_dim`` in index
+        order (a new tensor)."""
+        import torch.distributed as dist
+        group, degree, _ = self.axis(axis)
+        if degree == 1:
+            return x
+        if x.shape[split_dim] % degree:
+            raise ValueError(f'dimension {split_dim} of size '
+                             f'{x.shape[split_dim]} does not split over '
+                             f'{axis}={degree}')
+        # Block j of the split dim first, so each peer's block is one
+        # contiguous slab of the flat buffer.
+        parts = x.unflatten(split_dim, (degree, -1)).movedim(split_dim, 0)
+        send = parts.contiguous()
+        recv = torch.empty_like(send)
+        self._run(recv, lambda: dist.all_to_all_single(recv, send,
+                                                       group=group),
+                  f'all_to_all {axis}')
+        # recv[j] is peer j's block: join the peers along concat_dim
+        # (one past its index in the [degree, ...] layout).
+        return recv.movedim(0, concat_dim).flatten(concat_dim,
+                                                   concat_dim + 1)
 
     def reduce_scatter(self, x: torch.Tensor, dim: int,
                        axis: str) -> torch.Tensor:
@@ -445,21 +530,31 @@ _ambient = threading.local()
 
 def tensor_parallel_of(mesh: Optional[Mesh]) -> TensorParallel:
     """The ``TensorParallel`` of this process's rank on ``mesh``: a group
-    for each of its ``data``, ``fsdp`` and ``tensor`` axes above degree
-    1 (every rank must call it: the groups are built collectively)."""
+    for each of its ``data``, ``fsdp``, ``seq`` and ``tensor`` axes above
+    degree 1, and the ``tokens`` and ``replicas`` groups (one axis's
+    group where only one of theirs is above 1; every rank must call it:
+    the groups are built collectively)."""
     if mesh is None or all(mesh.shape.get(a, 1) <= 1 for a in TRAIN_AXES):
         return TensorParallel(mesh=mesh)
     import torch.distributed as dist
     coords = mesh.coords(dist.get_rank())
     fields = {}
     for axis, prefix in (('tensor', ''), ('data', 'data_'),
-                         ('fsdp', 'fsdp_')):
+                         ('fsdp', 'fsdp_'), ('seq', 'seq_')):
         size = mesh.shape.get(axis, 1)
         if size > 1:
             fields[prefix + 'group'] = mesh.group(axis)
             fields['degree' if axis == 'tensor' else axis] = size
             fields['rank' if axis == 'tensor' else prefix + 'rank'] = \
                 coords[axis]
+    for name, axes in (('tokens', ('data', 'fsdp', 'seq')),
+                       ('replicas', ('data', 'seq'))):
+        split = [a for a in axes if mesh.shape.get(a, 1) > 1]
+        if split:
+            fields[name] = math.prod(mesh.shape[a] for a in split)
+            fields[name + '_group'] = (
+                fields[split[0] + '_group'] if len(split) == 1
+                else mesh.group_over(split))
     return TensorParallel(mesh=mesh, **fields)
 
 

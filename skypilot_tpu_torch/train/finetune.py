@@ -19,10 +19,11 @@ Two modes (the CPU with ``--device cpu``):
 * **full** (``--lora-rank 0``): every parameter trains in fp32 with the
   pretrain step (``train/step.py``: AdamW with global-norm clipping and
   the reference's warmup-cosine schedule, warmup ``min(10, steps)``).
-  ``--mesh`` trains over ``data``/``fsdp``/``tensor`` as ``pretrain``
-  does: the command starts its own ranks, each loads the checkpoint
-  and keeps its blocks, the batch rounds up to data x fsdp, only rank
-  0 prints, and the export holds the whole (gathered) weights.
+  ``--mesh`` trains over ``data``/``fsdp``/``seq``/``tensor`` as
+  ``pretrain`` does: the command starts its own ranks, each loads the
+  checkpoint and keeps its blocks, the batch rounds up to data x fsdp
+  and the sequence up to seq, only rank 0 prints, and the export holds
+  the whole (gathered) weights.
 * **LoRA** (``--lora-rank R``): the base weights are frozen in bf16 with
   no optimizer state; the q/v adapters train in fp32 under the
   reference's plain ``optax.adamw(lr)``: no clipping, no schedule,
@@ -177,7 +178,8 @@ def run(args: argparse.Namespace, *, lora_init=None,
     from skypilot_tpu_torch.models import lora as lora_lib
     from skypilot_tpu_torch.train import checkpoint as ckpt_lib
     from skypilot_tpu_torch.train.pretrain import (enter_mesh,
-                                                   file_batch_iterator)
+                                                   file_batch_iterator,
+                                                   mesh_seq)
     from skypilot_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
@@ -195,7 +197,7 @@ def run(args: argparse.Namespace, *, lora_init=None,
     if not use_lora:
         _, mesh, is_main = enter_mesh(args, cfg, device)
     emit = _emit if is_main else _quiet
-    seq = min(args.seq, cfg.max_seq_len)
+    seq = mesh_seq(min(args.seq, cfg.max_seq_len), mesh, is_main)
     if args.data.endswith('.npy'):
         data_iter = file_batch_iterator(args.data, args.batch, seq, device)
     else:

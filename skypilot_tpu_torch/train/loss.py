@@ -21,11 +21,11 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     regularizes the log-partition toward 0 for bf16 stability.
 
     ``parallel`` (a ``TensorParallel`` on a training mesh): the arrays
-    are this rank's rows of the batch, ``total_weight`` is the weight
-    sum of the WHOLE batch (all-reduced over data x fsdp), and the loss
-    is this rank's share of the batch mean: the mean is its sum over
-    the batch ranks, whatever the weights on each (not the mean of the
-    ranks' means). Under ``tensor`` the logits are this rank's block of
+    are this rank's rows of the batch (under ``seq``, its block of their
+    columns), ``total_weight`` is the weight sum of the WHOLE batch
+    (all-reduced over data x fsdp x seq), and the loss is this rank's
+    share of the batch mean: the mean is its sum over those ranks,
+    whatever the weights on each (not the mean of the ranks' means). Under ``tensor`` the logits are this rank's block of
     the vocab, and the log-partition and the target logit are summed
     over the tensor group (a vocab-parallel cross entropy: the [B, S, V]
     logits are never gathered).
@@ -45,7 +45,7 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     weights = weights.float()
     total = weights.sum()
     if parallel is not None:
-        total = parallel.batch_sum(total)
+        total = parallel.token_sum(total)
     total_weight = torch.clamp(total, min=1.0)
     return (nll * weights).sum() / total_weight, total_weight
 

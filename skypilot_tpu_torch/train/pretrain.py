@@ -24,19 +24,22 @@ packer must build) and counts only the real tokens (the weights) in
 tokens/s. ``--moe-dispatch`` / ``--capacity-factor`` set a MoE
 model's dispatch (``--model tiny-moe --moe-dispatch capacity``).
 
-``--mesh`` (``data``, ``fsdp``, ``tensor``; ``train/step.py``) takes one
-process per rank: run as a command, it starts its own ranks
+``--mesh`` (``data``, ``fsdp``, ``seq``, ``tensor``; ``train/step.py``)
+takes one process per rank: run as a command, it starts its own ranks
 (``parallel/launch.py``; ``gloo`` when they share a card), each of which
 runs this same ``main`` inside the process group. The degrees multiply
 to the rank count; a -1 axis takes the GPUs the others leave (1 on the
 CPU). As in the reference, ``SKYT_ELASTIC_SLICES`` re-solves the mesh's
 DCN axes (``MeshConfig.resolve``), the batch rounds up to data x fsdp
-(``{"batch_rounded_to": n}``), a resume prints ``{"mesh_devices": n,
-...}``, only rank 0 prints, checkpoints hold whole tensors (rank 0
-writes them) and restore into any mesh, and a resize request is
-rank 0's decision, broadcast, so that every rank stops at the same
-step. A ``seq``, ``stage`` or ``expert`` degree above 1 and MoE models
-on a mesh raise with a pointer to ROADMAP.md.
+(``{"batch_rounded_to": n}``) and the sequence up to seq, on the card
+up to 64 x seq for the ring's kernels (the reference rounds to seq,
+silently; here ``{"seq_rounded_to": n}``), a packed
+batch is cut into each rank's rows and columns, a resume prints
+``{"mesh_devices": n, ...}``, only rank 0 prints, checkpoints hold
+whole tensors (rank 0 writes them) and restore into any mesh, and a
+resize request is rank 0's decision, broadcast, so that every rank
+stops at the same step. A ``stage`` or ``expert`` degree above 1 and
+MoE models on a mesh raise with a pointer to ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -157,6 +160,26 @@ def enter_mesh(args: argparse.Namespace, cfg, device: torch.device):
     return mesh_config, mesh, is_main
 
 
+# Columns of a ring attention block must be a multiple of this on the
+# card: the flash kernels' row tile (``ops/flash_attention.py``).
+RING_BLOCK_COLUMNS = 64
+
+
+def mesh_seq(seq: int, mesh, is_main: bool) -> int:
+    """``seq`` rounded up to a multiple of the mesh's ``seq`` degree n, so
+    that every rank's block of columns is non-empty, and on CUDA ranks
+    with n > 1 to a multiple of 64 n, so that every ring block is on the
+    flash kernels' grid (rank 0 prints ``{"seq_rounded_to": n}`` when it
+    changes)."""
+    div = 1 if mesh is None else mesh.shape['seq']
+    if div > 1 and mesh.device_type == 'cuda':
+        div *= RING_BLOCK_COLUMNS
+    rounded = -(-seq // div) * div
+    if rounded != seq and is_main:
+        print(json.dumps({'seq_rounded_to': rounded}), flush=True)
+    return rounded
+
+
 def synthetic_batch(step: int, batch: int, seq: int, vocab_size: int,
                     device: Optional[torch.device] = None
                     ) -> Dict[str, torch.Tensor]:
@@ -264,7 +287,7 @@ def main(argv=None) -> int:
     if code is not None:
         return code
     mesh_config, mesh, is_main = enter_mesh(args, cfg, device)
-    seq = min(args.seq or 1024, cfg.max_seq_len)
+    seq = mesh_seq(min(args.seq or 1024, cfg.max_seq_len), mesh, is_main)
     hp = TrainHParams(learning_rate=args.learning_rate,
                       warmup_steps=args.warmup_steps,
                       total_steps=max(args.steps, args.warmup_steps + 1),

@@ -13,31 +13,34 @@ written out in torch (not ``torch.optim``):
 - ``adafactor``: ``chain(clip_by_global_norm(c), adafactor(schedule,
   weight_decay_rate=wd, decay_rate=b2))`` (class ``Adafactor``).
 
-Under a mesh over ``data``, ``fsdp`` and ``tensor`` (one process per
-rank, ``parallel/launch.py``) each rank holds its block of every leaf
-under ``parallel/sharding.DEFAULT_RULES`` (``state_shardings``: an
-optimizer leaf shards like its param only on an exact shape match,
-every other leaf is whole on every rank) and trains on its rows of the
-batch. The step:
+Under a mesh over ``data``, ``fsdp``, ``seq`` and ``tensor`` (one
+process per rank, ``parallel/launch.py``) each rank holds its block of
+every leaf under ``parallel/sharding.DEFAULT_RULES``
+(``state_shardings``: an optimizer leaf shards like its param only on an
+exact shape match, every other leaf is whole on every rank) and trains
+on its rows of the batch and, under ``seq``, its block of their columns.
+The step:
 
 - runs ``llama.forward`` on the shards (fsdp gathers, Megatron's
-  column/row-parallel pair over ``tensor``, the rank's vocab columns of
-  the logits), the loss combining the vocab blocks over ``tensor`` and
-  normalized by the weight sum of the WHOLE batch (``train/loss.py``);
-- sums each gradient over the batch ranks: an fsdp-sharded leaf's
-  arrives reduce-scattered over ``fsdp`` (the gather's backward) and
-  is all-reduced over ``data``, any other leaf's is all-reduced over
-  both (a ``tensor`` rank's replicated leaves already hold the whole
-  gradient);
+  column/row-parallel pair over ``tensor``, ring or Ulysses attention
+  over ``seq``, the rank's vocab columns of the logits), the loss
+  combining the vocab blocks over ``tensor`` and normalized by the
+  weight sum of the WHOLE batch (``train/loss.py``);
+- sums each gradient over the ranks that hold other tokens: an
+  fsdp-sharded leaf's arrives reduce-scattered over ``fsdp`` (the
+  gather's backward) and is all-reduced over ``data`` and ``seq``, any
+  other leaf's is all-reduced over all three (a ``tensor`` rank's
+  replicated leaves already hold the whole gradient);
 - counts each element of the gradient once in the global norm, and runs
   the optimizers on the blocks: AdamW elementwise, Adafactor with its
   factored statistics, its update RMS and its parameter RMS reduced
-  over each leaf's shard groups (``LeafShard``).
+  over each leaf's shard groups (``LeafShard``). No leaf splits over
+  ``seq`` (its ranks hold the same, whole gradients after the sum), so
+  the norm and the statistics reduce over no ``seq`` group.
 
 The reference's numbers under a mesh are its one-device numbers up to
-the order of the sums; so are the port's. MoE configs, ``seq``,
-``stage`` and ``expert`` degrees above 1 raise (ROADMAP.md, queue A
-item 15 (c)).
+the order of the sums; so are the port's. MoE configs, ``stage`` and
+``expert`` degrees above 1 raise (ROADMAP.md, queue A item 15 (c)).
 
 Differences of idiom from the reference: no jit and no donation. The
 parameters and the Adam moments are updated in place, which keeps one
@@ -57,6 +60,7 @@ import torch
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.models.config import ModelConfig
 from skypilot_tpu_torch.ops.attention import check_mesh
+from skypilot_tpu_torch.ops.ring_attention import seq_shard
 from skypilot_tpu_torch.parallel.mesh import Mesh
 from skypilot_tpu_torch.parallel.sharding import (DEFAULT_RULES,
                                                   LogicalAxisRules,
@@ -135,8 +139,8 @@ def mesh_parallel(mesh: Optional[Mesh],
     one-rank mesh. What the slice does not cover raises first, before
     any process group is touched: MoE configs and an ``expert`` degree
     above 1 (the router aux loss is a global mean: it comes with the
-    expert axis), a ``seq`` or ``stage`` degree above 1 and heads that
-    ``tensor`` does not divide (``ops/attention.check_mesh``)."""
+    expert axis), a ``stage`` degree above 1 and heads that ``tensor``
+    does not divide (``ops/attention.check_mesh``)."""
     if mesh is None or mesh.size == 1:
         return None
     check_training_mesh(mesh.shape, cfg)
@@ -272,8 +276,10 @@ def _paths(tree: Params, prefix: Tuple[str, ...] = ()):
 
 def _batch_rows(batch: Dict[str, Any], par: TensorParallel
                 ) -> Dict[str, Any]:
-    """This rank's rows of every [B, ...] entry of a global batch (rule
-    'batch': over (data, fsdp), data major)."""
+    """This rank's rows of every [B, S] entry of a global batch (rule
+    'batch': over (data, fsdp), data major) and, under ``seq``, its block
+    of their columns (rule 'act_seq'; a ValueError when ``seq`` does not
+    divide them)."""
     out = {}
     for key, value in batch.items():
         rows = value.shape[0]
@@ -281,7 +287,8 @@ def _batch_rows(batch: Dict[str, Any], par: TensorParallel
             raise ValueError(f'batch {key} of {rows} rows does not divide '
                              f'over data x fsdp = {par.batch_degree}')
         n = rows // par.batch_degree
-        out[key] = value[par.batch_index * n:(par.batch_index + 1) * n]
+        out[key] = seq_shard(
+            value[par.batch_index * n:(par.batch_index + 1) * n], par)
     return out
 
 
@@ -667,7 +674,7 @@ def train_step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
     if parallel is not None:
         grads = _sum_grads(grads, optimizer.layout, parallel)
         # This rank's loss is its share of the batch mean.
-        loss = total_loss = parallel.batch_sum(loss.detach().clone())
+        loss = total_loss = parallel.token_sum(loss.detach().clone())
     opt_state, grad_norm = optimizer.update_(state.params, grads,
                                              state.opt_state)
     del grads
@@ -685,15 +692,14 @@ def train_step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
 
 def _sum_grads(grads: List[torch.Tensor], layout: List[LeafShard],
                par: TensorParallel) -> List[torch.Tensor]:
-    """Each gradient summed over the batch ranks: an fsdp-sharded leaf's
-    is already summed over fsdp (its gather's backward reduce-scatters),
-    the rest are summed over fsdp here; all over data."""
-    out = []
-    for g, leaf in zip(grads, layout):
-        if 'fsdp' not in leaf.axes:
-            g = par.all_reduce(g, axis='fsdp')
-        out.append(par.all_reduce(g, axis='data'))
-    return out
+    """Each gradient summed over the ranks that hold other tokens, in one
+    all-reduce: an fsdp-sharded leaf's is already summed over fsdp (its
+    gather's backward reduce-scatters) and is summed over ``replicas``
+    (data x seq: every leaf is whole over seq, as over data), the rest
+    over ``tokens`` (data x fsdp x seq)."""
+    return [par.all_reduce(g, axis='replicas' if 'fsdp' in leaf.axes
+                           else 'tokens')
+            for g, leaf in zip(grads, layout)]
 
 
 def make_train_step(cfg: ModelConfig, hp: TrainHParams,
@@ -718,7 +724,7 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams,
 def make_forward(cfg: ModelConfig, mesh: Optional[Mesh] = None):
     """An inference forward: (params, tokens) -> fp32 logits of the
     whole batch (on a mesh: the rank's shards and the global tokens; the
-    rows are gathered back on every rank)."""
+    rows and columns are gathered back on every rank)."""
     par = mesh_parallel(mesh, cfg)
 
     @torch.no_grad()
@@ -728,6 +734,7 @@ def make_forward(cfg: ModelConfig, mesh: Optional[Mesh] = None):
         rows = _batch_rows({'tokens': tokens}, par)['tokens']
         logits = par.all_gather(
             llama.forward(params, rows, cfg, parallel=par), -1, 'tensor')
+        logits = par.all_gather(logits, 1, 'seq')
         return par.all_gather(par.all_gather(logits, 0, 'fsdp'), 0, 'data')
 
     return fwd

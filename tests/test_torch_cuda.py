@@ -327,6 +327,88 @@ def test_flash_delta_fault_exceeds_limit(card):
     assert _tile_err(fa._dkv(p, bad, qg, dog, k, v)[0], rdk) > grad_tol
 
 
+def _ring_segments(card, b, s):
+    """Segment ids of two neighbouring ring blocks (query block's, key
+    block's): documents cut off the tile grid across both, and in row 0
+    a document that starts on the block boundary (its query rows keep
+    no key of the earlier block)."""
+    bounds = torch.tensor([0, 37, 100, 101, 190, 300, 333, 440],
+                          device=card) * s // 256
+    pos = torch.arange(2 * s, device=card)
+    ids = ((pos[None, :] >= bounds[:, None]).sum(0) - 1).to(torch.int32)
+    ids = ids[None].repeat(b, 1)
+    ids[0, s:] += 100
+    return ids[:, s:].contiguous(), ids[:, :s].contiguous()
+
+
+@pytest.mark.parametrize('d', [128, 256])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32],
+                         ids=['bf16', 'fp32'])
+def test_flash_kernels_with_key_segments(card, dtype, d):
+    """Kernels 6, 8 and 10 on a ring block whose key ids are another
+    block's (``kv_segment_ids``): the forward matches plain on the rows
+    that keep a key; the rows that keep none come back finite with no
+    weight in the merge over blocks; dq and dk/dv from the merged o and
+    lse match plain; ignoring the key ids misses plain."""
+    from skypilot_tpu_torch.ops.ring_attention import merge_blocks
+    fa, q, k, v, do, _ = _flash_case(card, dtype, d, False, s=256, h=8,
+                                     kvh=2)
+    _, _, k_own, v_own, _, _ = _flash_case(card, dtype, d, True, s=256,
+                                           h=8, kvh=2)
+    seg, kv_seg = _ring_segments(card, 2, 256)
+    kw = dict(causal=False, segment_ids=seg, kv_segment_ids=kv_seg)
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_forward_kernel(q, k, v, **kw)
+    mo, mlse = merge_blocks([
+        fa.flash_forward_reference(q, k_own, v_own, causal=True,
+                                   segment_ids=seg), (o, lse)])
+    mo = mo.to(dtype)
+    dq, delta = fa.flash_dq_kernel(q, k, v, mo, mlse, do, **kw)
+    dk, dv = fa.flash_dkv_kernel(q, k, v, mlse, do, delta, **kw)
+    torch.cuda.synchronize()
+    for name in ('flash_fwd_seg', 'flash_dq_seg', 'flash_dkv_seg'):
+        assert fa.LAUNCHES[name] == before[name] + 1
+    ro, rlse = fa.flash_forward_reference(q, k, v, **kw)
+    empty = ~(seg[:, :, None] == kv_seg[:, None, :]).any(-1)
+    assert bool(empty[0].all()) and bool((~empty[1]).any())
+    keep = (~empty)[:, :, None, None]
+    fwd_tol, grad_tol = FLASH_TOL[dtype]
+    assert _tile_err(o * keep, ro * keep) <= fwd_tol
+    assert _tile_err(lse * (~empty)[:, None], rlse * (~empty)[:, None]) \
+        <= fwd_tol
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert bool((torch.exp(lse - mlse).transpose(1, 2)[empty] == 0).all())
+    rgrads = fa.flash_backward_reference(q, k, v, mo, mlse, do, **kw)
+    wrong = fa.flash_backward_reference(q, k, v, mo, mlse, do,
+                                        causal=False, segment_ids=seg)
+    for got, ref, bad in zip((dq, dk, dv), rgrads, wrong):
+        assert torch.isfinite(got).all()
+        assert _tile_err(got, ref) <= grad_tol
+        assert _tile_err(bad, ref) > grad_tol
+
+
+def test_seq_collectives_and_ring_on_card(card):
+    """Two ranks sharing the card over gloo (``tests/torch_seq_ranks.py``):
+    ``ring_shift`` (host-staged) and ``all_to_all`` on CUDA tensors give
+    the exact blocks, and the ring attention through the kernels, bf16,
+    gives the whole-sequence flash kernels' output and gradients within
+    the bf16 limits, launching the block counts; a ring block off the
+    kernels' grid raises on the card instead of running plain."""
+    import torch_seq_ranks as ranks
+    from skypilot_tpu_torch.parallel.launch import launch
+    out = launch(ranks.cuda_ring_checks, 2, device='cuda')
+    for r in out:
+        assert r['collectives_exact'], r
+        assert r['launches'] == r['expected_launches'], r
+        assert r['fallbacks'] == 0
+        fwd_tol, grad_tol = FLASH_TOL[torch.bfloat16]
+        assert r['errors']['out'] <= fwd_tol, r['errors']
+        assert all(r['errors'][n] <= grad_tol for n in ('dq', 'dk', 'dv')), \
+            r['errors']
+        assert 'not a multiple of 64' in r['off_grid'], r['off_grid']
+        assert r['off_grid_fallbacks'] == 0
+
+
 def test_engine_kernel_path_matches_cpu_path(card):
     from skypilot_tpu_torch.inference.continuous import (
         ContinuousBatchingEngine)

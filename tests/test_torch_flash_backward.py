@@ -136,8 +136,9 @@ def test_backward_kernel_wrappers_refuse_cpu_tensors():
 
 def test_library_binds_the_backward_c_interface(monkeypatch):
     """The wrappers load the flash library once and bind its C
-    interface: dq takes o and writes delta (9 pointers), dk/dv reads
-    delta (9 pointers)."""
+    interface: the forward takes the query and the key rows' segment ids
+    (7 pointers), dq takes o and writes delta (10 pointers), dk/dv reads
+    delta (10 pointers)."""
     asked = []
 
     def fake_load(name):
@@ -152,6 +153,6 @@ def test_library_binds_the_backward_c_interface(monkeypatch):
     lib = tfa._library()
     assert tfa._library() is lib
     assert asked == ['flash_attention']
-    assert len(lib.skyt_flash_fwd.argtypes) == 6 + 6 + 3
-    assert len(lib.skyt_flash_bwd_dq.argtypes) == 9 + 6 + 3
-    assert len(lib.skyt_flash_bwd_dkv.argtypes) == 9 + 6 + 3
+    assert len(lib.skyt_flash_fwd.argtypes) == 7 + 6 + 3
+    assert len(lib.skyt_flash_bwd_dq.argtypes) == 10 + 6 + 3
+    assert len(lib.skyt_flash_bwd_dkv.argtypes) == 10 + 6 + 3

@@ -72,7 +72,7 @@ def test_every_module_imports_with_jax_blocked():
                 'jobs.rl_pipeline', 'parallel.mesh', 'parallel.sharding',
                 'parallel.launch', 'inference.sharding',
                 'ops.collectives_bench', 'utils.tracing',
-                'utils.trace_store'):
+                'utils.trace_store', 'ops.ring_attention'):
         assert 'skypilot_tpu_torch.' + mod in mods
     code = (
         'import sys\n'

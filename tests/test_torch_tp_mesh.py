@@ -211,10 +211,11 @@ def test_collectives_bench_over_two_ranks(capsys):
              capsys.readouterr().out.strip().splitlines()]
     assert [line['metric'] for line in lines] == [
         'collective_all_reduce_2dev', 'collective_all_gather_2dev',
-        'collective_reduce_scatter_2dev']
+        'collective_reduce_scatter_2dev', 'collective_ppermute_2dev']
     for line in lines:
         detail = line['detail']
         assert detail['backend'] == 'gloo' and detail['devices'] == 2
-        factor = 1.0 if 'all_reduce' in line['metric'] else 0.5
+        factor = (1.0 if 'all_reduce' in line['metric'] or
+                  'ppermute' in line['metric'] else 0.5)
         assert line['value'] == pytest.approx(
             detail['algbw_gbps'] * factor, rel=1e-2, abs=2e-3)

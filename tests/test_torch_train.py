@@ -359,11 +359,12 @@ def test_file_batches(tmp_path):
 
 
 def test_unported_options_raise(monkeypatch, tmp_path):
-    """What the mesh-training slice does not cover raises before any rank
-    starts: seq, stage and expert degrees above 1 and MoE models on a
-    mesh (the next slice, ROADMAP.md), and heads that tensor does not
-    divide; pipeline stages in the forward."""
-    for spec in ('seq=2', 'stage=2', 'expert=2'):
+    """What the mesh-training slices do not cover raises before any rank
+    starts: stage and expert degrees above 1 and MoE models on a mesh
+    (later slices, ROADMAP.md), and heads that tensor does not divide;
+    pipeline stages in the forward. (A seq degree trains:
+    ``tests/test_torch_train_mesh_seq.py``.)"""
+    for spec in ('stage=2', 'expert=2'):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             tpretrain.main(['--mesh', spec, '--device', 'cpu', '--steps',
                             '1'])

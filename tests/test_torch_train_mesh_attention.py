@@ -146,5 +146,8 @@ def test_pallas_nondividing_heads_raises():
         cfg = ranks.tiny_config(head_dim=D)
         with pytest.raises(ValueError, match='does not divide'):
             tstep.make_train_step(cfg, tstep.TrainHParams(), mesh)
+    # A seq degree runs the ring (tests/test_torch_ring_attention.py); a
+    # stage degree still raises with its pointer.
+    check_mesh({'seq': 4, 'data': 2}, H, KV)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        check_mesh({'seq': 4, 'data': 2}, H, KV)
+        check_mesh({'stage': 4, 'data': 2}, H, KV)

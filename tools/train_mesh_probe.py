@@ -9,9 +9,12 @@ collective the sharded train step may use (all-gather into a tensor,
 reduce-scatter of a tensor and of a list, all-reduce, all-to-all), on
 CUDA tensors of fp32 and bf16, whether ``gloo`` takes it and gives the
 right result; then the median time of each that works at 1, 16 and 64
-MB (the card synchronized before and after each call). Exits non-zero
-when the rank launch fails; a collective that ``gloo`` refuses is
-reported, not an error.
+MB (the card synchronized before and after each call). Then the ring
+hop of sequence-parallel attention, ``TensorParallel.ring_shift`` (which
+stages CUDA tensors through host memory under gloo: gloo's send and
+receive move host memory), exact and timed at the same sizes. Exits
+non-zero when the rank launch fails; a collective that ``gloo`` refuses
+is reported, not an error.
 """
 from __future__ import annotations
 
@@ -81,6 +84,29 @@ def rank_main(rank, world):
             except Exception as e:  # reported: gloo refuses it
                 ok = f'{type(e).__name__}: {e}'[:160]
             result['works'][f'{op} {name}'] = ok
+    from skypilot_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from skypilot_tpu_torch.parallel.sharding import tensor_parallel_of
+    par = tensor_parallel_of(build_mesh(MeshConfig(fsdp=1, seq=world),
+                                        device_type='cuda'))
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.arange(64, device=dev).to(dtype) + 1000 * rank
+        got = par.ring_shift([x])[0]
+        want = torch.arange(64, device=dev).to(dtype) + 1000 * (
+            (rank - 1) % world)
+        result['works'][f'ring_shift {str(dtype)[6:]}'] = bool(
+            got.is_cuda and torch.equal(got, want))
+    for mb in (1, 16, 64):
+        x = torch.randn(mb * 2 ** 19, device=dev).to(torch.bfloat16)
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            par.ring_shift([x])
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        result['ms'][f'ring_shift bf16 {mb} MB'] = round(
+            statistics.median(times[1:]), 3)
     for op in OPS:
         if result['works'][f'{op} bfloat16'] is not True:
             continue
