@@ -78,9 +78,10 @@ plain stream at any temperature (bitwise where the logits are).
   take; a speculative window is the verify step at Q = k+1). The other
   ranks run only those steps, in ``follow()``, until the driver's
   ``shutdown()``. A failed step under a mesh is fatal to the engine
-  (the ranks' collectives would no longer line up). LoRA pages, MoE
-  configs, disaggregated roles and weight refresh raise under a mesh
-  (ROADMAP.md, queue A item 15).
+  (the ranks' collectives would no longer line up). MoE configs serve
+  under a mesh with fp experts (each rank builds only its slice of the
+  seeded init); LoRA pages, disaggregated roles and weight refresh
+  raise under one (ROADMAP.md, queue A item 15).
 """
 from __future__ import annotations
 
@@ -107,7 +108,7 @@ from skypilot_tpu_torch.inference.paged import (AdapterPagePool,
                                                 chain_digests)
 from skypilot_tpu_torch.inference.tokenizer import get_tokenizer
 from skypilot_tpu_torch.models import decode as decode_lib
-from skypilot_tpu_torch.models import hf_interop, llama
+from skypilot_tpu_torch.models import hf_interop
 from skypilot_tpu_torch.models import lora as lora_lib
 from skypilot_tpu_torch.models.config import (ModelConfig, get_model_config,
                                               with_int8_kv_cache)
@@ -526,7 +527,7 @@ class ContinuousBatchingEngine:
         if quantize_kv:
             self.cfg = with_int8_kv_cache(self.cfg)
         sharding.check_unported(
-            mesh, self.cfg, role=bool(role), lora_pages=(
+            mesh, self.cfg, params, role=bool(role), lora_pages=(
                 lora_pages if lora_pages is not None
                 else env.get_int('SKYT_LORA_PAGES')) > 0)
         self._mesh = sharding.mesh_serving(mesh, self.device, self.cfg)
@@ -560,14 +561,11 @@ class ContinuousBatchingEngine:
         if params is None and checkpoint_dir:
             params = restore_params(checkpoint_dir, self.cfg, seed,
                                     self.device)
-        if params is None:
-            params = llama.init_params(seed, self.cfg, device=self.device,
-                                       weight_dtype=self.cfg.compute_dtype)
         with torch.no_grad():
             params, self.cfg, _ = sharding.prepare_engine(
-                to_device(params, self.device), self.cfg,
-                self._mesh and self._mesh.mesh, quantize=quantize,
-                device_type=self.device.type)
+                None if params is None else to_device(params, self.device),
+                self.cfg, self._mesh and self._mesh.mesh, quantize=quantize,
+                device=self.device, seed=seed)
             self.params = _owned(decode_lib.serving_params(
                 params, self.cfg), given)
         del params

@@ -113,7 +113,7 @@ class InferenceEngine:
         if quantize_kv:
             # int8 KV cache, dequantized inside the decode kernel.
             self.cfg = with_int8_kv_cache(self.cfg)
-        sharding.check_unported(mesh, self.cfg)
+        sharding.check_unported(mesh, self.cfg, params)
         self._mesh = sharding.mesh_serving(mesh, self.device, self.cfg)
         self._tp = None
         if self._mesh is not None:
@@ -129,13 +129,10 @@ class InferenceEngine:
         if params is None and checkpoint_dir:
             params = restore_params(checkpoint_dir, self.cfg, seed,
                                     self.device)
-        if params is None:
-            params = llama.init_params(seed, self.cfg, device=self.device,
-                                       weight_dtype=self.cfg.compute_dtype)
         params, self.cfg, _ = sharding.prepare_engine(
-            to_device(params, self.device), self.cfg,
-            self._mesh and self._mesh.mesh, quantize=quantize,
-            device_type=self.device.type)
+            None if params is None else to_device(params, self.device),
+            self.cfg, self._mesh and self._mesh.mesh, quantize=quantize,
+            device=self.device, seed=seed)
         self.params = decode_lib.serving_params(params, self.cfg)
         del params
         sharding.release_unsharded(self._mesh, self.device)

@@ -12,7 +12,13 @@ same engine with ``mesh='tensor=N'``:
 
 * ``prepare_engine`` quantizes the whole tree first (so W8A8 scales
   reduce over whole tensors, the numbers the reference's sharded
-  quantization gives) and keeps this rank's slice of every leaf;
+  quantization gives) and keeps this rank's slice of every leaf; an
+  engine with no weights given builds only its slice, a leaf at a time
+  (``init_shard``);
+* a MoE layer keeps every expert on every rank and slices each
+  expert's FFN columns (``('layers', 'expert', 'embed', 'mlp')``), as
+  the reference's rules do; the block ends with one all-reduce
+  (``llama._moe_block``'s ``reduce``);
 * the KV pool holds only this rank's kv heads (``shard_paged_cache``;
   the engines allocate it that way, under ``mesh_context``), while block
   tables and lengths are the same on every rank;
@@ -36,6 +42,8 @@ from skypilot_tpu_torch.models.config import ModelConfig
 from skypilot_tpu_torch.parallel.mesh import (Mesh, MeshConfig, build_mesh,
                                               parse_mesh_spec, world_ranks)
 from skypilot_tpu_torch.parallel.sharding import (TensorParallel, divides,
+                                                  param_shardings,
+                                                  shard_leaf,
                                                   shard_params_pytree,
                                                   tensor_parallel_of)
 
@@ -96,26 +104,65 @@ def shard_inference_params(params: Params, mesh: Mesh, cfg: ModelConfig,
                                rank=rank)
 
 
-def prepare_engine(params: Params, cfg: ModelConfig,
+def init_shard(seed: int, cfg: ModelConfig, mesh: Mesh, *,
+               device: Union[str, torch.device], quantize: bool = False,
+               rank: Optional[int] = None) -> Params:
+    """Rank ``rank``'s (default this process's) slice of the seeded
+    init, ``llama.init_params(seed, cfg)`` in the compute dtype (W8A8
+    when ``quantize``), without the whole tree on the device: each leaf
+    is drawn whole, quantized on the whole tensor, sliced and freed
+    before the next is drawn. The draws are the one-rank init's, so the
+    result equals ``shard_inference_params`` of that tree; the device
+    holds at most the slices so far, one whole leaf and its slice."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models.quant import quantize_leaf
+    if rank is None:
+        import torch.distributed as dist
+        rank = dist.get_rank()
+    shardings = param_shardings(mesh, llama.param_logical_axes(cfg))
+
+    def leaf(path, x):
+        if quantize:
+            x = quantize_leaf(path, x)
+        sharding = shardings
+        for key in path:
+            sharding = sharding[key]
+        return shard_leaf(sharding, x, rank)
+
+    return llama.init_params(seed, cfg, device=device,
+                             weight_dtype=cfg.compute_dtype, leaf=leaf)
+
+
+def prepare_engine(params: Optional[Params], cfg: ModelConfig,
                    mesh: Optional[Union[str, Mesh]], *,
                    quantize: bool = False,
-                   device_type: str = 'cuda'
+                   device: Optional[Union[str, torch.device]] = None,
+                   seed: int = 0
                    ) -> Tuple[Params, ModelConfig, Optional[Mesh]]:
     """(params, cfg, mesh) ready for the engine: W8A8 when ``quantize``
     (on the whole tensors), then, under a mesh of more than one rank,
     this rank's shard, with decode attention defaulting to ``'auto'``
-    (the kernels) as in the reference."""
+    (the kernels) as in the reference. ``params`` None: the seeded init
+    on ``device`` (``init_params(seed)`` in the compute dtype; under a
+    mesh only this rank's slice is built, ``init_shard``)."""
+    from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.models.quant import maybe_quantize
-    params = maybe_quantize(params, quantize)
-    if mesh is None:
-        return params, cfg, None
-    mesh = build_inference_mesh(mesh, device_type=device_type)
-    if mesh.size == 1:
-        return params, cfg, mesh
+    if mesh is not None:
+        mesh = build_inference_mesh(
+            mesh, device_type=torch.device(device or 'cuda').type)
+    if mesh is None or mesh.size == 1:
+        if params is None:
+            params = llama.init_params(seed, cfg, device=device,
+                                       weight_dtype=cfg.compute_dtype)
+        return maybe_quantize(params, quantize), cfg, mesh
     check_tensor_only(mesh, cfg)
     cfg = dataclasses.replace(
         cfg, decode_attention_impl=cfg.decode_attention_impl or 'auto')
-    return shard_inference_params(params, mesh, cfg), cfg, mesh
+    if params is None:
+        return (init_shard(seed, cfg, mesh, device=device,
+                           quantize=quantize), cfg, mesh)
+    return (shard_inference_params(maybe_quantize(params, quantize), mesh,
+                                   cfg), cfg, mesh)
 
 
 def wants_shards(spec: Optional[Union[str, Mesh]]) -> bool:
@@ -130,19 +177,27 @@ def wants_shards(spec: Optional[Union[str, Mesh]]) -> bool:
 
 
 def check_unported(spec: Optional[Union[str, Mesh]], cfg: ModelConfig,
-                   **options: bool) -> None:
+                   params: Optional[Params] = None, **options: bool) -> None:
     """Raise ``NotImplementedError`` when a mesh of more than one rank
-    meets what does not serve under one yet: MoE configs, and each
-    option of ``options`` that is on."""
+    meets what does not serve under one: int8 experts in ``params``
+    (the reference cannot shard them either), and each option of
+    ``options`` that is on (not ported yet)."""
     if not wants_shards(spec):
         return
-    if cfg.is_moe:
-        options = dict(options, moe=True)
+    from skypilot_tpu_torch.models.quant import QTensor
+    moe = ((params or {}).get('layers') or {}).get('moe') or {}
+    if any(isinstance(w, QTensor) for w in moe.values()):
+        raise NotImplementedError(
+            'int8 MoE experts (a quantize_params(quantize_moe=True) tree '
+            'as params=) do not serve under a tensor-parallel mesh, as in '
+            'the JAX reference: it shards the weights before it quantizes '
+            'them and refuses a tree that is already quantized (its '
+            'device_put fails on a scale axis squeezed to 1). Under a '
+            'mesh the experts serve in fp (quantize=True keeps them fp)')
     for name, on in options.items():
         if on:
-            what = 'MoE configs' if name == 'moe' else f'{name}='
             raise NotImplementedError(
-                f'{what} under a tensor-parallel mesh is not ported yet '
+                f'{name}= under a tensor-parallel mesh is not ported yet '
                 '(ROADMAP.md, queue A item 15)')
 
 
@@ -157,7 +212,8 @@ def release_unsharded(serving: Optional['MeshServing'],
 
 def check_tensor_only(mesh: Mesh, cfg: ModelConfig) -> None:
     """The serving half of the port shards over ``tensor`` only, and
-    every sharded size must divide the degree."""
+    every sharded size must divide the degree (``d_ff`` is a MoE
+    config's FFN width of one expert)."""
     other = {k: v for k, v in mesh.shape.items() if k != 'tensor' and v > 1}
     if other:
         raise NotImplementedError(

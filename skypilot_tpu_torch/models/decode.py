@@ -53,7 +53,10 @@ is the max over every rank's part); the embedding is vocab-sharded
 (masked lookup plus all-reduce) and so is the LM head, whose columns
 are assembled on every rank by an all-reduce of zero-padded shards
 (exact), so the driver samples from the whole row. ``generate``
-broadcasts the driver's draw each step. MoE layers raise under a mesh.
+broadcasts the driver's draw each step. A MoE layer shards each
+expert's FFN columns the same way (the experts stay whole on every
+rank), routes whole on every rank and ends with one all-reduce of its
+combined fp32 output.
 """
 from __future__ import annotations
 
@@ -183,14 +186,17 @@ def _lm_head(params: Params, x: torch.Tensor,
 
 def _mlp(x: torch.Tensor, lp: Params, cfg: ModelConfig) -> torch.Tensor:
     if cfg.is_moe:
-        if ambient_tensor_parallelism().degree > 1:
-            raise NotImplementedError(
-                'MoE layers under a tensor-parallel mesh are not ported '
-                'yet (ROADMAP.md, queue A item 15)')
         # The training block, dense or capacity per cfg.moe_dispatch (a
         # padded chunk's rows route and claim capacity like real ones,
-        # as in the reference); the aux loss is a training term.
-        return _moe_block(x, lp['moe'], cfg, with_aux=False)[0]
+        # as in the reference); the aux loss is a training term. Under
+        # tensor parallelism each rank holds f / tensor columns of every
+        # expert and the block ends with one all-reduce. Every rank
+        # routes the same tokens alike because ``x`` is the same on
+        # every rank, bit for bit: the norm of a residual stream whose
+        # every addend is the result of one all-reduce (the embedding,
+        # each wo, each MoE block), which all ranks receive alike.
+        return _moe_block(x, lp['moe'], cfg, with_aux=False,
+                          reduce=_row_reduce())[0]
     dt = cfg.compute_dtype
     mlp = lp['mlp']
     gate = weight_einsum('bsd,df->bsf', x, mlp['wi_gate'], dt)

@@ -136,7 +136,9 @@ def _activate(gate: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def init_params(seed: int, cfg: ModelConfig, *,
                 device: Optional[Union[str, torch.device]] = None,
-                weight_dtype: Optional[torch.dtype] = None) -> Params:
+                weight_dtype: Optional[torch.dtype] = None,
+                leaf: Optional[Callable[[Tuple[str, ...], torch.Tensor],
+                                        Any]] = None) -> Params:
     """Random parameters with ``skypilot_tpu``'s keys, stacked shapes and
     distributions (truncated normal of std ``fan_in**-0.5`` for the
     projections, N(0, 0.02) for the embedding, ones for the norms).
@@ -149,8 +151,16 @@ def init_params(seed: int, cfg: ModelConfig, *,
     ``cfg.param_dtype``. The draws
     differ from ``jax.random``'s: parity tests carry JAX parameters over
     with ``models/convert.py`` instead.
+
+    ``leaf(path, tensor)``, when given, takes each leaf as soon as it is
+    drawn (``path`` its keys, e.g. ``('layers', 'moe', 'wo')``) and its
+    result goes into the tree in the leaf's place, so the whole leaf
+    can be freed before the next one is drawn; the draws are the same
+    with it or without (a tensor-parallel rank builds its shard this
+    way: ``inference/sharding.init_shard``).
     """
     dev = resolve_device(device)
+    keep = leaf or (lambda path, x: x)
     wdt = weight_dtype or cfg.param_dtype
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -164,50 +174,56 @@ def init_params(seed: int, cfg: ModelConfig, *,
                                     generator=gen)
         return (out * in_size ** -0.5).to(wdt)
 
-    def stack_init(shape, in_size, dtype=None) -> torch.Tensor:
+    def stack_init(path, shape, in_size, dtype=None) -> Any:
         out = torch.empty((n_layer,) + shape, dtype=dtype or wdt,
                           device=dev)
         for i in range(n_layer):
             out[i] = dense(shape, in_size)
-        return out
+        return keep(('layers',) + path, out)
 
-    ones = dict(dtype=cfg.param_dtype, device=dev)
+    def ones(path, shape) -> Any:
+        return keep(path, torch.ones(shape, dtype=cfg.param_dtype,
+                                     device=dev))
+
     layers: Params = {
         'attn': {
-            'wq': stack_init((d, h, hd), d),
-            'wk': stack_init((d, kv, hd), d),
-            'wv': stack_init((d, kv, hd), d),
-            'wo': stack_init((h, hd, d), h * hd),
+            'wq': stack_init(('attn', 'wq'), (d, h, hd), d),
+            'wk': stack_init(('attn', 'wk'), (d, kv, hd), d),
+            'wv': stack_init(('attn', 'wv'), (d, kv, hd), d),
+            'wo': stack_init(('attn', 'wo'), (h, hd, d), h * hd),
         },
-        'ln_attn': {'scale': torch.ones((n_layer, d), **ones)},
-        'ln_mlp': {'scale': torch.ones((n_layer, d), **ones)},
+        'ln_attn': {'scale': ones(('layers', 'ln_attn', 'scale'),
+                                  (n_layer, d))},
+        'ln_mlp': {'scale': ones(('layers', 'ln_mlp', 'scale'),
+                                 (n_layer, d))},
     }
     if cfg.is_moe:
         e = cfg.num_experts
         # The router stays in cfg.param_dtype, like the norm scales: the
         # block routes in fp32 and it is d x E a layer.
         layers['moe'] = {
-            'router': stack_init((d, e), d, dtype=cfg.param_dtype),
-            'wi_gate': stack_init((e, d, f), d),
-            'wi_up': stack_init((e, d, f), d),
-            'wo': stack_init((e, f, d), f),
+            'router': stack_init(('moe', 'router'), (d, e), d,
+                                 dtype=cfg.param_dtype),
+            'wi_gate': stack_init(('moe', 'wi_gate'), (e, d, f), d),
+            'wi_up': stack_init(('moe', 'wi_up'), (e, d, f), d),
+            'wo': stack_init(('moe', 'wo'), (e, f, d), f),
         }
     else:
         layers['mlp'] = {
-            'wi_gate': stack_init((d, f), d),
-            'wi_up': stack_init((d, f), d),
-            'wo': stack_init((f, d), f),
+            'wi_gate': stack_init(('mlp', 'wi_gate'), (d, f), d),
+            'wi_up': stack_init(('mlp', 'wi_up'), (d, f), d),
+            'wo': stack_init(('mlp', 'wo'), (f, d), f),
         }
     embed = torch.empty((v, d), dtype=torch.float32, device=dev)
     embed.normal_(0.0, 1.0, generator=gen)
+    embed = keep(('embed', 'embedding'), (embed * 0.02).to(wdt))
     params: Params = {
-        'embed': {'embedding': (embed * 0.02).to(wdt)},
+        'embed': {'embedding': embed},
         'layers': layers,
-        'final_norm': {'scale': torch.ones((d,), **ones)},
+        'final_norm': {'scale': ones(('final_norm', 'scale'), (d,))},
     }
-    del embed
     if not cfg.tie_embeddings:
-        params['lm_head'] = {'w': dense((d, v), d)}
+        params['lm_head'] = {'w': keep(('lm_head', 'w'), dense((d, v), d))}
     return params
 
 
@@ -419,7 +435,8 @@ def _route(x: torch.Tensor, router: Any, k_top: int
 
 
 def _moe_block_capacity(x: torch.Tensor, lp: Params, cfg: ModelConfig,
-                        with_aux: bool = True
+                        with_aux: bool = True,
+                        reduce: Optional[Callable[..., torch.Tensor]] = None
                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Capacity dispatch (the reference's ``_moe_block_capacity``).
 
@@ -429,7 +446,7 @@ def _moe_block_capacity(x: torch.Tensor, lp: Params, cfg: ModelConfig,
     choice before any second choice, tokens in sequence order); an
     assignment past C loses that expert's contribution. Padded rows
     route like real ones, as in the reference. Returns (out, aux), aux
-    None without ``with_aux``."""
+    None without ``with_aux``; ``reduce`` as in ``_moe_block``."""
     dt = cfg.compute_dtype
     b, s, d = x.shape
     e, k_top = cfg.num_experts, cfg.experts_per_token
@@ -461,6 +478,10 @@ def _moe_block_capacity(x: torch.Tensor, lp: Params, cfg: ModelConfig,
     with _named('mlp_hidden'):
         hidden = act * up
     out_e = torch.einsum('ebcf,efd->ebcd', hidden, wo)
+    if reduce is not None:
+        y = reduce(torch.einsum('bsec,ebcd->bsd', combine, out_e.float()),
+                   'sum').to(dt)
+        return y.reshape(b, s, d), aux
     combine = combine.to(dt)
     with _named('mlp_out'):
         y = torch.einsum('bsec,ebcd->bsd', combine, out_e)
@@ -478,7 +499,8 @@ def _to_experts(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _moe_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
-               with_aux: bool = True
+               with_aux: bool = True,
+               reduce: Optional[Callable[..., torch.Tensor]] = None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Top-k MoE (the reference's ``_moe_block``): dense dispatch runs
     every expert on every token and combines the outputs with the
@@ -486,9 +508,17 @@ def _moe_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
     ``_moe_block_capacity``. A ``QTensor`` expert dequantizes through
     ``.to(dt)``, as the reference's ``astype``. Returns (out, aux);
     serving passes ``with_aux=False`` (aux None), where the reference's
-    jit drops the unused aux."""
+    jit drops the unused aux.
+
+    ``reduce`` (tensor-parallel serving, as ``quant.weight_einsum``
+    takes it): the expert leaves hold this rank's ``f / tensor`` columns
+    of every expert, so each expert's output is a partial sum. The
+    partials are combined in fp32 and summed over the ranks once, after
+    the combine, and rounded to the compute dtype once: one all-reduce
+    of ``[B, S, d]`` a block, as the dense ``mlp.wo``. The router and the
+    dispatch run whole on every rank, on the same ``x``."""
     if cfg.moe_dispatch == 'capacity':
-        return _moe_block_capacity(x, lp, cfg, with_aux)
+        return _moe_block_capacity(x, lp, cfg, with_aux, reduce)
     dt = cfg.compute_dtype
     e, k_top = cfg.num_experts, cfg.experts_per_token
     logits, weights, selected = _route(x, lp['router'], k_top)
@@ -503,6 +533,9 @@ def _moe_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
     with _named('mlp_hidden'):
         hidden = act * up
     expert_out = torch.einsum('ebsf,efd->ebsd', hidden, wo)
+    if reduce is not None:
+        return reduce(torch.einsum('ebsd,bse->bsd', expert_out.float(),
+                                   combine), 'sum').to(dt), aux
     combine = combine.to(dt)
     with _named('mlp_out'):
         out = torch.einsum('ebsd,bse->bsd', expert_out, combine)

@@ -208,49 +208,51 @@ def maybe_quantize(params: Params, quantize: bool) -> Params:
     return quantize_params(params) if quantize else params
 
 
+# The contracted axes of every leaf ``quantize_params`` quantizes, by its
+# path in the params tree: the decoder-layer projections (stacked
+# ``[L, ...]``) and an untied LM head. The MoE experts (``[L,e,d,f]`` /
+# ``[L,e,f,d]``: contract d / f, scales per (layer, expert,
+# out-channel)) only with ``quantize_moe``; the router never.
+_CONTRACTED = {
+    ('layers', 'attn', 'wq'): (1,),           # [L,d,h,k]
+    ('layers', 'attn', 'wk'): (1,),
+    ('layers', 'attn', 'wv'): (1,),
+    ('layers', 'attn', 'wo'): (1, 2),         # [L,h,k,d]
+    ('layers', 'mlp', 'wi_gate'): (1,),
+    ('layers', 'mlp', 'wi_up'): (1,),
+    ('layers', 'mlp', 'wo'): (1,),            # [L,f,d]
+    ('lm_head', 'w'): (0,),                   # [d,v]
+}
+_MOE_CONTRACTED = {
+    ('layers', 'moe', 'wi_gate'): (2,),
+    ('layers', 'moe', 'wi_up'): (2,),
+    ('layers', 'moe', 'wo'): (2,),
+}
+
+
+def quantize_leaf(path: Tuple[str, ...], w: Any, *,
+                  quantize_moe: bool = False) -> Any:
+    """The leaf at ``path`` as ``quantize_params`` leaves it: a
+    ``QTensor`` for a quantized projection, else ``w`` itself."""
+    axes = _CONTRACTED.get(path) or (
+        _MOE_CONTRACTED.get(path) if quantize_moe else None)
+    if axes is None:
+        return w
+    if path[0] == 'layers':
+        return _quantize_stacked(w, axes)
+    return quantize_tensor(w, axes)
+
+
 def quantize_params(params: Params, *, quantize_moe: bool = False) -> Params:
     """Quantize the decoder-layer projections (+ untied lm head); the
     embeddings, norm scales and MoE router stay fp, as in the reference.
     The MoE experts quantize only with ``quantize_moe``."""
-    out: Params = {}
-    for name, sub in params.items():
-        if name == 'layers':
-            out[name] = _quantize_layers(sub, quantize_moe)
-        elif name == 'lm_head':
-            out[name] = {'w': quantize_tensor(sub['w'], (0,))}   # [d, v]
-        else:
-            out[name] = sub
-    return out
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return quantize_leaf(path, node, quantize_moe=quantize_moe)
 
-
-def _quantize_layers(layers: Params, quantize_moe: bool) -> Params:
-    out: Params = {}
-    for block, sub in layers.items():
-        if block == 'attn':
-            out[block] = {
-                'wq': _quantize_stacked(sub['wq'], (1,)),    # [L,d,h,k]
-                'wk': _quantize_stacked(sub['wk'], (1,)),
-                'wv': _quantize_stacked(sub['wv'], (1,)),
-                'wo': _quantize_stacked(sub['wo'], (1, 2)),  # [L,h,k,d]
-            }
-        elif block == 'mlp':
-            out[block] = {
-                'wi_gate': _quantize_stacked(sub['wi_gate'], (1,)),
-                'wi_up': _quantize_stacked(sub['wi_up'], (1,)),
-                'wo': _quantize_stacked(sub['wo'], (1,)),    # [L,f,d]
-            }
-        elif block == 'moe' and quantize_moe:
-            # [L,e,d,f] / [L,e,f,d]: contract d / f, scales per (layer,
-            # expert, out-channel).
-            out[block] = {
-                'router': sub['router'],
-                'wi_gate': _quantize_stacked(sub['wi_gate'], (2,)),
-                'wi_up': _quantize_stacked(sub['wi_up'], (2,)),
-                'wo': _quantize_stacked(sub['wo'], (2,)),
-            }
-        else:
-            out[block] = sub
-    return out
+    return walk(params, ())
 
 
 def _leaves(tree: Any):

@@ -203,18 +203,21 @@ def shard_params_pytree(mesh: Mesh, logical_axes_tree, params, *,
     rules. A ``QTensor`` (``models/quant.py``) slices its int8 values
     and its scales alike; a scale axis of size 1 (a contracted axis)
     stays whole on every rank."""
-    from skypilot_tpu_torch.models.quant import QTensor
-
     def walk(axes, node):
         if isinstance(node, dict):
             return {k: walk(axes[k], v) for k, v in node.items()}
-        sharding = logical_sharding(mesh, axes, rules)
-        if isinstance(node, QTensor):
-            return QTensor(sharding.slice(node.q, rank),
-                           sharding.slice(node.scale, rank))
-        return sharding.slice(node, rank)
+        return shard_leaf(logical_sharding(mesh, axes, rules), node, rank)
 
     return walk(logical_axes_tree, params)
+
+
+def shard_leaf(sharding: NamedSharding, node: Any, rank: int) -> Any:
+    """Rank ``rank``'s slice of one leaf (a tensor or a ``QTensor``)."""
+    from skypilot_tpu_torch.models.quant import QTensor
+    if isinstance(node, QTensor):
+        return QTensor(sharding.slice(node.q, rank),
+                       sharding.slice(node.scale, rank))
+    return sharding.slice(node, rank)
 
 
 # ---------------------------------------------------------------------------

@@ -1271,3 +1271,29 @@ def test_tp_engines_on_card_match_one_rank(card):
         assert r['tp']['launches']['decode_attention'] > 0
     for name in ('batch', 'continuous'):
         assert ranks[0]['tp'][name] == single[name]
+
+
+@pytest.mark.parametrize('dispatch', ['dense', 'capacity'])
+def test_tp_moe_engines_on_card_match_one_rank(card, dispatch):
+    """TINY_MOE (head_dim 128, fp32 compute) at tensor=2 on two ranks of
+    the card (gloo), under dense dispatch and under capacity dispatch at
+    0.5: both engines' greedy tokens equal one rank's, each rank
+    building its expert shards from the seed and launching the paged
+    and decode kernels on its heads."""
+    import importlib
+    import os
+    import sys
+    from skypilot_tpu_torch import _build
+    from skypilot_tpu_torch.parallel.launch import launch
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'tools'))
+    probe = importlib.import_module('tp_probe')
+    _build.build_all()
+    overrides = probe.MOE_DISPATCH[dispatch]
+    ranks = launch(probe.moe_rank_main, 2, dispatch, device='cuda')
+    single = probe._engines(torch, None, 'tiny-moe', **overrides)
+    for r in ranks:
+        assert r['launches']['paged_attention'] > 0
+        assert r['launches']['decode_attention'] > 0
+    for name in ('batch', 'continuous'):
+        assert ranks[0][name] == single[name]

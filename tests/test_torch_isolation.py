@@ -148,9 +148,12 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
 
 
 def test_unported_engine_options_raise(tmp_path):
-    """Under a mesh, LoRA pages, a disaggregated role and MoE configs
-    raise with their queue item (weight refresh is pinned on a running
-    mesh in ``test_torch_tp_serving.py``); ``role=`` and the checkpoint
+    """Under a mesh, LoRA pages and a disaggregated role raise with
+    their queue item (weight refresh is pinned on a running mesh in
+    ``test_torch_tp_serving.py``), and a tree with int8 experts raises
+    with the reference's own limit, before any rank is needed (MoE
+    configs with fp experts serve under a mesh:
+    ``test_torch_tp_moe_serving.py``); ``role=`` and the checkpoint
     options are ported (an unknown role and a missing HF directory are
     errors of the input, not pointers to ROADMAP.md)."""
     from skypilot_tpu_torch.inference.continuous import (
@@ -168,9 +171,16 @@ def test_unported_engine_options_raise(tmp_path):
         engine.shutdown()
     with pytest.raises(ValueError, match='SKYT_DISAGG_ROLE'):
         ContinuousBatchingEngine('tiny', device='cpu', role='both')
+    from skypilot_tpu_torch.models import llama, quant
+    from skypilot_tpu_torch.models.config import get_model_config
+    int8_experts = quant.quantize_params(
+        llama.init_params(0, get_model_config('tiny-moe'), device='cpu'),
+        quantize_moe=True)
     for engine in (InferenceEngine, ContinuousBatchingEngine):
-        with pytest.raises(NotImplementedError, match='ROADMAP.*item 15'):
-            engine('tiny-moe', device='cpu', mesh='tensor=2')
+        with pytest.raises(NotImplementedError,
+                           match='int8 MoE experts.*JAX reference'):
+            engine('tiny-moe', device='cpu', mesh='tensor=2',
+                   params=int8_experts)
     for engine in (InferenceEngine, ContinuousBatchingEngine):
         with pytest.raises(FileNotFoundError):
             engine('tiny', device='cpu',

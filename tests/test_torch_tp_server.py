@@ -47,8 +47,20 @@ def _post(port, path, body):
 
 @pytest.mark.parametrize('engine', ['batch', 'continuous'])
 def test_server_mesh_serves_and_stops_every_rank(engine):
+    _serve_and_stop('tiny', engine)
+
+
+def test_server_mesh_serves_moe_and_stops_every_rank():
+    """A MoE ``--model`` (TINY_MOE, each rank building its slice of every
+    expert from the seed) under ``--mesh tensor=2`` serves
+    ``/v1/completions`` with the unsharded engine's text and stops every
+    rank."""
+    _serve_and_stop('tiny-moe', 'continuous')
+
+
+def _serve_and_stop(model, engine):
     port = _free_port()
-    argv = ['--model', 'tiny', '--device', 'cpu', '--engine', engine,
+    argv = ['--model', model, '--device', 'cpu', '--engine', engine,
             '--max-batch', '2', '--max-len', '64', '--host', '127.0.0.1',
             '--port', str(port)]
     env = dict(os.environ, OMP_NUM_THREADS='1')

@@ -198,3 +198,103 @@ def traced_request(rank, world, trace_id, span_id):
     else:
         engine.follow()
     return {'pid': os.getpid()}
+
+
+# name -> (engine, engine options, config overrides): TINY_MOE under
+# dense and capacity dispatch (capacity 0.5, so prefill chunks and
+# decode windows drop assignments) on both engines, W8A8 with an int8
+# pool, and speculative windows under capacity dispatch.
+CAPACITY = {'moe_dispatch': 'capacity', 'capacity_factor': 0.5}
+MOE_CASES = {
+    'batch_dense': ('batch', {}, {}),
+    'batch_capacity': ('batch', {}, CAPACITY),
+    'continuous_dense': ('continuous', {}, {}),
+    'continuous_capacity': ('continuous', {}, CAPACITY),
+    'continuous_quant': ('continuous', {'quantize': True,
+                                        'quantize_kv': True}, {}),
+    'continuous_spec': ('continuous', {'spec_decode': True, 'draft_k': 3},
+                        CAPACITY),
+}
+
+
+def moe_config(name='tiny-moe', **overrides):
+    from skypilot_tpu_torch.models.config import get_model_config
+    return get_model_config(name, compute_dtype=torch.float32, **overrides)
+
+
+class _Routes:
+    """Wraps ``llama._route``, keeping every call's ``selected`` (the
+    experts each token goes to, layer after layer, step after step)."""
+
+    def __init__(self):
+        from skypilot_tpu_torch.models import llama
+        self.llama, self.real, self.selected = llama, llama._route, []
+        llama._route = self
+
+    def __call__(self, *args, **kwargs):
+        out = self.real(*args, **kwargs)
+        self.selected.append(out[2].numpy().copy())
+        return out
+
+    def restore(self):
+        self.llama._route = self.real
+        return self.selected
+
+
+def _decode_step_collectives(engine):
+    """The collectives, by kind, of one ``decode.decode_step`` at batch
+    2 on the engine's shards (after a prefill of two tokens)."""
+    from skypilot_tpu_torch.models import decode as decode_lib
+    from skypilot_tpu_torch.parallel import sharding as psharding
+    tokens = torch.tensor([[5, 6], [7, 8]], dtype=torch.int32)
+    with torch.no_grad(), psharding.mesh_context(engine._tp):  # pylint: disable=protected-access
+        _, cache = decode_lib.prefill(engine.params, tokens,
+                                      torch.tensor([2, 2]), engine.cfg, 8)
+        psharding.collective_stats(reset=True)
+        decode_lib.decode_step(engine.params, tokens[:, 0], cache,
+                               engine.cfg)
+        return psharding.collective_stats()['by_kind']
+
+
+def serve_moe_cases(rank, world, params_np, cases):
+    """Each case's engine on TINY_MOE (fp32 compute) on every rank under
+    ``mesh='tensor=2'``, on the JAX engine's weights: the driver's
+    greedy tokens, every rank's ``selected`` of every router call, the
+    paged dispatch count and its expert shards. Then one decode step's
+    collectives on a dense TINY and on TINY_MOE, both of 2 layers and
+    built from the seed (``init_shard``)."""
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.models import decode as decode_lib
+    out = {'rank': rank, 'cases': {}, 'collectives': {}}
+    for name in cases:
+        kind, options, overrides = MOE_CASES[name]
+        cfg = moe_config(**overrides)
+        params = convert.params_from_numpy(params_np, cfg, device='cpu')
+        routes = _Routes()
+        paged = _Counter(decode_lib, 'paged_attention')
+        engine = _build(kind, cfg, params, options)
+        case = {}
+        if engine.is_driver:
+            if kind == 'batch':
+                case['tokens'] = engine.generate_ids(PROMPTS,
+                                                     max_new_tokens=N_NEW)
+            else:
+                case['tokens'] = [engine.generate_ids(p,
+                                                      max_new_tokens=N_NEW)
+                                  for p in PROMPTS]
+            engine.shutdown()
+        else:
+            engine.follow()
+        case['selected'] = routes.restore()
+        case['paged_attention'] = paged.restore()
+        case['experts'] = {k: v.numpy() for k, v in
+                           engine.params['layers']['moe'].items()}
+        out['cases'][name] = case
+    for model in ('tiny', 'tiny-moe'):
+        engine = _build('batch', moe_config(model), None, {})
+        out['collectives'][model] = _decode_step_collectives(engine)
+        if engine.is_driver:
+            engine.shutdown()
+        else:
+            engine.follow()
+    return out

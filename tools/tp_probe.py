@@ -11,8 +11,9 @@ device, so ``gloo``) and prints one JSON line per rank:
   whether the result is right;
 * whether a ``DeviceMesh`` over the two ranks builds on ``cuda``;
 * the greedy tokens of both engines under ``mesh='tensor=2'`` at TINY
-  (4 query and 2 kv heads, head_dim 128, fp32 compute) and of the same
-  engines on one rank, with each rank's kernel launch counts.
+  and at TINY_MOE under dense and capacity dispatch (4 query and 2 kv
+  heads, head_dim 128, fp32 compute) and of the same engines on one
+  rank, with each rank's kernel launch counts.
 
 Exits non-zero when a collective fails or the tokens differ.
 """
@@ -27,6 +28,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 PROMPTS = [[5, 6, 7, 8], [9, 10, 9, 10, 9, 10, 9, 10, 9]]
+# TINY_MOE's dispatches: dense, and capacity at 0.5 (chunks and decode
+# windows drop assignments).
+MOE_DISPATCH = {'dense': {},
+                'capacity': {'moe_dispatch': 'capacity',
+                             'capacity_factor': 0.5}}
 
 
 def _collectives(torch, dist, rank):
@@ -50,15 +56,15 @@ def _collectives(torch, dist, rank):
     return out
 
 
-def _engines(torch, mesh):
+def _engines(torch, mesh, model='tiny', **overrides):
     from skypilot_tpu_torch.inference.continuous import (
         ContinuousBatchingEngine)
     from skypilot_tpu_torch.inference.engine import InferenceEngine
     from skypilot_tpu_torch.models.config import get_model_config
     from skypilot_tpu_torch.ops import decode_attention as da
     from skypilot_tpu_torch.ops import paged_attention as pa
-    cfg = get_model_config('tiny', n_heads=4, n_kv_heads=2, head_dim=128,
-                           compute_dtype=torch.float32)
+    cfg = get_model_config(model, n_heads=4, n_kv_heads=2, head_dim=128,
+                           compute_dtype=torch.float32, **overrides)
     out = {}
     pa.reset_launch_counts()
     da.reset_launch_counts()
@@ -79,7 +85,7 @@ def _engines(torch, mesh):
     return out
 
 
-def rank_main(rank, world):
+def rank_main(rank, world, moe=False):
     import torch
     import torch.distributed as dist
     from skypilot_tpu_torch.parallel.mesh import build_mesh, MeshConfig
@@ -89,7 +95,17 @@ def rank_main(rank, world):
     mesh = build_mesh(MeshConfig(fsdp=1, tensor=world), device_type='cuda')
     result['device_mesh'] = str(mesh.device_mesh)
     result['tp'] = _engines(torch, 'tensor=2')
+    if moe:
+        for dispatch in MOE_DISPATCH:
+            result[f'moe {dispatch}'] = moe_rank_main(rank, world, dispatch)
     return result
+
+
+def moe_rank_main(rank, world, dispatch):
+    """Both engines on TINY_MOE under ``dispatch`` at tensor=2 (the card
+    test's rank)."""
+    import torch
+    return _engines(torch, 'tensor=2', 'tiny-moe', **MOE_DISPATCH[dispatch])
 
 
 def main() -> int:
@@ -101,19 +117,22 @@ def main() -> int:
          '--format=csv,noheader'], capture_output=True, text=True,
         check=False).stdout.strip(), flush=True)
     _build.build_all()
-    ranks = launch(rank_main, 2, device='cuda')
-    single = _engines(torch, None)
+    ranks = launch(rank_main, 2, True, device='cuda')
+    single = {'tp': _engines(torch, None)}
+    for dispatch, overrides in MOE_DISPATCH.items():
+        single[f'moe {dispatch}'] = _engines(torch, None, 'tiny-moe',
+                                             **overrides)
     ok = True
     for r in ranks:
         print(json.dumps(r), flush=True)
         ok &= all(v is True for v in r['collectives'].values())
     print(json.dumps({'single': single}), flush=True)
-    tp = ranks[0]['tp']
-    for name in ('batch', 'continuous'):
-        same = tp[name] == single[name]
-        print(f'{name}: tensor=2 tokens {"==" if same else "!="} one rank',
-              flush=True)
-        ok &= same
+    for model in single:
+        for name in ('batch', 'continuous'):
+            same = ranks[0][model][name] == single[model][name]
+            print(f'{model} {name}: tensor=2 tokens '
+                  f'{"==" if same else "!="} one rank', flush=True)
+            ok &= same
     return 0 if ok else 1
 
 
