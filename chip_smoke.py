@@ -65,7 +65,8 @@ Phases, in order; any failure exits non-zero:
    does not split the batch; with and without segment ids), one ring
    block of phase 33 (B=8 S=1024 H=20 KVH=4: causal, full, causal with
    segment ids), the tensor=2 batch-engine prefills of phases 31 and 34
-   (B=4 S=256, H=16 KVH=4 and H=8 KVH=8);
+   (B=4 S=256, H=16 KVH=4 and H=8 KVH=8), phase 35's fp32 train
+   attention (B=4 and B=2, S=1024, H=KVH=16);
    at the ring's edge shapes S=64 and S=192 with GQA groups 1
    and 8, bf16 and fp32; each output's error normalized per 64-row tile
    of one head (``tile_err``), and the dq kernel's delta against the
@@ -349,11 +350,31 @@ Phases, in order; any failure exits non-zero:
    peak and steady memory, decode tok/s and the collectives' share
    ("two ranks on one card over gloo: not a TP speed").
 
+35. MoE training over the expert axis (after phase 34): deepseek-moe-16b
+   at full width and ``MOE_MESH_LAYERS`` (2) of its 28 layers at fp32
+   compute (registered as ``deepseek-moe-16b-l2-fp32``) through
+   ``train.pretrain.main`` on two ranks sharing the card over ``gloo``
+   (AdamW, fp32 params, full remat, B=4, S=1024, 2 steps each):
+   ``--mesh expert=2`` (dense dispatch: 32 of the 64 experts a rank),
+   ``--mesh expert=2 --moe-dispatch capacity`` and ``--mesh fsdp=2``
+   (every expert, half of each along embed: the aux of the whole
+   batch). On each rank: rc 0, only rank 0 prints, finite losses, flash
+   launches 2L / L / L a step, no call outside the kernels. Each run's
+   first-step loss, router aux loss and gradient norm and second-step
+   loss against one rank's on the same params and batches (after the
+   ranks exit) within ``MESH_TOL``; a planted fault, an expert=2 run
+   with the routing weights' backward all-reduce skipped, must fail
+   that gate. A bf16-compute expert=2 run (``deepseek-moe-16b-l2``):
+   its numbers printed, its launches checked, not gated. Printed beside
+   the card's name and power limit: each rank's peak memory, the step
+   time and the collectives' share of it, labelled "two ranks on one
+   card over gloo: not a training speed".
+
 Then one JSON line listing every kernel (the paged kernels' launches are
 the sums of phases 9, 14, 15, 22, 23, 24, 26, 27, 28, 29, 30, 31 and 34,
 and of 10, 14, 28, 31 and 34's int8 runs; the decode kernels' of phases
 12, 20, 22, 26, 31 and 34; the flash kernels' of phases 7, 16, 17, 18,
-25, 27, 29, 30, 32 and 33, and phases 31 and 34's batch prefills'
+25, 27, 29, 30, 32, 33 and 35, and phases 31 and 34's batch prefills'
 forwards), the
 ``nvidia-smi`` name and power-limit line, and last ``{"ok": true,
 "device": {...}}``.
@@ -1373,8 +1394,8 @@ def flash_cases():
     attention (B=2) both ways, with segment ids permuted per row, D=256,
     the batch engine's prefill at llama3-8b's and deepseek-moe-16b's
     heads, its lone request (B=1), the LoRA finetune's B=4 S=512, the
-    MoE train steps' shape, the GRPO learner's B=8 S=128, and the
-    pipeline's edge shapes:
+    MoE train steps' shape (bf16, and fp32 at phase 35's rows), the
+    GRPO learner's B=8 S=128, and the pipeline's edge shapes:
     S=64 (one
     tile: the ring's prologue and epilogue only) and S=192 (three tiles,
     no multiple of the two stages; the forward's 64-row CTA), GQA groups
@@ -1450,6 +1471,13 @@ def flash_cases():
     cases.append(('bf16 causal B=4 S=1024 H=16 KVH=16 (MoE train)',
                   dict(b=4, s=1024, h=16, kvh=16, d=128), 'bf16', True,
                   False))
+    # Phase 35's gated runs compute in fp32: all 4 rows on a rank at
+    # expert=2 (expert does not split the batch) and on one rank, 2 rows
+    # at fsdp=2.
+    for b, label in ((4, 'expert=2 and one rank'), (2, 'fsdp=2')):
+        cases.append((f'fp32 causal B={b} S=1024 H=16 KVH=16 (MoE train '
+                      f'{label})', dict(b=b, s=1024, h=16, kvh=16, d=128),
+                      'fp32', True, False))
     for dtype in ('bf16', 'fp32'):
         for s, h, kvh, causal, segments in ((64, 8, 8, True, True),
                                             (64, 16, 2, False, False),
@@ -5342,7 +5370,7 @@ MESH_ARGV = ['--model', MESH_MODEL, '--batch', '8', '--seq', '2048',
 # reading on the H100 (at most 4.1e-6 on a loss, 1.6e-5 on the norm;
 # PERF.md) and below what a dropped reduction moves: the planted fault
 # (``plant_unreduced_attention``) must fail it.
-MESH_TOL = {'loss': 1e-4, 'grad_norm': 1e-4}
+MESH_TOL = {'loss': 1e-4, 'grad_norm': 1e-4, 'router_aux': 1e-4}
 MESH_LABEL = 'two ranks on one card over gloo: not a training speed'
 
 
@@ -5365,7 +5393,7 @@ def register_mesh_model():
 
 class StepRecorder:
     """While entered, every train step ``make_train_step`` builds records
-    its unrounded loss and gradient norm, its wall time and the
+    its unrounded loss, gradient norm and router aux loss, its wall time and the
     collectives' seconds inside it (the card synchronized before and
     after; with ``time_collectives`` on, around each collective too), and
     every flash call its (batch rows, query heads)."""
@@ -5400,6 +5428,7 @@ class StepRecorder:
                 torch.cuda.synchronize()
                 self.steps.append(dict(
                     loss=loss, grad_norm=float(metrics['grad_norm']),
+                    router_aux=float(metrics['router_aux']),
                     wall_s=time.perf_counter() - t0,
                     collective_s=psharding.collective_stats()['seconds']
                     - c0))
@@ -5441,12 +5470,26 @@ def plant_still_ring():
     return lambda: setattr(TensorParallel, 'ring_shift', real)
 
 
+def plant_unreduced_routing():
+    """Planted fault for phase 35's gate: the f op on the MoE blocks'
+    top-k routing weights ([..., k]) skipped, so their gradient, and the
+    router's, hold only this rank's experts' part (the expert branch's
+    input, [..., d_model], keeps its f op). Returns the undo."""
+    from skypilot_tpu_torch.models import llama
+    real = llama.copy_to_experts
+    k_top = register_moe_mesh_models().experts_per_token
+    llama.copy_to_experts = lambda x, par: (
+        x if x.shape[-1] == k_top else real(x, par))
+    return lambda: setattr(llama, 'copy_to_experts', real)
+
+
 PLANTED = {'attention unreduced': plant_unreduced_attention,
-           'ring not rotating': plant_still_ring}
+           'ring not rotating': plant_still_ring,
+           'routing weights unreduced': plant_unreduced_routing}
 
 
 def mesh_train_rank(rank, world, runs):
-    """One rank of phases 32 and 33: each run's ``pretrain.main(argv)``
+    """One rank of phases 32, 33 and 35: each run's ``pretrain.main(argv)``
     (its output captured; with a ``fault``, under that ``PLANTED``
     fault) with the flash counts zeroed just before and read just after,
     its steps and attention shapes (``StepRecorder``, every collective
@@ -5457,6 +5500,7 @@ def mesh_train_rank(rank, world, runs):
     from skypilot_tpu_torch.train import pretrain
     del world
     register_mesh_model()
+    register_moe_mesh_models()
     psharding.time_collectives(True)
     out = {'rank': rank, 'runs': {}}
     try:
@@ -6097,6 +6141,196 @@ def phase_tp_moe(torch, smi):
                              for v in r['runs'].values())}
 
 
+# ---------------------------------------------------------------------------
+# Phase 35: MoE training over the expert axis, deepseek-moe-16b at 2 layers
+# ---------------------------------------------------------------------------
+
+MOE_MESH_BASE = 'deepseek-moe-16b'
+# Depth cut from 28 to hold the phase near 90 s and both ranks' AdamW
+# states on the card: at expert=2 a rank holds 32 of each layer's 64
+# experts (about 1.01 B params at 2 layers, ~16 GB with AdamW's moments
+# and the gradients), and the one-rank run ~25 GB.
+MOE_MESH_LAYERS = 2
+MOE_MESH_BF16 = f'{MOE_MESH_BASE}-l{MOE_MESH_LAYERS}'
+# The gate's runs compute in fp32: this model's seeded weights part any
+# two bf16 roundings by several percent and flip experts (phase 34), so
+# no bf16 limit separates rounding from a fault.
+MOE_MESH_MODEL = f'{MOE_MESH_BF16}-fp32'
+MOE_MESH_STEPS = 2
+MOE_MESH_ARGV = ['--batch', '4', '--seq', '1024', '--warmup-steps', '1',
+                 '--log-every', '1', '--steps', str(MOE_MESH_STEPS)]
+# Run label -> (model, extra argv, planted fault), all on two ranks.
+MOE_MESH_RUNS = (
+    ('expert=2', MOE_MESH_MODEL, ['--mesh', 'expert=2'], None),
+    ('expert=2 capacity', MOE_MESH_MODEL,
+     ['--mesh', 'expert=2', '--moe-dispatch', 'capacity'], None),
+    ('fsdp=2', MOE_MESH_MODEL, ['--mesh', 'fsdp=2'], None),
+    ('expert=2 bf16', MOE_MESH_BF16, ['--mesh', 'expert=2'], None),
+    ('expert=2 fault', MOE_MESH_MODEL, ['--mesh', 'expert=2'],
+     'routing weights unreduced'))
+
+
+def register_moe_mesh_models():
+    """``deepseek-moe-16b`` at full width and ``MOE_MESH_LAYERS`` layers,
+    at its bf16 compute and at fp32 compute, registered in this process
+    (a spawned rank registers them again); returns the fp32 one."""
+    import dataclasses
+    import torch
+    from skypilot_tpu_torch.models import config
+    if MOE_MESH_MODEL not in config.MODEL_REGISTRY:
+        cut = dataclasses.replace(config.get_model_config(MOE_MESH_BASE),
+                                  name=MOE_MESH_BF16,
+                                  n_layers=MOE_MESH_LAYERS)
+        config.MODEL_REGISTRY.register(MOE_MESH_BF16)(cut)
+        config.MODEL_REGISTRY.register(MOE_MESH_MODEL)(dataclasses.replace(
+            cut, name=MOE_MESH_MODEL, compute_dtype=torch.float32))
+    return config.get_model_config(MOE_MESH_MODEL)
+
+
+def moe_mesh_gaps(steps, reference):
+    """``mesh_gaps`` and the first step's router aux loss."""
+    return dict(mesh_gaps(steps, reference), **{
+        'router_aux 1': rel_gap(steps[0]['router_aux'],
+                                reference[0]['router_aux'])})
+
+
+def check_moe_mesh_runs(ranks, cfg):
+    """Every run on both ranks: rc 0, only rank 0 prints, finite losses,
+    flash launches 2L / L / L a step, no call outside the kernels, and
+    every attention call on the rank's rows (expert does not split the
+    batch: 4 rows at expert=2, 2 at fsdp=2; all 16 heads)."""
+    n = cfg.n_layers * MOE_MESH_STEPS
+    expected = {'flash_fwd': 2 * n, 'flash_dq': n, 'flash_dkv': n,
+                'flash_fwd_seg': 0, 'flash_dq_seg': 0, 'flash_dkv_seg': 0}
+    for r in ranks:
+        for label, run in r['runs'].items():
+            rows = 2 if label.startswith('fsdp') else 4
+            losses = [x['loss'] for x in run['lines'] if 'loss' in x]
+            printed_ok = (len(losses) == MOE_MESH_STEPS if r['rank'] == 0
+                          else run['lines'] == [])
+            if run['rc'] != 0 or not printed_ok or \
+                    not all(math.isfinite(x) for x in losses) or \
+                    run['launches'] != expected or run['fallbacks'] or \
+                    run['shapes'] != [(rows, cfg.n_heads)]:
+                raise AssertionError(
+                    f'[moe-mesh] rank {r["rank"]} {label}: rc {run["rc"]}, '
+                    f'lines {run["lines"]}, launches {run["launches"]} '
+                    f'(expected {expected}), fallbacks {run["fallbacks"]}, '
+                    f'(rows, heads) of the calls {run["shapes"]} (expected '
+                    f'{[(rows, cfg.n_heads)]})')
+    log(f'[moe-mesh] both ranks: every run launched 2x{cfg.n_layers} fwd, '
+        f'{cfg.n_layers} dq, {cfg.n_layers} dkv a step x {MOE_MESH_STEPS} '
+        'steps, no fallback; (rows, heads) ' + ', '.join(
+            f'{k} {v["shapes"]}' for k, v in ranks[0]['runs'].items()))
+
+
+def phase_moe_mesh_train(torch, smi):
+    """Phase 35: deepseek-moe-16b at full width and ``MOE_MESH_LAYERS``
+    layers trained through ``train.pretrain.main`` by two ranks sharing
+    the card over gloo (``MOE_MESH_RUNS``: expert=2 dense and capacity
+    and fsdp=2 at fp32 compute, expert=2 at bf16, and the planted fault);
+    then one rank on the same params and batches, dense and capacity.
+    Gate: each fp32 run's first-step loss, router aux loss and gradient
+    norm and second-step loss against one rank's within ``MESH_TOL``;
+    the planted fault must fail it. Returns the launch totals for the
+    kernels line and the numbers PERF.md keeps."""
+    from skypilot_tpu_torch.parallel.launch import launch
+    from skypilot_tpu_torch.train import pretrain
+    t0 = time.perf_counter()
+    cfg = register_moe_mesh_models()
+    log(f'[moe-mesh] depth cut: {MOE_MESH_BASE} at full width (d_model '
+        f'{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of '
+        f'{cfg.resolved_head_dim}, {cfg.num_experts} experts of d_ff '
+        f'{cfg.d_ff}, top {cfg.experts_per_token}, vocab {cfg.vocab_size}) '
+        f'and {cfg.n_layers} of its 28 layers; B=4 S=1024, AdamW, fp32 '
+        'params, full remat')
+    runs = [(label, ['--model', model] + MOE_MESH_ARGV + extra, fault)
+            for label, model, extra, fault in MOE_MESH_RUNS]
+    ranks = launch(mesh_train_rank, 2, runs, device='cuda')
+    t1 = time.perf_counter()
+    # The planted fault's run is no part of the main path's counts.
+    faulted = [r['runs'].pop('expert=2 fault') for r in ranks][0]
+    check_moe_mesh_runs(ranks, cfg)
+    one = {}
+    with StepRecorder(torch) as rec:
+        for label, extra in (('dense', []),
+                             ('capacity', ['--moe-dispatch', 'capacity'])):
+            torch.cuda.reset_peak_memory_stats()
+            rc, _ = run_json_main(pretrain.main, ['--model', MOE_MESH_MODEL]
+                                  + MOE_MESH_ARGV + extra)
+            if rc != 0 or len(rec.steps) % MOE_MESH_STEPS:
+                raise AssertionError(f'[moe-mesh] one rank {label}: rc {rc}')
+            one[label] = rec.steps[-MOE_MESH_STEPS:]
+            one[label + ' peak_gb'] = torch.cuda.max_memory_allocated() / 1e9
+            free_card(torch)
+    t2 = time.perf_counter()
+    rank0 = ranks[0]['runs']
+    if faulted['rc'] != 0 or len(faulted['steps']) != MOE_MESH_STEPS:
+        raise AssertionError(f'[moe-mesh] planted fault run: rc '
+                             f'{faulted["rc"]}, steps {faulted["steps"]}')
+    gaps = {label: moe_mesh_gaps(rank0[label]['steps'], one[ref])
+            for label, ref in (('expert=2', 'dense'),
+                               ('expert=2 capacity', 'capacity'),
+                               ('fsdp=2', 'dense'))}
+    fault = moe_mesh_gaps(faulted['steps'], one['dense'])
+    bf16 = moe_mesh_gaps(rank0['expert=2 bf16']['steps'], one['dense'])
+    for label, row in list(gaps.items()) + [('planted fault', fault)]:
+        log(f'[moe-mesh] {label} vs one rank on the same params and '
+            f'batches, relative: ' + ', '.join(
+                f'{k} {v:.2e}' for k, v in row.items())
+            + f' (limits {MESH_TOL})')
+    log('[moe-mesh] expert=2 bf16 vs one rank at fp32 (not gated): ' +
+        ', '.join(f'{k} {v:.2e}' for k, v in bf16.items()))
+    for label in rank0:
+        log(f'[moe-mesh] {label} steps ' + json.dumps(
+            [{k: x[k] for k in ('loss', 'router_aux', 'grad_norm')}
+             for x in rank0[label]['steps']]))
+    for label in ('dense', 'capacity'):
+        log(f'[moe-mesh] one rank {label} steps ' + json.dumps(
+            [{k: x[k] for k in ('loss', 'router_aux', 'grad_norm')}
+             for x in one[label]]) + f'; peak '
+            f'{one[label + " peak_gb"]:.2f} GB ({smi})')
+    off = {label: row for label, row in gaps.items() if not within(row)}
+    if off:
+        raise AssertionError(f'[moe-mesh] mesh runs off one rank\'s: {off}')
+    if within(fault):
+        raise AssertionError(f'[moe-mesh] the planted fault (routing '
+                             f'weights\' gradient not reduced over experts) '
+                             f'passed the gate: {fault}')
+    numbers = {}
+    for label in rank0:
+        later = rank0[label]['steps'][1:]
+        walls = [x['wall_s'] for x in later]
+        numbers[label] = {
+            'step_s': statistics.median(walls),
+            'collective_share': sum(x['collective_s'] for x in later) /
+            sum(walls),
+            'run_s': rank0[label]['wall_s'],
+            'peak_gb': [r['runs'][label]['peak_gb'] for r in ranks],
+            'collectives_a_step': {
+                k: v / MOE_MESH_STEPS
+                for k, v in rank0[label]['collectives'].items()},
+            'collective_s': rank0[label]['collective_s']}
+        log(f'[moe-mesh] {label}: step {numbers[label]["step_s"]:.3f} s '
+            f'(step 2, every collective timed), collectives '
+            f'{100 * numbers[label]["collective_share"]:.1f}% of it; the '
+            f'run {numbers[label]["run_s"]:.1f} s; peak GB by rank '
+            f'{[round(x, 2) for x in numbers[label]["peak_gb"]]}; calls a '
+            f'step {numbers[label]["collectives_a_step"]} ({MESH_LABEL}; '
+            f'{smi})')
+    launches = {}
+    for r in ranks:
+        for run in r['runs'].values():
+            for k, v in run['launches'].items():
+                launches[k] = launches.get(k, 0) + v
+    log(f'[smoke] phase 35 {time.perf_counter() - t0:.1f} s (ranks '
+        f'{t1 - t0:.1f} s, one rank {t2 - t1:.1f} s)')
+    return {'launches': launches, 'gaps': gaps, 'fault': fault,
+            'bf16': bf16, 'runs': numbers,
+            'one_peak_gb': {k: one[k + ' peak_gb']
+                            for k in ('dense', 'capacity')}}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--skip-engine', action='store_true',
@@ -6142,7 +6376,7 @@ def main(argv=None) -> int:
     engine, train, batch, spec, lora = {}, {}, {}, {}, {}
     bench_tr, remat, packed, bench_dec, moe = {}, {}, {}, {}, {}
     ckpt, disagg, rl, tp, mesh, seq = {}, {}, {}, {}, {}, {}
-    tp_moe = {}
+    tp_moe, moe_mesh = {}, {}
     if not args.skip_engine:
         phase_train_small(torch)
         train = phase_train(torch, fa, flops_peak)
@@ -6208,6 +6442,10 @@ def main(argv=None) -> int:
         tp_moe = phase_tp_moe(torch, smi)
         log('[tp-moe] phase 34 summary ' + json.dumps(
             {k: v for k, v in tp_moe.items() if k != 'launches'}))
+        free_card(torch)
+        moe_mesh = phase_moe_mesh_train(torch, smi)
+        log('[moe-mesh] phase 35 summary ' + json.dumps(
+            {k: v for k, v in moe_mesh.items() if k != 'launches'}))
     flash_src = 'skypilot_tpu/ops/pallas/flash_attention.py'
     replaces = {
         'paged_attention':
@@ -6241,8 +6479,8 @@ def main(argv=None) -> int:
     # entry points for the flash kernels: phase 7, the bench twin's train
     # mode, the remat policies, the MoE train steps, the finetune of
     # phase 27, the GRPO learners of phases 29-30, --packed for the
-    # segment twins, and both ranks of the mesh trainers of phases 32
-    # and 33):
+    # segment twins, and both ranks of the mesh trainers of phases 32,
+    # 33 and 35):
     # null when they were skipped, never a number this run did not
     # measure.
     def total(parts):
@@ -6279,7 +6517,8 @@ def main(argv=None) -> int:
         'decode_attention_quant': total([
             batch.get('launches_quant'),
             tp_launches.get('decode_attention_quant')])}
-    trains += [mesh.get('launches'), seq.get('launches')]
+    trains += [mesh.get('launches'), seq.get('launches'),
+               moe_mesh.get('launches')]
     for name in ('flash_fwd', 'flash_dq', 'flash_dkv'):
         launches[name] = total([
             None if t is None else t[name] + t[name + '_seg']

@@ -32,11 +32,16 @@ cross entropy, ``train/loss.py``) instead of gathering [B, S, V]. Under
 ``seq`` the tokens (and positions and segments) are the rank's block of
 the columns: the default positions start at its block's first column,
 attention runs over the ``seq`` group (``ops/ring_attention.py``) and
-everything else is per token. The
+everything else is per token. A MoE layer holds its block of the
+experts over ``expert`` and of each expert's FFN columns over
+``tensor``, routes every token whole and sums its experts' outputs over
+both axes (``_moe_block``); the router aux loss is the whole batch's
+(``_router_aux``). The
 context is an argument, not ambient state: a remat recompute runs in
 the autograd thread and re-issues the layer's collectives in the same
 order on every rank.
-Pipeline stages are multi-device work and raise here.
+Pipeline stages, LoRA layers on a mesh and MoE layers under ``seq``
+raise here.
 """
 from __future__ import annotations
 
@@ -57,9 +62,12 @@ from skypilot_tpu_torch.models.lora import apply_lora_qv
 from skypilot_tpu_torch.ops.attention import multi_head_attention
 from skypilot_tpu_torch.ops.norms import rms_norm
 from skypilot_tpu_torch.parallel.sharding import (TensorParallel,
+                                                  copy_to_experts,
                                                   copy_to_tensor,
                                                   gather_fsdp,
-                                                  reduce_from_tensor)
+                                                  reduce_from_experts,
+                                                  reduce_from_tensor,
+                                                  reduce_from_tokens)
 from skypilot_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -411,16 +419,40 @@ def _mlp_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
     return reduce_from_tensor(out, par)
 
 
+def _router_stats(router_logits: torch.Tensor, selected: torch.Tensor,
+                  e: int) -> torch.Tensor:
+    """[2E]: f_e, the fraction of tokens whose TOP-1 expert is e (no
+    gradient), then P_e, the mean router probability of e."""
+    probs = torch.softmax(router_logits, dim=-1)              # [B,S,E]
+    top1 = F.one_hot(selected[..., 0], e).float()
+    return torch.cat([top1.reshape(-1, e).mean(dim=0),
+                      probs.reshape(-1, e).mean(dim=0)])
+
+
+def _aux_of(stats: torch.Tensor) -> torch.Tensor:
+    """E * sum_e f_e * P_e of ``_router_stats`` [..., 2E]: [...]."""
+    f, p = stats.chunk(2, dim=-1)
+    return f.shape[-1] * torch.sum(f * p, dim=-1)
+
+
 def _router_aux_loss(router_logits: torch.Tensor, selected: torch.Tensor,
                      e: int) -> torch.Tensor:
     """Switch/GShard load-balancing loss: E * sum_e f_e * P_e, where f_e
     is the fraction of tokens whose TOP-1 expert is e and P_e the mean
     router probability of e; 1 at uniform balance."""
-    probs = torch.softmax(router_logits, dim=-1)              # [B,S,E]
-    top1 = F.one_hot(selected[..., 0], e).float()
-    f = top1.reshape(-1, e).mean(dim=0)
-    p = probs.reshape(-1, e).mean(dim=0)
-    return e * torch.sum(f * p)
+    return _aux_of(_router_stats(router_logits, selected, e))
+
+
+def _router_aux(stats: torch.Tensor, par: TensorParallel) -> torch.Tensor:
+    """The layer mean of the aux loss from the layers' ``_router_stats``
+    [L, 2E] of this rank's tokens. f and P are means over the WHOLE
+    batch, as in the reference, where they are global means under GSPMD:
+    each is averaged over the batch ranks (one sum over ``tokens`` for
+    every layer, each rank's share of the batch equal) before the
+    product, never the ranks' products averaged."""
+    if par.tokens > 1:
+        stats = reduce_from_tokens(stats, par) / par.tokens
+    return _aux_of(stats).mean()
 
 
 def _route(x: torch.Tensor, router: Any, k_top: int
@@ -436,7 +468,8 @@ def _route(x: torch.Tensor, router: Any, k_top: int
 
 def _moe_block_capacity(x: torch.Tensor, lp: Params, cfg: ModelConfig,
                         with_aux: bool = True,
-                        reduce: Optional[Callable[..., torch.Tensor]] = None
+                        reduce: Optional[Callable[..., torch.Tensor]] = None,
+                        par: Optional[TensorParallel] = None
                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Capacity dispatch (the reference's ``_moe_block_capacity``).
 
@@ -446,7 +479,8 @@ def _moe_block_capacity(x: torch.Tensor, lp: Params, cfg: ModelConfig,
     choice before any second choice, tokens in sequence order); an
     assignment past C loses that expert's contribution. Padded rows
     route like real ones, as in the reference. Returns (out, aux), aux
-    None without ``with_aux``; ``reduce`` as in ``_moe_block``."""
+    None without ``with_aux``; ``reduce`` and ``par`` as in
+    ``_moe_block``."""
     dt = cfg.compute_dtype
     b, s, d = x.shape
     e, k_top = cfg.num_experts, cfg.experts_per_token
@@ -456,8 +490,10 @@ def _moe_block_capacity(x: torch.Tensor, lp: Params, cfg: ModelConfig,
     bg = b * (s // group)
     xg = x.reshape(bg, group, d)
     capacity = max(1, -(-int(cfg.capacity_factor * group * k_top) // e))
-    logits, weights, selected = _route(xg, lp['router'], k_top)
-    aux = _router_aux_loss(logits, selected, e) if with_aux else None
+    mesh = par or _ONE_DEVICE
+    logits, weights, selected = _route(
+        xg, gather_fsdp(lp['router'], mesh, 0, torch.float32), k_top)
+    aux = _aux_stats(logits, selected, e, par) if with_aux else None
     mask = F.one_hot(selected, e).float()                    # [B',G,k,E]
     mask_km = mask.transpose(1, 2).reshape(bg, k_top * group, e)
     pos = torch.cumsum(mask_km, dim=1) - 1.0                 # [B',kG,E]
@@ -468,24 +504,58 @@ def _moe_block_capacity(x: torch.Tensor, lp: Params, cfg: ModelConfig,
         capacity, device=x.device, dtype=pos.dtype)).float() * \
         keep[..., None]                                      # [B',kG,E,C]
     slot = slot.reshape(bg, k_top, group, e, capacity).transpose(1, 2)
-    combine = torch.einsum('bsk,bskec->bsec', weights, slot)  # [B',G,E,C]
+    e0, e1 = _local_experts(e, mesh)
+    combine = torch.einsum('bsk,bskec->bsec',
+                           copy_to_experts(weights, mesh),
+                           slot[:, :, :, e0:e1])             # [B',G,El,C]
     dispatch = (combine > 0.0).to(dt)
-    xe = torch.einsum('bsec,bsd->ebcd', dispatch, xg)        # [E,B',C,d]
-    w_gate, w_up, wo = (lp[n].to(dt) for n in ('wi_gate', 'wi_up', 'wo'))
+    xe = torch.einsum('bsec,bsd->ebcd', dispatch,
+                      copy_to_experts(xg, mesh))             # [El,B',C,d]
+    w_gate, w_up, wo = _expert_weights(lp, mesh, dt)
     gate = torch.einsum('ebcd,edf->ebcf', xe, w_gate)
     up = torch.einsum('ebcd,edf->ebcf', xe, w_up)
     act = _activate(gate, cfg)
     with _named('mlp_hidden'):
         hidden = act * up
     out_e = torch.einsum('ebcf,efd->ebcd', hidden, wo)
-    if reduce is not None:
-        y = reduce(torch.einsum('bsec,ebcd->bsd', combine, out_e.float()),
-                   'sum').to(dt)
+    if reduce is not None or mesh.experts > 1:
+        with _named('mlp_out'):
+            y = torch.einsum('bsec,ebcd->bsd', combine, out_e.float())
+        y = (reduce(y, 'sum') if reduce is not None
+             else reduce_from_experts(y, mesh)).to(dt)
         return y.reshape(b, s, d), aux
     combine = combine.to(dt)
     with _named('mlp_out'):
         y = torch.einsum('bsec,ebcd->bsd', combine, out_e)
     return y.reshape(b, s, d), aux
+
+
+def _aux_stats(logits: torch.Tensor, selected: torch.Tensor, e: int,
+               par: Optional[TensorParallel]) -> torch.Tensor:
+    """The block's aux: the loss itself off a mesh (``par`` None), its
+    ``_router_stats`` [2E] on one (``forward`` averages them over the
+    batch ranks: ``_router_aux``)."""
+    if par is None:
+        return _router_aux_loss(logits, selected, e)
+    return _router_stats(logits, selected, e)
+
+
+def _local_experts(e: int, par: TensorParallel) -> Tuple[int, int]:
+    """This rank's experts [e0, e1): its block of ``expert`` (the rule
+    'expert')."""
+    size = e // par.expert
+    return par.expert_rank * size, (par.expert_rank + 1) * size
+
+
+def _expert_weights(lp: Params, par: TensorParallel, dt: torch.dtype
+                    ) -> Tuple[Any, Any, Any]:
+    """``wi_gate``, ``wi_up`` [El, d, f/tensor] and ``wo`` [El, f/tensor,
+    d] of this rank's experts in ``dt``, gathered whole along ``embed``
+    over ``fsdp`` (a W8A8 ``QTensor`` off a mesh dequantizes through
+    ``.to(dt)``, as the reference's ``astype``)."""
+    return (gather_fsdp(lp['wi_gate'], par, 1, dt),
+            gather_fsdp(lp['wi_up'], par, 1, dt),
+            gather_fsdp(lp['wo'], par, 2, dt))
 
 
 def _to_experts(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -500,7 +570,8 @@ def _to_experts(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _moe_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
                with_aux: bool = True,
-               reduce: Optional[Callable[..., torch.Tensor]] = None
+               reduce: Optional[Callable[..., torch.Tensor]] = None,
+               par: Optional[TensorParallel] = None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Top-k MoE (the reference's ``_moe_block``): dense dispatch runs
     every expert on every token and combines the outputs with the
@@ -516,26 +587,44 @@ def _moe_block(x: torch.Tensor, lp: Params, cfg: ModelConfig,
     partials are combined in fp32 and summed over the ranks once, after
     the combine, and rounded to the compute dtype once: one all-reduce
     of ``[B, S, d]`` a block, as the dense ``mlp.wo``. The router and the
-    dispatch run whole on every rank, on the same ``x``."""
+    dispatch run whole on every rank, on the same ``x``.
+
+    ``par`` (a training mesh, ``forward(parallel=)``): the leaves are
+    this rank's blocks, its experts ``[e0, e1)`` over ``expert`` and its
+    FFN columns over ``tensor``, each an ``fsdp`` block along ``embed``.
+    The router is gathered whole and routes every token in fp32; the
+    block keeps its experts' part of the combine and sums the combined
+    output over ``experts`` in fp32 in one all-reduce (the g op). The
+    f op (identity forward, all-reduce backward over ``experts``) sits
+    on the expert branch's input and on the top-k routing weights, whose
+    gradients each rank holds only its experts' part of; the router's
+    own path into ``x`` and its gradient are whole on every rank. The
+    aux is this rank's ``_router_stats``."""
     if cfg.moe_dispatch == 'capacity':
-        return _moe_block_capacity(x, lp, cfg, with_aux, reduce)
+        return _moe_block_capacity(x, lp, cfg, with_aux, reduce, par)
     dt = cfg.compute_dtype
     e, k_top = cfg.num_experts, cfg.experts_per_token
-    logits, weights, selected = _route(x, lp['router'], k_top)
-    aux = _router_aux_loss(logits, selected, e) if with_aux else None
+    mesh = par or _ONE_DEVICE
+    logits, weights, selected = _route(
+        x, gather_fsdp(lp['router'], mesh, 0, torch.float32), k_top)
+    aux = _aux_stats(logits, selected, e, par) if with_aux else None
     # sum_k one_hot(selected_k) * weight_k: the k experts are distinct.
-    combine = torch.zeros_like(logits).scatter_(-1, selected,
-                                                weights)     # [B,S,E]
-    w_gate, w_up, wo = (lp[n].to(dt) for n in ('wi_gate', 'wi_up', 'wo'))
-    gate = _to_experts(x, w_gate)
-    up = _to_experts(x, w_up)
+    e0, e1 = _local_experts(e, mesh)
+    combine = torch.zeros_like(logits).scatter(
+        -1, selected, copy_to_experts(weights, mesh))[..., e0:e1]
+    w_gate, w_up, wo = _expert_weights(lp, mesh, dt)
+    xe = copy_to_experts(x, mesh)
+    gate = _to_experts(xe, w_gate)
+    up = _to_experts(xe, w_up)
     act = _activate(gate, cfg)
     with _named('mlp_hidden'):
         hidden = act * up
     expert_out = torch.einsum('ebsf,efd->ebsd', hidden, wo)
-    if reduce is not None:
-        return reduce(torch.einsum('ebsd,bse->bsd', expert_out.float(),
-                                   combine), 'sum').to(dt), aux
+    if reduce is not None or mesh.experts > 1:
+        with _named('mlp_out'):
+            out = torch.einsum('ebsd,bse->bsd', expert_out.float(), combine)
+        return (reduce(out, 'sum') if reduce is not None
+                else reduce_from_experts(out, mesh)).to(dt), aux
     combine = combine.to(dt)
     with _named('mlp_out'):
         out = torch.einsum('ebsd,bse->bsd', expert_out, combine)
@@ -547,16 +636,16 @@ def _decoder_layer(x: torch.Tensor, lp: Params, cfg: ModelConfig,
                    segments: Optional[torch.Tensor] = None,
                    par: TensorParallel = _ONE_DEVICE
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One decoder layer: (x, router aux loss), the aux 0 for a dense
-    MLP."""
+    """One decoder layer: (x, the MoE block's ``_router_stats`` [2E] of
+    these tokens; a 0 for a dense MLP)."""
     h = rms_norm(x, lp['ln_attn']['scale'], cfg.norm_eps)
     x = x + _attention_block(h, lp['attn'], cfg, sin, cos,
                              segments=segments,
                              lora_params=lp.get('lora'), par=par)
     h = rms_norm(x, lp['ln_mlp']['scale'], cfg.norm_eps)
     if cfg.is_moe:
-        out, aux = _moe_block(h, lp['moe'], cfg)
-        return x + out, aux
+        out, stats = _moe_block(h, lp['moe'], cfg, par=par)
+        return x + out, stats
     return (x + _mlp_block(h, lp['mlp'], cfg, par),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
@@ -682,21 +771,29 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
 
     LoRA params at ``params['layers']['lora']`` add their q/v deltas.
     ``return_aux``: also return the layer mean of the router aux loss
-    (0 for a dense model) as (logits, aux). ``parallel``: this rank's
-    place on a training mesh; params, tokens, positions and segments are
-    then its shards and rows (under ``seq``, its block of the columns),
-    and the logits its rows and, under ``tensor``, its block of the
-    vocab.
-    ``pipeline_stages > 1`` raises with a pointer to ROADMAP.md."""
+    (0 for a dense model) as (logits, aux); on a mesh it is the whole
+    batch's (``_router_aux``), the same on every rank. ``parallel``:
+    this rank's place on a training mesh; params, tokens, positions and
+    segments are then its shards and rows (under ``seq``, its block of
+    the columns), and the logits its rows and, under ``tensor``, its
+    block of the vocab; MoE layers run their experts over ``expert`` and
+    ``tensor`` (``_moe_block``).
+    ``pipeline_stages > 1`` raises with a pointer to ROADMAP.md, as do
+    LoRA layers on a mesh and MoE layers under ``seq``."""
     if pipeline_stages > 1:
         raise NotImplementedError(
             'pipeline stages are multi-device work, not ported yet '
             '(ROADMAP.md, queue A item 15 (c))')
     par = parallel or _ONE_DEVICE
-    if par is not _ONE_DEVICE and (cfg.is_moe or 'lora' in params['layers']):
+    if par is not _ONE_DEVICE and 'lora' in params['layers']:
         raise NotImplementedError(
-            'MoE and LoRA layers under a training mesh are not ported yet '
+            'LoRA layers under a training mesh are not ported yet '
             '(ROADMAP.md, queue A item 15 (c))')
+    if cfg.is_moe and par.seq > 1:
+        raise NotImplementedError(
+            'MoE layers under seq > 1 are not ported yet: the capacity '
+            'groups span the global sequence (ROADMAP.md, queue A item 15 '
+            '(c))')
     _, s = tokens.shape
     dt = cfg.compute_dtype
     if positions is None:
@@ -723,5 +820,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
         head = gather_fsdp(params['lm_head']['w'], par, 0, dt)
     logits = fp32_logits(copy_to_tensor(x, par), head)
     if return_aux:
-        return logits, torch.stack(aux).mean()
+        aux = torch.stack(aux)
+        return logits, (_router_aux(aux, par) if cfg.is_moe
+                        else aux.mean())
     return logits

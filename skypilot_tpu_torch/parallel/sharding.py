@@ -222,7 +222,7 @@ def shard_leaf(sharding: NamedSharding, node: Any, rank: int) -> Any:
 
 # ---------------------------------------------------------------------------
 # This rank's groups: the tensor axis (serving and training), the batch
-# axes data and fsdp and the sequence axis seq (training)
+# axes data and fsdp, the sequence axis seq and the expert axis (training)
 # ---------------------------------------------------------------------------
 
 _collective_time = {'calls': 0, 'seconds': 0.0, 'timed': False}
@@ -253,7 +253,7 @@ def collective_stats(reset: bool = False) -> Dict[str, Any]:
 
 
 # Mesh axes a rank of a training mesh keeps a group for.
-TRAIN_AXES = ('data', 'fsdp', 'seq', 'tensor')
+TRAIN_AXES = ('data', 'fsdp', 'seq', 'expert', 'tensor')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,13 +261,15 @@ class TensorParallel:
     """This rank's place on the mesh. ``group``, ``degree`` and ``rank``
     are the ``tensor`` axis (what serving uses: its process group, the
     degree and this rank's index along it; ``group`` None at degree 1);
-    ``data_*``, ``fsdp_*`` and ``seq_*`` the same for the batch axes and
-    the sequence axis of a training mesh. Two groups span several axes,
-    so that a sum over them is one collective: ``tokens`` (data x fsdp x
-    seq, every rank that holds other tokens of the batch) and
-    ``replicas`` (data x seq, the ranks that hold the same fsdp block of
-    a leaf). Every collective names its axis or group and is a no-op at
-    degree 1."""
+    ``data_*``, ``fsdp_*``, ``seq_*`` and ``expert_*`` the same for the
+    batch axes, the sequence axis and the expert axis of a training
+    mesh. Three groups span several axes, so that a sum over them is one
+    collective: ``tokens`` (data x fsdp x seq, every rank that holds
+    other tokens of the batch), ``replicas`` (data x seq, the ranks that
+    hold the same fsdp block of a leaf) and ``experts`` (expert x
+    tensor, the ranks that hold other experts or other FFN columns of
+    one token's MoE output). Every collective names its axis or group
+    and is a no-op at degree 1."""
     mesh: Optional[Mesh] = None
     group: Any = None
     degree: int = 1
@@ -281,14 +283,20 @@ class TensorParallel:
     seq_group: Any = None
     seq: int = 1
     seq_rank: int = 0
+    expert_group: Any = None
+    expert: int = 1
+    expert_rank: int = 0
     tokens_group: Any = None
     tokens: int = 1
     replicas_group: Any = None
     replicas: int = 1
+    experts_group: Any = None
+    experts: int = 1
 
     def axis(self, name: str) -> Tuple[Any, int, int]:
         """(group, degree, this rank's index) along ``name``: a mesh axis
-        or one of the groups ``'tokens'`` and ``'replicas'``."""
+        or one of the groups ``'tokens'``, ``'replicas'`` and
+        ``'experts'``."""
         if name == 'tensor':
             return self.group, self.degree, self.rank
         if name == 'data':
@@ -297,12 +305,17 @@ class TensorParallel:
             return self.fsdp_group, self.fsdp, self.fsdp_rank
         if name == 'seq':
             return self.seq_group, self.seq, self.seq_rank
+        if name == 'expert':
+            return self.expert_group, self.expert, self.expert_rank
         if name == 'tokens':
             return (self.tokens_group, self.tokens,
                     self.batch_index * self.seq + self.seq_rank)
         if name == 'replicas':
             return (self.replicas_group, self.replicas,
                     self.data_rank * self.seq + self.seq_rank)
+        if name == 'experts':
+            return (self.experts_group, self.experts,
+                    self.expert_rank * self.degree + self.rank)
         raise ValueError(f'no group for mesh axis {name!r}')
 
     @property
@@ -451,32 +464,32 @@ class TensorParallel:
         return out.movedim(0, dim)
 
 
-class _CopyToTensor(torch.autograd.Function):
+class _CopyTo(torch.autograd.Function):
     """Megatron's f: identity forward; the backward sums the gradient
-    over the tensor group (each rank's heads or columns give a part of
-    it)."""
+    over the axis's group (each rank's heads, columns or experts give a
+    part of it)."""
 
     @staticmethod
-    def forward(ctx, x, tp):
-        ctx.tp = tp
+    def forward(ctx, x, tp, axis):
+        ctx.tp, ctx.axis = tp, axis
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad):
-        return ctx.tp.all_reduce(grad.clone()), None
+        return ctx.tp.all_reduce(grad.clone(), axis=ctx.axis), None, None
 
 
-class _ReduceFromTensor(torch.autograd.Function):
+class _ReduceFrom(torch.autograd.Function):
     """Megatron's g: the forward sums the partial results over the
-    tensor group; identity backward."""
+    axis's group; identity backward."""
 
     @staticmethod
-    def forward(ctx, x, tp):
-        return tp.all_reduce(x.clone())
+    def forward(ctx, x, tp, axis):
+        return tp.all_reduce(x.clone(), axis=axis)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        return grad, None, None
 
 
 class _GatherFsdp(torch.autograd.Function):
@@ -498,14 +511,37 @@ class _GatherFsdp(torch.autograd.Function):
 def copy_to_tensor(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
     """The input of column-parallel projections (``wq``/``wk``/``wv``,
     ``wi_*``, the LM head)."""
-    return x if tp.degree == 1 else _CopyToTensor.apply(x, tp)
+    return x if tp.degree == 1 else _CopyTo.apply(x, tp, 'tensor')
 
 
 def reduce_from_tensor(x: torch.Tensor,
                        tp: TensorParallel) -> torch.Tensor:
     """The output of row-parallel projections (``wo``, ``mlp.wo``) and
     of the vocab-sharded embedding lookup."""
-    return x if tp.degree == 1 else _ReduceFromTensor.apply(x, tp)
+    return x if tp.degree == 1 else _ReduceFrom.apply(x, tp, 'tensor')
+
+
+def copy_to_experts(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """f over ``experts`` (expert x tensor): a MoE block's input to this
+    rank's experts and columns, and its routing weights; each rank's
+    gradient into them is the part its experts and columns give."""
+    return x if tp.experts == 1 else _CopyTo.apply(x, tp, 'experts')
+
+
+def reduce_from_experts(x: torch.Tensor,
+                        tp: TensorParallel) -> torch.Tensor:
+    """g over ``experts``: a MoE block's output, summed over the ranks
+    that hold its other experts and columns."""
+    return x if tp.experts == 1 else _ReduceFrom.apply(x, tp, 'experts')
+
+
+def reduce_from_tokens(x: torch.Tensor,
+                       tp: TensorParallel) -> torch.Tensor:
+    """g over ``tokens``: a statistic of this rank's tokens summed over
+    the batch. Its backward is the identity, so each rank's gradient is
+    its own tokens' part and the gradient sums over ``tokens``
+    (``train/step._sum_grads``) count the whole once."""
+    return x if tp.tokens == 1 else _ReduceFrom.apply(x, tp, 'tokens')
 
 
 def gather_fsdp(shard: torch.Tensor, tp: TensorParallel, dim: int,
@@ -533,31 +569,33 @@ _ambient = threading.local()
 
 def tensor_parallel_of(mesh: Optional[Mesh]) -> TensorParallel:
     """The ``TensorParallel`` of this process's rank on ``mesh``: a group
-    for each of its ``data``, ``fsdp``, ``seq`` and ``tensor`` axes above
-    degree 1, and the ``tokens`` and ``replicas`` groups (one axis's
-    group where only one of theirs is above 1; every rank must call it:
-    the groups are built collectively)."""
+    for each of its ``data``, ``fsdp``, ``seq``, ``expert`` and
+    ``tensor`` axes above degree 1, and the ``tokens``, ``replicas`` and
+    ``experts`` groups (one axis's group where only one of theirs is
+    above 1; every rank must call it: the groups are built
+    collectively)."""
     if mesh is None or all(mesh.shape.get(a, 1) <= 1 for a in TRAIN_AXES):
         return TensorParallel(mesh=mesh)
     import torch.distributed as dist
     coords = mesh.coords(dist.get_rank())
-    fields = {}
+    fields, groups = {}, {}
     for axis, prefix in (('tensor', ''), ('data', 'data_'),
-                         ('fsdp', 'fsdp_'), ('seq', 'seq_')):
+                         ('fsdp', 'fsdp_'), ('seq', 'seq_'),
+                         ('expert', 'expert_')):
         size = mesh.shape.get(axis, 1)
         if size > 1:
-            fields[prefix + 'group'] = mesh.group(axis)
+            groups[axis] = fields[prefix + 'group'] = mesh.group(axis)
             fields['degree' if axis == 'tensor' else axis] = size
             fields['rank' if axis == 'tensor' else prefix + 'rank'] = \
                 coords[axis]
     for name, axes in (('tokens', ('data', 'fsdp', 'seq')),
-                       ('replicas', ('data', 'seq'))):
-        split = [a for a in axes if mesh.shape.get(a, 1) > 1]
+                       ('replicas', ('data', 'seq')),
+                       ('experts', ('expert', 'tensor'))):
+        split = [a for a in axes if a in groups]
         if split:
             fields[name] = math.prod(mesh.shape[a] for a in split)
-            fields[name + '_group'] = (
-                fields[split[0] + '_group'] if len(split) == 1
-                else mesh.group_over(split))
+            fields[name + '_group'] = (groups[split[0]] if len(split) == 1
+                                       else mesh.group_over(split))
     return TensorParallel(mesh=mesh, **fields)
 
 

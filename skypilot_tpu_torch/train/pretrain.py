@@ -5,6 +5,8 @@
         --batch 8 --seq 2048 --steps 20
     python -m skypilot_tpu_torch.train.pretrain --model bench-1b7 \\
         --mesh fsdp=2
+    python -m skypilot_tpu_torch.train.pretrain --model deepseek-moe-16b \\
+        --mesh expert=2,fsdp=2
     python -m skypilot_tpu_torch.train.pretrain --model bench-1b7 \\
         --optimizer adafactor --param-dtype bfloat16 --packed \\
         --data tokens.npy --eos-id 1 --checkpoint-dir ckpt
@@ -24,7 +26,8 @@ packer must build) and counts only the real tokens (the weights) in
 tokens/s. ``--moe-dispatch`` / ``--capacity-factor`` set a MoE
 model's dispatch (``--model tiny-moe --moe-dispatch capacity``).
 
-``--mesh`` (``data``, ``fsdp``, ``seq``, ``tensor``; ``train/step.py``)
+``--mesh`` (``data``, ``fsdp``, ``seq``, ``expert``, ``tensor``;
+``train/step.py``)
 takes one process per rank: run as a command, it starts its own ranks
 (``parallel/launch.py``; ``gloo`` when they share a card), each of which
 runs this same ``main`` inside the process group. The degrees multiply
@@ -38,8 +41,10 @@ batch is cut into each rank's rows and columns, a resume prints
 ``{"mesh_devices": n, ...}``, only rank 0 prints, checkpoints hold
 whole tensors (rank 0 writes them) and restore into any mesh, and a
 resize request is rank 0's decision, broadcast, so that every rank
-stops at the same step. A ``stage`` or ``expert`` degree above 1 and
-MoE models on a mesh raise with a pointer to ROADMAP.md.
+stops at the same step. ``expert`` splits each MoE layer's experts and
+not the batch (a dense model trains on its ranks as replicas, as in the
+reference). A ``stage`` degree above 1, and a MoE model under ``seq``,
+raise with a pointer to ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -235,7 +240,8 @@ def main(argv=None) -> int:
                         choices=['adamw', 'adafactor'])
     parser.add_argument('--mesh', default=None,
                         help="e.g. 'fsdp=2', 'tensor=2', "
-                             "'data=2,fsdp=-1' (default fsdp=-1)")
+                             "'expert=2,fsdp=2', 'data=2,fsdp=-1' "
+                             "(default fsdp=-1)")
     parser.add_argument('--data', default='synthetic',
                         help="'synthetic' or a flat token .npy file")
     parser.add_argument('--packed', action='store_true', default=False,

@@ -13,19 +13,23 @@ written out in torch (not ``torch.optim``):
 - ``adafactor``: ``chain(clip_by_global_norm(c), adafactor(schedule,
   weight_decay_rate=wd, decay_rate=b2))`` (class ``Adafactor``).
 
-Under a mesh over ``data``, ``fsdp``, ``seq`` and ``tensor`` (one
-process per rank, ``parallel/launch.py``) each rank holds its block of
-every leaf under ``parallel/sharding.DEFAULT_RULES``
+Under a mesh over ``data``, ``fsdp``, ``seq``, ``expert`` and ``tensor``
+(one process per rank, ``parallel/launch.py``) each rank holds its block
+of every leaf under ``parallel/sharding.DEFAULT_RULES``
 (``state_shardings``: an optimizer leaf shards like its param only on an
 exact shape match, every other leaf is whole on every rank) and trains
 on its rows of the batch and, under ``seq``, its block of their columns.
-The step:
+The batch does not split over ``expert``: ranks that differ only there
+hold the same tokens and other experts of each MoE layer (a dense model
+trains on them as replicas, as in the reference). The step:
 
 - runs ``llama.forward`` on the shards (fsdp gathers, Megatron's
   column/row-parallel pair over ``tensor``, ring or Ulysses attention
-  over ``seq``, the rank's vocab columns of the logits), the loss
-  combining the vocab blocks over ``tensor`` and normalized by the
-  weight sum of the WHOLE batch (``train/loss.py``);
+  over ``seq``, each MoE layer's experts over ``expert`` and ``tensor``,
+  the rank's vocab columns of the logits), the loss combining the vocab
+  blocks over ``tensor`` and normalized by the weight sum of the WHOLE
+  batch (``train/loss.py``), plus the router aux loss of the whole
+  batch (``llama._router_aux``);
 - sums each gradient over the ranks that hold other tokens: an
   fsdp-sharded leaf's arrives reduce-scattered over ``fsdp`` (the
   gather's backward) and is all-reduced over ``data`` and ``seq``, any
@@ -34,13 +38,15 @@ The step:
 - counts each element of the gradient once in the global norm, and runs
   the optimizers on the blocks: AdamW elementwise, Adafactor with its
   factored statistics, its update RMS and its parameter RMS reduced
-  over each leaf's shard groups (``LeafShard``). No leaf splits over
-  ``seq`` (its ranks hold the same, whole gradients after the sum), so
-  the norm and the statistics reduce over no ``seq`` group.
+  over each leaf's shard groups (``LeafShard``: the expert leaves'
+  over ``expert`` too). No leaf splits over ``seq`` (its ranks hold the
+  same, whole gradients after the sum), so the norm and the statistics
+  reduce over no ``seq`` group.
 
 The reference's numbers under a mesh are its one-device numbers up to
-the order of the sums; so are the port's. MoE configs, ``stage`` and
-``expert`` degrees above 1 raise (ROADMAP.md, queue A item 15 (c)).
+the order of the sums; so are the port's. A ``stage`` degree above 1,
+and MoE configs under ``seq``, raise (ROADMAP.md, queue A item 15
+(c)).
 
 Differences of idiom from the reference: no jit and no donation. The
 parameters and the Adam moments are updated in place, which keeps one
@@ -137,10 +143,7 @@ def mesh_parallel(mesh: Optional[Mesh],
                   cfg: ModelConfig) -> Optional[TensorParallel]:
     """This rank's ``TensorParallel`` on ``mesh``, None for no mesh or a
     one-rank mesh. What the slice does not cover raises first, before
-    any process group is touched: MoE configs and an ``expert`` degree
-    above 1 (the router aux loss is a global mean: it comes with the
-    expert axis), a ``stage`` degree above 1 and heads that ``tensor``
-    does not divide (``ops/attention.check_mesh``)."""
+    any process group is touched (``check_training_mesh``)."""
     if mesh is None or mesh.size == 1:
         return None
     check_training_mesh(mesh.shape, cfg)
@@ -149,13 +152,21 @@ def mesh_parallel(mesh: Optional[Mesh],
 
 def check_training_mesh(shape: Dict[str, int], cfg: ModelConfig) -> None:
     """Raise for a mesh ``shape`` (axis -> degree, more than one rank)
-    that this slice does not train on (see ``mesh_parallel``)."""
-    if cfg.is_moe or shape.get('expert', 1) > 1:
-        raise NotImplementedError(
-            'MoE training and the expert axis under a mesh of more than '
-            'one rank are not ported yet (ROADMAP.md, queue A item 15 '
-            '(c))')
+    that this slice does not train on: a ``stage`` degree above 1, MoE
+    layers under ``seq`` (the reference's capacity groups span the
+    global sequence), an ``expert`` degree that does not divide the
+    experts, and heads that ``tensor`` does not divide
+    (``ops/attention.check_mesh``)."""
     check_mesh(shape, cfg.n_heads, cfg.n_kv_heads)
+    if cfg.is_moe and shape.get('seq', 1) > 1:
+        raise NotImplementedError(
+            'MoE training under seq > 1 is not ported yet: the capacity '
+            'groups span the global sequence (ROADMAP.md, queue A item 15 '
+            '(c))')
+    expert = shape.get('expert', 1)
+    if cfg.is_moe and cfg.num_experts % expert:
+        raise ValueError(f'expert={expert} does not divide the '
+                         f'{cfg.num_experts} experts')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -303,7 +314,7 @@ def _square_sums(grads: List[torch.Tensor],
         return sums
     par = layout[0].par
     vec = torch.stack(sums)
-    for axis in ('fsdp', 'tensor'):
+    for axis in ('fsdp', 'expert', 'tensor'):
         _, degree, index = par.axis(axis)
         if degree == 1:
             continue
@@ -673,8 +684,11 @@ def train_step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
     grads = list(torch.autograd.grad(total_loss, leaves))
     if parallel is not None:
         grads = _sum_grads(grads, optimizer.layout, parallel)
-        # This rank's loss is its share of the batch mean.
-        loss = total_loss = parallel.token_sum(loss.detach().clone())
+        # This rank's loss is its share of the batch mean; the aux is
+        # already the whole batch's.
+        loss = parallel.token_sum(loss.detach().clone())
+        total_loss = (loss if not use_aux else
+                      loss + cfg.router_aux_loss_coeff * aux.detach())
     opt_state, grad_norm = optimizer.update_(state.params, grads,
                                              state.opt_state)
     del grads
@@ -696,7 +710,9 @@ def _sum_grads(grads: List[torch.Tensor], layout: List[LeafShard],
     all-reduce: an fsdp-sharded leaf's is already summed over fsdp (its
     gather's backward reduce-scatters) and is summed over ``replicas``
     (data x seq: every leaf is whole over seq, as over data), the rest
-    over ``tokens`` (data x fsdp x seq)."""
+    over ``tokens`` (data x fsdp x seq). Nothing sums over ``expert``:
+    its ranks hold the same tokens, and each rank's gradient of a leaf
+    it holds whole there (the router, attention) is already whole."""
     return [par.all_reduce(g, axis='replicas' if 'fsdp' in leaf.axes
                            else 'tokens')
             for g, leaf in zip(grads, layout)]

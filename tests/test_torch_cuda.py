@@ -1297,3 +1297,27 @@ def test_tp_moe_engines_on_card_match_one_rank(card, dispatch):
         assert r['launches']['decode_attention'] > 0
     for name in ('batch', 'continuous'):
         assert ranks[0][name] == single[name]
+
+
+def test_moe_expert_mesh_train_on_card_matches_one_rank(card):
+    """TINY_MOE (head_dim 128, fp32 compute, full remat, aux weight 1) at
+    expert=2 on two ranks of the card (gloo) against one rank: two
+    steps' loss, total loss, router aux loss and grad norm within 1e-4
+    relative (``chip_smoke.MESH_TOL``), each rank launching the flash
+    kernels 2L forward, L dq and L dk/dv a step, with no call outside
+    them."""
+    import torch_train_ranks as ranks
+    from skypilot_tpu_torch.parallel.launch import launch
+    out = launch(ranks.cuda_moe_steps, 2, 'expert=2', device='cuda')
+    one = ranks.cuda_moe_steps(0, 1, None)
+    n = one['n_layers'] * len(one['metrics'])
+    for r in out + [one]:
+        assert r['fallbacks'] == 0
+        for name, count in (('flash_fwd', 2 * n), ('flash_dq', n),
+                            ('flash_dkv', n)):
+            assert r['launches'][name] == count, r['launches']
+    for r in out:
+        for got, want in zip(r['metrics'], one['metrics'], strict=True):
+            for key, value in want.items():
+                assert abs(got[key] - value) <= 1e-4 * abs(value), \
+                    (key, got, want)

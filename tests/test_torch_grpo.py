@@ -23,6 +23,7 @@ TINY at fp32 compute on the CPU, params carried over by
 """
 import inspect
 import json
+import time
 
 import jax
 import jax.numpy as jnp
@@ -255,6 +256,13 @@ def test_queued_refresh_serves_the_weights_it_was_requested_with():
         asked = {p: t.detach().clone()
                  for p, t in flatten_param_paths(learner.params).items()}
         busy = engine.submit_ids(PROMPTS[0], max_new_tokens=100)
+        # A drain refresh waits only while a slot is occupied (the
+        # engine's rule, the reference's): request it once busy holds
+        # one, its first token out.
+        deadline = time.monotonic() + 60
+        while not busy.generated and time.monotonic() < deadline:
+            time.sleep(0.001)
+        assert busy.generated
         ticket = engine.request_refresh(params=learner.params, version=7,
                                         mode='drain')
         with torch.no_grad():

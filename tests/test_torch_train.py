@@ -360,22 +360,26 @@ def test_file_batches(tmp_path):
 
 def test_unported_options_raise(monkeypatch, tmp_path):
     """What the mesh-training slices do not cover raises before any rank
-    starts: stage and expert degrees above 1 and MoE models on a mesh
-    (later slices, ROADMAP.md), and heads that tensor does not divide;
-    pipeline stages in the forward. (A seq degree trains:
-    ``tests/test_torch_train_mesh_seq.py``.)"""
-    for spec in ('stage=2', 'expert=2'):
+    starts: a stage degree above 1 and MoE models under seq (later
+    slices, ROADMAP.md), heads that tensor does not divide and an expert
+    degree that does not divide the experts; pipeline stages in the
+    forward. (A seq degree trains: ``tests/test_torch_train_mesh_seq.py``;
+    an expert degree and MoE models on a mesh train:
+    ``tests/test_torch_train_mesh_moe.py``.)"""
+    for argv in (['--mesh', 'stage=2'],
+                 ['--model', 'tiny-moe', '--mesh', 'stage=2'],
+                 ['--model', 'tiny-moe', '--mesh', 'seq=2']):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
-            tpretrain.main(['--mesh', spec, '--device', 'cpu', '--steps',
-                            '1'])
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tpretrain.main(['--model', 'tiny-moe', '--mesh', 'fsdp=2',
-                        '--device', 'cpu', '--steps', '1'])
+            tpretrain.main(argv + ['--device', 'cpu', '--steps', '1'])
     with pytest.raises(ValueError, match='does not divide'):
         tpretrain.main(['--mesh', 'tensor=4', '--device', 'cpu',
                         '--steps', '1'])
+    with pytest.raises(ValueError, match='does not divide'):
+        tpretrain.main(['--model', 'tiny-moe', '--mesh', 'expert=8',
+                        '--device', 'cpu', '--steps', '1'])
     from skypilot_tpu_torch.parallel.mesh import MeshConfig, build_mesh
-    two = build_mesh(MeshConfig(fsdp=2), devices=[0, 1], device_type='cpu')
+    two = build_mesh(MeshConfig(fsdp=1, seq=2), devices=[0, 1],
+                     device_type='cpu')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tstep.make_train_step(tconfig.get_model_config('tiny-moe'),
                               tstep.TrainHParams(), mesh=two)

@@ -101,26 +101,48 @@ def test_pretrain_driver_resize_signal_exits_at_step_boundary(
                          {'mesh_devices': 1, 'num_slices': 1}]
 
 
-@pytest.mark.parametrize('write,read', [('fsdp=2', None), (None, 'fsdp=2')],
-                         ids=['fsdp2_to_one', 'one_to_fsdp2'])
-def test_topology_change_restore_resharding(tmp_path, write, read):
+@pytest.mark.parametrize('write,read,model', [
+    ('fsdp=2', None, 'tiny'), (None, 'fsdp=2', 'tiny'),
+    ('expert=2', None, 'tiny-moe'), (None, 'expert=2,fsdp=2', 'tiny-moe')],
+    ids=['fsdp2_to_one', 'one_to_fsdp2', 'moe_expert2_to_one',
+         'moe_one_to_expert2_fsdp2'])
+def test_topology_change_restore_resharding(tmp_path, write, read, model):
     """A step written at one layout restores into the other (the files
-    hold whole tensors), and its next step's loss is the uninterrupted
-    run's (fp32 sums in another order: 1e-5)."""
+    hold whole tensors): the params restored are the params saved,
+    bitwise (a MoE model's expert leaves written from their blocks over
+    expert, read into blocks over expert and fsdp), and the next step's
+    loss is the uninterrupted run's (fp32 sums in another order:
+    1e-5)."""
     directory = str(tmp_path / 'ck')
 
     def cycle(spec, restore):
         if spec is None:
-            return ranks.checkpoint_cycle(0, 1, None, directory, restore)
-        return launch(ranks.checkpoint_cycle, 2, spec, directory, restore,
-                      device='cpu')[0]
+            return ranks.checkpoint_cycle(0, 1, None, directory, restore,
+                                          model)
+        world = int(np.prod([int(p.split('=')[1])
+                             for p in spec.split(',')]))
+        return launch(ranks.checkpoint_cycle, world, spec, directory,
+                      restore, model, device='cpu')[0]
 
     saved = cycle(write, False)
     assert ckpt_lib.latest_step(directory) == 2
     resumed = cycle(read, True)
     assert resumed['step'] == 3
+    flat_saved = dict(_flat(saved['params']))
+    flat_resumed = dict(_flat(resumed['params']))
+    assert flat_saved.keys() == flat_resumed.keys()
+    for key, value in flat_saved.items():
+        np.testing.assert_array_equal(flat_resumed[key], value, err_msg=key)
     np.testing.assert_allclose(resumed['losses'][0], saved['losses'][2],
                                rtol=1e-5)
+
+
+def _flat(tree, prefix=''):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flat(value, f'{prefix}{key}/')
+        else:
+            yield prefix + key, value
 
 
 def test_deferred_tensors_are_written_one_at_a_time(tmp_path):

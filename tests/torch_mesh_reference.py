@@ -39,6 +39,8 @@ PARAM_ATOL = 1e-5
 # 0, 3e-4, 3e-4 at warmup 1).
 ADAM_FLOOR_ELEMENTS = 4
 ADAM_FLOOR_ATOL = 2 * (3e-4 + 3e-4)
+# The step metrics held to the reference's.
+METRICS = ('loss', 'total_loss', 'router_aux', 'grad_norm')
 # The optimizer state's params-like trees, by optimizer.
 OPT_LEAVES = {'adamw': ('mu', 'nu'), 'adafactor': ('v_row', 'v_col', 'v')}
 
@@ -55,8 +57,8 @@ def jax_mesh(spec):
                       devices=jax.devices()[:n])
 
 
-def jax_config(**overrides):
-    return get_model_config('tiny', **{
+def jax_config(model='tiny', **overrides):
+    return get_model_config(model, **{
         'n_heads': 4, 'n_kv_heads': 2, 'head_dim': 128,
         'compute_dtype': jnp.float32, 'attention_impl': 'xla', **overrides})
 
@@ -94,13 +96,15 @@ def shards_by_coords(jmesh, tree):
     return out
 
 
-def run(spec, name, optimizer, batches, seed=0, hp=None, **overrides):
-    """The reference's train steps on mesh ``spec``: the port's run
-    (``torch_train_ranks.mesh_checks``), and what to hold it to: each
-    step's loss and grad norm, the whole params after, and the shards of
-    the initial params and optimizer state by mesh coordinates."""
+def run(spec, name, optimizer, batches, seed=0, hp=None, model='tiny',
+        **overrides):
+    """The reference's train steps of ``model`` on mesh ``spec``: the
+    port's run (``torch_train_ranks.mesh_checks``), and what to hold it
+    to: each step's loss, total loss, router aux loss and grad norm, the
+    whole params after, and the shards of the initial params and
+    optimizer state by mesh coordinates."""
     jmesh = jax_mesh(spec)
-    cfg = jax_config(**overrides)
+    cfg = jax_config(model, **overrides)
     hp = dict(hp or dict(warmup_steps=1, total_steps=10),
               optimizer=optimizer)
     jhp = jstep.TrainHParams(**hp)
@@ -116,11 +120,11 @@ def run(spec, name, optimizer, batches, seed=0, hp=None, **overrides):
     step = jstep.make_train_step(cfg, jhp, jmesh, shardings=shardings)
     for b in batches:
         state, metrics = step(state, jax.tree.map(jnp.asarray, b))
-        ref['metrics'].append({'loss': float(metrics['loss']),
-                               'grad_norm': float(metrics['grad_norm']),
-                               'step': int(metrics['step'])})
+        ref['metrics'].append({k: float(metrics[k]) for k in METRICS} |
+                              {'step': int(metrics['step'])})
     ref['final'] = jax.tree.map(np.asarray, state.params)
-    port_run = {'name': name, 'overrides': {'head_dim': 128, **overrides},
+    port_run = {'name': name, 'model': model,
+                'overrides': {'head_dim': 128, **overrides},
                 'hp': hp, 'params': params, 'batches': batches}
     return port_run, ref
 
@@ -129,7 +133,9 @@ def assert_matches(got, ref):
     """A port run (rank 0's result) against the reference's."""
     for g, r in zip(got['metrics'], ref['metrics'], strict=True):
         assert g['step'] == r['step']
-        np.testing.assert_allclose(g['loss'], r['loss'], rtol=LOSS_RTOL)
+        for key in ('loss', 'total_loss', 'router_aux'):
+            np.testing.assert_allclose(g[key], r[key], rtol=LOSS_RTOL,
+                                       err_msg=key)
         np.testing.assert_allclose(g['grad_norm'], r['grad_norm'],
                                    rtol=NORM_RTOL)
     final = dict(jax.tree_util.tree_leaves_with_path(got['final']))

@@ -17,11 +17,11 @@ import torch
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'skypilot_tpu')
 
 
-def tiny_config(**overrides):
+def tiny_config(model='tiny', **overrides):
     from skypilot_tpu_torch.models.config import get_model_config
     base = dict(n_heads=4, n_kv_heads=2, compute_dtype=torch.float32)
     base.update(overrides)
-    return get_model_config('tiny', **base)
+    return get_model_config(model, **base)
 
 
 def _mesh(spec):
@@ -78,7 +78,8 @@ def _train_run(run, mesh, par, rank):
     from skypilot_tpu_torch.ops import flash_attention as fa
     from skypilot_tpu_torch.parallel.sharding import gather_params_pytree
     from skypilot_tpu_torch.train import step as tstep
-    cfg = tiny_config(**run.get('overrides', {}))
+    from skypilot_tpu_torch.parallel import sharding as psharding
+    cfg = tiny_config(run.get('model', 'tiny'), **run.get('overrides', {}))
     hp = tstep.TrainHParams(**run['hp'])
     params = convert.params_from_numpy(run['params'], cfg, device='cpu')
     state = tstep.create_train_state_from_params(params, cfg, hp, mesh)
@@ -89,21 +90,66 @@ def _train_run(run, mesh, par, rank):
                            tstep._paths(tree)}
                        for k, tree in state.opt_state.items()
                        if isinstance(tree, dict)},
-        'metrics': []}
+        'metrics': [], 'collectives': []}
     step = tstep.make_train_step(cfg, hp, mesh)
     fa.reset_launch_counts()
-    for batch in run['batches']:
-        state, metrics = step(state, _torch_batch(batch))
-        result['metrics'].append(
-            {'loss': float(metrics['loss']),
-             'grad_norm': float(metrics['grad_norm']),
-             'step': metrics['step']})
+    undo = plant(run['fault'], cfg) if run.get('fault') else None
+    try:
+        for batch in run['batches']:
+            psharding.collective_stats(reset=True)
+            state, metrics = step(state, _torch_batch(batch))
+            result['metrics'].append(
+                {k: float(metrics[k]) for k in METRICS} |
+                {'step': metrics['step']})
+            result['collectives'].append(
+                psharding.collective_stats()['by_kind'])
+    finally:
+        if undo is not None:
+            undo()
     result['flash_fallbacks'] = fa.FALLBACKS['cpu']
     shardings = tstep.state_shardings(mesh, cfg, hp)
     whole = gather_params_pytree(shardings.params, state.params, par)
     if rank == 0:
         result['final'] = _numpy(whole)
     return result
+
+
+# The step metrics a run reports (``torch_mesh_reference.METRICS``).
+METRICS = ('loss', 'total_loss', 'router_aux', 'grad_norm')
+
+
+def plant(fault, cfg):
+    """A planted fault of the MoE blocks under a mesh, for the parity
+    tests to catch; returns the undo.
+
+    * ``'aux of rank products'``: the router aux loss as the mean over
+      the batch ranks of each rank's E * sum f * P, not the product of
+      the whole batch's f and P;
+    * ``'routing weights unreduced'``: the top-k routing weights' f op
+      skipped, so their gradient (and the router's) holds only this
+      rank's experts' part;
+    * ``'expert input unreduced'``: the expert branch's f op skipped, so
+      the gradient into the tokens holds only this rank's experts'
+      part."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.parallel.sharding import reduce_from_tokens
+    if fault == 'aux of rank products':
+        real = llama._router_aux
+
+        def rank_products(stats, par):
+            aux = llama._aux_of(stats).mean()
+            return reduce_from_tokens(aux, par) / par.tokens
+
+        llama._router_aux = rank_products
+        return lambda: setattr(llama, '_router_aux', real)
+    # The routing weights are [..., k], the tokens [..., d_model].
+    skipped = {'routing weights unreduced': cfg.experts_per_token,
+               'expert input unreduced': cfg.d_model}[fault]
+    assert cfg.experts_per_token != cfg.d_model
+    real = llama.copy_to_experts
+    llama.copy_to_experts = lambda x, par: (
+        x if x.shape[-1] == skipped else real(x, par))
+    return lambda: setattr(llama, 'copy_to_experts', real)
 
 
 def attention_checks(rank, world, spec, q, k, v, seg, runs=()):
@@ -182,19 +228,22 @@ def run_main(rank, world, module, argv):
                                 if x.startswith('{')]}
 
 
-def checkpoint_cycle(rank, world, spec, directory, restore):
-    """TINY (AdamW) at mesh ``spec`` (None: one process, no mesh) on the
-    synthetic batch of step 0 (B=8, S=64). Without ``restore``: two
+def checkpoint_cycle(rank, world, spec, directory, restore, model='tiny'):
+    """``model`` (AdamW) at mesh ``spec`` (None: one process, no mesh) on
+    the synthetic batch of step 0 (B=8, S=64). Without ``restore``: two
     steps from the seed-0 init, a checkpoint of step 2 (whole tensors,
     rank 0 writes), then a third step; with it: the latest step of
     ``directory`` restored into a seed-1 state, then one step. Returns
-    the losses and the step count after."""
+    the losses, the step count after and (rank 0) the whole params as
+    saved or as restored."""
+    from skypilot_tpu_torch.parallel.sharding import (gather_params_pytree,
+                                                      tensor_parallel_of)
     from skypilot_tpu_torch.train import checkpoint as ckpt_lib
     from skypilot_tpu_torch.train import step as tstep
     from skypilot_tpu_torch.train.pretrain import synthetic_batch
     del world
     mesh = _mesh(spec)
-    cfg = tiny_config()
+    cfg = tiny_config(model)
     hp = tstep.TrainHParams(warmup_steps=2, total_steps=10)
     shardings = None if mesh is None else tstep.state_shardings(mesh, cfg,
                                                                 hp)
@@ -211,9 +260,13 @@ def checkpoint_cycle(rank, world, spec, directory, restore):
             state, metrics = step(state, batch)
             losses.append(float(metrics['loss']))
         ckpt_lib.save(directory, state.step, state, shardings=shardings)
+    whole = state.params if mesh is None else gather_params_pytree(
+        shardings.params, state.params, tensor_parallel_of(mesh))
+    whole = _numpy(whole) if rank == 0 else None
     state, metrics = step(state, batch)
     losses.append(float(metrics['loss']))
-    return {'rank': rank, 'losses': losses, 'step': state.step}
+    return {'rank': rank, 'losses': losses, 'step': state.step,
+            'params': whole}
 
 
 def finetune_run(rank, world, argv):
@@ -227,3 +280,35 @@ def finetune_run(rank, world, argv):
                            compute_dtype=torch.float32)
     return {'rank': rank, 'losses': out['losses'],
             'lines': buf.getvalue().splitlines()}
+
+
+def cuda_moe_steps(rank, world, spec, steps=2):
+    """TINY_MOE (head dim 128, fp32 compute, full remat) on the card at
+    mesh ``spec`` (None: this process alone): ``steps`` train steps from
+    the seed-0 init on the synthetic batches (B=4, S=128), each step's
+    metrics, and the flash launches and fallbacks of the steps."""
+    from skypilot_tpu_torch import _build
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.parallel.mesh import (MeshConfig, build_mesh,
+                                                  parse_mesh_spec)
+    from skypilot_tpu_torch.train import step as tstep
+    from skypilot_tpu_torch.train.pretrain import synthetic_batch
+    del world
+    _build.build_all()
+    mesh = None if spec is None else build_mesh(
+        MeshConfig(**{'fsdp': 1, **parse_mesh_spec(spec)}),
+        device_type='cuda')
+    cfg = tiny_config('tiny-moe', head_dim=128, remat_policy='full',
+                      router_aux_loss_coeff=1.0)
+    hp = tstep.TrainHParams(warmup_steps=1, total_steps=10)
+    state = tstep.create_train_state(0, cfg, hp, mesh, device='cuda')
+    step = tstep.make_train_step(cfg, hp, mesh)
+    fa.reset_launch_counts()
+    metrics = []
+    for i in range(steps):
+        state, m = step(state, synthetic_batch(i, 4, 128, cfg.vocab_size,
+                                               torch.device('cuda')))
+        metrics.append({k: float(m[k]) for k in METRICS})
+    return {'rank': rank, 'metrics': metrics,
+            'launches': dict(fa.LAUNCHES), 'fallbacks': fa.FALLBACKS['cuda'],
+            'n_layers': cfg.n_layers}
