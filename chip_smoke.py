@@ -54,7 +54,8 @@ Phases, in order; any failure exits non-zero:
    the whole cache (a yardstick only), beside the bound.
 5. Flash kernels vs plain: forward (o, lse), dq and dk/dv against their
    plain versions at bench-1b7's attention shape (B=2, S=2048, H=20,
-   KVH=4, D=128), causal and not, bf16 and fp32, with and without
+   KVH=4, D=128; also one microbatch of phase 36's pipeline), causal and
+   not, bf16 and fp32, with and without
    segment ids, and with segment ids that do not increase along a row
    (bf16, causal and not); once at D=256; once at the batch engine's
    prefill shape (llama3-8b heads H=32, KVH=8, B=4, S=256, bf16,
@@ -354,15 +355,16 @@ Phases, in order; any failure exits non-zero:
    at full width and ``MOE_MESH_LAYERS`` (2) of its 28 layers at fp32
    compute (registered as ``deepseek-moe-16b-l2-fp32``) through
    ``train.pretrain.main`` on two ranks sharing the card over ``gloo``
-   (AdamW, fp32 params, full remat, B=4, S=1024, 2 steps each):
-   ``--mesh expert=2`` (dense dispatch: 32 of the 64 experts a rank),
+   (AdamW, fp32 params, full remat, B=4, S=1024, 2 steps each; the
+   fsdp=2 run and the planted fault's 1): ``--mesh expert=2`` (dense
+   dispatch: 32 of the 64 experts a rank),
    ``--mesh expert=2 --moe-dispatch capacity`` and ``--mesh fsdp=2``
    (every expert, half of each along embed: the aux of the whole
    batch). On each rank: rc 0, only rank 0 prints, finite losses, flash
    launches 2L / L / L a step, no call outside the kernels. Each run's
-   first-step loss, router aux loss and gradient norm and second-step
-   loss against one rank's on the same params and batches (after the
-   ranks exit) within ``MESH_TOL``; a planted fault, an expert=2 run
+   first-step loss, router aux loss and gradient norm and (runs of two
+   steps) second-step loss against one rank's on the same params and
+   batches (after the ranks exit) within ``MESH_TOL``; a planted fault, an expert=2 run
    with the routing weights' backward all-reduce skipped, must fail
    that gate. A bf16-compute expert=2 run (``deepseek-moe-16b-l2``):
    its numbers printed, its launches checked, not gated. Printed beside
@@ -370,12 +372,33 @@ Phases, in order; any failure exits non-zero:
    time and the collectives' share of it, labelled "two ranks on one
    card over gloo: not a training speed".
 
+36. Pipeline-parallel training (after phase 35): bench-1b7 at full
+   width and ``MESH_LAYERS`` (2) layers, one a stage, through
+   ``train.pretrain.main`` on two ranks sharing the card over ``gloo``
+   at ``--mesh stage=2`` (phase 32's AdamW, fp32 params and full remat,
+   B=8, S=2048, the default 4 microbatches of 2 rows, ``MESH_STEPS``
+   steps): a GPipe pipeline whose handoffs are tagged point-to-point
+   sends staged through the host. On each rank: rc 0, only rank 0
+   prints (the last stage's loss, summed over ``stage``), finite losses,
+   flash launches 2 (L/S) M forward and (L/S) M dq and dk/dv a step,
+   every call at B=2 of all 20 heads, no call outside the kernels. The
+   first-step loss and gradient norm and second-step loss against phase
+   32's one rank within ``MESH_TOL``; a planted fault, a backward
+   handoff that sends zeros (one step), must fail that gate. Printed
+   beside the card's name and power limit: each rank's peak memory and
+   step seconds, the collectives' share by kind (a receive counts its
+   wait for the sender) and calls a step, labelled "two ranks on one
+   card over gloo: not a training speed". Its runs are made by phase
+   35's two ranks after phase 35's own, so that they pay no start of
+   their own (``phase_stage_train`` launches them itself when called
+   alone).
+
 Then one JSON line listing every kernel (the paged kernels' launches are
 the sums of phases 9, 14, 15, 22, 23, 24, 26, 27, 28, 29, 30, 31 and 34,
 and of 10, 14, 28, 31 and 34's int8 runs; the decode kernels' of phases
 12, 20, 22, 26, 31 and 34; the flash kernels' of phases 7, 16, 17, 18,
-25, 27, 29, 30, 32, 33 and 35, and phases 31 and 34's batch prefills'
-forwards), the
+25, 27, 29, 30, 32, 33, 35 and 36, and phases 31 and 34's batch
+prefills' forwards), the
 ``nvidia-smi`` name and power-limit line, and last ``{"ok": true,
 "device": {...}}``.
 """
@@ -1391,8 +1414,8 @@ def planted_faults(torch, fa, q, k, v, do, causal, seg, ro, rlse, rgrads):
 
 def flash_cases():
     """(label, shape, dtype, causal, segments) of phase 5: bench-1b7's
-    attention (B=2) both ways, with segment ids permuted per row, D=256,
-    the batch engine's prefill at llama3-8b's and deepseek-moe-16b's
+    attention (B=2, also one microbatch of phase 36) both ways, with
+    segment ids permuted per row, D=256, the batch engine's prefill at llama3-8b's and deepseek-moe-16b's
     heads, its lone request (B=1), the LoRA finetune's B=4 S=512, the
     MoE train steps' shape (bf16, and fp32 at phase 35's rows), the
     GRPO learner's B=8 S=128, and the pipeline's edge shapes:
@@ -1400,7 +1423,9 @@ def flash_cases():
     tile: the ring's prologue and epilogue only) and S=192 (three tiles,
     no multiple of the two stages; the forward's 64-row CTA), GQA groups
     of 1 and 8."""
-    shape = dict(b=2, s=2048, h=20, kvh=4, d=128)   # bench-1b7 attention
+    # bench-1b7 attention; B=2 is also one microbatch of phase 36's
+    # pipeline (B=8 in 4 microbatches), forward and backward.
+    shape = dict(b=2, s=2048, h=20, kvh=4, d=128)
     cases = [(f'{dtype} {"causal" if causal else "full"}'
               f'{" seg" if segments else ""}', shape, dtype, causal,
               segments)
@@ -5394,9 +5419,10 @@ def register_mesh_model():
 class StepRecorder:
     """While entered, every train step ``make_train_step`` builds records
     its unrounded loss, gradient norm and router aux loss, its wall time and the
-    collectives' seconds inside it (the card synchronized before and
-    after; with ``time_collectives`` on, around each collective too), and
-    every flash call its (batch rows, query heads)."""
+    collectives' seconds inside it, in all and by kind (the card
+    synchronized before and after; with ``time_collectives`` on, around
+    each collective too), and every flash call its (batch rows, query
+    heads)."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -5421,17 +5447,20 @@ class StepRecorder:
 
             def run(state, batch):
                 torch.cuda.synchronize()
-                c0 = psharding.collective_stats()['seconds']
+                c0 = psharding.collective_stats()
                 t0 = time.perf_counter()
                 state, metrics = step(state, batch)
                 loss = float(metrics['loss'])
                 torch.cuda.synchronize()
+                c1 = psharding.collective_stats()
                 self.steps.append(dict(
                     loss=loss, grad_norm=float(metrics['grad_norm']),
                     router_aux=float(metrics['router_aux']),
                     wall_s=time.perf_counter() - t0,
-                    collective_s=psharding.collective_stats()['seconds']
-                    - c0))
+                    collective_s=c1['seconds'] - c0['seconds'],
+                    collective_kinds={
+                        k: v - c0['seconds_by_kind'].get(k, 0.0)
+                        for k, v in c1['seconds_by_kind'].items()}))
                 return state, metrics
             return run
 
@@ -5483,13 +5512,30 @@ def plant_unreduced_routing():
     return lambda: setattr(llama, 'copy_to_experts', real)
 
 
+def plant_dropped_dx():
+    """Planted fault for phase 36's gate: the pipeline's backward handoff
+    sends zeros, so stage 0 gets no gradient of its output (its layer
+    and the embedding train on nothing). Returns the undo."""
+    import torch
+    from skypilot_tpu_torch.parallel.sharding import TensorParallel
+    real = TensorParallel.send_to
+
+    def send_to(self, x, hop, tag, axis='stage'):
+        return real(self, torch.zeros_like(x) if hop < 0 else x, hop, tag,
+                    axis)
+
+    TensorParallel.send_to = send_to
+    return lambda: setattr(TensorParallel, 'send_to', real)
+
+
 PLANTED = {'attention unreduced': plant_unreduced_attention,
            'ring not rotating': plant_still_ring,
-           'routing weights unreduced': plant_unreduced_routing}
+           'routing weights unreduced': plant_unreduced_routing,
+           'dx dropped': plant_dropped_dx}
 
 
 def mesh_train_rank(rank, world, runs):
-    """One rank of phases 32, 33 and 35: each run's ``pretrain.main(argv)``
+    """One rank of phases 32, 33, 35 and 36: each run's ``pretrain.main(argv)``
     (its output captured; with a ``fault``, under that ``PLANTED``
     fault) with the flash counts zeroed just before and read just after,
     its steps and attention shapes (``StepRecorder``, every collective
@@ -5593,12 +5639,15 @@ def rel_gap(value, reference):
 
 
 def mesh_gaps(steps, reference):
-    """A run's first-step loss and gradient norm and second-step loss
-    against one rank's (``StepRecorder`` steps), relative."""
-    return {'loss 1': rel_gap(steps[0]['loss'], reference[0]['loss']),
+    """A run's first-step loss and gradient norm and second-step loss (a
+    run of two steps or more) against one rank's (``StepRecorder``
+    steps), relative."""
+    gaps = {'loss 1': rel_gap(steps[0]['loss'], reference[0]['loss']),
             'grad_norm 1': rel_gap(steps[0]['grad_norm'],
-                                   reference[0]['grad_norm']),
-            'loss 2': rel_gap(steps[1]['loss'], reference[1]['loss'])}
+                                   reference[0]['grad_norm'])}
+    if len(steps) > 1:
+        gaps['loss 2'] = rel_gap(steps[1]['loss'], reference[1]['loss'])
+    return gaps
 
 
 def within(gaps):
@@ -6158,16 +6207,25 @@ MOE_MESH_BF16 = f'{MOE_MESH_BASE}-l{MOE_MESH_LAYERS}'
 MOE_MESH_MODEL = f'{MOE_MESH_BF16}-fp32'
 MOE_MESH_STEPS = 2
 MOE_MESH_ARGV = ['--batch', '4', '--seq', '1024', '--warmup-steps', '1',
-                 '--log-every', '1', '--steps', str(MOE_MESH_STEPS)]
-# Run label -> (model, extra argv, planted fault), all on two ranks.
+                 '--log-every', '1']
+# Run label -> (model, extra argv, planted fault, steps), all on two
+# ranks. The fsdp=2 run takes one step (cut from two when phase 36
+# joined: its fp32 gathers through the host are ~20 s a step; step 1's
+# loss, aux and grad norm stay gated), and so does the planted fault's
+# (it moves step 1's grad norm; with warmup 1 the first update has a
+# learning rate of 0, so step 2 could not show it).
 MOE_MESH_RUNS = (
-    ('expert=2', MOE_MESH_MODEL, ['--mesh', 'expert=2'], None),
+    ('expert=2', MOE_MESH_MODEL, ['--mesh', 'expert=2'], None,
+     MOE_MESH_STEPS),
     ('expert=2 capacity', MOE_MESH_MODEL,
-     ['--mesh', 'expert=2', '--moe-dispatch', 'capacity'], None),
-    ('fsdp=2', MOE_MESH_MODEL, ['--mesh', 'fsdp=2'], None),
-    ('expert=2 bf16', MOE_MESH_BF16, ['--mesh', 'expert=2'], None),
+     ['--mesh', 'expert=2', '--moe-dispatch', 'capacity'], None,
+     MOE_MESH_STEPS),
+    ('fsdp=2', MOE_MESH_MODEL, ['--mesh', 'fsdp=2'], None, 1),
+    ('expert=2 bf16', MOE_MESH_BF16, ['--mesh', 'expert=2'], None,
+     MOE_MESH_STEPS),
     ('expert=2 fault', MOE_MESH_MODEL, ['--mesh', 'expert=2'],
-     'routing weights unreduced'))
+     'routing weights unreduced', 1))
+MOE_MESH_STEPS_OF = {label: steps for label, *_, steps in MOE_MESH_RUNS}
 
 
 def register_moe_mesh_models():
@@ -6188,7 +6246,8 @@ def register_moe_mesh_models():
 
 
 def moe_mesh_gaps(steps, reference):
-    """``mesh_gaps`` and the first step's router aux loss."""
+    """``mesh_gaps`` (the second step's loss in a run of two) and the
+    first step's router aux loss."""
     return dict(mesh_gaps(steps, reference), **{
         'router_aux 1': rel_gap(steps[0]['router_aux'],
                                 reference[0]['router_aux'])})
@@ -6199,14 +6258,16 @@ def check_moe_mesh_runs(ranks, cfg):
     flash launches 2L / L / L a step, no call outside the kernels, and
     every attention call on the rank's rows (expert does not split the
     batch: 4 rows at expert=2, 2 at fsdp=2; all 16 heads)."""
-    n = cfg.n_layers * MOE_MESH_STEPS
-    expected = {'flash_fwd': 2 * n, 'flash_dq': n, 'flash_dkv': n,
-                'flash_fwd_seg': 0, 'flash_dq_seg': 0, 'flash_dkv_seg': 0}
     for r in ranks:
         for label, run in r['runs'].items():
+            steps = MOE_MESH_STEPS_OF[label]
+            n = cfg.n_layers * steps
+            expected = {'flash_fwd': 2 * n, 'flash_dq': n, 'flash_dkv': n,
+                        'flash_fwd_seg': 0, 'flash_dq_seg': 0,
+                        'flash_dkv_seg': 0}
             rows = 2 if label.startswith('fsdp') else 4
             losses = [x['loss'] for x in run['lines'] if 'loss' in x]
-            printed_ok = (len(losses) == MOE_MESH_STEPS if r['rank'] == 0
+            printed_ok = (len(losses) == steps if r['rank'] == 0
                           else run['lines'] == [])
             if run['rc'] != 0 or not printed_ok or \
                     not all(math.isfinite(x) for x in losses) or \
@@ -6219,21 +6280,26 @@ def check_moe_mesh_runs(ranks, cfg):
                     f'(rows, heads) of the calls {run["shapes"]} (expected '
                     f'{[(rows, cfg.n_heads)]})')
     log(f'[moe-mesh] both ranks: every run launched 2x{cfg.n_layers} fwd, '
-        f'{cfg.n_layers} dq, {cfg.n_layers} dkv a step x {MOE_MESH_STEPS} '
-        'steps, no fallback; (rows, heads) ' + ', '.join(
+        f'{cfg.n_layers} dq, {cfg.n_layers} dkv a step x its steps '
+        f'{MOE_MESH_STEPS_OF}, no fallback; (rows, heads) ' + ', '.join(
             f'{k} {v["shapes"]}' for k, v in ranks[0]['runs'].items()))
 
 
-def phase_moe_mesh_train(torch, smi):
+def phase_moe_mesh_train(torch, smi, other_runs=()):
     """Phase 35: deepseek-moe-16b at full width and ``MOE_MESH_LAYERS``
     layers trained through ``train.pretrain.main`` by two ranks sharing
     the card over gloo (``MOE_MESH_RUNS``: expert=2 dense and capacity
     and fsdp=2 at fp32 compute, expert=2 at bf16, and the planted fault);
     then one rank on the same params and batches, dense and capacity.
     Gate: each fp32 run's first-step loss, router aux loss and gradient
-    norm and second-step loss against one rank's within ``MESH_TOL``;
-    the planted fault must fail it. Returns the launch totals for the
-    kernels line and the numbers PERF.md keeps."""
+    norm and (runs of two steps) second-step loss against one rank's
+    within ``MESH_TOL``; the planted fault must fail it. Returns the
+    launch totals for the kernels line and the numbers PERF.md keeps.
+
+    ``other_runs``: runs of another phase (``mesh_train_rank``'s (label,
+    argv, fault)) made by the same two ranks after phase 35's, warm, so
+    that they pay no start of their own; their results come back apart
+    (``extra_ranks``) and count in no total here."""
     from skypilot_tpu_torch.parallel.launch import launch
     from skypilot_tpu_torch.train import pretrain
     t0 = time.perf_counter()
@@ -6244,10 +6310,17 @@ def phase_moe_mesh_train(torch, smi):
         f'{cfg.d_ff}, top {cfg.experts_per_token}, vocab {cfg.vocab_size}) '
         f'and {cfg.n_layers} of its 28 layers; B=4 S=1024, AdamW, fp32 '
         'params, full remat')
-    runs = [(label, ['--model', model] + MOE_MESH_ARGV + extra, fault)
-            for label, model, extra, fault in MOE_MESH_RUNS]
-    ranks = launch(mesh_train_rank, 2, runs, device='cuda')
+    runs = [(label, ['--model', model, '--steps', str(steps)] +
+             MOE_MESH_ARGV + argv, fault)
+            for label, model, argv, fault, steps in MOE_MESH_RUNS]
+    ranks = launch(mesh_train_rank, 2, runs + list(other_runs),
+                   device='cuda')
     t1 = time.perf_counter()
+    extra_ranks = [{'rank': r['rank'],
+                    'runs': {label: r['runs'].pop(label)
+                             for label, _, _ in other_runs}}
+                   for r in ranks]
+    extra_s = sum(run['wall_s'] for run in extra_ranks[0]['runs'].values())
     # The planted fault's run is no part of the main path's counts.
     faulted = [r['runs'].pop('expert=2 fault') for r in ranks][0]
     check_moe_mesh_runs(ranks, cfg)
@@ -6256,8 +6329,9 @@ def phase_moe_mesh_train(torch, smi):
         for label, extra in (('dense', []),
                              ('capacity', ['--moe-dispatch', 'capacity'])):
             torch.cuda.reset_peak_memory_stats()
-            rc, _ = run_json_main(pretrain.main, ['--model', MOE_MESH_MODEL]
-                                  + MOE_MESH_ARGV + extra)
+            rc, _ = run_json_main(pretrain.main, [
+                '--model', MOE_MESH_MODEL, '--steps', str(MOE_MESH_STEPS)]
+                + MOE_MESH_ARGV + extra)
             if rc != 0 or len(rec.steps) % MOE_MESH_STEPS:
                 raise AssertionError(f'[moe-mesh] one rank {label}: rc {rc}')
             one[label] = rec.steps[-MOE_MESH_STEPS:]
@@ -6265,7 +6339,7 @@ def phase_moe_mesh_train(torch, smi):
             free_card(torch)
     t2 = time.perf_counter()
     rank0 = ranks[0]['runs']
-    if faulted['rc'] != 0 or len(faulted['steps']) != MOE_MESH_STEPS:
+    if faulted['rc'] != 0 or len(faulted['steps']) != 1:
         raise AssertionError(f'[moe-mesh] planted fault run: rc '
                              f'{faulted["rc"]}, steps {faulted["steps"]}')
     gaps = {label: moe_mesh_gaps(rank0[label]['steps'], one[ref])
@@ -6299,7 +6373,8 @@ def phase_moe_mesh_train(torch, smi):
                              f'passed the gate: {fault}')
     numbers = {}
     for label in rank0:
-        later = rank0[label]['steps'][1:]
+        # Step 2, or step 1 of a one-step run.
+        later = rank0[label]['steps'][1:] or rank0[label]['steps']
         walls = [x['wall_s'] for x in later]
         numbers[label] = {
             'step_s': statistics.median(walls),
@@ -6308,11 +6383,12 @@ def phase_moe_mesh_train(torch, smi):
             'run_s': rank0[label]['wall_s'],
             'peak_gb': [r['runs'][label]['peak_gb'] for r in ranks],
             'collectives_a_step': {
-                k: v / MOE_MESH_STEPS
+                k: v / MOE_MESH_STEPS_OF[label]
                 for k, v in rank0[label]['collectives'].items()},
             'collective_s': rank0[label]['collective_s']}
         log(f'[moe-mesh] {label}: step {numbers[label]["step_s"]:.3f} s '
-            f'(step 2, every collective timed), collectives '
+            f'(step 2; step 1 of a one-step run; every collective timed), '
+            f'collectives '
             f'{100 * numbers[label]["collective_share"]:.1f}% of it; the '
             f'run {numbers[label]["run_s"]:.1f} s; peak GB by rank '
             f'{[round(x, 2) for x in numbers[label]["peak_gb"]]}; calls a '
@@ -6323,12 +6399,176 @@ def phase_moe_mesh_train(torch, smi):
         for run in r['runs'].values():
             for k, v in run['launches'].items():
                 launches[k] = launches.get(k, 0) + v
-    log(f'[smoke] phase 35 {time.perf_counter() - t0:.1f} s (ranks '
-        f'{t1 - t0:.1f} s, one rank {t2 - t1:.1f} s)')
+    log(f'[smoke] phase 35 {time.perf_counter() - t0 - extra_s:.1f} s '
+        f'(ranks {t1 - t0 - extra_s:.1f} s, one rank {t2 - t1:.1f} s; '
+        f'without the {extra_s:.1f} s of the other runs its ranks made)')
     return {'launches': launches, 'gaps': gaps, 'fault': fault,
-            'bf16': bf16, 'runs': numbers,
+            'bf16': bf16, 'runs': numbers, 'extra_ranks': extra_ranks,
+            'extra_s': extra_s,
             'one_peak_gb': {k: one[k + ' peak_gb']
                             for k in ('dense', 'capacity')}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 36: pipeline-parallel training, bench-1b7 at full width, stage=2
+# ---------------------------------------------------------------------------
+
+STAGE_ARGV = MESH_ARGV + ['--mesh', 'stage=2']
+# The default microbatch count for phase 32's B=8 on two stages
+# (``parallel/pipeline.default_num_microbatches``): 4 of 2 rows.
+STAGE_MICROBATCHES = 4
+# Run label -> (extra argv, planted fault, steps). The planted fault's
+# run takes one step: it moves step 1's grad norm (warmup 1 gives the
+# first update a learning rate of 0, so step 2 could not show it).
+STAGE_RUNS = (('stage=2', [], None, MESH_STEPS),
+              ('stage=2 fault', [], 'dx dropped', 1))
+
+
+def check_stage_runs(ranks, cfg):
+    """Every run on both ranks: rc 0, only rank 0 prints (the last
+    stage's loss, summed over stage), finite losses, flash launches
+    2 (L/S) M forward and (L/S) M dq and dk/dv a step, no call outside
+    the kernels, every attention call on one microbatch (2 rows of all
+    20 heads: stage does not split the batch or the heads)."""
+    for r in ranks:
+        for label, run in r['runs'].items():
+            steps = dict((x[0], x[3]) for x in STAGE_RUNS)[label]
+            n = cfg.n_layers // 2 * STAGE_MICROBATCHES * steps
+            expected = {'flash_fwd': 2 * n, 'flash_dq': n, 'flash_dkv': n,
+                        'flash_fwd_seg': 0, 'flash_dq_seg': 0,
+                        'flash_dkv_seg': 0}
+            shape = [(8 // STAGE_MICROBATCHES, cfg.n_heads)]
+            losses = [x['loss'] for x in run['lines'] if 'loss' in x]
+            printed_ok = (len(losses) == steps if r['rank'] == 0
+                          else run['lines'] == [])
+            if run['rc'] != 0 or not printed_ok or \
+                    not all(math.isfinite(x) for x in losses) or \
+                    run['launches'] != expected or run['fallbacks'] or \
+                    run['shapes'] != shape or len(run['steps']) != steps:
+                raise AssertionError(
+                    f'[stage] rank {r["rank"]} {label}: rc {run["rc"]}, '
+                    f'lines {run["lines"]}, launches {run["launches"]} '
+                    f'(expected {expected}), fallbacks {run["fallbacks"]}, '
+                    f'(rows, heads) of the calls {run["shapes"]} (expected '
+                    f'{shape}), steps {len(run["steps"])}')
+    log(f'[stage] both ranks: every run launched 2x{cfg.n_layers // 2}'
+        f'x{STAGE_MICROBATCHES} fwd, {cfg.n_layers // 2}'
+        f'x{STAGE_MICROBATCHES} dq and dkv a step (L/S = '
+        f'{cfg.n_layers // 2} layer a stage, M = {STAGE_MICROBATCHES}), '
+        'no fallback; (rows, heads) ' + ', '.join(
+            f'{k} {v["shapes"]}' for k, v in ranks[0]['runs'].items()))
+
+
+def stage_runs():
+    """Phase 36's runs as ``mesh_train_rank`` takes them."""
+    return [(label, STAGE_ARGV + ['--steps', str(steps)] + extra, fault)
+            for label, extra, fault, steps in STAGE_RUNS]
+
+
+def phase_stage_train(torch, smi, one=None, ranks=None, ranks_s=None):
+    """Phase 36: bench-1b7 at full width (``MESH_LAYERS`` layers, one a
+    stage) trained through ``train.pretrain.main`` by two ranks sharing
+    the card over gloo at ``--mesh stage=2`` (phase 32's AdamW, fp32
+    params, full remat, B=8, S=2048, the default 4 microbatches of 2
+    rows, ``MESH_STEPS`` steps): a GPipe pipeline whose handoffs are
+    tagged point-to-point sends through the host. Gate: the first-step
+    loss and gradient norm and the second-step loss against one rank's
+    on the same params and batches (phase 32's, ``one``; run here when
+    None) within ``MESH_TOL``; a backward handoff that drops the
+    gradient (``plant_dropped_dx``, one step) must fail it. ``ranks``:
+    the results of ``stage_runs()`` made by phase 35's warm ranks
+    (``ranks_s`` seconds); launched here when None. Returns the launch
+    totals for the kernels line and the numbers PERF.md keeps."""
+    from skypilot_tpu_torch.parallel.launch import launch
+    from skypilot_tpu_torch.train import pretrain
+    t0 = time.perf_counter()
+    cfg = register_mesh_model()
+    log(f'[stage] bench-1b7 at full width and {cfg.n_layers} of its 22 '
+        f'layers, stage=2: {cfg.n_layers // 2} layer a stage, '
+        f'{STAGE_MICROBATCHES} microbatches of {8 // STAGE_MICROBATCHES} '
+        'rows; the embedding on stage 0, the head and the loss on stage 1')
+    if ranks is None:
+        ranks = launch(mesh_train_rank, 2, stage_runs(), device='cuda')
+        ranks_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    # The planted fault's run is no part of the main path's counts.
+    faulted = [r['runs'].pop('stage=2 fault') for r in ranks][0]
+    check_stage_runs(ranks, cfg)
+    if one is None:
+        with StepRecorder(torch) as rec:
+            rc, _ = run_json_main(pretrain.main, MESH_ARGV + [
+                '--steps', str(MESH_STEPS)])
+        if rc != 0:
+            raise AssertionError(f'[stage] one rank: rc {rc}')
+        one = {'synthetic': rec.steps}
+        free_card(torch)
+    t2 = time.perf_counter()
+    if faulted['rc'] != 0 or len(faulted['steps']) != 1:
+        raise AssertionError(f'[stage] planted fault run: rc '
+                             f'{faulted["rc"]}, steps {faulted["steps"]}')
+    rank0 = ranks[0]['runs']
+    gaps = {'stage=2': mesh_gaps(rank0['stage=2']['steps'],
+                                 one['synthetic'])}
+    fault = mesh_gaps(faulted['steps'], one['synthetic'])
+    for label, row in list(gaps.items()) + [('planted fault', fault)]:
+        log(f'[stage] {label} vs one rank on the same params and batches, '
+            f'relative: ' + ', '.join(f'{k} {v:.2e}' for k, v in row.items())
+            + f' (limits {MESH_TOL})')
+    log('[stage] stage=2 steps ' + json.dumps(
+        [{k: x[k] for k in ('loss', 'grad_norm')}
+         for x in rank0['stage=2']['steps']]) + '; one rank ' + json.dumps(
+        [{k: x[k] for k in ('loss', 'grad_norm')}
+         for x in one['synthetic']]))
+    off = {label: row for label, row in gaps.items() if not within(row)}
+    if off:
+        raise AssertionError(f'[stage] stage=2 off one rank\'s: {off}')
+    if within(fault):
+        raise AssertionError(f'[stage] the planted fault (a backward handoff '
+                             f'that drops the gradient) passed the gate: '
+                             f'{fault}')
+    numbers = {}
+    for label in rank0:
+        later = rank0[label]['steps'][1:]
+        walls = [x['wall_s'] for x in later]
+        by_rank = []
+        for r in ranks:
+            run = r['runs'][label]
+            step = run['steps'][-1]
+            by_rank.append({
+                'peak_gb': run['peak_gb'],
+                'step_s': [x['wall_s'] for x in run['steps']],
+                'collective_share_by_kind': {
+                    k: v / step['wall_s']
+                    for k, v in step['collective_kinds'].items()},
+                'calls_a_step': {k: v / len(run['steps'])
+                                 for k, v in run['collectives'].items()}})
+        numbers[label] = {
+            'step_s': statistics.median(walls),
+            'collective_share': sum(x['collective_s'] for x in later) /
+            sum(walls),
+            'run_s': rank0[label]['wall_s'], 'ranks': by_rank}
+        log(f'[stage] {label}: step {numbers[label]["step_s"]:.3f} s '
+            f'(median of steps 2-{MESH_STEPS}, every collective timed), '
+            f'collectives {100 * numbers[label]["collective_share"]:.1f}% '
+            f'of it; the run {numbers[label]["run_s"]:.1f} s ({MESH_LABEL}; '
+            f'{smi})')
+        for i, row in enumerate(by_rank):
+            log(f'[stage] {label} rank {i} (stage {i}): peak '
+                f'{row["peak_gb"]:.2f} GB, steps '
+                f'{[round(x, 3) for x in row["step_s"]]} s, share of the '
+                'last step by kind ' + json.dumps(
+                    {k: round(v, 4) for k, v in
+                     row['collective_share_by_kind'].items()}) +
+                ', calls a step ' + json.dumps(row['calls_a_step']))
+    launches = {}
+    for r in ranks:
+        for run in r['runs'].values():
+            for k, v in run['launches'].items():
+                launches[k] = launches.get(k, 0) + v
+    log(f'[smoke] phase 36 {time.perf_counter() - t1 + ranks_s:.1f} s '
+        f'(ranks {ranks_s:.1f} s, one rank {t2 - t1:.1f} s)')
+    return {'launches': launches, 'gaps': gaps, 'fault': fault,
+            'runs': numbers}
 
 
 def main(argv=None) -> int:
@@ -6376,7 +6616,7 @@ def main(argv=None) -> int:
     engine, train, batch, spec, lora = {}, {}, {}, {}, {}
     bench_tr, remat, packed, bench_dec, moe = {}, {}, {}, {}, {}
     ckpt, disagg, rl, tp, mesh, seq = {}, {}, {}, {}, {}, {}
-    tp_moe, moe_mesh = {}, {}
+    tp_moe, moe_mesh, stage = {}, {}, {}
     if not args.skip_engine:
         phase_train_small(torch)
         train = phase_train(torch, fa, flops_peak)
@@ -6443,9 +6683,16 @@ def main(argv=None) -> int:
         log('[tp-moe] phase 34 summary ' + json.dumps(
             {k: v for k, v in tp_moe.items() if k != 'launches'}))
         free_card(torch)
-        moe_mesh = phase_moe_mesh_train(torch, smi)
+        # Phase 36's runs go to phase 35's two ranks, warm by then.
+        moe_mesh = phase_moe_mesh_train(torch, smi, stage_runs())
+        stage_ranks = moe_mesh.pop('extra_ranks')
         log('[moe-mesh] phase 35 summary ' + json.dumps(
             {k: v for k, v in moe_mesh.items() if k != 'launches'}))
+        free_card(torch)
+        stage = phase_stage_train(torch, smi, mesh['one'], stage_ranks,
+                                  moe_mesh['extra_s'])
+        log('[stage] phase 36 summary ' + json.dumps(
+            {k: v for k, v in stage.items() if k != 'launches'}))
     flash_src = 'skypilot_tpu/ops/pallas/flash_attention.py'
     replaces = {
         'paged_attention':
@@ -6518,7 +6765,7 @@ def main(argv=None) -> int:
             batch.get('launches_quant'),
             tp_launches.get('decode_attention_quant')])}
     trains += [mesh.get('launches'), seq.get('launches'),
-               moe_mesh.get('launches')]
+               moe_mesh.get('launches'), stage.get('launches')]
     for name in ('flash_fwd', 'flash_dq', 'flash_dkv'):
         launches[name] = total([
             None if t is None else t[name] + t[name + '_seg']

@@ -61,6 +61,7 @@ from skypilot_tpu_torch.models.config import ModelConfig
 from skypilot_tpu_torch.models.lora import apply_lora_qv
 from skypilot_tpu_torch.ops.attention import multi_head_attention
 from skypilot_tpu_torch.ops.norms import rms_norm
+from skypilot_tpu_torch.parallel import pipeline
 from skypilot_tpu_torch.parallel.sharding import (TensorParallel,
                                                   copy_to_experts,
                                                   copy_to_tensor,
@@ -759,10 +760,142 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     return reduce_from_tensor(torch.where(mine[..., None], rows, 0.0), par)
 
 
+# The reference's refusals under pipeline stages (its llama.py:465-490).
+PACKED_UNDER_STAGES = (
+    'packed-sequence segments are not supported with pipeline_stages > 1 '
+    '(segments are closed over at full batch size but stages see '
+    'microbatches)')
+
+
+def _check_pipelined(segments: Optional[torch.Tensor],
+                     positions: Optional[torch.Tensor],
+                     return_aux: bool) -> None:
+    if segments is not None:
+        raise ValueError(PACKED_UNDER_STAGES)
+    if return_aux:
+        raise ValueError(
+            'return_aux is not supported with pipeline_stages > 1 (the '
+            'stage body carries activations only); set '
+            'router_aux_loss_coeff=0 for pipelined MoE training')
+    if positions is not None and positions.dim() > 1:
+        raise ValueError(
+            'per-example positions are not supported with pipeline_stages '
+            '> 1 (sin/cos are closed over at full batch size but stages see '
+            'microbatches); decode paths with KV caches run unpipelined')
+
+
+def _final(params: Params, x: torch.Tensor, cfg: ModelConfig,
+           par: TensorParallel, return_hidden: bool = False
+           ) -> torch.Tensor:
+    """The final norm and the LM head: fp32 logits (under ``tensor``,
+    this rank's vocab columns), or the normed hidden states."""
+    x = rms_norm(x, params['final_norm']['scale'], cfg.norm_eps)
+    if return_hidden:
+        return x
+    dt = cfg.compute_dtype
+    if cfg.tie_embeddings:
+        head = gather_fsdp(params['embed']['embedding'], par, 1, dt).t()
+    else:
+        head = gather_fsdp(params['lm_head']['w'], par, 0, dt)
+    return fp32_logits(copy_to_tensor(x, par), head)
+
+
+def _layer_runner(cfg: ModelConfig, sin: torch.Tensor, cos: torch.Tensor,
+                  segments: Optional[torch.Tensor], par: TensorParallel
+                  ) -> Callable[[torch.Tensor, Params],
+                                Tuple[torch.Tensor, torch.Tensor]]:
+    """One decoder layer under the config's remat policy."""
+    remat = _remat_policy(cfg)
+
+    def run(x: torch.Tensor, lp: Params):
+        if remat is not None:
+            return remat(_decoder_layer, x, lp, cfg, sin, cos, segments,
+                         par)
+        return _decoder_layer(x, lp, cfg, sin, cos, segments, par)
+
+    return run
+
+
+def _pipeline(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+              last: Callable[[torch.Tensor, slice], Any], *,
+              positions: Optional[torch.Tensor],
+              segments: Optional[torch.Tensor], return_aux: bool,
+              pipeline_stages: int, pipeline_microbatches: Optional[int],
+              parallel: Optional[TensorParallel],
+              wrt: Optional[List[torch.Tensor]] = None):
+    """``parallel/pipeline.pipeline_apply`` of this model: the embedding
+    of each microbatch's rows on the first stage, this rank's L/S layers
+    on every stage (the remat policy per layer and microbatch, MoE
+    layers routing each microbatch's rows), and ``last(y, rows)`` of
+    each microbatch's output ``y`` (``rows``: its rows of this rank's
+    tokens) on the last stage. M is ``pipeline_microbatches``, else the
+    reference's default for the GLOBAL batch (this rank's rows x data x
+    fsdp); it must divide this rank's rows."""
+    _check_pipelined(segments, positions, return_aux)
+    par = parallel
+    if par is None or par.stage != pipeline_stages:
+        raise ValueError(
+            f'pipeline_stages={pipeline_stages} runs over the stage ranks '
+            'of a training mesh: pass parallel=, this rank\'s place on a '
+            f'mesh of stage={pipeline_stages} (got '
+            f'{None if par is None else f"stage={par.stage}"})')
+    n_local = pipeline.check_layers(cfg.n_layers, pipeline_stages)
+    rows, s = tokens.shape
+    count = pipeline_microbatches or pipeline.default_num_microbatches(
+        rows * par.batch_degree, pipeline_stages)
+    size = pipeline.microbatch_rows(rows, count)
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device)
+    sin, cos = rope_table_for(cfg, positions)
+    layer = _layer_runner(cfg, sin, cos, None, par)
+
+    def first(m: int) -> torch.Tensor:
+        return _embed(params, tokens[m * size:(m + 1) * size], cfg, par)
+
+    def body(x: torch.Tensor) -> torch.Tensor:
+        for lp in _unstack(params['layers'], n_local):
+            x, _ = layer(x, lp)
+        return x
+
+    return pipeline.pipeline_apply(
+        par, count, first, body,
+        lambda y, m: last(y, slice(m * size, (m + 1) * size)),
+        (size, s, cfg.d_model), cfg.compute_dtype, tokens.device, wrt)
+
+
+def pipeline_grads(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                   loss_of: Callable[[torch.Tensor, slice], torch.Tensor],
+                   leaves: List[torch.Tensor], *,
+                   positions: Optional[torch.Tensor] = None,
+                   segments: Optional[torch.Tensor] = None,
+                   pipeline_stages: int,
+                   pipeline_microbatches: Optional[int] = None,
+                   parallel: Optional[TensorParallel] = None
+                   ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The train step's forward and backward under pipeline stages:
+    ``loss_of(logits, rows)`` is a microbatch's share of the loss from
+    its fp32 logits (this rank's vocab columns under ``tensor``) and its
+    rows of this rank's tokens, on the last stage. Returns the losses'
+    sum (the last stage's; 0 on the others) and each of ``leaves``'
+    gradient of it (``parallel/pipeline.pipeline_apply``: zeros for a
+    leaf this stage does not use)."""
+    outs, grads = _pipeline(
+        params, tokens, cfg,
+        lambda y, rows: loss_of(_final(params, y, cfg, parallel), rows),
+        positions=positions, segments=segments, return_aux=False,
+        pipeline_stages=pipeline_stages,
+        pipeline_microbatches=pipeline_microbatches, parallel=parallel,
+        wrt=leaves)
+    loss = (torch.stack([x.detach() for x in outs]).sum() if outs else
+            torch.zeros((), dtype=torch.float32, device=tokens.device))
+    return loss, grads
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             positions: Optional[torch.Tensor] = None,
             segments: Optional[torch.Tensor] = None,
             pipeline_stages: int = 1,
+            pipeline_microbatches: Optional[int] = None,
             return_aux: bool = False,
             return_hidden: bool = False,
             parallel: Optional[TensorParallel] = None) -> torch.Tensor:
@@ -778,12 +911,16 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     the columns), and the logits its rows and, under ``tensor``, its
     block of the vocab; MoE layers run their experts over ``expert`` and
     ``tensor`` (``_moe_block``).
-    ``pipeline_stages > 1`` raises with a pointer to ROADMAP.md, as do
-    LoRA layers on a mesh and MoE layers under ``seq``."""
-    if pipeline_stages > 1:
-        raise NotImplementedError(
-            'pipeline stages are multi-device work, not ported yet '
-            '(ROADMAP.md, queue A item 15 (c))')
+
+    ``pipeline_stages > 1`` (with ``parallel`` on a mesh of that
+    ``stage`` degree; ``pipeline_microbatches`` None for the reference's
+    default) runs the GPipe forward (``_pipeline``) and returns the last
+    stage's logits on every stage rank (one sum over ``stage``). It
+    takes no gradient: the train step runs the pipeline's backward
+    schedule (``pipeline_grads``). Packed ``segments``, ``return_aux``
+    and per-example (2-D) ``positions`` raise there, as in the
+    reference. LoRA layers on a mesh and MoE layers under ``seq`` raise
+    with a pointer to ROADMAP.md."""
     par = parallel or _ONE_DEVICE
     if par is not _ONE_DEVICE and 'lora' in params['layers']:
         raise NotImplementedError(
@@ -794,33 +931,48 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             'MoE layers under seq > 1 are not ported yet: the capacity '
             'groups span the global sequence (ROADMAP.md, queue A item 15 '
             '(c))')
+    if pipeline_stages > 1:
+        return _pipelined_forward(params, tokens, cfg, positions, segments,
+                                  pipeline_stages, pipeline_microbatches,
+                                  return_aux, return_hidden, parallel)
     _, s = tokens.shape
-    dt = cfg.compute_dtype
     if positions is None:
         # Under seq the tokens are this rank's block of columns.
         positions = par.seq_rank * s + torch.arange(s, device=tokens.device)
     sin, cos = rope_table_for(cfg, positions)
     x = _embed(params, tokens, cfg, par)
-    remat = _remat_policy(cfg)
+    layer = _layer_runner(cfg, sin, cos, segments, par)
     aux = []
     for lp in _unstack(params['layers'], cfg.n_layers):
-        if remat is not None:
-            x, layer_aux = remat(_decoder_layer, x, lp, cfg, sin, cos,
-                                 segments, par)
-        else:
-            x, layer_aux = _decoder_layer(x, lp, cfg, sin, cos, segments,
-                                          par)
+        x, layer_aux = layer(x, lp)
         aux.append(layer_aux)
-    x = rms_norm(x, params['final_norm']['scale'], cfg.norm_eps)
-    if return_hidden:
-        return x
-    if cfg.tie_embeddings:
-        head = gather_fsdp(params['embed']['embedding'], par, 1, dt).t()
-    else:
-        head = gather_fsdp(params['lm_head']['w'], par, 0, dt)
-    logits = fp32_logits(copy_to_tensor(x, par), head)
-    if return_aux:
-        aux = torch.stack(aux)
-        return logits, (_router_aux(aux, par) if cfg.is_moe
-                        else aux.mean())
-    return logits
+    out = _final(params, x, cfg, par, return_hidden)
+    if return_hidden or not return_aux:
+        return out
+    aux = torch.stack(aux)
+    return out, (_router_aux(aux, par) if cfg.is_moe else aux.mean())
+
+
+@torch.no_grad()
+def _pipelined_forward(params: Params, tokens: torch.Tensor,
+                       cfg: ModelConfig, positions, segments,
+                       pipeline_stages: int,
+                       pipeline_microbatches: Optional[int],
+                       return_aux: bool, return_hidden: bool,
+                       parallel: Optional[TensorParallel]) -> torch.Tensor:
+    """``forward`` under stages: the last stage's outputs of this rank's
+    rows, joined and summed over ``stage`` (zeros from the others)."""
+    outs, _ = _pipeline(
+        params, tokens, cfg,
+        lambda y, rows: _final(params, y, cfg, parallel, return_hidden),
+        positions=positions, segments=segments, return_aux=return_aux,
+        pipeline_stages=pipeline_stages,
+        pipeline_microbatches=pipeline_microbatches, parallel=parallel)
+    rows, s = tokens.shape
+    width = (cfg.d_model if return_hidden
+             else cfg.vocab_size // parallel.degree)
+    out = (torch.cat(outs) if outs else torch.zeros(
+        (rows, s, width), dtype=(cfg.compute_dtype if return_hidden
+                                 else torch.float32),
+        device=tokens.device))
+    return parallel.all_reduce(out, axis='stage')

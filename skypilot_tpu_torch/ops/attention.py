@@ -16,9 +16,9 @@ per-shard case needs no code of its own. ``check_mesh`` is what remains
 of the reference's dispatch: the layouts it sends elsewhere raise when
 the mesh is built. Heads that ``tensor`` does not divide are a
 ``ValueError`` (the reference falls back to XLA attention over
-replicated heads there); a ``stage`` degree above 1 belongs to a later
-slice of the multi-device work (ROADMAP.md, queue A item 15 (c)) and
-raises.
+replicated heads there). A ``stage`` degree splits the layers, not
+attention: each stage runs its layers' attention on a microbatch's rows
+(``parallel/pipeline.py``).
 
 Under a ``seq`` degree above 1 (``parallel``: the rank's
 ``TensorParallel``; q/k/v hold its block of the columns) the dispatch
@@ -91,12 +91,8 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def check_mesh(shape: Dict[str, int], n_heads: int, n_kv_heads: int) -> None:
     """Raise unless attention runs on a mesh of this ``shape`` (axis ->
-    degree): no ``stage`` split, and query and kv heads that the
-    ``tensor`` degree divides."""
-    if shape.get('stage', 1) > 1:
-        raise NotImplementedError(
-            'a stage degree above 1 is multi-device work of a later slice, '
-            'not ported yet (ROADMAP.md, queue A item 15 (c))')
+    degree): query and kv heads that the ``tensor`` degree divides
+    (``stage`` splits the layers, not attention)."""
     tp = shape.get('tensor', 1)
     if n_heads % tp or n_kv_heads % tp:
         raise ValueError(

@@ -19,8 +19,11 @@ world_size, *args)``; rank 0's caller gets every rank's return value.
   names the CPU (``device='cpu'``).
 * A rank that raises or dies ends the launch: the others are
   terminated and ``launch`` raises ``RankFailed`` carrying the failed
-  rank's traceback. Each rank also dies with its parent (Linux
-  ``PR_SET_PDEATHSIG``), so no rank outlives a killed launcher.
+  rank's traceback. So does a launch that outlasts its ``timeout`` (a
+  bound on the whole run: a deadlocked exchange fails its caller
+  instead of waiting out the collective timeout). Each rank also dies
+  with its parent (Linux ``PR_SET_PDEATHSIG``), so no rank outlives a
+  killed launcher.
 
 ``target`` is a callable importable by reference or a
 ``'module:function'`` string; the spawned ranks import only its module
@@ -125,12 +128,14 @@ def _rank_main(rank, world_size, init_file, backend, device_type, target,
 
 
 def launch(target: Union[str, Callable[..., Any]], world_size: int,
-           *args: Any, device: str = 'cuda') -> List[Any]:
+           *args: Any, device: str = 'cuda',
+           timeout: Optional[float] = None) -> List[Any]:
     """Run ``target(rank, world_size, *args)`` on ``world_size`` spawned
     ranks; returns their return values in rank order, or raises
-    ``RankFailed`` as soon as one rank fails (the rest are terminated).
-    The ranks inherit the environment (``OMP_NUM_THREADS`` caps their
-    CPU threads)."""
+    ``RankFailed`` as soon as one rank fails, or once ``timeout``
+    seconds (None: no bound) have passed since the start with a rank
+    still running (the rest are terminated). The ranks inherit the
+    environment (``OMP_NUM_THREADS`` caps their CPU threads)."""
     import torch.multiprocessing as mp
     device_type = torch.device(device).type
     backend, reason = choose_backend(world_size, device_type)
@@ -149,6 +154,7 @@ def launch(target: Union[str, Callable[..., Any]], world_size: int,
     done = set()
     failures = {}
     deadline = None
+    give_up = None if timeout is None else time.monotonic() + timeout
     previous = _terminate_on_sigterm()
     try:
         with open(args_file, 'wb') as f:
@@ -159,6 +165,13 @@ def launch(target: Union[str, Callable[..., Any]], world_size: int,
             if deadline is not None and time.monotonic() > deadline:
                 raise RankFailed('\n'.join(
                     failures[r] for r in sorted(failures)))
+            if give_up is not None and time.monotonic() > give_up:
+                raise RankFailed(
+                    f'the launch of {world_size} ranks ran past its '
+                    f'timeout of {timeout} s; ranks '
+                    f'{sorted(set(range(world_size)) - done)} still '
+                    'running' + ''.join(
+                        '\n' + failures[r] for r in sorted(failures)))
             try:
                 rank, status, payload = results.get(timeout=0.2)
             except queue_lib.Empty:

@@ -27,7 +27,7 @@ import dataclasses
 import math
 import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -222,7 +222,8 @@ def shard_leaf(sharding: NamedSharding, node: Any, rank: int) -> Any:
 
 # ---------------------------------------------------------------------------
 # This rank's groups: the tensor axis (serving and training), the batch
-# axes data and fsdp, the sequence axis seq and the expert axis (training)
+# axes data and fsdp, the sequence axis seq, the expert axis and the
+# pipeline axis stage (training)
 # ---------------------------------------------------------------------------
 
 _collective_time = {'calls': 0, 'seconds': 0.0, 'timed': False}
@@ -253,7 +254,7 @@ def collective_stats(reset: bool = False) -> Dict[str, Any]:
 
 
 # Mesh axes a rank of a training mesh keeps a group for.
-TRAIN_AXES = ('data', 'fsdp', 'seq', 'expert', 'tensor')
+TRAIN_AXES = ('data', 'stage', 'fsdp', 'seq', 'expert', 'tensor')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,10 +262,10 @@ class TensorParallel:
     """This rank's place on the mesh. ``group``, ``degree`` and ``rank``
     are the ``tensor`` axis (what serving uses: its process group, the
     degree and this rank's index along it; ``group`` None at degree 1);
-    ``data_*``, ``fsdp_*``, ``seq_*`` and ``expert_*`` the same for the
-    batch axes, the sequence axis and the expert axis of a training
-    mesh. Three groups span several axes, so that a sum over them is one
-    collective: ``tokens`` (data x fsdp x seq, every rank that holds
+    ``data_*``, ``fsdp_*``, ``seq_*``, ``expert_*`` and ``stage_*`` the
+    same for the batch axes, the sequence axis, the expert axis and the
+    pipeline axis of a training mesh. Three groups span several axes,
+    so that a sum over them is one collective: ``tokens`` (data x fsdp x seq, every rank that holds
     other tokens of the batch), ``replicas`` (data x seq, the ranks that
     hold the same fsdp block of a leaf) and ``experts`` (expert x
     tensor, the ranks that hold other experts or other FFN columns of
@@ -286,6 +287,9 @@ class TensorParallel:
     expert_group: Any = None
     expert: int = 1
     expert_rank: int = 0
+    stage_group: Any = None
+    stage: int = 1
+    stage_rank: int = 0
     tokens_group: Any = None
     tokens: int = 1
     replicas_group: Any = None
@@ -307,6 +311,8 @@ class TensorParallel:
             return self.seq_group, self.seq, self.seq_rank
         if name == 'expert':
             return self.expert_group, self.expert, self.expert_rank
+        if name == 'stage':
+            return self.stage_group, self.stage, self.stage_rank
         if name == 'tokens':
             return (self.tokens_group, self.tokens,
                     self.batch_index * self.seq + self.seq_rank)
@@ -421,6 +427,52 @@ class TensorParallel:
         if staged:
             return [y.to(x.device) for x, y in zip(xs, recvs)]
         return recvs
+
+    def _peer(self, axis: str, hop: int) -> Tuple[Any, int, bool]:
+        """(group, global rank of the index ``hop`` away along ``axis``,
+        whether CUDA tensors go through the host): not cyclic, so a hop
+        past either end raises."""
+        import torch.distributed as dist
+        group, degree, index = self.axis(axis)
+        if not 0 <= index + hop < degree:
+            raise ValueError(f'index {index} of {axis}={degree} has no peer '
+                             f'{hop:+d} away')
+        return (group, dist.get_global_rank(group, index + hop),
+                dist.get_backend(group) == 'gloo')
+
+    def send_to(self, x: torch.Tensor, hop: int, tag: int,
+                axis: str = 'stage') -> Callable[[], None]:
+        """Start sending ``x`` to the rank ``hop`` indices along ``axis``
+        (+1 the next stage, -1 the previous one), tagged ``tag`` (a
+        microbatch's index: only the receive that names the same tag
+        takes it). Returns the send's wait (its work holds the sent
+        buffer until then). Under ``gloo`` a CUDA tensor is staged
+        through a host copy, as in ``ring_shift``."""
+        import torch.distributed as dist
+        group, dst, gloo = self._peer(axis, hop)
+        send = x.detach().contiguous()
+        if send.is_cuda and gloo:
+            send = send.cpu()
+        works = []
+        self._run(send, lambda: works.append(
+            dist.isend(send, dst, group=group, tag=tag)), f'send {axis}')
+        return works[0].wait
+
+    def recv_from(self, shape: Sequence[int], dtype: torch.dtype,
+                  device: torch.device, hop: int, tag: int,
+                  axis: str = 'stage') -> torch.Tensor:
+        """The tensor that the rank ``hop`` indices along ``axis`` sends
+        with ``tag`` (a new tensor on ``device``); blocks until it
+        arrives, so under ``time_collectives`` its time includes the
+        wait for the sender."""
+        import torch.distributed as dist
+        group, src, gloo = self._peer(axis, hop)
+        staged = torch.device(device).type == 'cuda' and gloo
+        out = torch.empty(tuple(shape), dtype=dtype,
+                          device='cpu' if staged else device)
+        self._run(out, lambda: dist.recv(out, src, group=group, tag=tag),
+                  f'recv {axis}')
+        return out.to(device) if staged else out
 
     def all_to_all(self, x: torch.Tensor, split_dim: int, concat_dim: int,
                    axis: str = 'seq') -> torch.Tensor:
@@ -569,8 +621,8 @@ _ambient = threading.local()
 
 def tensor_parallel_of(mesh: Optional[Mesh]) -> TensorParallel:
     """The ``TensorParallel`` of this process's rank on ``mesh``: a group
-    for each of its ``data``, ``fsdp``, ``seq``, ``expert`` and
-    ``tensor`` axes above degree 1, and the ``tokens``, ``replicas`` and
+    for each of its ``data``, ``stage``, ``fsdp``, ``seq``, ``expert``
+    and ``tensor`` axes above degree 1, and the ``tokens``, ``replicas`` and
     ``experts`` groups (one axis's group where only one of theirs is
     above 1; every rank must call it: the groups are built
     collectively)."""
@@ -581,7 +633,7 @@ def tensor_parallel_of(mesh: Optional[Mesh]) -> TensorParallel:
     fields, groups = {}, {}
     for axis, prefix in (('tensor', ''), ('data', 'data_'),
                          ('fsdp', 'fsdp_'), ('seq', 'seq_'),
-                         ('expert', 'expert_')):
+                         ('expert', 'expert_'), ('stage', 'stage_')):
         size = mesh.shape.get(axis, 1)
         if size > 1:
             groups[axis] = fields[prefix + 'group'] = mesh.group(axis)

@@ -19,8 +19,8 @@ Two modes (the CPU with ``--device cpu``):
 * **full** (``--lora-rank 0``): every parameter trains in fp32 with the
   pretrain step (``train/step.py``: AdamW with global-norm clipping and
   the reference's warmup-cosine schedule, warmup ``min(10, steps)``).
-  ``--mesh`` trains over ``data``/``fsdp``/``seq``/``tensor`` as
-  ``pretrain`` does: the command starts its own ranks, each loads the
+  ``--mesh`` trains over ``data``/``stage``/``fsdp``/``seq``/``tensor``
+  as ``pretrain`` does: the command starts its own ranks, each loads the
   checkpoint and keeps its blocks, the batch rounds up to data x fsdp
   and the sequence up to seq, only rank 0 prints, and the export holds
   the whole (gathered) weights.
@@ -136,8 +136,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help='0 = full finetune; >0 = LoRA rank '
                              '(frozen bf16 base, fp32 adapters)')
     parser.add_argument('--mesh', default=None,
-                        help='full finetune: one card only (absent, or '
-                             'degrees of 1)')
+                        help="full finetune: e.g. 'fsdp=2', 'stage=2' "
+                             '(ignored with --lora-rank > 0)')
     parser.add_argument('--export-dir', default=None,
                         help='write the finetuned model back as an '
                              'HF-layout checkpoint (LoRA merged)')
@@ -333,7 +333,8 @@ def main(argv=None) -> int:
     if args.lora_rank == 0:
         device = resolve_device(args.device)
         code = start_ranks(main, argv, args.mesh,
-                           load_config(args.hf_checkpoint), device.type)
+                           load_config(args.hf_checkpoint), device.type,
+                           args.batch)
         if code is not None:
             return code
     run(args)

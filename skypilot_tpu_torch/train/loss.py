@@ -12,7 +12,8 @@ from skypilot_tpu_torch.parallel.sharding import reduce_from_tensor
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
                        weights: Optional[torch.Tensor] = None,
                        z_loss_coeff: float = 0.0,
-                       parallel: Optional[Any] = None
+                       parallel: Optional[Any] = None,
+                       total_weight: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token-weighted mean cross entropy.
 
@@ -29,6 +30,10 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     the vocab, and the log-partition and the target logit are summed
     over the tensor group (a vocab-parallel cross entropy: the [B, S, V]
     logits are never gathered).
+
+    ``total_weight``: the normalizer, already summed (a pipeline
+    microbatch's share of a batch whose weight sum is known); returned
+    as given.
     """
     logits = logits.float()
     if parallel is not None and parallel.degree > 1:
@@ -43,10 +48,11 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     if weights is None:
         weights = torch.ones_like(nll)
     weights = weights.float()
-    total = weights.sum()
-    if parallel is not None:
-        total = parallel.token_sum(total)
-    total_weight = torch.clamp(total, min=1.0)
+    if total_weight is None:
+        total = weights.sum()
+        if parallel is not None:
+            total = parallel.token_sum(total)
+        total_weight = torch.clamp(total, min=1.0)
     return (nll * weights).sum() / total_weight, total_weight
 
 

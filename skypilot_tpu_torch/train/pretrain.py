@@ -8,6 +8,8 @@
     python -m skypilot_tpu_torch.train.pretrain --model deepseek-moe-16b \\
         --mesh expert=2,fsdp=2
     python -m skypilot_tpu_torch.train.pretrain --model bench-1b7 \\
+        --mesh stage=2
+    python -m skypilot_tpu_torch.train.pretrain --model bench-1b7 \\
         --optimizer adafactor --param-dtype bfloat16 --packed \\
         --data tokens.npy --eos-id 1 --checkpoint-dir ckpt
     python -m skypilot_tpu_torch.train.pretrain --model tiny --device cpu
@@ -26,8 +28,8 @@ packer must build) and counts only the real tokens (the weights) in
 tokens/s. ``--moe-dispatch`` / ``--capacity-factor`` set a MoE
 model's dispatch (``--model tiny-moe --moe-dispatch capacity``).
 
-``--mesh`` (``data``, ``fsdp``, ``seq``, ``expert``, ``tensor``;
-``train/step.py``)
+``--mesh`` (``data``, ``stage``, ``fsdp``, ``seq``, ``expert``,
+``tensor``; ``train/step.py``)
 takes one process per rank: run as a command, it starts its own ranks
 (``parallel/launch.py``; ``gloo`` when they share a card), each of which
 runs this same ``main`` inside the process group. The degrees multiply
@@ -43,8 +45,12 @@ whole tensors (rank 0 writes them) and restore into any mesh, and a
 resize request is rank 0's decision, broadcast, so that every rank
 stops at the same step. ``expert`` splits each MoE layer's experts and
 not the batch (a dense model trains on its ranks as replicas, as in the
-reference). A ``stage`` degree above 1, and a MoE model under ``seq``,
-raise with a pointer to ROADMAP.md.
+reference). ``stage`` splits the layers into a GPipe pipeline
+(``parallel/pipeline.py``; the loss is the last stage's): the layers
+and a rank's rows of the batch must divide over the stages and the
+default microbatches, and ``--packed`` raises there, as in the
+reference. A MoE model under ``seq``, and ``stage`` with ``seq`` or
+``expert``, raise with a pointer to ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -82,10 +88,13 @@ def mesh_ranks(config, device_type: str) -> int:
     return known * max(1, count // known)
 
 
-def training_mesh(spec: Optional[str], cfg, device_type: str):
+def training_mesh(spec: Optional[str], cfg, device_type: str,
+                  batch: Optional[int] = None):
     """(mesh config resolved for its ranks, rank count) of ``--mesh``
     under ``SKYT_ELASTIC_SLICES``; what the slice does not train on
-    raises here, before any rank starts."""
+    raises here, before any rank starts (with ``batch``, also a batch
+    the pipeline's microbatches do not divide, once rounded up to data
+    x fsdp)."""
     from skypilot_tpu_torch.parallel.mesh import MESH_AXIS_NAMES, MeshConfig
     from skypilot_tpu_torch.train.step import check_training_mesh
     config = MeshConfig(**parse_mesh(spec))
@@ -97,8 +106,11 @@ def training_mesh(spec: Optional[str], cfg, device_type: str):
     world = mesh_ranks(config, device_type)
     config = config.resolve(world)
     if world > 1:
+        if batch is not None:
+            div = config.data * config.fsdp
+            batch = -(-batch // div) * div
         check_training_mesh(dict(zip(MESH_AXIS_NAMES, config.axis_sizes())),
-                            cfg)
+                            cfg, batch)
     return config, world
 
 
@@ -125,14 +137,16 @@ def _rank_main(rank: int, world: int, entry, argv) -> int:
 
 
 def start_ranks(entry, argv, spec: Optional[str], cfg,
-                device_type: str) -> Optional[int]:
+                device_type: str, batch: Optional[int] = None
+                ) -> Optional[int]:
     """Rank 0's exit code of ``entry(argv)`` run on the ranks that
     ``--mesh spec`` takes, started here (``parallel/launch.py``) when
     they are more than one and this process is not one of them; None
-    when this process trains itself."""
+    when this process trains itself. ``batch``: the global batch, held
+    to the pipeline's microbatches before the ranks start."""
     if is_launched():
         return None
-    _, world = training_mesh(spec, cfg, device_type)
+    _, world = training_mesh(spec, cfg, device_type, batch)
     if world == 1:
         return None
     from skypilot_tpu_torch.parallel.launch import launch
@@ -239,7 +253,7 @@ def main(argv=None) -> int:
     parser.add_argument('--optimizer', default='adamw',
                         choices=['adamw', 'adafactor'])
     parser.add_argument('--mesh', default=None,
-                        help="e.g. 'fsdp=2', 'tensor=2', "
+                        help="e.g. 'fsdp=2', 'tensor=2', 'stage=2', "
                              "'expert=2,fsdp=2', 'data=2,fsdp=-1' "
                              "(default fsdp=-1)")
     parser.add_argument('--data', default='synthetic',
@@ -289,7 +303,10 @@ def main(argv=None) -> int:
     if args.capacity_factor is not None:
         overrides['capacity_factor'] = args.capacity_factor
     cfg = get_model_config(args.model, **overrides)
-    code = start_ranks(main, argv, args.mesh, cfg, device.type)
+    if args.packed and parse_mesh(args.mesh).get('stage', 1) > 1:
+        from skypilot_tpu_torch.models.llama import PACKED_UNDER_STAGES
+        raise ValueError(PACKED_UNDER_STAGES)
+    code = start_ranks(main, argv, args.mesh, cfg, device.type, args.batch)
     if code is not None:
         return code
     mesh_config, mesh, is_main = enter_mesh(args, cfg, device)

@@ -13,9 +13,9 @@ written out in torch (not ``torch.optim``):
 - ``adafactor``: ``chain(clip_by_global_norm(c), adafactor(schedule,
   weight_decay_rate=wd, decay_rate=b2))`` (class ``Adafactor``).
 
-Under a mesh over ``data``, ``fsdp``, ``seq``, ``expert`` and ``tensor``
-(one process per rank, ``parallel/launch.py``) each rank holds its block
-of every leaf under ``parallel/sharding.DEFAULT_RULES``
+Under a mesh over ``data``, ``stage``, ``fsdp``, ``seq``, ``expert`` and
+``tensor`` (one process per rank, ``parallel/launch.py``) each rank holds
+its block of every leaf under ``parallel/sharding.DEFAULT_RULES``
 (``state_shardings``: an optimizer leaf shards like its param only on an
 exact shape match, every other leaf is whole on every rank) and trains
 on its rows of the batch and, under ``seq``, its block of their columns.
@@ -43,10 +43,23 @@ trains on them as replicas, as in the reference). The step:
   same, whole gradients after the sum), so the norm and the statistics
   reduce over no ``seq`` group.
 
+Under ``stage`` (GPipe, ``parallel/pipeline.py``) each rank holds its
+block of L/S layers and its stage's share of the step
+(``llama.pipeline_grads``): the microbatches' losses on the last stage,
+each normalized by the weight sum of the whole batch, the backward
+schedule's gradients, then the sums above and, for every leaf that
+``stage`` does not split (the embedding, the final norm, the LM head),
+a sum over ``stage``: a stage that did not use the leaf adds zeros, and
+a tied embedding adds its first-stage and last-stage parts. The global
+norm and Adafactor's statistics count each stage's block of a layer
+leaf once. As in the reference, a MoE model trains there on the plain
+cross entropy (``router_aux`` 0), and packed segments raise. The loss
+is the last stage's, summed over ``stage`` for the metrics.
+
 The reference's numbers under a mesh are its one-device numbers up to
-the order of the sums; so are the port's. A ``stage`` degree above 1,
-and MoE configs under ``seq``, raise (ROADMAP.md, queue A item 15
-(c)).
+the order of the sums; so are the port's. MoE configs under ``seq``,
+and ``stage`` with ``seq`` or ``expert``, raise (ROADMAP.md, queue A
+item 15 (c)).
 
 Differences of idiom from the reference: no jit and no donation. The
 parameters and the Adam moments are updated in place, which keeps one
@@ -67,6 +80,7 @@ from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.models.config import ModelConfig
 from skypilot_tpu_torch.ops.attention import check_mesh
 from skypilot_tpu_torch.ops.ring_attention import seq_shard
+from skypilot_tpu_torch.parallel import pipeline
 from skypilot_tpu_torch.parallel.mesh import Mesh
 from skypilot_tpu_torch.parallel.sharding import (DEFAULT_RULES,
                                                   LogicalAxisRules,
@@ -103,6 +117,10 @@ class TrainHParams:
     b2: float = 0.95
     grad_clip_norm: float = 1.0
     z_loss_coeff: float = 1e-4
+    # Pipeline microbatch count when the mesh has a stage axis > 1; None =
+    # largest divisor of the global batch <= 2 * stages
+    # (parallel/pipeline.py).
+    pipeline_microbatches: Optional[int] = None
     # 'adamw' (2 fp32 moments/param) or 'adafactor' (factored second
     # moment in the param's dtype, O(rows + cols) state per leaf).
     optimizer: str = 'adamw'
@@ -150,14 +168,31 @@ def mesh_parallel(mesh: Optional[Mesh],
     return tensor_parallel_of(mesh)
 
 
-def check_training_mesh(shape: Dict[str, int], cfg: ModelConfig) -> None:
+def check_training_mesh(shape: Dict[str, int], cfg: ModelConfig,
+                        batch: Optional[int] = None) -> None:
     """Raise for a mesh ``shape`` (axis -> degree, more than one rank)
-    that this slice does not train on: a ``stage`` degree above 1, MoE
-    layers under ``seq`` (the reference's capacity groups span the
-    global sequence), an ``expert`` degree that does not divide the
-    experts, and heads that ``tensor`` does not divide
-    (``ops/attention.check_mesh``)."""
+    that this slice does not train on: MoE layers under ``seq`` (the
+    reference's capacity groups span the global sequence), ``stage``
+    with ``seq`` or ``expert`` (later slices), an ``expert`` degree that
+    does not divide the experts, heads that ``tensor`` does not divide
+    (``ops/attention.check_mesh``), layers that ``stage`` does not
+    divide and, for a global ``batch``, the default microbatch count
+    where it does not divide a rank's rows (the step raises there too:
+    ``llama._pipeline``)."""
     check_mesh(shape, cfg.n_heads, cfg.n_kv_heads)
+    stage = shape.get('stage', 1)
+    if stage > 1:
+        for axis, item in (('seq', 7), ('expert', 8)):
+            if shape.get(axis, 1) > 1:
+                raise NotImplementedError(
+                    f'stage > 1 with {axis} > 1 is not ported yet: one '
+                    'axis a slice (ROADMAP.md, queue A item 15 (c) '
+                    f'{item})')
+        pipeline.check_layers(cfg.n_layers, stage)
+        if batch is not None:
+            rows = batch // (shape.get('data', 1) * shape.get('fsdp', 1))
+            pipeline.microbatch_rows(
+                rows, pipeline.default_num_microbatches(batch, stage))
     if cfg.is_moe and shape.get('seq', 1) > 1:
         raise NotImplementedError(
             'MoE training under seq > 1 is not ported yet: the capacity '
@@ -314,7 +349,7 @@ def _square_sums(grads: List[torch.Tensor],
         return sums
     par = layout[0].par
     vec = torch.stack(sums)
-    for axis in ('fsdp', 'expert', 'tensor'):
+    for axis in ('stage', 'fsdp', 'expert', 'tensor'):
         _, degree, index = par.axis(axis)
         if degree == 1:
             continue
@@ -661,32 +696,41 @@ def train_step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
     A MoE model (with ``router_aux_loss_coeff > 0``, no pipeline)
     optimizes ``total_loss = loss + coeff * router_aux``, the layer mean
     of the router load-balancing loss; ``loss`` stays the plain cross
-    entropy, and ``router_aux`` is 0 for a dense model."""
+    entropy, and ``router_aux`` is 0 for a dense model and under
+    pipeline stages (``_pipeline_loss``)."""
     use_aux = (cfg.is_moe and cfg.router_aux_loss_coeff > 0
                and pipeline_stages == 1)
     leaves = _leaves(state.params)
-    out = llama.forward(state.params, batch['tokens'], cfg,
-                        positions=batch.get('positions'),
-                        segments=batch.get('segments'),
-                        pipeline_stages=pipeline_stages,
-                        return_aux=use_aux, parallel=parallel)
-    logits, aux = out if use_aux else (out, None)
-    loss, _ = cross_entropy_loss(logits, batch['targets'],
-                                 batch.get('weights'),
-                                 z_loss_coeff=hp.z_loss_coeff,
-                                 parallel=parallel)
-    del logits, out
-    total_loss = loss
+    aux = None
+    if pipeline_stages > 1:
+        loss, grads = _pipeline_loss(state.params, batch, cfg, hp, leaves,
+                                     pipeline_stages, parallel)
+        total_loss = loss
+    else:
+        out = llama.forward(state.params, batch['tokens'], cfg,
+                            positions=batch.get('positions'),
+                            segments=batch.get('segments'),
+                            return_aux=use_aux, parallel=parallel)
+        logits, aux = out if use_aux else (out, None)
+        loss, _ = cross_entropy_loss(logits, batch['targets'],
+                                     batch.get('weights'),
+                                     z_loss_coeff=hp.z_loss_coeff,
+                                     parallel=parallel)
+        del logits, out
+        total_loss = loss
+        if aux is not None:
+            total_loss = loss + cfg.router_aux_loss_coeff * aux
+        grads = list(torch.autograd.grad(total_loss, leaves))
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=loss.device)
-    else:
-        total_loss = loss + cfg.router_aux_loss_coeff * aux
-    grads = list(torch.autograd.grad(total_loss, leaves))
     if parallel is not None:
         grads = _sum_grads(grads, optimizer.layout, parallel)
-        # This rank's loss is its share of the batch mean; the aux is
-        # already the whole batch's.
-        loss = parallel.token_sum(loss.detach().clone())
+        grads = _stage_sum(grads, optimizer.layout, parallel)
+        # This rank's loss is its share of the batch mean (under stages
+        # the last stage's, zeros on the others); the aux is already the
+        # whole batch's.
+        loss = parallel.all_reduce(parallel.token_sum(
+            loss.detach().clone()), axis='stage')
         total_loss = (loss if not use_aux else
                       loss + cfg.router_aux_loss_coeff * aux.detach())
     opt_state, grad_norm = optimizer.update_(state.params, grads,
@@ -702,6 +746,47 @@ def train_step_fn(state: TrainState, batch: Dict[str, torch.Tensor],
     }
     return TrainState(step=state.step + 1, params=state.params,
                       opt_state=opt_state), metrics
+
+
+def _pipeline_loss(params: Params, batch: Dict[str, torch.Tensor],
+                   cfg: ModelConfig, hp: TrainHParams,
+                   leaves: List[torch.Tensor], pipeline_stages: int,
+                   parallel: Optional[TensorParallel]
+                   ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """(loss, gradients) of this rank's share of a step under pipeline
+    stages: each microbatch's cross entropy on the last stage over the
+    weight sum of the WHOLE batch (one sum over ``tokens`` a step), so
+    the microbatches' losses add up to the batch mean."""
+    targets, weights = batch['targets'], batch.get('weights')
+    if weights is None:
+        weights = torch.ones(targets.shape, dtype=torch.float32,
+                             device=targets.device)
+    total = None
+    if parallel is not None and parallel.stage_rank == parallel.stage - 1:
+        total = torch.clamp(parallel.token_sum(weights.float().sum()),
+                            min=1.0)
+
+    def loss_of(logits: torch.Tensor, rows: slice) -> torch.Tensor:
+        return cross_entropy_loss(logits, targets[rows], weights[rows],
+                                  z_loss_coeff=hp.z_loss_coeff,
+                                  parallel=parallel, total_weight=total)[0]
+
+    return llama.pipeline_grads(
+        params, batch['tokens'], cfg, loss_of, leaves,
+        positions=batch.get('positions'), segments=batch.get('segments'),
+        pipeline_stages=pipeline_stages,
+        pipeline_microbatches=hp.pipeline_microbatches, parallel=parallel)
+
+
+def _stage_sum(grads: List[torch.Tensor], layout: List[LeafShard],
+               par: TensorParallel) -> List[torch.Tensor]:
+    """Each gradient of a leaf that ``stage`` does not split (the
+    embedding, the final norm, the LM head) summed over ``stage``: the
+    stages that do not use it hold zeros."""
+    if par.stage == 1:
+        return grads
+    return [g if 'stage' in leaf.axes else par.all_reduce(g, axis='stage')
+            for g, leaf in zip(grads, layout)]
 
 
 def _sum_grads(grads: List[torch.Tensor], layout: List[LeafShard],
@@ -727,12 +812,13 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams,
     rank trains on its rows, and every rank returns the same metrics."""
     par = mesh_parallel(mesh, cfg)
     optimizer = make_optimizer(hp, _layout(mesh, cfg, hp, par))
+    stages = 1 if par is None else par.stage
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         if par is not None:
             batch = _batch_rows(batch, par)
         return train_step_fn(state, batch, cfg, optimizer, hp,
-                             parallel=par)
+                             pipeline_stages=stages, parallel=par)
 
     return step
 
@@ -749,7 +835,8 @@ def make_forward(cfg: ModelConfig, mesh: Optional[Mesh] = None):
             return llama.forward(params, tokens, cfg)
         rows = _batch_rows({'tokens': tokens}, par)['tokens']
         logits = par.all_gather(
-            llama.forward(params, rows, cfg, parallel=par), -1, 'tensor')
+            llama.forward(params, rows, cfg, pipeline_stages=par.stage,
+                          parallel=par), -1, 'tensor')
         logits = par.all_gather(logits, 1, 'seq')
         return par.all_gather(par.all_gather(logits, 0, 'fsdp'), 0, 'data')
 

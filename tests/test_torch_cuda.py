@@ -1299,6 +1299,32 @@ def test_tp_moe_engines_on_card_match_one_rank(card, dispatch):
         assert ranks[0][name] == single[name]
 
 
+def test_stage_mesh_train_on_card_matches_one_rank(card):
+    """TINY (2 layers, head_dim 128, fp32 compute, full remat) at stage=2
+    on two ranks of the card (gloo): two steps' loss and grad norm
+    within 1e-4 relative of one rank's (``chip_smoke.MESH_TOL``), each
+    stage rank launching the flash kernels 2 (L/S) M forward and (L/S)
+    M dq and dk/dv a step (M = 4 microbatches of one row), with no call
+    outside them."""
+    import torch_train_ranks as ranks
+    from skypilot_tpu_torch.parallel.launch import launch
+    out = launch(ranks.cuda_stage_steps, 2, 'stage=2', device='cuda',
+                 timeout=600)
+    one = ranks.cuda_stage_steps(0, 1, None)
+    steps = len(one['metrics'])
+    for r, n in [(r, one['n_layers'] // 2 * 4 * steps) for r in out] + [
+            (one, one['n_layers'] * steps)]:
+        assert r['fallbacks'] == 0
+        for name, count in (('flash_fwd', 2 * n), ('flash_dq', n),
+                            ('flash_dkv', n)):
+            assert r['launches'][name] == count, r['launches']
+    for r in out:
+        for got, want in zip(r['metrics'], one['metrics'], strict=True):
+            for key in ('loss', 'total_loss', 'grad_norm'):
+                assert abs(got[key] - want[key]) <= 1e-4 * abs(want[key]), \
+                    (key, got, want)
+
+
 def test_moe_expert_mesh_train_on_card_matches_one_rank(card):
     """TINY_MOE (head_dim 128, fp32 compute, full remat, aux weight 1) at
     expert=2 on two ranks of the card (gloo) against one rank: two

@@ -200,11 +200,10 @@ def test_resume_equals_uninterrupted(base, tmp_path, rank):
 
 
 def test_mesh_and_empty_corpus(base, tmp_path, capsys):
-    """A full finetune on a stage mesh raises (a later slice,
-    ROADMAP.md); an fsdp or a seq mesh runs only in the ranks that
-    ``main`` starts; LoRA ignores the mesh with a warning; an empty
-    corpus raises."""
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    """A full finetune on a stage, an fsdp or a seq mesh runs only in
+    the ranks that ``main`` starts; LoRA ignores the mesh with a
+    warning; an empty corpus raises."""
+    with pytest.raises(RuntimeError, match='starts them'):
         tfinetune.run(tfinetune.parse_args(_argv(
             base, tmp_path, '--mesh', 'stage=2', steps=1, rank=0)))
     with pytest.raises(RuntimeError, match='starts them'):

@@ -360,14 +360,15 @@ def test_file_batches(tmp_path):
 
 def test_unported_options_raise(monkeypatch, tmp_path):
     """What the mesh-training slices do not cover raises before any rank
-    starts: a stage degree above 1 and MoE models under seq (later
-    slices, ROADMAP.md), heads that tensor does not divide and an expert
-    degree that does not divide the experts; pipeline stages in the
-    forward. (A seq degree trains: ``tests/test_torch_train_mesh_seq.py``;
-    an expert degree and MoE models on a mesh train:
-    ``tests/test_torch_train_mesh_moe.py``.)"""
-    for argv in (['--mesh', 'stage=2'],
-                 ['--model', 'tiny-moe', '--mesh', 'stage=2'],
+    starts: a stage degree with seq or expert and MoE models under seq
+    (later slices, ROADMAP.md), heads that tensor does not divide and an
+    expert degree that does not divide the experts; pipeline stages in
+    the forward off the stage ranks. (A seq degree trains:
+    ``tests/test_torch_train_mesh_seq.py``; an expert degree and MoE
+    models on a mesh train: ``tests/test_torch_train_mesh_moe.py``; a
+    stage degree trains: ``tests/test_torch_train_mesh_stage.py``.)"""
+    for argv in (['--mesh', 'stage=2,seq=2'],
+                 ['--model', 'tiny-moe', '--mesh', 'stage=2,expert=2'],
                  ['--model', 'tiny-moe', '--mesh', 'seq=2']):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             tpretrain.main(argv + ['--device', 'cpu', '--steps', '1'])
@@ -386,7 +387,7 @@ def test_unported_options_raise(monkeypatch, tmp_path):
     cfg = tconfig.get_model_config('tiny')
     params = tllama.init_params(0, cfg, device='cpu')
     tokens = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(ValueError, match='pass parallel='):
         tllama.forward(params, tokens, cfg, pipeline_stages=2)
     monkeypatch.setenv(tstep.RESIZE_SIGNAL_ENV, str(tmp_path / 'resize'))
     assert not tstep.resize_requested()

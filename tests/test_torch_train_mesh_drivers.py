@@ -103,16 +103,17 @@ def test_pretrain_driver_resize_signal_exits_at_step_boundary(
 
 @pytest.mark.parametrize('write,read,model', [
     ('fsdp=2', None, 'tiny'), (None, 'fsdp=2', 'tiny'),
-    ('expert=2', None, 'tiny-moe'), (None, 'expert=2,fsdp=2', 'tiny-moe')],
+    ('expert=2', None, 'tiny-moe'), (None, 'expert=2,fsdp=2', 'tiny-moe'),
+    ('stage=2', None, 'tiny'), ('stage=2', 'fsdp=2', 'tiny')],
     ids=['fsdp2_to_one', 'one_to_fsdp2', 'moe_expert2_to_one',
-         'moe_one_to_expert2_fsdp2'])
+         'moe_one_to_expert2_fsdp2', 'stage2_to_one', 'stage2_to_fsdp2'])
 def test_topology_change_restore_resharding(tmp_path, write, read, model):
     """A step written at one layout restores into the other (the files
     hold whole tensors): the params restored are the params saved,
     bitwise (a MoE model's expert leaves written from their blocks over
-    expert, read into blocks over expert and fsdp), and the next step's
-    loss is the uninterrupted run's (fp32 sums in another order:
-    1e-5)."""
+    expert, read into blocks over expert and fsdp; the layer leaves
+    written from their blocks over stage), and the next step's loss is
+    the uninterrupted run's (fp32 sums in another order: 1e-5)."""
     directory = str(tmp_path / 'ck')
 
     def cycle(spec, restore):
@@ -143,6 +144,23 @@ def _flat(tree, prefix=''):
             yield from _flat(value, f'{prefix}{key}/')
         else:
             yield prefix + key, value
+
+
+def test_pretrain_trains_on_stage_mesh(capfd):
+    """``pretrain --mesh stage=2`` starts its two ranks and trains (rank
+    0 prints the last stage's loss): the one-process run's losses within
+    the printed rounding and bf16's."""
+    argv = ['--model', 'tiny', '--steps', '3', '--batch', '4', '--seq',
+            '64', '--log-every', '1', '--device', 'cpu']
+    assert tpretrain.main(argv + ['--mesh', 'stage=2']) == 0
+    lines = _lines(capfd.readouterr().out)
+    assert tpretrain.main(argv) == 0
+    one = _lines(capfd.readouterr().out)
+    assert lines[-1] == one[-1] == {'done': True, 'final_step': 3}
+    got = [x['loss'] for x in lines if 'loss' in x]
+    want = [x['loss'] for x in one if 'loss' in x]
+    assert len(got) == 3 and np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, atol=2e-4)
 
 
 def test_deferred_tensors_are_written_one_at_a_time(tmp_path):
@@ -239,6 +257,27 @@ def test_full_finetune_under_mesh(hf_dir, tmp_path, capfd):
     assert {'exported': str(tmp_path / 'cmd')} in lines
     assert os.path.exists(os.path.join(str(tmp_path / 'cmd'),
                                        'config.json'))
+
+
+def test_full_finetune_under_stage_mesh(hf_dir, capfd):
+    """Three full-finetune steps at stage=2 (fp32 compute) give the
+    one-process run's losses (1e-5); the command with ``--mesh stage=2``
+    starts its own two ranks."""
+    ckpt, corpus = hf_dir
+    argv = ['--hf-checkpoint', ckpt, '--data', corpus, '--steps', '3',
+            '--batch', '4', '--seq', '32', '--learning-rate', '1e-3',
+            '--lora-rank', '0', '--log-every', '1', '--device', 'cpu']
+    one = tfinetune.run(tfinetune.parse_args(argv),
+                        compute_dtype=torch.float32)
+    two = launch(ranks.finetune_run, 2, argv + ['--mesh', 'stage=2'],
+                 device='cpu', timeout=120)
+    assert two[1]['lines'] == []        # only rank 0 prints
+    np.testing.assert_allclose(two[0]['losses'], one['losses'], rtol=1e-5)
+    np.testing.assert_allclose(two[1]['losses'], one['losses'], rtol=1e-5)
+    capfd.readouterr()
+    assert tfinetune.main(argv + ['--steps', '1', '--mesh', 'stage=2']) == 0
+    lines = _lines(capfd.readouterr().out)
+    assert [x['step'] for x in lines if 'loss' in x] == [1]
 
 
 def _leaves(tree, prefix=''):

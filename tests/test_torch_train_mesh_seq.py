@@ -186,13 +186,15 @@ def test_mesh_seq_keeps_cuda_ring_blocks_on_the_kernels_grid(capsys):
 
 
 def test_stage_still_raises():
-    """A stage degree above 1 keeps its pointer (ROADMAP.md, queue A item
-    15 (c)), on the train step and on ``pretrain``'s command line."""
-    two = build_mesh(MeshConfig(stage=2, fsdp=1), devices=[0, 1],
-                     device_type='cpu')
+    """A stage degree with seq above 1 keeps its pointer (ROADMAP.md,
+    queue A item 15 (c) 7; a stage degree alone trains:
+    ``tests/test_torch_train_mesh_stage.py``), on the train step and on
+    ``pretrain``'s command line."""
+    four = build_mesh(MeshConfig(stage=2, seq=2, fsdp=1),
+                      devices=[0, 1, 2, 3], device_type='cpu')
     with pytest.raises(NotImplementedError, match='ROADMAP.*15'):
         tstep.make_train_step(tconfig.get_model_config('tiny'),
-                              tstep.TrainHParams(), mesh=two)
+                              tstep.TrainHParams(), mesh=four)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tpretrain.main(['--mesh', 'stage=2,seq=2', '--device', 'cpu',
                         '--steps', '1'])

@@ -50,9 +50,10 @@ def mesh_checks(rank, world, spec, runs, loss_case=None, block_jax=False):
     ``runs``: its params (numpy, whole) placed on the mesh, then
     ``make_train_step`` on each of its global batches; returns per run
     the metrics of every step, this rank's blocks of the initial params,
-    the shapes of its optimizer leaves and (rank 0) the whole params
-    after the last step. ``loss_case`` (logits, targets, weights):
-    ``loss_shares`` of it. ``block_jax``: jax and the JAX package are
+    the shapes of its optimizer leaves, (rank 0) the whole params after
+    the last step and, for a run with ``forward``, the logits of
+    ``make_forward`` on the initial params and the first batch.
+    ``loss_case`` (logits, targets, weights): ``loss_shares`` of it. ``block_jax``: jax and the JAX package are
     blocked in this rank first, and the result says whether jax
     loaded."""
     if block_jax:
@@ -91,6 +92,12 @@ def _train_run(run, mesh, par, rank):
                        for k, tree in state.opt_state.items()
                        if isinstance(tree, dict)},
         'metrics': [], 'collectives': []}
+    if run.get('forward'):
+        # The inference forward of the initial params on the first
+        # batch's tokens: the whole logits, on every rank.
+        result['forward'] = tstep.make_forward(cfg, mesh)(
+            state.params,
+            torch.from_numpy(run['batches'][0]['tokens'])).numpy()
     step = tstep.make_train_step(cfg, hp, mesh)
     fa.reset_launch_counts()
     undo = plant(run['fault'], cfg) if run.get('fault') else None
@@ -119,8 +126,8 @@ METRICS = ('loss', 'total_loss', 'router_aux', 'grad_norm')
 
 
 def plant(fault, cfg):
-    """A planted fault of the MoE blocks under a mesh, for the parity
-    tests to catch; returns the undo.
+    """A planted fault of the MoE blocks or of the pipeline under a
+    mesh, for the parity tests to catch; returns the undo.
 
     * ``'aux of rank products'``: the router aux loss as the mean over
       the batch ranks of each rank's E * sum f * P, not the product of
@@ -130,9 +137,28 @@ def plant(fault, cfg):
       rank's experts' part;
     * ``'expert input unreduced'``: the expert branch's f op skipped, so
       the gradient into the tokens holds only this rank's experts'
-      part."""
+      part;
+    * ``'dx dropped'``: the backward handoff sends zeros, so a stage
+      gets no gradient of its output;
+    * ``'stage sum skipped'``: the gradients of the leaves that ``stage``
+      does not split are not summed over ``stage``."""
     from skypilot_tpu_torch.models import llama
-    from skypilot_tpu_torch.parallel.sharding import reduce_from_tokens
+    from skypilot_tpu_torch.parallel.sharding import (TensorParallel,
+                                                      reduce_from_tokens)
+    from skypilot_tpu_torch.train import step as tstep
+    if fault == 'dx dropped':
+        real_send = TensorParallel.send_to
+
+        def send_to(self, x, hop, tag, axis='stage'):
+            return real_send(self, torch.zeros_like(x) if hop < 0 else x,
+                             hop, tag, axis)
+
+        TensorParallel.send_to = send_to
+        return lambda: setattr(TensorParallel, 'send_to', real_send)
+    if fault == 'stage sum skipped':
+        real_sum = tstep._stage_sum
+        tstep._stage_sum = lambda grads, layout, par: grads
+        return lambda: setattr(tstep, '_stage_sum', real_sum)
     if fault == 'aux of rank products':
         real = llama._router_aux
 
@@ -283,10 +309,26 @@ def finetune_run(rank, world, argv):
 
 
 def cuda_moe_steps(rank, world, spec, steps=2):
-    """TINY_MOE (head dim 128, fp32 compute, full remat) on the card at
-    mesh ``spec`` (None: this process alone): ``steps`` train steps from
-    the seed-0 init on the synthetic batches (B=4, S=128), each step's
-    metrics, and the flash launches and fallbacks of the steps."""
+    """TINY_MOE (head dim 128, fp32 compute, full remat, aux weight 1) on
+    the card at mesh ``spec`` (None: this process alone): ``steps``
+    train steps from the seed-0 init on the synthetic batches (B=4,
+    S=128), each step's metrics, and the flash launches and fallbacks
+    of the steps."""
+    return cuda_steps(rank, world, spec, 'tiny-moe', steps,
+                      router_aux_loss_coeff=1.0)
+
+
+def cuda_stage_steps(rank, world, spec, steps=2):
+    """``cuda_moe_steps`` of TINY (2 layers)."""
+    return cuda_steps(rank, world, spec, 'tiny', steps)
+
+
+def cuda_steps(rank, world, spec, model, steps, **overrides):
+    """``model`` (head dim 128, fp32 compute, full remat, ``overrides``)
+    on the card at mesh ``spec`` (None: this process alone): ``steps``
+    train steps from the seed-0 init on the synthetic batches (B=4,
+    S=128), each step's metrics, and the flash launches and fallbacks
+    of the steps."""
     from skypilot_tpu_torch import _build
     from skypilot_tpu_torch.ops import flash_attention as fa
     from skypilot_tpu_torch.parallel.mesh import (MeshConfig, build_mesh,
@@ -298,8 +340,7 @@ def cuda_moe_steps(rank, world, spec, steps=2):
     mesh = None if spec is None else build_mesh(
         MeshConfig(**{'fsdp': 1, **parse_mesh_spec(spec)}),
         device_type='cuda')
-    cfg = tiny_config('tiny-moe', head_dim=128, remat_policy='full',
-                      router_aux_loss_coeff=1.0)
+    cfg = tiny_config(model, head_dim=128, remat_policy='full', **overrides)
     hp = tstep.TrainHParams(warmup_steps=1, total_steps=10)
     state = tstep.create_train_state(0, cfg, hp, mesh, device='cuda')
     step = tstep.make_train_step(cfg, hp, mesh)
@@ -312,3 +353,38 @@ def cuda_moe_steps(rank, world, spec, steps=2):
     return {'rank': rank, 'metrics': metrics,
             'launches': dict(fa.LAUNCHES), 'fallbacks': fa.FALLBACKS['cuda'],
             'n_layers': cfg.n_layers}
+
+
+def stage_handoffs(rank, world, deadlock):
+    """Two ranks at ``stage=2``: microbatches 0-2 handed forward and
+    their gradients back as ``parallel/pipeline.py`` does, with the
+    tags out of order on the sending side (each receive must take its
+    own tag's tensor); hops past either end raise. With ``deadlock``
+    both ranks wait for a tag that is never sent."""
+    from skypilot_tpu_torch.parallel.sharding import tensor_parallel_of
+    del world
+    par = tensor_parallel_of(_mesh('stage=2'))
+    shape, dev = (2, 3), torch.device('cpu')
+    if deadlock:
+        par.recv_from(shape, torch.float32, dev, 1 - 2 * rank, 99)
+    errors = []
+    for hop in (-1, 2) if rank == 0 else (1, -2):
+        try:
+            par.send_to(torch.zeros(shape), hop, 0)
+        except ValueError as err:
+            errors.append(str(err))
+    got = []
+    if rank == 0:
+        waits = [par.send_to(torch.full(shape, float(m)), 1, m)
+                 for m in (2, 0, 1)]
+        got = [float(par.recv_from(shape, torch.float32, dev, 1, m)[0, 0])
+               for m in (2, 1, 0)]
+    else:
+        got = [float(par.recv_from(shape, torch.float32, dev, -1, m)[0, 0])
+               for m in (0, 1, 2)]
+        waits = [par.send_to(torch.full(shape, 10.0 + m), -1, m)
+                 for m in (1, 2, 0)]
+    for wait in waits:
+        wait()
+    return {'rank': rank, 'stage_rank': par.stage_rank, 'got': got,
+            'errors': errors}
