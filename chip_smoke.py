@@ -4967,7 +4967,8 @@ def _tp_engine(label, options, model='llama3-8b'):
                                     block_size=16, **options)
 
 
-def tp_rank(rank, world, prompts, new, model='llama3-8b', runs=TP_RUNS):
+def tp_rank(rank, world, prompts, new, model='llama3-8b', runs=TP_RUNS,
+            disagg=False):
     """One rank of phase 31 (or 34, with deepseek-moe-16b and its runs).
     Every rank builds each run's engine from the seeded init (its shard
     of the model), zeroes the launch counts, and serves: the driver
@@ -4976,7 +4977,7 @@ def tp_rank(rank, world, prompts, new, model='llama3-8b', runs=TP_RUNS):
     ranks run one prefill and one decode step on its shards
     (``tp_first_step``). Returns each run's counts, stats (driver),
     build seconds, peak and steady memory, and the first step's
-    results."""
+    results; with ``disagg``, then the two-hop runs (``tp_disagg_rank``)."""
     import gc
     import torch
     from skypilot_tpu_torch.ops import decode_attention as da
@@ -5026,9 +5027,7 @@ def tp_rank(rank, world, prompts, new, model='llama3-8b', runs=TP_RUNS):
         else:
             engine.follow()
         torch.cuda.synchronize()
-        run['launches'] = {**dict(pa.LAUNCHES), **dict(da.LAUNCHES),
-                           **{k: v for k, v in fa.LAUNCHES.items()
-                              if k == 'flash_fwd'}}
+        run['launches'] = kernel_launches(pa, da, fa)
         run['flash_fallbacks'] = fa.FALLBACKS['cuda']
         run['peak_gb'] = torch.cuda.max_memory_allocated() / 1e9
         if label == 'batch':
@@ -5036,6 +5035,306 @@ def tp_rank(rank, world, prompts, new, model='llama3-8b', runs=TP_RUNS):
         out['runs'][label] = run
         del engine
     psharding.time_collectives(False)
+    if disagg:
+        free_card(torch)
+        out['disagg'] = tp_disagg_rank(torch, rank, prompts, new)
+    return out
+
+
+# Phase 31's two-hop runs (disaggregated roles at tensor=2, in the same
+# ranks after its colocated runs): the planted-fault run decodes fewer
+# tokens (its gate is that they change).
+TP_DISAGG_FAULT_NEW = 4
+
+
+def tp_shared_prompt():
+    """A prompt whose first 2 blocks (BOS and 31 bytes) are every
+    ``tp_prompts()`` prompt's, then text of its own: its import moves
+    only its non-resident blocks."""
+    return (tp_prompts()[0][:31] +
+            ' shares two blocks with the prompts above, then its own text.')
+
+
+def tensor_sha(torch, x):
+    import hashlib
+    return hashlib.sha256(x.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+def head_shas(torch, blocks, degree):
+    """Per rank of ``degree``: the sha256 of its kv heads (axis 2) of
+    each whole-head block (name -> [L, block_size, kv_heads, ...]),
+    in rank order."""
+    out = []
+    for rank in range(degree):
+        per_block = []
+        for arrays in blocks:
+            local = {}
+            for name, x in arrays.items():
+                n = x.shape[2] // degree
+                local[name] = tensor_sha(torch, x.narrow(2, rank * n, n))
+            per_block.append(local)
+        out.append(per_block)
+    return out
+
+
+def _with_tail(blocks, tail_bytes):
+    from skypilot_tpu_torch.inference import kv_migrate
+    tail = kv_migrate.unpack_arrays(tail_bytes)
+    part = {k[len('tail_'):]: v for k, v in tail.items()
+            if k.startswith('tail_')}
+    return blocks + ([part] if part else [])
+
+
+def export_blocks(export):
+    """An export's whole-head blocks as the pool held them: the full
+    blocks, then the partial tail block if there is one."""
+    from skypilot_tpu_torch.inference import kv_migrate
+    return _with_tail([kv_migrate.unpack_arrays(b) for b in export.blocks],
+                      export.tail)
+
+
+def pulled_blocks(pulled):
+    """The whole-head blocks an import of ``pulled`` writes, in order:
+    every moved full block, then the partial tail block if any."""
+    from skypilot_tpu_torch.inference import kv_migrate
+    return _with_tail([kv_migrate.unpack_arrays(p) for p in pulled.payloads
+                       if p is not None], pulled.tail)
+
+
+class BlockShas:
+    """While entered in a rank, the sha256 of this rank's kv heads of
+    every block its continuous engines read for an export (before the
+    gather), and of every block an import wrote (after the write): one
+    list a call, one {field: sha} a block. On the driver also the wall
+    seconds of each export (gather, host copy, pack) and of each import
+    (unpack, checks, scatter; the card synchronized)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.reads, self.writes = [], []
+        self.export_s, self.import_s = [], []
+
+    def __enter__(self):
+        from skypilot_tpu_torch.inference.continuous import (
+            ContinuousBatchingEngine)
+        torch, rec, cls = self.torch, self, ContinuousBatchingEngine
+        self.cls = cls
+        self.real = (cls._block_slices, cls._scatter_blocks,
+                     cls._export_prefill, cls._import_migrated)
+        read, write, export, imp = self.real
+
+        def local(engine, idx):
+            return [{name: tensor_sha(torch, pool.index_select(1, idx)[:, i])
+                     for name, pool in engine._pool_fields().items()}
+                    for i in range(len(idx))]
+
+        def block_slices(engine, idx):
+            rec.reads.append(local(engine, idx))
+            return read(engine, idx)
+
+        def scatter_blocks(engine, idx, stacked):
+            write(engine, idx, stacked)
+            rec.writes.append(local(engine, idx))
+
+        def export_prefill(engine, *args):
+            t0 = time.perf_counter()
+            export(engine, *args)
+            rec.export_s.append(time.perf_counter() - t0)
+
+        def import_migrated(engine, *args):
+            t0 = time.perf_counter()
+            done = imp(engine, *args)
+            torch.cuda.synchronize()
+            if done:
+                rec.import_s.append(time.perf_counter() - t0)
+            return done
+
+        (cls._block_slices, cls._scatter_blocks, cls._export_prefill,
+         cls._import_migrated) = (block_slices, scatter_blocks,
+                                  export_prefill, import_migrated)
+        return self
+
+    def take(self):
+        out = {'reads': self.reads, 'writes': self.writes,
+               'export_s': self.export_s, 'import_s': self.import_s}
+        self.reads, self.writes = [], []
+        self.export_s, self.import_s = [], []
+        return out
+
+    def __exit__(self, *exc):
+        (self.cls._block_slices, self.cls._scatter_blocks,
+         self.cls._export_prefill, self.cls._import_migrated) = self.real
+
+
+def plant_other_heads():
+    """Planted fault for phase 31's two-hop gate: an import on this rank
+    writes the next rank's kv heads of the payload into its pool.
+    Returns the undo."""
+    from skypilot_tpu_torch.inference import sharding
+    real = sharding.local_kv_heads
+
+    def other(x, tp):
+        n = x.shape[sharding.KV_HEAD_AXIS] // tp.degree
+        return x.narrow(sharding.KV_HEAD_AXIS,
+                        (tp.rank + 1) % tp.degree * n, n)
+
+    sharding.local_kv_heads = other
+    return lambda: setattr(sharding, 'local_kv_heads', real)
+
+
+def kernel_launches(pa, da, fa):
+    return {**dict(pa.LAUNCHES), **dict(da.LAUNCHES),
+            **{k: v for k, v in fa.LAUNCHES.items() if k == 'flash_fwd'}}
+
+
+def tp_two_hop(torch, exports, ids, new, shas, plain_shared):
+    """One decode-role engine at tensor=2 on this rank. The driver pulls
+    each export (``LocalKvSource``; the delta against its prefix cache)
+    once the one before it has landed, so the residency is fixed, and
+    decodes ``new`` tokens of each; with ``plain_shared``, once idle, it
+    empties its prefix cache (every block must then be free) and serves
+    the last prompt as a plain request: its colocated answer on the same
+    ranks. Launch counts zeroed after the build, read after the engine
+    stops."""
+    from skypilot_tpu_torch.inference import kv_migrate
+    from skypilot_tpu_torch.ops import decode_attention as da
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    t0 = time.perf_counter()
+    engine = _tp_engine('continuous', {'role': 'decode'})
+    torch.cuda.synchronize()
+    run = {'build_s': time.perf_counter() - t0}
+    for module in (pa, da, fa):
+        module.reset_launch_counts()
+    if engine.is_driver:
+        exporter = kv_migrate.KvExporter()
+        for export in exports:
+            exporter.put(export)
+        source = kv_migrate.LocalKvSource(exporter)
+        before = engine.stats()
+        handles, pulls, pull_s = [], [], []
+        t0 = time.perf_counter()
+        for k, export in enumerate(exports):
+            t1 = time.perf_counter()
+            pulled = kv_migrate.KvPuller(source, sleep=lambda _s: None).pull(
+                export.request_id,
+                resident_digests=engine.probe_resident(ids[k]))
+            pull_s.append(time.perf_counter() - t1)
+            pulls.append(pulled)
+            handles.append(engine.submit_migrated(ids[k], pulled,
+                                                  max_new_tokens=new))
+            deadline = time.monotonic() + 600
+            while True:
+                now = engine.stats()
+                landed = (now['kv_imports'] + now['kv_import_fallbacks'] -
+                          before['kv_imports'] -
+                          before['kv_import_fallbacks'])
+                if landed > k or handles[-1].done.is_set():
+                    break
+                if time.monotonic() > deadline:
+                    raise RuntimeError('[tp-disagg] import never landed')
+                time.sleep(0.002)
+        for h in handles:
+            if not h.done.wait(600) or h.error is not None:
+                raise RuntimeError(f'[tp-disagg] request failed: {h.error}')
+        torch.cuda.synchronize()
+        run['wall_s'] = time.perf_counter() - t0
+        run['tokens'] = [list(h.generated) for h in handles]
+        mid = engine.stats()
+        run['two_hop'] = {k: mid[k] - before[k] for k in before
+                          if isinstance(before[k], (int, float))}
+        run['moved'] = [p.moved for p in pulls]
+        run['resident'] = [p.resident for p in pulls]
+        run['bytes'] = [sum(len(b) for b in p.payloads if b is not None) +
+                        len(p.tail) for p in pulls]
+        run['pull_s'] = pull_s
+        written = [pulled_blocks(p) for p in pulls]
+        run['expected_writes'] = head_shas(
+            torch, [b for blocks in written for b in blocks],
+            engine._tp.degree)
+        run['writes_per_import'] = [len(blocks) for blocks in written]
+        if plain_shared:
+            while engine._prefix.evict_reclaimable():
+                pass
+            run['all_free'] = (engine._pool.free_blocks ==
+                               engine._pool.total_blocks)
+            run['plain_shared'] = engine.generate_ids(ids[-1],
+                                                      max_new_tokens=new)
+        after = engine.stats()
+        run['delta'] = {k: after[k] - before[k] for k in before
+                        if isinstance(before[k], (int, float))}
+        run['stats'] = {k: after[k] for k in ('role', 'mesh',
+                                              'mesh_backend')}
+        engine.shutdown()
+    else:
+        engine.follow()
+    torch.cuda.synchronize()
+    run['launches'] = kernel_launches(pa, da, fa)
+    run['flash_fallbacks'] = fa.FALLBACKS['cuda']
+    taken = shas.take()
+    run['write_shas'] = [b for call in taken['writes'] for b in call]
+    run['import_s'] = taken['import_s']
+    del engine
+    free_card(torch)
+    return run
+
+
+def tp_disagg_rank(torch, rank, prompts, new):
+    """Phase 31's two-hop runs on one rank, after its colocated runs: a
+    prefill-role engine at tensor=2 exports ``prompts`` and
+    ``tp_shared_prompt()`` one after another (parked on the driver) and
+    stops; a decode-role engine imports them and decodes
+    (``tp_two_hop``); then a second one imports them with the planted
+    fault on the follower (``plant_other_heads``). Every rank reports
+    the sha256 of its kv heads of every block read and written
+    (``BlockShas``), the driver what they must be."""
+    from skypilot_tpu_torch.ops import decode_attention as da
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    t_phase = time.perf_counter()
+    out = {}
+    with BlockShas(torch) as shas:
+        t0 = time.perf_counter()
+        pre = _tp_engine('continuous', {'role': 'prefill'})
+        torch.cuda.synchronize()
+        out['prefill_build_s'] = time.perf_counter() - t0
+        for module in (pa, da, fa):
+            module.reset_launch_counts()
+        exports, ids = None, None
+        if pre.is_driver:
+            ids = [pre.tokenizer.encode(p)
+                   for p in list(prompts) + [tp_shared_prompt()]]
+            t0 = time.perf_counter()
+            exports = [pre.exporter.pop(pre.prefill_and_export(x))
+                       for x in ids]
+            out['prefill_wall_s'] = time.perf_counter() - t0
+            out['ids'] = ids
+            stats = pre.stats()
+            out['prefill_stats'] = {k: stats[k] for k in (
+                'kv_exports', 'tokens_generated', 'decode_steps',
+                'prefill_chunks', 'prefix_cache_hits', 'role')}
+            out['expected_reads'] = head_shas(
+                torch, [b for e in exports for b in export_blocks(e)],
+                pre._tp.degree)
+            pre.shutdown()
+        else:
+            pre.follow()
+        torch.cuda.synchronize()
+        out['prefill_launches'] = kernel_launches(pa, da, fa)
+        taken = shas.take()
+        out['read_shas'] = [b for call in taken['reads'] for b in call]
+        out['export_s'] = taken['export_s']
+        del pre
+        free_card(torch)
+        out['good'] = tp_two_hop(torch, exports, ids, new, shas, True)
+        undo = plant_other_heads() if rank != 0 else (lambda: None)
+        try:
+            out['fault'] = tp_two_hop(torch, exports, ids,
+                                      TP_DISAGG_FAULT_NEW, shas, False)
+        finally:
+            undo()
+    out['phase_s'] = time.perf_counter() - t_phase
     return out
 
 
@@ -5243,6 +5542,125 @@ def check_tp_runs(ranks, n_layers, new, runs=TP_RUNS, tag='tp'):
             f'+ {delta.get("verify_steps", 0)} verify steps)')
 
 
+def check_tp_disagg(ranks, n_layers, colocated, smi, block_size=16):
+    """Phase 31's two-hop gates (``tp_disagg_rank``). Tokens: every
+    two-hop answer equals the colocated ``continuous`` run's on the same
+    ranks token for token at bf16, and the shared-prefix prompt's equals
+    the decode-role engine's own plain answer. Head order: each rank's
+    kv heads of every block read for an export and written by an import
+    are its slice of the whole-head payload, in rank order, bitwise.
+    Residency: each import moves only the full blocks no earlier prompt
+    left resident. Launches: none on any rank in the prefill role, the
+    paged kernel ``n_layers`` a decode step on each rank in the decode
+    role, nothing else. The planted fault must fail the head order and
+    change the tokens. Returns the numbers PERF.md keeps and the
+    launches of the two main-path runs."""
+    runs = [r['disagg'] for r in ranks]
+    d = runs[0]
+    ids = d['ids']
+    tag = '[tp-disagg]'
+    stats = d['prefill_stats']
+    for rank, r in enumerate(runs):
+        if any(r['prefill_launches'].values()):
+            raise AssertionError(f'{tag} rank {rank} launched kernels in '
+                                 f'the prefill role: {r["prefill_launches"]}')
+        if r['read_shas'] != d['expected_reads'][rank]:
+            raise AssertionError(f'{tag} rank {rank}: its kv heads of the '
+                                 'exported blocks are not its slice of the '
+                                 'whole-head payload')
+    if stats['tokens_generated'] or stats['decode_steps'] or \
+            stats['kv_exports'] != len(ids) or stats['role'] != 'prefill':
+        raise AssertionError(f'{tag} prefill role stats {stats}')
+    g = d['good']
+    want = [list(t) for t in colocated] + [g['plain_shared']]
+    if g['tokens'] != want:
+        raise AssertionError(
+            f'{tag} two-hop tokens differ from the colocated run\'s: '
+            f'{[k for k, (a, b) in enumerate(zip(g["tokens"], want)) if a != b]}'
+            f'\n{g["tokens"]}\n{want}')
+    resident = [max([common_prefix(ids[k], ids[j]) for j in range(k)] +
+                    [0]) // block_size for k in range(len(ids))]
+    moved = [len(x) // block_size - n for x, n in zip(ids, resident)]
+    two_hop = g['two_hop']
+    if g['resident'] != resident or g['moved'] != moved or \
+            resident[-1] != 2 or two_hop['kv_imports'] != len(ids) or \
+            two_hop['kv_import_fallbacks'] or two_hop['prefill_chunks'] or \
+            not g['all_free'] or g['stats']['role'] != 'decode':
+        raise AssertionError(
+            f'{tag} imports: resident {g["resident"]} (expected {resident})'
+            f', moved {g["moved"]} (expected {moved}), stats {two_hop}, '
+            f'all blocks free when idle {g["all_free"]}, {g["stats"]}')
+    steps = g['delta']['decode_steps']
+    expected = {'paged_attention': n_layers * steps}
+    for rank, r in enumerate(runs):
+        run = r['good']
+        others = {k: v for k, v in run['launches'].items()
+                  if k not in expected and v}
+        if steps <= 0 or g['delta']['verify_steps'] or others or \
+                run['launches']['paged_attention'] != expected[
+                    'paged_attention'] or run['flash_fallbacks']:
+            raise AssertionError(
+                f'{tag} rank {rank} decode role: launches '
+                f'{run["launches"]} (expected {expected}), '
+                f'{steps} decode steps')
+        if run['write_shas'] != g['expected_writes'][rank]:
+            raise AssertionError(f'{tag} rank {rank}: its kv heads of the '
+                                 'imported blocks are not its slice of the '
+                                 'whole-head payload')
+    f = d['fault']
+    fault_caught = [rank for rank, r in enumerate(runs)
+                    if r['fault']['write_shas'] !=
+                    f['expected_writes'][rank]]
+    n = TP_DISAGG_FAULT_NEW
+    fault_tokens = [k for k in range(len(colocated))
+                    if f['tokens'][k] != list(colocated[k][:n])]
+    if fault_caught != [1] or not fault_tokens:
+        raise AssertionError(
+            f'{tag} planted fault (the follower writes the other rank\'s '
+            f'heads): head order failed on ranks {fault_caught} (expected '
+            f'[1]), tokens changed on prompts {fault_tokens}')
+    mb = [b / 1e6 for b in g['bytes']]
+    log(f'[tp-disagg] {len(ids)} prompts ({[len(x) for x in ids]} tokens) '
+        f'exported by the prefill role at tensor=2 and imported by the '
+        f'decode role at tensor=2: {len(g["tokens"][0])} tokens each equal '
+        f'to the '
+        f'colocated run\'s (the shared-prefix prompt\'s to the decode '
+        f'role\'s own plain answer); blocks moved {g["moved"]}, resident '
+        f'{g["resident"]}; no prefill chunk and no fallback in the decode '
+        f'role; every block free once idle')
+    log(f'[tp-disagg] head order bitwise on both ranks: '
+        f'{len(d["expected_reads"][0])} blocks read, '
+        f'{len(g["expected_writes"][0])} written; launches per rank: '
+        f'prefill role none, decode role paged_attention {n_layers} x '
+        f'{steps} decode steps; planted fault (follower writes the other '
+        f'rank\'s heads) failed the head order on rank 1 and changed the '
+        f'tokens of prompts {fault_tokens}')
+    times = {
+        'phase_s': d['phase_s'], 'prefill_build_s': d['prefill_build_s'],
+        'decode_build_s': g['build_s'], 'fault_build_s': f['build_s'],
+        'prefill_wall_s': d['prefill_wall_s'], 'two_hop_wall_s': g['wall_s'],
+        'export_s': d['export_s'], 'pull_s': g['pull_s'],
+        'import_s': g['import_s'], 'moved_mb': mb}
+    log(f'[tp-disagg] {d["phase_s"]:.1f} s in all; builds prefill '
+        f'{d["prefill_build_s"]:.1f} s, decode {g["build_s"]:.1f} s, fault '
+        f'{f["build_s"]:.1f} s; exports {d["prefill_wall_s"]:.2f} s, of '
+        f'which gather + pack '
+        f'{", ".join(f"{1e3 * s:.1f}" for s in d["export_s"])} ms; pull '
+        f'{", ".join(f"{1e3 * s:.1f}" for s in g["pull_s"])} ms; unpack + '
+        f'scatter {", ".join(f"{1e3 * s:.1f}" for s in g["import_s"])} ms; '
+        f'moved {", ".join(f"{x:.2f}" for x in mb)} MB; two-hop wall '
+        f'{g["wall_s"]:.2f} s (two ranks on one card over gloo: not a TP '
+        f'speed; {smi})')
+    launches = {}
+    for r in runs:
+        for counts in (r['prefill_launches'], r['good']['launches']):
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+    return {'times': times, 'moved': g['moved'], 'resident': g['resident'],
+            'decode_steps': steps, 'fault_tokens': fault_tokens,
+            'launches': launches}
+
+
 def tp_server(torch, prompts, smi):
     """``inference.server --mesh tensor=2`` on the card as a user starts
     it: it starts its own two ranks; /generate and /v1/completions
@@ -5299,7 +5717,8 @@ def tp_server(torch, prompts, smi):
 
 def phase_tp(torch, pa, da, fa, bw, flops_peak, smi):
     """Phase 31: llama3-8b at full width and depth served at tensor=2 by
-    two ranks that share the one card (gloo), both engines, then the
+    two ranks that share the one card (gloo), both engines, then in the
+    same ranks the disaggregated roles (``tp_disagg_rank``), then the
     --mesh server. Returns the launch totals for the kernels line and
     the numbers PERF.md keeps."""
     from skypilot_tpu_torch.models.config import get_model_config
@@ -5310,9 +5729,12 @@ def phase_tp(torch, pa, da, fa, bw, flops_peak, smi):
     shard = tp_shard_times(torch, pa, da, fa, bw, flops_peak)
     free_card(torch)
     prompts = tp_prompts()
-    ranks = launch(tp_rank, 2, prompts, TP_NEW, device='cuda')
+    ranks = launch(tp_rank, 2, prompts, TP_NEW, 'llama3-8b', TP_RUNS, True,
+                   device='cuda')
     t1 = time.perf_counter()
     check_tp_runs(ranks, n_layers, TP_NEW)
+    disagg = check_tp_disagg(
+        ranks, n_layers, ranks[0]['runs']['continuous']['tokens'], smi)
     single = tp_single_rank(torch, prompts, TP_NEW)
     driver = ranks[0]['runs']
     tp_logits, one = driver['batch']['logits'], single['logits']
@@ -5347,14 +5769,15 @@ def phase_tp(torch, pa, da, fa, bw, flops_peak, smi):
     log(f'[tp] backend {driver["continuous"]["mesh"]["mesh_backend"]}, '
         f'devices {driver["continuous"]["mesh"]["mesh_devices"]}')
     server = tp_server(torch, prompts, smi)
-    launches = {}
+    launches = dict(disagg.pop('launches'))
     for r in ranks:
         for run in r['runs'].values():
             for k, v in run['launches'].items():
                 launches[k] = launches.get(k, 0) + v
     log(f'[smoke] phase 31 {time.perf_counter() - t0:.1f} s (ranks '
-        f'{t1 - t0:.1f} s)')
-    return {'launches': launches, 'tok_s': tok_s,
+        f'{t1 - t0:.1f} s, of which two-hop runs '
+        f'{disagg["times"]["phase_s"]:.1f} s)')
+    return {'launches': launches, 'tok_s': tok_s, 'disagg': disagg,
             'single_tok_s': single['decode_tok_s'],
             'collective_share': share, 'logit_rel': float(rel.max()),
             'shard_times': shard, 'server': server}
@@ -5703,7 +6126,8 @@ def phase_mesh_train(torch, fa, bw, flops_peak, smi):
     same params and batches, and a resume of the fsdp=2 run's step 1 on
     one rank against that run's step 2, within ``MESH_TOL``; a tensor=2
     run with the attention's all-reduce skipped
-    (``plant_unreduced_attention``) must fail that gate. Returns the launch totals for the kernels line and
+    (``plant_unreduced_attention``; one step: the fault moves step 1)
+    must fail that gate. Returns the launch totals for the kernels line and
     the numbers PERF.md keeps."""
     import shutil
     from skypilot_tpu_torch.data import packer
@@ -5737,7 +6161,7 @@ def phase_mesh_train(torch, fa, bw, flops_peak, smi):
                 ('fsdp=2 packed', MESH_ARGV + steps + ['--mesh', 'fsdp=2']
                  + packed, None),
                 ('tensor=2 fault', MESH_ARGV + [
-                    '--steps', '2', '--mesh', 'tensor=2'],
+                    '--steps', '1', '--mesh', 'tensor=2'],
                  'attention unreduced')]
         t1 = time.perf_counter()
         ranks = launch(mesh_train_rank, 2, runs, device='cuda')
@@ -5768,7 +6192,7 @@ def phase_mesh_train(torch, fa, bw, flops_peak, smi):
     if rc != 0 or {'resumed_from_step': MESH_STEPS - 1} not in resumed or \
             resumed_steps != 1:
         raise AssertionError(f'[mesh] one-rank resume: rc {rc}, {resumed}')
-    if faulted['rc'] != 0 or len(faulted['steps']) != 2:
+    if faulted['rc'] != 0 or len(faulted['steps']) != 1:
         raise AssertionError(f'[mesh] planted fault run: rc '
                              f'{faulted["rc"]}, steps {faulted["steps"]}')
     gaps = {label: mesh_gaps(driver[label]['steps'], one[ref])
@@ -5945,7 +6369,8 @@ def phase_seq_train(torch, fa, bw, flops_peak, smi, one=None):
     first-step loss and gradient norm and second-step loss against one
     rank's on the same params and batches (phase 32's, ``one``; run here
     when None) within ``MESH_TOL``; a ring whose hop does not rotate
-    (``plant_still_ring``) must fail that gate. Returns the launch
+    (``plant_still_ring``; one step: the fault moves step 1) must fail
+    that gate. Returns the launch
     totals for the kernels line and the numbers PERF.md keeps."""
     from skypilot_tpu_torch.data import packer
     from skypilot_tpu_torch.parallel.launch import launch
@@ -5965,7 +6390,7 @@ def phase_seq_train(torch, fa, bw, flops_peak, smi, one=None):
                 ('seq=2 packed', SEQ_ARGV + packed, None),
                 ('seq=2 ulysses', SEQ_ARGV + ['--model', SEQ_ULYSSES_MODEL],
                  None),
-                ('seq=2 fault', MESH_ARGV + ['--steps', '2', '--mesh',
+                ('seq=2 fault', MESH_ARGV + ['--steps', '1', '--mesh',
                                              'seq=2'], 'ring not rotating')]
         t1 = time.perf_counter()
         ranks = launch(mesh_train_rank, 2, runs, device='cuda')
@@ -5985,7 +6410,7 @@ def phase_seq_train(torch, fa, bw, flops_peak, smi, one=None):
                     free_card(torch)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    if faulted['rc'] != 0 or len(faulted['steps']) != 2:
+    if faulted['rc'] != 0 or len(faulted['steps']) != 1:
         raise AssertionError(f'[seq] planted fault run: rc '
                              f'{faulted["rc"]}, steps {faulted["steps"]}')
     driver = ranks[0]['runs']

@@ -80,8 +80,12 @@ plain stream at any temperature (bitwise where the logits are).
   ``shutdown()``. A failed step under a mesh is fatal to the engine
   (the ranks' collectives would no longer line up). MoE configs serve
   under a mesh with fp experts (each rank builds only its slice of the
-  seeded init); LoRA pages, disaggregated roles and weight refresh
-  raise under one (ROADMAP.md, queue A item 15).
+  seeded init). Disaggregated roles serve under a mesh: an export
+  gathers each block's kv heads from every rank in rank order, an
+  import checks the whole-head payload on the driver and scatters each
+  rank's heads into its pool, so the wire format stays the
+  reference's whole blocks. LoRA pages and weight refresh raise under
+  a mesh (ROADMAP.md, queue A item 15).
 """
 from __future__ import annotations
 
@@ -138,6 +142,10 @@ _MASK64 = (1 << 64) - 1
 _PLAN_PREFILL = 2
 _PLAN_DECODE = 3
 _PLAN_VERIFY = 4
+# Disaggregated roles: the pool's blocks read for an export, written for
+# an import (their whole-head payload follows the plan).
+_PLAN_READ_BLOCKS = 5
+_PLAN_WRITE_BLOCKS = 6
 
 
 def flatten_param_paths(params) -> Dict[str, Any]:
@@ -527,7 +535,7 @@ class ContinuousBatchingEngine:
         if quantize_kv:
             self.cfg = with_int8_kv_cache(self.cfg)
         sharding.check_unported(
-            mesh, self.cfg, params, role=bool(role), lora_pages=(
+            mesh, self.cfg, params, lora_pages=(
                 lora_pages if lora_pages is not None
                 else env.get_int('SKYT_LORA_PAGES')) > 0)
         self._mesh = sharding.mesh_serving(mesh, self.device, self.cfg)
@@ -1160,23 +1168,46 @@ class ContinuousBatchingEngine:
         """Host copies of the pool KV at ``block_ids`` (one batched
         device read per field), one name->tensor dict per block:
         ``k``/``v`` [L, block_size, kv_heads, head_dim] and, for an int8
-        pool, ``k_scale``/``v_scale`` [L, block_size, kv_heads]."""
+        pool, ``k_scale``/``v_scale`` [L, block_size, kv_heads]. Under a
+        mesh every rank reads its heads of the blocks the driver
+        announces and one gather a field joins them in rank order: the
+        driver gets every kv head, as one rank's pool holds them."""
         if not block_ids:
             return []
         idx = torch.tensor(block_ids, dtype=torch.long, device=self.device)
-        # Block-major on the device, so each block's slice of the host
-        # copy is contiguous; the copy never aliases the pool.
-        host = {name: pool.index_select(1, idx).transpose(0, 1)
-                .contiguous().cpu()
-                for name, pool in self._pool_fields().items()}
+        with self._step_guard():
+            if self._mesh is not None:
+                self._mesh.channel.publish(_PLAN_READ_BLOCKS, idx)
+            slices = self._block_slices(idx)
+        # Block-major on the host, so each block's slice of the copy is
+        # contiguous; the copy never aliases the pool.
+        host = {name: x.transpose(0, 1).contiguous().cpu()
+                for name, x in slices.items()}
         return [{name: tensor[i] for name, tensor in host.items()}
                 for i in range(len(block_ids))]
+
+    def _block_slices(self, idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Each pool field at blocks ``idx`` ([L, n, block_size,
+        kv_heads, ...]) with every rank's kv heads (a collective under a
+        mesh: the driver and its followers call it for one plan)."""
+        return {name: sharding.gather_kv_heads(pool.index_select(1, idx),
+                                               self._tp)
+                for name, pool in self._pool_fields().items()}
+
+    def _whole_block(self, pool: torch.Tensor) -> tuple:
+        """The shape of one block of a pool field with every kv head of
+        the mesh ([L, block_size, kv_heads, ...]): a payload's."""
+        degree = self._tp.degree if self._tp is not None else 1
+        return ((pool.shape[0], pool.shape[2],
+                 pool.shape[sharding.KV_HEAD_AXIS] * degree) +
+                tuple(pool.shape[4:]))
 
     def _write_block_arrays(self, writes: List[tuple]) -> None:
         """Scatter ``(block_id, arrays)`` payloads into the pool in place
         (one batched host->device write per field). A payload whose
-        fields, dtypes or shapes are not this pool's raises before any
-        field is written."""
+        fields, dtypes or shapes are not this pool's (every kv head of
+        the mesh) raises before any field is written or any plan is
+        announced."""
         if not writes:
             return
         fields = self._pool_fields()
@@ -1187,7 +1218,7 @@ class ContinuousBatchingEngine:
                                    f'{sorted(fields)}')
             for name, pool in fields.items():
                 array = arrays[name]
-                want = (pool.shape[0],) + tuple(pool.shape[2:])
+                want = self._whole_block(pool)
                 if array.dtype != pool.dtype or tuple(array.shape) != want:
                     raise RuntimeError(
                         f'migrated {name} is {array.dtype} '
@@ -1195,10 +1226,29 @@ class ContinuousBatchingEngine:
                         f'{pool.dtype} {want}')
         idx = torch.tensor([b for b, _ in writes], dtype=torch.long,
                            device=self.device)
-        for name, pool in fields.items():
-            stacked = torch.stack([arrays[name] for _, arrays in writes],
-                                  dim=1)
-            pool.index_copy_(1, idx, stacked.to(self.device))
+        stacked = {name: torch.stack([arrays[name] for _, arrays in writes],
+                                     dim=1).to(self.device)
+                   for name in fields}
+        with self._step_guard():
+            if self._mesh is not None:
+                self._mesh.channel.publish(_PLAN_WRITE_BLOCKS, idx)
+            self._scatter_blocks(idx, stacked)
+
+    def _scatter_blocks(self, idx: torch.Tensor,
+                        stacked: Optional[Dict[str, torch.Tensor]]) -> None:
+        """Write whole-head block slices (name -> [L, n, block_size,
+        kv_heads, ...]) into this rank's kv heads of the pool at blocks
+        ``idx``. Under a mesh the driver's slices reach every rank (a
+        follower passes None)."""
+        for name, pool in self._pool_fields().items():
+            whole = stacked[name] if stacked is not None else None
+            if self._tp is not None:
+                block = self._whole_block(pool)
+                whole = sharding.broadcast_whole(
+                    whole, (block[0], len(idx)) + block[1:], pool.dtype,
+                    self._tp, self.device)
+            pool.index_copy_(1, idx, sharding.local_kv_heads(whole,
+                                                             self._tp))
 
     def _export_prefill(self, request: _Request, slot: int,
                         ids: List[int], last_row: torch.Tensor) -> None:
@@ -1639,6 +1689,12 @@ class ContinuousBatchingEngine:
                 elif op == _PLAN_DECODE:
                     tokens = plan.take(slots, None, torch.int32)
                     active = plan.take(slots, None, torch.bool)
+                elif op == _PLAN_READ_BLOCKS:
+                    self._block_slices(payload)
+                    continue
+                elif op == _PLAN_WRITE_BLOCKS:
+                    self._scatter_blocks(payload, None)
+                    continue
                 elif op == _PLAN_VERIFY:
                     (q_len,) = plan.ints(1)
                     tokens = plan.take(slots * q_len, (slots, q_len),
@@ -2124,11 +2180,14 @@ class ContinuousBatchingEngine:
 
     def stats(self) -> Dict[str, float]:
         """The reference's stats schema, plus ``decode_steps`` (plain
-        decode steps; each launches the paged kernel once a layer)."""
+        decode steps; each launches the paged kernel once a layer);
+        under a mesh also the mesh, its backend, each rank's device and
+        the ``role``."""
         total = self._pool.total_blocks
         free = self._pool.free_blocks
         apool = self._adapter_pool
-        mesh = self._mesh.info if self._mesh is not None else {}
+        mesh = ({**self._mesh.info, 'role': self.role}
+                if self._mesh is not None else {})
         return {
             **mesh,
             'slots': self.max_slots,

@@ -26,7 +26,12 @@ same engine with ``mesh='tensor=N'``:
   and samples, and before every model step it broadcasts the step's
   plan (``StepChannel``): the tensors that step takes. The other ranks
   are FOLLOWERS: ``engine.follow()`` runs each plan's step on their
-  shards until the driver closes the channel.
+  shards until the driver closes the channel;
+* a disaggregated role's KV export and import move whole blocks of
+  every kv head, the reference's wire format: the driver's plan names
+  the blocks, ``gather_kv_heads`` joins the ranks' heads in rank order
+  for an export, and for an import ``broadcast_whole`` hands every rank
+  the driver's checked payload, of which it writes ``local_kv_heads``.
 """
 from __future__ import annotations
 
@@ -226,6 +231,11 @@ def check_tensor_only(mesh: Mesh, cfg: ModelConfig) -> None:
         divides(size, tp, what)
 
 
+# The kv-head axis of a pool field ([L, blocks, block_size, kv_heads,
+# ...]) and of a stacked block slice of one: the axis the ranks split.
+KV_HEAD_AXIS = 3
+
+
 def shard_paged_cache(cache, mesh: Optional[Mesh], cfg: ModelConfig):
     """This rank's part of a ``PagedKVCache``: k/v (and int8 scales)
     along the kv-head axis, the axis the attention kernels run per
@@ -234,16 +244,58 @@ def shard_paged_cache(cache, mesh: Optional[Mesh], cfg: ModelConfig):
     ``mesh_context``) is returned as it is."""
     tp = tensor_parallel_of(mesh)
     local = divides(cfg.n_kv_heads, tp.degree, 'n_kv_heads')
-    if tp.degree == 1 or cache.k.shape[3] == local:
+    if tp.degree == 1 or cache.k.shape[KV_HEAD_AXIS] == local:
         return cache
 
     def part(x):
-        return (None if x is None else
-                x.narrow(3, tp.rank * local, local).clone())
+        return None if x is None else local_kv_heads(x, tp).clone()
 
     return dataclasses.replace(
         cache, k=part(cache.k), v=part(cache.v),
         k_scale=part(cache.k_scale), v_scale=part(cache.v_scale))
+
+
+def _raw(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s bytes as uint8 with one trailing axis of its item size
+    (the other axes kept), so a collective moves any dtype bit for bit
+    over any backend."""
+    return x.contiguous().unsqueeze(-1).view(torch.uint8)
+
+
+def gather_kv_heads(x: torch.Tensor,
+                    tp: Optional[TensorParallel]) -> torch.Tensor:
+    """Every rank's kv heads of a pool slice ``x`` joined along
+    ``KV_HEAD_AXIS`` in rank order (rank r holds heads ``[r * local,
+    (r + 1) * local)``, as ``shard_paged_cache`` narrows them): the
+    whole-head slice, the reference's head order, on every rank (``x``
+    itself with no mesh)."""
+    if tp is None or tp.degree == 1:
+        return x
+    whole = tp.all_gather(_raw(x), KV_HEAD_AXIS, 'tensor')
+    return whole.contiguous().view(x.dtype).squeeze(-1)
+
+
+def broadcast_whole(x: Optional[torch.Tensor], shape, dtype: torch.dtype,
+                    tp: TensorParallel, device: torch.device
+                    ) -> torch.Tensor:
+    """The driver's tensor ``x`` on every rank of the tensor axis (a
+    follower passes None and gets a new tensor of ``shape`` and
+    ``dtype``), bit for bit."""
+    if x is None:
+        x = torch.empty(tuple(shape), dtype=dtype, device=device)
+    x = x.contiguous()
+    tp.broadcast(_raw(x))
+    return x
+
+
+def local_kv_heads(x: torch.Tensor,
+                   tp: Optional[TensorParallel]) -> torch.Tensor:
+    """This rank's kv heads of a whole-head pool slice ``x`` (the
+    inverse of ``gather_kv_heads``): a view."""
+    if tp is None or tp.degree == 1:
+        return x
+    local = divides(x.shape[KV_HEAD_AXIS], tp.degree, 'n_kv_heads')
+    return x.narrow(KV_HEAD_AXIS, tp.rank * local, local)
 
 
 class MeshServing:

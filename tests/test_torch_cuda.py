@@ -1273,6 +1273,33 @@ def test_tp_engines_on_card_match_one_rank(card):
         assert ranks[0]['tp'][name] == single[name]
 
 
+@pytest.mark.parametrize('quantize_kv', [False, True], ids=['bf16', 'int8'])
+def test_tp_disagg_on_card_matches_colocated(card, quantize_kv):
+    """llama3-8b's heads (32 query, 8 kv heads of 128) at 2 layers, bf16,
+    at tensor=2 on two ranks of the card (gloo), bf16 and int8 pools: a
+    prefill-role engine's exports imported by a decode-role engine
+    decode the colocated engine's greedy tokens on the same ranks,
+    token for token; a shared prefix moves only its non-resident
+    blocks; each rank read and wrote its own kv heads of every block,
+    in rank order, bitwise; the paged kernel ran ``n_layers`` a decode
+    step on each rank."""
+    import torch_tp_ranks as ranks
+    from skypilot_tpu_torch import _build
+    from skypilot_tpu_torch.parallel.launch import launch
+    _build.build_all()
+    out = launch(ranks.cuda_disagg_case, 2, quantize_kv, 8, device='cuda',
+                 timeout=900)
+    driver = out[0]
+    assert driver['tokens'] == driver['colocated']
+    assert driver['resident'] == [0, 2, 0] and driver['moved'] == [2, 0, 1]
+    assert driver['kv_import_fallbacks'] == 0
+    assert driver['prefill_chunks'] == 0 and driver['all_free']
+    for r in out:
+        assert r['launches'] == 2 * driver['decode_steps'] > 0
+    ranks.check_head_order(driver['exports'], [r['reads'] for r in out],
+                           [r['writes'] for r in out], driver['resident'])
+
+
 @pytest.mark.parametrize('dispatch', ['dense', 'capacity'])
 def test_tp_moe_engines_on_card_match_one_rank(card, dispatch):
     """TINY_MOE (head_dim 128, fp32 compute) at tensor=2 on two ranks of

@@ -148,9 +148,10 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
 
 
 def test_unported_engine_options_raise(tmp_path):
-    """Under a mesh, LoRA pages and a disaggregated role raise with
-    their queue item (weight refresh is pinned on a running mesh in
-    ``test_torch_tp_serving.py``), and a tree with int8 experts raises
+    """Under a mesh, LoRA pages raise with their queue item, alone and
+    beside a disaggregated role (weight refresh is pinned on a running
+    mesh in ``test_torch_tp_serving.py``; roles serve under one:
+    ``test_torch_tp_disagg.py``), and a tree with int8 experts raises
     with the reference's own limit, before any rank is needed (MoE
     configs with fp experts serve under a mesh:
     ``test_torch_tp_moe_serving.py``); ``role=`` and the checkpoint
@@ -159,7 +160,7 @@ def test_unported_engine_options_raise(tmp_path):
     from skypilot_tpu_torch.inference.continuous import (
         ContinuousBatchingEngine)
     from skypilot_tpu_torch.inference.engine import InferenceEngine
-    for option in (dict(lora_pages=2), dict(role='prefill')):
+    for option in (dict(lora_pages=2), dict(role='prefill', lora_pages=2)):
         with pytest.raises(NotImplementedError, match='ROADMAP.*item 15'):
             ContinuousBatchingEngine('tiny', device='cpu', mesh='tensor=2',
                                      **option)

@@ -4,14 +4,19 @@ CPU: the server starts its own two ``gloo`` ranks, rank 0 serves HTTP,
 same engine run unsharded (the twin of the reference's
 ``server.py --mesh``, whose engines are held to the JAX engines in
 ``test_torch_tp_serving.py``), ``/stats`` names the mesh, the backend
-and each rank's device, and stopping the server stops every rank.
+and each rank's device, and stopping the server stops every rank. With
+``--role decode`` or ``--role prefill`` the mesh server is one hop of
+a two-hop request beside a one-rank server of the other role, and the
+answer is the colocated engine's.
 """
+import contextlib
 import json
 import os
 import signal
 import socket
 import subprocess
 import sys
+import threading
 import time
 import urllib.request
 
@@ -19,7 +24,8 @@ import psutil
 import pytest
 import torch
 
-from skypilot_tpu_torch.inference.server import build_engine, parse_args
+from skypilot_tpu_torch.inference.server import (build_engine, parse_args,
+                                                 serve)
 from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -59,10 +65,105 @@ def test_server_mesh_serves_moe_and_stops_every_rank():
 
 
 def _serve_and_stop(model, engine):
-    port = _free_port()
-    argv = ['--model', model, '--device', 'cpu', '--engine', engine,
+    argv = _argv(model, engine)
+    with _mesh_server(argv) as port:
+        body = {'prompts': ['hello'], 'max_new_tokens': 5}
+        got = _post(port, '/generate', body)['outputs']
+        completion = _post(port, '/v1/completions',
+                           {'prompt': 'hello', 'max_tokens': 5})
+        stats = _get(port, '/stats')
+    assert stats['mesh'] == "Mesh({'tensor': 2})"
+    assert stats['mesh_backend'] == 'gloo'
+    assert stats['mesh_devices'] == ['cpu', 'cpu']
+    # The unsharded engine of the same flags answers the same text.
+    if engine == 'batch':
+        assert got == _single(argv, ['hello'], max_new_tokens=5)
+    else:
+        assert got == [_single(argv, 'hello', max_new_tokens=5)]
+    assert completion['choices'][0]['text'] == got[0]
+
+
+@pytest.mark.parametrize('mesh_role', ['decode', 'prefill'])
+def test_server_mesh_role_two_hop(mesh_role):
+    """``--role decode|prefill --mesh tensor=2`` beside a one-rank server
+    of the other role and the same flags: hop 1 on the prefill side,
+    hop 2 on the decode side, which pulls the whole-head blocks (the
+    mesh gathers them from its ranks for an export, scatters them over
+    its ranks for an import) and decodes the colocated server's text;
+    ``/stats`` names the mesh and the role, and the prefill side holds
+    no export afterwards (its warm-up export was dropped)."""
+    argv = _argv('tiny', 'continuous')
+    prompt = 'a shared system preamble that spans multiple KV blocks: rules'
+    body = {'prompts': [prompt], 'max_new_tokens': 6}
+    other = 'prefill' if mesh_role == 'decode' else 'decode'
+    torch.set_num_threads(1)
+    local = build_engine(parse_args(_argv('tiny', 'continuous') +
+                                    ['--role', other]))
+    server = serve(local, '127.0.0.1', 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    local_url = f'http://127.0.0.1:{server.server_address[1]}'
+    try:
+        with _mesh_server(argv + ['--role', mesh_role]) as port:
+            mesh_url = f'http://127.0.0.1:{port}'
+            pre, dec = ((local_url, mesh_url) if mesh_role == 'decode'
+                        else (mesh_url, local_url))
+            hop1 = _post_url(f'{pre}/disagg/prefill', body,
+                             {'X-Skyt-Disagg-Path': '/generate'})
+            got = _post_url(f'{dec}/generate', body,
+                            {'X-Skyt-Kv-Request-Id': hop1['request_id'],
+                             'X-Skyt-Kv-Endpoint': pre})['outputs']
+            stats = {url: _get_url(f'{url}/stats')
+                     for url in (pre, dec)}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+        local.shutdown()
+    assert stats[mesh_url]['role'] == mesh_role
+    assert stats[mesh_url]['mesh'] == "Mesh({'tensor': 2})"
+    assert stats[dec]['kv_imports'] == 1
+    assert stats[dec]['kv_import_fallbacks'] == 0
+    assert stats[pre]['kv_exports_pending'] == 0
+    assert got == [_single(argv, prompt, max_new_tokens=6)]
+
+
+def _argv(model, engine):
+    return ['--model', model, '--device', 'cpu', '--engine', engine,
             '--max-batch', '2', '--max-len', '64', '--host', '127.0.0.1',
-            '--port', str(port)]
+            '--port', str(_free_port())]
+
+
+def _get_url(url):
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def _post_url(url, body, headers):
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(),
+        headers={'Content-Type': 'application/json', **headers})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def _single(argv, prompt, **kwargs):
+    """What the unsharded engine of the server's flags answers to
+    ``generate_text(prompt, **kwargs)``."""
+    torch.set_num_threads(1)
+    engine = build_engine(parse_args(argv))
+    try:
+        return engine.generate_text(prompt, **kwargs)
+    finally:
+        if hasattr(engine, 'shutdown'):
+            engine.shutdown()
+
+
+@contextlib.contextmanager
+def _mesh_server(argv):
+    """``server --mesh tensor=2`` with ``argv``: yields its port once
+    ``/health`` answers; stopping it (SIGTERM) must stop both ranks."""
+    port = int(argv[argv.index('--port') + 1])
     env = dict(os.environ, OMP_NUM_THREADS='1')
     proc = subprocess.Popen(
         [sys.executable, '-m', 'skypilot_tpu_torch.inference.server',
@@ -78,14 +179,10 @@ def _serve_and_stop(model, engine):
             except OSError:
                 assert time.monotonic() < deadline, 'server never came up'
                 time.sleep(0.5)
-        body = {'prompts': ['hello'], 'max_new_tokens': 5}
-        got = _post(port, '/generate', body)['outputs']
-        completion = _post(port, '/v1/completions',
-                           {'prompt': 'hello', 'max_tokens': 5})
-        stats = _get(port, '/stats')
         rank_pids = [child.pid for child in
                      psutil.Process(proc.pid).children(recursive=True)
                      if 'spawn_main' in ' '.join(child.cmdline())]
+        yield port
     finally:
         proc.send_signal(signal.SIGTERM)
         try:
@@ -93,22 +190,6 @@ def _serve_and_stop(model, engine):
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait()
-    assert stats['mesh'] == "Mesh({'tensor': 2})"
-    assert stats['mesh_backend'] == 'gloo'
-    assert stats['mesh_devices'] == ['cpu', 'cpu']
-    # The unsharded engine of the same flags answers the same text.
-    torch.set_num_threads(1)
-    single = build_engine(parse_args(argv))
-    try:
-        if engine == 'batch':
-            want = single.generate_text(['hello'], max_new_tokens=5)
-        else:
-            want = [single.generate_text('hello', max_new_tokens=5)]
-        assert got == want
-        assert completion['choices'][0]['text'] == got[0]
-    finally:
-        if hasattr(single, 'shutdown'):
-            single.shutdown()
     # Stopping the server stopped its ranks too.
     assert len(rank_pids) == 2
 

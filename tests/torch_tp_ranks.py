@@ -298,3 +298,297 @@ def serve_moe_cases(rank, world, params_np, cases):
         else:
             engine.follow()
     return out
+
+
+# -- disaggregated roles under the mesh --------------------------------------
+
+# Block size 8 (``_build``): A is 2 full blocks and a tail, B shares A's
+# first 2 blocks and adds a full block and a tail, C is one full block
+# and no tail, D a tail alone; E is the tampered one.
+_A = [5, 9, 42, 7, 11, 3, 2, 8, 19, 21, 4, 6, 13, 17, 23, 29, 31, 1, 44]
+DISAGG_PROMPTS = {
+    'A': _A,
+    'B': _A[:16] + [50, 51, 52, 53, 54, 55, 56, 57, 58],
+    'C': [70, 71, 72, 73, 74, 75, 76, 77],
+    'D': [90, 91, 92, 93, 94],
+}
+TAMPERED_PROMPT = [100 + i for i in range(12)]
+DISAGG_POOLS = {'fp': {}, 'int8': {'quantize_kv': True}}
+EXPORT_FIELDS = ('request_id', 'ids', 'block_size', 'digests', 'blocks',
+                 'tail', 'meta')
+
+
+def export_fields(export):
+    """A ``KvExport`` of either package as a plain dict (what crosses a
+    process boundary; ``kv_migrate.KvExport(**fields)`` rebuilds it)."""
+    return {name: getattr(export, name) for name in EXPORT_FIELDS}
+
+
+def raw(x):
+    """``x``'s bytes (any dtype, any device) as a host uint8 array with
+    one trailing axis of its item size: bitwise comparable, its other
+    axes (the kv-head axis too) kept."""
+    return x.detach().unsqueeze(-1).contiguous().view(torch.uint8).cpu() \
+        .numpy()
+
+
+class BlockRecorder:
+    """While installed, this rank's part of every block read and write
+    of the continuous engine under the mesh, block-major as ``raw``
+    bytes: a read's local kv heads of the blocks (before the gather), a
+    write's local kv heads as the pool holds them after it."""
+
+    def __init__(self):
+        from skypilot_tpu_torch.inference.continuous import (
+            ContinuousBatchingEngine as engine)
+        self.engine, self.reads, self.writes = engine, [], []
+        self.real = engine._block_slices, engine._scatter_blocks
+        real_read, real_write = self.real
+        recorder = self
+
+        def local(self, idx):
+            return {name: raw(pool.index_select(1, idx).transpose(0, 1))
+                    for name, pool in self._pool_fields().items()}
+
+        def read(self, idx):
+            recorder.reads.append(local(self, idx))
+            return real_read(self, idx)
+
+        def write(self, idx, stacked):
+            real_write(self, idx, stacked)
+            recorder.writes.append(local(self, idx))
+
+        engine._block_slices, engine._scatter_blocks = read, write
+
+    def restore(self):
+        self.engine._block_slices, self.engine._scatter_blocks = self.real
+        return {'reads': self.reads, 'writes': self.writes}
+
+
+def export_blocks(fields, first=0):
+    """An export's whole-head blocks from full block ``first`` on, then
+    its partial tail block if any, as ``raw`` bytes (name -> [n, L,
+    block_size, kv_heads, ..., item size]): what a read returned, or an
+    import that found ``first`` blocks resident wrote."""
+    from skypilot_tpu_torch.inference import kv_migrate
+    import numpy as np
+    blocks = [kv_migrate.unpack_arrays(b) for b in fields['blocks'][first:]]
+    tail = kv_migrate.unpack_arrays(fields['tail'])
+    part = {k[len('tail_'):]: v for k, v in tail.items()
+            if k.startswith('tail_')}
+    blocks += [part] if part else []
+    return {name: np.stack([raw(b[name]) for b in blocks])
+            for name in blocks[0]}
+
+
+def check_head_order(exports, reads, writes, resident):
+    """Rank order, bitwise: ``reads[r][i]`` (rank r's record of export
+    i's read) joined over the ranks along the kv-head axis is export i's
+    blocks; the last ``len(exports)`` records of ``writes[r]`` (imports
+    of ``exports`` in order, finding ``resident[i]`` blocks resident)
+    are rank r's kv heads of what they wrote."""
+    import numpy as np
+    degree = len(reads)
+    for i, fields in enumerate(exports):
+        whole = export_blocks(fields)
+        for name, want in whole.items():
+            got = np.concatenate([r[i][name] for r in reads], axis=3)
+            np.testing.assert_array_equal(got, want, err_msg=name)
+    for i, fields in enumerate(exports):
+        whole = export_blocks(fields, resident[i])
+        for rank in range(degree):
+            got = writes[rank][i - len(exports)]
+            for name, want in whole.items():
+                n = want.shape[3] // degree
+                np.testing.assert_array_equal(
+                    got[name], want[:, :, :, rank * n:(rank + 1) * n],
+                    err_msg=f'rank {rank} {name}')
+
+
+def _pull(engine, fields):
+    """``fields``' export pulled into ``engine``'s delta (its resident
+    prefix not moved)."""
+    from skypilot_tpu_torch.inference import kv_migrate
+    exporter = kv_migrate.KvExporter()
+    exporter.put(kv_migrate.KvExport(**fields))
+    puller = kv_migrate.KvPuller(kv_migrate.LocalKvSource(exporter),
+                                 sleep=lambda _s: None)
+    return puller.pull(fields['request_id'],
+                       resident_digests=engine.probe_resident(
+                           fields['ids']))
+
+
+def _free_after_quiesce(engine):
+    """Whether every block is free once the idle driver's prefix cache
+    drops every entry it alone holds (no refcount leak)."""
+    while engine._prefix.evict_reclaimable():  # pylint: disable=protected-access
+        pass
+    return engine._pool.free_blocks == engine._pool.total_blocks  # pylint: disable=protected-access
+
+
+def import_all(engine, exports, n_new, tamper=None):
+    """Each export imported by the decode-role driver as a lone request
+    (in order, so later prompts find the earlier ones' blocks resident):
+    greedy tokens, blocks moved and resident, the stats' import
+    counters."""
+    out = {'tokens': [], 'moved': [], 'resident': []}
+    for fields in exports:
+        pulled = _pull(engine, fields)
+        if tamper is not None:
+            tamper(pulled)
+        request = engine.submit_migrated(fields['ids'], pulled,
+                                         max_new_tokens=n_new)
+        out['tokens'].append(list(engine.tail_tokens(request)))
+        out['moved'].append(pulled.moved)
+        out['resident'].append(pulled.resident)
+    stats = engine.stats()
+    out.update({k: stats[k] for k in ('kv_imports', 'kv_import_fallbacks',
+                                      'prefill_chunks', 'decode_steps',
+                                      'verify_steps')})
+    out['all_free'] = _free_after_quiesce(engine)
+    return out
+
+
+def short_payload(pulled):
+    """Tamper: the first moved block carries one rank's kv heads only (a
+    shard where the wire wants every head)."""
+    from skypilot_tpu_torch.inference import kv_migrate
+    i = next(i for i, p in enumerate(pulled.payloads) if p is not None)
+    arrays = kv_migrate.unpack_arrays(pulled.payloads[i])
+    pulled.payloads[i] = kv_migrate.pack_arrays(
+        {name: a.narrow(1, 0, 1) for name, a in arrays.items()})
+
+
+def disagg_cases(rank, world, params_np, foreign, n_new):
+    """Disaggregated roles on every rank under ``mesh='tensor=2'``, for
+    each pool of ``DISAGG_POOLS``: a prefill-role engine exports
+    ``DISAGG_PROMPTS`` (the driver returns the exports); a decode-role
+    engine imports, one source after another with its prefix cache
+    emptied between them, ``foreign[pool]``'s exports (``'jax'``,
+    ``'one'``) and its own, then a short payload that must fall back.
+    On the fp pool a speculative decode-role engine imports the exports
+    too, and the options still refused under a mesh are tried. Every
+    rank returns what it read and wrote of the pool
+    (``BlockRecorder``)."""
+    from skypilot_tpu_torch.inference.engine import InferenceEngine
+    from skypilot_tpu_torch.models import convert
+    cfg = tiny_config()
+    params = convert.params_from_numpy(params_np, cfg, device='cpu')
+    out = {'rank': rank, 'pools': {}, 'refused': {}}
+    for pool, options in DISAGG_POOLS.items():
+        res = {}
+        recorder = BlockRecorder()
+        try:
+            pre = _build('continuous', cfg, params,
+                         dict(options, role='prefill'))
+            if pre.is_driver:
+                res['exports'] = [
+                    export_fields(pre.exporter.get(pre.prefill_and_export(p)))
+                    for p in DISAGG_PROMPTS.values()]
+                res['prefill_stats'] = pre.stats()
+                pre.shutdown()
+            else:
+                pre.follow()
+            dec = _build('continuous', cfg, params,
+                         dict(options, role='decode'))
+            if dec.is_driver:
+                for source in ('jax', 'one', 'tp'):
+                    exports = (res['exports'] if source == 'tp'
+                               else foreign[pool][source])
+                    res[source] = import_all(dec, exports, n_new)
+                tamper = foreign[pool]['tampered']
+                res['tampered'] = import_all(dec, [tamper], n_new,
+                                             tamper=short_payload)
+                if pool == 'fp':
+                    try:
+                        dec.request_refresh(params=params)
+                    except NotImplementedError as e:
+                        out['refused']['refresh'] = str(e)
+                res['mesh'] = {k: v for k, v in dec.stats().items()
+                               if k.startswith('mesh') or k == 'role'}
+                dec.shutdown()
+            else:
+                dec.follow()
+            if pool == 'fp':
+                spec = _build('continuous', cfg, params,
+                              dict(role='decode', spec_decode=True,
+                                   draft_k=3))
+                if spec.is_driver:
+                    res['spec'] = import_all(spec, res['exports'], n_new)
+                    spec.shutdown()
+                else:
+                    spec.follow()
+        finally:
+            res.update(recorder.restore())
+        out['pools'][pool] = res
+    try:
+        _build('continuous', cfg, params, dict(role='decode', lora_pages=2))
+    except NotImplementedError as e:
+        out['refused']['lora_pages'] = str(e)
+    batch = _build('batch', cfg, params, {})
+    if batch.is_driver:
+        try:
+            batch.embed_text(['hello'])
+        except NotImplementedError as e:
+            out['refused']['embed_text'] = str(e)
+        batch.shutdown()
+    else:
+        batch.follow()
+    return out
+
+
+# Card test prompts (llama3-8b ids): P1 shares P0's first two blocks.
+_P0 = [(37 * i + 11) % 128000 for i in range(40)]
+CUDA_DISAGG_PROMPTS = [_P0, _P0[:32] + [(53 * i + 7) % 128000
+                                        for i in range(13)],
+                       [(29 * i + 3) % 128000 for i in range(21)]]
+
+
+def cuda_disagg_case(rank, world, quantize_kv, n_new):
+    """llama3-8b's heads at 2 layers (bf16 compute, weights from seed 0)
+    at tensor=2 on two ranks of the card: the colocated engine's greedy
+    tokens of ``CUDA_DISAGG_PROMPTS`` (lone requests), then the prefill
+    role's exports imported one after another by the decode role (lone
+    requests), with both ranks' reads and writes (``BlockRecorder``) and
+    the decode role's paged launches against its decode steps."""
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
+    from skypilot_tpu_torch.models.config import get_model_config
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    cfg = get_model_config('llama3-8b', n_layers=2)
+    kw = dict(cfg=cfg, seed=0, device='cuda', mesh='tensor=2',
+              max_slots=2, max_len=256, block_size=16,
+              quantize_kv=quantize_kv)
+    kernel = 'paged_attention_quant' if quantize_kv else 'paged_attention'
+    out = {'rank': rank}
+    recorder = BlockRecorder()
+    try:
+        colo = ContinuousBatchingEngine(**kw)
+        if colo.is_driver:
+            out['colocated'] = [colo.generate_ids(p, max_new_tokens=n_new)
+                                for p in CUDA_DISAGG_PROMPTS]
+            colo.shutdown()
+        else:
+            colo.follow()
+        del colo
+        pre = ContinuousBatchingEngine(role='prefill', **kw)
+        if pre.is_driver:
+            out['exports'] = [
+                export_fields(pre.exporter.pop(pre.prefill_and_export(p)))
+                for p in CUDA_DISAGG_PROMPTS]
+            pre.shutdown()
+        else:
+            pre.follow()
+        del pre
+        dec = ContinuousBatchingEngine(role='decode', **kw)
+        pa.reset_launch_counts()
+        if dec.is_driver:
+            out.update(import_all(dec, out['exports'], n_new))
+            dec.shutdown()
+        else:
+            dec.follow()
+        torch.cuda.synchronize()
+        out['launches'] = pa.LAUNCHES[kernel]
+    finally:
+        out.update(recorder.restore())
+    return out
