@@ -268,18 +268,35 @@ Phases, in order; any failure exits non-zero:
    building its shard from the same seeded init as phase 9. First
    kernels 1-5 timed at one rank's shapes (H=16, KVH=4; phases 3-5 hold
    them against the plain versions with planted faults). Then on both
-   ranks the continuous engine (4 prompts of 131-255 tokens + 16 new;
+   ranks the continuous engine (4 prompts of 131-255 tokens + 8 new;
    bf16, then int8 pool with every collective timed; then n-gram
    drafts, draft_k 4) and the batch engine (one batch, bf16 then int8
    cache): each rank's launch counts must be n_layers a decode or
-   verify step (paged), n_layers x 16 (decode) and n_layers a prefill
+   verify step (paged), n_layers x 8 (decode) and n_layers a prefill
    (flash), no flash fallback. The
    first decode step's logits (gathered to the driver) against one
    rank's on the same weights within ``TP_LOGIT_TOL`` a row; the common
    greedy prefix with one rank's batch engine printed, not gated. Then
    ``inference.server --mesh tensor=2`` (its own two ranks) answers
    ``/generate`` and ``/v1/completions`` and ``/stats`` names the mesh
-   and the backend. Printed beside the card's name and power limit:
+   and the backend. In the same ranks, after the colocated runs, the
+   disaggregated roles at tensor=2 (two-hop runs, ``check_tp_disagg``),
+   then phase 15's two adapters (4 pages of max rank 16) beside base
+   requests of the same prompts in one batch, and a seeded refresh of one
+   leaf under each shard rule (``check_tp_lora_refresh``): each rank's
+   paged launches n_layers a decode step; the adapter and refreshed
+   rows' logits (the row each first token is sampled from, and the
+   first decode step's where both sampled the same first token) within
+   ``TP_LOGIT_TOL`` of one rank's with the same adapter or refresh,
+   each moved by more than the limit;
+   the base rows the plain run's tokens; a planted head swap in the
+   follower's ``wq_b`` page and planted skipped refresh copies must fail
+   that gate; the refresh's bytes and seconds printed. The server runs
+   with ``--lora-pages 4 --lora-dir`` holding the two adapters: one
+   request each through ``adapter`` and ``X-Skyt-Adapter`` is answered,
+   and ``/adapters`` and ``/stats`` show both resident and phase 15's
+   charge in blocks.
+   Printed beside the card's name and power limit:
    each rank's peak memory, decode tok/s at tensor=2 against one rank's
    and the collectives' share of a timed run, labelled "two ranks on
    one card over gloo: not a TP speed".
@@ -672,16 +689,19 @@ MESH_SHARDS = (('fsdp=2', dict(b=4, h=20, kvh=4)),
 # One ring block of bench-1b7's training attention at phase 33's seq=2:
 # all 8 rows, all heads, half of the 2048 columns.
 RING_BLOCK = dict(b=8, s=1024, h=20, kvh=4, d=128)
-# New tokens a request in phase 31: each decode step of two ranks sharing
-# the card makes ~66 gloo collectives of ~2 ms each
+# New tokens a request in phases 31 and 34: each decode step of two ranks
+# sharing the card makes ~66 gloo collectives of ~2 ms each
 # (ops/collectives_bench.py on the card), so its decode runs are short.
-TP_NEW = 16
+# Phase 31's went from 16 to 8 when its adapter and refresh runs joined
+# its ranks, to hold the smoke's time.
+TP_NEW = 8
+TP_MOE_NEW = 16
 # Phase 31's batch engine: 4 prompts in bucket 256 + TP_NEW rows.
 TP_DECODE = dict(TP_HEADS, b=4, t=256 + TP_NEW,
                  lengths=[257, 200, 256 + TP_NEW, 131], q_len=1)
-# Phase 34's batch engine: MOE_PROMPTS (bucket 256) + TP_NEW rows.
-TP_MOE_DECODE = dict(TP_MOE_HEADS, b=4, t=256 + TP_NEW,
-                     lengths=[257, 200, 256 + TP_NEW, 131], q_len=1)
+# Phase 34's batch engine: MOE_PROMPTS (bucket 256) + TP_MOE_NEW rows.
+TP_MOE_DECODE = dict(TP_MOE_HEADS, b=4, t=256 + TP_MOE_NEW,
+                     lengths=[257, 200, 256 + TP_MOE_NEW, 131], q_len=1)
 GRPO_PAGED = dict(kvh=4, g=5, d=128, bs=16, bps=9, b=8,
                   lengths=[65, 72, 81, 96, 100, 113, 120, 129], q_len=1)
 GRPO_FAULT_ROWS = 120
@@ -4977,7 +4997,8 @@ def tp_rank(rank, world, prompts, new, model='llama3-8b', runs=TP_RUNS,
     ranks run one prefill and one decode step on its shards
     (``tp_first_step``). Returns each run's counts, stats (driver),
     build seconds, peak and steady memory, and the first step's
-    results; with ``disagg``, then the two-hop runs (``tp_disagg_rank``)."""
+    results; with ``disagg``, then the two-hop runs (``tp_disagg_rank``)
+    and the adapter and refresh runs (``tp_lora_refresh_rank``)."""
     import gc
     import torch
     from skypilot_tpu_torch.ops import decode_attention as da
@@ -5038,6 +5059,8 @@ def tp_rank(rank, world, prompts, new, model='llama3-8b', runs=TP_RUNS,
     if disagg:
         free_card(torch)
         out['disagg'] = tp_disagg_rank(torch, rank, prompts, new)
+        free_card(torch)
+        out['lora_refresh'] = tp_lora_refresh_rank(torch, prompts)
     return out
 
 
@@ -5338,6 +5361,457 @@ def tp_disagg_rank(torch, rank, prompts, new):
     return out
 
 
+# Phase 31's adapter and refresh runs (in the same ranks after the
+# two-hop runs): phase 15's adapters (name, rank, seed; B scaled by
+# LORA_B_SCALE) on 4 pages of max rank 16, beside base requests of the
+# same prompts in one batch, ``TP_NEW`` new tokens each (the base rows
+# are held to the plain tensor=2 run's tokens).
+TP_LORA_PAGES = dict(lora_pages=4, lora_max_rank=16)
+TP_ADAPTERS = (('tenant-16', 16, 11), ('tenant-8', 8, 12))
+TP_LORA_REQUESTS = (('tenant-16', 0), ('tenant-8', 1), ('', 0), ('', 1))
+# The refresh: one leaf under each shard rule, seeded values drawn on
+# the card in bf16 (std, or None for a norm scale around 1).
+TP_REFRESH = (('layers/attn/wq', 0.02), ('layers/attn/wk', 0.02),
+              ('layers/attn/wo', 0.02), ('layers/mlp/wi_up', 0.02),
+              ('embed/embedding', 0.02), ('layers/ln_attn/scale', None))
+TP_REFRESH_SEED = 31
+
+
+def tp_adapters(torch, cfg):
+    return {name: tiny_adapter(torch, cfg, rank, seed, LORA_B_SCALE)
+            for name, rank, seed in TP_ADAPTERS}
+
+
+def tp_refresh_updates(torch, cfg, device):
+    """``TP_REFRESH``'s whole values for ``cfg``, drawn on ``device`` from
+    ``TP_REFRESH_SEED`` (the same bits in every process on the card)."""
+    from skypilot_tpu_torch.inference.continuous import flatten_param_paths
+    from skypilot_tpu_torch.models import llama
+    shapes = flatten_param_paths(llama.param_shapes(cfg))
+    gen = torch.Generator(device=device).manual_seed(TP_REFRESH_SEED)
+    out = {}
+    for path, std in TP_REFRESH:
+        noise = torch.randn(tuple(shapes[path].shape), generator=gen,
+                            device=device, dtype=torch.bfloat16)
+        out[path] = 1.0 + 0.1 * noise if std is None else std * noise
+    return out
+
+
+class FirstLogits:
+    """While entered, each request of ``engine`` (keyed by (adapter or
+    '', prompt ids)): the logits row its first token is sampled from
+    (its last prefill chunk's), that token, and the logits of the first
+    decode step it takes part in (the driver's whole-vocab rows, fp32 on
+    the host)."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.prefill, self.token, self.decode = {}, {}, {}
+
+    def _key(self, request):
+        return (request.adapter or '', tuple(request.token_ids))
+
+    def __enter__(self):
+        from skypilot_tpu_torch.models import decode as decode_lib
+        self.module = decode_lib
+        self.real = decode_lib.prefill_chunk, decode_lib.paged_decode_step
+        real_prefill, real_decode = self.real
+
+        def prefill(params, tokens, start, n_new, slot, cache, cfg,
+                    **kwargs):
+            last, cache = real_prefill(params, tokens, start, n_new, slot,
+                                       cache, cfg, **kwargs)
+            request = self.engine._slots[slot]
+            if request is not None:
+                self.prefill[self._key(request)] = (
+                    last[0].float().cpu().numpy())
+            return last, cache
+
+        def decode(params, tokens, cache, cfg, **kwargs):
+            logits, cache = real_decode(params, tokens, cache, cfg,
+                                        **kwargs)
+            active = kwargs.get('active')
+            for slot, request in enumerate(self.engine._slots):
+                if request is None or (active is not None and
+                                       not bool(active[slot])):
+                    continue
+                key = self._key(request)
+                if key not in self.decode:
+                    self.token[key] = int(tokens[slot])
+                    self.decode[key] = logits[slot].float().cpu().numpy()
+            return logits, cache
+
+        decode_lib.prefill_chunk, decode_lib.paged_decode_step = (prefill,
+                                                                  decode)
+        return self
+
+    def __exit__(self, *exc):
+        self.module.prefill_chunk, self.module.paged_decode_step = self.real
+
+    def by_request(self, requests, ids):
+        """``requests`` ((adapter, prompt index)) in order: their
+        prefill rows, first tokens and first decode-step rows."""
+        keys = [(name, tuple(ids[i])) for name, i in requests]
+        return {'prefill': [self.prefill[k] for k in keys],
+                'token': [self.token[k] for k in keys],
+                'decode': [self.decode[k] for k in keys]}
+
+
+def plant_other_page_heads():
+    """Planted fault for phase 31's adapter gate: a page write on this
+    rank puts the next rank's head block of the adapter's ``wq_b`` into
+    its page. Returns the undo."""
+    from skypilot_tpu_torch.models import lora as lora_lib
+    real = lora_lib.write_adapter_page
+
+    def other(pages, page, lora, alpha=lora_lib.DEFAULT_ALPHA, *,
+              shard=(0, 1)):
+        real(pages, page, lora, alpha, shard=shard)
+        index, count = shard
+        heads = pages['wq_b'].shape[3]
+        b = lora['wq_b']
+        pages['wq_b'][:, page, :b.shape[1]] = b.narrow(
+            2, (index + 1) % count * heads, heads).to(pages['wq_b'].dtype)
+        return pages
+
+    lora_lib.write_adapter_page = other
+    return lambda: setattr(lora_lib, 'write_adapter_page', real)
+
+
+def plant_skipped_copies():
+    """Planted fault for phase 31's refresh gate: this rank receives
+    every refreshed leaf but copies none of it. Returns the undo."""
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
+    real = ContinuousBatchingEngine._timed_copies
+    ContinuousBatchingEngine._timed_copies = lambda self, enqueue: (None,
+                                                                    0.0)
+    return lambda: setattr(ContinuousBatchingEngine, '_timed_copies', real)
+
+
+def tp_lora_run(torch, prompts, new, requests, plant):
+    """One adapter-page engine at tensor=2 on this rank (``TP_LORA_PAGES``;
+    ``plant`` on the follower: ``plant_other_page_heads``). The driver
+    registers phase 15's adapters and submits ``requests`` ((adapter,
+    prompt index)) together: tokens, first decode-step rows, the stats'
+    change. Launch counts zeroed after the build."""
+    from skypilot_tpu_torch.ops import decode_attention as da
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    t0 = time.perf_counter()
+    engine = _tp_engine('continuous', TP_LORA_PAGES)
+    torch.cuda.synchronize()
+    run = {'build_s': time.perf_counter() - t0}
+    undo = (plant_other_page_heads() if plant and not engine.is_driver
+            else (lambda: None))
+    for module in (pa, da, fa):
+        module.reset_launch_counts()
+    try:
+        if engine.is_driver:
+            for name, adapter in tp_adapters(torch, engine.cfg).items():
+                engine.register_adapter(name, adapter)
+            ids = [engine.tokenizer.encode(p) for p in prompts]
+            before = engine.stats()
+            t0 = time.perf_counter()
+            with FirstLogits(engine) as first:
+                handles = [engine.submit_ids(ids[i], max_new_tokens=new,
+                                             adapter=name or None)
+                           for name, i in requests]
+                for h in handles:
+                    if not h.done.wait(600) or h.error is not None:
+                        raise RuntimeError(f'[tp-lora] request failed: '
+                                           f'{h.error}')
+            torch.cuda.synchronize()
+            run['wall_s'] = time.perf_counter() - t0
+            run['tokens'] = [list(h.generated) for h in handles]
+            run['rows'] = first.by_request(requests, ids)
+            after = engine.stats()
+            run['delta'] = {k: after[k] - before[k] for k in before
+                            if isinstance(before[k], (int, float))}
+            run['stats'] = {k: after[k] for k in after
+                            if k.startswith('lora_')}
+            engine.shutdown()
+        else:
+            engine.follow()
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    run['launches'] = kernel_launches(pa, da, fa)
+    run['flash_fallbacks'] = fa.FALLBACKS['cuda']
+    del engine
+    free_card(torch)
+    return run
+
+
+def tp_refresh_run(torch, prompts, plant):
+    """One continuous engine at tensor=2 on this rank with no prefix
+    cache (a refreshed engine recomputes every prompt; ``plant`` on the
+    follower: ``plant_skipped_copies``). The driver refreshes
+    ``TP_REFRESH`` (drawn on its card and broadcast leaf by leaf), then
+    takes the prompts' first-step rows (``FirstLogits``): the ticket's
+    leaves, bytes and seconds, the version."""
+    from skypilot_tpu_torch.ops import decode_attention as da
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    t0 = time.perf_counter()
+    engine = _tp_engine('continuous', {'prefix_cache': False})
+    torch.cuda.synchronize()
+    run = {'build_s': time.perf_counter() - t0}
+    undo = (plant_skipped_copies() if plant and not engine.is_driver
+            else (lambda: None))
+    for module in (pa, da, fa):
+        module.reset_launch_counts()
+    requests = [('', i) for i in range(len(prompts))]
+    try:
+        if engine.is_driver:
+            ids = [engine.tokenizer.encode(p) for p in prompts]
+            before = engine.stats()
+            updates = tp_refresh_updates(torch, engine.cfg, engine.device)
+            t0 = time.perf_counter()
+            ticket = engine.request_refresh(updates)
+            del updates
+            if not ticket.done.wait(600) or ticket.error is not None:
+                raise RuntimeError(f'[tp-refresh] refresh failed: '
+                                   f'{ticket.error}')
+            run['refresh'] = {
+                'wall_s': time.perf_counter() - t0,
+                'prepare_s': ticket.prepare_seconds,
+                'apply_s': ticket.apply_seconds,
+                'bytes': ticket.nbytes, 'shards': ticket.applied_shards}
+            with FirstLogits(engine) as first:
+                concurrent_ids(engine, prompts, 2)
+            run['rows'] = first.by_request(requests, ids)
+            after = engine.stats()
+            run['delta'] = {k: after[k] - before[k] for k in before
+                            if isinstance(before[k], (int, float))}
+            run['version'] = after['policy_version']
+            engine.shutdown()
+        else:
+            engine.follow()
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    run['launches'] = kernel_launches(pa, da, fa)
+    del engine
+    free_card(torch)
+    return run
+
+
+def tp_lora_refresh_rank(torch, prompts):
+    """Phase 31's adapter and refresh runs on one rank, after its
+    two-hop runs: the adapter run (``TP_LORA_REQUESTS``), its planted
+    fault (the adapters alone, 2 new tokens), the refresh run and its
+    planted fault."""
+    t0 = time.perf_counter()
+    out = {'lora': tp_lora_run(torch, prompts, TP_NEW,
+                               TP_LORA_REQUESTS, False),
+           'lora_fault': tp_lora_run(torch, prompts, 2,
+                                     TP_LORA_REQUESTS[:2], True),
+           'refresh': tp_refresh_run(torch, prompts, False),
+           'refresh_fault': tp_refresh_run(torch, prompts, True)}
+    out['phase_s'] = time.perf_counter() - t0
+    return out
+
+
+def one_rank_lora_refresh(torch, params, prompts):
+    """The one-rank rows phase 31's adapter and refresh gates hold the
+    tensor=2 rows to, on the same weights: an adapter-page engine's first
+    decode-step rows of ``TP_LORA_REQUESTS`` (2 new tokens), and a
+    continuous engine's (no prefix cache) after the same refresh, with
+    its version and leaves written."""
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
+    out = {}
+    engine = ContinuousBatchingEngine('llama3-8b', params=params,
+                                      max_slots=4, max_len=2048,
+                                      block_size=16, **TP_LORA_PAGES)
+    try:
+        for name, adapter in tp_adapters(torch, engine.cfg).items():
+            engine.register_adapter(name, adapter)
+        ids = [engine.tokenizer.encode(p) for p in prompts]
+        with FirstLogits(engine) as first:
+            handles = [engine.submit_ids(ids[i], max_new_tokens=2,
+                                         adapter=name or None)
+                       for name, i in TP_LORA_REQUESTS]
+            for h in handles:
+                if not h.done.wait(600) or h.error is not None:
+                    raise RuntimeError(f'[tp-lora] one rank: {h.error}')
+        out['lora_rows'] = first.by_request(TP_LORA_REQUESTS, ids)
+    finally:
+        engine.shutdown()
+    del engine
+    free_card(torch)
+    engine = ContinuousBatchingEngine('llama3-8b', params=params,
+                                      max_slots=4, max_len=2048,
+                                      block_size=16, prefix_cache=False)
+    try:
+        ticket = engine.request_refresh(tp_refresh_updates(
+            torch, engine.cfg, engine.device))
+        if not ticket.done.wait(600) or ticket.error is not None:
+            raise RuntimeError(f'[tp-refresh] one rank: {ticket.error}')
+        requests = [('', i) for i in range(len(prompts))]
+        with FirstLogits(engine) as first:
+            concurrent_ids(engine, prompts, 2)
+        out['refresh_rows'] = first.by_request(requests, ids)
+        out['refresh_version'] = engine.policy_version
+        out['refresh_shards'] = ticket.applied_shards
+        out['refresh_bytes'] = ticket.nbytes
+    finally:
+        engine.shutdown()
+    del engine
+    free_card(torch)
+    return out
+
+
+def rel_rows(got, want):
+    """Per-row relative L2 distance ||got - want|| / ||want||."""
+    import numpy as np
+    return [float(np.linalg.norm(g - w) / np.linalg.norm(w))
+            for g, w in zip(got, want)]
+
+
+def first_step_err(got, want):
+    """``FirstLogits.by_request`` records against one rank's: the
+    prefill rows' distances (``rel_rows``), then the first decode-step
+    rows' where both sampled the same first token (a near tie in a
+    prefill row may part them at bf16, and a decode step on another
+    token is not comparable), with the count of such partings."""
+    same = [k for k, (a, b) in enumerate(zip(got['token'], want['token']))
+            if a == b]
+    return (rel_rows(got['prefill'], want['prefill']),
+            rel_rows([got['decode'][k] for k in same],
+                     [want['decode'][k] for k in same]),
+            len(got['token']) - len(same))
+
+
+def check_tp_lora_refresh(ranks, n_layers, plain_tokens, one, smi):
+    """Phase 31's adapter and refresh gates (``tp_lora_refresh_rank``).
+    Adapters: each rank's paged launches n_layers a decode step, nothing
+    else; each row's logits (``first_step_err``: the row its first token
+    is sampled from, and its first decode step's) within
+    ``TP_LOGIT_TOL`` of one rank's with the same adapter, while the
+    adapter moves the row off the same prompt's base row by far more;
+    the base rows' tokens the plain tensor=2 run's; 2 adapters resident,
+    charged as phase 15; the planted head swap fails the logit gate.
+    Refresh: every row within ``TP_LOGIT_TOL`` of one rank refreshed
+    alike, while the refresh moves it by far more; the version and the
+    leaves written equal one rank's; the planted skipped copies fail
+    it. Returns the numbers PERF.md keeps and the launches of the two
+    main-path runs."""
+    runs = [r['lora_refresh'] for r in ranks]
+    d = runs[0]
+    tag = '[tp-lora]'
+    lora = d['lora']
+    steps = lora['delta']['decode_steps']
+    for rank, r in enumerate(runs):
+        for label in ('lora', 'refresh'):
+            run = r[label]
+            want = n_layers * d[label]['delta']['decode_steps']
+            others = {k: v for k, v in run['launches'].items()
+                      if k != 'paged_attention' and v}
+            if run['launches']['paged_attention'] != want or want <= 0 \
+                    or others:
+                raise AssertionError(
+                    f'{tag} rank {rank} {label}: launches '
+                    f'{run["launches"]} (expected paged_attention {want})')
+    n_adapters = len(TP_ADAPTERS)
+    one_fault = {k: v[:n_adapters] for k, v in one['lora_rows'].items()}
+    pre_err, tp_err, parted = first_step_err(lora['rows'],
+                                              one['lora_rows'])
+    lora_moved = rel_rows(lora['rows']['prefill'][:n_adapters],
+                          lora['rows']['prefill'][n_adapters:])
+    lora_fault = rel_rows(d['lora_fault']['rows']['prefill'],
+                          one_fault['prefill'])
+    log(f'{tag} tensor=2 vs one rank with the same adapter, relative L2 '
+        f'per row (adapters {[n for n, _, _ in TP_ADAPTERS]}, then the base '
+        f'rows; limit {TP_LOGIT_TOL:g}): the row the first token is sampled '
+        f'from {[f"{x:.3e}" for x in pre_err]}, the first decode step '
+        f'{[f"{x:.3e}" for x in tp_err]} ({parted} rows parted by their '
+        f'first token); each adapter moves its row off the same prompt\'s '
+        f'base row by {[f"{x:.3e}" for x in lora_moved]}; planted fault '
+        f'(rank 1 writes rank 0\'s head block of wq_b): '
+        f'{[f"{x:.3e}" for x in lora_fault]}')
+    if max(pre_err + tp_err) > TP_LOGIT_TOL or not tp_err or \
+            min(lora_moved) <= TP_LOGIT_TOL or \
+            min(lora_fault) <= TP_LOGIT_TOL:
+        raise AssertionError(f'{tag} logit gate: tensor=2 {pre_err} / '
+                             f'{tp_err}, moved {lora_moved}, planted fault '
+                             f'{lora_fault}')
+    base = [t for (name, _), t in zip(TP_LORA_REQUESTS, lora['tokens'])
+            if not name]
+    want = [list(plain_tokens[i])
+            for name, i in TP_LORA_REQUESTS if not name]
+    if base != want:
+        raise AssertionError(f'{tag} base rows {base} vs the plain run\'s '
+                             f'{want}')
+    from skypilot_tpu_torch.models import lora as lora_lib
+    from skypilot_tpu_torch.models.config import get_model_config
+    cfg = get_model_config('llama3-8b')
+    block_bytes = 2 * cfg.n_layers * 16 * cfg.n_kv_heads * \
+        cfg.resolved_head_dim * 2
+    charged = sum(-(-lora_lib.adapter_nbytes(cfg, rank) // block_bytes)
+                  for _, rank, _ in TP_ADAPTERS)
+    stats = lora['stats']
+    if stats['lora_pages_resident'] != n_adapters or \
+            stats['lora_blocks_charged'] != charged:
+        raise AssertionError(f'{tag} residency {stats} (expected '
+                             f'{n_adapters} pages, {charged} blocks)')
+    log(f'{tag} adapter run: {len(TP_LORA_REQUESTS)} requests in one batch, '
+        f'{TP_NEW} new tokens; base rows equal the plain tensor=2 '
+        f'run\'s tokens; paged_attention {n_layers} x {steps} decode steps '
+        f'on each rank; {n_adapters} adapters resident, {charged} blocks '
+        f'charged (phase 15\'s charge); wall {lora["wall_s"]:.2f} s (two '
+        f'ranks on one card over gloo: not a TP speed; {smi})')
+    tag = '[tp-refresh]'
+    ref = d['refresh']
+    pre_ref, err, parted = first_step_err(ref['rows'], one['refresh_rows'])
+    # Moved: off the unrefreshed base rows of the adapter run's prompts.
+    base_rows = [lora['rows']['prefill'][k] for k, (name, _) in
+                 enumerate(TP_LORA_REQUESTS) if not name]
+    moved = rel_rows(base_rows, [ref['rows']['prefill'][i]
+                                 for name, i in TP_LORA_REQUESTS if not name])
+    fault_err = rel_rows(d['refresh_fault']['rows']['prefill'],
+                         one['refresh_rows']['prefill'])
+    info = ref['refresh']
+    log(f'{tag} after refreshing {len(TP_REFRESH)} leaves '
+        f'({[p for p, _ in TP_REFRESH]}), tensor=2 vs one rank refreshed '
+        f'alike, relative L2 per row (limit {TP_LOGIT_TOL:g}): the row the '
+        f'first token is sampled from {[f"{x:.3e}" for x in pre_ref]}, the '
+        f'first decode step {[f"{x:.3e}" for x in err]} ({parted} rows '
+        f'parted by their first token); the refresh moves each row by '
+        f'{[f"{x:.3e}" for x in moved]}; planted fault (rank 1 skips its '
+        f'copies): {[f"{x:.3e}" for x in fault_err]}')
+    if max(pre_ref + err) > TP_LOGIT_TOL or not err or \
+            min(moved) <= TP_LOGIT_TOL or min(fault_err) <= TP_LOGIT_TOL:
+        raise AssertionError(f'{tag} logit gate: tensor=2 {pre_ref} / '
+                             f'{err}, moved {moved}, planted fault '
+                             f'{fault_err}')
+    if ref['version'] != one['refresh_version'] != 1 or \
+            info['shards'] != one['refresh_shards'] != len(TP_REFRESH) or \
+            info['bytes'] != one['refresh_bytes']:
+        raise AssertionError(
+            f'{tag} version {ref["version"]} / {one["refresh_version"]}, '
+            f'leaves {info["shards"]} / {one["refresh_shards"]}, bytes '
+            f'{info["bytes"]} / {one["refresh_bytes"]}')
+    log(f'{tag} version 1 and {info["shards"]} leaves on both; '
+        f'{info["bytes"] / 1e9:.3f} GB broadcast whole to every rank '
+        f'(gloo); request (snapshot on the card) {info["prepare_s"]:.3f} s, '
+        f'apply at the step boundary {info["apply_s"]:.3f} s, request to '
+        f'landed {info["wall_s"]:.3f} s (two ranks on one card over gloo: '
+        f'not a TP speed; {smi})')
+    launches = {}
+    for r in runs:
+        for label in ('lora', 'refresh'):
+            for k, v in r[label]['launches'].items():
+                launches[k] = launches.get(k, 0) + v
+    return {'lora_rel': pre_err + tp_err, 'lora_moved': lora_moved,
+            'lora_fault': lora_fault, 'refresh_rel': pre_ref + err,
+            'refresh_moved': moved, 'refresh_fault': fault_err,
+            'refresh': info, 'blocks_charged': charged,
+            'decode_steps': steps, 'phase_s': d['phase_s'],
+            'launches': launches}
+
+
 class RouteRecorder:
     """While entered, every ``llama._route`` call keeps its ``selected``
     (each token's experts; one call a MoE layer) on the host."""
@@ -5438,7 +5912,7 @@ def tp_single_rank(torch, prompts, new, model='llama3-8b'):
     llama3_params' weights, which both engines share; another model:
     each engine's own init from seed 0): the batch engine's tokens, its
     first step (``tp_first_step``) and the continuous engine's decode
-    rate."""
+    rate; for llama3-8b also the rows of ``one_rank_lora_refresh``."""
     from skypilot_tpu_torch.inference.continuous import (
         ContinuousBatchingEngine)
     from skypilot_tpu_torch.inference.engine import InferenceEngine
@@ -5457,7 +5931,11 @@ def tp_single_rank(torch, prompts, new, model='llama3-8b'):
         out['decode_tok_s'] = decode_rate(before, engine.stats())
     finally:
         engine.shutdown()
-    del engine, params
+    del engine
+    free_card(torch)
+    if model == 'llama3-8b':
+        out.update(one_rank_lora_refresh(torch, params, prompts))
+    del params
     free_card(torch)
     return out
 
@@ -5661,19 +6139,36 @@ def check_tp_disagg(ranks, n_layers, colocated, smi, block_size=16):
             'launches': launches}
 
 
-def tp_server(torch, prompts, smi):
-    """``inference.server --mesh tensor=2`` on the card as a user starts
-    it: it starts its own two ranks; /generate and /v1/completions
-    answer, /stats names the mesh and the backend; SIGTERM stops it."""
+def tp_server(torch, prompts, smi, charged):
+    """``inference.server --mesh tensor=2 --lora-pages 4 --lora-dir REG``
+    on the card as a user starts it, REG holding phase 15's adapters: it
+    starts its own two ranks; /generate and /v1/completions answer, base
+    and with an adapter each (the ``adapter`` field, the
+    ``X-Skyt-Adapter`` header; the seeded weights' text may be empty,
+    so the adapters' effect is gated on the ranks' logits); /stats names
+    the mesh and the backend; /adapters shows one request of each
+    adapter and both resident, /stats ``charged`` blocks; SIGTERM stops
+    it."""
+    import shutil
     import signal
     import socket
+    from skypilot_tpu_torch.models.config import get_model_config
+    from skypilot_tpu_torch.serve import adapter_registry
     with socket.socket() as sock:
         sock.bind(('127.0.0.1', 0))
         port = sock.getsockname()[1]
+    registry = scratch_dir(1e9, 'tp-lora')
+    for name, adapter in tp_adapters(
+            torch, get_model_config('llama3-8b')).items():
+        adapter_registry.export_adapter(registry, name, adapter, alpha=16.0,
+                                        base_digest='')
     cmd = [sys.executable, '-m', 'skypilot_tpu_torch.inference.server',
            '--model', 'llama3-8b', '--mesh', 'tensor=2', '--engine',
            'continuous', '--max-batch', '4', '--max-len', '2048',
-           '--host', '127.0.0.1', '--port', str(port)]
+           '--lora-pages', str(TP_LORA_PAGES['lora_pages']),
+           '--lora-max-rank', str(TP_LORA_PAGES['lora_max_rank']),
+           '--lora-dir', registry, '--host', '127.0.0.1', '--port',
+           str(port)]
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
@@ -5695,6 +6190,14 @@ def tp_server(torch, prompts, smi):
                                             'max_new_tokens': 16})
         comp = post_json(port, '/v1/completions',
                          {'prompt': prompts[0], 'max_tokens': 16})
+        names = [name for name, _, _ in TP_ADAPTERS]
+        tenant = post_json(port, '/generate', {
+            'prompts': prompts[:1], 'max_new_tokens': 16,
+            'adapter': names[0]})
+        tenant_comp = post_json(port, '/v1/completions',
+                                {'prompt': prompts[0], 'max_tokens': 16},
+                                headers={'X-Skyt-Adapter': names[1]})
+        adapters = json.loads(get_url(port, '/adapters'))
         stats = json.loads(get_url(port, '/stats'))
     finally:
         proc.send_signal(signal.SIGTERM)
@@ -5703,15 +6206,30 @@ def tp_server(torch, prompts, smi):
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait()
+        shutil.rmtree(registry, ignore_errors=True)
     if len(gen.get('outputs', [])) != 2 or not comp.get('choices'):
         raise AssertionError(f'[tp] server payloads {gen} {comp}')
+    if len(tenant.get('outputs', [])) != 1 or \
+            not tenant_comp.get('choices') or \
+            sorted(adapters) != sorted(names) or \
+            any(adapters[n]['resident'] != 1.0 or
+                adapters[n]['requests'] != 1.0 for n in names) or \
+            stats.get('lora_pages_resident') != len(names) or \
+            stats.get('lora_blocks_charged') != charged:
+        lora = {k: v for k, v in stats.items() if k.startswith('lora')}
+        raise AssertionError(f'[tp] --lora-dir server: payloads {tenant} '
+                             f'{tenant_comp}; /adapters {adapters}; '
+                             f'/stats {lora}')
     if stats.get('mesh') != "Mesh({'tensor': 2})" or \
             stats.get('mesh_backend') not in ('gloo', 'nccl') or \
             len(stats.get('mesh_devices', [])) != 2:
         raise AssertionError(f'[tp] /stats does not name the mesh: {stats}')
-    log(f'[tp] server --mesh tensor=2 up in {up_s:.1f} s; /generate and '
-        f'/v1/completions answered; /stats mesh {stats["mesh"]}, backend '
-        f'{stats["mesh_backend"]}, devices {stats["mesh_devices"]}; {smi}')
+    log(f'[tp] server --mesh tensor=2 --lora-dir up in {up_s:.1f} s; '
+        f'/generate and /v1/completions answered, base and with an '
+        f'adapter each; /adapters and /stats: {len(names)} adapters '
+        f'resident, one request each, {charged} blocks charged; /stats '
+        f'mesh {stats["mesh"]}, backend {stats["mesh_backend"]}, devices '
+        f'{stats["mesh_devices"]}; {smi}')
     return {'up_s': up_s, 'backend': stats['mesh_backend']}
 
 
@@ -5736,6 +6254,9 @@ def phase_tp(torch, pa, da, fa, bw, flops_peak, smi):
     disagg = check_tp_disagg(
         ranks, n_layers, ranks[0]['runs']['continuous']['tokens'], smi)
     single = tp_single_rank(torch, prompts, TP_NEW)
+    lora_refresh = check_tp_lora_refresh(
+        ranks, n_layers, ranks[0]['runs']['continuous']['tokens'], single,
+        smi)
     driver = ranks[0]['runs']
     tp_logits, one = driver['batch']['logits'], single['logits']
     rel = (np.linalg.norm(tp_logits - one, axis=-1) /
@@ -5768,16 +6289,20 @@ def phase_tp(torch, pa, da, fa, bw, flops_peak, smi):
         f'timed with the card synchronized ({label}; {smi})')
     log(f'[tp] backend {driver["continuous"]["mesh"]["mesh_backend"]}, '
         f'devices {driver["continuous"]["mesh"]["mesh_devices"]}')
-    server = tp_server(torch, prompts, smi)
+    server = tp_server(torch, prompts, smi, lora_refresh['blocks_charged'])
     launches = dict(disagg.pop('launches'))
+    for k, v in lora_refresh.pop('launches').items():
+        launches[k] = launches.get(k, 0) + v
     for r in ranks:
         for run in r['runs'].values():
             for k, v in run['launches'].items():
                 launches[k] = launches.get(k, 0) + v
     log(f'[smoke] phase 31 {time.perf_counter() - t0:.1f} s (ranks '
         f'{t1 - t0:.1f} s, of which two-hop runs '
-        f'{disagg["times"]["phase_s"]:.1f} s)')
+        f'{disagg["times"]["phase_s"]:.1f} s, adapter and refresh runs '
+        f'{lora_refresh["phase_s"]:.1f} s)')
     return {'launches': launches, 'tok_s': tok_s, 'disagg': disagg,
+            'lora_refresh': lora_refresh,
             'single_tok_s': single['decode_tok_s'],
             'collective_share': share, 'logit_rel': float(rel.max()),
             'shard_times': shard, 'server': server}
@@ -6515,10 +7040,10 @@ def phase_tp_moe(torch, smi):
     from skypilot_tpu_torch.parallel.launch import launch
     t0 = time.perf_counter()
     n_layers = get_model_config(TP_MOE_MODEL).n_layers
-    ranks = launch(tp_rank, 2, MOE_PROMPTS, TP_NEW, TP_MOE_MODEL,
+    ranks = launch(tp_rank, 2, MOE_PROMPTS, TP_MOE_NEW, TP_MOE_MODEL,
                    TP_MOE_RUNS, device='cuda')
     t1 = time.perf_counter()
-    single = tp_single_rank(torch, MOE_PROMPTS, TP_NEW, TP_MOE_MODEL)
+    single = tp_single_rank(torch, MOE_PROMPTS, TP_MOE_NEW, TP_MOE_MODEL)
     driver = ranks[0]['runs']
     batch = driver['batch']
     label = 'two ranks on one card over gloo: not a TP speed'
@@ -6548,7 +7073,7 @@ def phase_tp_moe(torch, smi):
     log(f'[tp-moe] at bf16 (not gated): tensor=2 vs one rank '
         f'{rows(rel16)}; against one rank\'s fp32: one rank\'s bf16 '
         f'{rows(spread16)}, tensor=2\'s bf16 {rows(tp_spread16)}; '
-        f'common greedy prefix of {TP_NEW} tokens {prefix}')
+        f'common greedy prefix of {TP_MOE_NEW} tokens {prefix}')
     for tag, name in (('32', 'fp32'), ('', 'bf16')):
         log(f'[tp-moe] share of tokens routed to the same top-6 set as one '
             f'rank at {name}, by layer: '
@@ -6567,12 +7092,12 @@ def phase_tp_moe(torch, smi):
             f'run {build}; peak GB serving {peaks} ({smi})')
     log(f'[tp-moe] decode {tok_s:.1f} tok/s at tensor=2 vs '
         f'{single["decode_tok_s"]:.1f} tok/s on one rank (4 requests, '
-        f'{TP_NEW} new; {label}; {smi})')
+        f'{TP_MOE_NEW} new; {label}; {smi})')
     log(f'[tp-moe] collectives {timed["collectives"]["calls"]} calls, '
         f'{timed["collectives"]["seconds"]:.3f} s of a '
         f'{timed["wall_s"]:.3f} s run = {100 * share:.1f}% of it, each '
         f'timed with the card synchronized ({label}; {smi})')
-    check_tp_runs(ranks, n_layers, TP_NEW, TP_MOE_RUNS, 'tp-moe')
+    check_tp_runs(ranks, n_layers, TP_MOE_NEW, TP_MOE_RUNS, 'tp-moe')
     dense = {'all_reduce tensor': 2 * n_layers + 2}
     for r in ranks:
         got = r['runs']['batch']['step_collectives']

@@ -84,8 +84,13 @@ plain stream at any temperature (bitwise where the logits are).
   gathers each block's kv heads from every rank in rank order, an
   import checks the whole-head payload on the driver and scatters each
   rank's heads into its pool, so the wire format stays the
-  reference's whole blocks. LoRA pages and weight refresh raise under
-  a mesh (ROADMAP.md, queue A item 15).
+  reference's whole blocks. LoRA pages serve under a mesh: the driver
+  keeps the registry, the page pool and its accounting, uploads a page
+  by a plan whose adapter every rank writes (B on its own heads, A
+  whole), and the step plans carry the slots' pages. A weight refresh
+  is checked whole on the driver and announced at a step boundary;
+  every rank copies its slice of each leaf in place. A page write or a
+  refresh that fails once announced is fatal, like a failed step.
 """
 from __future__ import annotations
 
@@ -146,6 +151,11 @@ _PLAN_VERIFY = 4
 # an import (their whole-head payload follows the plan).
 _PLAN_READ_BLOCKS = 5
 _PLAN_WRITE_BLOCKS = 6
+# LoRA pages: an adapter uploaded into a page (its weights follow the
+# plan). Live refresh: the engine leaves written at this step boundary
+# (their whole new values follow the plan).
+_PLAN_WRITE_PAGE = 7
+_PLAN_REFRESH = 8
 
 
 def flatten_param_paths(params) -> Dict[str, Any]:
@@ -199,10 +209,14 @@ def _owned(tree, given) -> Any:
 
 
 class _WeightRefresh:
-    """A queued live weight swap: ``copies`` pairs each engine leaf with
-    its new value, already in the leaf's dtype and on its device. The
-    serving loop applies it at a step boundary, then sets ``done``
-    (``error`` on failure)."""
+    """A queued live weight swap: ``copies`` pairs each engine leaf
+    (under a mesh: its index in the engine's sorted paths) with its new
+    value, already in the leaf's dtype and on its device (under a mesh:
+    the whole value). The serving loop applies it at a step boundary,
+    then sets ``done`` (``error`` on failure); ``nbytes`` and
+    ``apply_seconds`` are what the apply moved (under a mesh the bytes
+    broadcast to every rank) and its wall seconds, broadcasts
+    included."""
 
     def __init__(self, copies, version, mode, prepare_seconds) -> None:
         self.copies = copies
@@ -210,6 +224,8 @@ class _WeightRefresh:
         self.mode = mode
         self.prepare_seconds = prepare_seconds
         self.applied_shards = 0
+        self.nbytes = 0
+        self.apply_seconds = 0.0
         self.done = threading.Event()
         self.error: Optional[BaseException] = None
 
@@ -534,10 +550,7 @@ class ContinuousBatchingEngine:
         self.cfg = cfg or get_model_config(model)
         if quantize_kv:
             self.cfg = with_int8_kv_cache(self.cfg)
-        sharding.check_unported(
-            mesh, self.cfg, params, lora_pages=(
-                lora_pages if lora_pages is not None
-                else env.get_int('SKYT_LORA_PAGES')) > 0)
+        sharding.check_unported(mesh, self.cfg, params)
         self._mesh = sharding.mesh_serving(mesh, self.device, self.cfg)
         self._tp = None
         if self._mesh is not None:
@@ -646,17 +659,21 @@ class ContinuousBatchingEngine:
         self._adapter_pool: Optional[AdapterPagePool] = None
         self._lora_store = None
         if n_lora > 0:
+            # A block's charge counts every kv head of the mesh: the
+            # accounting is the one-rank engine's, on the driver alone.
             block_bytes = (2 * self.cfg.n_layers * self.block_size *
                            self.cfg.n_kv_heads *
                            self.cfg.resolved_head_dim *
                            self.cache.k.element_size())
             if self.cache.quantized:
                 block_bytes += 2 * self.cfg.n_layers * self.block_size * 4
-            self._adapter_pool = AdapterPagePool(self._pool, n_lora,
-                                                 block_bytes)
+            if self.is_driver:
+                self._adapter_pool = AdapterPagePool(self._pool, n_lora,
+                                                     block_bytes)
             self._lora_store = lora_lib.init_adapter_pages(
                 self.cfg, n_lora, self._lora_max_rank,
-                dtype=self.cfg.compute_dtype, device=self.device)
+                dtype=self.cfg.compute_dtype, device=self.device,
+                shards=self._tp.degree if self._tp is not None else 1)
         self._pending_tok = np.zeros((max_slots,), np.int64)
         self._seeds = [seed + 1 + i for i in range(max_slots)]
         self._last_logits = torch.zeros((max_slots, self.cfg.vocab_size),
@@ -829,6 +846,8 @@ class ContinuousBatchingEngine:
         into the host registry; the device page is filled on the first
         request that needs it. ``base_digest`` (when both sides declare
         one) must match the engine's base weights."""
+        if self._mesh is not None:
+            self._mesh.require_driver('registering an adapter')
         if not name:
             raise ValueError('adapter name must be non-empty')
         if self._adapter_pool is None:
@@ -934,9 +953,47 @@ class ContinuousBatchingEngine:
             self._in_adapter_admit = False
         if page is None:
             return None
-        lora_lib.write_adapter_page(self._lora_store, page, weights,
-                                    alpha=entry['alpha'])
+        self._write_adapter_page(page, weights, entry['alpha'])
         return page
+
+    def _write_adapter_page(self, page: int, weights: Dict[str, Any],
+                            alpha: float) -> None:
+        """Upload ``weights`` (staged by ``_fetch_adapter``) into page
+        ``page``. Under a mesh the driver announces the page, the
+        adapter's rank and alpha, then every rank writes the broadcast
+        adapter (``_scatter_page``); a failure from the announcement on
+        is fatal (``PlanFailed``)."""
+        if self._mesh is None:
+            lora_lib.write_adapter_page(self._lora_store, page, weights,
+                                        alpha=alpha)
+            return
+        rank = int(weights['wq_a'].shape[-1])
+        with self._step_guard():
+            try:
+                self._mesh.channel.publish(
+                    _PLAN_WRITE_PAGE, [page, rank, sharding.float_bits(alpha)])
+                self._scatter_page(page, rank, alpha, weights)
+            except Exception as e:
+                raise sharding.PlanFailed(
+                    f'adapter page {page} write failed under the mesh') from e
+
+    def _scatter_page(self, page: int, rank: int, alpha: float,
+                      weights: Optional[Dict[str, Any]]) -> None:
+        """Every rank: the driver's rank-``rank`` adapter, each leaf
+        broadcast whole (a follower passes None), written into this
+        rank's page ``page``: its head block of B, A whole."""
+        d, hd = self.cfg.d_model, self.cfg.resolved_head_dim
+        n = self.cfg.n_layers
+        shapes = {'wq_a': (n, d, rank), 'wv_a': (n, d, rank),
+                  'wq_b': (n, rank, self.cfg.n_heads, hd),
+                  'wv_b': (n, rank, self.cfg.n_kv_heads, hd)}
+        dtype = self._lora_store['wq_a'].dtype
+        whole = {key: sharding.broadcast_whole(
+            None if weights is None else weights[key], shape, dtype,
+            self._tp, self.device) for key, shape in shapes.items()}
+        lora_lib.write_adapter_page(self._lora_store, page, whole,
+                                    alpha=alpha,
+                                    shard=(self._tp.rank, self._tp.degree))
 
     def _quota_blocked(self, request: _Request) -> bool:
         """Per-adapter concurrency quota (``SKYT_LORA_MAX_ACTIVE``): an
@@ -984,6 +1041,8 @@ class ContinuousBatchingEngine:
                     self._waiting.push_front(request)
                     self._blocked_at_version = self._pool.version
                     return
+            except sharding.PlanFailed:
+                raise  # fatal under a mesh: see _loop
             except Exception as e:  # pylint: disable=broad-except
                 logger.warning('prefill admission failed: %s: %s',
                                type(e).__name__, e)
@@ -1001,6 +1060,8 @@ class ContinuousBatchingEngine:
             try:
                 return self._import_migrated(request, slot,
                                              request.migration)
+            except sharding.PlanFailed:
+                raise  # fatal under a mesh: see _loop
             except Exception as e:  # pylint: disable=broad-except
                 # The refcount-exact abort already ran: re-prefill the
                 # same tokens; sampling at (seed, position) keeps the
@@ -1110,7 +1171,7 @@ class ContinuousBatchingEngine:
                     self.params, torch.as_tensor(tokens, device=self.device),
                     state.pos, len(chunk), slot, self.cache, lora_pages,
                     adapter_id, cfg=self.cfg, announce=self._announcer(
-                        _PLAN_PREFILL))
+                        _PLAN_PREFILL, adapter_id))
         except Exception as e:  # pylint: disable=broad-except
             if self._mesh is not None:
                 raise  # fatal under a mesh: see _loop
@@ -1541,7 +1602,7 @@ class ContinuousBatchingEngine:
                     torch.as_tensor(active_mask, device=self.device),
                     temps, self._seeds, positions, lora_pages, adapter_ids,
                     cfg=self.cfg, q_len=q_len,
-                    announce=self._announcer(_PLAN_VERIFY))
+                    announce=self._announcer(_PLAN_VERIFY, adapter_ids))
         except Exception as e:  # pylint: disable=broad-except
             if self._mesh is not None:
                 raise  # fatal under a mesh: see _loop
@@ -1629,22 +1690,24 @@ class ContinuousBatchingEngine:
             return contextlib.nullcontext()
         return self._mesh.channel.lock
 
-    def _announcer(self, op: int):
+    def _announcer(self, op: int, adapter_ids=None):
         """The step's plan publisher on a mesh's driver, else None. The
-        plan is the step's own arguments, then the pool's lengths and
-        block tables as the step will read them."""
+        plan is whether the step reads adapter pages, the step's own
+        arguments, the slots' adapter pages (``adapter_ids``: the
+        prefill slot's page, or ``[slots]`` pages; None = an all-base
+        step, which runs the base ops on every rank), then the pool's
+        lengths and block tables as the step will read them."""
         if self._mesh is None:
             return None
+        lora = [] if adapter_ids is None else [adapter_ids]
 
         def announce(*args):
             scalars = [a for a in args if not isinstance(a, torch.Tensor)]
             tensors = [a for a in args if isinstance(a, torch.Tensor)]
-            if op == _PLAN_PREFILL:
+            if op in (_PLAN_PREFILL, _PLAN_VERIFY):
                 scalars.append(tensors[0].shape[1])
-            elif op == _PLAN_VERIFY:
-                scalars.append(tensors[0].shape[1])
-            self._mesh.channel.publish(op, scalars, *tensors,
-                                       self.cache.lengths,
+            self._mesh.channel.publish(op, [len(lora)], scalars, *tensors,
+                                       *lora, self.cache.lengths,
                                        self.cache.block_tables)
 
         return announce
@@ -1670,8 +1733,10 @@ class ContinuousBatchingEngine:
 
     def follow(self) -> None:
         """A follower rank's loop: run each step the driver announces
-        on this rank's shards (the plan brings the lengths and block
-        tables; this rank keeps only its part of the pool); returns
+        on this rank's shards (the plan brings the lengths, the block
+        tables and the slots' adapter pages; this rank keeps only its
+        part of the pool and of the page store), and write each block,
+        adapter page and refreshed leaf the driver broadcasts; returns
         when the driver shuts down."""
         if self._mesh is None or self._mesh.driver:
             raise RuntimeError('follow() runs on the follower ranks of a '
@@ -1683,26 +1748,40 @@ class ContinuousBatchingEngine:
                 if op == sharding.PLAN_STOP:
                     return
                 plan = sharding.PlanReader(payload)
+                if op == _PLAN_READ_BLOCKS:
+                    self._block_slices(payload)
+                    continue
+                if op == _PLAN_WRITE_BLOCKS:
+                    self._scatter_blocks(payload, None)
+                    continue
+                if op == _PLAN_WRITE_PAGE:
+                    page, rank, alpha = plan.ints(3)
+                    self._scatter_page(page, rank, sharding.bits_float(alpha),
+                                       None)
+                    continue
+                if op == _PLAN_REFRESH:
+                    self._refresh_leaves(plan.ints(payload.numel()), None)
+                    continue
+                if op not in (_PLAN_PREFILL, _PLAN_DECODE, _PLAN_VERIFY):
+                    continue  # keep-alive
+                (lora,) = plan.ints(1)
                 if op == _PLAN_PREFILL:
                     start, n_new, slot, c = plan.ints(4)
                     tokens = plan.take(c, (1, c), torch.int32)
                 elif op == _PLAN_DECODE:
                     tokens = plan.take(slots, None, torch.int32)
                     active = plan.take(slots, None, torch.bool)
-                elif op == _PLAN_READ_BLOCKS:
-                    self._block_slices(payload)
-                    continue
-                elif op == _PLAN_WRITE_BLOCKS:
-                    self._scatter_blocks(payload, None)
-                    continue
-                elif op == _PLAN_VERIFY:
+                else:
                     (q_len,) = plan.ints(1)
                     tokens = plan.take(slots * q_len, (slots, q_len),
                                        torch.int32)
                     n_input = plan.take(slots, None, torch.int32)
                     active = plan.take(slots, None, torch.bool)
-                else:
-                    continue  # keep-alive
+                pages = self._lora_store if lora else None
+                ids = None
+                if lora:
+                    ids = plan.take(1 if op == _PLAN_PREFILL else slots,
+                                    None, torch.int32)
                 cache = dataclasses.replace(
                     self.cache,
                     lengths=plan.take(slots, None, torch.int32),
@@ -1711,15 +1790,17 @@ class ContinuousBatchingEngine:
                 if op == _PLAN_PREFILL:
                     _, self.cache = decode_lib.prefill_chunk(
                         self.params, tokens, start, n_new, slot, cache,
-                        self.cfg)
+                        self.cfg, lora_pages=pages,
+                        adapter_id=None if ids is None else int(ids[0]))
                 elif op == _PLAN_DECODE:
                     _, self.cache = decode_lib.paged_decode_step(
                         self.params, tokens, cache, self.cfg,
-                        active=active)
+                        active=active, lora_pages=pages, adapter_ids=ids)
                 else:
                     _, self.cache = decode_lib.paged_verify_step(
                         self.params, tokens, cache, self.cfg,
-                        active=active, n_input=n_input)
+                        active=active, n_input=n_input, lora_pages=pages,
+                        adapter_ids=ids)
 
     # -- live weight refresh --------------------------------------------
 
@@ -1742,11 +1823,15 @@ class ContinuousBatchingEngine:
         unquantized value; the weights and the version are then
         untouched. ``mode='step'`` swaps with generation running;
         ``'drain'`` holds admission and waits for in-flight requests
-        first. ``version`` defaults to the current one plus one."""
+        first. ``version`` defaults to the current one plus one.
+
+        Under a mesh it runs on the driver, and every value has its
+        leaf's whole shape (this rank's slice times the degree along
+        the axis its path's rule shards); all checks are made here,
+        before any rank changes anything, and every rank copies its
+        slice at the same step boundary."""
         if self._mesh is not None:
-            raise NotImplementedError(
-                'weight refresh under a tensor-parallel mesh is not '
-                'ported yet (ROADMAP.md, queue A item 15)')
+            self._mesh.require_driver('a weight refresh')
         if (updates is None) == (params is None):
             raise ValueError(
                 'pass exactly one of updates= (delta shards) or '
@@ -1767,6 +1852,8 @@ class ContinuousBatchingEngine:
         if missing:
             raise KeyError(f'full refresh lacks {len(missing)} param '
                            f'shards (first: {missing[:3]})')
+        paths = sorted(targets)
+        shardings = self._leaf_shardings()
         pairs = []
         for path in sorted(new):
             leaf = targets[path]
@@ -1777,15 +1864,19 @@ class ContinuousBatchingEngine:
             value = new[path]
             if not isinstance(value, torch.Tensor):
                 value = tensor_from_numpy(np.asarray(value))
-            if tuple(value.shape) != tuple(leaf.shape):
+            want = (tuple(leaf.shape) if shardings is None else
+                    shardings[path].full_shape(leaf.shape))
+            if tuple(value.shape) != want:
                 raise ValueError(
                     f'refresh of {path}: shape {tuple(value.shape)} '
-                    f'!= the engine leaf\'s {tuple(leaf.shape)}')
-            pairs.append((leaf, value.detach()))
+                    f'!= the engine leaf\'s {want}')
+            # Under a mesh the serving loop finds the leaf by its index.
+            pairs.append((leaf if shardings is None
+                          else paths.index(path), leaf, value.detach()))
 
         def snapshot():
-            return [(leaf, value.to(device=leaf.device, dtype=leaf.dtype,
-                                    copy=True)) for leaf, value in pairs]
+            return [(key, value.to(device=leaf.device, dtype=leaf.dtype,
+                                   copy=True)) for key, leaf, value in pairs]
 
         copies, seconds = self._timed_copies(snapshot)
         ticket = _WeightRefresh(copies, version, mode, seconds)
@@ -1823,8 +1914,16 @@ class ContinuousBatchingEngine:
             seconds = 0.0
             try:
                 fault_injection.inject(WEIGHT_REFRESH_SITE)
-                n_shards, seconds = self._timed_copies(
-                    lambda: self._apply_updates(ticket.copies))
+                t0 = time.perf_counter()
+                if self._mesh is None:
+                    n_shards, seconds = self._timed_copies(
+                        lambda: self._apply_updates(ticket.copies))
+                    ticket.nbytes = sum(v.numel() * v.element_size()
+                                        for _, v in ticket.copies)
+                else:
+                    n_shards, seconds, ticket.nbytes = \
+                        self._refresh_mesh(ticket.copies)
+                ticket.apply_seconds = time.perf_counter() - t0
                 self.policy_version = (int(ticket.version)
                                        if ticket.version is not None
                                        else self.policy_version + 1)
@@ -1833,6 +1932,8 @@ class ContinuousBatchingEngine:
                 self._refresh_shards_total += n_shards
             except Exception as e:  # pylint: disable=broad-except
                 ticket.error = e
+                if isinstance(e, sharding.PlanFailed):
+                    raise  # fatal under a mesh: see _loop
                 logger.warning('live weight refresh failed: %s: %s',
                                type(e).__name__, e)
             finally:
@@ -1852,6 +1953,57 @@ class ContinuousBatchingEngine:
         for leaf, value in copies:
             leaf.copy_(value)
         return len(copies)
+
+    def _leaf_shardings(self) -> Optional[Dict[str, Any]]:
+        """Under a mesh, each param path's ``NamedSharding`` (the rule
+        ``prepare_engine`` sliced the leaf by); None unsharded."""
+        if self._mesh is None:
+            return None
+        from skypilot_tpu_torch.models import llama
+        from skypilot_tpu_torch.parallel.sharding import param_shardings
+        return flatten_param_paths(param_shardings(
+            self._mesh.mesh, llama.param_logical_axes(self.cfg)))
+
+    def _refresh_mesh(self, copies):
+        """Driver: announce the refreshed leaves (their indices in the
+        sorted paths), then apply them on every rank
+        (``_refresh_leaves``); a failure from the announcement on is
+        fatal (``PlanFailed``)."""
+        indices = [index for index, _ in copies]
+        with self._step_guard():
+            try:
+                self._mesh.channel.publish(_PLAN_REFRESH, indices)
+                return self._refresh_leaves(indices,
+                                            [v for _, v in copies])
+            except Exception as e:
+                raise sharding.PlanFailed(
+                    'weight refresh failed under the mesh') from e
+
+    def _refresh_leaves(self, indices: List[int],
+                        values: Optional[List[torch.Tensor]]):
+        """Every rank: each leaf's whole new value broadcast from the
+        driver (a follower passes None), narrowed to this rank's slice
+        by its path's rule (``shard_leaf``) and copied into the leaf in
+        place on the refresh stream, one leaf at a time. Returns
+        (leaves written, the copies' seconds, bytes broadcast)."""
+        from skypilot_tpu_torch.parallel.sharding import shard_leaf
+        targets = flatten_param_paths(self.params)
+        paths = sorted(targets)
+        shardings = self._leaf_shardings()
+        seconds, nbytes = 0.0, 0
+        for k, index in enumerate(indices):
+            path = paths[index]
+            leaf, rule = targets[path], shardings[path]
+            whole = sharding.broadcast_whole(
+                None if values is None else values[k],
+                rule.full_shape(leaf.shape), leaf.dtype, self._tp,
+                self.device)
+            local = shard_leaf(rule, whole, torch.distributed.get_rank())
+            _, copy_s = self._timed_copies(lambda: leaf.copy_(local))
+            seconds += copy_s
+            nbytes += whole.numel() * whole.element_size()
+            del whole, local
+        return len(indices), seconds, nbytes
 
     def _timed_copies(self, enqueue):
         """Run ``enqueue`` (a refresh's copies) to completion and return
@@ -1908,7 +2060,8 @@ class ContinuousBatchingEngine:
                         torch.as_tensor(active_mask, device=self.device),
                         temps, self._seeds, positions, lora_pages,
                         adapter_ids, cfg=self.cfg,
-                        announce=self._announcer(_PLAN_DECODE))
+                        announce=self._announcer(_PLAN_DECODE,
+                                                 adapter_ids))
             except Exception as e:  # pylint: disable=broad-except
                 if self._mesh is not None:
                     raise  # fatal under a mesh: see _loop

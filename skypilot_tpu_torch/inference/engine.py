@@ -26,7 +26,7 @@ and announces each ``generate`` to the followers, which run it on their
 shards in ``follow()`` until the driver's ``shutdown()``. Prefill runs
 the flash kernel and decode the decode kernel on each rank's heads; the
 driver samples and broadcasts each step's tokens. ``embed_text`` raises
-under a mesh (ROADMAP.md, queue A item 15).
+under a mesh (ROADMAP.md, queue A item 15 (c) 5).
 """
 from __future__ import annotations
 
@@ -267,7 +267,9 @@ class InferenceEngine:
         if self._mesh is not None:
             raise NotImplementedError(
                 'embed_text under a tensor-parallel mesh is not ported yet '
-                '(ROADMAP.md, queue A item 15)')
+                '(ROADMAP.md, queue A item 15 (c) 5): under a mesh both '
+                'engines serve every option; embed_text and axes other '
+                'than tensor still raise')
         if not texts:
             return np.zeros((0, self.cfg.d_model), np.float32)
         if len(texts) > self.max_batch:

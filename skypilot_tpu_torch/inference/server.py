@@ -16,7 +16,8 @@ adapters and disaggregated roles as options)::
     python -m skypilot_tpu_torch.inference.server --engine continuous \
         --policy-store STORE
     python -m skypilot_tpu_torch.inference.server --model llama3-8b \
-        --mesh tensor=2 [--engine continuous]
+        --mesh tensor=2 [--engine continuous] [--lora-pages 4 \
+        --lora-dir REG] [--policy-store STORE]
 
 ``--hf-checkpoint`` serves an HF directory's weights (bf16) with its own
 tokenizer and chat template; ``--checkpoint-dir`` serves the newest step
@@ -69,7 +70,9 @@ the server starts its own N ranks (``parallel/launch.py``), each builds
 the engine on its shard, rank 0 (the driver) serves HTTP and the others
 follow its step plans; ``/stats`` names the mesh, the process-group
 backend and each rank's device. Stopping the server (SIGTERM, Ctrl-C)
-stops every rank.
+stops every rank. Every continuous-engine flag serves under the mesh:
+``--lora-dir`` registers its adapters and ``--policy-store`` polls the
+store on the driver alone, whose plans the other ranks follow.
 """
 from __future__ import annotations
 
@@ -691,14 +694,17 @@ def build_engine(args):
             lora_max_rank=args.lora_max_rank,
             role=args.role,
             base_digest=base_digest)
-        if args.lora_dir:
+        # Under a mesh the driver alone holds the adapter registry and
+        # polls the policy store: the followers write what its plans
+        # announce.
+        if args.lora_dir and engine.is_driver:
             from skypilot_tpu_torch.serve import adapter_registry
             names = adapter_registry.load_registry_into(engine,
                                                         args.lora_dir)
             logger.info('registered %d adapters from %s: %s', len(names),
                         args.lora_dir, names)
         policy_store = args.policy_store or env.get_str('SKYT_RL_STORE')
-        if policy_store:
+        if policy_store and engine.is_driver:
             watch_policy_store(engine, policy_store)
         if engine.is_driver and engine.role == 'prefill':
             # Warm the prefill path; drop the throwaway export.

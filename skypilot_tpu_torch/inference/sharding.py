@@ -31,7 +31,18 @@ same engine with ``mesh='tensor=N'``:
   every kv head, the reference's wire format: the driver's plan names
   the blocks, ``gather_kv_heads`` joins the ranks' heads in rank order
   for an export, and for an import ``broadcast_whole`` hands every rank
-  the driver's checked payload, of which it writes ``local_kv_heads``.
+  the driver's checked payload, of which it writes ``local_kv_heads``;
+* LoRA adapter pages and live weight refresh reuse that import: the
+  driver keeps the adapter registry, the page pool and the refresh
+  checks, announces an upload or a refresh at a step boundary and
+  broadcasts each value whole, and every rank writes its own part in
+  place (a page's B on the rank's heads, A whole; a refreshed leaf
+  narrowed by its path's rule, ``shard_leaf``). A page write or a
+  refresh that fails once announced raises ``PlanFailed``, fatal to
+  the engine. The step plans carry the slots' adapter pages.
+
+Under a mesh ``embed_text`` on the batch engine, mesh axes other than
+``tensor`` and int8 MoE experts (as in the reference) still raise.
 """
 from __future__ import annotations
 
@@ -182,11 +193,12 @@ def wants_shards(spec: Optional[Union[str, Mesh]]) -> bool:
 
 
 def check_unported(spec: Optional[Union[str, Mesh]], cfg: ModelConfig,
-                   params: Optional[Params] = None, **options: bool) -> None:
+                   params: Optional[Params] = None) -> None:
     """Raise ``NotImplementedError`` when a mesh of more than one rank
-    meets what does not serve under one: int8 experts in ``params``
-    (the reference cannot shard them either), and each option of
-    ``options`` that is on (not ported yet)."""
+    meets int8 experts in ``params`` (the reference cannot shard them
+    either). Every engine option serves under a mesh; what still raises
+    there is ``embed_text`` and axes other than ``tensor``
+    (``check_tensor_only``)."""
     if not wants_shards(spec):
         return
     from skypilot_tpu_torch.models.quant import QTensor
@@ -199,11 +211,13 @@ def check_unported(spec: Optional[Union[str, Mesh]], cfg: ModelConfig,
             'them and refuses a tree that is already quantized (its '
             'device_put fails on a scale axis squeezed to 1). Under a '
             'mesh the experts serve in fp (quantize=True keeps them fp)')
-    for name, on in options.items():
-        if on:
-            raise NotImplementedError(
-                f'{name}= under a tensor-parallel mesh is not ported yet '
-                '(ROADMAP.md, queue A item 15)')
+
+
+class PlanFailed(RuntimeError):
+    """A page write or a weight refresh failed after its plan was
+    announced: the ranks' collectives may no longer line up, so the
+    engine stops serving (its fatal path), never leaving a rank on
+    stale weights or an empty page."""
 
 
 def release_unsharded(serving: Optional['MeshServing'],
@@ -223,7 +237,7 @@ def check_tensor_only(mesh: Mesh, cfg: ModelConfig) -> None:
     if other:
         raise NotImplementedError(
             f'serving over mesh axes {sorted(other)} is not ported yet '
-            '(ROADMAP.md, queue A item 15): only tensor=N')
+            '(ROADMAP.md, queue A item 15 (c) 5): only tensor=N')
     tp = mesh.shape['tensor']
     for size, what in ((cfg.n_heads, 'n_heads'),
                        (cfg.n_kv_heads, 'n_kv_heads'),

@@ -14,7 +14,12 @@ same two-stage product as ``apply_lora_qv``, so one step serves a batch
 of different adapters and a slot on page 0 gets an exact-zero delta.
 Ranks are padded to the stack's ``max_rank`` with zero columns and rows,
 which add exact zeros. The reference computes these products as XLA
-einsums, not as a kernel; here they are PyTorch einsums.
+einsums, not as a kernel; here they are PyTorch einsums. Under a
+tensor-parallel mesh each rank's store holds the B pages of its own
+query and kv heads (``shards=``, ``shard=``): the deltas then land on
+the rank's heads of q and v with no collective, the sums the
+reference's replicated store gives, since q and v heads never mix
+before attention.
 
 Seeds come from explicit ``torch.Generator``s, so the draws differ from
 the reference's threefry draws; ``models/convert.py`` carries the
@@ -22,7 +27,7 @@ reference's adapters over where the same numbers are needed.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -90,18 +95,24 @@ def apply_lora_qv(x: torch.Tensor, lora: Params):
 
 def init_adapter_pages(cfg: ModelConfig, n_pages: int, max_rank: int,
                        dtype: torch.dtype = torch.float32, *,
-                       device: Optional[Union[str, torch.device]] = None
-                       ) -> Params:
+                       device: Optional[Union[str, torch.device]] = None,
+                       shards: int = 1) -> Params:
     """The adapter page store: ``[L, P, ...]`` with ``P = n_pages + 1``;
     page 0 is the base model (all zeros, scale 0), so an un-adaptered
-    slot gathers an exact-zero delta."""
+    slot gathers an exact-zero delta. ``shards``: a tensor-parallel
+    rank's store, whose ``wq_b`` / ``wv_b`` pages hold ``1 / shards`` of
+    the query / kv heads (A pages stay whole)."""
     if n_pages < 1:
         raise ValueError('n_pages must be >= 1')
     if max_rank < 1:
         raise ValueError('max_rank must be >= 1')
+    if cfg.n_heads % shards or cfg.n_kv_heads % shards:
+        raise ValueError(f'{cfg.n_heads} query and {cfg.n_kv_heads} kv '
+                         f'heads do not split over {shards} shards')
     dev = resolve_device(device)
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    h, kv, n = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
+    h, kv = cfg.n_heads // shards, cfg.n_kv_heads // shards
+    n = cfg.n_layers
     p = n_pages + 1
 
     def zeros(*shape, dt=dtype):
@@ -123,10 +134,15 @@ def _as_tensor(value: Any) -> torch.Tensor:
 
 
 def write_adapter_page(pages: Params, page: int, lora: Params,
-                       alpha: float = DEFAULT_ALPHA) -> Params:
+                       alpha: float = DEFAULT_ALPHA, *,
+                       shard: Tuple[int, int] = (0, 1)) -> Params:
     """Upload one adapter into page slot ``page``, in place (rank
     zero-padded to the store's max_rank). ``lora``'s leaves may be
-    tensors or numpy arrays. Returns the page store."""
+    tensors or numpy arrays. ``shard`` = (index, count): a
+    tensor-parallel rank's store (``init_adapter_pages(shards=count)``)
+    takes head block ``index`` of the whole adapter's B, the block
+    ``inference/sharding`` gives that rank's ``wq`` and ``wv``. Returns
+    the page store."""
     if page < 1:
         raise ValueError('page 0 is reserved for the base model')
     max_rank = pages['wq_a'].shape[-1]
@@ -136,8 +152,17 @@ def write_adapter_page(pages: Params, page: int, lora: Params,
             f'adapter rank {rank} exceeds the page store max_rank '
             f'{max_rank}')
     dev, dt = pages['wq_a'].device, pages['wq_a'].dtype
+    index, count = shard
     for key in LEAVES:
         value = _as_tensor(lora[key]).to(device=dev, dtype=dt)
+        if key.endswith('_b') and count > 1:    # [L, rank, heads, hd]
+            heads = pages[key].shape[3]
+            if value.shape[2] != heads * count:
+                raise ValueError(
+                    f'{key} has {value.shape[2]} heads; a store of '
+                    f'{heads} a shard over {count} shards takes '
+                    f'{heads * count}')
+            value = value.narrow(2, index * heads, heads)
         slot = pages[key][:, page]
         slot.zero_()
         if key.endswith('_a'):      # [L, d, rank] into [L, d, max_rank]

@@ -1300,6 +1300,115 @@ def test_tp_disagg_on_card_matches_colocated(card, quantize_kv):
                            [r['writes'] for r in out], driver['resident'])
 
 
+def _card_adapters():
+    """Three seeded adapters of ranks 4, 2 and 4 for the card's TINY
+    (head_dim 128), B non-zero, on the host."""
+    import torch_tp_ranks as ranks
+    from skypilot_tpu_torch.models import lora as lora_lib
+    out = {}
+    for seed, (name, rank) in enumerate(ranks.ADAPTER_RANKS.items(), 1):
+        lora = lora_lib.init_lora_params(seed, ranks.cuda_tiny_config(),
+                                         rank, device='cpu')
+        gen = torch.Generator().manual_seed(seed + 1000)
+        for key in ('wq_b', 'wv_b'):
+            lora[key] = 0.05 * torch.randn(lora[key].shape, generator=gen)
+        out[name] = lora
+    return out
+
+
+def test_tp_lora_on_card_matches_one_rank(card):
+    """TINY (head_dim 128, fp32 compute) with 2 adapter pages at tensor=2
+    on two ranks of the card (gloo): the adapter and base waves of
+    ``torch_tp_ranks.LORA_WAVES`` (an eviction among them) give one
+    rank's greedy tokens and ``lora_*`` counters; each rank's B pages
+    are its head block of one rank's, its A pages one rank's whole; each
+    rank launched the paged kernel ``n_layers`` a decode step."""
+    from skypilot_tpu_torch import _build
+    _build.build_all()
+    _tp_lora_vs_one_rank('cuda')
+
+
+def _tp_lora_vs_one_rank(device):
+    import numpy as np
+    import torch_tp_ranks as ranks
+    from skypilot_tpu_torch.parallel.launch import launch
+    adapters = _card_adapters()
+    out = launch(ranks.cuda_lora_case, 2, adapters, 6, 'tensor=2', device,
+                 device=device, timeout=900)
+    one = ranks.cuda_lora_case(0, 1, adapters, 6, None, device)
+    driver = out[0]
+    assert driver['tokens'] == one['tokens']
+    assert driver['counters'] == one['counters']
+    assert driver['counters']['lora_evictions'] == 2
+    for r, got in enumerate(out):
+        if device == 'cuda':
+            assert got['launches'] == 2 * driver['decode_steps'] > 0
+        for name in ('a', 'c'):
+            p, q = driver['pages'][name], one['pages'][name]
+            for key in ('wq_a', 'wv_a', 'scale'):
+                np.testing.assert_array_equal(got['store'][key][:, p],
+                                              one['store'][key][:, q])
+            for key in ('wq_b', 'wv_b'):
+                n = got['store'][key].shape[3]
+                np.testing.assert_array_equal(
+                    got['store'][key][:, p],
+                    one['store'][key][:, q, :, r * n:(r + 1) * n])
+
+
+def test_tp_refresh_on_card_matches_one_rank(card):
+    """TINY (head_dim 128, fp32 compute) at tensor=2 on two ranks of the
+    card (gloo): a seeded delta of one leaf under each shard rule moves
+    the greedy tokens to one rank's after the same refresh, and each
+    rank's leaves are its slices of one rank's, bitwise."""
+    from skypilot_tpu_torch import _build
+    _build.build_all()
+    _tp_refresh_vs_one_rank('cuda')
+
+
+def _tp_refresh_vs_one_rank(device):
+    import numpy as np
+    import torch_tp_ranks as ranks
+    from skypilot_tpu_torch.inference import sharding
+    from skypilot_tpu_torch.inference.continuous import flatten_param_paths
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.parallel.launch import launch
+    cfg = ranks.cuda_tiny_config()
+    shapes = flatten_param_paths(llama.param_shapes(cfg))
+    rng = np.random.RandomState(7)
+    delta = {path: (0.05 * rng.randn(*shapes[path].shape)).astype(
+        np.float32) for path in ('layers/attn/wq', 'layers/attn/wk',
+                                 'layers/attn/wo', 'layers/mlp/wi_up',
+                                 'embed/embedding', 'lm_head/w')}
+    delta['final_norm/scale'] = (1 + 0.1 * rng.randn(
+        *shapes['final_norm/scale'].shape)).astype(np.float32)
+    out = launch(ranks.cuda_refresh_case, 2, delta, 6, 'tensor=2', device,
+                 device=device, timeout=900)
+    one = ranks.cuda_refresh_case(0, 1, delta, 6, None, device)
+    assert out[0]['version'] == one['version'] == 1
+    assert out[0]['before'] == one['before']
+    assert out[0]['after'] == one['after'] != one['before']
+    mesh = sharding.build_inference_mesh('tensor=2', devices=[0, 1],
+                                         device_type='cpu')
+    for r, got in enumerate(out):
+        shards = sharding.shard_inference_params(_unflatten(
+            {p: torch.from_numpy(v) for p, v in one['leaves'].items()}),
+            mesh, cfg, rank=r)
+        for path, value in flatten_param_paths(shards).items():
+            np.testing.assert_array_equal(got['leaves'][path],
+                                          value.numpy(), err_msg=path)
+
+
+def _unflatten(flat):
+    tree = {}
+    for path, value in flat.items():
+        node = tree
+        *head, last = path.split('/')
+        for key in head:
+            node = node.setdefault(key, {})
+        node[last] = value
+    return tree
+
+
 @pytest.mark.parametrize('dispatch', ['dense', 'capacity'])
 def test_tp_moe_engines_on_card_match_one_rank(card, dispatch):
     """TINY_MOE (head_dim 128, fp32 compute) at tensor=2 on two ranks of

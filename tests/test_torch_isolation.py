@@ -148,20 +148,20 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
 
 
 def test_unported_engine_options_raise(tmp_path):
-    """Under a mesh, LoRA pages raise with their queue item, alone and
-    beside a disaggregated role (weight refresh is pinned on a running
-    mesh in ``test_torch_tp_serving.py``; roles serve under one:
-    ``test_torch_tp_disagg.py``), and a tree with int8 experts raises
-    with the reference's own limit, before any rank is needed (MoE
-    configs with fp experts serve under a mesh:
-    ``test_torch_tp_moe_serving.py``); ``role=`` and the checkpoint
-    options are ported (an unknown role and a missing HF directory are
-    errors of the input, not pointers to ROADMAP.md)."""
+    """Under a mesh a tree with int8 experts raises with the reference's
+    own limit, before any rank is needed (MoE configs with fp experts
+    serve under a mesh: ``test_torch_tp_moe_serving.py``). LoRA pages,
+    alone and beside a disaggregated role, are no longer refused: they
+    get past the refusal and stop only for want of ranks, naming the
+    launcher (they serve under a running mesh:
+    ``test_torch_tp_lora.py``); ``role=`` and the checkpoint options
+    are ported (an unknown role and a missing HF directory are errors
+    of the input, not pointers to ROADMAP.md)."""
     from skypilot_tpu_torch.inference.continuous import (
         ContinuousBatchingEngine)
     from skypilot_tpu_torch.inference.engine import InferenceEngine
     for option in (dict(lora_pages=2), dict(role='prefill', lora_pages=2)):
-        with pytest.raises(NotImplementedError, match='ROADMAP.*item 15'):
+        with pytest.raises(ValueError, match='parallel.launch'):
             ContinuousBatchingEngine('tiny', device='cpu', mesh='tensor=2',
                                      **option)
     engine = ContinuousBatchingEngine('tiny', device='cpu', max_slots=1,

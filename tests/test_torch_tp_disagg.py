@@ -20,8 +20,9 @@ tensor=2) decodes the JAX colocated engine's greedy tokens exactly.
 Each rank's part of a transfer is its own kv heads, in rank order,
 bitwise. A shared prefix moves only its non-resident blocks; a short
 payload falls back to a local re-prefill before any rank writes; a
-speculative decode role gives the plain tokens; LoRA pages, live
-refresh, ``embed_text`` and axes other than ``tensor`` still raise.
+speculative decode role gives the plain tokens; LoRA pages and a live
+refresh run beside a decode role, while ``embed_text`` and axes other
+than ``tensor`` still raise.
 """
 import jax
 import jax.numpy as jnp
@@ -235,10 +236,14 @@ def test_stats_name_mesh_and_role(runs):
 
 
 def test_options_still_refused_under_the_mesh(runs):
+    """A live refresh and adapter pages now run beside a decode role
+    under the mesh (a refresh to version 1; 2 pages); ``embed_text`` and
+    axes other than ``tensor`` still raise, naming ROADMAP.md."""
     refused = runs['tp'][0]['refused']
-    assert sorted(refused) == ['embed_text', 'lora_pages', 'refresh']
+    assert sorted(refused) == ['embed_text']
     assert all('ROADMAP' in m and 'item 15' in m for m in refused.values())
-    assert 'lora_pages' in runs['tp'][1]['refused']
+    assert runs['tp'][0]['served'] == {'refresh': 1, 'lora_pages': 2}
+    assert runs['tp'][1]['refused'] == {}
     cfg = ranks.tiny_config()
     for spec in ('data=2', 'tensor=2,data=2'):
         mesh = sharding.build_inference_mesh(spec, devices=range(8),

@@ -7,7 +7,11 @@ same engine run unsharded (the twin of the reference's
 and each rank's device, and stopping the server stops every rank. With
 ``--role decode`` or ``--role prefill`` the mesh server is one hop of
 a two-hop request beside a one-rank server of the other role, and the
-answer is the colocated engine's.
+answer is the colocated engine's. With ``--lora-dir`` the mesh server
+answers adapter requests (the ``adapter`` field and the
+``X-Skyt-Adapter`` header) with the unsharded engine's text and lists
+its adapters; with ``--policy-store`` it serves the committed version,
+then a newer one, and only its driver polls the store.
 """
 import contextlib
 import json
@@ -128,6 +132,104 @@ def test_server_mesh_role_two_hop(mesh_role):
     assert got == [_single(argv, prompt, max_new_tokens=6)]
 
 
+def _lora_registry(root):
+    """A registry under ``root`` with one rank-4 adapter for TINY whose
+    B is seeded and non-zero (so it moves the answer)."""
+    from skypilot_tpu_torch.models import lora as lora_lib
+    from skypilot_tpu_torch.models.config import get_model_config
+    from skypilot_tpu_torch.serve import adapter_registry
+    lora = lora_lib.init_lora_params(3, get_model_config('tiny'), 4,
+                                     device='cpu')
+    gen = torch.Generator().manual_seed(4)
+    for key in ('wq_b', 'wv_b'):
+        lora[key] = 0.05 * torch.randn(lora[key].shape, generator=gen)
+    adapter_registry.export_adapter(str(root), 'tenant', lora, alpha=16.0,
+                                    base_digest='')
+    return str(root)
+
+
+def _policy_tree(seed):
+    """TINY's seeded init as the policy store's flat numpy shards."""
+    from skypilot_tpu_torch.inference.continuous import flatten_param_paths
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models.config import get_model_config
+    params = llama.init_params(seed, get_model_config('tiny'),
+                               device='cpu')
+    return {p: t.numpy().copy()
+            for p, t in flatten_param_paths(params).items()}
+
+
+def _engine_text(tree, prompt):
+    """The unsharded continuous engine's answer on the flat ``tree``."""
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
+    engine = ContinuousBatchingEngine('tiny', device='cpu', max_slots=2,
+                                      max_len=64)
+    try:
+        engine.refresh_weights(tree)
+        return engine.generate_text(prompt, max_new_tokens=5)
+    finally:
+        engine.shutdown()
+
+
+@pytest.mark.parametrize('option', ['lora_dir', 'policy_store'])
+def test_server_mesh_serves_adapters_and_policy_store(option, tmp_path):
+    """``--lora-pages 2 --lora-dir REG`` or ``--policy-store STORE``
+    under ``--mesh tensor=2``: the driver registers the adapters and
+    polls the store; the answers are the unsharded engine's."""
+    argv = _argv('tiny', 'continuous')
+    body = {'prompts': ['hello'], 'max_new_tokens': 5}
+    torch.set_num_threads(1)
+    if option == 'lora_dir':
+        argv += ['--lora-pages', '2', '--lora-max-rank', '4', '--lora-dir',
+                 _lora_registry(tmp_path / 'reg')]
+        with _mesh_server(argv) as port:
+            got = _post(port, '/generate', dict(body, adapter='tenant'))
+            completion = _post_url(
+                f'http://127.0.0.1:{port}/v1/completions',
+                {'prompt': 'hello', 'max_tokens': 5},
+                {'X-Skyt-Adapter': 'tenant'})
+            base = _post(port, '/generate', body)['outputs']
+            adapters = _get(port, '/adapters')
+            stats = _get(port, '/stats')
+        want = _single(argv, 'hello', max_new_tokens=5, adapter='tenant')
+        assert got['outputs'] == [want]
+        assert completion['choices'][0]['text'] == want
+        assert base == [_single(argv, 'hello', max_new_tokens=5)] != [want]
+        assert adapters['tenant']['resident'] == 1.0
+        assert stats['lora_pages_resident'] == 1
+        assert stats['lora_adapters_registered'] == 1
+        assert stats['lora_misses'] == 1 and stats['lora_hits'] == 1
+        return
+    store_dir = str(tmp_path / 'store')
+    from skypilot_tpu_torch.jobs.rl_pipeline import PolicyStore
+    store = PolicyStore(store_dir)
+    v5 = _policy_tree(1)
+    store.publish(v5, version=5)
+    v6 = dict(v5, **{'final_norm/scale': -v5['final_norm/scale']})
+    tmp = tmp_path / 'tmp'
+    tmp.mkdir()
+    argv += ['--policy-store', store_dir]
+    with _mesh_server(argv, SKYT_RL_EVAL_POLL_S='0.2',
+                      TMPDIR=str(tmp)) as port:
+        first = _get(port, '/stats')['policy_version']
+        got5 = _post(port, '/generate', body)['outputs']
+        store.publish(v6, version=6)
+        deadline = time.monotonic() + 60
+        while _get(port, '/stats')['policy_version'] != 6:
+            assert time.monotonic() < deadline, 'version 6 never served'
+            time.sleep(0.2)
+        got6 = _post(port, '/generate', body)['outputs']
+        stats = _get(port, '/stats')
+        # One watcher, on the driver: one local copy of the store.
+        copies = [p for p in os.listdir(tmp)
+                  if p.startswith('skyt-eval-policy-')]
+    assert first == 5 and copies and len(copies) == 1
+    assert stats['weight_refreshes'] == 2
+    assert got5 == [_engine_text(v5, 'hello')]
+    assert got6 == [_engine_text(v6, 'hello')] != got5
+
+
 def _argv(model, engine):
     return ['--model', model, '--device', 'cpu', '--engine', engine,
             '--max-batch', '2', '--max-len', '64', '--host', '127.0.0.1',
@@ -160,11 +262,12 @@ def _single(argv, prompt, **kwargs):
 
 
 @contextlib.contextmanager
-def _mesh_server(argv):
-    """``server --mesh tensor=2`` with ``argv``: yields its port once
-    ``/health`` answers; stopping it (SIGTERM) must stop both ranks."""
+def _mesh_server(argv, **extra_env):
+    """``server --mesh tensor=2`` with ``argv`` (and ``extra_env``):
+    yields its port once ``/health`` answers; stopping it (SIGTERM)
+    must stop both ranks."""
     port = int(argv[argv.index('--port') + 1])
-    env = dict(os.environ, OMP_NUM_THREADS='1')
+    env = dict(os.environ, OMP_NUM_THREADS='1', **extra_env)
     proc = subprocess.Popen(
         [sys.executable, '-m', 'skypilot_tpu_torch.inference.server',
          '--mesh', 'tensor=2'] + argv, cwd=REPO_ROOT, env=env,

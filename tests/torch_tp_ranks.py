@@ -8,6 +8,7 @@ values.
 """
 import os
 import sys
+import time
 
 import pytest
 import torch
@@ -89,9 +90,10 @@ def _build(kind, cfg, params, options):
 
 def serve_cases(rank, world, params_np, cases, block_jax=False):
     """Each case's engine on every rank under ``mesh='tensor=2'``. The
-    driver generates ``PROMPTS`` (the continuous engine one at a time)
-    and pins the refresh refusal; every rank reports its attention
-    dispatch counts and head shapes and its ``wq`` shard."""
+    driver generates ``PROMPTS`` (the continuous engine one at a time),
+    and on the continuous engine refreshes the weights with the same
+    tree and generates the first prompt again; every rank reports its
+    attention dispatch counts and head shapes and its ``wq`` shard."""
     if block_jax:
         for name in FORBIDDEN:
             sys.modules[name] = None
@@ -116,10 +118,11 @@ def serve_cases(rank, world, params_np, cases, block_jax=False):
                                                       max_new_tokens=N_NEW)
                                   for p in PROMPTS]
                 stats = engine.stats()
-                try:
-                    engine.request_refresh(params=params)
-                except NotImplementedError as e:
-                    case['refresh_refused'] = str(e)
+                if name == 'continuous':
+                    case['refresh_version'] = engine.refresh_weights(
+                        params=params)
+                    case['refreshed_tokens'] = engine.generate_ids(
+                        PROMPTS[0], max_new_tokens=N_NEW)
             case['mesh'] = {k: v for k, v in stats.items()
                             if k.startswith('mesh')}
             engine.shutdown()
@@ -467,14 +470,15 @@ def disagg_cases(rank, world, params_np, foreign, n_new):
     emptied between them, ``foreign[pool]``'s exports (``'jax'``,
     ``'one'``) and its own, then a short payload that must fall back.
     On the fp pool a speculative decode-role engine imports the exports
-    too, and the options still refused under a mesh are tried. Every
-    rank returns what it read and wrote of the pool
-    (``BlockRecorder``)."""
+    too and the decode role takes a live refresh; a decode role with
+    adapter pages serves, and ``embed_text``, which still raises under
+    a mesh, is tried. Every rank returns what it read and wrote of the
+    pool (``BlockRecorder``)."""
     from skypilot_tpu_torch.inference.engine import InferenceEngine
     from skypilot_tpu_torch.models import convert
     cfg = tiny_config()
     params = convert.params_from_numpy(params_np, cfg, device='cpu')
-    out = {'rank': rank, 'pools': {}, 'refused': {}}
+    out = {'rank': rank, 'pools': {}, 'refused': {}, 'served': {}}
     for pool, options in DISAGG_POOLS.items():
         res = {}
         recorder = BlockRecorder()
@@ -500,10 +504,8 @@ def disagg_cases(rank, world, params_np, foreign, n_new):
                 res['tampered'] = import_all(dec, [tamper], n_new,
                                              tamper=short_payload)
                 if pool == 'fp':
-                    try:
-                        dec.request_refresh(params=params)
-                    except NotImplementedError as e:
-                        out['refused']['refresh'] = str(e)
+                    out['served']['refresh'] = dec.refresh_weights(
+                        params=params)
                 res['mesh'] = {k: v for k, v in dec.stats().items()
                                if k.startswith('mesh') or k == 'role'}
                 dec.shutdown()
@@ -521,10 +523,13 @@ def disagg_cases(rank, world, params_np, foreign, n_new):
         finally:
             res.update(recorder.restore())
         out['pools'][pool] = res
-    try:
-        _build('continuous', cfg, params, dict(role='decode', lora_pages=2))
-    except NotImplementedError as e:
-        out['refused']['lora_pages'] = str(e)
+    lora = _build('continuous', cfg, params, dict(role='decode',
+                                                  lora_pages=2))
+    if lora.is_driver:
+        out['served']['lora_pages'] = lora.stats()['lora_pages_total']
+        lora.shutdown()
+    else:
+        lora.follow()
     batch = _build('batch', cfg, params, {})
     if batch.is_driver:
         try:
@@ -591,4 +596,307 @@ def cuda_disagg_case(rank, world, quantize_kv, n_new):
         out['launches'] = pa.LAUNCHES[kernel]
     finally:
         out.update(recorder.restore())
+    return out
+
+
+# -- LoRA adapter pages under the mesh ---------------------------------------
+
+# Three adapters for two pages (so one is evicted); block size 8. The
+# pool has room for both resident adapters' charge and two requests at
+# once on the int8 pool too (a rank-4 adapter charges 7 of its blocks):
+# admission counts an idle adapter's charge as taken, as the
+# reference's does.
+LORA_KW = dict(lora_pages=2, lora_max_rank=4, num_blocks=40)
+ADAPTER_RANKS = {'a': 4, 'b': 2, 'c': 4}
+LORA_PROMPTS = [[5, 6, 7, 8], [9, 10, 9, 10, 9, 10, 9, 10, 9],
+                [3 * i % 97 + 11 for i in range(13)],
+                [7 * i % 89 + 2 for i in range(19)]]
+# Waves of (adapter or '', prompt index), each submitted together and
+# waited for, so every wave shares one batch and the counters do not
+# depend on timing: a misses; b and c miss, the second evicts a; c hits;
+# a misses and evicts b (c was used later). Then an all-base wave.
+LORA_WAVES = [[('a', 0), ('', 1)], [('b', 2), ('c', 3)],
+              [('c', 0), ('', 2)], [('a', 1), ('', 3)]]
+BASE_WAVE = [('', 0), ('', 1)]
+LORA_COUNTERS = ('lora_hits', 'lora_misses', 'lora_evictions',
+                 'lora_blocks_charged', 'lora_pages_resident')
+# Speculative windows (n-gram drafts of the repetitive prompt 1) and a
+# decode role, each against the waves' answers to the same requests.
+SPEC_WAVE = [('a', 1), ('b', 2)]
+DECODE_ROLE_WAVE = [('c', 3), ('', 1)]
+
+
+def run_waves(engine, waves, n_new):
+    """Each wave's requests (``(adapter, prompt index)``) submitted
+    together to either package's continuous engine and waited for: the
+    greedy tokens, wave by wave."""
+    out = []
+    for wave in waves:
+        handles = [engine.submit_ids(LORA_PROMPTS[i], max_new_tokens=n_new,
+                                     adapter=name or None)
+                   for name, i in wave]
+        for h in handles:
+            assert h.done.wait(300), 'request timed out'
+            assert h.error is None, h.error
+        out.append([[int(t) for t in h.generated] for h in handles])
+    return out
+
+
+class StepRecorder:
+    """While installed, every ``prefill_chunk`` / ``paged_decode_step``
+    / ``paged_verify_step`` call of this rank, in order, with whether
+    it was given adapter pages."""
+
+    NAMES = ('prefill_chunk', 'paged_decode_step', 'paged_verify_step')
+
+    def __init__(self):
+        from skypilot_tpu_torch.models import decode as decode_lib
+        self.module, self.calls = decode_lib, []
+        self.real = {n: getattr(decode_lib, n) for n in self.NAMES}
+        for name, real in self.real.items():
+            setattr(decode_lib, name, self._wrap(name, real))
+
+    def _wrap(self, name, real):
+        def step(*args, **kwargs):
+            self.calls.append((name, kwargs.get('lora_pages') is not None))
+            return real(*args, **kwargs)
+        return step
+
+    def restore(self):
+        for name, real in self.real.items():
+            setattr(self.module, name, real)
+        return self.calls
+
+
+def _lora_engine(cfg, params, adapters, options):
+    engine = _build('continuous', cfg, params, dict(options, **LORA_KW))
+    if engine.is_driver:
+        for name, lora in adapters.items():
+            engine.register_adapter(name, lora)
+    return engine
+
+
+def lora_cases(rank, world, params_np, adapters_np, n_new):
+    """Adapter pages on every rank under ``mesh='tensor=2'``, for each
+    pool of ``DISAGG_POOLS``: the driver registers ``adapters_np`` and
+    runs ``LORA_WAVES`` (tokens, the ``lora_*`` counters, each adapter's
+    page, where the all-base wave's steps begin); on the fp pool then a
+    speculative engine runs ``SPEC_WAVE`` and a decode-role engine
+    ``DECODE_ROLE_WAVE``. Every rank returns its page store and every
+    step call it made (``StepRecorder``)."""
+    from skypilot_tpu_torch.models import convert
+    cfg = tiny_config()
+    params = convert.params_from_numpy(params_np, cfg, device='cpu')
+    adapters = {name: convert.lora_from_numpy(a, cfg, device='cpu')
+                for name, a in adapters_np.items()}
+    out = {'rank': rank, 'pools': {}}
+    for pool, options in DISAGG_POOLS.items():
+        res = {}
+        steps = StepRecorder()
+        try:
+            engine = _lora_engine(cfg, params, adapters, options)
+            if engine.is_driver:
+                res['tokens'] = run_waves(engine, LORA_WAVES, n_new)
+                stats = engine.stats()
+                res['counters'] = {k: stats[k] for k in LORA_COUNTERS}
+                res['pages'] = {n: engine._adapter_pool.page_of(n)  # pylint: disable=protected-access
+                                for n in adapters}
+                res['base_from'] = len(steps.calls)
+                res['base_tokens'] = run_waves(engine, [BASE_WAVE],
+                                               n_new)[0]
+                res['adapter_stats'] = engine.adapter_stats()
+                engine.shutdown()
+            else:
+                engine.follow()
+        finally:
+            res['steps'] = steps.restore()
+        res['store'] = {k: v.numpy() for k, v in
+                        engine._lora_store.items()}  # pylint: disable=protected-access
+        out['pools'][pool] = res
+    for label, options, wave in (
+            ('spec', dict(spec_decode=True, draft_k=3), SPEC_WAVE),
+            ('decode_role', dict(role='decode'), DECODE_ROLE_WAVE)):
+        engine = _lora_engine(cfg, params, adapters, options)
+        if engine.is_driver:
+            out[label] = {'tokens': run_waves(engine, [wave], n_new)[0],
+                          'stats': engine.stats()}
+            engine.shutdown()
+        else:
+            engine.follow()
+    return out
+
+
+# -- live weight refresh under the mesh --------------------------------------
+
+def leaves(params):
+    """Every leaf of a port params tree by path, as numpy (a W8A8
+    ``QTensor``'s int8 values and scales under ``/q`` and ``/scale``)."""
+    from skypilot_tpu_torch.inference.continuous import flatten_param_paths
+    from skypilot_tpu_torch.models.quant import QTensor
+    out = {}
+    for path, leaf in flatten_param_paths(params).items():
+        if isinstance(leaf, QTensor):
+            out[path + '/q'] = leaf.q.numpy().copy()
+            out[path + '/scale'] = leaf.scale.numpy().copy()
+        else:
+            out[path] = leaf.numpy().copy()
+    return out
+
+
+def _refresh_errors(engine, bad):
+    """Each of ``bad``'s update dicts refused by ``request_refresh``:
+    the error's type name, and the version after."""
+    got = []
+    for updates in bad:
+        try:
+            engine.request_refresh(updates)
+            got.append(None)
+        except (KeyError, ValueError, TypeError) as e:
+            got.append(type(e).__name__)
+    return got, engine.policy_version
+
+
+def refresh_cases(rank, world, params_np, new_np, delta_np, bad_np,
+                  drain_np, w8a8_bad_np, moe_np, moe_delta_np, n_new):
+    """Live refresh on every rank under ``mesh='tensor=2'``: on TINY,
+    ``PROMPTS`` (tokens; a full block of them stays in the prefix cache
+    across the refreshes, as the reference keeps it), a whole-tree
+    refresh to ``new_np`` (tokens), a delta
+    ``delta_np`` (tokens, leaves written, bytes broadcast), the refused
+    updates ``bad_np`` (error types, version), then the drain-mode
+    delta ``drain_np`` while a request is in flight (that request's
+    tokens, whether it had finished when the refresh landed, then the
+    tokens after it); on a W8A8 engine the refused ``w8a8_bad_np``; on
+    TINY_MOE the delta ``moe_delta_np``. Every rank returns its leaves
+    after each engine (and before the W8A8 one's refusals)."""
+    from skypilot_tpu_torch.models import convert
+    cfg = tiny_config()
+    params = convert.params_from_numpy(params_np, cfg, device='cpu')
+    out = {'rank': rank}
+    engine = _build('continuous', cfg, params, {})
+    if engine.is_driver:
+        res = {'versions': [], 'before': [
+            engine.generate_ids(p, max_new_tokens=n_new) for p in PROMPTS]}
+        res['versions'].append(engine.refresh_weights(
+            params=convert.params_from_numpy(new_np, cfg, device='cpu')))
+        res['whole'] = [engine.generate_ids(p, max_new_tokens=n_new)
+                        for p in PROMPTS]
+        ticket = engine.request_refresh(delta_np)
+        assert ticket.done.wait(120) and ticket.error is None, ticket.error
+        res['versions'].append(engine.policy_version)
+        res['delta_shards'] = ticket.applied_shards
+        res['delta_bytes'] = ticket.nbytes
+        res['delta'] = [engine.generate_ids(p, max_new_tokens=n_new)
+                        for p in PROMPTS]
+        res['errors'], version = _refresh_errors(engine, bad_np)
+        res['versions'].append(version)
+        flight = engine.submit_ids(PROMPTS[1], max_new_tokens=n_new)
+        while not flight.generated:
+            time.sleep(0.001)
+        ticket = engine.request_refresh(drain_np, mode='drain')
+        assert ticket.done.wait(120) and ticket.error is None, ticket.error
+        res['drained_first'] = flight.done.is_set()
+        res['in_flight'] = list(flight.generated)
+        res['versions'].append(engine.policy_version)
+        res['after_drain'] = [engine.generate_ids(p, max_new_tokens=n_new)
+                              for p in PROMPTS]
+        res['stats'] = engine.stats()
+        out['tiny'] = res
+        engine.shutdown()
+    else:
+        engine.follow()
+    out['tiny_leaves'] = leaves(engine.params)
+    del engine
+    w8a8 = _build('continuous', cfg, params, {'quantize': True})
+    out['w8a8_before'] = leaves(w8a8.params)
+    if w8a8.is_driver:
+        out['w8a8'] = _refresh_errors(w8a8, [w8a8_bad_np])
+        w8a8.shutdown()
+    else:
+        w8a8.follow()
+    out['w8a8_after'] = leaves(w8a8.params)
+    del w8a8
+    mcfg = moe_config()
+    moe = _build('continuous', mcfg,
+                 convert.params_from_numpy(moe_np, mcfg, device='cpu'), {})
+    if moe.is_driver:
+        version = moe.refresh_weights(moe_delta_np)
+        out['moe'] = {'version': version,
+                      'tokens': [moe.generate_ids(p, max_new_tokens=n_new)
+                                 for p in PROMPTS]}
+        moe.shutdown()
+    else:
+        moe.follow()
+    out['moe_leaves'] = leaves(moe.params)
+    return out
+
+
+# -- adapter pages and live refresh at tensor=2 on the card -----------------
+
+def cuda_tiny_config():
+    """TINY with head_dim 128 (the card's decode kernel takes 64/128/256)
+    and fp32 compute, so tensor=2 and one rank give the same tokens."""
+    from skypilot_tpu_torch.models.config import get_model_config
+    return get_model_config('tiny', head_dim=128,
+                            compute_dtype=torch.float32)
+
+
+def cuda_lora_case(rank, world, adapters, n_new, mesh='tensor=2',
+                   device='cuda'):
+    """``LORA_WAVES`` on the card (or ``device``) from the seeded init
+    (seed 0), under ``mesh`` (None: one rank): tokens, the ``lora_*``
+    counters, each adapter's page, every rank's page store and paged
+    launches."""
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine)
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    engine = ContinuousBatchingEngine(
+        cfg=cuda_tiny_config(), seed=0, device=device, mesh=mesh,
+        max_slots=2, max_len=64, block_size=8, prefill_chunk=8, **LORA_KW)
+    pa.reset_launch_counts()
+    out = {'rank': rank}
+    if engine.is_driver:
+        for name, lora in adapters.items():
+            engine.register_adapter(name, lora)
+        out['tokens'] = run_waves(engine, LORA_WAVES, n_new)
+        stats = engine.stats()
+        out['counters'] = {k: stats[k] for k in LORA_COUNTERS}
+        out['decode_steps'] = stats['decode_steps']
+        out['pages'] = {n: engine._adapter_pool.page_of(n)  # pylint: disable=protected-access
+                        for n in adapters}
+        engine.shutdown()
+    else:
+        engine.follow()
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    out['launches'] = pa.LAUNCHES['paged_attention']
+    out['store'] = {k: v.cpu().numpy() for k, v in
+                    engine._lora_store.items()}  # pylint: disable=protected-access
+    return out
+
+
+def cuda_refresh_case(rank, world, delta, n_new, mesh='tensor=2',
+                      device='cuda'):
+    """A delta refresh on the card (or ``device``) from the seeded init
+    (seed 0), under
+    ``mesh`` (None: one rank): ``PROMPTS``' tokens before and after,
+    the version, and every rank's leaves after."""
+    from skypilot_tpu_torch.inference.continuous import (
+        ContinuousBatchingEngine, flatten_param_paths)
+    engine = ContinuousBatchingEngine(
+        cfg=cuda_tiny_config(), seed=0, device=device, mesh=mesh,
+        max_slots=2, max_len=64, block_size=8, prefill_chunk=8,
+        prefix_cache=False)
+    out = {'rank': rank}
+    if engine.is_driver:
+        out['before'] = [engine.generate_ids(p, max_new_tokens=n_new)
+                         for p in PROMPTS]
+        out['version'] = engine.refresh_weights(delta)
+        out['after'] = [engine.generate_ids(p, max_new_tokens=n_new)
+                        for p in PROMPTS]
+        engine.shutdown()
+    else:
+        engine.follow()
+    out['leaves'] = {path: t.cpu().numpy() for path, t in
+                     flatten_param_paths(engine.params).items()}
     return out
