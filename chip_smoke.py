@@ -83,7 +83,8 @@ Phases, in order; any failure exits non-zero:
    on the rows that keep a key, the rows that keep none finite with no
    weight in the ring's merge, dq and dk/dv from the merged o and lse
    against plain, and the plain outputs with the key ids ignored must
-   fail the limits. Then
+   fail the limits; and phase 35's seq=2 ring blocks at fp32 (B=4
+   S=512 H=KVH=16: causal, full) against plain. Then
    at the trainer's shape (B=8, bf16, causal) the
    outputs against plain once more, and the times, causal and with
    packed documents (the ``_seg`` twins): each kernel, its plain
@@ -368,26 +369,36 @@ Phases, in order; any failure exits non-zero:
    peak and steady memory, decode tok/s and the collectives' share
    ("two ranks on one card over gloo: not a TP speed").
 
-35. MoE training over the expert axis (after phase 34): deepseek-moe-16b
-   at full width and ``MOE_MESH_LAYERS`` (2) of its 28 layers at fp32
-   compute (registered as ``deepseek-moe-16b-l2-fp32``) through
-   ``train.pretrain.main`` on two ranks sharing the card over ``gloo``
-   (AdamW, fp32 params, full remat, B=4, S=1024, 2 steps each; the
-   fsdp=2 run and the planted fault's 1): ``--mesh expert=2`` (dense
-   dispatch: 32 of the 64 experts a rank),
-   ``--mesh expert=2 --moe-dispatch capacity`` and ``--mesh fsdp=2``
-   (every expert, half of each along embed: the aux of the whole
-   batch). On each rank: rc 0, only rank 0 prints, finite losses, flash
-   launches 2L / L / L a step, no call outside the kernels. Each run's
-   first-step loss, router aux loss and gradient norm and (runs of two
-   steps) second-step loss against one rank's on the same params and
-   batches (after the ranks exit) within ``MESH_TOL``; a planted fault, an expert=2 run
-   with the routing weights' backward all-reduce skipped, must fail
-   that gate. A bf16-compute expert=2 run (``deepseek-moe-16b-l2``):
-   its numbers printed, its launches checked, not gated. Printed beside
-   the card's name and power limit: each rank's peak memory, the step
-   time and the collectives' share of it, labelled "two ranks on one
-   card over gloo: not a training speed".
+35. MoE training over the expert and sequence axes (after phase 34):
+   deepseek-moe-16b at full width and ``MOE_MESH_LAYERS`` (2) of its 28
+   layers at fp32 compute (registered as ``deepseek-moe-16b-l2-fp32``)
+   through ``train.pretrain.main`` on two ranks sharing the card over
+   ``gloo`` (AdamW, fp32 params, full remat, B=4, S=1024, 1 step each;
+   the expert=2 capacity run 2): ``--mesh expert=2`` (dense dispatch:
+   32 of the 64 experts a rank), ``--mesh expert=2 --moe-dispatch
+   capacity``, ``--mesh fsdp=2`` (every expert, half of each along
+   embed: the aux of the whole batch), ``--mesh seq=2`` (dense; the
+   ring over 512 columns a rank) and ``--mesh seq=2 --moe-dispatch
+   capacity --capacity-factor 0.5`` (one group of 1024 columns a row,
+   across both ranks: each claims the slots from both ranks' gathered
+   choices). First kernels 5, 7 and 9 timed at fp32 on the seq=2 ring
+   blocks (B=4 S=512 H=KVH=16, causal and full; phase 5 holds them
+   against the plain versions). On each rank: rc 0, only rank 0 prints,
+   finite losses, flash launches 2L / L / L a step (at seq=2 the ring's
+   blocks: rank r visits r + 1 a pass), no call outside the kernels.
+   Each run's first-step loss, router aux loss and gradient norm and
+   (runs of two steps) second-step loss against one rank's on the same
+   params and batches (after the ranks exit; dense, capacity, capacity
+   0.5) within ``MESH_TOL``; two planted faults must fail that gate: an
+   expert=2 run with the routing weights' backward all-reduce skipped,
+   and a seq=2 capacity run whose ranks claim capacity on their own
+   columns alone. The seq=2 capacity run must drop assignments (its
+   share of the batch's, the same on both ranks, printed beside one
+   rank's). A bf16-compute expert=2 run (``deepseek-moe-16b-l2``): its
+   numbers printed, its launches checked, not gated. Printed beside the
+   card's name and power limit: each rank's peak memory, the step time
+   and the collectives' share of it, labelled "two ranks on one card
+   over gloo: not a training speed".
 
 36. Pipeline-parallel training (after phase 35): bench-1b7 at full
    width and ``MESH_LAYERS`` (2) layers, one a stage, through
@@ -689,6 +700,14 @@ MESH_SHARDS = (('fsdp=2', dict(b=4, h=20, kvh=4)),
 # One ring block of bench-1b7's training attention at phase 33's seq=2:
 # all 8 rows, all heads, half of the 2048 columns.
 RING_BLOCK = dict(b=8, s=1024, h=20, kvh=4, d=128)
+# One ring block of deepseek-moe-16b's training attention at phase 35's
+# seq=2 (fp32 compute): all 4 rows, all 16 heads, half of the 1024
+# columns.
+MOE_RING_BLOCK = dict(b=4, s=512, h=16, kvh=16, d=128)
+# float32 FLOP/s outside the tensor cores over the bf16 tensor-core peak
+# (NVIDIA's data sheet, H100 SXM: 67 / 989 TFLOP/s): the rate of the fp32
+# flash kernels' CUDA-core FMAs.
+FP32_CORE_SHARE = 67 / 989
 # New tokens a request in phases 31 and 34: each decode step of two ranks
 # sharing the card makes ~66 gloo collectives of ~2 ms each
 # (ops/collectives_bench.py on the card), so its decode runs are short.
@@ -1644,8 +1663,10 @@ def ring_block_checks(torch, fa, errors):
     dk/dv from the merged o and lse (as the ring's backward calls them)
     against the plain versions. The plain outputs with the key ids
     ignored (the query ids used for the keys), a fault a kernel that
-    dropped ``seg_k`` would make, must fail the same limits. Returns the
-    labels that failed."""
+    dropped ``seg_k`` would make, must fail the same limits. Then kernels
+    5, 7 and 9 at fp32 on phase 35's seq=2 ring blocks
+    (``MOE_RING_BLOCK``, causal and full) against the plain versions.
+    Returns the labels that failed."""
     failed = []
     for dtype, shp in (('bf16', RING_BLOCK),
                        ('fp32', dict(RING_BLOCK, b=2))):
@@ -1692,6 +1713,26 @@ def ring_block_checks(torch, fa, errors):
             failed.append(label)
         del q, k, v, do, o, lse, dq, dk, dv, delta, ro, rlse, rgrads, got
         del wo, wlse, wgrads, mo, mlse
+    # Phase 35's seq=2 ring blocks at fp32 (the CUDA-core kernels):
+    # each rank's diagonal block (causal) and rank 1's earlier block
+    # (full).
+    for seed, causal in enumerate((True, False)):
+        label = (f'fp32 {"causal" if causal else "full"} B=4 S=512 H=16 '
+                 'KVH=16 (MoE seq=2 ring block)')
+        q, k, v, do, _ = flash_case(torch, dtype='fp32', segments=False,
+                                    seed=4200 + seed, **MOE_RING_BLOCK)
+        o, lse = fa.flash_forward_kernel(q, k, v, causal=causal)
+        dq, delta = fa.flash_dq_kernel(q, k, v, o, lse, do, causal=causal)
+        dk, dv = fa.flash_dkv_kernel(q, k, v, lse, do, delta, causal=causal)
+        torch.cuda.synchronize()
+        ro, rlse = fa.flash_forward_reference(q, k, v, causal=causal)
+        rgrads = fa.flash_backward_reference(q, k, v, ro, rlse, do,
+                                             causal=causal)
+        got = (('o', o, ro), ('lse', lse, rlse)) + tuple(
+            zip(('dq', 'dk', 'dv'), (dq, dk, dv), rgrads))
+        if not compare_flash(torch, label, 'fp32', got, errors):
+            failed.append(label)
+        del q, k, v, do, o, lse, dq, dk, dv, delta, ro, rlse, rgrads, got
     return failed
 
 
@@ -6460,6 +6501,18 @@ def plant_unreduced_routing():
     return lambda: setattr(llama, 'copy_to_experts', real)
 
 
+def plant_rank_local_groups():
+    """Planted fault for phase 35's seq=2 gate: capacity dispatch groups
+    each rank's columns alone, with a group's capacity of its own 512
+    columns, as one device would, where the groups span the global
+    sequence. Returns the undo."""
+    from skypilot_tpu_torch.models import llama
+    real = llama._capacity_groups
+    llama._capacity_groups = lambda s, cfg, par: real(s, cfg,
+                                                      llama._ONE_DEVICE)
+    return lambda: setattr(llama, '_capacity_groups', real)
+
+
 def plant_dropped_dx():
     """Planted fault for phase 36's gate: the pipeline's backward handoff
     sends zeros, so stage 0 gets no gradient of its output (its layer
@@ -6479,7 +6532,38 @@ def plant_dropped_dx():
 PLANTED = {'attention unreduced': plant_unreduced_attention,
            'ring not rotating': plant_still_ring,
            'routing weights unreduced': plant_unreduced_routing,
+           'rank-local groups': plant_rank_local_groups,
            'dx dropped': plant_dropped_dx}
+
+
+class SlotRecorder:
+    """While entered, every capacity slot claim (``llama._slots``) adds
+    its groups' kept assignments and all their assignments (each
+    token's top-k choices), so that ``dropped`` is the share of the
+    claimed groups' assignments past the capacity (a remat recompute
+    claims again and counts both parts twice)."""
+
+    def __enter__(self):
+        from skypilot_tpu_torch.models import llama
+        self.llama, self.real = llama, llama._slots
+        self.kept = self.assigned = 0
+
+        def slots(selected, e, capacity):
+            out = self.real(selected, e, capacity)
+            self.kept += int(out.sum().item())
+            self.assigned += selected.numel()
+            return out
+
+        llama._slots = slots
+        return self
+
+    def __exit__(self, *exc):
+        self.llama._slots = self.real
+
+    @property
+    def dropped(self):
+        return (1.0 - self.kept / self.assigned if self.assigned
+                else None)
 
 
 def mesh_train_rank(rank, world, runs):
@@ -6487,7 +6571,8 @@ def mesh_train_rank(rank, world, runs):
     (its output captured; with a ``fault``, under that ``PLANTED``
     fault) with the flash counts zeroed just before and read just after,
     its steps and attention shapes (``StepRecorder``, every collective
-    timed), its wall time and peak memory."""
+    timed), the share of capacity assignments its slot claims dropped
+    (``SlotRecorder``), its wall time and peak memory."""
     import torch
     from skypilot_tpu_torch.ops import flash_attention as fa
     from skypilot_tpu_torch.parallel import sharding as psharding
@@ -6507,7 +6592,7 @@ def mesh_train_rank(rank, world, runs):
             t0 = time.perf_counter()
             undo = PLANTED[fault]() if fault else None
             try:
-                with StepRecorder(torch) as rec:
+                with StepRecorder(torch) as rec, SlotRecorder() as slots:
                     rc, lines = run_json_main(pretrain.main, argv)
             finally:
                 if undo is not None:
@@ -6515,6 +6600,7 @@ def mesh_train_rank(rank, world, runs):
             torch.cuda.synchronize()
             stats = psharding.collective_stats()
             out['runs'][label] = {
+                'dropped': slots.dropped,
                 'rc': rc, 'lines': lines, 'launches': dict(fa.LAUNCHES),
                 'fallbacks': fa.FALLBACKS['cuda'],
                 'shapes': sorted(rec.shapes), 'steps': rec.steps,
@@ -7141,14 +7227,16 @@ def phase_tp_moe(torch, smi):
 
 
 # ---------------------------------------------------------------------------
-# Phase 35: MoE training over the expert axis, deepseek-moe-16b at 2 layers
+# Phase 35: MoE training over the expert and sequence axes,
+# deepseek-moe-16b at 2 layers
 # ---------------------------------------------------------------------------
 
 MOE_MESH_BASE = 'deepseek-moe-16b'
 # Depth cut from 28 to hold the phase near 90 s and both ranks' AdamW
 # states on the card: at expert=2 a rank holds 32 of each layer's 64
 # experts (about 1.01 B params at 2 layers, ~16 GB with AdamW's moments
-# and the gradients), and the one-rank run ~25 GB.
+# and the gradients), at seq=2 every expert (about 1.56 B params,
+# ~25 GB), and the one-rank run ~25 GB.
 MOE_MESH_LAYERS = 2
 MOE_MESH_BF16 = f'{MOE_MESH_BASE}-l{MOE_MESH_LAYERS}'
 # The gate's runs compute in fp32: this model's seeded weights part any
@@ -7158,24 +7246,41 @@ MOE_MESH_MODEL = f'{MOE_MESH_BF16}-fp32'
 MOE_MESH_STEPS = 2
 MOE_MESH_ARGV = ['--batch', '4', '--seq', '1024', '--warmup-steps', '1',
                  '--log-every', '1']
+# Capacity dispatch at seq=2: a capacity factor of 0.5 drops assignments
+# (48 slots of each of the 64 experts for the 6144 choices of a group of
+# 1024), so the order in which the ranks' tokens claim the slots decides
+# what is kept.
+MOE_SEQ_CAPACITY = ['--mesh', 'seq=2', '--moe-dispatch', 'capacity',
+                    '--capacity-factor', '0.5']
 # Run label -> (model, extra argv, planted fault, steps), all on two
 # ranks. The fsdp=2 run takes one step (cut from two when phase 36
 # joined: its fp32 gathers through the host are ~20 s a step; step 1's
-# loss, aux and grad norm stay gated), and so does the planted fault's
-# (it moves step 1's grad norm; with warmup 1 the first update has a
-# learning rate of 0, so step 2 could not show it).
+# loss, aux and grad norm stay gated), and so do the planted faults'
+# (they move step 1's grad norm; with warmup 1 the first update has a
+# learning rate of 0, so step 2 could not show it), the seq=2 runs
+# (each rank sums the fp32 gradients of all ~1.56 B params over the
+# host) and, since the seq=2 runs joined, the expert=2 dense and bf16
+# runs.
 MOE_MESH_RUNS = (
-    ('expert=2', MOE_MESH_MODEL, ['--mesh', 'expert=2'], None,
-     MOE_MESH_STEPS),
+    ('expert=2', MOE_MESH_MODEL, ['--mesh', 'expert=2'], None, 1),
     ('expert=2 capacity', MOE_MESH_MODEL,
      ['--mesh', 'expert=2', '--moe-dispatch', 'capacity'], None,
      MOE_MESH_STEPS),
     ('fsdp=2', MOE_MESH_MODEL, ['--mesh', 'fsdp=2'], None, 1),
-    ('expert=2 bf16', MOE_MESH_BF16, ['--mesh', 'expert=2'], None,
-     MOE_MESH_STEPS),
+    ('expert=2 bf16', MOE_MESH_BF16, ['--mesh', 'expert=2'], None, 1),
+    ('seq=2', MOE_MESH_MODEL, ['--mesh', 'seq=2'], None, 1),
+    ('seq=2 capacity', MOE_MESH_MODEL, MOE_SEQ_CAPACITY, None, 1),
     ('expert=2 fault', MOE_MESH_MODEL, ['--mesh', 'expert=2'],
-     'routing weights unreduced', 1))
+     'routing weights unreduced', 1),
+    ('seq=2 fault', MOE_MESH_MODEL, MOE_SEQ_CAPACITY, 'rank-local groups',
+     1))
 MOE_MESH_STEPS_OF = {label: steps for label, *_, steps in MOE_MESH_RUNS}
+# One rank's runs on the same params and batches: label -> (extra argv,
+# steps).
+MOE_ONE_RUNS = (('dense', [], 1),
+                ('capacity', ['--moe-dispatch', 'capacity'],
+                 MOE_MESH_STEPS),
+                ('capacity 0.5', MOE_SEQ_CAPACITY[2:], 1))
 
 
 def register_moe_mesh_models():
@@ -7205,51 +7310,113 @@ def moe_mesh_gaps(steps, reference):
 
 def check_moe_mesh_runs(ranks, cfg):
     """Every run on both ranks: rc 0, only rank 0 prints, finite losses,
-    flash launches 2L / L / L a step, no call outside the kernels, and
-    every attention call on the rank's rows (expert does not split the
-    batch: 4 rows at expert=2, 2 at fsdp=2; all 16 heads)."""
+    flash launches 2L / L / L a step (at seq=2 the ring's block counts:
+    rank r visits r + 1 key blocks a pass), no call outside the kernels,
+    and every attention call on the rank's rows (expert does not split
+    the batch: 4 rows at expert=2, 2 at fsdp=2; all 16 heads; the ring
+    makes no attention call, its blocks launch the kernels
+    themselves)."""
     for r in ranks:
         for label, run in r['runs'].items():
             steps = MOE_MESH_STEPS_OF[label]
-            n = cfg.n_layers * steps
+            blocks = r['rank'] + 1 if label.startswith('seq') else 1
+            n = cfg.n_layers * steps * blocks
             expected = {'flash_fwd': 2 * n, 'flash_dq': n, 'flash_dkv': n,
                         'flash_fwd_seg': 0, 'flash_dq_seg': 0,
                         'flash_dkv_seg': 0}
             rows = 2 if label.startswith('fsdp') else 4
+            shapes = ([] if label.startswith('seq')
+                      else [(rows, cfg.n_heads)])
             losses = [x['loss'] for x in run['lines'] if 'loss' in x]
             printed_ok = (len(losses) == steps if r['rank'] == 0
                           else run['lines'] == [])
             if run['rc'] != 0 or not printed_ok or \
                     not all(math.isfinite(x) for x in losses) or \
                     run['launches'] != expected or run['fallbacks'] or \
-                    run['shapes'] != [(rows, cfg.n_heads)]:
+                    run['shapes'] != shapes:
                 raise AssertionError(
                     f'[moe-mesh] rank {r["rank"]} {label}: rc {run["rc"]}, '
                     f'lines {run["lines"]}, launches {run["launches"]} '
                     f'(expected {expected}), fallbacks {run["fallbacks"]}, '
                     f'(rows, heads) of the calls {run["shapes"]} (expected '
-                    f'{[(rows, cfg.n_heads)]})')
+                    f'{shapes})')
     log(f'[moe-mesh] both ranks: every run launched 2x{cfg.n_layers} fwd, '
-        f'{cfg.n_layers} dq, {cfg.n_layers} dkv a step x its steps '
-        f'{MOE_MESH_STEPS_OF}, no fallback; (rows, heads) ' + ', '.join(
+        f'{cfg.n_layers} dq, {cfg.n_layers} dkv a step (at seq=2 times '
+        f'rank + 1 ring blocks) x its steps {MOE_MESH_STEPS_OF}, no '
+        'fallback; launches at seq=2 by rank ' + '; '.join(
+            f'{label} {[r["runs"][label]["launches"] for r in ranks]}'
+            for label in ranks[0]['runs'] if label.startswith('seq')) +
+        '; (rows, heads) ' + ', '.join(
             f'{k} {v["shapes"]}' for k, v in ranks[0]['runs'].items()))
+
+
+def moe_ring_block_times(torch, fa):
+    """Kernels 5, 7 and 9 at fp32 on phase 35's seq=2 ring blocks
+    (``MOE_RING_BLOCK``): the diagonal block (causal) and rank 1's block
+    of earlier positions (full): kernel, plain and bound (the fp32
+    FLOPs at the CUDA-core rate, ``FP32_CORE_SHARE`` of the card's bf16
+    peak). Phase 5 holds them against the plain versions."""
+    _, bw, flops_peak = card_peaks(torch.cuda.get_device_name(0))
+    flops32 = flops_peak * FP32_CORE_SHARE
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8,
+                        device='cuda')
+    shp = MOE_RING_BLOCK
+    q, k, v, do, _ = flash_case(torch, dtype='fp32', segments=False,
+                                seed=950, **shp)
+    rows = {}
+    square = shp['b'] * shp['s'] ** 2
+    for label, causal, pairs in (('causal', True, square / 2),
+                                 ('full', False, square)):
+        kw = dict(causal=causal)
+        o, lse = fa.flash_forward_kernel(q, k, v, **kw)
+        _, delta = fa.flash_dq_kernel(q, k, v, o, lse, do, **kw)
+        for name, which, kernel, plain in (
+                ('flash_fwd', 'fwd',
+                 lambda: fa.flash_forward_kernel(q, k, v, **kw),
+                 lambda: fa.flash_forward_reference(q, k, v, **kw)),
+                ('flash_dq', 'dq',
+                 lambda: fa.flash_dq_kernel(q, k, v, o, lse, do, **kw),
+                 lambda: fa.flash_dq_reference(q, k, v, o, lse, do, **kw)),
+                ('flash_dkv', 'dkv',
+                 lambda: fa.flash_dkv_kernel(q, k, v, lse, do, delta, **kw),
+                 lambda: fa.flash_dkv_reference(q, k, v, o, lse, do,
+                                                **kw))):
+            key = f'{name} {label}'
+            row = dict(ms=time_ms(torch, kernel, flush),
+                       plain_ms=time_ms(torch, plain, flush))
+            row['bound_ms'], row['bound_by'] = flash_bound(
+                itemsize=4, which=which, bw=bw, flops_peak=flops32,
+                pairs=pairs, **shp)
+            rows[key] = row
+            log(f'[moe-mesh] {key} fp32 ring block B=4 S=512 H=16 KVH=16: '
+                f'kernel {row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} '
+                f'ms, bound {row["bound_ms"]:.4f} ms ({row["bound_by"]}; '
+                f'fp32 at {flops32 / 1e12:.0f} TFLOP/s), '
+                f'{100 * row["bound_ms"] / row["ms"]:.1f}% of bound')
+        del o, lse, delta
+    del q, k, v, do, flush
+    return rows
 
 
 def phase_moe_mesh_train(torch, smi, other_runs=()):
     """Phase 35: deepseek-moe-16b at full width and ``MOE_MESH_LAYERS``
     layers trained through ``train.pretrain.main`` by two ranks sharing
-    the card over gloo (``MOE_MESH_RUNS``: expert=2 dense and capacity
-    and fsdp=2 at fp32 compute, expert=2 at bf16, and the planted fault);
-    then one rank on the same params and batches, dense and capacity.
-    Gate: each fp32 run's first-step loss, router aux loss and gradient
-    norm and (runs of two steps) second-step loss against one rank's
-    within ``MESH_TOL``; the planted fault must fail it. Returns the
-    launch totals for the kernels line and the numbers PERF.md keeps.
+    the card over gloo (``MOE_MESH_RUNS``: expert=2 dense and capacity,
+    fsdp=2, seq=2 dense and capacity 0.5 at fp32 compute, expert=2 at
+    bf16, and two planted faults); then one rank on the same params and
+    batches (``MOE_ONE_RUNS``: dense, capacity, capacity 0.5). Gate:
+    each fp32 run's first-step loss, router aux loss and gradient norm
+    and (runs of two steps) second-step loss against one rank's within
+    ``MESH_TOL``; the planted faults must fail it; the seq=2 capacity
+    run must drop assignments. First kernels 5, 7 and 9 timed at the
+    seq=2 ring blocks (``moe_ring_block_times``). Returns the launch
+    totals for the kernels line and the numbers PERF.md keeps.
 
     ``other_runs``: runs of another phase (``mesh_train_rank``'s (label,
     argv, fault)) made by the same two ranks after phase 35's, warm, so
     that they pay no start of their own; their results come back apart
     (``extra_ranks``) and count in no total here."""
+    from skypilot_tpu_torch.ops import flash_attention as fa
     from skypilot_tpu_torch.parallel.launch import launch
     from skypilot_tpu_torch.train import pretrain
     t0 = time.perf_counter()
@@ -7260,6 +7427,9 @@ def phase_moe_mesh_train(torch, smi, other_runs=()):
         f'{cfg.d_ff}, top {cfg.experts_per_token}, vocab {cfg.vocab_size}) '
         f'and {cfg.n_layers} of its 28 layers; B=4 S=1024, AdamW, fp32 '
         'params, full remat')
+    block = moe_ring_block_times(torch, fa)
+    free_card(torch)
+    t_block = time.perf_counter()
     runs = [(label, ['--model', model, '--steps', str(steps)] +
              MOE_MESH_ARGV + argv, fault)
             for label, model, argv, fault, steps in MOE_MESH_RUNS]
@@ -7271,34 +7441,42 @@ def phase_moe_mesh_train(torch, smi, other_runs=()):
                              for label, _, _ in other_runs}}
                    for r in ranks]
     extra_s = sum(run['wall_s'] for run in extra_ranks[0]['runs'].values())
-    # The planted fault's run is no part of the main path's counts.
-    faulted = [r['runs'].pop('expert=2 fault') for r in ranks][0]
+    # The planted faults' runs are no part of the main path's counts.
+    faulted = {label: [r['runs'].pop(label) for r in ranks]
+               for label in ('expert=2 fault', 'seq=2 fault')}
     check_moe_mesh_runs(ranks, cfg)
-    one = {}
+    one, taken = {}, 0
     with StepRecorder(torch) as rec:
-        for label, extra in (('dense', []),
-                             ('capacity', ['--moe-dispatch', 'capacity'])):
+        for label, extra, steps in MOE_ONE_RUNS:
             torch.cuda.reset_peak_memory_stats()
-            rc, _ = run_json_main(pretrain.main, [
-                '--model', MOE_MESH_MODEL, '--steps', str(MOE_MESH_STEPS)]
-                + MOE_MESH_ARGV + extra)
-            if rc != 0 or len(rec.steps) % MOE_MESH_STEPS:
+            with SlotRecorder() as slots:
+                rc, _ = run_json_main(pretrain.main, [
+                    '--model', MOE_MESH_MODEL, '--steps', str(steps)]
+                    + MOE_MESH_ARGV + extra)
+            taken += steps
+            if rc != 0 or len(rec.steps) != taken:
                 raise AssertionError(f'[moe-mesh] one rank {label}: rc {rc}')
-            one[label] = rec.steps[-MOE_MESH_STEPS:]
+            one[label] = rec.steps[-steps:]
             one[label + ' peak_gb'] = torch.cuda.max_memory_allocated() / 1e9
+            one[label + ' dropped'] = slots.dropped
             free_card(torch)
     t2 = time.perf_counter()
     rank0 = ranks[0]['runs']
-    if faulted['rc'] != 0 or len(faulted['steps']) != 1:
-        raise AssertionError(f'[moe-mesh] planted fault run: rc '
-                             f'{faulted["rc"]}, steps {faulted["steps"]}')
+    for label, runs_of in faulted.items():
+        if any(run['rc'] != 0 or len(run['steps']) != 1 for run in runs_of):
+            raise AssertionError(f'[moe-mesh] planted fault run {label}: '
+                                 f'rc {[run["rc"] for run in runs_of]}')
     gaps = {label: moe_mesh_gaps(rank0[label]['steps'], one[ref])
             for label, ref in (('expert=2', 'dense'),
                                ('expert=2 capacity', 'capacity'),
-                               ('fsdp=2', 'dense'))}
-    fault = moe_mesh_gaps(faulted['steps'], one['dense'])
+                               ('fsdp=2', 'dense'), ('seq=2', 'dense'),
+                               ('seq=2 capacity', 'capacity 0.5'))}
+    faults = {'expert=2 fault': moe_mesh_gaps(
+                  faulted['expert=2 fault'][0]['steps'], one['dense']),
+              'seq=2 fault': moe_mesh_gaps(
+                  faulted['seq=2 fault'][0]['steps'], one['capacity 0.5'])}
     bf16 = moe_mesh_gaps(rank0['expert=2 bf16']['steps'], one['dense'])
-    for label, row in list(gaps.items()) + [('planted fault', fault)]:
+    for label, row in list(gaps.items()) + list(faults.items()):
         log(f'[moe-mesh] {label} vs one rank on the same params and '
             f'batches, relative: ' + ', '.join(
                 f'{k} {v:.2e}' for k, v in row.items())
@@ -7309,18 +7487,37 @@ def phase_moe_mesh_train(torch, smi, other_runs=()):
         log(f'[moe-mesh] {label} steps ' + json.dumps(
             [{k: x[k] for k in ('loss', 'router_aux', 'grad_norm')}
              for x in rank0[label]['steps']]))
-    for label in ('dense', 'capacity'):
+    for label, _, _ in MOE_ONE_RUNS:
         log(f'[moe-mesh] one rank {label} steps ' + json.dumps(
             [{k: x[k] for k in ('loss', 'router_aux', 'grad_norm')}
              for x in one[label]]) + f'; peak '
             f'{one[label + " peak_gb"]:.2f} GB ({smi})')
+    # The seq=2 capacity run's one group a row is the whole sequence,
+    # claimed whole on each rank: either rank's count is the batch's.
+    dropped = {'seq=2 capacity': [r['runs']['seq=2 capacity']['dropped']
+                                  for r in ranks],
+               'seq=2 fault': [run['dropped']
+                               for run in faulted['seq=2 fault']],
+               'one rank capacity 0.5': one['capacity 0.5 dropped'],
+               'one rank capacity': one['capacity dropped']}
+    log('[moe-mesh] share of the capacity assignments dropped over the '
+        'whole batch (each token\'s top 6): ' + json.dumps(dropped))
     off = {label: row for label, row in gaps.items() if not within(row)}
     if off:
         raise AssertionError(f'[moe-mesh] mesh runs off one rank\'s: {off}')
-    if within(fault):
-        raise AssertionError(f'[moe-mesh] the planted fault (routing '
-                             f'weights\' gradient not reduced over experts) '
-                             f'passed the gate: {fault}')
+    passed = [label for label, row in faults.items() if within(row)]
+    if passed:
+        raise AssertionError(f'[moe-mesh] planted faults passed the gate '
+                             f'(expert=2: routing weights\' gradient not '
+                             f'reduced over experts; seq=2: capacity '
+                             f'claimed on each rank\'s columns): {passed} '
+                             f'{faults}')
+    seq_dropped = dropped['seq=2 capacity']
+    if not (seq_dropped[0] is not None and seq_dropped[0] > 0 and
+            seq_dropped[0] == seq_dropped[1]):
+        raise AssertionError(f'[moe-mesh] seq=2 capacity: dropped shares '
+                             f'by rank {seq_dropped}: the ranks must claim '
+                             'the same slots and drop some')
     numbers = {}
     for label in rank0:
         # Step 2, or step 1 of a one-step run.
@@ -7350,13 +7547,14 @@ def phase_moe_mesh_train(torch, smi, other_runs=()):
             for k, v in run['launches'].items():
                 launches[k] = launches.get(k, 0) + v
     log(f'[smoke] phase 35 {time.perf_counter() - t0 - extra_s:.1f} s '
-        f'(ranks {t1 - t0 - extra_s:.1f} s, one rank {t2 - t1:.1f} s; '
+        f'(ring block times {t_block - t0:.1f} s, ranks '
+        f'{t1 - t_block - extra_s:.1f} s, one rank {t2 - t1:.1f} s; '
         f'without the {extra_s:.1f} s of the other runs its ranks made)')
-    return {'launches': launches, 'gaps': gaps, 'fault': fault,
+    return {'launches': launches, 'gaps': gaps, 'faults': faults,
             'bf16': bf16, 'runs': numbers, 'extra_ranks': extra_ranks,
-            'extra_s': extra_s,
-            'one_peak_gb': {k: one[k + ' peak_gb']
-                            for k in ('dense', 'capacity')}}
+            'extra_s': extra_s, 'dropped': dropped, 'ring_block': block,
+            'one_peak_gb': {label: one[label + ' peak_gb']
+                            for label, _, _ in MOE_ONE_RUNS}}
 
 
 # ---------------------------------------------------------------------------

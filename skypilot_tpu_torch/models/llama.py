@@ -32,7 +32,9 @@ cross entropy, ``train/loss.py``) instead of gathering [B, S, V]. Under
 ``seq`` the tokens (and positions and segments) are the rank's block of
 the columns: the default positions start at its block's first column,
 attention runs over the ``seq`` group (``ops/ring_attention.py``) and
-everything else is per token. A MoE layer holds its block of the
+everything else is per token, except capacity dispatch's claim of
+expert slots, which runs over groups of the global sequence
+(``_moe_block_capacity``). A MoE layer holds its block of the
 experts over ``expert`` and of each expert's FFN columns over
 ``tensor``, routes every token whole and sums its experts' outputs over
 both axes (``_moe_block``); the router aux loss is the whole batch's
@@ -40,8 +42,7 @@ both axes (``_moe_block``); the router aux loss is the whole batch's
 context is an argument, not ambient state: a remat recompute runs in
 the autograd thread and re-issues the layer's collectives in the same
 order on every rank.
-Pipeline stages, LoRA layers on a mesh and MoE layers under ``seq``
-raise here.
+LoRA layers on a mesh raise here: the reference trains LoRA unsharded.
 """
 from __future__ import annotations
 
@@ -467,34 +468,38 @@ def _route(x: torch.Tensor, router: Any, k_top: int
     return logits, torch.softmax(top, dim=-1), selected
 
 
-def _moe_block_capacity(x: torch.Tensor, lp: Params, cfg: ModelConfig,
-                        with_aux: bool = True,
-                        reduce: Optional[Callable[..., torch.Tensor]] = None,
-                        par: Optional[TensorParallel] = None
-                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Capacity dispatch (the reference's ``_moe_block_capacity``).
+def _capacity_groups(s: int, cfg: ModelConfig, par: TensorParallel
+                     ) -> Tuple[int, int]:
+    """(group, capacity) of capacity dispatch over the GLOBAL sequence,
+    this rank's ``s`` columns times ``seq``, as the reference forms them
+    under GSPMD: groups of ``min(S, moe_group_size)`` columns (one group
+    when S does not divide) and C = ceil(int(cf * G * k) / E) slots of
+    each expert a group."""
+    total = s * par.seq
+    group = min(total, cfg.moe_group_size)
+    if total % group:
+        group = total
+    k_top, e = cfg.experts_per_token, cfg.num_experts
+    return group, max(1, -(-int(cfg.capacity_factor * group * k_top) // e))
 
-    Tokens route in groups of ``min(S, moe_group_size)`` (one group when
-    S does not divide); each expert takes at most C = ceil(int(cf * G *
-    k) / E) tokens of a group, claimed k-major (every token's first
-    choice before any second choice, tokens in sequence order); an
-    assignment past C loses that expert's contribution. Padded rows
-    route like real ones, as in the reference. Returns (out, aux), aux
-    None without ``with_aux``; ``reduce`` and ``par`` as in
-    ``_moe_block``."""
-    dt = cfg.compute_dtype
-    b, s, d = x.shape
-    e, k_top = cfg.num_experts, cfg.experts_per_token
-    group = min(s, cfg.moe_group_size)
-    if s % group:
-        group = s
-    bg = b * (s // group)
-    xg = x.reshape(bg, group, d)
-    capacity = max(1, -(-int(cfg.capacity_factor * group * k_top) // e))
-    mesh = par or _ONE_DEVICE
-    logits, weights, selected = _route(
-        xg, gather_fsdp(lp['router'], mesh, 0, torch.float32), k_top)
-    aux = _aux_stats(logits, selected, e, par) if with_aux else None
+
+def _seq_window(s: int, group: int, par: TensorParallel
+                ) -> Tuple[int, int, int]:
+    """The groups that hold this rank's ``s`` columns of the global
+    sequence: (the first group's index, how many, the offset of the
+    rank's first column in the first group)."""
+    lo = par.seq_rank * s
+    first = lo // group
+    return first, (lo + s - 1) // group - first + 1, lo - first * group
+
+
+def _slots(selected: torch.Tensor, e: int, capacity: int) -> torch.Tensor:
+    """The reference's slot claim of groups ``selected`` [B', G, k] (each
+    token's top-k experts): [B', G, k, E, C], one where a token's choice
+    holds slot c of expert e. Claimed k-major (every token's first
+    choice before any second choice, tokens in sequence order); a
+    choice past C holds none."""
+    bg, group, k_top = selected.shape
     mask = F.one_hot(selected, e).float()                    # [B',G,k,E]
     mask_km = mask.transpose(1, 2).reshape(bg, k_top * group, e)
     pos = torch.cumsum(mask_km, dim=1) - 1.0                 # [B',kG,E]
@@ -502,16 +507,61 @@ def _moe_block_capacity(x: torch.Tensor, lp: Params, cfg: ModelConfig,
     # one_hot(pos, C) with the reference's zero rows for pos outside
     # [0, C) (not-selected entries sit at -1).
     slot = (pos[..., None] == torch.arange(
-        capacity, device=x.device, dtype=pos.dtype)).float() * \
+        capacity, device=selected.device, dtype=pos.dtype)).float() * \
         keep[..., None]                                      # [B',kG,E,C]
-    slot = slot.reshape(bg, k_top, group, e, capacity).transpose(1, 2)
+    return slot.reshape(bg, k_top, group, e, capacity).transpose(1, 2)
+
+
+def _moe_block_capacity(x: torch.Tensor, lp: Params, cfg: ModelConfig,
+                        with_aux: bool = True,
+                        reduce: Optional[Callable[..., torch.Tensor]] = None,
+                        par: Optional[TensorParallel] = None
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Capacity dispatch (the reference's ``_moe_block_capacity``).
+
+    Tokens route in groups (``_capacity_groups``); each expert takes at
+    most C tokens of a group, claimed as ``_slots`` says; an assignment
+    past C loses that expert's contribution. Padded rows route like
+    real ones, as in the reference. Returns (out, aux), aux None without
+    ``with_aux``; ``reduce`` and ``par`` as in ``_moe_block``.
+
+    Under ``seq`` the groups span the global sequence. Where each lies
+    inside this rank's columns, the block runs as on one device. Where
+    one crosses a rank boundary, a token's slot depends on the choices
+    of tokens on other ranks: the block gathers every rank's top-k
+    choices ([B, s, k] integers, no gradient) over ``seq``, claims the
+    slots of its groups whole, and runs its own tokens through them,
+    placed at their columns of those groups with zero rows (and zero
+    routing weights) at the other ranks' columns. The slots that other
+    ranks' tokens hold stay empty here and no output leaves the rank."""
+    dt = cfg.compute_dtype
+    b, s, d = x.shape
+    e, k_top = cfg.num_experts, cfg.experts_per_token
+    mesh = par or _ONE_DEVICE
+    group, capacity = _capacity_groups(s, cfg, mesh)
+    logits, weights, selected = _route(
+        x, gather_fsdp(lp['router'], mesh, 0, torch.float32), k_top)
+    aux = _aux_stats(logits, selected, e, par) if with_aux else None
+    weights = copy_to_experts(weights, mesh)
+    xe = copy_to_experts(x, mesh)
+    if s % group == 0:
+        offset, width = 0, s
+    else:
+        first, count, offset = _seq_window(s, group, mesh)
+        width = count * group
+        columns = slice(first * group, first * group + width)
+        selected = mesh.all_gather(selected, 1, 'seq')[:, columns]
+        pad = (0, 0, offset, width - offset - s)
+        weights, xe = F.pad(weights, pad), F.pad(xe, pad)
+    bg = b * (width // group)
+    slot = _slots(selected.reshape(bg, group, k_top), e, capacity)
     e0, e1 = _local_experts(e, mesh)
     combine = torch.einsum('bsk,bskec->bsec',
-                           copy_to_experts(weights, mesh),
+                           weights.reshape(bg, group, k_top),
                            slot[:, :, :, e0:e1])             # [B',G,El,C]
     dispatch = (combine > 0.0).to(dt)
     xe = torch.einsum('bsec,bsd->ebcd', dispatch,
-                      copy_to_experts(xg, mesh))             # [El,B',C,d]
+                      xe.reshape(bg, group, d))              # [El,B',C,d]
     w_gate, w_up, wo = _expert_weights(lp, mesh, dt)
     gate = torch.einsum('ebcd,edf->ebcf', xe, w_gate)
     up = torch.einsum('ebcd,edf->ebcf', xe, w_up)
@@ -524,11 +574,11 @@ def _moe_block_capacity(x: torch.Tensor, lp: Params, cfg: ModelConfig,
             y = torch.einsum('bsec,ebcd->bsd', combine, out_e.float())
         y = (reduce(y, 'sum') if reduce is not None
              else reduce_from_experts(y, mesh)).to(dt)
-        return y.reshape(b, s, d), aux
-    combine = combine.to(dt)
-    with _named('mlp_out'):
-        y = torch.einsum('bsec,ebcd->bsd', combine, out_e)
-    return y.reshape(b, s, d), aux
+    else:
+        combine = combine.to(dt)
+        with _named('mlp_out'):
+            y = torch.einsum('bsec,ebcd->bsd', combine, out_e)
+    return y.reshape(b, width, d)[:, offset:offset + s], aux
 
 
 def _aux_stats(logits: torch.Tensor, selected: torch.Tensor, e: int,
@@ -910,7 +960,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     segments are then its shards and rows (under ``seq``, its block of
     the columns), and the logits its rows and, under ``tensor``, its
     block of the vocab; MoE layers run their experts over ``expert`` and
-    ``tensor`` (``_moe_block``).
+    ``tensor`` (``_moe_block``) and, under ``seq``, claim capacity over
+    the global sequence (``_moe_block_capacity``).
 
     ``pipeline_stages > 1`` (with ``parallel`` on a mesh of that
     ``stage`` degree; ``pipeline_microbatches`` None for the reference's
@@ -919,18 +970,14 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     takes no gradient: the train step runs the pipeline's backward
     schedule (``pipeline_grads``). Packed ``segments``, ``return_aux``
     and per-example (2-D) ``positions`` raise there, as in the
-    reference. LoRA layers on a mesh and MoE layers under ``seq`` raise
-    with a pointer to ROADMAP.md."""
+    reference. LoRA layers on a mesh raise: the reference trains LoRA
+    unsharded (its ``train/finetune.py`` ignores ``--mesh`` with a LoRA
+    rank)."""
     par = parallel or _ONE_DEVICE
     if par is not _ONE_DEVICE and 'lora' in params['layers']:
         raise NotImplementedError(
-            'LoRA layers under a training mesh are not ported yet '
-            '(ROADMAP.md, queue A item 15 (c))')
-    if cfg.is_moe and par.seq > 1:
-        raise NotImplementedError(
-            'MoE layers under seq > 1 are not ported yet: the capacity '
-            'groups span the global sequence (ROADMAP.md, queue A item 15 '
-            '(c))')
+            'LoRA layers do not train under a mesh: as in the reference, '
+            'LoRA runs unsharded and a mesh applies to full finetuning')
     if pipeline_stages > 1:
         return _pipelined_forward(params, tokens, cfg, positions, segments,
                                   pipeline_stages, pipeline_microbatches,

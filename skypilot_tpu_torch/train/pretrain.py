@@ -49,8 +49,9 @@ reference). ``stage`` splits the layers into a GPipe pipeline
 (``parallel/pipeline.py``; the loss is the last stage's): the layers
 and a rank's rows of the batch must divide over the stages and the
 default microbatches, and ``--packed`` raises there, as in the
-reference. A MoE model under ``seq``, and ``stage`` with ``seq`` or
-``expert``, raise with a pointer to ROADMAP.md.
+reference. A MoE model under ``seq`` claims capacity over the global
+sequence, as the reference's groups span it. ``stage`` with ``seq`` or
+``expert`` raises with a pointer to ROADMAP.md.
 """
 from __future__ import annotations
 

@@ -57,9 +57,8 @@ cross entropy (``router_aux`` 0), and packed segments raise. The loss
 is the last stage's, summed over ``stage`` for the metrics.
 
 The reference's numbers under a mesh are its one-device numbers up to
-the order of the sums; so are the port's. MoE configs under ``seq``,
-and ``stage`` with ``seq`` or ``expert``, raise (ROADMAP.md, queue A
-item 15 (c)).
+the order of the sums; so are the port's. ``stage`` with ``seq`` or
+``expert`` raises (ROADMAP.md, queue A item 15 (c)).
 
 Differences of idiom from the reference: no jit and no donation. The
 parameters and the Adam moments are updated in place, which keeps one
@@ -171,10 +170,9 @@ def mesh_parallel(mesh: Optional[Mesh],
 def check_training_mesh(shape: Dict[str, int], cfg: ModelConfig,
                         batch: Optional[int] = None) -> None:
     """Raise for a mesh ``shape`` (axis -> degree, more than one rank)
-    that this slice does not train on: MoE layers under ``seq`` (the
-    reference's capacity groups span the global sequence), ``stage``
-    with ``seq`` or ``expert`` (later slices), an ``expert`` degree that
-    does not divide the experts, heads that ``tensor`` does not divide
+    that this slice does not train on: ``stage`` with ``seq`` or
+    ``expert`` (later slices), an ``expert`` degree that does not divide
+    the experts, heads that ``tensor`` does not divide
     (``ops/attention.check_mesh``), layers that ``stage`` does not
     divide and, for a global ``batch``, the default microbatch count
     where it does not divide a rank's rows (the step raises there too:
@@ -193,11 +191,6 @@ def check_training_mesh(shape: Dict[str, int], cfg: ModelConfig,
             rows = batch // (shape.get('data', 1) * shape.get('fsdp', 1))
             pipeline.microbatch_rows(
                 rows, pipeline.default_num_microbatches(batch, stage))
-    if cfg.is_moe and shape.get('seq', 1) > 1:
-        raise NotImplementedError(
-            'MoE training under seq > 1 is not ported yet: the capacity '
-            'groups span the global sequence (ROADMAP.md, queue A item 15 '
-            '(c))')
     expert = shape.get('expert', 1)
     if cfg.is_moe and cfg.num_experts % expert:
         raise ValueError(f'expert={expert} does not divide the '

@@ -360,16 +360,16 @@ def test_file_batches(tmp_path):
 
 def test_unported_options_raise(monkeypatch, tmp_path):
     """What the mesh-training slices do not cover raises before any rank
-    starts: a stage degree with seq or expert and MoE models under seq
-    (later slices, ROADMAP.md), heads that tensor does not divide and an
-    expert degree that does not divide the experts; pipeline stages in
-    the forward off the stage ranks. (A seq degree trains:
+    starts: a stage degree with seq or expert (later slices,
+    ROADMAP.md), heads that tensor does not divide and an expert degree
+    that does not divide the experts; pipeline stages in the forward off
+    the stage ranks. (A seq degree trains:
     ``tests/test_torch_train_mesh_seq.py``; an expert degree and MoE
-    models on a mesh train: ``tests/test_torch_train_mesh_moe.py``; a
-    stage degree trains: ``tests/test_torch_train_mesh_stage.py``.)"""
+    models on a mesh train: ``tests/test_torch_train_mesh_moe.py``, and
+    under seq: ``tests/test_torch_train_mesh_moe_seq.py``; a stage
+    degree trains: ``tests/test_torch_train_mesh_stage.py``.)"""
     for argv in (['--mesh', 'stage=2,seq=2'],
-                 ['--model', 'tiny-moe', '--mesh', 'stage=2,expert=2'],
-                 ['--model', 'tiny-moe', '--mesh', 'seq=2']):
+                 ['--model', 'tiny-moe', '--mesh', 'stage=2,expert=2']):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             tpretrain.main(argv + ['--device', 'cpu', '--steps', '1'])
     with pytest.raises(ValueError, match='does not divide'):
@@ -378,12 +378,6 @@ def test_unported_options_raise(monkeypatch, tmp_path):
     with pytest.raises(ValueError, match='does not divide'):
         tpretrain.main(['--model', 'tiny-moe', '--mesh', 'expert=8',
                         '--device', 'cpu', '--steps', '1'])
-    from skypilot_tpu_torch.parallel.mesh import MeshConfig, build_mesh
-    two = build_mesh(MeshConfig(fsdp=1, seq=2), devices=[0, 1],
-                     device_type='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tstep.make_train_step(tconfig.get_model_config('tiny-moe'),
-                              tstep.TrainHParams(), mesh=two)
     cfg = tconfig.get_model_config('tiny')
     params = tllama.init_params(0, cfg, device='cpu')
     tokens = torch.zeros((1, 8), dtype=torch.int32)

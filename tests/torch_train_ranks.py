@@ -141,7 +141,13 @@ def plant(fault, cfg):
     * ``'dx dropped'``: the backward handoff sends zeros, so a stage
       gets no gradient of its output;
     * ``'stage sum skipped'``: the gradients of the leaves that ``stage``
-      does not split are not summed over ``stage``."""
+      does not split are not summed over ``stage``;
+    * ``'rank-local groups'``: capacity dispatch under ``seq`` groups
+      each rank's columns alone, with a group's capacity of its own
+      columns, as one device would;
+    * ``"aux of this rank's tokens"``: the router statistics' sum over
+      ``seq`` skipped (on a mesh whose ``tokens`` group is ``seq``), so
+      the aux is each rank's own tokens'."""
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.parallel.sharding import (TensorParallel,
                                                       reduce_from_tokens)
@@ -159,6 +165,20 @@ def plant(fault, cfg):
         real_sum = tstep._stage_sum
         tstep._stage_sum = lambda grads, layout, par: grads
         return lambda: setattr(tstep, '_stage_sum', real_sum)
+    if fault == 'rank-local groups':
+        real_groups = llama._capacity_groups
+        llama._capacity_groups = lambda s, cfg_, par: real_groups(
+            s, cfg_, llama._ONE_DEVICE)
+        return lambda: setattr(llama, '_capacity_groups', real_groups)
+    if fault == "aux of this rank's tokens":
+        real = llama._router_aux
+
+        def own_tokens(stats, par):
+            assert par.tokens == par.seq > 1
+            return llama._aux_of(stats).mean()
+
+        llama._router_aux = own_tokens
+        return lambda: setattr(llama, '_router_aux', real)
     if fault == 'aux of rank products':
         real = llama._router_aux
 
