@@ -67,7 +67,9 @@ Phases, in order; any failure exits non-zero:
    block of phase 33 (B=8 S=1024 H=20 KVH=4: causal, full, causal with
    segment ids), the tensor=2 batch-engine prefills of phases 31 and 34
    (B=4 S=256, H=16 KVH=4 and H=8 KVH=8), phase 35's fp32 train
-   attention (B=4 and B=2, S=1024, H=KVH=16);
+   attention (B=4 and B=2, S=1024, H=KVH=16), phase 37's microbatches
+   (a B=2 ring block of 1024 columns, causal and full; B=1 S=1024
+   H=KVH=16 at fp32);
    at the ring's edge shapes S=64 and S=192 with GQA groups 1
    and 8, bf16 and fp32; each output's error normalized per 64-row tile
    of one head (``tile_err``), and the dq kernel's delta against the
@@ -230,8 +232,8 @@ Phases, in order; any failure exits non-zero:
    direct ``KvPuller`` pull moves fewer blocks than it has, 11 resident,
    and its two-hop tokens equal the twin's; and a burst of 4 through
    both hops at once (counters gated, agreement with the twin's
-   concurrent streams printed). Again on int8 pools (kernel 2), lone
-   requests only. Any WARNING from the port's serving modules (a failed
+   concurrent streams printed). Again on int8 pools (kernel 2), the
+   shortest and the longest lone requests only. Any WARNING from the port's serving modules (a failed
    pull, an import fallback, a retry) fails the phase. Pool GB, handoff
    seconds (pull + import) and bytes moved per request, decode tok/s
    beside the twin's.
@@ -328,7 +330,7 @@ Phases, in order; any failure exits non-zero:
 33. Sequence-parallel training (after phase 32): bench-1b7 at full
    width and ``MESH_LAYERS`` layers through ``train.pretrain.main`` on
    two ranks sharing the card over ``gloo`` at ``--mesh seq=2`` (phase
-   32's AdamW, fp32 params and full remat, B=8, S=2048, 3 steps each,
+   32's AdamW, fp32 params and full remat, B=8, S=2048, 2 steps each,
    ``SEQ_STEPS``):
    the ring through ``'auto'``, the ring on packed documents and Ulysses
    (``attention_impl='ulysses'``, registered as
@@ -420,12 +422,36 @@ Phases, in order; any failure exits non-zero:
    35's two ranks after phase 35's own, so that they pay no start of
    their own (``phase_stage_train`` launches them itself when called
    alone).
+37. Pipeline stages with seq and with expert (after phase 36): four
+   ranks sharing the card over ``gloo`` through ``train.pretrain.main``
+   (a check of the sharded math, not a speed). bench-1b7 at full width
+   and ``MESH_LAYERS`` (2) layers at ``--mesh stage=2,seq=2`` (phase
+   32's argv, ``MESH_STEPS`` steps: one layer a stage, 4 microbatches
+   of 2 rows, the ring over 1024 columns a seq rank inside each stage);
+   deepseek-moe-16b at full width and ``MOE_MESH_LAYERS`` (2) layers,
+   fp32, with no router aux loss (registered as
+   ``deepseek-moe-16b-l2-fp32-noaux``), at ``--mesh stage=2,expert=2``
+   (phase 35's argv, dense dispatch, 1 step: 32 of the 64 experts of its
+   stage's layer a rank, 4 microbatches of one row). On each rank: rc 0,
+   only rank 0 prints, finite losses, flash launches 2 (L/S) M (i + 1)
+   forward and (L/S) M (i + 1) dq and dk/dv a step (i the rank's seq
+   index; 0 under expert), no call outside the kernels. The first-step
+   loss and gradient norm (and the second step's loss) against one
+   rank's on the same params and batches within ``MESH_TOL``: phase
+   32's one rank for bench-1b7, a one-rank step of the aux-free
+   deepseek-moe-16b model after the ranks exit (under stages the step
+   trains on the plain cross entropy, as in the reference). Two
+   planted faults, one step each, must fail that gate: every seq rank's
+   RoPE positions from 0 inside the stage body, and the routing
+   weights' backward all-reduce over ``experts`` skipped. Printed
+   beside the card's name and power limit: each rank's peak memory and
+   step seconds.
 
 Then one JSON line listing every kernel (the paged kernels' launches are
 the sums of phases 9, 14, 15, 22, 23, 24, 26, 27, 28, 29, 30, 31 and 34,
 and of 10, 14, 28, 31 and 34's int8 runs; the decode kernels' of phases
 12, 20, 22, 26, 31 and 34; the flash kernels' of phases 7, 16, 17, 18,
-25, 27, 29, 30, 32, 33, 35 and 36, and phases 31 and 34's batch
+25, 27, 29, 30, 32, 33, 35, 36 and 37, and phases 31 and 34's batch
 prefills' forwards), the
 ``nvidia-smi`` name and power-limit line, and last ``{"ok": true,
 "device": {...}}``.
@@ -1457,7 +1483,9 @@ def flash_cases():
     segment ids permuted per row, D=256, the batch engine's prefill at llama3-8b's and deepseek-moe-16b's
     heads, its lone request (B=1), the LoRA finetune's B=4 S=512, the
     MoE train steps' shape (bf16, and fp32 at phase 35's rows), the
-    GRPO learner's B=8 S=128, and the pipeline's edge shapes:
+    GRPO learner's B=8 S=128, phase 37's microbatches (a B=2 ring
+    block of bench-1b7, deepseek-moe-16b's B=1 at fp32), and the
+    pipeline's edge shapes:
     S=64 (one
     tile: the ring's prologue and epilogue only) and S=192 (three tiles,
     no multiple of the two stages; the forward's 64-row CTA), GQA groups
@@ -1542,6 +1570,16 @@ def flash_cases():
         cases.append((f'fp32 causal B={b} S=1024 H=16 KVH=16 (MoE train '
                       f'{label})', dict(b=b, s=1024, h=16, kvh=16, d=128),
                       'fp32', True, False))
+    # Phase 37: one microbatch of stage=2,seq=2 (2 rows) in a seq rank's
+    # ring block, the diagonal block and the earlier one, and one
+    # microbatch of stage=2,expert=2 (1 row) at fp32.
+    for causal in (True, False):
+        cases.append((f'bf16 {"causal" if causal else "full"} B=2 S=1024 '
+                      f'H=20 KVH=4 (stage=2,seq=2 ring block)',
+                      dict(RING_BLOCK, b=2), 'bf16', causal, False))
+    cases.append(('fp32 causal B=1 S=1024 H=16 KVH=16 (MoE stage=2,'
+                  'expert=2 microbatch)', dict(b=1, s=1024, h=16, kvh=16,
+                                               d=128), 'fp32', True, False))
     for dtype in ('bf16', 'fp32'):
         for s, h, kvh, causal, segments in ((64, 8, 8, True, True),
                                             (64, 16, 2, False, False),
@@ -3533,7 +3571,8 @@ def disagg_pool(torch, pa, params, quantize_kv, full):
     engine on phase 9's tree, each behind the port's server, and a
     decode-role twin on the same tree whose single-hop (local prefill)
     answers the two-hop answers must equal exactly. Lone requests, then
-    with ``full`` a shared-prefix request and a concurrent burst."""
+    with ``full`` a shared-prefix request and a concurrent burst;
+    without it the shortest and the longest lone requests alone."""
     from skypilot_tpu_torch.inference import kv_migrate
     from skypilot_tpu_torch.inference.continuous import (
         ContinuousBatchingEngine)
@@ -3549,6 +3588,7 @@ def disagg_pool(torch, pa, params, quantize_kv, full):
                                                **kw)
     pre, dec, twin = engines['prefill'], engines['decode'], engines['twin']
     n_layers = dec.cfg.n_layers
+    lone = DISAGG_LONE if full else DISAGG_LONE[::len(DISAGG_LONE) - 1]
     servers = {}
     result = {}
     try:
@@ -3568,7 +3608,7 @@ def disagg_pool(torch, pa, params, quantize_kv, full):
                 SubmitRecorder(twin) as twin_rec:
             # Single-hop answers of every prompt on the twin.
             before_twin = twin.stats()
-            for prompt in DISAGG_LONE:
+            for prompt in lone:
                 post_json(ports['twin'], '/generate',
                           {'prompts': [prompt], 'max_new_tokens': 32})
             lone_want = [list(h.generated) for h in twin_rec.handles]
@@ -3576,7 +3616,7 @@ def disagg_pool(torch, pa, params, quantize_kv, full):
             # Lone two-hop requests, one at a time.
             launches, handoff, moved_bytes = 0, [], []
             tokens, seconds = 0, 0.0
-            for i, prompt in enumerate(DISAGG_LONE):
+            for i, prompt in enumerate(lone):
                 before_pre, before_dec = pre.stats(), dec.stats()
                 pulled0 = metrics.KV_MIGRATE_BYTES.value(direction='pull')
                 samples0 = len(metrics.DISAGG_HANDOFF.samples())
@@ -3637,8 +3677,8 @@ def disagg_pool(torch, pa, params, quantize_kv, full):
             result['lone_tok_s'] = tokens / seconds if seconds else 0.0
             result['handoff_s'] = handoff
             result['bytes'] = moved_bytes
-            log(f'[disagg {tag}] 4 lone two-hop requests of '
-                f'{[len(dec.tokenizer.encode(p)) for p in DISAGG_LONE]} '
+            log(f'[disagg {tag}] {len(lone)} lone two-hop requests of '
+                f'{[len(dec.tokenizer.encode(p)) for p in lone]} '
                 f'tokens: greedy tokens equal the single-hop twin; '
                 f'{launches} {kernel} launches = {n_layers} x decode '
                 f'steps; handoff (pull + import) '
@@ -3754,8 +3794,9 @@ def disagg_pool(torch, pa, params, quantize_kv, full):
 
 
 def phase_disagg(torch, pa, params):
-    """Phase 28: the bf16 pool, then the int8 pool (kernel 2) on lone
-    requests."""
+    """Phase 28: the bf16 pool, then the int8 pool (kernel 2) on two
+    lone requests (cut from four when phase 37 joined, to hold the
+    smoke's time)."""
     t0 = time.perf_counter()
     bf16 = disagg_pool(torch, pa, params, quantize_kv=False, full=True)
     free_card(torch)
@@ -6366,8 +6407,10 @@ SEQ_ULYSSES_MODEL = f'{MESH_MODEL}-ulysses'
 MESH_STEPS = 2
 # Phase 33's steps a run; its packed run is held to phase 32's one-rank
 # packed steps, so both phases pack the same token file
-# (``MESH_TOKENS``: ``packed_tokens`` draws depend on its length).
-SEQ_STEPS = 3
+# (``MESH_TOKENS``: ``packed_tokens`` draws depend on its length). Two
+# steps, the gate's (cut from 3 when phase 37 joined: the third step was
+# gated by nothing).
+SEQ_STEPS = 2
 MESH_TOKENS = 8 * 2049 * (SEQ_STEPS + 2)
 MESH_ARGV = ['--model', MESH_MODEL, '--batch', '8', '--seq', '2048',
              '--warmup-steps', '1', '--log-every', '1']
@@ -6386,6 +6429,8 @@ MESH_ARGV = ['--model', MESH_MODEL, '--batch', '8', '--seq', '2048',
 # (``plant_unreduced_attention``) must fail it.
 MESH_TOL = {'loss': 1e-4, 'grad_norm': 1e-4, 'router_aux': 1e-4}
 MESH_LABEL = 'two ranks on one card over gloo: not a training speed'
+STAGE_AXES_LABEL = ('four ranks on one card over gloo: not a training '
+                    'speed')
 
 
 def register_mesh_model():
@@ -6529,11 +6574,24 @@ def plant_dropped_dx():
     return lambda: setattr(TensorParallel, 'send_to', real)
 
 
+def plant_positions_from_zero():
+    """Planted fault for phase 37's stage=2,seq=2 gate: every seq rank's
+    default RoPE positions start at 0, not at its first column, so the
+    second rank's columns take the first rank's angles. Returns the
+    undo."""
+    from skypilot_tpu_torch.models import llama
+    real = llama._rank_positions
+    llama._rank_positions = lambda s, par, device: real(s, llama._ONE_DEVICE,
+                                                        device)
+    return lambda: setattr(llama, '_rank_positions', real)
+
+
 PLANTED = {'attention unreduced': plant_unreduced_attention,
            'ring not rotating': plant_still_ring,
            'routing weights unreduced': plant_unreduced_routing,
            'rank-local groups': plant_rank_local_groups,
-           'dx dropped': plant_dropped_dx}
+           'dx dropped': plant_dropped_dx,
+           'positions from 0': plant_positions_from_zero}
 
 
 class SlotRecorder:
@@ -6567,12 +6625,13 @@ class SlotRecorder:
 
 
 def mesh_train_rank(rank, world, runs):
-    """One rank of phases 32, 33, 35 and 36: each run's ``pretrain.main(argv)``
-    (its output captured; with a ``fault``, under that ``PLANTED``
-    fault) with the flash counts zeroed just before and read just after,
-    its steps and attention shapes (``StepRecorder``, every collective
-    timed), the share of capacity assignments its slot claims dropped
-    (``SlotRecorder``), its wall time and peak memory."""
+    """One rank of phases 32, 33, 35, 36 and 37: each run's
+    ``pretrain.main(argv)`` (its output captured; with a ``fault``,
+    under that ``PLANTED`` fault) with the flash counts zeroed just
+    before and read just after, its steps and attention shapes
+    (``StepRecorder``, every collective timed), the share of capacity
+    assignments its slot claims dropped (``SlotRecorder``), its wall
+    time and peak memory."""
     import torch
     from skypilot_tpu_torch.ops import flash_attention as fa
     from skypilot_tpu_torch.parallel import sharding as psharding
@@ -7243,6 +7302,9 @@ MOE_MESH_BF16 = f'{MOE_MESH_BASE}-l{MOE_MESH_LAYERS}'
 # two bf16 roundings by several percent and flip experts (phase 34), so
 # no bf16 limit separates rounding from a fault.
 MOE_MESH_MODEL = f'{MOE_MESH_BF16}-fp32'
+# Phase 37's twin of it without the router aux loss: a step under
+# stages trains on the plain cross entropy, as in the reference.
+MOE_STAGE_MODEL = f'{MOE_MESH_MODEL}-noaux'
 MOE_MESH_STEPS = 2
 MOE_MESH_ARGV = ['--batch', '4', '--seq', '1024', '--warmup-steps', '1',
                  '--log-every', '1']
@@ -7297,6 +7359,9 @@ def register_moe_mesh_models():
         config.MODEL_REGISTRY.register(MOE_MESH_BF16)(cut)
         config.MODEL_REGISTRY.register(MOE_MESH_MODEL)(dataclasses.replace(
             cut, name=MOE_MESH_MODEL, compute_dtype=torch.float32))
+        config.MODEL_REGISTRY.register(MOE_STAGE_MODEL)(dataclasses.replace(
+            cut, name=MOE_STAGE_MODEL, compute_dtype=torch.float32,
+            router_aux_loss_coeff=0.0))
     return config.get_model_config(MOE_MESH_MODEL)
 
 
@@ -7719,6 +7784,208 @@ def phase_stage_train(torch, smi, one=None, ranks=None, ranks_s=None):
             'runs': numbers}
 
 
+# ---------------------------------------------------------------------------
+# Phase 37: pipeline stages with seq and with expert, four ranks
+# ---------------------------------------------------------------------------
+
+# Run label -> (mesh, model argv, planted fault, steps), all on four
+# ranks. The planted faults' runs take one step: they move step 1's grad
+# norm (warmup 1 gives the first update a learning rate of 0). The
+# stage=2,expert=2 run takes one step, as phase 35's expert=2 runs.
+STAGE_AXES_RUNS = (
+    ('stage=2,seq=2', 'stage=2,seq=2', MESH_ARGV, None, MESH_STEPS),
+    ('stage=2,seq=2 fault', 'stage=2,seq=2', MESH_ARGV, 'positions from 0',
+     1),
+    ('stage=2,expert=2', 'stage=2,expert=2',
+     ['--model', MOE_STAGE_MODEL] + MOE_MESH_ARGV, None, 1),
+    ('stage=2,expert=2 fault', 'stage=2,expert=2',
+     ['--model', MOE_STAGE_MODEL] + MOE_MESH_ARGV,
+     'routing weights unreduced', 1))
+STAGE_AXES_STEPS_OF = {label: steps for label, *_, steps in STAGE_AXES_RUNS}
+# A deadlocked exchange ends the phase here rather than at the smoke's
+# limit; the four ranks' runs take about a minute.
+STAGE_AXES_TIMEOUT_S = 400
+
+
+def stage_axes_coords(spec, rank):
+    """Rank ``rank``'s coordinates on phase 37's four-rank mesh
+    ``spec``."""
+    from skypilot_tpu_torch.parallel.mesh import (MeshConfig, build_mesh,
+                                                  parse_mesh_spec)
+    mesh = build_mesh(MeshConfig(**{'fsdp': 1, **parse_mesh_spec(spec)}),
+                      devices=range(4), device_type='cuda')
+    return mesh.coords(rank)
+
+
+def stage_axes_expected(spec, rank, cfg, steps):
+    """Phase 37's flash launches on one rank: each microbatch's (L/S)
+    layers run the forward twice (full remat) and the backward once;
+    under seq the ring's blocks, seq index i visiting i + 1 key blocks
+    a pass."""
+    blocks = stage_axes_coords(spec, rank)['seq'] + 1
+    n = cfg.n_layers // 2 * STAGE_MICROBATCHES * blocks * steps
+    return {'flash_fwd': 2 * n, 'flash_dq': n, 'flash_dkv': n,
+            'flash_fwd_seg': 0, 'flash_dq_seg': 0, 'flash_dkv_seg': 0}
+
+
+def check_stage_axes_runs(ranks, cfgs):
+    """Every run on the four ranks: rc 0, only rank 0 prints (the last
+    stage's loss), finite losses, its steps, flash launches as
+    ``stage_axes_expected``, no call outside the kernels, and every
+    attention call on one microbatch of all heads (the ring makes no
+    attention call: its blocks launch the kernels themselves)."""
+    for r in ranks:
+        for label, run in r['runs'].items():
+            spec = dict((x[0], x[1]) for x in STAGE_AXES_RUNS)[label]
+            steps = STAGE_AXES_STEPS_OF[label]
+            cfg = cfgs[spec]
+            expected = stage_axes_expected(spec, r['rank'], cfg, steps)
+            rows = (8 if 'seq' in spec else 4) // STAGE_MICROBATCHES
+            shape = [] if 'seq' in spec else [(rows, cfg.n_heads)]
+            losses = [x['loss'] for x in run['lines'] if 'loss' in x]
+            printed_ok = (len(losses) == steps if r['rank'] == 0
+                          else run['lines'] == [])
+            if run['rc'] != 0 or not printed_ok or \
+                    not all(math.isfinite(x) for x in losses) or \
+                    run['launches'] != expected or run['fallbacks'] or \
+                    run['shapes'] != shape or len(run['steps']) != steps:
+                raise AssertionError(
+                    f'[stage-axes] rank {r["rank"]} {label}: rc {run["rc"]}'
+                    f', lines {run["lines"]}, launches {run["launches"]} '
+                    f'(expected {expected}), fallbacks {run["fallbacks"]}, '
+                    f'(rows, heads) of the calls {run["shapes"]} (expected '
+                    f'{shape}), steps {len(run["steps"])}')
+    names = ('flash_fwd', 'flash_dq', 'flash_dkv')
+    for label in ranks[0]['runs']:
+        log(f'[stage-axes] {label} launches (fwd, dq, dkv) by rank over '
+            f'{STAGE_AXES_STEPS_OF[label]} step(s): ' + ', '.join(
+                f'{r["rank"]} {stage_axes_coords(label, r["rank"])} '
+                f'{[r["runs"][label]["launches"][k] for k in names]}'
+                for r in ranks))
+
+
+def phase_stage_axes_train(torch, smi, one=None):
+    """Phase 37: pipeline stages with seq and with expert on four ranks
+    sharing the card over gloo (``STAGE_AXES_RUNS``): bench-1b7 at full
+    width and ``MESH_LAYERS`` layers at ``--mesh stage=2,seq=2`` (ring
+    attention inside each stage), deepseek-moe-16b at full width and
+    ``MOE_MESH_LAYERS`` layers, fp32 and aux-free, at ``--mesh
+    stage=2,expert=2`` (dense dispatch), each with a planted-fault run.
+    Gate: the first-step loss and gradient norm (and the second-step
+    loss) against one rank's on the same params and batches within
+    ``MESH_TOL``, bench-1b7's from phase 32 (``one``; run here when
+    None) and deepseek-moe-16b's run here after the ranks exit; the
+    planted faults must fail it. Returns the launch totals for the
+    kernels line and the numbers PERF.md keeps."""
+    from skypilot_tpu_torch.models.config import get_model_config
+    from skypilot_tpu_torch.parallel.launch import launch
+    from skypilot_tpu_torch.train import pretrain
+    t0 = time.perf_counter()
+    register_moe_mesh_models()
+    cfgs = {'stage=2,seq=2': register_mesh_model(),
+            'stage=2,expert=2': get_model_config(MOE_STAGE_MODEL)}
+    for spec, cfg in cfgs.items():
+        log(f'[stage-axes] {spec}: {cfg.name} at full width, '
+            f'{cfg.n_layers // 2} layer a stage, {STAGE_MICROBATCHES} '
+            f'microbatches; router aux weight {cfg.router_aux_loss_coeff}')
+    runs = [(label, argv + ['--mesh', spec, '--steps', str(steps)], fault)
+            for label, spec, argv, fault, steps in STAGE_AXES_RUNS]
+    ranks = launch(mesh_train_rank, 4, runs, device='cuda',
+                   timeout=STAGE_AXES_TIMEOUT_S)
+    t1 = time.perf_counter()
+    # The planted faults' runs are no part of the main path's counts.
+    faulted = {label: [r['runs'].pop(label) for r in ranks]
+               for label, *_, fault, _ in STAGE_AXES_RUNS if fault}
+    check_stage_axes_runs(ranks, cfgs)
+    if one is None:
+        with StepRecorder(torch) as rec:
+            rc, _ = run_json_main(pretrain.main, MESH_ARGV + [
+                '--steps', str(MESH_STEPS)])
+        if rc != 0:
+            raise AssertionError(f'[stage-axes] one rank bench-1b7: rc {rc}')
+        one = {'synthetic': rec.steps}
+        free_card(torch)
+    with StepRecorder(torch) as rec:
+        torch.cuda.reset_peak_memory_stats()
+        rc, _ = run_json_main(pretrain.main, [
+            '--model', MOE_STAGE_MODEL, '--steps', '1'] + MOE_MESH_ARGV)
+    if rc != 0 or len(rec.steps) != 1:
+        raise AssertionError(f'[stage-axes] one rank {MOE_STAGE_MODEL}: '
+                             f'rc {rc}')
+    one_moe, one_moe_gb = rec.steps, torch.cuda.max_memory_allocated() / 1e9
+    free_card(torch)
+    t2 = time.perf_counter()
+    for label, runs_of in faulted.items():
+        if any(run['rc'] != 0 or len(run['steps']) != 1 for run in runs_of):
+            raise AssertionError(f'[stage-axes] planted fault run {label}: '
+                                 f'rc {[run["rc"] for run in runs_of]}')
+    refs = {'stage=2,seq=2': one['synthetic'], 'stage=2,expert=2': one_moe}
+    rank0 = ranks[0]['runs']
+    gaps = {label: mesh_gaps(rank0[label]['steps'], refs[label])
+            for label in rank0}
+    faults = {label: mesh_gaps(runs_of[0]['steps'],
+                               refs[label.split()[0]])
+              for label, runs_of in faulted.items()}
+    for label, row in list(gaps.items()) + list(faults.items()):
+        log(f'[stage-axes] {label} vs one rank on the same params and '
+            f'batches, relative: ' + ', '.join(
+                f'{k} {v:.2e}' for k, v in row.items())
+            + f' (limits {MESH_TOL})')
+    for label in rank0:
+        log(f'[stage-axes] {label} steps ' + json.dumps(
+            [{k: x[k] for k in ('loss', 'grad_norm')}
+             for x in rank0[label]['steps']]) + '; one rank ' + json.dumps(
+            [{k: x[k] for k in ('loss', 'grad_norm')}
+             for x in refs[label]]))
+    off = {label: row for label, row in gaps.items() if not within(row)}
+    if off:
+        raise AssertionError(f'[stage-axes] runs off one rank\'s: {off}')
+    passed = [label for label, row in faults.items() if within(row)]
+    if passed:
+        raise AssertionError(f'[stage-axes] planted faults passed the gate '
+                             f'(stage=2,seq=2: RoPE positions from 0 on '
+                             f'every seq rank; stage=2,expert=2: routing '
+                             f'weights\' gradient not reduced over '
+                             f'experts): {passed} {faults}')
+    numbers = {}
+    for label in rank0:
+        by_rank = []
+        for r in ranks:
+            run = r['runs'][label]
+            last = run['steps'][-1]
+            by_rank.append({
+                'coords': stage_axes_coords(label, r['rank']),
+                'peak_gb': run['peak_gb'],
+                'step_s': [x['wall_s'] for x in run['steps']],
+                'collective_share_by_kind': {
+                    k: v / last['wall_s']
+                    for k, v in last['collective_kinds'].items()},
+                'calls_a_step': {k: v / STAGE_AXES_STEPS_OF[label]
+                                 for k, v in run['collectives'].items()}})
+        numbers[label] = {'run_s': rank0[label]['wall_s'], 'ranks': by_rank}
+        for row in by_rank:
+            log(f'[stage-axes] {label} rank {row["coords"]}: peak '
+                f'{row["peak_gb"]:.2f} GB, steps '
+                f'{[round(x, 3) for x in row["step_s"]]} s, share of the '
+                'last step by kind ' + json.dumps(
+                    {k: round(v, 4) for k, v in
+                     row['collective_share_by_kind'].items()}) +
+                ', calls a step ' + json.dumps(row['calls_a_step']) +
+                f' ({STAGE_AXES_LABEL}; {smi})')
+    launches = {}
+    for r in ranks:
+        for run in r['runs'].values():
+            for k, v in run['launches'].items():
+                launches[k] = launches.get(k, 0) + v
+    seconds = time.perf_counter() - t0
+    log(f'[stage-axes] one rank {MOE_STAGE_MODEL}: peak {one_moe_gb:.2f} GB')
+    log(f'[smoke] phase 37 {seconds:.1f} s (ranks {t1 - t0:.1f} s, one rank '
+        f'{t2 - t1:.1f} s)')
+    return {'launches': launches, 'gaps': gaps, 'faults': faults,
+            'runs': numbers, 'one_moe_peak_gb': one_moe_gb,
+            'seconds': seconds}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--skip-engine', action='store_true',
@@ -7764,7 +8031,7 @@ def main(argv=None) -> int:
     engine, train, batch, spec, lora = {}, {}, {}, {}, {}
     bench_tr, remat, packed, bench_dec, moe = {}, {}, {}, {}, {}
     ckpt, disagg, rl, tp, mesh, seq = {}, {}, {}, {}, {}, {}
-    tp_moe, moe_mesh, stage = {}, {}, {}
+    tp_moe, moe_mesh, stage, stage_axes = {}, {}, {}, {}
     if not args.skip_engine:
         phase_train_small(torch)
         train = phase_train(torch, fa, flops_peak)
@@ -7841,6 +8108,10 @@ def main(argv=None) -> int:
                                   moe_mesh['extra_s'])
         log('[stage] phase 36 summary ' + json.dumps(
             {k: v for k, v in stage.items() if k != 'launches'}))
+        free_card(torch)
+        stage_axes = phase_stage_axes_train(torch, smi, mesh['one'])
+        log('[stage-axes] phase 37 summary ' + json.dumps(
+            {k: v for k, v in stage_axes.items() if k != 'launches'}))
     flash_src = 'skypilot_tpu/ops/pallas/flash_attention.py'
     replaces = {
         'paged_attention':
@@ -7874,8 +8145,8 @@ def main(argv=None) -> int:
     # entry points for the flash kernels: phase 7, the bench twin's train
     # mode, the remat policies, the MoE train steps, the finetune of
     # phase 27, the GRPO learners of phases 29-30, --packed for the
-    # segment twins, and both ranks of the mesh trainers of phases 32,
-    # 33 and 35):
+    # segment twins, and every rank of the mesh trainers of phases 32,
+    # 33, 35, 36 and 37):
     # null when they were skipped, never a number this run did not
     # measure.
     def total(parts):
@@ -7913,7 +8184,8 @@ def main(argv=None) -> int:
             batch.get('launches_quant'),
             tp_launches.get('decode_attention_quant')])}
     trains += [mesh.get('launches'), seq.get('launches'),
-               moe_mesh.get('launches'), stage.get('launches')]
+               moe_mesh.get('launches'), stage.get('launches'),
+               stage_axes.get('launches')]
     for name in ('flash_fwd', 'flash_dq', 'flash_dkv'):
         launches[name] = total([
             None if t is None else t[name] + t[name + '_seg']

@@ -850,6 +850,13 @@ def _final(params: Params, x: torch.Tensor, cfg: ModelConfig,
     return fp32_logits(copy_to_tensor(x, par), head)
 
 
+def _rank_positions(s: int, par: TensorParallel,
+                    device: torch.device) -> torch.Tensor:
+    """The default positions of this rank's ``s`` columns: under
+    ``seq`` its block of the sequence starts at ``seq_rank * s``."""
+    return par.seq_rank * s + torch.arange(s, device=device)
+
+
 def _layer_runner(cfg: ModelConfig, sin: torch.Tensor, cos: torch.Tensor,
                   segments: Optional[torch.Tensor], par: TensorParallel
                   ) -> Callable[[torch.Tensor, Params],
@@ -880,7 +887,12 @@ def _pipeline(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     each microbatch's output ``y`` (``rows``: its rows of this rank's
     tokens) on the last stage. M is ``pipeline_microbatches``, else the
     reference's default for the GLOBAL batch (this rank's rows x data x
-    fsdp); it must divide this rank's rows."""
+    fsdp); it must divide this rank's rows. Under ``seq`` a microbatch is
+    the rank's block of the columns (RoPE from the block's first column),
+    and each layer runs its ring or Ulysses attention over the stage's
+    seq ranks; under ``expert`` each MoE layer runs over the stage's
+    expert ranks. A stage's ranks run the microbatches in the same
+    order, so their collectives line up."""
     _check_pipelined(segments, positions, return_aux)
     par = parallel
     if par is None or par.stage != pipeline_stages:
@@ -895,7 +907,7 @@ def _pipeline(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         rows * par.batch_degree, pipeline_stages)
     size = pipeline.microbatch_rows(rows, count)
     if positions is None:
-        positions = torch.arange(s, device=tokens.device)
+        positions = _rank_positions(s, par, tokens.device)
     sin, cos = rope_table_for(cfg, positions)
     layer = _layer_runner(cfg, sin, cos, None, par)
 
@@ -984,8 +996,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
                                   return_aux, return_hidden, parallel)
     _, s = tokens.shape
     if positions is None:
-        # Under seq the tokens are this rank's block of columns.
-        positions = par.seq_rank * s + torch.arange(s, device=tokens.device)
+        positions = _rank_positions(s, par, tokens.device)
     sin, cos = rope_table_for(cfg, positions)
     x = _embed(params, tokens, cfg, par)
     layer = _layer_runner(cfg, sin, cos, segments, par)

@@ -27,6 +27,12 @@ Here each stage is its own process, so the schedule is explicit
   sends and receives in this one fixed order, so no two ranks can wait
   on each other;
 * the leaves' gradients add up over the microbatches in fp32.
+
+A handoff goes along ``stage`` alone: to the rank at the same ``data``,
+``fsdp``, ``seq``, ``expert`` and ``tensor`` coordinates, with that
+rank's block of a microbatch. Every rank of a stage runs the same
+schedule, so the collectives inside ``body`` (the ring over ``seq``, a
+MoE layer's sums over ``expert``) and inside its recompute line up.
 """
 from __future__ import annotations
 

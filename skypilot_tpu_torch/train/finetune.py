@@ -19,11 +19,12 @@ Two modes (the CPU with ``--device cpu``):
 * **full** (``--lora-rank 0``): every parameter trains in fp32 with the
   pretrain step (``train/step.py``: AdamW with global-norm clipping and
   the reference's warmup-cosine schedule, warmup ``min(10, steps)``).
-  ``--mesh`` trains over ``data``/``stage``/``fsdp``/``seq``/``tensor``
-  as ``pretrain`` does: the command starts its own ranks, each loads the
-  checkpoint and keeps its blocks, the batch rounds up to data x fsdp
-  and the sequence up to seq, only rank 0 prints, and the export holds
-  the whole (gathered) weights.
+  ``--mesh`` trains over ``data``/``stage``/``fsdp``/``seq``/
+  ``expert``/``tensor`` as ``pretrain`` does (``stage=2,seq=2``,
+  ``stage=2,expert=2`` too): the command starts its own ranks, each
+  loads the checkpoint and keeps its blocks, the batch rounds up to
+  data x fsdp and the sequence up to seq, only rank 0 prints, and the
+  export holds the whole (gathered) weights.
 * **LoRA** (``--lora-rank R``): the base weights are frozen in bf16 with
   no optimizer state; the q/v adapters train in fp32 under the
   reference's plain ``optax.adamw(lr)``: no clipping, no schedule,
@@ -136,8 +137,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help='0 = full finetune; >0 = LoRA rank '
                              '(frozen bf16 base, fp32 adapters)')
     parser.add_argument('--mesh', default=None,
-                        help="full finetune: e.g. 'fsdp=2', 'stage=2' "
-                             '(ignored with --lora-rank > 0)')
+                        help="full finetune: e.g. 'fsdp=2', 'stage=2', "
+                             "'stage=2,seq=2' (ignored with --lora-rank "
+                             '> 0)')
     parser.add_argument('--export-dir', default=None,
                         help='write the finetuned model back as an '
                              'HF-layout checkpoint (LoRA merged)')

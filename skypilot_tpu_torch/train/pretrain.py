@@ -10,6 +10,8 @@
     python -m skypilot_tpu_torch.train.pretrain --model bench-1b7 \\
         --mesh stage=2
     python -m skypilot_tpu_torch.train.pretrain --model bench-1b7 \\
+        --mesh stage=2,seq=2
+    python -m skypilot_tpu_torch.train.pretrain --model bench-1b7 \\
         --optimizer adafactor --param-dtype bfloat16 --packed \\
         --data tokens.npy --eos-id 1 --checkpoint-dir ckpt
     python -m skypilot_tpu_torch.train.pretrain --model tiny --device cpu
@@ -50,8 +52,10 @@ reference). ``stage`` splits the layers into a GPipe pipeline
 and a rank's rows of the batch must divide over the stages and the
 default microbatches, and ``--packed`` raises there, as in the
 reference. A MoE model under ``seq`` claims capacity over the global
-sequence, as the reference's groups span it. ``stage`` with ``seq`` or
-``expert`` raises with a pointer to ROADMAP.md.
+sequence, as the reference's groups span it. ``stage`` combines with
+``seq`` (ring or Ulysses attention inside each stage) and with
+``expert`` (each stage's MoE layers over its expert ranks):
+``--mesh stage=2,seq=2``, ``--model tiny-moe --mesh stage=2,expert=2``.
 """
 from __future__ import annotations
 

@@ -56,9 +56,15 @@ leaf once. As in the reference, a MoE model trains there on the plain
 cross entropy (``router_aux`` 0), and packed segments raise. The loss
 is the last stage's, summed over ``stage`` for the metrics.
 
+The stage body runs the layers as on a mesh without stages: ring or
+Ulysses attention over the stage's ``seq`` group (its RoPE positions
+from the rank's first column), each MoE layer's experts over its
+``expert`` group, one microbatch at a time. A stage rank hands its
+microbatch blocks to the rank of the next stage at the same ``data``,
+``fsdp``, ``seq``, ``expert`` and ``tensor`` coordinates.
+
 The reference's numbers under a mesh are its one-device numbers up to
-the order of the sums; so are the port's. ``stage`` with ``seq`` or
-``expert`` raises (ROADMAP.md, queue A item 15 (c)).
+the order of the sums; so are the port's.
 
 Differences of idiom from the reference: no jit and no donation. The
 parameters and the Adam moments are updated in place, which keeps one
@@ -170,9 +176,8 @@ def mesh_parallel(mesh: Optional[Mesh],
 def check_training_mesh(shape: Dict[str, int], cfg: ModelConfig,
                         batch: Optional[int] = None) -> None:
     """Raise for a mesh ``shape`` (axis -> degree, more than one rank)
-    that this slice does not train on: ``stage`` with ``seq`` or
-    ``expert`` (later slices), an ``expert`` degree that does not divide
-    the experts, heads that ``tensor`` does not divide
+    that the step does not train on: an ``expert`` degree that does not
+    divide the experts, heads that ``tensor`` does not divide
     (``ops/attention.check_mesh``), layers that ``stage`` does not
     divide and, for a global ``batch``, the default microbatch count
     where it does not divide a rank's rows (the step raises there too:
@@ -180,12 +185,6 @@ def check_training_mesh(shape: Dict[str, int], cfg: ModelConfig,
     check_mesh(shape, cfg.n_heads, cfg.n_kv_heads)
     stage = shape.get('stage', 1)
     if stage > 1:
-        for axis, item in (('seq', 7), ('expert', 8)):
-            if shape.get(axis, 1) > 1:
-                raise NotImplementedError(
-                    f'stage > 1 with {axis} > 1 is not ported yet: one '
-                    'axis a slice (ROADMAP.md, queue A item 15 (c) '
-                    f'{item})')
         pipeline.check_layers(cfg.n_layers, stage)
         if batch is not None:
             rows = batch // (shape.get('data', 1) * shape.get('fsdp', 1))

@@ -1461,6 +1461,33 @@ def test_stage_mesh_train_on_card_matches_one_rank(card):
                     (key, got, want)
 
 
+def test_stage_seq_mesh_train_on_card_matches_cpu(card):
+    """TINY (2 layers, head_dim 128, fp32 compute, full remat) at
+    stage=2,seq=2 on four ranks of the card (gloo; S=128, so each seq
+    rank's ring block is 64 columns, on the flash kernels' grid): one
+    step's loss and grad norm within 1e-4 relative
+    (``chip_smoke.MESH_TOL``) of the same step in one process on the
+    CPU, each rank launching the flash kernels 2 (L/S) M (i + 1) forward
+    and (L/S) M (i + 1) dq and dk/dv (M = 4 microbatches of one row; seq
+    index i: the ring's key blocks a pass), with no fallback."""
+    import torch_train_ranks as ranks
+    from skypilot_tpu_torch.parallel.launch import launch
+    out = launch(ranks.cuda_stage_steps, 4, 'stage=2,seq=2', 1,
+                 device='cuda', timeout=600)
+    cpu = ranks.cuda_stage_steps(0, 1, None, 1, device='cpu')
+    for r in out:
+        n = cpu['n_layers'] // 2 * 4 * (r['coords']['seq'] + 1)
+        assert r['fallbacks'] == 0
+        for name, count in (('flash_fwd', 2 * n), ('flash_dq', n),
+                            ('flash_dkv', n)):
+            assert r['launches'][name] == count, (r['coords'],
+                                                  r['launches'])
+        for got, want in zip(r['metrics'], cpu['metrics'], strict=True):
+            for key in ('loss', 'total_loss', 'grad_norm'):
+                assert abs(got[key] - want[key]) <= 1e-4 * abs(want[key]), \
+                    (key, got, want)
+
+
 def test_moe_expert_mesh_train_on_card_matches_one_rank(card):
     """TINY_MOE (head_dim 128, fp32 compute, full remat, aux weight 1) at
     expert=2 on two ranks of the card (gloo) against one rank: two

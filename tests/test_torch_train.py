@@ -359,19 +359,22 @@ def test_file_batches(tmp_path):
 
 
 def test_unported_options_raise(monkeypatch, tmp_path):
-    """What the mesh-training slices do not cover raises before any rank
-    starts: a stage degree with seq or expert (later slices,
-    ROADMAP.md), heads that tensor does not divide and an expert degree
-    that does not divide the experts; pipeline stages in the forward off
-    the stage ranks. (A seq degree trains:
+    """A stage degree with seq or with expert trains one step through
+    ``pretrain`` (its own four ranks); what the mesh step does not cover
+    raises before any rank starts: heads that tensor does not divide and
+    an expert degree that does not divide the experts; pipeline stages
+    in the forward off the stage ranks. (A seq degree trains:
     ``tests/test_torch_train_mesh_seq.py``; an expert degree and MoE
     models on a mesh train: ``tests/test_torch_train_mesh_moe.py``, and
     under seq: ``tests/test_torch_train_mesh_moe_seq.py``; a stage
-    degree trains: ``tests/test_torch_train_mesh_stage.py``.)"""
+    degree trains: ``tests/test_torch_train_mesh_stage.py``, and with
+    seq or expert: ``tests/test_torch_train_mesh_stage_seq.py``,
+    ``tests/test_torch_train_mesh_stage_expert.py``.)"""
+    monkeypatch.setenv('OMP_NUM_THREADS', '1')     # the spawned ranks'
     for argv in (['--mesh', 'stage=2,seq=2'],
                  ['--model', 'tiny-moe', '--mesh', 'stage=2,expert=2']):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            tpretrain.main(argv + ['--device', 'cpu', '--steps', '1'])
+        assert tpretrain.main(argv + ['--device', 'cpu', '--steps', '1',
+                                      '--seq', '32']) == 0
     with pytest.raises(ValueError, match='does not divide'):
         tpretrain.main(['--mesh', 'tensor=4', '--device', 'cpu',
                         '--steps', '1'])

@@ -15,8 +15,8 @@ blocks of the initial params are the reference's shards. The port's
 losses. ``pretrain --mesh seq=2`` rounds the sequence up to the seq
 degree (to 64 x seq on CUDA ranks), its loss falls, and its checkpoint
 restores on one rank; a full finetune at ``seq=2`` gives the
-one-process finetune's losses; a ``stage`` degree still raises with its
-pointer. Each mesh launches once.
+one-process finetune's losses; both also train a step at
+``stage=2,seq=2``. Each mesh launches once.
 """
 import json
 import os
@@ -30,7 +30,6 @@ import torch_mesh_reference as ref_lib
 from skypilot_tpu_torch.models import config as tconfig
 from skypilot_tpu_torch.models import hf_interop, llama
 from skypilot_tpu_torch.parallel.launch import launch
-from skypilot_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 from skypilot_tpu_torch.train import finetune as tfinetune
 from skypilot_tpu_torch.train import pretrain as tpretrain
 from skypilot_tpu_torch.train import step as tstep
@@ -185,16 +184,21 @@ def test_mesh_seq_keeps_cuda_ring_blocks_on_the_kernels_grid(capsys):
     assert [json.loads(x) for x in lines] == [{'seq_rounded_to': 1024}]
 
 
-def test_stage_still_raises():
-    """A stage degree with seq above 1 keeps its pointer (ROADMAP.md,
-    queue A item 15 (c) 7; a stage degree alone trains:
-    ``tests/test_torch_train_mesh_stage.py``), on the train step and on
-    ``pretrain``'s command line."""
-    four = build_mesh(MeshConfig(stage=2, seq=2, fsdp=1),
-                      devices=[0, 1, 2, 3], device_type='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP.*15'):
-        tstep.make_train_step(tconfig.get_model_config('tiny'),
-                              tstep.TrainHParams(), mesh=four)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tpretrain.main(['--mesh', 'stage=2,seq=2', '--device', 'cpu',
-                        '--steps', '1'])
+def test_stage_still_raises(launches, capfd):
+    """A stage degree with seq above 1 trains (its parity with the
+    reference: ``tests/test_torch_train_mesh_stage_seq.py``): the mesh
+    check passes, and ``pretrain`` and the full finetune at
+    ``stage=2,seq=2`` each start their four ranks and train a step."""
+    tstep.check_training_mesh({'stage': 2, 'seq': 2},
+                              tconfig.get_model_config('tiny'), 4)
+    capfd.readouterr()
+    assert tpretrain.main(PRETRAIN + ['--mesh', 'stage=2,seq=2',
+                                      '--steps', '1', '--log-every',
+                                      '1']) == 0
+    assert tfinetune.main(launches['finetune'] + [
+        '--mesh', 'stage=2,seq=2', '--steps', '1']) == 0
+    lines = [json.loads(x) for x in capfd.readouterr().out.splitlines()
+             if x.startswith('{')]
+    assert lines[0] == {'seq_rounded_to': 64}
+    losses = [x['loss'] for x in lines if 'loss' in x]
+    assert len(losses) == 2 and np.all(np.isfinite(losses)), lines

@@ -8,9 +8,14 @@ stage with fsdp and with tensor). In the same launch two planted faults,
 a backward handoff that drops the gradient and the stage-unsplit
 leaves' gradients left unsummed over ``stage``, must each fail the
 comparison. Then the fast cases of the reference's
-``tests/test_pipeline.py`` and its refusals, the handoffs' tags, and a
-deadlocked exchange that fails its launch within the launch's bound.
+``tests/test_pipeline.py`` and its refusals, the handoffs' tags, a
+deadlocked exchange that fails its launch within the launch's bound,
+and a step of ``pretrain`` and of the full finetune at ``stage=2,seq=2``
+and ``stage=2,expert=2``.
 """
+import json
+import os
+import shutil
 import time
 
 import jax
@@ -24,16 +29,20 @@ import torch_stage_cases as cases
 from skypilot_tpu.models import llama as jllama
 from skypilot_tpu.parallel import pipeline as jpipeline
 from skypilot_tpu_torch.models import config as tconfig
+from skypilot_tpu_torch.models import hf_interop
 from skypilot_tpu_torch.models import llama as tllama
 from skypilot_tpu_torch.parallel import pipeline as tpipeline
 from skypilot_tpu_torch.parallel.launch import RankFailed, launch
-from skypilot_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+from skypilot_tpu_torch.train import finetune as tfinetune
 from skypilot_tpu_torch.train import pretrain as tpretrain
 from skypilot_tpu_torch.train import step as tstep
 from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 from torch_tp_ranks import one_thread_ranks  # noqa: F401 (autouse)
 import torch_train_ranks as ranks
 
+FIXTURE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'skypilot_tpu_torch', 'testdata',
+    'tokenizer_llama3')
 LABELS = cases.labels_of({'stage=2'})
 
 
@@ -179,17 +188,42 @@ def test_forward_under_stages_needs_the_stage_ranks():
 
 
 @pytest.mark.parametrize('axis', ['seq', 'expert'])
-def test_stage_with_seq_or_expert_raises(axis):
-    """stage x seq and stage x expert are later slices, one axis a
-    slice: the train step and ``pretrain`` raise with their pointer."""
-    item = {'seq': 7, 'expert': 8}[axis]
-    mesh = build_mesh(MeshConfig(fsdp=1, stage=2, **{axis: 2}),
-                      devices=[0, 1, 2, 3], device_type='cpu')
+def test_stage_with_seq_or_expert_raises(axis, tmp_path, capfd):
+    """stage x seq and stage x expert train (their parity with the
+    reference: ``tests/test_torch_train_mesh_stage_seq.py`` and
+    ``tests/test_torch_train_mesh_stage_expert.py``): the mesh check
+    passes, and ``pretrain`` and the full finetune each start their four
+    ranks and train a step to a finite loss."""
     model = 'tiny-moe' if axis == 'expert' else 'tiny'
-    with pytest.raises(NotImplementedError,
-                       match=rf'ROADMAP.*15 \(c\) {item}'):
-        tstep.make_train_step(tconfig.get_model_config(model),
-                              tstep.TrainHParams(), mesh=mesh)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tpretrain.main(['--model', model, '--mesh', f'stage=2,{axis}=2',
-                        '--device', 'cpu', '--steps', '1'])
+    spec = f'stage=2,{axis}=2'
+    tstep.check_training_mesh({'stage': 2, axis: 2},
+                              tconfig.get_model_config(model), 4)
+    capfd.readouterr()
+    assert tpretrain.main(['--model', model, '--mesh', spec, '--device',
+                           'cpu', '--steps', '1', '--seq', '32',
+                           '--log-every', '1']) == 0
+    assert tfinetune.main(_finetune_argv(model, tmp_path) +
+                          ['--mesh', spec]) == 0
+    lines = [json.loads(x) for x in capfd.readouterr().out.splitlines()
+             if x.startswith('{')]
+    losses = [x['loss'] for x in lines if 'loss' in x]
+    assert len(losses) == 2 and np.all(np.isfinite(losses)), lines
+
+
+def _finetune_argv(model, root):
+    """One full-finetune step of ``model`` (vocab 1024, the tokenizer
+    fixture's) from an HF directory on a text corpus, both written under
+    ``root``."""
+    cfg = tconfig.get_model_config(model, vocab_size=1024)
+    ckpt = os.path.join(root, 'base')
+    hf_interop.save_checkpoint(tllama.init_params(0, cfg, device='cpu'), cfg,
+                               ckpt)
+    for name in ('tokenizer.json', 'tokenizer_config.json'):
+        shutil.copy(os.path.join(FIXTURE, name), ckpt)
+    corpus = os.path.join(root, 'corpus.txt')
+    with open(corpus, 'w') as f:
+        f.write('\n'.join(f'document {i}: the stages split the layers.'
+                          for i in range(40)))
+    return ['--hf-checkpoint', ckpt, '--data', corpus, '--steps', '1',
+            '--batch', '4', '--seq', '32', '--lora-rank', '0',
+            '--log-every', '1', '--device', 'cpu']

@@ -28,6 +28,7 @@ import torch_train_ranks as ranks
 # A launch of the mesh runs takes well under a minute; a deadlocked
 # exchange fails it here instead of at the collective timeout.
 LAUNCH_TIMEOUT_S = 120
+CAPACITY = {'moe_dispatch': 'capacity', 'capacity_factor': 0.5}
 # Run label -> (mesh, model, optimizer, model overrides, hparams, planted
 # faults). Every run of one mesh shares its launch.
 CASES = {
@@ -43,6 +44,27 @@ CASES = {
     'stage=2,fsdp=2': ('stage=2,fsdp=2', 'tiny', 'adafactor', {}, {}, ()),
     'stage=2,tensor=2': ('stage=2,tensor=2', 'tiny', 'adamw',
                          {'remat_policy': 'full'}, {}, ()),
+    # Ring and Ulysses attention over each stage's seq group, the RoPE
+    # positions from each seq rank's first column.
+    'stage=2,seq=2 ring': ('stage=2,seq=2', 'tiny', 'adamw',
+                           {'attention_impl': 'ring'}, {},
+                           ('positions from 0',)),
+    # Under full remat the recompute re-runs each ring inside a
+    # microbatch's backward.
+    'stage=2,seq=2 ulysses': ('stage=2,seq=2', 'tiny', 'adamw',
+                              {'attention_impl': 'ulysses',
+                               'remat_policy': 'full'}, {}, ()),
+    'stage=2,seq=2 tiny-moe': ('stage=2,seq=2', 'tiny-moe', 'adamw',
+                               {'attention_impl': 'ring'}, {}, ()),
+    # The default group (128 columns) crosses the seq ranks' boundary.
+    'stage=2,seq=2 capacity': ('stage=2,seq=2', 'tiny-moe', 'adamw',
+                               dict(CAPACITY, attention_impl='ring',
+                                    remat_policy='full'), {}, ()),
+    'stage=2,expert=2 tiny-moe': ('stage=2,expert=2', 'tiny-moe', 'adamw',
+                                  {}, {}, ('expert sum skipped',)),
+    'stage=2,expert=2 capacity': ('stage=2,expert=2', 'tiny-moe', 'adamw',
+                                  {'moe_dispatch': 'capacity',
+                                   'remat_policy': 'full'}, {}, ()),
 }
 
 
@@ -99,7 +121,9 @@ def check_forward(launches, label):
     out, refs = mesh_run(launches, CASES[label][0])
     _, model, _, overrides, _, _ = CASES[label]
     batch = ref_lib.batch(40)
-    cfg = ref_lib.jax_config(model, **overrides)
+    # The reference's forward off a mesh; the ring and Ulysses run on
+    # its seq axis only.
+    cfg = ref_lib.jax_config(model, **dict(overrides, attention_impl='xla'))
     want = np.asarray(jllama.forward(
         jax.tree.map(jnp.asarray, refs[label]['initial']),
         jnp.asarray(batch['tokens']), cfg))
@@ -116,7 +140,7 @@ def check_sharded(launches, label):
     ref_lib.assert_state_sharded(out, label, refs[label])
 
 
-def _microbatches(label):
+def microbatches(label):
     spec, _, _, _, hp, _ = CASES[label]
     stages = ref_lib.mesh_axes(spec)['stage']
     return hp.get('pipeline_microbatches') or \
@@ -132,7 +156,7 @@ def check_handoffs(launches, label):
     out, _ = mesh_run(launches, CASES[label][0])
     spec = CASES[label][0]
     stages = ref_lib.mesh_axes(spec)['stage']
-    m = _microbatches(label)
+    m = microbatches(label)
     # Adafactor's update RMS and parameter RMS of each layer leaf sum
     # over stage too.
     shapes = tllama.param_shapes(tconfig.get_model_config(

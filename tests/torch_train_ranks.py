@@ -41,6 +41,12 @@ def _numpy(tree):
     return tree
 
 
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def _torch_batch(batch):
     return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
 
@@ -147,7 +153,11 @@ def plant(fault, cfg):
       columns, as one device would;
     * ``"aux of this rank's tokens"``: the router statistics' sum over
       ``seq`` skipped (on a mesh whose ``tokens`` group is ``seq``), so
-      the aux is each rank's own tokens'."""
+      the aux is each rank's own tokens';
+    * ``'positions from 0'``: every seq rank's default RoPE positions
+      start at 0, not at its first column;
+    * ``'expert sum skipped'``: a MoE block's output is not summed over
+      ``experts``, so each rank keeps its own experts' part."""
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.parallel.sharding import (TensorParallel,
                                                       reduce_from_tokens)
@@ -165,6 +175,15 @@ def plant(fault, cfg):
         real_sum = tstep._stage_sum
         tstep._stage_sum = lambda grads, layout, par: grads
         return lambda: setattr(tstep, '_stage_sum', real_sum)
+    if fault == 'positions from 0':
+        real_positions = llama._rank_positions
+        llama._rank_positions = lambda s, par, device: real_positions(
+            s, llama._ONE_DEVICE, device)
+        return lambda: setattr(llama, '_rank_positions', real_positions)
+    if fault == 'expert sum skipped':
+        real_reduce = llama.reduce_from_experts
+        llama.reduce_from_experts = lambda x, par: x
+        return lambda: setattr(llama, 'reduce_from_experts', real_reduce)
     if fault == 'rank-local groups':
         real_groups = llama._capacity_groups
         llama._capacity_groups = lambda s, cfg_, par: real_groups(
@@ -338,41 +357,48 @@ def cuda_moe_steps(rank, world, spec, steps=2):
                       router_aux_loss_coeff=1.0)
 
 
-def cuda_stage_steps(rank, world, spec, steps=2):
+def cuda_stage_steps(rank, world, spec, steps=2, device='cuda'):
     """``cuda_moe_steps`` of TINY (2 layers)."""
-    return cuda_steps(rank, world, spec, 'tiny', steps)
+    return cuda_steps(rank, world, spec, 'tiny', steps, device=device)
 
 
-def cuda_steps(rank, world, spec, model, steps, **overrides):
+def cuda_steps(rank, world, spec, model, steps, device='cuda',
+               **overrides):
     """``model`` (head dim 128, fp32 compute, full remat, ``overrides``)
-    on the card at mesh ``spec`` (None: this process alone): ``steps``
-    train steps from the seed-0 init on the synthetic batches (B=4,
-    S=128), each step's metrics, and the flash launches and fallbacks
-    of the steps."""
+    on the card (or ``device``) at mesh ``spec`` (None: this process
+    alone): ``steps`` train steps from the seed-0 init (drawn on the CPU,
+    so that every device starts from the same numbers) on the synthetic
+    batches (B=4, S=128), each step's metrics, the flash launches and
+    fallbacks of the steps, and the rank's mesh coordinates."""
     from skypilot_tpu_torch import _build
+    from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.ops import flash_attention as fa
     from skypilot_tpu_torch.parallel.mesh import (MeshConfig, build_mesh,
                                                   parse_mesh_spec)
     from skypilot_tpu_torch.train import step as tstep
     from skypilot_tpu_torch.train.pretrain import synthetic_batch
     del world
-    _build.build_all()
+    if device == 'cuda':
+        _build.build_all()
     mesh = None if spec is None else build_mesh(
         MeshConfig(**{'fsdp': 1, **parse_mesh_spec(spec)}),
-        device_type='cuda')
+        device_type=device)
     cfg = tiny_config(model, head_dim=128, remat_policy='full', **overrides)
     hp = tstep.TrainHParams(warmup_steps=1, total_steps=10)
-    state = tstep.create_train_state(0, cfg, hp, mesh, device='cuda')
+    params = _to(llama.init_params(0, cfg, device='cpu'), device)
+    state = tstep.create_train_state_from_params(params, cfg, hp, mesh)
+    del params
     step = tstep.make_train_step(cfg, hp, mesh)
     fa.reset_launch_counts()
     metrics = []
     for i in range(steps):
         state, m = step(state, synthetic_batch(i, 4, 128, cfg.vocab_size,
-                                               torch.device('cuda')))
+                                               torch.device(device)))
         metrics.append({k: float(m[k]) for k in METRICS})
     return {'rank': rank, 'metrics': metrics,
-            'launches': dict(fa.LAUNCHES), 'fallbacks': fa.FALLBACKS['cuda'],
-            'n_layers': cfg.n_layers}
+            'launches': dict(fa.LAUNCHES), 'fallbacks': fa.FALLBACKS[device],
+            'n_layers': cfg.n_layers,
+            'coords': None if mesh is None else mesh.coords(rank)}
 
 
 def stage_handoffs(rank, world, deadlock):
